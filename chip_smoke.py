@@ -7,21 +7,45 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: requires CUDA, prints the card's name and power limit, and turns
    TF32 off so float32 products run in full float32;
-2. build: compiles ``thunder_tpu_torch/csrc/paged_attention.cu`` with nvcc
-   into ``build/thunder_tpu_torch/`` and prints ptxas' registers and spills;
-3. kernels: each kernel against its plain PyTorch version at the
-   Llama-3-8B serving shape (B=8, 32 heads over 8 KV groups, hs=128,
-   block 16, 64-entry tables over a 1024-block, 32-layer arena), ragged
-   positions with batch-padding rows, bf16 and f32, with and without a
-   sliding window; then CUDA-event times of kernel, plain version and one
-   library call computing the same function, beside the bound;
+2. build: compiles every ``thunder_tpu_torch/csrc/*.cu`` with one nvcc call
+   each, all at once, into ``build/thunder_tpu_torch/`` and prints ptxas'
+   registers and spills;
+3. kernels: each kernel against its plain PyTorch version at the shapes
+   the served paths give it (Llama-3-8B: 32 heads over 8 KV groups,
+   hs=128, block 16, a 1024-block 32-layer arena), ragged positions with
+   batch-padding rows: the decode kernels at B=8 with and without a
+   sliding window, bf16 and f32; ``paged_attn_verify`` at the speculative
+   shape (B=8, T=5) and the chunk shape (B=1, T=512, pos 2560), bf16, f16
+   and f32 (attention in float32 within 1e-5 of the plain version, in
+   bf16/f16 with an error against the float32 result at most twice the
+   plain version's own); the chunk and masked writes bitwise outside sink
+   block 0, every offset of the masked write.  Then CUDA-event and profiler times of kernel, plain
+   version and one library call computing the same function, beside the
+   bound;
 4. serve: Llama-3-8B at full width (random weights from a seed) through
    ``serve(None, params, cfg, attn="paged")``: 8 greedy requests with
    prompts of 128-1024 tokens and 32 new tokens each; the kernels' launch
    counts must equal the decode steps times n_layer and times 2; then one
    decode step's logits through the kernels against the dense path over
    the same gathered cache;
-5. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+5. chunked serve: the same model with ``prefill_chunk=512``, block-aligned
+   prefill buckets (16..512), 8 greedy requests with prompts of 1024-3072
+   tokens, 32 new tokens each; the chunk kind must resolve "paged", and
+   ``paged_attn_verify`` must launch n_layer and ``paged_chunk_write`` 2
+   times per intermediate piece, the decode kernels as in phase 4;
+6. speculative serve: the same target with a layer-skip draft (its own
+   embedding, first two blocks, final norm and head), K=4, 8 greedy
+   requests; ``paged_attn_verify`` launches n_layer and
+   ``paged_token_write_masked`` 2(K+1) times per round, the decode kernels
+   never; then once more with draft = target, which must accept K drafts
+   in some round;
+7. correctness at full width: served tokens, exact, in float32 at
+   Llama-3-8B widths and 4 layers (chunked = unchunked, speculative =
+   plain); and at full depth one prefill chunk (T=512) and one verify
+   chunk (T=5) through the kernels against ``forward_with_cache`` over the
+   gathered cache, float32 within 1e-3, bf16 error within twice the dense
+   bf16 path's own;
+8. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -37,19 +61,25 @@ import torch.nn.functional as F
 from thunder_tpu_torch.executors import _build, cudaex
 from thunder_tpu_torch.models.generate import forward_with_cache
 from thunder_tpu_torch.models.llama import Config, build_rope_cache, init_params, param_count
-from thunder_tpu_torch.serving import serve
-from thunder_tpu_torch.serving.kv_pool import SINK_BLOCK, gather_dense
+from thunder_tpu_torch.serving import SpecConfig, serve
+from thunder_tpu_torch.serving.kv_pool import SINK_BLOCK, chunk_tables, gather_dense
 from thunder_tpu_torch.serving.paged_attention import forward_paged
 
 SEED = 0
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
-# kernel vs plain version: same arithmetic, other summation order and exp.
-# f32: a few ulps of outputs of magnitude <= ~4.  bf16: the probabilities
-# are rounded to bf16 before P.V in both, and a last-bit difference in an
-# f32 probability can flip that rounding; outputs are bf16 (ulp 2^-8 near 1).
-ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# attention kernel vs plain version.  float32: the same arithmetic in
+# another summation order and exp, a few ulps of outputs of magnitude <= ~4.
+ATOL_F32 = 1e-5
+# bf16/f16: kernel and plain version round at the same places (K/V and the
+# probabilities to the query dtype, the output) but over other key tiles,
+# so they differ by rounding alone.  Both are held against the float32
+# plain result of the same rounded inputs: the kernel's error may be at
+# most LOWP_ERR_RATIO times the plain version's own.  (A fixed bar would
+# sit near the outputs' own size at long contexts, |out| ~ 0.03 over 3000
+# keys, and let a wrong kernel through.)
+LOWP_ERR_RATIO = 2.0
 # one decode step of the 32-layer model, kernel path vs dense path.  In
 # float32 the two are the same math summed in another order.  In bf16 they
 # round at different places (the dense path rounds normalized attention
@@ -111,6 +141,23 @@ def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def timed(name, label, kernel, plain, library, library_name, bound_ms_by, *, iters,
+          plain_iters, plain_warmup=3, device_kernel=None) -> dict:
+    """Per-call times of a kernel, its plain version and the library call
+    computing the same function, the kernel's device time (of the CUDA
+    kernels named like ``device_kernel``, default ``name``), and its bound."""
+    ms = time_ms(kernel, iters=iters)
+    dev_ms = device_ms(kernel, device_kernel or name)
+    plain_ms = time_ms(plain, iters=plain_iters, warmup=plain_warmup)
+    library_ms = time_ms(library, iters=iters)
+    bound_ms, bound_by = bound_ms_by
+    say(f"{name} bf16{label} timing per call: kernel {ms:.4f} ms (device {dev_ms} ms), "
+        f"plain {plain_ms:.4f} ms, {library_name} {library_ms:.4f} ms, bound "
+        f"{1e3 * bound_ms:.3f} us ({bound_by})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 #
 # phase 3: kernels against their plain versions at the serving shape
 #
@@ -155,22 +202,42 @@ def attn_bound(pos, window, dtype):
     return bound(nbytes, ops, dtype)
 
 
+def check_attn(name, label, kernel, plain, x, **kw) -> float:
+    """``kernel`` against ``plain`` on the inputs ``x``: float32 within
+    ATOL_F32; bf16/f16 against the float32 plain result of the same inputs,
+    the kernel's error within LOWP_ERR_RATIO times the plain version's own.
+    Returns the kernel's max abs difference from the plain version."""
+    got = kernel(**x, **kw)
+    torch.cuda.synchronize()
+    want = plain(**x, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if x["q"].dtype == torch.float32:
+        ok, bar = err <= ATOL_F32, f"atol {ATOL_F32:.0e}"
+    else:
+        ref = plain(**{k: v.float() if v.is_floating_point() else v for k, v in x.items()}, **kw)
+        err_kernel = (got.float() - ref).abs().max().item()
+        err_plain = (want.float() - ref).abs().max().item()
+        ok = err_kernel <= LOWP_ERR_RATIO * err_plain
+        bar = (f"against float32: kernel {err_kernel:.3e}, plain {err_plain:.3e}, ratio "
+               f"{err_kernel / err_plain:.3f}, limit {LOWP_ERR_RATIO}")
+        del ref
+    ok = ok and bool(torch.isfinite(got).all())
+    say(f"{name} {label} {str(x['q'].dtype)[6:]}: max_abs_err={err:.3e} ({bar}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {label} disagrees with its plain version")
+    return err
+
+
 def check_decode(layer=L - 3):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     result = {}
     for dtype in (torch.bfloat16, torch.float32):
         x, pos = decode_inputs(dtype, gen)
         for window in (None, 256):
-            got = cudaex.paged_attn_decode(**x, layer=layer, window=window)
-            torch.cuda.synchronize()
-            want = cudaex.paged_attn_decode_plain(**x, layer=layer, window=window)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            ok = bool(torch.isfinite(got).all()) and err <= ATOL[dtype]
-            say(f"paged_attn_decode {str(dtype)[6:]} window={window}: max_abs_err={err:.3e} "
-                f"(atol {ATOL[dtype]:.0e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"paged_attn_decode disagrees with its plain version: {err}")
+            err = check_attn("paged_attn_decode", f"window={window}", cudaex.paged_attn_decode,
+                             cudaex.paged_attn_decode_plain, x, layer=layer, window=window)
             if dtype == torch.bfloat16 and window is None:
                 result["max_abs_err"] = err
         if dtype == torch.bfloat16:
@@ -180,10 +247,6 @@ def check_decode(layer=L - 3):
 
 
 def time_decode(x, pos, layer):
-    dtype = x["q"].dtype
-    ms = time_ms(lambda: cudaex.paged_attn_decode(**x, layer=layer), iters=200)
-    dev_ms = device_ms(lambda: cudaex.paged_attn_decode(**x, layer=layer), "paged_attn_decode")
-    plain_ms = time_ms(lambda: cudaex.paged_attn_decode_plain(**x, layer=layer), iters=10, warmup=1)
     # the library yardstick: SDPA over K/V gathered dense beforehand, the
     # fresh token in its slot, a per-row keep-mask; only the call is timed
     S = NBB * BS + 1
@@ -197,14 +260,12 @@ def time_decode(x, pos, layer):
     vd[rows, :, p] = x["fresh_v"]
     mask = (torch.arange(S, device=DEVICE)[None, :] <= p[:, None])[:, None, None, :]
     q4 = x["q"][:, :, None]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask, enable_gqa=True), iters=200)
-    bound_ms, bound_by = attn_bound(pos, None, dtype)
-    say(f"paged_attn_decode bf16 timing per call: kernel {ms:.4f} ms (device {dev_ms} ms), "
-        f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {1e3 * bound_ms:.2f} us "
-        f"({bound_by})")
-    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return timed("paged_attn_decode", "", lambda: cudaex.paged_attn_decode(**x, layer=layer),
+                 lambda: cudaex.paged_attn_decode_plain(**x, layer=layer),
+                 lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+                                                        enable_gqa=True),
+                 "SDPA", attn_bound(pos, None, x["q"].dtype), iters=200, plain_iters=10,
+                 plain_warmup=1)
 
 
 def check_write():
@@ -241,12 +302,6 @@ def check_write():
 
 
 def time_write(arena, vals, tables, pos, dtype):
-    ms = time_ms(lambda: cudaex.paged_token_write(arena, vals, tables, pos, block_size=BS),
-                 iters=500)
-    dev_ms = device_ms(lambda: cudaex.paged_token_write(arena, vals, tables, pos,
-                                                        block_size=BS), "paged_token_write")
-    plain_ms = time_ms(lambda: cudaex.paged_token_write_plain(
-        arena, vals, tables, pos, block_size=BS), iters=100)
     # the library yardstick: one index_put_ on the arena viewed (nb, L*ng, bs, hs)
     p = pos.long()
     blk = tables.long().gather(1, (p // BS)[:, None])
@@ -254,14 +309,213 @@ def time_write(arena, vals, tables, pos, dtype):
     view = arena.view(NUM_BLOCKS, L * NG, BS, HS)
     idx = (blk.expand(B, L * NG), rows.expand(B, L * NG), (p % BS)[:, None].expand(B, L * NG))
     v3 = vals.reshape(B, L * NG, HS)
-    library_ms = time_ms(lambda: view.index_put_(idx, v3), iters=500)
     esize = vals.element_size()
-    bound_ms, bound_by = bound(2 * vals.numel() * esize + 4 * tables.numel() + 4 * B, 0, dtype)
-    say(f"paged_token_write bf16 timing per call: kernel {ms:.4f} ms (device {dev_ms} ms), "
-        f"plain {plain_ms:.4f} ms, index_put_ {library_ms:.4f} ms, bound "
-        f"{1e3 * bound_ms:.3f} us ({bound_by})")
-    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return timed("paged_token_write", "",
+                 lambda: cudaex.paged_token_write(arena, vals, tables, pos, block_size=BS),
+                 lambda: cudaex.paged_token_write_plain(arena, vals, tables, pos, block_size=BS),
+                 lambda: view.index_put_(idx, v3), "index_put_",
+                 bound(2 * vals.numel() * esize + 4 * tables.numel() + 4 * B, 0, dtype),
+                 iters=500, plain_iters=100)
+
+
+#
+# phase 3, continued: the kernels of chunked prefill and speculative serving
+#
+
+VERIFY_SHAPES = {"spec": dict(Bv=8, T=5, nbb=NBB), "chunk": dict(Bv=1, T=512, nbb=192)}
+CHUNK_POS = 2560                                      # the chunk shape's block-aligned start
+
+
+def verify_inputs(dtype, gen, Bv, T, nbb):
+    """Arenas of the decode shape; ragged positions with padding rows at
+    the spec shape, one chunk at ``CHUNK_POS`` (and its table) at the chunk
+    shape."""
+    dev = DEVICE
+    rng = np.random.default_rng(SEED + T)
+    if Bv == 1:
+        pos = np.array([CHUNK_POS], np.int32)
+    else:
+        pos = rng.integers(1, nbb * BS - T, Bv).astype(np.int32)
+        pos[[2, 6]] = 0                                # batch-padding rows
+        pos[3] = 4 * BS                                # a block edge
+    tables = np.full((Bv, nbb), SINK_BLOCK, dtype=np.int32)
+    free = rng.permutation(np.arange(1, NUM_BLOCKS))
+    k = 0
+    for i, p in enumerate(pos):
+        n = -(-(int(p) + T) // BS)                     # the blocks the chunk lands in too
+        tables[i, :n] = free[k:k + n]
+        k += n
+    shape = (NUM_BLOCKS, L, NG, BS, HS)
+    x = dict(
+        q=torch.randn((Bv, NH, T, HS), generator=gen, device=dev).to(dtype),
+        k_arena=torch.randn(shape, generator=gen, device=dev).to(dtype),
+        v_arena=torch.randn(shape, generator=gen, device=dev).to(dtype),
+        fresh_k=torch.randn((Bv, NG, T, HS), generator=gen, device=dev).to(dtype),
+        fresh_v=torch.randn((Bv, NG, T, HS), generator=gen, device=dev).to(dtype),
+        tables=torch.as_tensor(tables, device=dev),
+        pos=torch.as_tensor(pos, device=dev),
+    )
+    return x, pos
+
+
+def verify_bound(pos, T, nbb, dtype):
+    esize = torch.empty((), dtype=dtype).element_size()
+    Bv, slots = len(pos), int(pos.sum())               # arena slots the rows attend
+    nbytes = (2 * slots * NG * HS * esize              # K and V read once
+              + 2 * Bv * NH * T * HS * esize           # q in, out
+              + 2 * Bv * NG * T * HS * esize           # fresh K/V
+              + 4 * Bv * nbb + 4 * Bv)                 # tables, pos
+    ops = 4 * NH * HS * (slots * T + Bv * T * (T + 1) // 2)   # QK and PV, causal fresh part
+    return bound(nbytes, ops, dtype)
+
+
+def check_verify(layer=L - 3):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    result = {"shapes": {}}
+    for shape, dims in VERIFY_SHAPES.items():
+        # bf16 and f16 run the tensor-core body, float32 the scalar one
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            x, pos = verify_inputs(dtype, gen, **dims)
+            err = check_attn("paged_attn_verify", f"{shape} B={dims['Bv']} T={dims['T']}",
+                             cudaex.paged_attn_verify, cudaex.paged_attn_verify_plain, x,
+                             layer=layer)
+            if dtype == torch.bfloat16:
+                rec = time_verify(x, pos, layer, dims["nbb"])
+                rec["max_abs_err"] = err
+                result["shapes"][shape] = rec
+            del x
+    result.update(result["shapes"]["chunk"])
+    return result
+
+
+def time_verify(x, pos, layer, nbb):
+    Bv, _, T, _ = x["q"].shape
+    # the library yardstick: SDPA over the K/V gathered dense beforehand with
+    # the chunk's own K/V appended, a (T, S) keep-mask per row; only the call
+    # is timed
+    S = nbb * BS + T
+    tab = x["tables"].long()
+    kd = x["k_arena"][tab, layer].permute(0, 2, 1, 3, 4).reshape(Bv, NG, nbb * BS, HS)
+    vd = x["v_arena"][tab, layer].permute(0, 2, 1, 3, 4).reshape(Bv, NG, nbb * BS, HS)
+    kd = torch.cat([kd, x["fresh_k"]], dim=2)
+    vd = torch.cat([vd, x["fresh_v"]], dim=2)
+    j = torch.arange(S, device=DEVICE)
+    t = torch.arange(T, device=DEVICE)
+    p = x["pos"].long()
+    arena_keep = j[None, None, :] < p[:, None, None]                       # (B, 1, S)
+    fresh_keep = (j[None, :] - nbb * BS <= t[:, None]) & (j[None, :] >= nbb * BS)   # (T, S)
+    mask = (arena_keep | fresh_keep[None])[:, None]                        # (B, 1, T, S)
+    return timed("paged_attn_verify", f" B={Bv} T={T}",
+                 lambda: cudaex.paged_attn_verify(**x, layer=layer),
+                 lambda: cudaex.paged_attn_verify_plain(**x, layer=layer),
+                 lambda: F.scaled_dot_product_attention(x["q"], kd, vd, attn_mask=mask,
+                                                        enable_gqa=True),
+                 "SDPA", verify_bound(pos, T, nbb, x["q"].dtype), iters=50, plain_iters=5,
+                 plain_warmup=1)
+
+
+def check_chunk_write():
+    """One chunk of the chunk shape (T=512 at pos 2560) through its
+    192-entry scatter table, whose last entries run past the leased blocks
+    (they route to the sink)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    nc, nbb = VERIFY_SHAPES["chunk"]["T"] // BS, VERIFY_SHAPES["chunk"]["nbb"]
+    rng = np.random.default_rng(SEED + 3)
+    leased = [int(b) for b in rng.permutation(np.arange(1, NUM_BLOCKS))[:nbb - 8]]
+    pos = CHUNK_POS
+    _, dest = chunk_tables(leased, pos, nc * BS, nbb, BS)
+    dest_d = torch.as_tensor(dest, device=DEVICE)
+    pos_d = torch.tensor([pos], dtype=torch.int32, device=DEVICE)
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        arena = torch.randn((NUM_BLOCKS, L, NG, BS, HS), generator=gen, device=DEVICE).to(dtype)
+        vals = torch.randn((nc, L, NG, BS, HS), generator=gen, device=DEVICE).to(dtype)
+        plain = cudaex.paged_chunk_write_plain(arena.clone(), vals, dest_d, pos_d, block_size=BS)
+        got = cudaex.paged_chunk_write(arena, vals, dest_d, pos_d, block_size=BS)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got[1:], plain[1:]))
+        say(f"paged_chunk_write {str(dtype)[6:]}: bitwise equal outside block 0: {same}")
+        if not same:
+            raise AssertionError("paged_chunk_write disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            # the library yardstick: one index_copy_ of the slabs, routing
+            # computed beforehand
+            idx = pos // BS + np.arange(nc)
+            blk = torch.as_tensor(np.where(idx < nbb, dest[np.minimum(idx, nbb - 1)], 0),
+                                  dtype=torch.long, device=DEVICE)
+            result = timed(
+                "paged_chunk_write", f" ({nc} blocks of {vals[0].numel() * 2 / 2**20:.2f} MiB)",
+                lambda: cudaex.paged_chunk_write(arena, vals, dest_d, pos_d, block_size=BS),
+                lambda: cudaex.paged_chunk_write_plain(arena, vals, dest_d, pos_d, block_size=BS),
+                lambda: arena.index_copy_(0, blk, vals), "index_copy_",
+                bound(2 * vals.numel() * vals.element_size() + 4 * nbb + 4, 0, dtype),
+                iters=100, plain_iters=50)
+            result["max_abs_err"] = 0.0
+        del arena, vals, plain
+    return result
+
+
+def check_masked_write(K=4):
+    """Every offset 0..K of a speculative commit with n_emit from 0 to K+1
+    across the rows (padding rows carry n_emit 0), rank 5 in bf16 and f32
+    and the rank-4 scale form."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, pos = decode_inputs(dtype, gen)
+        tables, posd = x["tables"], x["pos"]
+        arena = x.pop("k_arena")
+        del x
+        n_emit = torch.tensor([1, 5, 0, 3, 2, 4, 0, 5], dtype=torch.int32, device=DEVICE)
+        for off in range(K + 1):
+            vals = torch.randn((B, L, NG, HS), generator=gen, device=DEVICE).to(dtype)
+            plain = cudaex.paged_token_write_masked_plain(arena.clone(), vals, tables, posd,
+                                                          n_emit, off, block_size=BS)
+            got = cudaex.paged_token_write_masked(arena, vals, tables, posd, n_emit, off,
+                                                  block_size=BS)
+            torch.cuda.synchronize()
+            if not torch.equal(got[1:], plain[1:]):
+                raise AssertionError(f"paged_token_write_masked offset {off} disagrees with "
+                                     "its plain version")
+        say(f"paged_token_write_masked {str(dtype)[6:]}: bitwise equal outside block 0 at "
+            f"offsets 0..{K}")
+        if dtype == torch.bfloat16:
+            off = 2
+            # the library yardstick: one index_put_ with the routing computed
+            # beforehand (rejected rows to block 0, slot 0)
+            p = posd.long() + off
+            live = off < n_emit.long()
+            blk = torch.where(live, tables.long().gather(1, (p // BS)[:, None])[:, 0], 0)
+            slot = torch.where(live, p % BS, 0)
+            rows = torch.arange(L * NG, device=DEVICE)[None, :]
+            view = arena.view(NUM_BLOCKS, L * NG, BS, HS)
+            idx = (blk[:, None].expand(B, L * NG), rows.expand(B, L * NG),
+                   slot[:, None].expand(B, L * NG))
+            v3 = vals.reshape(B, L * NG, HS)
+            result = timed(
+                "paged_token_write_masked", f" (offset {off})",
+                lambda: cudaex.paged_token_write_masked(arena, vals, tables, posd, n_emit, off,
+                                                        block_size=BS),
+                lambda: cudaex.paged_token_write_masked_plain(arena, vals, tables, posd, n_emit,
+                                                              off, block_size=BS),
+                lambda: view.index_put_(idx, v3), "index_put_",
+                bound(2 * vals.numel() * vals.element_size() + 4 * tables.numel() + 8 * B, 0,
+                      dtype),
+                iters=500, plain_iters=100,
+                device_kernel="paged_token_write_kernel")   # the kernel both writes share
+            result["max_abs_err"] = 0.0
+        del arena
+    scale = torch.randn((NUM_BLOCKS, L, NG, BS), generator=gen, device=DEVICE)
+    svals = torch.randn((B, L, NG), generator=gen, device=DEVICE)
+    plain = cudaex.paged_token_write_masked_plain(scale.clone(), svals, tables, posd, n_emit, 1,
+                                                  block_size=BS)
+    got = cudaex.paged_token_write_masked(scale, svals, tables, posd, n_emit, 1, block_size=BS)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got[1:], plain[1:]))
+    say(f"paged_token_write_masked rank-4 f32: bitwise equal outside block 0: {same}")
+    if not same:
+        raise AssertionError("paged_token_write_masked (rank 4) disagrees with its plain version")
+    return result
 
 
 #
@@ -269,7 +523,7 @@ def time_write(arena, vals, tables, pos, dtype):
 #
 
 
-def serve_full_width(cfg_name="Llama-3-8B", n_requests=8, new_tokens=32):
+def make_params(cfg_name="Llama-3-8B"):
     cfg = Config.from_name(cfg_name)
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -277,6 +531,15 @@ def serve_full_width(cfg_name="Llama-3-8B", n_requests=8, new_tokens=32):
     torch.cuda.synchronize()
     say(f"{cfg_name} params: {param_count(params) / 1e9:.3f} B in bf16, "
         f"init {time.perf_counter() - t0:.1f} s")
+    return params, cfg
+
+
+def no_launches_but(**expected) -> dict:
+    return {name: expected.get(name, 0) for name in cudaex.LAUNCHES}
+
+
+def serve_full_width(params, cfg, n_requests=8, new_tokens=32):
+    cfg_name = cfg.name
     eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=1024, max_batch=8,
                 device=DEVICE)
     rng = np.random.default_rng(SEED)
@@ -312,7 +575,8 @@ def serve_full_width(cfg_name="Llama-3-8B", n_requests=8, new_tokens=32):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; decode steps {steps}")
     say(f"launches during serve: {launches} (expected paged_attn_decode "
         f"{steps * cfg.n_layer}, paged_token_write {steps * 2})")
-    if launches != {"paged_attn_decode": steps * cfg.n_layer, "paged_token_write": steps * 2}:
+    if launches != no_launches_but(paged_attn_decode=steps * cfg.n_layer,
+                                   paged_token_write=steps * 2):
         raise AssertionError(f"launch counts {launches} do not match {steps} decode steps")
     compare_logits(eng, params, cfg, prompts, results, tables)
     profile_decode(eng, prompts)
@@ -415,6 +679,250 @@ def compare_logits(eng, params, cfg, prompts, results, tables):
         raise AssertionError("forward_paged disagrees with forward_with_cache")
 
 
+#
+# phases 5-6: chunked prefill and speculative serving at full width
+#
+
+
+def serve_stats(name, results, wall):
+    n_tok = sum(len(r.new_tokens) for r in results)
+    ttft = float(np.median([r.ttft_s for r in results]))
+    tpot = float(np.median([r.tpot_s for r in results]))
+    say(f"{name}: {len(results)} requests, {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tokens/s; TTFT p50 {1e3 * ttft:.1f} ms; TPOT p50 "
+        f"{1e3 * tpot:.2f} ms; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(tokens_per_s=n_tok / wall, ttft_p50_ms=1e3 * ttft, tpot_p50_ms=1e3 * tpot)
+
+
+def check_results(results, new_tokens, vocab):
+    for r in results:
+        toks = np.asarray(r.new_tokens)
+        if (r.finish_reason != "length" or len(toks) != new_tokens
+                or toks.min() < 0 or toks.max() >= vocab):
+            raise AssertionError(f"request {r.rid}: bad result {r.finish_reason} {toks}")
+
+
+CHUNK = 512
+CHUNK_BUCKETS = tuple(16 * 2 ** i for i in range(6))          # 16 .. 512, block-aligned
+
+
+def chunked_serve(params, cfg, n_requests=8, new_tokens=32):
+    eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=2048, max_batch=8,
+                prefill_chunk=CHUNK, prefill_buckets=CHUNK_BUCKETS, device=DEVICE)
+    kind = eng.stats()["attn"]["kinds"]["prefill_chunk"]
+    say(f"chunked serve: chunk kind {kind['mode']!r} (fallback reason "
+        f"{kind['fallback_reason']}), arena {eng.pool.arena_bytes() / 2**30:.2f} GiB")
+    if kind["mode"] != "paged":
+        raise AssertionError(f"the chunk kind resolved {kind['mode']!r}, not 'paged'")
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(1024, 3073, n_requests)]
+    eng.run([prompts[0][:600]], max_new_tokens=2)            # warm-up: one chunk + final piece
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps0, chunks0 = eng.decode_steps, eng.chunk_runs
+    cudaex.reset_launches()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    eng.step()                                              # admits every request
+    tables = [list(h._req.block_table) for h in handles]
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cudaex.LAUNCHES)
+    steps, pieces = eng.decode_steps - steps0, eng.chunk_runs - chunks0
+    results = [h.result(drive=False) for h in handles]
+    check_results(results, new_tokens, cfg.padded_vocab_size)
+    rec = serve_stats(f"chunked serve {cfg.name} bf16 (prompts {sorted(len(p) for p in prompts)}, "
+                      f"prefill_chunk {CHUNK})", results, wall)
+    want = no_launches_but(paged_attn_verify=pieces * cfg.n_layer,
+                           paged_chunk_write=pieces * 2,
+                           paged_attn_decode=steps * cfg.n_layer,
+                           paged_token_write=steps * 2)
+    say(f"launches during chunked serve: {launches} ({pieces} intermediate pieces, "
+        f"{steps} decode steps; expected {want})")
+    if launches != want or not pieces:
+        raise AssertionError(f"chunked serve launch counts {launches} != {want} "
+                             f"({pieces} intermediate pieces)")
+    rec.update(launches=launches, pieces=pieces, steps=steps)
+    return rec, eng, prompts, tables
+
+
+def layer_skip_draft(params, cfg, n_layer=2):
+    """The target's own embedding, first ``n_layer`` blocks, final norm and
+    head: a draft made from the target's weights, sharing its tensors."""
+    return {**params, "blocks": params["blocks"][:n_layer]}, Config.from_name(cfg.name,
+                                                                               n_layer=n_layer)
+
+
+def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32):
+    dparams, dcfg = layer_skip_draft(params, cfg)
+    eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=1024, max_batch=8,
+                speculative=SpecConfig(dparams, dcfg, K=K), device=DEVICE)
+    rng = np.random.default_rng(SEED + 6)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(128, 1025, n_requests)]
+    eng.run([prompts[0][:64]], max_new_tokens=8)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rounds0 = eng.spec_rounds
+    cudaex.reset_launches()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    eng.step()
+    tables = [list(h._req.block_table) for h in handles]
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cudaex.LAUNCHES)
+    rounds = eng.spec_rounds - rounds0
+    results = [h.result(drive=False) for h in handles]
+    check_results(results, new_tokens, cfg.padded_vocab_size)
+    st = eng.stats()["speculative"]
+    rec = serve_stats(f"speculative serve {cfg.name} bf16, {dcfg.n_layer}-layer draft, K={K} "
+                      f"(prompts {sorted(len(p) for p in prompts)})", results, wall)
+    say(f"speculative serve: {rounds} rounds, acceptance rate {st['acceptance_rate']:.4f}, "
+        f"tokens per round {st['tokens_per_round']:.3f}, accept_len histogram "
+        f"{st['accept_len_hist']} (warm-up included)")
+    want = no_launches_but(paged_attn_verify=rounds * cfg.n_layer,
+                           paged_token_write_masked=rounds * 2 * (K + 1))
+    say(f"launches during speculative serve: {launches} (expected {want})")
+    if launches != want or not rounds:
+        raise AssertionError(f"speculative serve launch counts {launches} != {want} "
+                             f"({rounds} rounds)")
+    rec.update(launches=launches, rounds=rounds, acceptance_rate=st["acceptance_rate"],
+               tokens_per_round=st["tokens_per_round"])
+    # draft = target: every draft should be accepted (bf16 argmax flips
+    # between the gathered draft path and the kernel verify path aside)
+    same = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=256, max_batch=2,
+                 speculative=SpecConfig(params, cfg, K=K), device=DEVICE)
+    cudaex.reset_launches()
+    res = same.run(prompts[:2], max_new_tokens=16)
+    st2 = same.stats()["speculative"]
+    check_results(res, 16, cfg.padded_vocab_size)
+    say(f"speculative serve, draft = target: acceptance rate {st2['acceptance_rate']:.4f}, "
+        f"accept_len histogram {st2['accept_len_hist']}, launches {dict(cudaex.LAUNCHES)}")
+    if st2["accept_len_hist"][K + 1] == 0:
+        raise AssertionError("draft = target never accepted all K drafts")
+    rec["self_draft_acceptance_rate"] = st2["acceptance_rate"]
+    return rec, eng, prompts, results, tables
+
+
+#
+# phase 7: correctness at full width
+#
+
+
+def _exact_tokens(params32, cfg4, n_new=8):
+    """Tokens, exact, in float32 at Llama-3-8B widths and 4 layers:
+    chunked = unchunked, speculative = plain."""
+    rng = np.random.default_rng(SEED + 7)
+    long = [rng.integers(0, cfg4.vocab_size, n).astype(np.int32) for n in (1100, 1600)]
+    common = dict(attn="paged", block_size=16, num_blocks=512, max_batch=4, device=DEVICE)
+
+    def tokens(eng, prompts, n):
+        return [r.new_tokens for r in eng.run(prompts, max_new_tokens=n)]
+
+    unchunked = tokens(serve(None, params32, cfg4, prefill_buckets=tuple(16 * 2 ** i
+                                                                         for i in range(8)),
+                             **common), long, n_new)
+    chunked_eng = serve(None, params32, cfg4, prefill_chunk=CHUNK, prefill_buckets=CHUNK_BUCKETS,
+                        **common)
+    chunked = tokens(chunked_eng, long, n_new)
+    say(f"float32, 4 layers: chunked tokens {chunked} vs unchunked {unchunked} "
+        f"({chunked_eng.chunk_runs} chunk pieces): {'equal' if chunked == unchunked else 'DIFFER'}")
+    if chunked != unchunked:
+        raise AssertionError("chunked prefill serves other tokens than the unchunked prefill")
+    short = [rng.integers(0, cfg4.vocab_size, n).astype(np.int32) for n in (90, 200, 333, 411)]
+    plain = tokens(serve(None, params32, cfg4, **common), short, 16)
+    dparams, dcfg = layer_skip_draft(params32, cfg4)
+    spec_eng = serve(None, params32, cfg4, speculative=SpecConfig(dparams, dcfg, K=4), **common)
+    spec = tokens(spec_eng, short, 16)
+    st = spec_eng.stats()["speculative"]
+    say(f"float32, 4 layers: speculative tokens equal plain: {spec == plain} (acceptance rate "
+        f"{st['acceptance_rate']:.4f}, {st['rounds']} rounds)")
+    if spec != plain:
+        raise AssertionError(f"speculative serving serves other tokens: {spec} vs {plain}")
+
+
+def _compact(arenas, table_rows):
+    """The blocks ``table_rows`` list, copied into a small arena (block 0
+    stays the sink) with the tables renumbered to match."""
+    used = sorted({b for row in table_rows for b in row} - {SINK_BLOCK})
+    remap = {b: i + 1 for i, b in enumerate(used)}
+    idx = torch.as_tensor([SINK_BLOCK] + used, device=DEVICE)
+    small = {k: arenas[k][idx] for k in ("k", "v")}
+    return small, [[remap.get(b, SINK_BLOCK) for b in row] for row in table_rows]
+
+
+def _logits_bars(name, lp, lg, lp32, lg32):
+    err32 = (lp32 - lg32).abs().max().item()
+    err_kernel = (lp - lg32).abs().max().item()
+    err_dense = (lg - lg32).abs().max().item()
+    ok = (bool(torch.isfinite(lp).all()) and err32 <= LOGITS_ATOL_F32
+          and err_kernel <= BF16_ERR_RATIO * err_dense)
+    say(f"{name} logits, kernels vs dense path (logits std {lg32.std().item():.3f}): float32 "
+        f"max_abs_err={err32:.3e} (atol {LOGITS_ATOL_F32}); bf16 against float32 dense: kernel "
+        f"path {err_kernel:.4f}, dense path {err_dense:.4f} (ratio limit {BF16_ERR_RATIO}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: forward_paged disagrees with forward_with_cache")
+    return dict(f32_max_abs_err=err32, bf16_kernel_err=err_kernel, bf16_dense_err=err_dense)
+
+
+def chunk_and_verify_logits(params, cfg, chunk_case, spec_case):
+    """At full depth: the second prefill chunk (T=512 at pos 512) of a
+    chunked-served request, and one verify chunk (T=5) at each speculative
+    row's first decode position, through the kernels against
+    ``forward_with_cache`` over the same gathered blocks, bf16 and float32.
+    Each case carries its served blocks compacted into a small arena."""
+    ((small, (row,)), chunk_prompt) = chunk_case
+    ((spec_small, rows), spec_prompts, spec_results) = spec_case
+    dev = DEVICE
+    out = {}
+
+    def run(p, arenas, tab, toks, pos_paged, pos_dense, cdtype, nbb):
+        cos, sin = build_rope_cache(cfg, nbb * BS, device=dev)
+        lp, _ = forward_paged(p, toks, pos_paged, arenas, tab, cos, sin, cfg, cdtype=cdtype)
+        kd, vd = gather_dense(arenas["k"], arenas["v"], tab)
+        lg, _ = forward_with_cache(p, toks, pos_dense, {"k": kd, "v": vd}, cos, sin, cfg)
+        return lp, lg
+
+    params32 = _cast(params, torch.float32)
+    # one prefill chunk
+    nbb = len(row)
+    tab = torch.as_tensor([row], dtype=torch.int32, device=dev)
+    toks = torch.as_tensor(chunk_prompt[CHUNK:2 * CHUNK], device=dev)[None]
+    pv = torch.tensor([CHUNK], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        lp, lg = run(params, small, tab, toks, pv, CHUNK, torch.bfloat16, nbb)
+        lp32, lg32 = run(params32, _cast(small, torch.float32), tab, toks, pv, CHUNK,
+                         torch.float32, nbb)
+    torch.cuda.synchronize()
+    out["prefill_chunk"] = _logits_bars(f"prefill chunk (T={CHUNK}, pos {CHUNK}, "
+                                        f"{cfg.n_layer} layers)",
+                                        lp, lg, lp32, lg32)
+    del lp, lg, lp32, lg32
+    # one verify chunk per speculative row
+    small = spec_small
+    nbb = max(len(r) for r in rows)
+    tab = torch.as_tensor([r + [SINK_BLOCK] * (nbb - len(r)) for r in rows], dtype=torch.int32,
+                          device=dev)
+    pos = torch.as_tensor([len(p) for p in spec_prompts], dtype=torch.int32, device=dev)
+    toks = torch.as_tensor([r.new_tokens[:5] for r in spec_results], dtype=torch.int32,
+                           device=dev)
+    with torch.no_grad():
+        lp, lg = run(params, small, tab, toks, pos, pos, torch.bfloat16, nbb)
+        lp32, lg32 = run(params32, _cast(small, torch.float32), tab, toks, pos, pos,
+                         torch.float32, nbb)
+    torch.cuda.synchronize()
+    out["verify"] = _logits_bars(f"verify chunk (T=5, {len(rows)} rows, {cfg.n_layer} layers)",
+                                 lp, lg, lp32, lg32)
+    del params32
+    return out
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -432,28 +940,54 @@ def main() -> int:
         raise RuntimeError("the paged kernels cannot be built here: no nvcc found")
     _build.load_library()
     info = _build.build_info
-    say(f"built {info['path']} in {info['seconds']:.1f} s (cached: {info['cached']})")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Function properties" in line:
-            say(f"ptxas: {line.strip()}")
+    say(f"built {len(info['sources'])} sources in parallel in {info['seconds']:.1f} s "
+        f"(cached: {info['cached']})")
+    for name, src in info["sources"].items():
+        say(f"{name} -> {src['path']}")
+        for line in src["log"].splitlines():
+            if "registers" in line or "spill" in line or "Function properties" in line:
+                say(f"ptxas: {line.strip()}")
 
-    decode = check_decode()
-    write = check_write()
-    launches = serve_full_width()
+    recs = {"paged_attn_decode": check_decode(), "paged_token_write": check_write(),
+            "paged_attn_verify": check_verify(), "paged_chunk_write": check_chunk_write(),
+            "paged_token_write_masked": check_masked_write()}
+    params, cfg = make_params()
+    served = {"decode serve": serve_full_width(params, cfg)}
+    crec, eng, prompts, tables = chunked_serve(params, cfg)
+    served["chunked serve"] = crec["launches"]
+    chunk_case = (_compact(eng.pool.arenas, [tables[0]]), prompts[0])
+    del eng
+    torch.cuda.empty_cache()
+    srec, eng, prompts, results, tables = spec_serve(params, cfg)
+    served["speculative serve"] = srec["launches"]
+    spec_case = (_compact(eng.pool.arenas, tables), prompts, results)
+    del eng
+    torch.cuda.empty_cache()
+    cfg4 = Config.from_name(cfg.name, n_layer=4)
+    _exact_tokens(_cast({**params, "blocks": params["blocks"][:4]}, torch.float32), cfg4)
+    torch.cuda.empty_cache()
+    chunk_and_verify_logits(params, cfg, chunk_case, spec_case)
 
-    src = "thunder_tpu_torch/csrc/paged_attention.cu"
+    sources = {"paged_attn_decode": "paged_attention.cu", "paged_token_write": "paged_attention.cu",
+               "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",
+               "paged_token_write_masked": "paged_attention.cu"}
+    replaces = {"paged_attn_decode": 1165, "paged_token_write": 1249, "paged_attn_verify": 1376,
+                "paged_chunk_write": 1535, "paged_token_write_masked": 1462}
     kernels = []
-    for name, jax_fn, line, rec in (
-            ("paged_attn_decode", "thunder_tpu/executors/pallasex.py:1165 paged_attn_decode",
-             "thunder_tpu/executors/pallasex.py:1165", decode),
-            ("paged_token_write", "thunder_tpu/executors/pallasex.py:1249 paged_token_write",
-             "thunder_tpu/executors/pallasex.py:1249", write)):
+    for name, rec in recs.items():
+        by_path = {path: counts[name] for path, counts in served.items() if counts[name]}
+        launches = sum(by_path.values())
+        if not launches:
+            raise AssertionError(f"{name} launched on no served path")
+        line = f"thunder_tpu/executors/pallasex.py:{replaces[name]}"
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=line, jax_counterpart=jax_fn,
-            check="pass", launches=launches[name], max_abs_err=rec["max_abs_err"],
-            ms=rec["ms"], device_ms=rec["device_ms"], plain_ms=rec["plain_ms"],
-            bound_ms=rec["bound_ms"], bound_us=1e3 * rec["bound_ms"], bound_by=rec["bound_by"],
-            library_ms=rec["library_ms"], card=CARD))
+            name=name, route="cuda", source=f"thunder_tpu_torch/csrc/{sources[name]}",
+            replaces=line, jax_counterpart=f"{line} {name}", check="pass", launches=launches,
+            launches_by_path=by_path, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_us=1e3 * rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec["library_ms"], card=CARD,
+            **({"shapes": rec["shapes"]} if "shapes" in rec else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -167,9 +167,10 @@ def test_cpu_serving_launches_no_kernels_and_counts_geometries(micro):
     cudaex.reset_launches()
     eng = _port(tcfg, tp)
     _drive(eng, _prompts())
-    assert cudaex.LAUNCHES == {"paged_attn_decode": 0, "paged_token_write": 0}
+    assert set(cudaex.LAUNCHES.values()) == {0}
     st = eng.stats()
-    assert st["compile_counts"] == {"prefill": 1, "decode": 0, "decode_paged": 1}
+    assert {k: v for k, v in st["compile_counts"].items() if v} == {"prefill": 1,
+                                                                   "decode_paged": 1}
     assert st["tokens_generated"] == 4 * 5 and st["running"] == 0
     assert st["pool_free_blocks"] == eng.pool.num_usable
     assert 0 < st["mean_batch_occupancy"] <= 4
@@ -217,8 +218,8 @@ def test_admission_rejects_requests_that_never_fit(micro):
 
 DEFERRED = [
     ("kv_dtype", "int8"), ("quantized", True), ("lora", object()),
-    ("speculative", object()), ("mesh", object()), ("shardings", object()),
-    ("decode_steps", 2), ("prefill_chunk", 8), ("sessions", True), ("priorities", True),
+    ("mesh", object()), ("shardings", object()),
+    ("decode_steps", 2), ("sessions", True), ("priorities", True),
     ("constraints", True), ("fault_plan", object()), ("trace", True), ("slo", {"ttft_s": 1}),
     ("flight_recorder", True), ("goodput", True), ("telemetry", "run.jsonl"),
     ("replicas", 2), ("model_fn", lambda *a: None),
@@ -307,7 +308,8 @@ def test_cuda_engine_decodes_through_the_kernels(card, dtype):
 
     paged, launches, steps = run("paged")
     gather, none, _ = run("gather")
-    assert launches == {"paged_attn_decode": steps * cfg.n_layer, "paged_token_write": steps * 2}
-    assert none == {"paged_attn_decode": 0, "paged_token_write": 0}
+    assert launches == {**dict.fromkeys(cudaex.LAUNCHES, 0),
+                        "paged_attn_decode": steps * cfg.n_layer, "paged_token_write": steps * 2}
+    assert set(none.values()) == {0}
     if dtype == torch.float32:
         assert paged == gather

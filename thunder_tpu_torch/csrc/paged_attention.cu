@@ -1,18 +1,23 @@
-// Paged-attention decode kernels for NVIDIA Hopper (sm_90a), plain C ABI.
+// Paged-attention decode and single-token write kernels for NVIDIA Hopper
+// (sm_90a), plain C ABI.
 //
-// Replaces the two Pallas TPU kernels on the serving decode path of
-// thunder_tpu/executors/pallasex.py:
+// Replaces three Pallas TPU kernels of thunder_tpu/executors/pallasex.py:
 //
 //   paged_attn_decode (pallasex.py:1165, body _paged_kernel :1076, walk
 //     _ragged_step :1148): single-token attention read straight off the
 //     rank-5 KV block arena (num_blocks, L, ng, bs, hs).
 //   paged_token_write (pallasex.py:1249, body _paged_write_kernel :1241):
 //     in-place write of each request's fresh K/V (or scale) into its slot.
+//   paged_token_write_masked (pallasex.py:1462): the same write of chunk
+//     offset k at pos + k iff k < n_emit[b], else into sink block 0, slot 0
+//     (the speculative commit).  One kernel serves both writes: the plain
+//     write passes no n_emit and offset 0.
 //
-// What bounds them on an H100: both are memory-bound.  Decode attention
+// What bounds them on an H100: all are memory-bound.  Decode attention
 // reads each live K/V byte once and does ~2 flops per byte (at Llama-3-8B,
-// B=8, pos~1024: 33.5 MB per layer, ~10 us at 3.35 TB/s).  The token write
-// moves ~0.5 MB per call and is dominated by launch cost.
+// B=8, pos~1024: 33.5 MB per layer, ~10 us at 3.35 TB/s).  A token write
+// moves ~0.5 MB per call and is dominated by launch cost; its grid spans
+// (request, row tile) so the copy spreads over the SMs.
 //
 // Design (simple and right first; speed is later work):
 //   * One thread block per (request, KV group).  A loop inside the block
@@ -40,34 +45,16 @@
 // query dtype before use, and the probabilities are cast to the query dtype
 // before the P.V product, which accumulates in f32.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kMaskValue = static_cast<float>(-0.7 * 3.4028234663852886e38);
+using tt::from_f;
+using tt::kMaskValue;
+using tt::round_to;
+using tt::to_f;
+
 constexpr int kThreads = 128;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// the value x holds after a cast to T (round to nearest even)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f<T>(from_f<T>(x));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -202,26 +189,68 @@ __global__ void __launch_bounds__(kThreads) paged_attn_decode_kernel(
   }
 }
 
-// grid (B,).  arena: (num_blocks, rows, bs, hs) with rows = L * ng (hs = 1
-// for a rank-4 scale arena); vals: (B, rows, hs).  Request b's values land
-// at block tables[b, pos[b] / bs] (the index clamped to the table), slot
-// pos[b] % bs.  Batch-padding rows carry all-sink tables and write sink
-// block 0, which is never read; several may write it at once.
+// grid (B, row tiles), block 256.  arena: (num_blocks, rows, bs, hs) with
+// rows = L * ng (hs = 1 for a rank-4 scale arena); vals: (B, rows, hs).  Row
+// b lands at block tables[b, (pos[b] + offset) / bs] (the column clamped to
+// the table), slot (pos[b] + offset) % bs, when n_emit is null or offset <
+// n_emit[b]; else at block 0, slot 0, the sink.  Batch-padding rows carry
+// all-sink tables and write the sink too; several rows may write it at
+// once, and nothing reads it.
 template <typename E>
 __global__ void paged_token_write_kernel(E* __restrict__ arena, const E* __restrict__ vals,
                                          const int* __restrict__ tables,
-                                         const int* __restrict__ pos, int rows, int bs,
-                                         int hs, int nbb) {
+                                         const int* __restrict__ pos,
+                                         const int* __restrict__ n_emit, int offset, int rows,
+                                         int bs, int hs, int nbb, int rows_per_tile) {
   const int b = blockIdx.x;
-  const int p = pos[b];
-  const int j = min(p / bs, nbb - 1);
-  const int64_t blk = tables[static_cast<int64_t>(b) * nbb + j];
-  const int64_t dst0 = blk * rows * bs * hs + static_cast<int64_t>(p % bs) * hs;
-  const int64_t n = static_cast<int64_t>(rows) * hs;
-  const E* src = vals + static_cast<int64_t>(b) * n;
-  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) {
-    const int64_t r = i / hs, d = i - r * hs;
-    arena[dst0 + r * bs * hs + d] = src[i];
+  const int r0 = blockIdx.y * rows_per_tile;
+  const int nr = min(rows_per_tile, rows - r0);
+  int64_t blk = 0;
+  int slot = 0;
+  if (n_emit == nullptr || offset < n_emit[b]) {
+    const int p = pos[b] + offset;
+    blk = tables[static_cast<int64_t>(b) * nbb + min(p / bs, nbb - 1)];
+    slot = p % bs;
+  }
+  E* dst = arena + ((blk * rows + r0) * bs + slot) * hs;
+  const E* src = vals + (static_cast<int64_t>(b) * rows + r0) * hs;
+  const int bs_hs = bs * hs;
+  for (int i = threadIdx.x; i < nr * hs; i += blockDim.x) {
+    const int r = i / hs, d = i - r * hs;
+    dst[static_cast<int64_t>(r) * bs_hs + d] = src[i];
+  }
+}
+
+template <typename E>
+cudaError_t launch_token_write(void* arena, const void* vals, const int* tables, const int* pos,
+                               const int* n_emit, int offset, int B, int rows, int bs, int hs,
+                               int nbb, cudaStream_t s) {
+  const int threads = 256;
+  // about four elements per thread: 8 rows of hs = 128, or 1024 scale rows
+  const int rows_per_tile = hs >= 4 * threads ? 1 : (4 * threads) / hs;
+  const int tiles = (rows + rows_per_tile - 1) / rows_per_tile;
+  paged_token_write_kernel<E><<<dim3(B, tiles), threads, 0, s>>>(
+      static_cast<E*>(arena), static_cast<const E*>(vals), tables, pos, n_emit, offset, rows,
+      bs, hs, nbb, rows_per_tile);
+  return cudaGetLastError();
+}
+
+cudaError_t token_write(void* arena, const void* vals, const int* tables, const int* pos,
+                        const int* n_emit, int offset, int B, int rows, int bs, int hs, int nbb,
+                        int elem_bytes, cudaStream_t s) {
+  if (B == 0) return cudaSuccess;
+  switch (elem_bytes) {
+    case 1:
+      return launch_token_write<uint8_t>(arena, vals, tables, pos, n_emit, offset, B, rows, bs,
+                                         hs, nbb, s);
+    case 2:
+      return launch_token_write<uint16_t>(arena, vals, tables, pos, n_emit, offset, B, rows, bs,
+                                          hs, nbb, s);
+    case 4:
+      return launch_token_write<uint32_t>(arena, vals, tables, pos, n_emit, offset, B, rows, bs,
+                                          hs, nbb, s);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -293,32 +322,22 @@ extern "C" int tt_paged_attn_decode(const void* q, const void* k_arena, const vo
   }
 }
 
-// elem_bytes: 1, 2 or 4 (the write moves bits, whatever the dtype).
+// elem_bytes: 1, 2 or 4 (the writes move bits, whatever the dtype).
 extern "C" int tt_paged_token_write(void* arena, const void* vals, const int* tables,
                                     const int* pos, int B, int rows, int bs, int hs, int nbb,
                                     int elem_bytes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  switch (elem_bytes) {
-    case 1:
-      paged_token_write_kernel<uint8_t><<<B, threads, 0, s>>>(
-          static_cast<uint8_t*>(arena), static_cast<const uint8_t*>(vals), tables, pos, rows,
-          bs, hs, nbb);
-      break;
-    case 2:
-      paged_token_write_kernel<uint16_t><<<B, threads, 0, s>>>(
-          static_cast<uint16_t*>(arena), static_cast<const uint16_t*>(vals), tables, pos, rows,
-          bs, hs, nbb);
-      break;
-    case 4:
-      paged_token_write_kernel<uint32_t><<<B, threads, 0, s>>>(
-          static_cast<uint32_t*>(arena), static_cast<const uint32_t*>(vals), tables, pos, rows,
-          bs, hs, nbb);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  return token_write(arena, vals, tables, pos, nullptr, 0, B, rows, bs, hs, nbb, elem_bytes,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The keep-masked write: chunk offset `offset` of each row, live iff
+// offset < n_emit[b].
+extern "C" int tt_paged_token_write_masked(void* arena, const void* vals, const int* tables,
+                                           const int* pos, const int* n_emit, int offset, int B,
+                                           int rows, int bs, int hs, int nbb, int elem_bytes,
+                                           void* stream) {
+  return token_write(arena, vals, tables, pos, n_emit, offset, B, rows, bs, hs, nbb, elem_bytes,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* tt_error_string(int code) {

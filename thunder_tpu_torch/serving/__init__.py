@@ -1,6 +1,8 @@
 """Serving subsystem of the port (counterpart of ``thunder_tpu/serving``):
 ``serve(None, params, cfg, ...)`` → a continuous-batching engine over a
-paged KV pool, decoding through the hand-written paged-attention kernels."""
+paged KV pool, decoding through the hand-written paged-attention kernels,
+with chunked prefill (``prefill_chunk=``) and speculative serving
+(``speculative=SpecConfig(...)``)."""
 from thunder_tpu_torch.serving.engine import (
     AdmissionError,
     EngineStalledError,
@@ -10,6 +12,7 @@ from thunder_tpu_torch.serving.engine import (
     serve,
 )
 from thunder_tpu_torch.serving.kv_pool import PagedKVPool, PoolExhaustedError
+from thunder_tpu_torch.serving.speculative import SpecConfig
 
 __all__ = [
     "AdmissionError",
@@ -19,5 +22,6 @@ __all__ = [
     "RequestHandle",
     "RequestResult",
     "ServingEngine",
+    "SpecConfig",
     "serve",
 ]

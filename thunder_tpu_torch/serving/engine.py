@@ -13,6 +13,23 @@ the step they finish.
   the ``paged_attn_decode`` kernel straight off the block arena, then two
   ``paged_token_write`` launches land the fresh K/V.  On the CPU the same
   path runs the kernels' plain PyTorch versions;
+- the prefill lane (``prefill_chunk=N``, async engines only) splits a
+  prompt longer than N into block-aligned pieces, one per engine step, so
+  decode steps interleave with a long prefill.  Intermediate pieces write
+  K/V only: the paged kind (``prefill_chunk_paged``) runs
+  ``forward_paged`` at T = N through the ``paged_attn_verify`` kernel and
+  lands the chunk with ``paged_chunk_write``; the gather kind
+  (``prefill_chunk``) densifies.  The kind is resolved once, at
+  construction: paged needs ``attn`` paged, block-aligned chunk and
+  prefill buckets, no sliding window and no ``speculative=``, else gather
+  with the reason in ``stats()["attn"]["kinds"]``.  The final piece runs
+  the ordinary ``prefill`` and samples token 0;
+- the speculative lane (``speculative=SpecConfig(...)``, see
+  :mod:`serving.speculative`): a draft model proposes K tokens per round
+  over its own arena beside the target's, the target verifies K+1
+  positions at once (``verify_paged``: the ``paged_attn_verify`` kernel and
+  the ``paged_token_write_masked`` commit), and each round emits 1..K+1
+  tokens per request;
 - the pool (:mod:`serving.kv_pool`) owns cache memory.  Arenas update in
   place, which replaces the JAX package's buffer donation: every step
   reads and writes the same two tensors on one stream, so stream order is
@@ -42,6 +59,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -50,6 +68,7 @@ import torch
 from thunder_tpu_torch._device import resolve_device
 from thunder_tpu_torch.models.generate import forward_with_cache, sample_token
 from thunder_tpu_torch.models.llama import build_rope_cache
+from thunder_tpu_torch.serving import speculative as spec_lane
 from thunder_tpu_torch.observability.metrics import registry
 from thunder_tpu_torch.serving.kv_pool import (
     SINK_BLOCK,
@@ -64,6 +83,7 @@ from thunder_tpu_torch.serving.paged_attention import (
     forward_paged,
     paged_supported,
     write_fresh_kv,
+    write_fresh_kv_chunk,
 )
 from thunder_tpu_torch.serving.scheduler import (
     FINISH_DEADLINE,
@@ -89,8 +109,8 @@ __all__ = [
 _DEFERRED_ENGINE = {
     "model_fn": None, "quantized": False, "kv_dtype": None, "lora": None,
     "telemetry": None, "trace": None, "slo": None, "flight_recorder": None,
-    "mesh": None, "shardings": None, "prefill_chunk": None, "fault_plan": None,
-    "retry": None, "watchdog_timeout_s": None, "speculative": None, "replica_id": None,
+    "mesh": None, "shardings": None, "fault_plan": None,
+    "retry": None, "watchdog_timeout_s": None, "replica_id": None,
     "decode_steps": 1, "sessions": None, "priorities": None, "constraints": None,
     "goodput": None, "replicas": 1, "fault_plans": None,
 }
@@ -203,9 +223,17 @@ class ServingEngine:
         prefill_buckets: Sequence[int] | None = None,
         attn: str = "auto",
         async_step: bool = True,
+        prefill_chunk: int | None = None,
+        speculative: spec_lane.SpecConfig | None = None,
         device="cuda",
         **deferred,
     ):
+        steps = deferred.get("decode_steps")
+        if speculative is not None and steps not in (None, 1):
+            ok, why = spec_lane.multi_step_supported(speculative)
+            if not ok:
+                raise ValueError(
+                    f"decode_steps={steps} with speculative= is unsupported: {why}")
         _reject_deferred("ServingEngine", deferred, _DEFERRED_ENGINE)
         if cfg.mlp_class == "LLaMAMoE":
             raise NotImplementedError("ServingEngine: MoE configs are not ported yet")
@@ -219,6 +247,9 @@ class ServingEngine:
         self.params = params
         self.cfg = cfg
         self.async_step = bool(async_step)
+        if prefill_chunk is not None and not self.async_step:
+            raise ValueError("prefill_chunk= requires async_step=True: the chunked prefill "
+                             "lane lives in the async event loop")
         self.temperature = float(temperature)
         self.eos_id = eos_id
         self.prefix_sharing = bool(prefix_sharing)
@@ -233,23 +264,63 @@ class ServingEngine:
         self._attn_requested = attn
         self.attn = "gather" if attn == "gather" else "paged"
         self.attn_kernel_steps = 0
+        # speculative serving: a draft arena beside the target arena, indexed
+        # by the target pool's block tables (its own free list is unused)
+        self.spec = speculative
+        self.draft_pool = None
+        if speculative is not None:
+            spec_lane.validate_spec(speculative, cfg, device=self.device)
+            self.draft_pool = PagedKVPool(speculative.draft_cfg, num_blocks=num_blocks,
+                                          block_size=block_size, dtype=dtype,
+                                          device=self.device)
         self.scheduler = Scheduler(
             self.pool, max_batch=max_batch, max_queue=max_queue, clock=clock,
             batch_buckets=batch_buckets, block_buckets=block_buckets,
             prefill_buckets=prefill_buckets, sliding_window=cfg.sliding_window,
+            prefill_chunk=prefill_chunk,
+            # a round's draft loop writes up to K slots past the last
+            # committed token: admission reserves them
+            reserve_extra_tokens=speculative.K if speculative is not None else 0,
         )
         self._table_widths = self._table_width_buckets()
+        # the chunk kind resolves once, apart from decode: the chunk writer
+        # lands whole (L, ng, bs, hs) slabs, so the chunk width and every
+        # prefill bucket must be multiples of the block size (the final
+        # piece runs the ordinary prefill and may stay ragged)
+        sch = self.scheduler
+        if self.attn != "paged":
+            chunk_why = "attn='gather' requested"
+        elif speculative is not None:
+            chunk_why = "speculative prefill writes the draft arena (gather chunk)"
+        elif cfg.sliding_window is not None:
+            chunk_why = "sliding-window keep-mask is decode-only"
+        elif sch.prefill_chunk is not None and sch.prefill_chunk % block_size:
+            chunk_why = (f"prefill_chunk={sch.prefill_chunk} not a multiple "
+                         f"of block_size={block_size}")
+        elif any(t % block_size for t in sch.prefill_buckets):
+            chunk_why = (f"prefill_buckets={tuple(sch.prefill_buckets)} not "
+                         f"all multiples of block_size={block_size}")
+        else:
+            chunk_why = None
+        self.attn_chunk = "paged" if chunk_why is None else "gather"
+        self._attn_chunk_fallback_reason = chunk_why
+        # per-kind [kernel, fallback] step counts
+        self._attn_steps = {"decode": [0, 0], "prefill_chunk": [0, 0]}
         self._prefix_index = PrefixIndex(self.pool.block_size)
         self._programs: dict[tuple, Callable] = {}
-        self._rope: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._rope: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
         self._closed = False
         self.decode_steps = 0
         self.prefill_runs = 0
+        self.chunk_runs = 0
         self.step_calls = 0
         self.tokens_generated = 0
         self.host_visits = 0
         self._occupancy_sum = 0
-        self.compile_counts = {"prefill": 0, "decode": 0, "decode_paged": 0}
+        self.compile_counts = {"prefill": 0, "prefill_chunk": 0, "prefill_chunk_paged": 0,
+                               "decode": 0, "decode_paged": 0, "spec_prefill": 0,
+                               "spec_prefill_chunk": 0, "draft_decode": 0, "verify": 0,
+                               "verify_paged": 0}
         # async lanes: the in-flight decode record plus prefill records,
         # harvested at the top of the next step (the only host block)
         self._inflight_decode: dict | None = None
@@ -260,6 +331,14 @@ class ServingEngine:
         # chained decode inputs: while the batch and tables are unchanged,
         # each decode step consumes the previous step's device outputs
         self._decode_state: dict | None = None
+        # the speculative lane's chained round inputs (toks=y, pos+n_emit)
+        # and its acceptance accounting
+        self._spec_state: dict | None = None
+        self.spec_rounds = 0
+        self.spec_draft_tokens = 0
+        self.spec_accepted_tokens = 0
+        self._spec_accept_hist = (np.zeros(speculative.K + 1, dtype=np.int64)
+                                  if speculative is not None else None)
         reg = registry()
         self._m_steps_decode = reg.counter("serving.steps.decode")
         self._m_occupancy = reg.histogram("serving.batch_occupancy")
@@ -270,8 +349,13 @@ class ServingEngine:
         self._m_pool_free = reg.gauge("serving.pool.free_blocks")
         self._m_pool_low_water = reg.gauge("serving.pool.free_blocks_low_water")
         self._m_attn_kernel = reg.counter("serving.attn.kernel_steps")
+        self._m_attn_fallback = reg.counter("serving.attn.fallback_steps")
         self._m_host_visits = reg.counter("serving.decode.host_visits")
         self._m_pool_occ = reg.gauge("serving.pool.occupancy_frac")
+        if speculative is not None:
+            self._m_spec_rounds = reg.counter("serving.spec.rounds")
+            self._m_spec_accepted = reg.counter("serving.spec.accepted_tokens")
+            self._m_spec_accept_len = reg.histogram("serving.spec.accept_len")
         if self.async_step:
             self._m_stall = reg.histogram("serving.decode.stall_s")
             self._m_overlap = reg.gauge("serving.step.overlap_frac")
@@ -343,7 +427,22 @@ class ServingEngine:
             worked = True
         while self._try_admit():
             worked = True
+        if self._advance_prefills():
+            worked = True
         self._update_gauges()
+        return worked
+
+    def _advance_prefills(self) -> bool:
+        """The prefill lane: dispatches the next piece for every running
+        request whose prompt is not yet resident and has no piece in flight
+        — at most one piece per request per step, so chunks interleave 1:1
+        with decode dispatches."""
+        worked = False
+        inflight = {rec["req"].rid for rec in self._inflight_prefill}
+        for r in list(self.scheduler.running):
+            if r.pos < r.prompt_len and r.rid not in inflight:
+                self._inflight_prefill.append(self._prefill_dispatch(r))
+                worked = True
         return worked
 
     def _harvest(self) -> bool:
@@ -406,6 +505,7 @@ class ServingEngine:
         self._inflight_decode = None
         self._inflight_prefill = []
         self._decode_state = None
+        self._spec_state = None
         for req in (*self.scheduler.running, *self.scheduler.queue):
             self._finish(req, FINISH_EVICTED)
         self._closed = True
@@ -420,7 +520,11 @@ class ServingEngine:
         """Host-side engine statistics."""
         sch = self.scheduler
         n = self._overlap_obs
-        kinds = len(sch.batch_buckets) + len(sch.prefill_buckets)
+        # step kinds a bucket may instantiate: decode per batch bucket
+        # (draft_decode and verify under speculative serving), prefill per
+        # prefill bucket (and the chunk kind beside it when chunking is on)
+        kinds = (len(sch.batch_buckets) * (2 if self.spec is not None else 1)
+                 + len(sch.prefill_buckets) * (2 if sch.prefill_chunk is not None else 1))
         return {
             "device": str(self.device),
             "queue_depth": len(sch.queue),
@@ -430,9 +534,11 @@ class ServingEngine:
             "pool_utilization": self.pool.utilization(),
             "arena_bytes": self.pool.arena_bytes(),
             "async_step": self.async_step,
+            "prefill_chunk": sch.prefill_chunk,
             "decode_steps": self.decode_steps,
             "host_visits": self.host_visits,
             "prefill_runs": self.prefill_runs,
+            "chunk_runs": self.chunk_runs,
             "step_calls": self.step_calls,
             "tokens_generated": self.tokens_generated,
             "mean_batch_occupancy": (self._occupancy_sum / self.decode_steps
@@ -444,11 +550,48 @@ class ServingEngine:
                 "mode": self.attn,
                 "requested": self._attn_requested,
                 "kernel_steps": self.attn_kernel_steps,
+                # decode and chunked prefill resolve apart: the chunk kernel
+                # needs block-aligned widths and no sliding window
+                "kinds": {
+                    "decode": {
+                        "mode": self.attn,
+                        "fallback_reason": None,
+                        "kernel_steps": self._attn_steps["decode"][0],
+                        "fallback_steps": self._attn_steps["decode"][1],
+                    },
+                    "prefill_chunk": {
+                        "mode": self.attn_chunk,
+                        "fallback_reason": self._attn_chunk_fallback_reason,
+                        "kernel_steps": self._attn_steps["prefill_chunk"][0],
+                        "fallback_steps": self._attn_steps["prefill_chunk"][1],
+                    },
+                },
             },
             "bucket_bound": kinds * len(self._table_widths),
             "prefix_lookups": self._prefix_index.lookups,
             "prefix_hits": self._prefix_index.hits,
+            "speculative": self._spec_stats() if self.spec is not None else None,
             "pool_occupancy": self.pool.occupancy_snapshot(),
+        }
+
+    def _spec_stats(self) -> dict:
+        """Acceptance accounting of the speculative lane: the histogram
+        counts rounds by tokens emitted (1..K+1); acceptance_rate is
+        accepted drafts over drafted tokens; tokens_per_round the mean
+        emission."""
+        hist = self._spec_accept_hist
+        rounds = int(hist.sum())
+        drafted = self.spec_draft_tokens
+        return {
+            "K": self.spec.K,
+            "rounds": self.spec_rounds,
+            "chained": self._spec_state is not None,
+            "draft_tokens": drafted,
+            "accepted_tokens": self.spec_accepted_tokens,
+            "acceptance_rate": (self.spec_accepted_tokens / drafted) if drafted else None,
+            "accept_len_hist": {i + 1: int(hist[i]) for i in range(len(hist))},
+            "tokens_per_round": (sum((i + 1) * int(hist[i]) for i in range(len(hist))) / rounds
+                                 if rounds else None),
         }
 
     def _state(self) -> dict:
@@ -462,19 +605,24 @@ class ServingEngine:
     def _table_width_buckets(self) -> tuple[int, ...]:
         """Every table width a step may use: the block buckets, shifted off
         any width whose dense capacity equals ``sliding_window`` (the ring
-        layout the pool never uses), extended so a shared-prefix resume
-        point plus prefill-bucket padding still rounds up into the set."""
+        layout the pool never uses), extended so a shared-prefix or
+        chunked-prefill resume point plus prefill-bucket padding still
+        rounds up into the set.  With chunking, prompts are capped only by
+        the pool, but every piece is at most one chunk wide."""
         sch, bs = self.scheduler, self.pool.block_size
         W = self.cfg.sliding_window
+        chunk = sch.prefill_chunk
 
         def dodge(b: int) -> int:
             return b + 1 if W is not None and self.pool.capacity_tokens(b) == W else b
 
         widths = {dodge(b) for b in sch.block_buckets}
         cap_tokens = self.pool.capacity_tokens(min(self.pool.num_usable, sch.block_buckets[-1]))
-        max_prompt = min(sch.prefill_buckets[-1], cap_tokens)
-        max_resume = ((max_prompt - 1) // bs) * bs if self.prefix_sharing else 0
-        need = -(-(max_resume + pick_bucket(max_prompt, sch.prefill_buckets)) // bs)
+        max_prompt = cap_tokens if chunk is not None else min(sch.prefill_buckets[-1], cap_tokens)
+        resumes = self.prefix_sharing or chunk is not None
+        max_resume = ((max_prompt - 1) // bs) * bs if resumes else 0
+        piece = chunk if chunk is not None else pick_bucket(max_prompt, sch.prefill_buckets)
+        need = -(-(max_resume + piece) // bs)
         b = max(widths)
         while b < need:
             b *= 2
@@ -530,31 +678,67 @@ class ServingEngine:
             self._prefill_harvest(rec)
             self._sample_occupancy()
 
+    def _chunk_kind(self) -> str:
+        """The chunk step kind of this engine, resolved at construction."""
+        return "prefill_chunk_paged" if self.attn_chunk == "paged" else "prefill_chunk"
+
     def _prefill_dispatch(self, req: Request) -> dict:
-        """Dispatches the prefill of the prompt past the shared prefix and
-        returns its in-flight record (token 0 stays on the device)."""
+        """Dispatches the next prefill piece of ``req`` past its resume
+        point and returns the in-flight record.  A piece is the final
+        ``prefill`` (samples token 0, which stays on the device until the
+        harvest) or an intermediate chunk of ``prefill_chunk`` tokens (K/V
+        only, no draw, so the final draw is the unchunked prefill's)."""
         sch, bs = self.scheduler, self.pool.block_size
         pos = req.pos                                      # block-aligned resume point
-        n_real = req.prompt_len - pos
+        remainder = req.prompt_len - pos
+        chunk = sch.prefill_chunk
+        final = chunk is None or remainder <= chunk
+        n_real = remainder if final else chunk
+        first = pos == req.n_shared_blocks * bs            # the admission piece
         Tb = sch.prefill_bucket(n_real)
         nbb = self._nbb(max(len(req.block_table), -(-(pos + Tb) // bs)))
         toks = np.zeros(Tb, dtype=np.int32)
-        toks[:n_real] = req.prompt[pos:]
+        toks[:n_real] = req.prompt[pos:pos + n_real]
+        # gather the whole table; write back only this piece's block range
         table, dest = chunk_tables(req.block_table, pos, Tb, nbb, bs)
-        prefill, new = self._program("prefill", Tb, nbb)
+        if self.spec is not None:
+            kind = "spec_prefill" if final else "spec_prefill_chunk"
+        else:
+            kind = "prefill" if final else self._chunk_kind()
+        prog, new = self._program(kind, Tb, nbb)
         req.prefill_compiled = req.prefill_compiled or new
-        tok = prefill(toks, pos, n_real, table, dest, req.generator)
-        req.pos = pos + n_real
+        if final:
+            rec = {"kind": "prefill", "req": req,
+                   "tok": prog(toks, pos, n_real, table, dest, req.generator)}
+        else:
+            prog(toks, pos, table, dest)
+            rec = {"kind": "chunk", "req": req}
+        req.pos = pos + n_real                             # written (stream-ordered)
         self._register_prefix(req, upto=req.pos)
-        self.prefill_runs += 1
         reg = registry()
-        reg.counter("serving.steps.prefill").inc()
-        if req.n_shared_blocks:
+        if final:
+            self.prefill_runs += 1
+            reg.counter("serving.steps.prefill").inc()
+        else:
+            self.chunk_runs += 1
+            reg.counter("serving.steps.prefill_chunk").inc()
+            if self.spec is None:
+                st = self._attn_steps["prefill_chunk"]
+                if self.attn_chunk == "paged":
+                    st[0] += 1
+                else:
+                    st[1] += 1
+                    if self._attn_requested != "gather":
+                        self._m_attn_fallback.inc()
+        if first and req.n_shared_blocks:
             reg.counter("serving.prefix.shared_blocks").inc(req.n_shared_blocks)
-        return {"req": req, "tok": tok}
+        return rec
 
     def _prefill_harvest(self, rec: dict) -> None:
-        """Delivers token 0 (TTFT stamps here: token availability)."""
+        """Delivers token 0 (TTFT stamps here: token availability); an
+        intermediate chunk delivers nothing."""
+        if rec["kind"] == "chunk":
+            return
         req = rec["req"]
         tok0 = int(rec["tok"][0])                          # blocks until the device delivers
         if req.state != "running":                         # finished while in flight
@@ -573,7 +757,8 @@ class ServingEngine:
     #
 
     def _decode_once(self) -> None:
-        rec = self._decode_dispatch()
+        rec = (spec_lane.spec_decode_dispatch(self) if self.spec is not None
+               else self._decode_dispatch())
         if self.async_step:
             self._inflight_decode = rec
         else:
@@ -607,6 +792,7 @@ class ServingEngine:
         decode, _ = self._program(kind, Bb, nbb)
         if self.attn == "paged":
             self.attn_kernel_steps += 1
+            self._attn_steps["decode"][0] += 1
             self._m_attn_kernel.inc()
         nxt = decode(toks_d, pos_d, tables_d, [r.generator for r in running])
         self._decode_state = {"sig": sig, "toks": nxt, "pos": pos_d + 1,
@@ -618,20 +804,29 @@ class ServingEngine:
         return {"running": running, "nxt": nxt, "pos": host_pos,
                 "t_disp": time.perf_counter()}
 
+    def _note_stall(self, t0: float, t_disp: float) -> None:
+        """Overlap accounting of one harvest that started at ``t0`` for a
+        dispatch at ``t_disp``: host work since the dispatch against the
+        residual wait."""
+        if not self.async_step:
+            return
+        stall = time.perf_counter() - t0
+        overlapped = t0 - t_disp
+        frac = overlapped / (overlapped + stall) if (overlapped + stall) > 0 else 0.0
+        self._stall_s_sum += stall
+        self._overlap_frac_sum += frac
+        self._overlap_obs += 1
+        self._m_stall.observe(stall)
+        self._m_overlap.set(frac)
+
     def _decode_harvest(self, rec: dict) -> None:
+        if rec.get("spec"):
+            spec_lane.spec_decode_harvest(self, rec)
+            return
         sch = self.scheduler
         t0 = time.perf_counter()
         nxt = rec["nxt"].tolist()                          # the host block
-        if self.async_step:
-            # overlap accounting: host work since dispatch vs the residual wait
-            stall = time.perf_counter() - t0
-            overlapped = t0 - rec["t_disp"]
-            frac = overlapped / (overlapped + stall) if (overlapped + stall) > 0 else 0.0
-            self._stall_s_sum += stall
-            self._overlap_frac_sum += frac
-            self._overlap_obs += 1
-            self._m_stall.observe(stall)
-            self._m_overlap.set(frac)
+        self._note_stall(t0, rec["t_disp"])
         emitted = 0
         invalidate = False
         for i, r in enumerate(rec["running"]):
@@ -723,19 +918,30 @@ class ServingEngine:
         prog = self._programs.get(key)
         if prog is not None:
             return prog, False
-        build = {"prefill": self._build_prefill, "decode": self._build_decode,
-                 "decode_paged": self._build_decode_paged}[kind]
+        build = {"prefill": self._build_prefill,
+                 "prefill_chunk": self._build_prefill_chunk,
+                 "prefill_chunk_paged": self._build_prefill_chunk_paged,
+                 "decode": self._build_decode,
+                 "decode_paged": self._build_decode_paged,
+                 "spec_prefill": partial(spec_lane.build_spec_prefill, self),
+                 "spec_prefill_chunk": partial(spec_lane.build_spec_prefill_chunk, self),
+                 "draft_decode": partial(spec_lane.build_draft_decode, self),
+                 "verify": partial(spec_lane.build_verify, self),
+                 "verify_paged": partial(spec_lane.build_verify_paged, self)}[kind]
         prog = build(a, b)
         self.compile_counts[kind] += 1
         registry().counter(f"serving.geometries.{kind}").inc()
         self._programs[key] = prog
         return prog, True
 
-    def _rope_cache(self, nbb: int) -> tuple[torch.Tensor, torch.Tensor]:
+    def _rope_cache(self, nbb: int, *, draft: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """Rope rows of the target (or the draft) model for a table of
+        ``nbb`` blocks."""
         cap = self.pool.capacity_tokens(nbb)
-        if cap not in self._rope:
-            self._rope[cap] = build_rope_cache(self.cfg, cap, device=self.device)
-        return self._rope[cap]
+        if (draft, cap) not in self._rope:
+            cfg = self.spec.draft_cfg if draft else self.cfg
+            self._rope[draft, cap] = build_rope_cache(cfg, cap, device=self.device)
+        return self._rope[draft, cap]
 
     def _sample_rows(self, logits, generators) -> torch.Tensor:
         """One token per batch row; each live row draws from its own
@@ -766,6 +972,45 @@ class ServingEngine:
             return tok
 
         return prefill
+
+    def _build_prefill_chunk(self, Tb: int, nbb: int) -> Callable:
+        """An intermediate chunked-prefill piece on the gathered arena: the
+        chunk's K/V written back, nothing sampled."""
+        cfg, pool, dev = self.cfg, self.pool, self.device
+        cos_all, sin_all = self._rope_cache(nbb)
+
+        def prefill_chunk(toks, pos, table, dest):
+            kd, vd = gather_dense(pool.k_arena, pool.v_arena,
+                                  torch.as_tensor(table, device=dev)[None])
+            _, cache = forward_with_cache(
+                self.params, torch.as_tensor(toks, device=dev)[None], pos,
+                {"k": kd, "v": vd}, cos_all, sin_all, cfg)
+            d = torch.as_tensor(dest, device=dev)
+            scatter_blocks(pool.k_arena, cache["k"], d)
+            scatter_blocks(pool.v_arena, cache["v"], d)
+
+        return prefill_chunk
+
+    def _build_prefill_chunk_paged(self, Tb: int, nbb: int) -> Callable:
+        """The kernel twin of :meth:`_build_prefill_chunk`: the chunk's
+        attention runs ``paged_attn_verify`` at T = the chunk width straight
+        off the arena (earlier chunks and any shared prefix read in block
+        granules, the causal intra-chunk mask in the kernel), and the fresh
+        K/V land block by block through ``paged_chunk_write``; no dense
+        cache and no logits materialize."""
+        cfg, pool, dev = self.cfg, self.pool, self.device
+        cos_all, sin_all = self._rope_cache(nbb)
+
+        def prefill_chunk_paged(toks, pos, table, dest):
+            pv = torch.tensor([pos], dtype=torch.int32, device=dev)
+            _, fresh = forward_paged(
+                self.params, torch.as_tensor(toks, device=dev)[None], pv, pool.arenas,
+                torch.as_tensor(table, device=dev)[None], cos_all, sin_all, cfg,
+                cdtype=pool.dtype, head=False)
+            write_fresh_kv_chunk(pool.arenas, fresh, torch.as_tensor(dest, device=dev), pv,
+                                 block_size=pool.block_size)
+
+        return prefill_chunk_paged
 
     def _build_decode(self, Bb: int, nbb: int) -> Callable:
         """Gather decode: the rows' blocks gathered dense, the dense

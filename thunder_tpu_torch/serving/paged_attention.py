@@ -1,23 +1,39 @@
-"""Paged-attention decode: the serving forward that never densifies the KV.
+"""Paged attention: the serving forward that never densifies the KV.
 
-Counterpart of ``thunder_tpu/serving/paged_attention.py`` for the decode
-step (T = 1) on unquantized arenas.  :func:`forward_paged` runs the same
-per-layer math as ``models.generate.forward_with_cache`` but attention
-reads K/V directly from the block arena through
-``executors.cudaex.paged_attn_decode`` (one kernel launch per layer), and
-:func:`write_fresh_kv` lands the step's fresh K/V in place through
-``paged_token_write`` (one launch each for K and V).
+Counterpart of ``thunder_tpu/serving/paged_attention.py`` on unquantized
+arenas.  :func:`forward_paged` runs the same per-layer math as
+``models.generate.forward_with_cache`` but attention reads K/V directly
+from the block arena through the ``executors.cudaex`` kernels, one launch
+per layer: ``paged_attn_decode`` for one new token per row (T = 1),
+``paged_attn_verify`` for T > 1 (the speculative verify chunk, T = K+1, and
+the paged chunked-prefill piece, T = the chunk width).  The fresh K/V land
+in place afterwards:
 
-Parity contract: the kernel scores the arena's strictly-older slots and
-folds the fresh token — cast to the cache dtype, exactly what the dense
-path would have just written — as the final online-softmax term, so greedy
-tokens match the gather path and solo ``generate()``.
+- :func:`write_fresh_kv` — one decode step, through ``paged_token_write``;
+- :func:`write_fresh_kv_masked` — a verify step's accepted prefix, one
+  ``paged_token_write_masked`` call per chunk offset;
+- :func:`write_fresh_kv_live` — one multi-step decode iteration, the masked
+  write at offset 0 with the per-row liveness as ``n_emit``;
+- :func:`write_fresh_kv_chunk` — a prefill chunk, block by block, through
+  ``paged_chunk_write``.
+
+Parity contract: the kernels score the arena's committed slots and fold
+the fresh K/V — cast to the cache dtype, exactly what the dense path would
+have just written — as the final online-softmax term, so greedy tokens
+match the gather path and solo ``generate()``.  Quantized arenas (scale
+arenas beside K/V) are not ported yet and raise.
 """
 from __future__ import annotations
 
 import torch
 
-from thunder_tpu_torch.executors.cudaex import paged_attn_decode, paged_token_write
+from thunder_tpu_torch.executors.cudaex import (
+    paged_attn_decode,
+    paged_attn_verify,
+    paged_chunk_write,
+    paged_token_write,
+    paged_token_write_masked,
+)
 from thunder_tpu_torch.models.generate import (
     _block_tail,
     _embed,
@@ -27,7 +43,8 @@ from thunder_tpu_torch.models.generate import (
     _project_qkv,
 )
 
-__all__ = ["forward_paged", "write_fresh_kv", "paged_supported"]
+__all__ = ["forward_paged", "write_fresh_kv", "write_fresh_kv_live", "write_fresh_kv_masked",
+           "write_fresh_kv_chunk", "paged_supported"]
 
 
 def paged_supported(cfg) -> tuple[bool, str]:
@@ -37,40 +54,115 @@ def paged_supported(cfg) -> tuple[bool, str]:
     return True, ""
 
 
-def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cdtype):
-    """Decode forward straight off the KV block arenas.
+def _unquantized(arenas, where: str) -> None:
+    if "k_scale" in arenas or "v_scale" in arenas:
+        raise NotImplementedError(f"{where}: quantized arenas (kv_dtype) are not ported yet")
 
-    ``idx``: (B, 1) tokens; ``pos``: (B,) int32 positions; ``arenas``: the
-    pool's ``{"k", "v"}``; ``tables``: (B, nbb) int32 sink-padded block
-    tables; ``cdtype``: the cache dtype (fresh K/V are cast to it before
-    attending).  Returns ``(logits (B, 1, V) float32, fresh)`` with
-    ``fresh = {"k"/"v": (B, L, ng, hs)}`` at ``cdtype``, which the caller
-    persists with :func:`write_fresh_kv`."""
+
+def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cdtype,
+                  head: bool = True):
+    """Decode/verify/chunk forward straight off the KV block arenas.
+
+    ``idx``: (B, T) tokens at positions ``[pos, pos+T)`` — T = 1 is the
+    decode step, T > 1 a verify chunk or a prefill chunk (causal
+    intra-chunk mask inside the kernel); ``pos``: (B,) int32;
+    ``arenas``: the pool's ``{"k", "v"}``; ``tables``: (B, nbb) int32
+    sink-padded block tables; ``cdtype``: the cache dtype (fresh K/V are
+    cast to it before attending).  ``head=False`` skips the final norm and
+    the vocabulary projection (a prefill chunk needs only its K/V) and
+    returns ``None`` logits.  Returns ``(logits (B, T, V) float32, fresh)``
+    with ``fresh = {"k"/"v": (B, L, ng, hs)}`` for T = 1 or
+    ``(B, L, ng, T, hs)`` for T > 1, at ``cdtype``, which the caller
+    persists with one of the ``write_fresh_kv*`` functions."""
+    _unquantized(arenas, "forward_paged")
     B, T = idx.shape
-    if T != 1:
-        raise NotImplementedError("forward_paged: multi-token queries (speculative verify, "
-                                  "paged chunked prefill) are not ported yet")
+    if T > 1 and cfg.sliding_window is not None:
+        raise ValueError("forward_paged: multi-token queries have no sliding-window keep-mask; "
+                         "windowed models take the gather path for T > 1")
     hs, nh = cfg.head_size, cfg.n_head
     x, cos_t, sin_t = _embed(params, idx, pos, cos_all, sin_all, cfg)
     fresh_k, fresh_v = [], []
     for l, bp in enumerate(params["blocks"]):
         n1 = _norm(x, bp["norm_1"], cfg, bp.get("norm_1_b"))
         q, k, v = _project_qkv(bp["attn"], n1, cos_t, sin_t, cfg)
-        fk = k[:, :, 0].to(cdtype).contiguous()            # (B, ng, hs)
-        fv = v[:, :, 0].to(cdtype).contiguous()
-        y = paged_attn_decode(q[:, :, 0].contiguous(), arenas["k"], arenas["v"], fk, fv,
-                              tables, pos, layer=l, window=cfg.sliding_window)
-        h = _linear(y.reshape(B, 1, nh * hs), bp["attn"]["wo"], bp["attn"].get("bo"))
+        if T == 1:
+            fk = k[:, :, 0].to(cdtype).contiguous()        # (B, ng, hs)
+            fv = v[:, :, 0].to(cdtype).contiguous()
+            y = paged_attn_decode(q[:, :, 0].contiguous(), arenas["k"], arenas["v"], fk, fv,
+                                  tables, pos, layer=l, window=cfg.sliding_window)
+        else:
+            fk = k.to(cdtype).contiguous()                 # (B, ng, T, hs)
+            fv = v.to(cdtype).contiguous()
+            y = paged_attn_verify(q.contiguous(), arenas["k"], arenas["v"], fk, fv,
+                                  tables, pos, layer=l)    # (B, nh, T, hs)
+            y = y.transpose(1, 2)
+        h = _linear(y.reshape(B, T, nh * hs), bp["attn"]["wo"], bp["attn"].get("bo"))
         fresh_k.append(fk)
         fresh_v.append(fv)
         x = _block_tail(bp, x, n1, h, cfg)
-    logits = _head(params, x, cfg)
+    logits = _head(params, x, cfg) if head else None
     return logits, {"k": torch.stack(fresh_k, dim=1), "v": torch.stack(fresh_v, dim=1)}
 
 
 def write_fresh_kv(arenas, fresh, tables, pos, *, block_size: int):
     """Lands one decode step's fresh K/V (``{"k"/"v": (B, L, ng, hs)}``)
     in the arenas, in place; padding rows land in sink block 0."""
+    _unquantized(arenas, "write_fresh_kv")
     for name in ("k", "v"):
         paged_token_write(arenas[name], fresh[name], tables, pos, block_size=block_size)
+    return arenas
+
+
+def write_fresh_kv_masked(arenas, fresh, tables, pos, n_emit, *, block_size: int):
+    """Lands a verify step's accepted prefix in the arenas, in place.
+
+    ``fresh``: ``{"k"/"v": (B, L, ng, T, hs)}`` from a T = K+1
+    :func:`forward_paged` call; ``n_emit``: (B,) int32 accepted counts.
+    Offset ``k`` of row ``i`` lands at ``pos[i] + k`` iff ``k < n_emit[i]``;
+    the rest go to the sink, so rejected drafts leave no trace and the next
+    round derives them again."""
+    _unquantized(arenas, "write_fresh_kv_masked")
+    T = fresh["k"].shape[3]
+    for name in ("k", "v"):
+        for k in range(T):
+            paged_token_write_masked(arenas[name], fresh[name][:, :, :, k].contiguous(), tables,
+                                     pos, n_emit, k, block_size=block_size)
+    return arenas
+
+
+def write_fresh_kv_live(arenas, fresh, tables, pos, live, *, block_size: int):
+    """Lands one multi-step decode iteration's fresh K/V
+    (``{"k"/"v": (B, L, ng, hs)}``), keep-masked by the per-row liveness
+    ``live`` (B,) bool: a live row commits at ``pos`` exactly like
+    :func:`write_fresh_kv`, a dead row (finished earlier, or batch padding)
+    lands in the sink.  An offset-0 masked write with ``n_emit = live``."""
+    _unquantized(arenas, "write_fresh_kv_live")
+    n_emit = live.to(torch.int32)
+    for name in ("k", "v"):
+        paged_token_write_masked(arenas[name], fresh[name], tables, pos, n_emit, 0,
+                                 block_size=block_size)
+    return arenas
+
+
+def _chunk_blocks(x, bs: int):
+    """(1, L, ng, T, hs) chunk-fresh layout → (T // bs, L, ng, bs, hs)
+    block granules for the chunk writer (a transpose, made contiguous)."""
+    _, L, ng, T, hs = x.shape
+    return x[0].reshape(L, ng, T // bs, bs, hs).permute(2, 0, 1, 3, 4).contiguous()
+
+
+def write_fresh_kv_chunk(arenas, fresh, dest, pos, *, block_size: int):
+    """Lands one chunked-prefill piece's K/V in the arenas, block by block,
+    in place.
+
+    ``fresh``: ``{"k"/"v": (1, L, ng, T, hs)}`` from a T = chunk-width
+    :func:`forward_paged` call (T a multiple of ``block_size``); ``dest``:
+    (nbb,) int32 scatter table from ``kv_pool.chunk_tables`` (sink outside
+    the chunk's own blocks); ``pos``: (1,) int32 block-aligned chunk start.
+    Chunk block ``c`` lands as one (L, ng, bs, hs) slab at
+    ``dest[pos // bs + c]``."""
+    _unquantized(arenas, "write_fresh_kv_chunk")
+    for name in ("k", "v"):
+        vals = _chunk_blocks(fresh[name], block_size).to(arenas[name].dtype)
+        paged_chunk_write(arenas[name], vals, dest, pos, block_size=block_size)
     return arenas
