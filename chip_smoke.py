@@ -45,11 +45,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    chunk (T=5) through the kernels against ``forward_with_cache`` over the
    gathered cache, float32 within 1e-3, bf16 error within twice the dense
    bf16 path's own;
-8. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+8. flash attention (run with the kernels of phase 3): the forward, dq and
+   dk/dv kernels against their plain versions at the training shape (B=1,
+   32 heads over 8 KV groups, T=2048, hs=128, causal) and at small shapes
+   (non-causal, a window, Tq != Tk, hs 64 and 256, every mask layout), bf16
+   and float32, each run twice bitwise equal; then their times beside the
+   plain versions, ``F.scaled_dot_product_attention`` and the bounds;
+9. train correctness: one step's loss and grads at Llama-3-8B widths and 4
+   layers, through the kernels against their plain versions, float32 and
+   bf16;
+10. train at full width and depth: 4 AdamW steps of Llama-3-8B (bf16,
+    B=1, T=2048, remat full_block, lr 1e-4) on one fixed batch, with
+    exact flash launch counts, no declines, finite losses and the last below
+    the first; step time, tokens/s, model FLOPs and their share of peak,
+    peak memory, and a profile of one more step by kernel group;
+11. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -58,9 +76,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from thunder_tpu_torch import ltorch
+from thunder_tpu_torch._tree import tree_leaves
+from thunder_tpu_torch.distributed.api import make_train_step
 from thunder_tpu_torch.executors import _build, cudaex
 from thunder_tpu_torch.models.generate import forward_with_cache
-from thunder_tpu_torch.models.llama import Config, build_rope_cache, init_params, param_count
+from thunder_tpu_torch.models.llama import (
+    Config,
+    build_rope_cache,
+    gpt_loss,
+    init_params,
+    param_count,
+)
+from thunder_tpu_torch.train.optim import adamw
 from thunder_tpu_torch.serving import SpecConfig, serve
 from thunder_tpu_torch.serving.kv_pool import SINK_BLOCK, chunk_tables, gather_dense
 from thunder_tpu_torch.serving.paged_attention import forward_paged
@@ -923,6 +951,393 @@ def chunk_and_verify_logits(params, cfg, chunk_case, spec_case):
     return out
 
 
+#
+# phase 8: the flash-attention kernels against their plain versions
+#
+
+# the training shape: Llama-3-8B attention at B=1, T=2048, causal
+FB, FH, FG, FT, FHS = 1, 32, 8, 2048, 128
+# float32: the same arithmetic in another summation order, within this
+# share of each output's largest magnitude
+FLASH_REL_F32 = 1e-5
+
+
+def _flash_run(q, k, v, g, mask, kw, fwd, bwd):
+    out, lse = fwd(q, k, v, mask, **kw)
+    return (out, lse, *bwd(g, q, k, v, out, lse, mask, **kw))
+
+
+FLASH_OUTPUTS = ("out", "lse", "dq", "dk", "dv")
+
+
+def check_flash_case(label, q, k, v, g, mask, kw) -> float:
+    """The kernels against their plain versions on one input set: float32
+    within FLASH_REL_F32 of each output's largest magnitude; bf16 held
+    against the float32 plain result of the same inputs, each output's
+    error at most LOWP_ERR_RATIO times the plain version's own (lse, float32
+    on both sides, under the float32 bar); every kernel run twice gives
+    bitwise-equal outputs.  Returns the largest error against the plain
+    version (bf16: of out, dq, dk, dv)."""
+    got = _flash_run(q, k, v, g, mask, kw, cudaex.flash_sdpa, cudaex.flash_sdpa_backward)
+    again = _flash_run(q, k, v, g, mask, kw, cudaex.flash_sdpa, cudaex.flash_sdpa_backward)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = _flash_run(q, k, v, g, mask, kw, cudaex.flash_sdpa_plain,
+                      cudaex.flash_sdpa_backward_plain)
+    errs = {n: (a.float() - b.float()).abs().max().item() for n, a, b in
+            zip(FLASH_OUTPUTS, got, want)}
+    bars = {n: FLASH_REL_F32 * max(1.0, b.float().abs().max().item())
+            for n, b in zip(FLASH_OUTPUTS, want)}
+    ok = same and all(bool(torch.isfinite(a).all()) for a in got)
+    notes = []
+    if q.dtype == torch.float32:
+        ok = ok and all(errs[n] <= bars[n] for n in FLASH_OUTPUTS)
+    else:
+        ref = _flash_run(*(x.float() for x in (q, k, v, g)), mask, kw, cudaex.flash_sdpa_plain,
+                         cudaex.flash_sdpa_backward_plain)
+        ok = ok and errs["lse"] <= bars["lse"]
+        for n, a, b, r in zip(FLASH_OUTPUTS, got, want, ref):
+            if n == "lse":
+                continue
+            ek, ep = (a.float() - r).abs().max().item(), (b.float() - r).abs().max().item()
+            ok = ok and ek <= LOWP_ERR_RATIO * ep
+            notes.append(f"{n} {ek:.2e}/{ep:.2e}")
+        del ref
+    say(f"flash {label} {str(q.dtype)[6:]}: max_abs_err vs plain "
+        + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+        + (f"; against float32 kernel/plain: {', '.join(notes)} (ratio limit {LOWP_ERR_RATIO})"
+           if notes else f" (bar {FLASH_REL_F32:.0e} of each output's max)")
+        + f"; bitwise repeatable: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash kernels disagree with their plain versions ({label})")
+    return max(e for n, e in errs.items() if n != "lse" or q.dtype == torch.float32)
+
+
+def flash_inputs(gen, B_, H, G, Tq, Tk, hs, dtype, mask=None):
+    dev = DEVICE
+    x = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+         for shape in ((B_, H, Tq, hs), (B_, G, Tk, hs), (B_, G, Tk, hs), (B_, H, Tq, hs))]
+    if mask is not None:
+        layout, mq = mask
+        mq = 1 if mq == 1 else Tq
+        shape = {"shared": (mq, Tk), "batch": (B_, 1, mq, Tk), "head": (1, H, mq, Tk),
+                 "full": (B_, H, mq, Tk)}[layout]
+        bias = torch.randn(shape, generator=gen, device=dev)
+        drop = torch.rand(shape, generator=gen, device=dev) < 0.25
+        mask = torch.where(drop, cudaex.MASK_VALUE, bias)
+    return x, mask
+
+
+# small shapes: non-causal, a window, Tq != Tk, hs 64 and 256, each mask
+# layout with mq 1 and Tq (B, H, G, Tq, Tk, hs, causal, window, mask)
+FLASH_SMALL = [
+    (2, 4, 4, 256, 256, 64, False, None, None),
+    (1, 8, 2, 256, 256, 64, True, 100, None),
+    (1, 8, 2, 128, 256, 64, True, None, None),
+    (1, 4, 2, 256, 128, 256, False, None, None),
+    (2, 4, 2, 128, 128, 64, False, None, ("shared", 1)),
+    (2, 4, 2, 128, 128, 64, False, None, ("shared", "T")),
+    (2, 4, 2, 128, 128, 64, False, None, ("batch", 1)),
+    (2, 4, 2, 128, 128, 64, False, None, ("batch", "T")),
+    (2, 4, 2, 128, 128, 64, False, None, ("head", 1)),
+    (2, 4, 2, 128, 128, 64, False, None, ("head", "T")),
+    (2, 4, 2, 128, 128, 64, False, None, ("full", 1)),
+    (2, 4, 2, 128, 128, 64, False, None, ("full", "T")),
+]
+
+
+def flash_bounds(dtype):
+    """(bytes, operations) each kernel needs at the training shape: inputs
+    read once, outputs written once; the causal pairs' products (the
+    forward 2, the dq kernel 3, the dk/dv kernel 4)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    qn, kn = FB * FH * FT * FHS, FB * FG * FT * FHS
+    rows = FB * FH * FT
+    pairs = FB * FH * FT * (FT + 1) // 2
+    per_product = 2 * FHS * pairs
+    return {
+        "flash_fwd": bound(esize * (2 * qn + 2 * kn) + 4 * rows, 2 * per_product, dtype),
+        "flash_bwd_dq": bound(esize * (3 * qn + 2 * kn) + 8 * rows, 3 * per_product, dtype),
+        "flash_bwd_dkv": bound(esize * (2 * qn + 4 * kn) + 8 * rows, 4 * per_product, dtype),
+    }
+
+
+def check_flash():
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    result = {}
+    kw = dict(causal=True, scale=FHS ** -0.5, window=None)
+    for dtype in (torch.bfloat16, torch.float32):
+        (q, k, v, g), _ = flash_inputs(gen, FB, FH, FG, FT, FT, FHS, dtype)
+        err = check_flash_case(f"training shape B={FB} H={FH} G={FG} T={FT} hs={FHS} causal",
+                               q, k, v, g, None, kw)
+        if dtype == torch.bfloat16:
+            result = time_flash(q, k, v, g, kw)
+            for name in result:
+                result[name]["max_abs_err"] = err
+        del q, k, v, g
+    for B_, H, G, Tq, Tk, hs, causal, window, mask in FLASH_SMALL:
+        for dtype in (torch.bfloat16, torch.float32):
+            (q, k, v, g), m = flash_inputs(gen, B_, H, G, Tq, Tk, hs, dtype, mask)
+            check_flash_case(f"B={B_} H={H} G={G} Tq={Tq} Tk={Tk} hs={hs} causal={causal} "
+                             f"window={window} mask={mask}", q, k, v, g, m,
+                             dict(causal=causal, scale=hs ** -0.5, window=window))
+    return result
+
+
+def time_flash(q, k, v, g, kw):
+    """Times of the three kernels, their plain versions and the library
+    yardstick (``F.scaled_dot_product_attention(..., is_causal=True,
+    enable_gqa=True)``: its forward beside ``flash_fwd``, its backward
+    through autograd, which computes dq, dk and dv together, beside each
+    backward kernel) at the training shape, beside the bounds."""
+    out, lse = cudaex.flash_sdpa(q, k, v, **kw)
+    hs = q.shape[-1]
+    delta = (g.float() * out.float()).sum(dim=-1)
+    mma = cudaex._flash_mma(hs, q.dtype, (g, q, k, v))
+    lib = _build.load_library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    _, ints = cudaex._flash_args(q, k, None, kw["causal"], kw["window"])
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    P = cudaex._ptr
+    tiles = {kind: cudaex._flash_tiles(kind, hs, q.dtype, mma) for kind in ("dq", "dkv")}
+    code = cudaex._FLASH_DTYPE_CODE[q.dtype]
+    scale = ctypes.c_float(kw["scale"])
+
+    def dq_kernel():       # the dq launch alone, as flash_sdpa_backward makes it
+        rc = lib.tt_flash_bwd_dq(P(g), P(q), P(k), P(v), P(lse), P(delta), None, P(dq), *ints,
+                                 *tiles["dq"], int(mma), scale, code, stream)
+        cudaex._raise_on(lib, rc, "flash_bwd_dq")
+
+    def dkv_kernel():
+        rc = lib.tt_flash_bwd_dkv(P(g), P(q), P(k), P(v), P(lse), P(delta), None, P(dk), P(dv),
+                                  *ints, *tiles["dkv"], int(mma), scale, code, stream)
+        cudaex._raise_on(lib, rc, "flash_bwd_dkv")
+
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    def lib_bwd():
+        torch.autograd.grad(lib_out, (ql, kl, vl), g, retain_graph=True)
+
+    bounds = flash_bounds(q.dtype)
+    rec = {
+        "flash_fwd": timed("flash_fwd", "", lambda: cudaex.flash_sdpa(q, k, v, **kw),
+                           lambda: cudaex.flash_sdpa_plain(q, k, v, **kw), lib_fwd,
+                           "SDPA forward", bounds["flash_fwd"], iters=20, plain_iters=3,
+                           plain_warmup=1, device_kernel="flash_fwd_kernel"),
+        "flash_bwd_dq": timed("flash_bwd_dq", "", dq_kernel,
+                              lambda: cudaex.flash_sdpa_backward_plain(g, q, k, v, out, lse, **kw),
+                              lib_bwd, "SDPA backward (dq, dk, dv)", bounds["flash_bwd_dq"],
+                              iters=20, plain_iters=3, plain_warmup=1,
+                              device_kernel="flash_bwd_dq_kernel"),
+        "flash_bwd_dkv": timed("flash_bwd_dkv", "", dkv_kernel,
+                               lambda: cudaex.flash_sdpa_backward_plain(g, q, k, v, out, lse,
+                                                                        **kw),
+                               lib_bwd, "SDPA backward (dq, dk, dv)", bounds["flash_bwd_dkv"],
+                               iters=20, plain_iters=3, plain_warmup=1,
+                               device_kernel="flash_bwd_dkv_kernel"),
+    }
+    say("flash plain times: the backward's plain version computes dq, dk and dv together, "
+        "so both backward rows carry the same plain time")
+    return rec
+
+
+#
+# phases 9-10: train Llama-3-8B at full width
+#
+
+TRAIN_B, TRAIN_T, TRAIN_LR, TRAIN_STEPS = 1, 2048, 1e-4, 4
+TRAIN_LOSS_REL = 1e-5       # float32 step, kernels vs plain versions
+TRAIN_GRAD_REL = 1e-4       # each grad, of its own largest magnitude
+# the bf16 loss is one number, a mean of 2048 row losses: its error against
+# float32 is rounding noise of ~1e-5 relative on either path, so a ratio of
+# two such errors means little; it may exceed twice the plain path's by this
+# share of the loss (the grads, millions of numbers, take the bare ratio)
+TRAIN_LOSS_FLOOR_BF16 = 1e-4
+
+
+def train_batch(cfg, seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    idx = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_T), generator=gen, device=DEVICE)
+    tgt = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_T), generator=gen, device=DEVICE)
+    cos, sin = build_rope_cache(cfg, TRAIN_T, device=DEVICE)
+    return idx, tgt, cos, sin
+
+
+def make_step(cfg, remat="full_block"):
+    return make_train_step(lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg),
+                           adamw(TRAIN_LR), remat=remat)
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """The attention function calls the kernels' plain versions."""
+    saved = dict(ltorch.FLASH)
+    ltorch.FLASH.update(forward=cudaex.flash_sdpa_plain,
+                        backward=cudaex.flash_sdpa_backward_plain)
+    try:
+        yield
+    finally:
+        ltorch.FLASH.update(saved)
+
+
+def train_correctness(params, cfg):
+    """One step's loss and grads at Llama-3-8B widths and 4 layers, through
+    the kernels and through their plain versions: float32 (TF32 off) within
+    TRAIN_LOSS_REL / TRAIN_GRAD_REL; bf16 held against the float32 kernel
+    step, the kernel path's error at most LOWP_ERR_RATIO times the plain
+    path's own (loss, and the relative L2 error of all grads)."""
+    cfg4 = Config.from_name(cfg.name, n_layer=4)
+    batch = train_batch(cfg4, SEED + 9)
+    step = make_step(cfg4)
+    p16 = {**params, "blocks": params["blocks"][:4]}
+    p32 = _cast(p16, torch.float32)
+    loss_k, g_k = step.grads(p32, None, *batch)
+    with plain_flash():
+        loss_p, g_p = step.grads(p32, None, *batch)
+    torch.cuda.synchronize()
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst, worst_name = -1.0, None
+    for name, a, b in zip(_names(g_p), tree_leaves(g_k), tree_leaves(g_p)):
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    ok = loss_err <= TRAIN_LOSS_REL and worst <= TRAIN_GRAD_REL and math.isfinite(loss_k.item())
+    say(f"train step float32, {cfg4.n_layer} layers at full width (B={TRAIN_B}, T={TRAIN_T}): "
+        f"loss kernels {loss_k.item():.6f} plain {loss_p.item():.6f} (rel {loss_err:.2e}, bar "
+        f"{TRAIN_LOSS_REL:.0e}); worst grad rel max-abs diff {worst:.2e} ({worst_name}, bar "
+        f"{TRAIN_GRAD_REL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the float32 train step through the kernels disagrees with the "
+                             "plain versions")
+    del p32, g_p
+    loss16_k, g16_k = step.grads(p16, None, *batch)
+    with plain_flash():
+        loss16_p, g16_p = step.grads(p16, None, *batch)
+    torch.cuda.synchronize()
+
+    def l2_err(gs):
+        num = sum(((a.float() - r) ** 2).sum().item() for a, r in zip(tree_leaves(gs),
+                                                                       tree_leaves(g_k)))
+        den = sum((r ** 2).sum().item() for r in tree_leaves(g_k))
+        return math.sqrt(num / den)
+
+    lk, lp = abs(loss16_k.item() - loss_k.item()), abs(loss16_p.item() - loss_k.item())
+    gk, gp = l2_err(g16_k), l2_err(g16_p)
+    floor = TRAIN_LOSS_FLOOR_BF16 * abs(loss_k.item())
+    ok = lk <= LOWP_ERR_RATIO * lp + floor and gk <= LOWP_ERR_RATIO * gp
+    say(f"train step bf16 against the float32 step: loss error kernels {lk:.3e} plain {lp:.3e} "
+        f"(limit {LOWP_ERR_RATIO}× plain + {floor:.2e}); grads relative L2 error kernels "
+        f"{gk:.3e} plain {gp:.3e} (ratio limit {LOWP_ERR_RATIO}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the bf16 train step through the kernels strays further from float32 "
+                             "than the plain versions")
+    return dict(loss_rel_f32=loss_err, grad_rel_f32=worst, bf16_loss_err=(lk, lp),
+                bf16_grad_l2=(gk, gp))
+
+
+def _names(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _names(tree[k], f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, x in enumerate(tree):
+            yield from _names(x, f"{prefix}[{i}]")
+    else:
+        yield prefix
+
+
+def model_flops(cfg, n_params):
+    """6·N·B·T (the matmuls of forward and backward, every parameter
+    counted) + 3·n_layer·4·B·nh·hs·T²/2 (causal attention, forward and a
+    backward of twice the forward); no remat recompute."""
+    attn = 4 * TRAIN_B * cfg.n_head * cfg.head_size * TRAIN_T ** 2 / 2
+    return 6 * n_params * TRAIN_B * TRAIN_T + 3 * cfg.n_layer * attn
+
+
+def train_full_width(params, cfg):
+    """TRAIN_STEPS AdamW steps of Llama-3-8B at full width and depth on one
+    fixed batch, remat full_block, bf16: exact flash launch counts, no
+    declines, finite losses, the last below the first; then one more step
+    under the profiler."""
+    batch = train_batch(cfg, SEED + 10)
+    step = make_step(cfg)
+    t0 = time.perf_counter()
+    opt_state = step.init_optimizer_state(params)
+    torch.cuda.synchronize()
+    say(f"AdamW state for {param_count(params) / 1e9:.3f} B params in "
+        f"{time.perf_counter() - t0:.1f} s; memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    cudaex.reset_launches()
+    for key in ltorch.DECLINES:
+        ltorch.DECLINES[key] = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, *batch)
+        losses.append(loss.item())                     # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = dict(cudaex.LAUNCHES)
+    declines = dict(ltorch.DECLINES)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layer
+    want = no_launches_but(flash_fwd=2 * L * TRAIN_STEPS, flash_bwd_dq=L * TRAIN_STEPS,
+                           flash_bwd_dkv=L * TRAIN_STEPS)
+    step_s = float(np.mean(times[1:]))
+    flops = model_flops(cfg, param_count(params))
+    say(f"train {cfg.name} bf16, {L} layers, B={TRAIN_B} T={TRAIN_T}, remat "
+        f"{step.last_remat_policy}, AdamW lr {TRAIN_LR}: losses {losses}; step times "
+        f"{[round(t, 4) for t in times]} s (first includes warm-up); step time (steps 2-"
+        f"{TRAIN_STEPS}) {1e3 * step_s:.1f} ms = {TRAIN_B * TRAIN_T / step_s:.1f} tokens/s; "
+        f"model FLOPs per step {flops:.4e} (6·N·B·T + 3·n_layer·4·B·nh·hs·T²/2, N = "
+        f"{param_count(params)}) = {flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{flops / step_s / PEAK_OPS_PER_S[torch.bfloat16]:.4f} of 989 TFLOP/s; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB")
+    say(f"launches during {TRAIN_STEPS} train steps: {launches} (expected {want}); declines "
+        f"{declines}")
+    if launches != want or any(declines.values()):
+        raise AssertionError(f"train launch counts {launches} != {want} or declines {declines}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses {losses}: not finite or not falling")
+    profile_train_step(step, params, opt_state, batch)
+    return dict(launches=launches, losses=losses, step_ms=1e3 * step_s, peak_gib=peak / 2**30)
+
+
+def profile_train_step(step, params, opt_state, batch):
+    """Device time of one more train step by kernel group, from the
+    profiler's CUDA activity, and the card's idle share of its kernel span."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(params, opt_state, *batch)[2].item()
+        torch.cuda.synchronize()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        say("train step profile: not measured (the profiler saw no CUDA activity)")
+        return
+    busy = sum(end - start for _, start, end in spans)
+    window = max(end for *_, end in spans) - min(start for _, start, _ in spans)
+    groups: dict[str, float] = {}
+    for name, start, end in spans:
+        low = name.lower()
+        key = ("flash fwd" if "flash_fwd_kernel" in low
+               else "flash dq" if "flash_bwd_dq_kernel" in low
+               else "flash dk/dv" if "flash_bwd_dkv_kernel" in low
+               else "cuBLAS GEMMs" if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma",
+                                                             "nvjet"))
+               else "optimizer" if "adam" in low
+               else "the rest")
+        groups[key] = groups.get(key, 0.0) + (end - start)
+    say(f"train step profile: device busy {busy / 1e3:.3f} ms over a {window / 1e3:.3f} ms kernel "
+        f"span (idle share {1 - busy / window:.4f}); device ms by group: "
+        f"{ {k: round(v / 1e3, 3) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])} }")
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -950,7 +1365,8 @@ def main() -> int:
 
     recs = {"paged_attn_decode": check_decode(), "paged_token_write": check_write(),
             "paged_attn_verify": check_verify(), "paged_chunk_write": check_chunk_write(),
-            "paged_token_write_masked": check_masked_write()}
+            "paged_token_write_masked": check_masked_write(), **check_flash()}
+    torch.cuda.empty_cache()
     params, cfg = make_params()
     served = {"decode serve": serve_full_width(params, cfg)}
     crec, eng, prompts, tables = chunked_serve(params, cfg)
@@ -967,22 +1383,38 @@ def main() -> int:
     _exact_tokens(_cast({**params, "blocks": params["blocks"][:4]}, torch.float32), cfg4)
     torch.cuda.empty_cache()
     chunk_and_verify_logits(params, cfg, chunk_case, spec_case)
+    del chunk_case, spec_case
+    gc.collect()                 # the serving engines' arenas, held in reference cycles
+    torch.cuda.empty_cache()
+    train_correctness(params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the serving params become the trained ones: updated in place from here
+    served["train step"] = train_full_width(params, cfg)["launches"]
 
     sources = {"paged_attn_decode": "paged_attention.cu", "paged_token_write": "paged_attention.cu",
                "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",
-               "paged_token_write_masked": "paged_attention.cu"}
+               "paged_token_write_masked": "paged_attention.cu",
+               "flash_fwd": "flash_attention.cu", "flash_bwd_dq": "flash_attention.cu",
+               "flash_bwd_dkv": "flash_attention.cu"}
     replaces = {"paged_attn_decode": 1165, "paged_token_write": 1249, "paged_attn_verify": 1376,
-                "paged_chunk_write": 1535, "paged_token_write_masked": 1462}
+                "paged_chunk_write": 1535, "paged_token_write_masked": 1462, "flash_fwd": 293,
+                "flash_bwd_dq": 460, "flash_bwd_dkv": 460}
+    # the Pallas function and its pallas_call site, where they differ
+    counterpart = {"flash_fwd": "_flash_fwd (pallas_call :322)",
+                   "flash_bwd_dq": "_flash_bwd (dq pallas_call :495)",
+                   "flash_bwd_dkv": "_flash_bwd (dk/dv pallas_call :526)"}
     kernels = []
     for name, rec in recs.items():
         by_path = {path: counts[name] for path, counts in served.items() if counts[name]}
         launches = sum(by_path.values())
         if not launches:
-            raise AssertionError(f"{name} launched on no served path")
+            raise AssertionError(f"{name} launched on no path")
         line = f"thunder_tpu/executors/pallasex.py:{replaces[name]}"
         kernels.append(dict(
             name=name, route="cuda", source=f"thunder_tpu_torch/csrc/{sources[name]}",
-            replaces=line, jax_counterpart=f"{line} {name}", check="pass", launches=launches,
+            replaces=line, jax_counterpart=f"{line} {counterpart.get(name, name)}", check="pass",
+            launches=launches,
             launches_by_path=by_path, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_us=1e3 * rec["bound_ms"], bound_by=rec["bound_by"],

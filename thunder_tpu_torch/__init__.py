@@ -8,11 +8,15 @@ paged decode, chunked prefill, speculative serving), and the hand-written
 Hopper kernels of those paths (``executors.cudaex`` over ``csrc/``).  Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
+from thunder_tpu_torch.distributed.api import TrainStep, make_train_step
 from thunder_tpu_torch.models.generate import generate
-from thunder_tpu_torch.models.llama import Config, init_params
+from thunder_tpu_torch.models.llama import Config, gpt_loss, init_params
 from thunder_tpu_torch.models.weights import params_from_numpy
 from thunder_tpu_torch.serving.engine import ServingEngine, serve
 from thunder_tpu_torch.serving.speculative import SpecConfig
+from thunder_tpu_torch.train.loop import TrainLoopResult, train_loop
+from thunder_tpu_torch.train.optim import adamw
 
-__all__ = ["Config", "ServingEngine", "SpecConfig", "generate", "init_params",
-           "params_from_numpy", "serve"]
+__all__ = ["Config", "ServingEngine", "SpecConfig", "TrainLoopResult", "TrainStep", "adamw",
+           "generate", "gpt_loss", "init_params", "make_train_step", "params_from_numpy", "serve",
+           "train_loop"]

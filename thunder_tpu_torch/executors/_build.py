@@ -37,6 +37,9 @@ _SIGNATURES = {
     "tt_paged_attn_verify": ([_P] * 8 + [_I] * 10 + [ctypes.c_float, _I, _I, _P], _I),
     "tt_paged_chunk_write": ([_P] * 4 + [_I, ctypes.c_int64, _I, _I, _I, _P], _I),
     "tt_paged_token_write_masked": ([_P] * 5 + [_I] * 7 + [_P], _I),
+    "tt_flash_fwd": ([_P] * 6 + [_I] * 13 + [ctypes.c_float, _I, _P], _I),
+    "tt_flash_bwd_dq": ([_P] * 8 + [_I] * 13 + [ctypes.c_float, _I, _P], _I),
+    "tt_flash_bwd_dkv": ([_P] * 9 + [_I] * 13 + [ctypes.c_float, _I, _P], _I),
 }
 
 

@@ -16,16 +16,25 @@ of the serving paths:
   (``pallasex.py:1535``): a prefill chunk's K/V landed block by block;
 - :func:`paged_token_write_masked` replaces
   ``pallasex.paged_token_write_masked`` (``pallasex.py:1462``): one chunk
-  offset's K/V landed where the offset was accepted, else in the sink.
+  offset's K/V landed where the offset was accepted, else in the sink;
+
+and for the three kernels of a training step:
+
+- :func:`flash_sdpa` replaces ``pallasex.flash_sdpa`` (``pallasex.py:711``,
+  ``_flash_fwd`` :293): blockwise flash attention, out and f32 lse;
+- :func:`flash_sdpa_backward` replaces ``pallasex.flash_sdpa_backward``
+  (``pallasex.py:739``, ``_flash_bwd`` :460): the dq kernel and the dk/dv
+  kernel (two launches, counted as ``flash_bwd_dq`` and ``flash_bwd_dkv``).
 
 Each wrapper checks device, dtype, shape and contiguity, then routes by the
 device of its tensors: CPU tensors run the plain PyTorch version beside it
 (``*_plain``, the same arithmetic, which the CPU tests hold against the
 Pallas kernels); CUDA tensors launch the kernel from
-``thunder_tpu_torch/csrc/`` (``paged_attention.cu``, ``paged_verify.cu``)
-on the current stream or raise — there is no fallback.  ``LAUNCHES`` counts kernel launches, one per
-wrapper call that launched, so a run can show that its main path went
-through the kernels.
+``thunder_tpu_torch/csrc/`` (``paged_attention.cu``, ``paged_verify.cu``,
+``flash_attention.cu``) on the current stream or raise — there is no
+fallback.  ``LAUNCHES`` counts kernel launches, one per kernel a wrapper
+call launched, so a run can show that its main path went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -39,6 +48,12 @@ from thunder_tpu_torch.executors import _build
 __all__ = [
     "LAUNCHES",
     "MASK_VALUE",
+    "causal_keep",
+    "flash_sdpa",
+    "flash_sdpa_backward",
+    "flash_sdpa_backward_plain",
+    "flash_sdpa_plain",
+    "flash_supported",
     "paged_attn_decode",
     "paged_attn_decode_plain",
     "paged_attn_verify",
@@ -57,7 +72,8 @@ __all__ = [
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 LAUNCHES = {"paged_attn_decode": 0, "paged_token_write": 0, "paged_attn_verify": 0,
-            "paged_chunk_write": 0, "paged_token_write_masked": 0}
+            "paged_chunk_write": 0, "paged_token_write_masked": 0, "flash_fwd": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _KERNEL_HEAD_SIZES = (64, 128, 256)
@@ -530,3 +546,354 @@ def paged_token_write_masked(arena, vals, tables, pos, n_emit, offset: int, *, b
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return arena
+
+
+#
+# flash attention: the training step's forward and backward
+#
+
+_FLASH_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+_MASK_MODE_CODE = {"shared": 0, "batch": 1, "head": 2, "full": 3}
+# (query rows, keys) per tile, in the order the wrapper tries them
+_FLASH_TILES = ((64, 64), (64, 32), (32, 64), (32, 32), (32, 16), (16, 32), (16, 16))
+
+
+def _flash_block(T: int) -> int:
+    """The Pallas kernels' block size for a length-``T`` axis (``_block``,
+    ``pallasex.py:94``): the largest of 512, 256, 128 dividing ``T``, else 0."""
+    return next((b for b in (512, 256, 128) if T % b == 0), 0)
+
+
+def _gqa_rep(q_shape, k_shape) -> int | None:
+    """Heads per KV group, or None when the shapes do not fit the kernels
+    (``_gqa_rep``, ``pallasex.py:121``)."""
+    if tuple(q_shape[:-2]) == tuple(k_shape[:-2]):
+        return 1
+    if len(q_shape) < 3 or tuple(q_shape[:-3]) != tuple(k_shape[:-3]):
+        return None
+    H, G = q_shape[-3], k_shape[-3]
+    if G <= 0 or H % G != 0:
+        return None
+    return H // G
+
+
+def _canon_mask(mask_shape, q_shape, k_shape):
+    """``(mode, mq)`` of an additive mask against the kernels' flat
+    batch×head axis, or None (``_canon_mask``, ``pallasex.py:139``): mode
+    ``shared`` (broadcast), ``batch`` (flat // H: the HF padding-mask layout),
+    ``head`` (flat % H) or ``full``; ``mq`` is 1 (row-broadcast) or Tq."""
+    *qb, Tq, _ = q_shape
+    Tk = k_shape[-2]
+    if len(mask_shape) > len(qb) + 2:
+        return None
+    ms = (1,) * (len(qb) + 2 - len(mask_shape)) + tuple(mask_shape)
+    if ms[-1] != Tk:
+        return None
+    mq = ms[-2]
+    if mq not in (1, Tq):
+        return None
+    mb = ms[:-2]
+    if any(md not in (1, qd) for md, qd in zip(mb, qb)):
+        return None
+    if all(md == 1 for md in mb):
+        return ("shared", mq)
+    if all(md == qd for md, qd in zip(mb, qb)):
+        return ("full", mq)
+    if len(mb) == 2 and mb[1] == 1:
+        return ("batch", mq)
+    if len(mb) == 2 and mb[0] == 1:
+        return ("head", mq)
+    return None
+
+
+def flash_supported(q_shape, k_shape, v_shape, dtype, causal, mask_shape=None,
+                    window=None) -> bool:
+    """Whether the flash kernels take these shapes (``_supported``,
+    ``pallasex.py:180``): one head size for q/k/v, up to 512; query and key
+    lengths multiples of 128; native GQA; a window only with causal;
+    bfloat16 or float32; a mask in one of the four layouts."""
+    if window is not None and (not causal or int(window) <= 0):
+        return False
+    *_, Tq, hs = q_shape
+    Tk = k_shape[-2]
+    if v_shape[-1] != hs or _gqa_rep(q_shape, k_shape) is None:
+        return False
+    if tuple(k_shape[:-1]) != tuple(v_shape[:-1]):
+        return False
+    if -(-hs // 128) * 128 > 512:
+        return False
+    if _flash_block(Tq) == 0 or _flash_block(Tk) == 0:
+        return False
+    if dtype not in _FLASH_DTYPE_CODE:
+        return False
+    return mask_shape is None or _canon_mask(mask_shape, q_shape, k_shape) is not None
+
+
+def _flash_smem(kind: str, R: int, KT: int, hs: int, esize: int, mma: bool) -> int:
+    """Bytes of shared memory of one block (``*_smem`` in
+    ``csrc/flash_attention.cu``, which carves the buffers in this order)."""
+    tp, fp = (16 // esize, 4) if mma else (1, 1)
+
+    def t(rows, w):
+        return -(-rows * (w + tp) * esize // 128) * 128
+
+    def f(rows, w):
+        return -(-rows * (w + fp) * 4 // 128) * 128
+
+    vec = -(-4 * R // 128) * 128
+    if kind == "fwd":
+        return t(R, hs) + 2 * t(KT, hs) + f(R, hs) + f(R, KT) + t(R, KT) + 2 * vec
+    if kind == "dq":
+        return 2 * t(R, hs) + 2 * t(KT, hs) + f(R, hs) + 2 * f(R, KT) + t(R, KT) + 2 * vec
+    return 2 * t(KT, hs) + 2 * t(R, hs) + 2 * f(KT, hs) + 2 * f(KT, R) + 2 * t(KT, R) + 2 * vec
+
+
+def _flash_tiles(kind: str, hs: int, dtype, mma: bool) -> tuple[int, int]:
+    """(query rows, keys) per tile of kernel ``kind`` ("fwd", "dq", "dkv"):
+    the first of ``_FLASH_TILES`` whose shared memory fits a Hopper block."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    return next(rk for rk in _FLASH_TILES
+                if _flash_smem(kind, *rk, hs, esize, mma) <= _MAX_SMEM_BYTES)
+
+
+def _flash_mma(hs: int, dtype, tensors) -> bool:
+    """The tensor-core body takes bf16 with hs a multiple of 16 and every
+    tensor 16-byte aligned (its 16-byte vector loads)."""
+    return (dtype == torch.bfloat16 and hs % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _geometry(q_shape, k_shape):
+    """(BH, BG, H, G): the flat q-head and KV-head counts and the per-batch
+    head counts (``_local_geometry``, ``pallasex.py:566``)."""
+    BH = int(np.prod(q_shape[:-2], dtype=np.int64))
+    BG = int(np.prod(k_shape[:-2], dtype=np.int64))
+    H = q_shape[-3] if len(q_shape) >= 3 else 1
+    G = k_shape[-3] if len(k_shape) >= 3 else 1
+    return BH, BG, H, G
+
+
+def _kv_of(BH: int, H: int, G: int, device) -> torch.Tensor:
+    """KV index of each flat q head: ``(b // H) * G + (b % H) // (H // G)``
+    (``_kv_index``, ``pallasex.py:266``)."""
+    b = torch.arange(BH, device=device)
+    return (b // H) * G + (b % H) // (H // G)
+
+
+def _mask3(mask, q_shape, k_shape):
+    """The mask as the kernels' (M, mq, Tk) f32 and its layout, or
+    (None, None, 1)."""
+    if mask is None:
+        return None, None, 1
+    mode, mq = _canon_mask(tuple(mask.shape), q_shape, k_shape)
+    return mask.reshape(-1, mq, k_shape[-2]).float().contiguous(), mode, mq
+
+
+def _mask_rows(mask3, mode, BH: int, H: int):
+    """(BH, mq, Tk): each flat q head's slice of the canonical mask."""
+    b = torch.arange(BH, device=mask3.device)
+    idx = {"shared": b * 0, "batch": b // H, "head": b % H, "full": b}[mode]
+    return mask3[idx]
+
+
+def _acc_dtype(dtype):
+    """The accumulation type: float32 (float64 stays float64, for gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def causal_keep(Tq: int, Tk: int, window, device) -> torch.Tensor:
+    """Causal (+ sliding-window) keep-mask, top-left: row ``i`` sees cols
+    ``(i - window, i]`` (``_band``, ``jaxex.py:527``)."""
+    row = torch.arange(Tq, device=device)[:, None]
+    col = torch.arange(Tk, device=device)[None, :]
+    keep = row >= col
+    if window is not None:
+        keep = keep & (col > row - window)
+    return keep
+
+
+def flash_sdpa_plain(q, k, v, mask=None, *, causal: bool, scale: float, window=None):
+    """Plain PyTorch version of :func:`flash_sdpa` with the kernel's
+    arithmetic: f32 scores ``q·kᵀ * scale`` (+ mask), masked scores at
+    ``MASK_VALUE``, one online-softmax step per key tile, f32 accumulators,
+    over the kernel's own tiles: the probabilities round to the value type
+    against the running max of each key tile, and a causal block of query
+    rows skips the tiles the kernel skips (which decides what a row masked
+    whole averages over)."""
+    *batch, Tq, hs = q.shape
+    Tk = k.shape[-2]
+    BH, BG, H, G = _geometry(tuple(q.shape), tuple(k.shape))
+    R, KT = _flash_tiles("fwd", hs, q.dtype, _flash_mma(hs, q.dtype, ()))
+    ft = _acc_dtype(q.dtype)
+    kv = _kv_of(BH, H, G, q.device)
+    qf = q.reshape(BH, Tq, hs).to(ft)
+    kx = k.reshape(BG, Tk, hs)[kv].to(ft)
+    vx = v.reshape(BG, Tk, hs)[kv]
+    mask3, mode, _ = _mask3(mask, tuple(q.shape), tuple(k.shape))
+    mrows = None if mask3 is None else _mask_rows(mask3, mode, BH, H)
+    keep = causal_keep(Tq, Tk, window, q.device) if causal else None
+    row0 = torch.arange(Tq, device=q.device) // R * R     # first row of each row's block
+    m = torch.full((BH, Tq, 1), MASK_VALUE, dtype=ft, device=q.device)
+    l = torch.zeros((BH, Tq, 1), dtype=ft, device=q.device)
+    acc = torch.zeros((BH, Tq, hs), dtype=ft, device=q.device)
+    for c0 in range(0, Tk, KT):
+        cols = slice(c0, c0 + KT)
+        s = torch.matmul(qf, kx[:, cols].transpose(1, 2)) * scale
+        if mrows is not None:
+            s = s + mrows[:, :, cols].to(ft)
+        if keep is not None:
+            s = torch.where(keep[:, cols], s, MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(dim=-1, keepdim=True)
+        acc_new = acc * corr + torch.matmul(p.to(v.dtype).to(ft), vx[:, cols].to(ft))
+        if causal:   # the kernel's tile skip, per block of query rows
+            run = c0 <= row0 + R - 1
+            if window is not None:
+                run = run & (c0 + KT - 1 > row0 - window)
+            run = run[None, :, None]
+            m_new, l_new = torch.where(run, m_new, m), torch.where(run, l_new, l)
+            acc_new = torch.where(run, acc_new, acc)
+        m, l, acc = m_new, l_new, acc_new
+    out = (acc / l).to(q.dtype).reshape(*batch, Tq, hs)
+    return out, (m + torch.log(l)).reshape(*batch, Tq)
+
+
+def flash_sdpa_backward_plain(g, q, k, v, out, lse, mask=None, *, causal: bool, scale: float,
+                              window=None):
+    """Plain PyTorch version of :func:`flash_sdpa_backward` with the
+    kernels' arithmetic: ``p = exp(s - lse)`` (0 where causally masked),
+    ``delta = Σ g·out`` in f32, ``ds = p·(dp - delta)``; ds rounds to the key
+    type for dq and the query type for dk, p to the gradient type for dv;
+    dk/dv sum each group's q heads in f32 and round once."""
+    *batch, Tq, hs = q.shape
+    Tk = k.shape[-2]
+    BH, BG, H, G = _geometry(tuple(q.shape), tuple(k.shape))
+    rep = H // G
+    ft = _acc_dtype(q.dtype)
+    kv = _kv_of(BH, H, G, q.device)
+    qf = q.reshape(BH, Tq, hs).to(ft)
+    gf = g.reshape(BH, Tq, hs).to(ft)
+    kx = k.reshape(BG, Tk, hs)[kv].to(ft)
+    vx = v.reshape(BG, Tk, hs)[kv].to(ft)
+    s = torch.matmul(qf, kx.transpose(1, 2)) * scale
+    mask3, mode, _ = _mask3(mask, tuple(q.shape), tuple(k.shape))
+    if mask3 is not None:
+        s = s + _mask_rows(mask3, mode, BH, H).to(ft)
+    p = torch.exp(s - lse.reshape(BH, Tq, 1).to(ft))
+    if causal:
+        p = torch.where(causal_keep(Tq, Tk, window, q.device), p, 0.0)
+    dp = torch.matmul(gf, vx.transpose(1, 2))
+    delta = (gf * out.reshape(BH, Tq, hs).to(ft)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = scale * torch.matmul(ds.to(k.dtype).to(ft), kx)
+    dv = torch.matmul(p.to(g.dtype).to(ft).transpose(1, 2), gf)
+    dk = torch.matmul(ds.to(q.dtype).to(ft).transpose(1, 2), qf)
+    # flat q-head order is (batch, group, rep): sum rep onto each group
+    dv = dv.reshape(BG, rep, Tk, hs).sum(dim=1)
+    dk = scale * dk.reshape(BG, rep, Tk, hs).sum(dim=1)
+    return (dq.to(q.dtype).reshape(q.shape), dk.to(k.dtype).reshape(k.shape),
+            dv.to(v.dtype).reshape(v.shape))
+
+
+def _flash_check(name, tensors: dict, mask, causal, window):
+    q, k, v = tensors["q"], tensors["k"], tensors["v"]
+    dev = q.device
+    for arg, t in tensors.items():
+        _require(isinstance(t, torch.Tensor), f"{name}: {arg} must be a tensor")
+        _require(t.device == dev, f"{name}: {arg} is on {t.device}, q on {dev}")
+    _require(dev.type in ("cpu", "cuda"), f"{name}: unsupported device {dev}")
+    _require(k.dtype == v.dtype == q.dtype, f"{name}: q, k, v must share one dtype")
+    _require(mask is None or (isinstance(mask, torch.Tensor) and mask.device == dev),
+             f"{name}: mask must be a tensor on {dev}")
+    _require(flash_supported(tuple(q.shape), tuple(k.shape), tuple(v.shape), q.dtype, causal,
+                             None if mask is None else tuple(mask.shape), window),
+             f"{name}: the flash kernels do not take q {tuple(q.shape)}, k {tuple(k.shape)}, "
+             f"v {tuple(v.shape)}, {q.dtype}, causal={causal}, window={window}, mask "
+             f"{None if mask is None else tuple(mask.shape)} (T % 128, hs <= 512, bf16/f32, "
+             f"GQA, the four mask layouts)")
+
+
+def _flash_args(q, k, mask, causal, window):
+    """The ints every flash entry point shares, before (R, KT, mma)."""
+    *_, Tq, hs = q.shape
+    Tk = k.shape[-2]
+    BH, _, H, G = _geometry(tuple(q.shape), tuple(k.shape))
+    mask3, mode, mq = _mask3(mask, tuple(q.shape), tuple(k.shape))
+    ints = [BH, H, G, Tq, Tk, hs, -1 if mode is None else _MASK_MODE_CODE[mode], mq,
+            int(bool(causal)), 0 if window is None else int(window)]
+    return mask3, ints
+
+
+def flash_sdpa(q, k, v, mask=None, *, causal: bool, scale: float, window=None):
+    """Flash attention forward: ``(out, lse)``.
+
+    ``q``: (*batch, H, Tq, hs); ``k``/``v``: (*batch, G, Tk, hs) with ``H % G
+    == 0`` (or the same leading dims as q); ``mask``: an additive mask
+    broadcastable in one of the four ``_canon_mask`` layouts, or None;
+    ``causal`` top-left; ``window``: sliding window (causal only).  Returns
+    ``out`` (*batch, H, Tq, hs) at q's dtype and ``lse`` (*batch, H, Tq) f32.
+    Shapes :func:`flash_supported` declines raise ``ValueError``."""
+    name = "flash_sdpa"
+    _flash_check(name, dict(q=q, k=k, v=v), mask, causal, window)
+    if q.device.type == "cpu":
+        return flash_sdpa_plain(q, k, v, mask, causal=causal, scale=scale, window=window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    *batch, Tq, hs = q.shape
+    mask3, ints = _flash_args(q, k, mask, causal, window)
+    mma = _flash_mma(hs, q.dtype, (q, k, v))
+    R, KT = _flash_tiles("fwd", hs, q.dtype, mma)
+    lib = _build.load_library()
+    out = torch.empty_like(q)
+    lse = torch.empty((*batch, Tq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.tt_flash_fwd(
+            _ptr(q), _ptr(k), _ptr(v), None if mask3 is None else _ptr(mask3), _ptr(out),
+            _ptr(lse), *ints, R, KT, int(mma), ctypes.c_float(scale),
+            _FLASH_DTYPE_CODE[q.dtype], ctypes.c_void_p(stream))
+    _raise_on(lib, rc, name)
+    LAUNCHES["flash_fwd"] += 1
+    return out, lse
+
+
+def flash_sdpa_backward(g, q, k, v, out, lse, mask=None, *, causal: bool, scale: float,
+                        window=None):
+    """Flash attention backward: ``(dq, dk, dv)`` from ``(g, q, k, v, out,
+    lse)``, never the (Tq, Tk) probabilities.  Shapes as :func:`flash_sdpa`;
+    ``g``/``out`` like q, ``lse`` (*batch, H, Tq) f32.  ``delta = Σ g·out``
+    is computed here in f32, as the Pallas wrapper computes it outside its
+    kernels; then the dq kernel and the dk/dv kernel launch."""
+    name = "flash_sdpa_backward"
+    _flash_check(name, dict(q=q, k=k, v=v, g=g, out=out, lse=lse), mask, causal, window)
+    _require(tuple(g.shape) == tuple(q.shape) == tuple(out.shape) and g.dtype == q.dtype
+             and out.dtype == q.dtype, f"{name}: g and out must match q")
+    _require(tuple(lse.shape) == tuple(q.shape[:-1]) and lse.dtype == torch.float32,
+             f"{name}: lse must be float32 {tuple(q.shape[:-1])}")
+    if q.device.type == "cpu":
+        return flash_sdpa_backward_plain(g, q, k, v, out, lse, mask, causal=causal, scale=scale,
+                                         window=window)
+    g, q, k, v, out, lse = (t.contiguous() for t in (g, q, k, v, out, lse))
+    hs = q.shape[-1]
+    mask3, ints = _flash_args(q, k, mask, causal, window)
+    delta = (g.float() * out.float()).sum(dim=-1)
+    mma = _flash_mma(hs, q.dtype, (g, q, k, v))
+    lib = _build.load_library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    mptr = None if mask3 is None else _ptr(mask3)
+    with torch.cuda.device(q.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+        R, KT = _flash_tiles("dq", hs, q.dtype, mma)
+        rc = lib.tt_flash_bwd_dq(
+            _ptr(g), _ptr(q), _ptr(k), _ptr(v), _ptr(lse), _ptr(delta), mptr, _ptr(dq),
+            *ints, R, KT, int(mma), ctypes.c_float(scale), _FLASH_DTYPE_CODE[q.dtype], stream)
+        _raise_on(lib, rc, f"{name} (dq)")
+        LAUNCHES["flash_bwd_dq"] += 1
+        R, KT = _flash_tiles("dkv", hs, q.dtype, mma)
+        rc = lib.tt_flash_bwd_dkv(
+            _ptr(g), _ptr(q), _ptr(k), _ptr(v), _ptr(lse), _ptr(delta), mptr, _ptr(dk), _ptr(dv),
+            *ints, R, KT, int(mma), ctypes.c_float(scale), _FLASH_DTYPE_CODE[q.dtype], stream)
+        _raise_on(lib, rc, f"{name} (dk/dv)")
+        LAUNCHES["flash_bwd_dkv"] += 1
+    return dq, dk, dv

@@ -23,10 +23,16 @@ import math
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from thunder_tpu_torch._device import resolve_device
-from thunder_tpu_torch.models.llama import Config, build_rope_cache
+from thunder_tpu_torch.models.llama import (
+    Config,
+    _linear,
+    _norm,
+    _project_qkv,
+    build_rope_cache,
+    mlp,
+)
 
 __all__ = [
     "init_cache",
@@ -37,66 +43,6 @@ __all__ = [
     "kv_block_shape",
     "sample_token",
 ]
-
-
-def _linear(x, w, b=None):
-    out = F.linear(x, w)
-    return out if b is None else out + b
-
-
-def _norm(x, w, cfg: Config, b=None):
-    xf = x.float()
-    if cfg.norm_class == "RMSNorm":
-        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-        xf = xf * torch.rsqrt(ms + cfg.norm_eps)
-    else:
-        mu = torch.mean(xf, dim=-1, keepdim=True)
-        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-        xf = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-    out = xf * w.float()
-    if b is not None:
-        out = out + b.float()
-    return out.to(x.dtype)
-
-
-def _rope(x, cos, sin):
-    # x: (B, h, T, n_elem); cos/sin: broadcastable (.., T, n_elem) float32
-    half = x.shape[-1] // 2
-    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-    return (x * cos + rotated * sin).to(x.dtype)
-
-
-def _mlp(mp, x, cfg: Config):
-    def ll(name, inp, bias=None):
-        return _linear(inp, mp[name], mp.get(bias) if bias else None)
-
-    if cfg.mlp_class == "LLaMAMoE":
-        raise NotImplementedError("the LLaMAMoE MLP is not ported yet")
-    if cfg.mlp_class == "LLaMAMLP":
-        return ll("proj", F.silu(ll("fc_1", x, "fc_1_b")) * ll("fc_2", x, "fc_2_b"), "proj_b")
-    approx = "tanh" if cfg.gelu_approximate == "tanh" else "none"
-    if cfg.mlp_class == "GemmaMLP":
-        return ll("proj", F.gelu(ll("fc_1", x, "fc_1_b"), approximate=approx)
-                  * ll("fc_2", x, "fc_2_b"), "proj_b")
-    return ll("proj", F.gelu(ll("fc", x, "fc_b"), approximate=approx), "proj_b")
-
-
-def _project_qkv(ap, x, cos_t, sin_t, cfg: Config):
-    """QKV projections + partial rotary for new tokens: x (B, T, C) →
-    q (B, nh, T, hs), k/v (B, ng, T, hs) — K/V stay at the grouped head
-    count."""
-    B, T, _ = x.shape
-    hs, nh, ng = cfg.head_size, cfg.n_head, cfg.n_query_groups
-    q = _linear(x, ap["wq"], ap.get("bq")).reshape(B, T, nh, hs).transpose(1, 2)
-    k = _linear(x, ap["wk"], ap.get("bk")).reshape(B, T, ng, hs).transpose(1, 2)
-    v = _linear(x, ap["wv"], ap.get("bv")).reshape(B, T, ng, hs).transpose(1, 2)
-    n_elem = cfg.rope_n_elem
-    if n_elem > 0:
-        q_r = _rope(q[..., :n_elem], cos_t, sin_t)
-        k_r = _rope(k[..., :n_elem], cos_t, sin_t)
-        q = torch.cat([q_r, q[..., n_elem:]], dim=-1) if n_elem < hs else q_r
-        k = torch.cat([k_r, k[..., n_elem:]], dim=-1) if n_elem < hs else k_r
-    return q, k, v
 
 
 def cache_len(cfg: Config, T_max: int) -> int:
@@ -207,9 +153,9 @@ def _block_tail(bp, x, n1, h, cfg: Config):
     """Residual + MLP half of a block, given the attention output ``h``."""
     if cfg.parallel_residual:
         n2 = n1 if cfg.shared_attention_norm else _norm(x, bp["norm_2"], cfg, bp.get("norm_2_b"))
-        return x + h + _mlp(bp["mlp"], n2, cfg)
+        return x + h + mlp(bp["mlp"], n2, cfg)
     x = x + h
-    return x + _mlp(bp["mlp"], _norm(x, bp["norm_2"], cfg, bp.get("norm_2_b")), cfg)
+    return x + mlp(bp["mlp"], _norm(x, bp["norm_2"], cfg, bp.get("norm_2_b")), cfg)
 
 
 def forward_with_cache(params, idx, pos, cache, cos_all, sin_all, cfg: Config):

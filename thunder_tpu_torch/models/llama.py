@@ -1,6 +1,6 @@
-"""LitGPT-style Llama model family: configs, parameters, rope.
+"""LitGPT-style Llama model family: configs, parameters, rope, forward, loss.
 
-Counterpart of ``thunder_tpu/models/llama.py`` (lines 44-364): the same
+Counterpart of ``thunder_tpu/models/llama.py`` (lines 44-533): the same
 ``Config`` dataclass and config zoo, the same params layout (nested dicts /
 a list of per-block dicts, linear weights stored ``(fan_out, fan_in)``), so
 a JAX params pytree carries over key for key
@@ -9,9 +9,16 @@ a JAX params pytree carries over key for key
 Parameters are drawn on the target device from an explicit
 ``torch.Generator``; the numbers differ from ``jax.random`` for the same
 seed, so tests that compare the two packages build weights once (with JAX
-or numpy) and carry them over.  The traced training forward
-(``gpt_forward``/``gpt_loss``) belongs to a later slice; the serving
-forward lives in :mod:`thunder_tpu_torch.models.generate`.
+or numpy) and carry them over.
+
+The training forward (``gpt_hidden``/``gpt_forward``/``gpt_loss``) runs
+eagerly under autograd where the JAX package traces it: attention and
+cross-entropy go through :mod:`thunder_tpu_torch.ltorch` (the flash kernels
+and their backward), and each block runs under the remat policy of the
+enclosing train step (:func:`thunder_tpu_torch.train.remat.run_block`).
+MoE MLPs, ``fused_head_ce`` and the attention ``lora`` hook are not ported
+and raise ``NotImplementedError``.  The serving forward lives in
+:mod:`thunder_tpu_torch.models.generate`; both share the block helpers here.
 """
 from __future__ import annotations
 
@@ -20,8 +27,12 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
+from thunder_tpu_torch import ltorch
 from thunder_tpu_torch._device import resolve_device
+from thunder_tpu_torch._tree import tree_leaves
+from thunder_tpu_torch.train import remat
 
 __all__ = [
     "Config",
@@ -30,6 +41,13 @@ __all__ = [
     "init_params",
     "build_rope_cache",
     "param_count",
+    "apply_rope",
+    "attention",
+    "mlp",
+    "block_forward",
+    "gpt_hidden",
+    "gpt_forward",
+    "gpt_loss",
 ]
 
 
@@ -259,19 +277,8 @@ def init_params(config: Config, *, generator: torch.Generator | None = None,
     return params
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def param_count(params) -> int:
-    return sum(int(x.numel()) for x in _leaves(params))
+    return sum(int(x.numel()) for x in tree_leaves(params))
 
 
 def _llama3_rescale_freqs(theta: torch.Tensor, params: dict) -> torch.Tensor:
@@ -308,3 +315,132 @@ def build_rope_cache(config: Config, seq_len: int, dtype=torch.float32,
     idx_theta = torch.outer(seq, theta)                      # (T, n_elem/2)
     idx_theta = torch.cat([idx_theta, idx_theta], dim=-1)    # (T, n_elem)
     return torch.cos(idx_theta).to(dtype), torch.sin(idx_theta).to(dtype)
+
+
+#
+# Block helpers, shared by the training forward below and the serving
+# forward (models/generate.py, serving/paged_attention.py)
+#
+
+
+def _linear(x, w, b=None):
+    out = F.linear(x, w)
+    return out if b is None else out + b
+
+
+def _norm(x, w, cfg: Config, b=None):
+    xf = x.float()
+    if cfg.norm_class == "RMSNorm":
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        xf = xf * torch.rsqrt(ms + cfg.norm_eps)
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        xf = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+    out = xf * w.float()
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
+
+
+def apply_rope(x, cos, sin):
+    # x: (B, h, T, n_elem); cos/sin: broadcastable (.., T, n_elem) float32
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x * cos + rotated * sin).to(x.dtype)
+
+
+def mlp(mp, x, cfg: Config):
+    def ll(name, inp, bias=None):
+        return _linear(inp, mp[name], mp.get(bias) if bias else None)
+
+    if cfg.mlp_class == "LLaMAMoE":
+        raise NotImplementedError("the LLaMAMoE MLP is not ported yet")
+    if cfg.mlp_class == "LLaMAMLP":
+        return ll("proj", F.silu(ll("fc_1", x, "fc_1_b")) * ll("fc_2", x, "fc_2_b"), "proj_b")
+    approx = "tanh" if cfg.gelu_approximate == "tanh" else "none"
+    if cfg.mlp_class == "GemmaMLP":
+        return ll("proj", F.gelu(ll("fc_1", x, "fc_1_b"), approximate=approx)
+                  * ll("fc_2", x, "fc_2_b"), "proj_b")
+    return ll("proj", F.gelu(ll("fc", x, "fc_b"), approximate=approx), "proj_b")
+
+
+def _project_qkv(ap, x, cos_t, sin_t, cfg: Config):
+    """QKV projections + partial rotary for new tokens: x (B, T, C) →
+    q (B, nh, T, hs), k/v (B, ng, T, hs) — K/V stay at the grouped head
+    count."""
+    B, T, _ = x.shape
+    hs, nh, ng = cfg.head_size, cfg.n_head, cfg.n_query_groups
+    q = _linear(x, ap["wq"], ap.get("bq")).reshape(B, T, nh, hs).transpose(1, 2)
+    k = _linear(x, ap["wk"], ap.get("bk")).reshape(B, T, ng, hs).transpose(1, 2)
+    v = _linear(x, ap["wv"], ap.get("bv")).reshape(B, T, ng, hs).transpose(1, 2)
+    n_elem = cfg.rope_n_elem
+    if n_elem > 0:
+        q_r = apply_rope(q[..., :n_elem], cos_t, sin_t)
+        k_r = apply_rope(k[..., :n_elem], cos_t, sin_t)
+        q = torch.cat([q_r, q[..., n_elem:]], dim=-1) if n_elem < hs else q_r
+        k = torch.cat([k_r, k[..., n_elem:]], dim=-1) if n_elem < hs else k_r
+    return q, k, v
+
+
+
+#
+# Training forward (thunder_tpu/models/llama.py:372-533)
+#
+
+
+def attention(ap, x, cos, sin, config: Config):
+    """Causal self-attention of one block: x (B, T, C) → (B, T, C).  GQA
+    K/V go to the SDPA op at the grouped head count (the flash kernels
+    gather each group by index)."""
+    if ap.get("lora"):
+        raise NotImplementedError("attention: the lora hook (ap['lora']) is not ported")
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(ap, x, cos, sin, config)
+    y = ltorch.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                            sliding_window=config.sliding_window)
+    y = y.transpose(1, 2).reshape(B, T, config.n_head * config.head_size)
+    return _linear(y, ap["wo"], ap.get("bo"))
+
+
+def block_forward(bp, x, cos, sin, config: Config):
+    n1 = _norm(x, bp["norm_1"], config, bp.get("norm_1_b"))
+    h = attention(bp["attn"], n1, cos, sin, config)
+    if config.parallel_residual:
+        n2 = n1 if config.shared_attention_norm else _norm(x, bp["norm_2"], config,
+                                                            bp.get("norm_2_b"))
+        return x + h + mlp(bp["mlp"], n2, config)
+    x = x + h
+    return x + mlp(bp["mlp"], _norm(x, bp["norm_2"], config, bp.get("norm_2_b")), config)
+
+
+def gpt_hidden(params, idx, cos, sin, config: Config):
+    """Token ids (B, T) → final hidden states (B, T, C) (pre-head)."""
+    if config.mlp_class == "LLaMAMoE":
+        raise NotImplementedError("gpt_hidden: MoE configs (LLaMAMoE) are not ported")
+    x = F.embedding(idx.long(), params["wte"])
+    if config.scale_embedding:
+        x = x * (config.n_embd ** 0.5)
+    if config.learned_pos_embedding:
+        x = x + params["wpe"][:idx.shape[1]]
+    for bp in params["blocks"]:
+        x = remat.run_block(block_forward, bp, x, cos, sin, config)
+    return _norm(x, params["ln_f"], config, params.get("ln_f_b"))
+
+
+def gpt_forward(params, idx, cos, sin, config: Config):
+    """Token ids (B, T) → logits (B, T, padded_vocab_size)."""
+    x = gpt_hidden(params, idx, cos, sin, config)
+    head = params["wte"] if config.tie_embeddings else params["lm_head"]
+    return _linear(x, head, params.get("lm_head_b"))
+
+
+def gpt_loss(params, idx, targets, cos, sin, config: Config):
+    """Next-token cross-entropy over the padded vocab, float32 accumulation;
+    targets of ``-100`` are ignored with exact mean normalization."""
+    if config.fused_head_ce:
+        raise NotImplementedError("gpt_loss: fused_head_ce (the fused lm-head + cross-entropy) "
+                                  "is not ported")
+    logits = gpt_forward(params, idx, cos, sin, config)
+    V = logits.shape[-1]
+    return ltorch.cross_entropy(logits.reshape(-1, V).to(torch.float32), targets.reshape(-1))
