@@ -21,7 +21,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version's own); the chunk and masked writes bitwise outside sink
    block 0, every offset of the masked write.  Then CUDA-event and profiler times of kernel, plain
    version and one library call computing the same function, beside the
-   bound;
+   bound.  On int8 and fp8 arenas (quantized KV): ``paged_attn_decode``
+   (B=8) and ``paged_attn_verify`` (both shapes; the profiler must see the
+   tensor-core body run on the quantized arena) in float32 within 1e-5 and
+   in bf16 by the ratio bar; ``paged_token_write_fused`` (B=8, the plain
+   write and every offset 0..4 of the masked one) and
+   ``paged_chunk_write_fused`` (32 blocks) with stored bytes and scales
+   bitwise equal to the plain versions' and error sums within 1e-5
+   relative; their times beside the bounds (no single PyTorch call
+   computes these functions, so no library time);
 4. serve: Llama-3-8B at full width (random weights from a seed) through
    ``serve(None, params, cfg, attn="paged")``: 8 greedy requests with
    prompts of 128-1024 tokens and 32 new tokens each; the kernels' launch
@@ -39,12 +47,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``paged_token_write_masked`` 2(K+1) times per round, the decode kernels
    never; then once more with draft = target, which must accept K drafts
    in some round;
+6b. quantized serves: the chunked serve with ``kv_dtype="int8"`` on a pool
+   of the bf16 chunked pool's bytes (1.94x the blocks), then the
+   speculative serve with ``kv_dtype="fp8"`` (the draft arena inherits
+   fp8); exact launch counts (the fused writes only, never an unquantized
+   write), the ``serving.kv_quant.rel_err`` gauge in (0, 0.05), and one
+   decode step's logits off the int8 arenas through the kernels against
+   ``gather_dense_q`` and ``forward_with_cache`` (phase 4's bars);
 7. correctness at full width: served tokens, exact, in float32 at
    Llama-3-8B widths and 4 layers (chunked = unchunked, speculative =
-   plain); and at full depth one prefill chunk (T=512) and one verify
-   chunk (T=5) through the kernels against ``forward_with_cache`` over the
-   gathered cache, float32 within 1e-3, bf16 error within twice the dense
-   bf16 path's own;
+   plain; on an int8 pool paged = gather, unchunked and chunked, with
+   chunked against unchunked reported); and at
+   full depth one prefill chunk (T=512) and one verify chunk (T=5) through
+   the kernels against ``forward_with_cache`` over the gathered cache,
+   float32 within 1e-3, bf16 error within twice the dense bf16 path's own;
 8. flash attention (run with the kernels of phase 3): the forward, dq and
    dk/dv kernels against their plain versions at the training shape (B=1,
    32 heads over 8 KV groups, T=2048, hs=128, causal) and at small shapes
@@ -88,10 +104,17 @@ from thunder_tpu_torch.models.llama import (
     init_params,
     param_count,
 )
+from thunder_tpu_torch.observability import registry
 from thunder_tpu_torch.train.optim import adamw
 from thunder_tpu_torch.serving import SpecConfig, serve
 from thunder_tpu_torch.serving.kv_pool import SINK_BLOCK, chunk_tables, gather_dense
 from thunder_tpu_torch.serving.paged_attention import forward_paged
+from thunder_tpu_torch.serving.quant import (
+    arena_block_bytes,
+    blocks_for_arena_bytes,
+    gather_dense_q,
+    quantize_kv,
+)
 
 SEED = 0
 DEVICE = "cuda"
@@ -169,21 +192,26 @@ def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+NO_LIBRARY = "no single PyTorch call computes this"
+
+
 def timed(name, label, kernel, plain, library, library_name, bound_ms_by, *, iters,
           plain_iters, plain_warmup=3, device_kernel=None) -> dict:
     """Per-call times of a kernel, its plain version and the library call
-    computing the same function, the kernel's device time (of the CUDA
-    kernels named like ``device_kernel``, default ``name``), and its bound."""
+    computing the same function (``library`` None where no single PyTorch
+    call does), the kernel's device time (of the CUDA kernels named like
+    ``device_kernel``, default ``name``), and its bound."""
     ms = time_ms(kernel, iters=iters)
     dev_ms = device_ms(kernel, device_kernel or name)
     plain_ms = time_ms(plain, iters=plain_iters, warmup=plain_warmup)
-    library_ms = time_ms(library, iters=iters)
+    library_ms = time_ms(library, iters=iters) if library is not None else None
     bound_ms, bound_by = bound_ms_by
+    lib = f"{library_name} {library_ms:.4f} ms" if library is not None else f"library: {NO_LIBRARY}"
     say(f"{name} bf16{label} timing per call: kernel {ms:.4f} ms (device {dev_ms} ms), "
-        f"plain {plain_ms:.4f} ms, {library_name} {library_ms:.4f} ms, bound "
-        f"{1e3 * bound_ms:.3f} us ({bound_by})")
+        f"plain {plain_ms:.4f} ms, {lib}, bound {1e3 * bound_ms:.3f} us ({bound_by})")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                **({} if library is not None else {"library": NO_LIBRARY}))
 
 
 #
@@ -243,7 +271,8 @@ def check_attn(name, label, kernel, plain, x, **kw) -> float:
     if x["q"].dtype == torch.float32:
         ok, bar = err <= ATOL_F32, f"atol {ATOL_F32:.0e}"
     else:
-        ref = plain(**{k: v.float() if v.is_floating_point() else v for k, v in x.items()}, **kw)
+        ref = plain(**{k: v.float() if v.is_floating_point() and v.element_size() > 1 else v
+                       for k, v in x.items()}, **kw)
         err_kernel = (got.float() - ref).abs().max().item()
         err_plain = (want.float() - ref).abs().max().item()
         ok = err_kernel <= LOWP_ERR_RATIO * err_plain
@@ -547,6 +576,209 @@ def check_masked_write(K=4):
 
 
 #
+# phase 3, continued: quantized KV (kv_dtype int8 / fp8) — the dequantizing
+# attention kernels and the fused quantizing writes
+#
+
+QUANT = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+# the fused chunk write's error sums: f32 sums in another order
+ERR_SUMS_REL = 1e-5
+
+
+def quantize_arenas(x, storage):
+    """``x`` with its K/V arenas quantized into ``storage`` and their
+    scales beside them: what a quantized pool holds."""
+    out = dict(x)
+    for name in ("k", "v"):
+        q, s = quantize_kv(out.pop(f"{name}_arena"), storage)
+        out[f"{name}_arena"], out[f"{name}_scale"] = q, s
+    return out
+
+
+def quant_attn_bound(pos, T, nbb, dtype):
+    """Bound of a dequantizing attention call: the live 1-byte K/V and
+    their float32 scales read once, q in and out, the fresh K/V, tables and
+    positions; the products as the float kernels count them."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    Bv, slots = len(pos), int(pos.sum())
+    nbytes = (2 * slots * NG * HS + 2 * slots * NG * 4         # K/V bytes and scales
+              + 2 * Bv * NH * T * HS * esize + 2 * Bv * NG * T * HS * esize
+              + 4 * Bv * nbb + 4 * Bv)
+    ops = 4 * NH * HS * (slots * T + Bv * T * (T + 1) // 2)
+    return bound(nbytes, ops, dtype)
+
+
+def _cast_inputs(x, dtype):
+    return {k: v.to(dtype) if k in ("q", "fresh_k", "fresh_v") else v for k, v in x.items()}
+
+
+def check_decode_quant(layer=L - 3):
+    """``paged_attn_decode`` on int8 and fp8 arenas at the decode shape:
+    float32 within ATOL_F32 of the plain version, bf16 by the ratio bar;
+    then the bf16 times."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    result = {}
+    for kind, storage in QUANT.items():
+        x, pos = decode_inputs(torch.bfloat16, gen)
+        xq = quantize_arenas(x, storage)
+        del x
+        for dtype in (torch.bfloat16, torch.float32):
+            xd = _cast_inputs(xq, dtype)
+            err = check_attn("paged_attn_decode", f"{kind} arena", cudaex.paged_attn_decode,
+                             cudaex.paged_attn_decode_plain, xd, layer=layer)
+            if dtype == torch.bfloat16:
+                rec = timed(
+                    "paged_attn_decode", f" {kind} arena",
+                    lambda: cudaex.paged_attn_decode(**xd, layer=layer),
+                    lambda: cudaex.paged_attn_decode_plain(**xd, layer=layer),
+                    None, None, quant_attn_bound(pos, 1, NBB, dtype), iters=200, plain_iters=10,
+                    plain_warmup=1)
+                rec["max_abs_err"] = err
+                result[kind] = rec
+            del xd
+        del xq
+    return result
+
+
+def check_verify_quant(layer=L - 3):
+    """``paged_attn_verify`` on int8 and fp8 arenas at the spec and chunk
+    shapes, bf16 (the tensor-core body, which the profiler must see run)
+    and float32 (the scalar body); then the bf16 times."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    result = {}
+    for kind, storage in QUANT.items():
+        result[kind] = {}
+        for shape, dims in VERIFY_SHAPES.items():
+            x, pos = verify_inputs(torch.bfloat16, gen, **dims)
+            xq = quantize_arenas(x, storage)
+            del x
+            for dtype in (torch.bfloat16, torch.float32):
+                xd = _cast_inputs(xq, dtype)
+                err = check_attn("paged_attn_verify",
+                                 f"{kind} arena, {shape} B={dims['Bv']} T={dims['T']}",
+                                 cudaex.paged_attn_verify, cudaex.paged_attn_verify_plain, xd,
+                                 layer=layer)
+                if dtype == torch.bfloat16:
+                    def kernel():
+                        return cudaex.paged_attn_verify(**xd, layer=layer)
+
+                    mma = device_ms(kernel, "paged_attn_verify_mma", iters=3)
+                    say(f"paged_attn_verify {kind} arena, {shape}: tensor-core body "
+                        f"paged_attn_verify_mma_kernel device time {mma} ms")
+                    if mma is None:
+                        raise AssertionError(f"paged_attn_verify on the {kind} arena did not "
+                                             "run its tensor-core body")
+                    rec = timed(
+                        "paged_attn_verify", f" {kind} arena B={dims['Bv']} T={dims['T']}",
+                        kernel, lambda: cudaex.paged_attn_verify_plain(**xd, layer=layer),
+                        None, None, quant_attn_bound(pos, dims["T"], dims["nbb"], dtype),
+                        iters=50,
+                        plain_iters=3, plain_warmup=1)
+                    rec["max_abs_err"] = err
+                    result[kind][shape] = rec
+                del xd
+            del xq
+    return result
+
+
+def check_token_write_fused(K=4):
+    """``paged_token_write_fused`` at B=8 into int8 and fp8 arenas of the
+    decode shape: the plain write and the masked one at every offset 0..K
+    with n_emit from 0 to K+1, stored bytes and scales bitwise equal to the
+    plain version's outside sink block 0; then the plain write's times."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    x, _ = decode_inputs(torch.bfloat16, gen)
+    tables, posd = x["tables"], x["pos"]
+    base = x.pop("k_arena")
+    del x
+    n_emit = torch.tensor([1, 5, 0, 3, 2, 4, 0, 5], dtype=torch.int32, device=DEVICE)
+    result = {}
+    for kind, storage in QUANT.items():
+        arena, scale = quantize_kv(base, storage)
+        for off in (None, *range(K + 1)):
+            vals = (3 * torch.randn((B, L, NG, HS), generator=gen, device=DEVICE)).to(
+                torch.bfloat16)
+            vals[0, 0, 0] = 0.0                                  # an all-zero vector
+            kw = {} if off is None else dict(n_emit=n_emit, offset=off)
+            wa, ws = cudaex.paged_token_write_fused_plain(arena.clone(), scale.clone(), vals,
+                                                          tables, posd, block_size=BS, **kw)
+            ga, gs = cudaex.paged_token_write_fused(arena, scale, vals, tables, posd,
+                                                    block_size=BS, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(ga.view(torch.uint8)[1:], wa.view(torch.uint8)[1:])
+                    and torch.equal(gs[1:], ws[1:])):
+                raise AssertionError(f"paged_token_write_fused {kind} offset {off} disagrees "
+                                     "with its plain version")
+            del wa, ws
+        say(f"paged_token_write_fused {kind}: stored bytes and scales bitwise equal outside "
+            f"block 0, plain write and masked offsets 0..{K}")
+        # bf16 values in; bytes and scales out; tables, positions
+        nbytes = (B * L * NG * HS * 2 + B * L * NG * HS + B * L * NG * 4
+                  + 4 * tables.numel() + 4 * B)
+        rec = timed(
+            "paged_token_write_fused", f" {kind} (B={B})",
+            lambda: cudaex.paged_token_write_fused(arena, scale, vals, tables, posd,
+                                                   block_size=BS),
+            lambda: cudaex.paged_token_write_fused_plain(arena, scale, vals, tables, posd,
+                                                         block_size=BS),
+            None, None, bound(nbytes, 0, torch.bfloat16), iters=500, plain_iters=100)
+        rec["max_abs_err"] = 0.0
+        result[kind] = rec
+        del arena, scale
+    return result
+
+
+def check_chunk_write_fused():
+    """``paged_chunk_write_fused`` of one chunk of the chunk shape (32
+    blocks at pos 2560) through its 192-entry scatter table into int8 and
+    fp8 arenas: bytes and scales bitwise equal to the plain version's
+    outside sink block 0, the error sums within ERR_SUMS_REL; then times."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    nc, nbb = VERIFY_SHAPES["chunk"]["T"] // BS, VERIFY_SHAPES["chunk"]["nbb"]
+    rng = np.random.default_rng(SEED + 3)
+    leased = [int(b) for b in rng.permutation(np.arange(1, NUM_BLOCKS))[:nbb - 8]]
+    _, dest = chunk_tables(leased, CHUNK_POS, nc * BS, nbb, BS)
+    dest_d = torch.as_tensor(dest, device=DEVICE)
+    pos_d = torch.tensor([CHUNK_POS], dtype=torch.int32, device=DEVICE)
+    result = {}
+    for kind, storage in QUANT.items():
+        arena, scale = quantize_kv(
+            torch.randn((NUM_BLOCKS, L, NG, BS, HS), generator=gen, device=DEVICE), storage)
+        vals = (3 * torch.randn((nc, L, NG, BS, HS), generator=gen, device=DEVICE)).to(
+            torch.bfloat16)
+        wa, ws, werr = cudaex.paged_chunk_write_fused_plain(arena.clone(), scale.clone(), vals,
+                                                            dest_d, pos_d, block_size=BS)
+        ga, gs, gerr = cudaex.paged_chunk_write_fused(arena, scale, vals, dest_d, pos_d,
+                                                      block_size=BS)
+        torch.cuda.synchronize()
+        same = (torch.equal(ga.view(torch.uint8)[1:], wa.view(torch.uint8)[1:])
+                and torch.equal(gs[1:], ws[1:]))
+        sums_rel = ((gerr - werr).abs() / werr.abs().clamp_min(1e-30)).max().item()
+        rel = (gerr[:, 0].sum() / (gerr[:, 1].sum() + 1e-30)).item()
+        ok = same and sums_rel <= ERR_SUMS_REL and 0.0 < rel < 0.05
+        say(f"paged_chunk_write_fused {kind}: bytes and scales bitwise equal outside block 0: "
+            f"{same}; error sums max relative difference {sums_rel:.2e} (bar {ERR_SUMS_REL}); "
+            f"rel_err {rel:.5f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"paged_chunk_write_fused {kind} disagrees with its plain "
+                                 "version")
+        del wa, ws
+        n = vals.numel()
+        nbytes = 2 * n + n + (n // HS) * 4 + 4 * nbb + 4 + nc * 2 * 4
+        rec = timed(
+            "paged_chunk_write_fused", f" {kind} ({nc} blocks)",
+            lambda: cudaex.paged_chunk_write_fused(arena, scale, vals, dest_d, pos_d,
+                                                   block_size=BS),
+            lambda: cudaex.paged_chunk_write_fused_plain(arena, scale, vals, dest_d, pos_d,
+                                                         block_size=BS),
+            None, None, bound(nbytes, 0, torch.bfloat16), iters=100, plain_iters=20)
+        rec["max_abs_err"] = sums_rel
+        result[kind] = rec
+        del arena, scale, vals
+    return result
+
+
+#
 # phase 4: serve Llama-3-8B at full width
 #
 
@@ -664,7 +896,10 @@ def _cast(tree, dtype):
 def compare_logits(eng, params, cfg, prompts, results, tables):
     """One decode step at the served rows' last positions (their blocks
     still hold the K/V the run wrote), through the kernels and through the
-    dense path over the same gathered cache, in bf16 and in float32."""
+    dense path over the same gathered cache, in bf16 and in float32.  A
+    quantized pool keeps its bytes and scales in both: the kernels
+    dequantize them in-kernel, the dense path through ``gather_dense_q``,
+    each into the compute dtype of the run."""
     Bb = len(results)
     nbb = eng._nbb(max(len(t) for t in tables))
     tab = np.full((Bb, nbb), SINK_BLOCK, dtype=np.int32)
@@ -677,16 +912,22 @@ def compare_logits(eng, params, cfg, prompts, results, tables):
     toks_d = torch.as_tensor(toks, device=dev)[:, None]
     cos, sin = build_rope_cache(cfg, nbb * eng.pool.block_size, device=dev)
 
+    quantized = eng.pool.quantized_kv
+
     def both_paths(p, arenas, cdtype):
         lp, _ = forward_paged(p, toks_d, pos_d, arenas, tab_d, cos, sin, cfg, cdtype=cdtype)
-        kd, vd = gather_dense(arenas["k"], arenas["v"], tab_d)
+        if quantized:
+            kd, vd = gather_dense_q(arenas["k"], arenas["v"], arenas["k_scale"],
+                                    arenas["v_scale"], tab_d, cdtype)
+        else:
+            kd, vd = gather_dense(arenas["k"], arenas["v"], tab_d)
         lg, _ = forward_with_cache(p, toks_d, pos_d, {"k": kd, "v": vd}, cos, sin, cfg)
         return lp, lg
 
     with torch.no_grad():
         lp, lg = both_paths(params, eng.pool.arenas, torch.bfloat16)
-        lp32, lg32 = both_paths(_cast(params, torch.float32),
-                                _cast(eng.pool.arenas, torch.float32), torch.float32)
+        arenas32 = eng.pool.arenas if quantized else _cast(eng.pool.arenas, torch.float32)
+        lp32, lg32 = both_paths(_cast(params, torch.float32), arenas32, torch.float32)
     torch.cuda.synchronize()
     err = (lp - lg).abs().max().item()
     err32 = (lp32 - lg32).abs().max().item()
@@ -697,7 +938,8 @@ def compare_logits(eng, params, cfg, prompts, results, tables):
     replay = int((lp.argmax(-1)[:, 0] == served).sum())
     ok = (bool(torch.isfinite(lp).all()) and err32 <= LOGITS_ATOL_F32
           and err_kernel <= BF16_ERR_RATIO * err_dense)
-    say(f"decode logits, kernels vs dense path ({Bb} rows, nbb={nbb}, logits std "
+    say(f"decode logits{' off ' + str(eng.pool.kv_dtype)[6:] + ' arenas' if quantized else ''}, "
+        f"kernels vs dense path ({Bb} rows, nbb={nbb}, logits std "
         f"{lg32.std().item():.3f}): float32 max_abs_err={err32:.3e} (atol {LOGITS_ATOL_F32}); "
         f"bf16 max_abs_err={err:.4f}, against float32 dense: kernel path {err_kernel:.4f}, "
         f"dense path {err_dense:.4f} (ratio limit {BF16_ERR_RATIO}); bf16 argmax agree "
@@ -705,6 +947,7 @@ def compare_logits(eng, params, cfg, prompts, results, tables):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("forward_paged disagrees with forward_with_cache")
+    return dict(f32_max_abs_err=err32, bf16_kernel_err=err_kernel, bf16_dense_err=err_dense)
 
 
 #
@@ -735,12 +978,30 @@ CHUNK = 512
 CHUNK_BUCKETS = tuple(16 * 2 ** i for i in range(6))          # 16 .. 512, block-aligned
 
 
-def chunked_serve(params, cfg, n_requests=8, new_tokens=32):
-    eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=2048, max_batch=8,
-                prefill_chunk=CHUNK, prefill_buckets=CHUNK_BUCKETS, device=DEVICE)
+def quant_gauge() -> float | None:
+    return registry().gauge("serving.kv_quant.rel_err").value
+
+
+def check_gauge(name, kv_dtype) -> float | None:
+    """A quantized serve's ``serving.kv_quant.rel_err`` gauge: finite and in
+    (0, 0.05) (plausibly near 1e-2 for int8, 3e-2 for fp8)."""
+    gauge = quant_gauge()
+    say(f"{name}: serving.kv_quant.rel_err gauge {gauge} (kv_dtype {kv_dtype})")
+    if kv_dtype is not None and not (gauge is not None and math.isfinite(gauge)
+                                     and 0.0 < gauge < 0.05):
+        raise AssertionError(f"{name}: rel_err gauge {gauge} outside (0, 0.05)")
+    return gauge
+
+
+def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_blocks=2048):
+    eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=num_blocks,
+                max_batch=8, prefill_chunk=CHUNK, prefill_buckets=CHUNK_BUCKETS,
+                kv_dtype=kv_dtype, device=DEVICE)
     kind = eng.stats()["attn"]["kinds"]["prefill_chunk"]
-    say(f"chunked serve: chunk kind {kind['mode']!r} (fallback reason "
-        f"{kind['fallback_reason']}), arena {eng.pool.arena_bytes() / 2**30:.2f} GiB")
+    say(f"chunked serve (kv_dtype {kv_dtype}): chunk kind {kind['mode']!r} (fallback reason "
+        f"{kind['fallback_reason']}), {eng.pool.num_blocks} blocks of "
+        f"{eng.pool.block_bytes()} B, arena {eng.pool.arena_bytes()} B = "
+        f"{eng.pool.arena_bytes() / 2**30:.3f} GiB")
     if kind["mode"] != "paged":
         raise AssertionError(f"the chunk kind resolved {kind['mode']!r}, not 'paged'")
     rng = np.random.default_rng(SEED + 5)
@@ -749,6 +1010,7 @@ def chunked_serve(params, cfg, n_requests=8, new_tokens=32):
     eng.run([prompts[0][:600]], max_new_tokens=2)            # warm-up: one chunk + final piece
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    registry().gauge("serving.kv_quant.rel_err").reset()
     steps0, chunks0 = eng.decode_steps, eng.chunk_runs
     cudaex.reset_launches()
     t0 = time.perf_counter()
@@ -762,19 +1024,22 @@ def chunked_serve(params, cfg, n_requests=8, new_tokens=32):
     steps, pieces = eng.decode_steps - steps0, eng.chunk_runs - chunks0
     results = [h.result(drive=False) for h in handles]
     check_results(results, new_tokens, cfg.padded_vocab_size)
-    rec = serve_stats(f"chunked serve {cfg.name} bf16 (prompts {sorted(len(p) for p in prompts)}, "
-                      f"prefill_chunk {CHUNK})", results, wall)
+    rec = serve_stats(f"chunked serve {cfg.name} bf16, kv_dtype {kv_dtype} (prompts "
+                      f"{sorted(len(p) for p in prompts)}, prefill_chunk {CHUNK})", results, wall)
+    q = "_fused" if kv_dtype is not None else ""
     want = no_launches_but(paged_attn_verify=pieces * cfg.n_layer,
-                           paged_chunk_write=pieces * 2,
                            paged_attn_decode=steps * cfg.n_layer,
-                           paged_token_write=steps * 2)
+                           **{f"paged_chunk_write{q}": pieces * 2,
+                              f"paged_token_write{q}": steps * 2})
     say(f"launches during chunked serve: {launches} ({pieces} intermediate pieces, "
         f"{steps} decode steps; expected {want})")
     if launches != want or not pieces:
         raise AssertionError(f"chunked serve launch counts {launches} != {want} "
                              f"({pieces} intermediate pieces)")
-    rec.update(launches=launches, pieces=pieces, steps=steps)
-    return rec, eng, prompts, tables
+    rec.update(launches=launches, pieces=pieces, steps=steps, blocks=eng.pool.num_blocks,
+               arena_bytes=eng.pool.arena_bytes(),
+               rel_err=check_gauge("chunked serve", kv_dtype))
+    return rec, eng, prompts, tables, results
 
 
 def layer_skip_draft(params, cfg, n_layer=2):
@@ -784,16 +1049,17 @@ def layer_skip_draft(params, cfg, n_layer=2):
                                                                                n_layer=n_layer)
 
 
-def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32):
+def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, self_draft=True):
     dparams, dcfg = layer_skip_draft(params, cfg)
     eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=1024, max_batch=8,
-                speculative=SpecConfig(dparams, dcfg, K=K), device=DEVICE)
+                speculative=SpecConfig(dparams, dcfg, K=K), kv_dtype=kv_dtype, device=DEVICE)
     rng = np.random.default_rng(SEED + 6)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(128, 1025, n_requests)]
     eng.run([prompts[0][:64]], max_new_tokens=8)             # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    registry().gauge("serving.kv_quant.rel_err").reset()
     rounds0 = eng.spec_rounds
     cudaex.reset_launches()
     t0 = time.perf_counter()
@@ -808,19 +1074,26 @@ def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32):
     results = [h.result(drive=False) for h in handles]
     check_results(results, new_tokens, cfg.padded_vocab_size)
     st = eng.stats()["speculative"]
-    rec = serve_stats(f"speculative serve {cfg.name} bf16, {dcfg.n_layer}-layer draft, K={K} "
+    rec = serve_stats(f"speculative serve {cfg.name} bf16, kv_dtype {kv_dtype} (draft arena "
+                      f"{eng.draft_pool.kv_dtype}), {dcfg.n_layer}-layer draft, K={K} "
                       f"(prompts {sorted(len(p) for p in prompts)})", results, wall)
     say(f"speculative serve: {rounds} rounds, acceptance rate {st['acceptance_rate']:.4f}, "
         f"tokens per round {st['tokens_per_round']:.3f}, accept_len histogram "
         f"{st['accept_len_hist']} (warm-up included)")
+    write = "paged_token_write_fused" if kv_dtype is not None else "paged_token_write_masked"
     want = no_launches_but(paged_attn_verify=rounds * cfg.n_layer,
-                           paged_token_write_masked=rounds * 2 * (K + 1))
-    say(f"launches during speculative serve: {launches} (expected {want})")
+                           **{write: rounds * 2 * (K + 1)})
+    say(f"launches during speculative serve: {launches} (expected {want}); pool "
+        f"{eng.pool.num_blocks} blocks, arena {eng.pool.arena_bytes()} B")
     if launches != want or not rounds:
         raise AssertionError(f"speculative serve launch counts {launches} != {want} "
                              f"({rounds} rounds)")
     rec.update(launches=launches, rounds=rounds, acceptance_rate=st["acceptance_rate"],
-               tokens_per_round=st["tokens_per_round"])
+               tokens_per_round=st["tokens_per_round"], blocks=eng.pool.num_blocks,
+               arena_bytes=eng.pool.arena_bytes(),
+               rel_err=check_gauge("speculative serve", kv_dtype))
+    if not self_draft:
+        return rec, eng, prompts, results, tables
     # draft = target: every draft should be accepted (bf16 argmax flips
     # between the gathered draft path and the kernel verify path aside)
     same = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=256, max_batch=2,
@@ -872,6 +1145,38 @@ def _exact_tokens(params32, cfg4, n_new=8):
         f"{st['acceptance_rate']:.4f}, {st['rounds']} rounds)")
     if spec != plain:
         raise AssertionError(f"speculative serving serves other tokens: {spec} vs {plain}")
+
+
+def _exact_tokens_quant(params32, cfg4, n_new=8):
+    """Tokens, exact, in float32 at Llama-3-8B widths and 4 layers on an
+    int8 pool: the paged lanes (kernels) serve the gather lanes' tokens,
+    unchunked and chunked.  Chunked against unchunked is reported, not
+    held: a chunked prefill reads its earlier pieces back through the int8
+    arena while an unchunked one attends them at full precision (the
+    reference's chunk programs gather through ``gather_dense_q`` too), so
+    the two are different computations that agree to the quantization
+    error, and a near tie of two logits may flip."""
+    rng = np.random.default_rng(SEED + 8)
+    long = [rng.integers(0, cfg4.vocab_size, n).astype(np.int32) for n in (1100, 1600)]
+    common = dict(block_size=16, num_blocks=512, max_batch=4, kv_dtype="int8", device=DEVICE)
+    unchunked = dict(prefill_buckets=tuple(16 * 2 ** i for i in range(8)))
+    chunked = dict(prefill_chunk=CHUNK, prefill_buckets=CHUNK_BUCKETS)
+
+    def tokens(**kw):
+        eng = serve(None, params32, cfg4, **common, **kw)
+        return [r.new_tokens for r in eng.run(long, max_new_tokens=n_new)]
+
+    got = {(attn, name): tokens(attn=attn, **kw) for attn in ("paged", "gather")
+           for name, kw in (("unchunked", unchunked), ("chunked", chunked))}
+    same = {name: got["paged", name] == got["gather", name] for name in ("unchunked", "chunked")}
+    rows = sum(a == b for a, b in zip(got["paged", "chunked"], got["paged", "unchunked"]))
+    say(f"float32, 4 layers, int8 KV: paged = gather unchunked {same['unchunked']}, chunked "
+        f"{same['chunked']}; chunked = unchunked on {rows} of {len(long)} rows (reported, not "
+        f"held: the chunked prefill reads its earlier pieces through the int8 arena); "
+        f"tokens {got}")
+    if not all(same.values()):
+        raise AssertionError(f"the int8 paged lanes serve other tokens than the gather lanes: "
+                             f"{got}")
 
 
 def _compact(arenas, table_rows):
@@ -1366,21 +1671,55 @@ def main() -> int:
     recs = {"paged_attn_decode": check_decode(), "paged_token_write": check_write(),
             "paged_attn_verify": check_verify(), "paged_chunk_write": check_chunk_write(),
             "paged_token_write_masked": check_masked_write(), **check_flash()}
+    # quantized arenas: the dequantizing attention bodies (extra rows of
+    # their kernels' entries) and the two fused writes (the token write's
+    # entry is its int8 form, which the chunked int8 serve's decode steps
+    # run; fp8 rides beside it)
+    recs["paged_attn_decode"]["quantized"] = check_decode_quant()
+    recs["paged_attn_verify"]["quantized"] = check_verify_quant()
+    tw = check_token_write_fused()
+    recs["paged_token_write_fused"] = {**tw["int8"], "quantized": tw}
+    cw = check_chunk_write_fused()
+    recs["paged_chunk_write_fused"] = {**cw["int8"], "quantized": cw}
+    torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     params, cfg = make_params()
     served = {"decode serve": serve_full_width(params, cfg)}
-    crec, eng, prompts, tables = chunked_serve(params, cfg)
+    crec, eng, prompts, tables, _ = chunked_serve(params, cfg)
     served["chunked serve"] = crec["launches"]
     chunk_case = (_compact(eng.pool.arenas, [tables[0]]), prompts[0])
+    bf16_pool_bytes = eng.pool.arena_bytes()
     del eng
     torch.cuda.empty_cache()
     srec, eng, prompts, results, tables = spec_serve(params, cfg)
     served["speculative serve"] = srec["launches"]
     spec_case = (_compact(eng.pool.arenas, tables), prompts, results)
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # quantized serves: chunked int8 on a pool of the bf16 chunked pool's
+    # bytes, speculative fp8 with the draft inheriting fp8
+    nb_int8 = blocks_for_arena_bytes(cfg, 16, bf16_pool_bytes, torch.bfloat16, kv_dtype="int8")
+    say(f"equal-bytes int8 pool: {bf16_pool_bytes} B buys {nb_int8} int8 blocks of "
+        f"{arena_block_bytes(cfg, 16, torch.bfloat16, 'int8')} B against 2048 bf16 blocks of "
+        f"{arena_block_bytes(cfg, 16, torch.bfloat16)} B")
+    qrec, eng, prompts, tables, results = chunked_serve(params, cfg, kv_dtype="int8",
+                                                        num_blocks=nb_int8)
+    served["chunked int8 serve"] = qrec["launches"]
+    qrec["decode_logits"] = compare_logits(eng, params, cfg, prompts, results, tables)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    frec, eng, *_ = spec_serve(params, cfg, kv_dtype="fp8", self_draft=False)
+    served["speculative fp8 serve"] = frec["launches"]
+    del eng
+    gc.collect()
     torch.cuda.empty_cache()
     cfg4 = Config.from_name(cfg.name, n_layer=4)
-    _exact_tokens(_cast({**params, "blocks": params["blocks"][:4]}, torch.float32), cfg4)
+    params32_4 = _cast({**params, "blocks": params["blocks"][:4]}, torch.float32)
+    _exact_tokens(params32_4, cfg4)
+    _exact_tokens_quant(params32_4, cfg4)
+    del params32_4
     torch.cuda.empty_cache()
     chunk_and_verify_logits(params, cfg, chunk_case, spec_case)
     del chunk_case, spec_case
@@ -1396,10 +1735,13 @@ def main() -> int:
                "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",
                "paged_token_write_masked": "paged_attention.cu",
                "flash_fwd": "flash_attention.cu", "flash_bwd_dq": "flash_attention.cu",
-               "flash_bwd_dkv": "flash_attention.cu"}
+               "flash_bwd_dkv": "flash_attention.cu",
+               "paged_token_write_fused": "paged_attention.cu",
+               "paged_chunk_write_fused": "paged_verify.cu"}
     replaces = {"paged_attn_decode": 1165, "paged_token_write": 1249, "paged_attn_verify": 1376,
                 "paged_chunk_write": 1535, "paged_token_write_masked": 1462, "flash_fwd": 293,
-                "flash_bwd_dq": 460, "flash_bwd_dkv": 460}
+                "flash_bwd_dq": 460, "flash_bwd_dkv": 460, "paged_token_write_fused": 1672,
+                "paged_chunk_write_fused": 1616}
     # the Pallas function and its pallas_call site, where they differ
     counterpart = {"flash_fwd": "_flash_fwd (pallas_call :322)",
                    "flash_bwd_dq": "_flash_bwd (dq pallas_call :495)",
@@ -1419,7 +1761,8 @@ def main() -> int:
             device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_us=1e3 * rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"], card=CARD,
-            **({"shapes": rec["shapes"]} if "shapes" in rec else {})))
+            **{k: rec[k] for k in ("shapes", "quantized", "library") if k in rec}))
+    say("quantized serves: " + json.dumps({"chunked int8": qrec, "speculative fp8": frec}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -214,22 +214,13 @@ def test_write_fresh_kv_chunk_matches_jax(target, pos):
     p = np.asarray([pos], np.int32)
     want, qerr = jpa.write_fresh_kv_chunk(ja, {n: jnp.asarray(v) for n, v in fresh.items()},
                                           jnp.asarray(dest), jnp.asarray(p), block_size=4)
-    got = tpa.write_fresh_kv_chunk(ta, {n: torch.as_tensor(v) for n, v in fresh.items()},
-                                   torch.as_tensor(dest), torch.as_tensor(p), block_size=4)
-    assert float(qerr) == 0.0
+    got, got_qerr = tpa.write_fresh_kv_chunk(ta, {n: torch.as_tensor(v) for n, v in fresh.items()},
+                                             torch.as_tensor(dest), torch.as_tensor(p),
+                                             block_size=4)
+    assert float(qerr) == float(got_qerr) == 0.0
     for n in ("k", "v"):
         np.testing.assert_array_equal(got[n].numpy()[1:], np.asarray(want[n])[1:])
         assert (got[n].numpy()[1:] != c[n][1:]).any()
-
-
-def test_quantized_arenas_raise(target):
-    _, tcfg, _, tp = target
-    arenas = {"k": torch.zeros(1), "v": torch.zeros(1), "k_scale": torch.zeros(1)}
-    with pytest.raises(NotImplementedError, match="kv_dtype"):
-        tpa.write_fresh_kv_chunk(arenas, {}, torch.zeros(1), torch.zeros(1), block_size=4)
-    with pytest.raises(NotImplementedError, match="kv_dtype"):
-        tpa.forward_paged(tp, torch.zeros(1, 2, dtype=torch.int32), None, arenas, None, None,
-                          None, tcfg, cdtype=torch.float32)
 
 
 #
@@ -519,8 +510,8 @@ def test_spec_options_are_validated(target, draft):
     _, wcfg, _, wp = _pair(sliding_window=8)
     with pytest.raises(ValueError, match="[sS]liding"):
         _port(wcfg, wp, speculative=ttt.SpecConfig(dp, dcfg, K=2), **SPEC)
-    with pytest.raises(NotImplementedError, match="draft_kv_dtype"):
-        _port(tcfg, tp, speculative=ttt.SpecConfig(dp, dcfg, K=2, draft_kv_dtype="int8"), **SPEC)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        _port(tcfg, tp, speculative=ttt.SpecConfig(dp, dcfg, K=2, draft_kv_dtype="int4"), **SPEC)
     with pytest.raises(ValueError, match="decode_steps=2 with speculative"):
         _port(tcfg, tp, speculative=ttt.SpecConfig(dp, dcfg, K=2), decode_steps=2, **SPEC)
     with pytest.raises(NotImplementedError, match="decode_steps"):

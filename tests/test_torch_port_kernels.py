@@ -120,7 +120,7 @@ def test_cpu_calls_count_no_launches():
 
 
 @pytest.mark.parametrize("mutate,exc,match", [
-    (lambda c: c.update(k_scale=c["k_arena"][..., 0]), NotImplementedError, "quantized"),
+    (lambda c: c.update(k_scale=c["k_arena"][..., 0]), ValueError, "both or neither"),
     (lambda c: c.update(tables=c["tables"].long()), ValueError, "int32"),
     (lambda c: c.update(pos=c["pos"][:1]), ValueError, "pos"),
     (lambda c: c.update(q=c["q"].transpose(1, 2).contiguous().transpose(1, 2)), ValueError,
@@ -273,7 +273,7 @@ def test_new_kernels_count_no_launches_on_cpu():
 
 def test_new_kernels_reject_bad_arguments():
     c = dict(_torch(_verify_case(2, 4, 2, 16, 4, 4, 2, 3, [2, 7])), layer=0)
-    with pytest.raises(NotImplementedError, match="quantized"):
+    with pytest.raises(ValueError, match="both or neither"):
         cudaex.paged_attn_verify(**c, k_scale=c["k_arena"][..., 0])
     with pytest.raises(ValueError, match="fresh K/V"):
         cudaex.paged_attn_verify(**{**c, "fresh_k": c["fresh_k"][:, :, :2].contiguous()})

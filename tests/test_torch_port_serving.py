@@ -217,7 +217,7 @@ def test_admission_rejects_requests_that_never_fit(micro):
 
 
 DEFERRED = [
-    ("kv_dtype", "int8"), ("quantized", True), ("lora", object()),
+    ("quantized", True), ("lora", object()),
     ("mesh", object()), ("shardings", object()),
     ("decode_steps", 2), ("sessions", True), ("priorities", True),
     ("constraints", True), ("fault_plan", object()), ("trace", True), ("slo", {"ttft_s": 1}),

@@ -1,11 +1,15 @@
-// Helpers shared by the port's CUDA sources: the Pallas kernels' mask value
-// and the float conversions of the three element types the kernels take.
+// Helpers shared by the port's CUDA sources: the Pallas kernels' mask value,
+// the float conversions of the element types the kernels take, and the
+// int8 / fp8-e4m3 storage of quantized KV arenas (serving/quant.py).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tt {
 
@@ -28,6 +32,88 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // the value x holds after a cast to T (round to nearest even)
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f<T>(from_f<T>(x));
+}
+
+// One byte of float8_e4m3fn storage (a distinct type, so templates can tell
+// it from int8 and from raw bytes).
+struct fp8_e4m3 {
+  uint8_t bits;
+};
+
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+template <> __device__ __forceinline__ float to_f<fp8_e4m3>(fp8_e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.bits, __NV_E4M3)));  // exact
+}
+
+// Quantized storage types carry a float32 scale per (block, layer, group,
+// slot); float storage types carry none.
+template <typename T> struct quantized {
+  static constexpr bool value = false;
+};
+template <> struct quantized<int8_t> {
+  static constexpr bool value = true;
+};
+template <> struct quantized<fp8_e4m3> {
+  static constexpr bool value = true;
+};
+
+// One arena element as the Pallas kernels load it before the cast to the
+// query dtype: float storage as it is; quantized storage dequantized,
+// f32(x) * scale rounded to the compute dtype TC (pallasex.py:1094-1098).
+template <typename TS, typename TC>
+__device__ __forceinline__ float load_kv(TS x, float scale) {
+  if constexpr (quantized<TS>::value) {
+    return round_to<TC>(__fmul_rn(to_f<TS>(x), scale));
+  } else {
+    return to_f<TS>(x);
+  }
+}
+
+// y = x / scale, already an IEEE quotient, into storage: int8 rounds half
+// to even and clips to +-127 (jnp.round, jnp.clip); fp8 rounds to nearest
+// even, saturating (|y| stays within 448 (1 + eps) under absmax scaling,
+// where this agrees with ml_dtypes' and PyTorch's casts).
+template <typename TS> __device__ __forceinline__ TS quantize(float y);
+template <> __device__ __forceinline__ int8_t quantize<int8_t>(float y) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(y), -127.f), 127.f));
+}
+template <> __device__ __forceinline__ fp8_e4m3 quantize<fp8_e4m3>(float y) {
+  return fp8_e4m3{static_cast<uint8_t>(__nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3))};
+}
+
+// The absmax scale of one slot-head (serving/quant.py quantize_kv): 1 for
+// an all-zero row, else amax * f32(1/qmax), the multiply the reference's
+// programs compile its division by the constant qmax into.
+__device__ __forceinline__ float absmax_scale(float amax, float inv_qmax) {
+  return amax == 0.f ? 1.f : __fmul_rn(amax, inv_qmax);
+}
+
+// Host-side dispatch on the wrappers' dtype codes: f(tag) is called with a
+// value of the element type the code names (0 float32, 1 float16,
+// 2 bfloat16; storage codes add 3 int8 and 4 float8_e4m3fn).
+template <typename F> cudaError_t by_float(int code, F&& f) {
+  switch (code) {
+    case 0: return f(float{});
+    case 1: return f(__half{});
+    case 2: return f(__nv_bfloat16{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename F> cudaError_t by_storage(int code, F&& f) {
+  switch (code) {
+    case 3: return f(int8_t{});
+    case 4: return f(fp8_e4m3{});
+    default: return by_float(code, f);
+  }
+}
+
+// Whether an arena of storage TS may go with fresh K/V of type TC: float
+// storage is the compute type itself; quantized storage goes with any.
+template <typename TS, typename TC> constexpr bool kv_pair_ok() {
+  return quantized<TS>::value || std::is_same<TS, TC>::value;
 }
 
 }  // namespace tt

@@ -12,12 +12,26 @@
 //     offset k at pos + k iff k < n_emit[b], else into sink block 0, slot 0
 //     (the speculative commit).  One kernel serves both writes: the plain
 //     write passes no n_emit and offset 0.
+//   paged_token_write_fused (pallasex.py:1672, body :1661, the quantize
+//     _absmax_quant :1579): the token write (plain or masked) into an int8
+//     or fp8-e4m3 arena, quantizing on the way: per (row, layer, group) the
+//     f32 absmax over hs, scale = amax == 0 ? 1 : amax * f32(1/qmax), the
+//     values x / scale rounded into storage, value and scale stored.
+//
+// The decode kernel also reads quantized arenas: each K/V element is
+// dequantized as its tile loads (f32(x) * scale, rounded to the compute
+// dtype, then to the query dtype, as the Pallas kernel rounds).
 //
 // What bounds them on an H100: all are memory-bound.  Decode attention
 // reads each live K/V byte once and does ~2 flops per byte (at Llama-3-8B,
-// B=8, pos~1024: 33.5 MB per layer, ~10 us at 3.35 TB/s).  A token write
-// moves ~0.5 MB per call and is dominated by launch cost; its grid spans
-// (request, row tile) so the copy spreads over the SMs.
+// B=8, pos~1024: 33.5 MB per layer, ~10 us at 3.35 TB/s; half of it, plus
+// 3% of scales, from a 1-byte arena).  A token write moves ~0.5 MB per call
+// (~0.8 MB fused: compute-dtype values in, bytes and scales out) and is
+// dominated by launch cost; its grid spans (request, row tile) so the copy
+// spreads over the SMs.  The fused write gives one warp to each (row,
+// layer, group): the absmax is a warp-shuffle max (order-free, so the
+// scale is bit-exact), the quotient an IEEE division (never a reciprocal
+// multiply), so the stored bytes equal serving.quant.quantize_kv's.
 //
 // Design (simple and right first; speed is later work):
 //   * One thread block per (request, KV group).  A loop inside the block
@@ -49,8 +63,11 @@
 
 namespace {
 
+using tt::fp8_e4m3;
 using tt::from_f;
 using tt::kMaskValue;
+using tt::load_kv;
+using tt::quantized;
 using tt::round_to;
 using tt::to_f;
 
@@ -61,15 +78,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// grid (ng, B), block kThreads.  Dynamic shared memory, in floats:
+// grid (ng, B), block kThreads.  TS: arena storage type; TC: the compute
+// type of the fresh K/V (TS itself unless TS is quantized).  Dynamic shared
+// memory, in floats:
 //   qs[rep*hs] acc[rep*hs] kt[bs*hs] vt[bs*hs] sc[rep*bs] m[rep] l[rep] corr[rep]
-template <typename TQ, typename TKV>
+template <typename TQ, typename TS, typename TC>
 __global__ void __launch_bounds__(kThreads) paged_attn_decode_kernel(
     const TQ* __restrict__ q,           // (B, nh, hs)
-    const TKV* __restrict__ k_arena,    // (num_blocks, L, ng, bs, hs)
-    const TKV* __restrict__ v_arena,
-    const TKV* __restrict__ fresh_k,    // (B, ng, hs)
-    const TKV* __restrict__ fresh_v,
+    const TS* __restrict__ k_arena,     // (num_blocks, L, ng, bs, hs)
+    const TS* __restrict__ v_arena,
+    const float* __restrict__ k_scale,  // (num_blocks, L, ng, bs); quantized TS only
+    const float* __restrict__ v_scale,
+    const TC* __restrict__ fresh_k,     // (B, ng, hs)
+    const TC* __restrict__ fresh_v,
     const int* __restrict__ tables,     // (B, nbb)
     const int* __restrict__ pos,        // (B,)
     TQ* __restrict__ out,               // (B, nh, hs)
@@ -115,9 +136,15 @@ __global__ void __launch_bounds__(kThreads) paged_attn_decode_kernel(
 
   for (int j = lo; j < hi; ++j) {
     const int64_t base = tables[static_cast<int64_t>(b) * nbb + j] * block_stride + head_off;
+    const int64_t sbase = base / hs;     // the scale of element base + i is sbase + i / hs
     for (int i = tid; i < tile; i += kThreads) {
-      kt[i] = round_to<TQ>(to_f<TKV>(k_arena[base + i]));
-      vt[i] = round_to<TQ>(to_f<TKV>(v_arena[base + i]));
+      float ks = 0.f, vs = 0.f;
+      if constexpr (quantized<TS>::value) {
+        ks = k_scale[sbase + i / hs];
+        vs = v_scale[sbase + i / hs];
+      }
+      kt[i] = round_to<TQ>(load_kv<TS, TC>(k_arena[base + i], ks));
+      vt[i] = round_to<TQ>(load_kv<TS, TC>(v_arena[base + i], vs));
     }
     __syncthreads();
     // scores, one warp per (query row, slot) pair
@@ -162,8 +189,8 @@ __global__ void __launch_bounds__(kThreads) paged_attn_decode_kernel(
   // the fresh token: the final, never-masked term
   const int64_t fresh0 = (static_cast<int64_t>(b) * ng + g) * hs;
   for (int i = tid; i < hs; i += kThreads) {
-    kt[i] = round_to<TQ>(to_f<TKV>(fresh_k[fresh0 + i]));
-    vt[i] = round_to<TQ>(to_f<TKV>(fresh_v[fresh0 + i]));
+    kt[i] = round_to<TQ>(to_f<TC>(fresh_k[fresh0 + i]));
+    vt[i] = round_to<TQ>(to_f<TC>(fresh_v[fresh0 + i]));
   }
   __syncthreads();
   for (int r = warp; r < rep; r += nwarps) {
@@ -254,72 +281,103 @@ cudaError_t token_write(void* arena, const void* vals, const int* tables, const 
   }
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_decode(const void* q, const void* ka, const void* va, const void* fk,
-                          const void* fv, const int* tables, const int* pos, void* out, int B,
-                          int ng, int rep, int hs, int bs, int nbb, int L, int layer,
-                          int window, float sm, cudaStream_t stream) {
+// grid (B, ceil(rows / 8)), block 256: one warp per (request b, arena row r)
+// with rows = L * ng.  vals: (B, rows, hs) at the compute type TV; arena:
+// (num_blocks, rows, bs, hs) quantized storage TS; scale_arena: (num_blocks,
+// rows, bs).  Routing as paged_token_write_kernel (sink block 0, slot 0 for
+// a row whose offset is not below n_emit[b]).
+template <typename TS, typename TV>
+__global__ void __launch_bounds__(256) paged_token_write_fused_kernel(
+    TS* __restrict__ arena, float* __restrict__ scale_arena, const TV* __restrict__ vals,
+    const int* __restrict__ tables, const int* __restrict__ pos, const int* __restrict__ n_emit,
+    int offset, int rows, int bs, int hs, int nbb, float inv_qmax) {
+  const int b = blockIdx.x;
+  const int r = blockIdx.y * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;               // the whole warp leaves together
+  int64_t blk = 0;
+  int slot = 0;
+  if (n_emit == nullptr || offset < n_emit[b]) {
+    const int p = pos[b] + offset;
+    blk = tables[static_cast<int64_t>(b) * nbb + min(p / bs, nbb - 1)];
+    slot = p % bs;
+  }
+  const TV* src = vals + (static_cast<int64_t>(b) * rows + r) * hs;
+  float amax = 0.f;
+  for (int d = lane; d < hs; d += 32) amax = fmaxf(amax, fabsf(to_f<TV>(src[d])));
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float scale = tt::absmax_scale(amax, inv_qmax);
+  const int64_t row = (blk * rows + r) * bs + slot;
+  TS* dst = arena + row * hs;
+  for (int d = lane; d < hs; d += 32)
+    dst[d] = tt::quantize<TS>(__fdiv_rn(to_f<TV>(src[d]), scale));
+  if (lane == 0) scale_arena[row] = scale;
+}
+
+template <typename TS, typename TV>
+cudaError_t launch_token_write_fused(void* arena, float* scale_arena, const void* vals,
+                                     const int* tables, const int* pos, const int* n_emit,
+                                     int offset, int B, int rows, int bs, int hs, int nbb,
+                                     float inv_qmax, cudaStream_t s) {
+  paged_token_write_fused_kernel<TS, TV><<<dim3(B, (rows + 7) / 8), 256, 0, s>>>(
+      static_cast<TS*>(arena), scale_arena, static_cast<const TV*>(vals), tables, pos, n_emit,
+      offset, rows, bs, hs, nbb, inv_qmax);
+  return cudaGetLastError();
+}
+
+template <typename TQ, typename TS, typename TC>
+cudaError_t launch_decode(const void* q, const void* ka, const void* va, const float* ks,
+                          const float* vs, const void* fk, const void* fv, const int* tables,
+                          const int* pos, void* out, int B, int ng, int rep, int hs, int bs,
+                          int nbb, int L, int layer, int window, float sm, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * static_cast<size_t>(rep) * hs + 2 * static_cast<size_t>(bs) * hs +
                        static_cast<size_t>(rep) * bs + 3 * static_cast<size_t>(rep));
-  auto kern = paged_attn_decode_kernel<TQ, TKV>;
+  auto kern = paged_attn_decode_kernel<TQ, TS, TC>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   kern<<<dim3(ng, B), kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(ka), static_cast<const TKV*>(va),
-      static_cast<const TKV*>(fk), static_cast<const TKV*>(fv), tables, pos,
+      static_cast<const TQ*>(q), static_cast<const TS*>(ka), static_cast<const TS*>(va), ks,
+      vs, static_cast<const TC*>(fk), static_cast<const TC*>(fv), tables, pos,
       static_cast<TQ*>(out), ng, rep, hs, bs, nbb, L, layer, window, sm);
   return cudaGetLastError();
 }
 
-template <typename TQ>
-cudaError_t dispatch_kv(int kv_dtype, const void* q, const void* ka, const void* va,
-                        const void* fk, const void* fv, const int* tables, const int* pos,
-                        void* out, int B, int ng, int rep, int hs, int bs, int nbb, int L,
-                        int layer, int window, float sm, cudaStream_t stream) {
-  switch (kv_dtype) {
-    case 0:
-      return launch_decode<TQ, float>(q, ka, va, fk, fv, tables, pos, out, B, ng, rep, hs, bs,
-                                      nbb, L, layer, window, sm, stream);
-    case 1:
-      return launch_decode<TQ, __half>(q, ka, va, fk, fv, tables, pos, out, B, ng, rep, hs, bs,
-                                       nbb, L, layer, window, sm, stream);
-    case 2:
-      return launch_decode<TQ, __nv_bfloat16>(q, ka, va, fk, fv, tables, pos, out, B, ng, rep,
-                                              hs, bs, nbb, L, layer, window, sm, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = float16, 2 = bfloat16.  window <= 0 means
-// no sliding window.  Returns the cudaError_t of the launch (0 = success).
+// dtype codes: q_dtype and c_dtype (the fresh K/V) 0 = float32,
+// 1 = float16, 2 = bfloat16; kv_dtype (the arena) those or 3 = int8,
+// 4 = float8_e4m3fn, whose k_scale/v_scale (num_blocks, L, ng, bs) float32
+// must then be given (null otherwise).  An unquantized arena has the fresh
+// K/V's dtype.  window <= 0 means no sliding window.  Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int tt_paged_attn_decode(const void* q, const void* k_arena, const void* v_arena,
+                                    const float* k_scale, const float* v_scale,
                                     const void* fresh_k, const void* fresh_v,
                                     const int* tables, const int* pos, void* out, int B,
                                     int ng, int rep, int hs, int bs, int nbb, int L, int layer,
                                     int window, float sm, int q_dtype, int kv_dtype,
-                                    void* stream) {
+                                    int c_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (q_dtype) {
-    case 0:
-      return dispatch_kv<float>(kv_dtype, q, k_arena, v_arena, fresh_k, fresh_v, tables, pos,
-                                out, B, ng, rep, hs, bs, nbb, L, layer, window, sm, s);
-    case 1:
-      return dispatch_kv<__half>(kv_dtype, q, k_arena, v_arena, fresh_k, fresh_v, tables, pos,
-                                 out, B, ng, rep, hs, bs, nbb, L, layer, window, sm, s);
-    case 2:
-      return dispatch_kv<__nv_bfloat16>(kv_dtype, q, k_arena, v_arena, fresh_k, fresh_v,
-                                        tables, pos, out, B, ng, rep, hs, bs, nbb, L, layer,
-                                        window, sm, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return tt::by_float(q_dtype, [&](auto tq) {
+    return tt::by_float(c_dtype, [&](auto tc) {
+      return tt::by_storage(kv_dtype, [&](auto ts) -> cudaError_t {
+        using TQ = decltype(tq);
+        using TC = decltype(tc);
+        using TS = decltype(ts);
+        if constexpr (!tt::kv_pair_ok<TS, TC>()) {
+          return cudaErrorInvalidValue;
+        } else {
+          return launch_decode<TQ, TS, TC>(q, k_arena, v_arena, k_scale, v_scale, fresh_k,
+                                           fresh_v, tables, pos, out, B, ng, rep, hs, bs, nbb,
+                                           L, layer, window, sm, s);
+        }
+      });
+    });
+  });
 }
 
 // elem_bytes: 1, 2 or 4 (the writes move bits, whatever the dtype).
@@ -338,6 +396,31 @@ extern "C" int tt_paged_token_write_masked(void* arena, const void* vals, const 
                                            void* stream) {
   return token_write(arena, vals, tables, pos, n_emit, offset, B, rows, bs, hs, nbb, elem_bytes,
                      static_cast<cudaStream_t>(stream));
+}
+
+// The token write into a quantized arena (kv_dtype 3 = int8, 4 = fp8
+// e4m3), quantizing vals (v_dtype 0/1/2, the compute dtype) on the way;
+// n_emit null is the plain write (offset 0), else the keep-masked one.
+// inv_qmax is f32(1/qmax) (1/127 or 1/448).
+extern "C" int tt_paged_token_write_fused(void* arena, float* scale_arena, const void* vals,
+                                          const int* tables, const int* pos, const int* n_emit,
+                                          int offset, int B, int rows, int bs, int hs, int nbb,
+                                          float inv_qmax, int kv_dtype, int v_dtype,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0) return cudaSuccess;
+  return tt::by_float(v_dtype, [&](auto tv) {
+    return tt::by_storage(kv_dtype, [&](auto ts) -> cudaError_t {
+      using TV = decltype(tv);
+      using TS = decltype(ts);
+      if constexpr (!quantized<TS>::value) {
+        return cudaErrorInvalidValue;
+      } else {
+        return launch_token_write_fused<TS, TV>(arena, scale_arena, vals, tables, pos, n_emit,
+                                                offset, B, rows, bs, hs, nbb, inv_qmax, s);
+      }
+    });
+  });
 }
 
 extern "C" const char* tt_error_string(int code) {

@@ -12,6 +12,17 @@
 //     width (e.g. 512) in a chunked prefill.
 //   paged_chunk_write (pallasex.py:1535, routing _chunk_dest :1520): chunk
 //     block c lands as one (L, ng, bs, hs) slab at dest[pos / bs + c].
+//   paged_chunk_write_fused (pallasex.py:1616, body :1595, the quantize
+//     _absmax_quant :1579): the chunk write into an int8 or fp8-e4m3 arena,
+//     quantizing each slot-head on the way (as paged_attention.cu's fused
+//     token write), plus the masked error sums sum|dq - x| and sum|x| of
+//     each chunk block behind the serving.kv_quant.rel_err gauge.
+//
+// Both verify bodies also read quantized arenas: each K/V element is
+// dequantized as its tile loads (f32(x) * scale, rounded to the compute
+// dtype, then to the query dtype, as the Pallas kernel rounds), so no
+// dequantized arena ever exists and the tensor-core body runs on int8 and
+// fp8 arenas too.
 //
 // What bounds them on an H100:
 //   * verify at the spec shape (B=8, T=5) reads the live K/V once, like
@@ -22,7 +33,13 @@
 //     key tile), far from the 989 TFLOP/s peak still; wgmma with
 //     register-resident accumulators is the next step.
 //   * the chunk write moves bytes only (a 1 MiB slab per chunk block at
-//     Llama-3-8B in bf16): bytes-bound.
+//     Llama-3-8B in bf16): bytes-bound.  So does the fused one: it reads
+//     the compute-dtype slab and writes half as many bytes plus 3% of
+//     scales.  One block per (chunk block, layer-group) slab, one warp per
+//     slot; each block leaves its two partial sums in a scratch buffer and
+//     a second small kernel adds them per chunk block in a fixed order, so
+//     the sums repeat bit for bit (the TPU kernel adds them on one core in
+//     grid order; here blocks finish in any order).
 //
 // Design of paged_attn_verify (simple and right first):
 //   * The Pallas kernel keeps a (rep*T, hs) f32 accumulator of one (request,
@@ -47,7 +64,10 @@
 //     rows, so the block's warps meet only at the two barriers around each
 //     K/V tile load; a key tile spans up to four arena blocks (64 keys), so
 //     the accumulators in shared memory are rescaled once per 64 keys.
-//     Otherwise (float32 queries, mixed dtypes, other block sizes) a
+//     Quantized arenas take it too, with the fresh K/V at the query dtype:
+//     the tile load reads 8 storage bytes per thread, dequantizes them
+//     with their slot's scale and stores the bf16/f16 values the products
+//     read.  Otherwise (float32 queries, mixed dtypes, other block sizes) a
 //     scalar-FMA body computes the same function over tiles of bs keys.
 
 #include <mma.h>
@@ -56,8 +76,11 @@
 
 namespace {
 
+using tt::fp8_e4m3;
 using tt::from_f;
 using tt::kMaskValue;
+using tt::load_kv;
+using tt::quantized;
 using tt::round_to;
 using tt::to_f;
 
@@ -70,15 +93,19 @@ size_t verify_smem_floats(int R, int hs, int bs) {
          static_cast<size_t>(R) * bs + 3 * static_cast<size_t>(R);
 }
 
-// grid (ceil(rows / R), ng, B), block kThreads.  Dynamic shared memory, in
-// floats: qs[R*hsp] acc[R*hs] kt[bs*hsp] vt[bs*hs] sc[R*bs] m[R] l[R] corr[R]
-template <typename TQ, typename TKV>
+// grid (ceil(rows / R), ng, B), block kThreads.  TS: arena storage type;
+// TC: the fresh K/V's compute type (TS itself unless TS is quantized).
+// Dynamic shared memory, in floats:
+//   qs[R*hsp] acc[R*hs] kt[bs*hsp] vt[bs*hs] sc[R*bs] m[R] l[R] corr[R]
+template <typename TQ, typename TS, typename TC>
 __global__ void __launch_bounds__(kThreads) paged_attn_verify_kernel(
     const TQ* __restrict__ q,           // (B, ng, rows, hs), rows = rep * T
-    const TKV* __restrict__ k_arena,    // (num_blocks, L, ng, bs, hs)
-    const TKV* __restrict__ v_arena,
-    const TKV* __restrict__ fresh_k,    // (B, ng, T, hs)
-    const TKV* __restrict__ fresh_v,
+    const TS* __restrict__ k_arena,     // (num_blocks, L, ng, bs, hs)
+    const TS* __restrict__ v_arena,
+    const float* __restrict__ k_scale,  // (num_blocks, L, ng, bs); quantized TS only
+    const float* __restrict__ v_scale,
+    const TC* __restrict__ fresh_k,     // (B, ng, T, hs)
+    const TC* __restrict__ fresh_v,
     const int* __restrict__ tables,     // (B, nbb)
     const int* __restrict__ pos,        // (B,)
     TQ* __restrict__ out,               // (B, ng, rows, hs)
@@ -126,18 +153,24 @@ __global__ void __launch_bounds__(kThreads) paged_attn_verify_kernel(
     __syncthreads();                     // the previous tile's readers are done
     if (arena) {
       const int64_t base = tables[static_cast<int64_t>(b) * nbb + it] * block_stride + head_off;
+      const int64_t sbase = base / hs;   // the scale of slot c is sbase + c
       for (int i = tid; i < bs * hs; i += kThreads) {
         const int c = i / hs, d = i - c * hs;
-        kt[c * hsp + d] = round_to<TQ>(to_f<TKV>(k_arena[base + i]));
-        vt[i] = round_to<TQ>(to_f<TKV>(v_arena[base + i]));
+        float ks = 0.f, vs = 0.f;
+        if constexpr (quantized<TS>::value) {
+          ks = k_scale[sbase + c];
+          vs = v_scale[sbase + c];
+        }
+        kt[c * hsp + d] = round_to<TQ>(load_kv<TS, TC>(k_arena[base + i], ks));
+        vt[i] = round_to<TQ>(load_kv<TS, TC>(v_arena[base + i], vs));
       }
     } else {
       for (int i = tid; i < bs * hs; i += kThreads) {
         const int c = i / hs, d = i - c * hs;
         const bool ok = c0 + c < T;      // the last fresh tile may be partial
         const int64_t at = fresh0 + static_cast<int64_t>(c0 + c) * hs + d;
-        kt[c * hsp + d] = ok ? round_to<TQ>(to_f<TKV>(fresh_k[at])) : 0.f;
-        vt[i] = ok ? round_to<TQ>(to_f<TKV>(fresh_v[at])) : 0.f;
+        kt[c * hsp + d] = ok ? round_to<TQ>(to_f<TC>(fresh_k[at])) : 0.f;
+        vt[i] = ok ? round_to<TQ>(to_f<TC>(fresh_v[at])) : 0.f;
       }
     }
     __syncthreads();
@@ -206,7 +239,107 @@ __global__ void paged_chunk_write_kernel(V* __restrict__ arena, const V* __restr
     dst[i] = src[i];
 }
 
-// The tensor-core body: T is bf16 or f16 for q, arena and fresh K/V alike.
+// grid (rows, nc), block 128 (4 warps), rows = L * ng.  Block (r, c) owns
+// arena row r of chunk block c: bs slots of hs values, vals (nc, rows, bs,
+// hs) at the compute type TV.  Warp w quantizes slots w, w + 4, ... into
+// block dest[pos / bs + c] (sink block 0 past the table) of the quantized
+// arena (num_blocks, rows, bs, hs) and its scale arena (num_blocks, rows,
+// bs), and the block leaves sum|dq - x| and sum|x| over its slab in
+// partial[c, r, 0..1] (lanes by xor shuffles, then warps in order).
+template <typename TS, typename TV>
+__global__ void __launch_bounds__(128) paged_chunk_write_fused_kernel(
+    TS* __restrict__ arena, float* __restrict__ scale_arena, const TV* __restrict__ vals,
+    const int* __restrict__ dest, const int* __restrict__ pos, float* __restrict__ partial,
+    int rows, int bs, int hs, int nbb, float inv_qmax) {
+  const int r = blockIdx.x, c = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int idx = pos[0] / bs + c;
+  const int64_t blk = idx < nbb ? dest[idx] : 0;
+  const TV* src = vals + (static_cast<int64_t>(c) * rows + r) * bs * hs;
+  const int64_t row0 = (blk * rows + r) * bs;        // the slab's first slot
+  float e_err = 0.f, e_abs = 0.f;
+  for (int t = warp; t < bs; t += 4) {
+    const TV* x = src + static_cast<int64_t>(t) * hs;
+    float amax = 0.f;
+    for (int d = lane; d < hs; d += 32) amax = fmaxf(amax, fabsf(to_f<TV>(x[d])));
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float scale = tt::absmax_scale(amax, inv_qmax);
+    TS* dst = arena + (row0 + t) * hs;
+    for (int d = lane; d < hs; d += 32) {
+      const float xv = to_f<TV>(x[d]);
+      const TS qv = tt::quantize<TS>(__fdiv_rn(xv, scale));
+      dst[d] = qv;
+      e_err += fabsf(__fmul_rn(to_f<TS>(qv), scale) - xv);
+      e_abs += fabsf(xv);
+    }
+    if (lane == 0) scale_arena[row0 + t] = scale;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    e_err += __shfl_xor_sync(0xffffffffu, e_err, o);
+    e_abs += __shfl_xor_sync(0xffffffffu, e_abs, o);
+  }
+  __shared__ float red[2][4];
+  if (lane == 0) {
+    red[0][warp] = e_err;
+    red[1][warp] = e_abs;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int64_t at = (static_cast<int64_t>(c) * rows + r) * 2;
+    partial[at] = red[0][0] + red[0][1] + red[0][2] + red[0][3];
+    partial[at + 1] = red[1][0] + red[1][1] + red[1][2] + red[1][3];
+  }
+}
+
+// grid nc, block 256: err[c, 0..1] = the sums of partial[c, :, 0..1] over
+// the rows (each thread a strided run, then a tree: a fixed order), kept
+// only when chunk block c was written to a real block (dest entry within
+// the table and not the sink), as the Pallas kernel masks them.
+__global__ void __launch_bounds__(256) chunk_err_reduce_kernel(
+    const float* __restrict__ partial, float* __restrict__ err, const int* __restrict__ dest,
+    const int* __restrict__ pos, int rows, int bs, int nbb) {
+  const int c = blockIdx.x, tid = threadIdx.x;
+  __shared__ float s[2][256];
+  float a = 0.f, b = 0.f;
+  for (int r = tid; r < rows; r += 256) {
+    const int64_t at = (static_cast<int64_t>(c) * rows + r) * 2;
+    a += partial[at];
+    b += partial[at + 1];
+  }
+  s[0][tid] = a;
+  s[1][tid] = b;
+  __syncthreads();
+  for (int w = 128; w > 0; w >>= 1) {
+    if (tid < w) {
+      s[0][tid] += s[0][tid + w];
+      s[1][tid] += s[1][tid + w];
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const int idx = pos[0] / bs + c;
+    const bool live = idx < nbb && dest[min(idx, nbb - 1)] != 0;
+    err[2 * c] = live ? s[0][0] : 0.f;
+    err[2 * c + 1] = live ? s[1][0] : 0.f;
+  }
+}
+
+// 8 quantized storage values (8 bytes at p, one slot, one scale) as the 8
+// T values the tensor-core body stores in shared memory: f32(x) * scale
+// rounded to T, the compute and query type alike.
+template <typename T, typename TS>
+__device__ __forceinline__ uint4 dequant8(const TS* p, float scale) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const TS* x = reinterpret_cast<const TS*>(&raw);
+  uint4 out;
+  T* o = reinterpret_cast<T*>(&out);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) o[e] = from_f<T>(__fmul_rn(to_f<TS>(x[e]), scale));
+  return out;
+}
+
+// The tensor-core body: T is bf16 or f16 for q, the fresh K/V and a float
+// arena alike; TS, the arena's storage, is T or a quantized type.
 // grid (ceil(rows / R), ng, B), block 2*R threads (R/16 warps, 16 rows
 // each).  A key tile holds KT = nbt * bs keys: nbt arena blocks (loaded
 // together), or KT fresh keys.  Dynamic shared memory, in order, each row
@@ -214,9 +347,10 @@ __global__ void paged_chunk_write_kernel(V* __restrict__ arena, const V* __restr
 // (every buffer and fragment offset stays 32-byte aligned):
 //   qs[R][hs+8] (T)  kt[KT][hs+8] (T)  vt[KT][hs+8] (T)  acc[R][hs+4] (f32)
 //   sc[R][KT+4] (f32)  pb[R][KT+8] (T)  m[R] l[R] corr[R] (f32)
-template <typename T>
+template <typename T, typename TS>
 __global__ void __launch_bounds__(128) paged_attn_verify_mma_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_arena, const T* __restrict__ v_arena,
+    const T* __restrict__ q, const TS* __restrict__ k_arena, const TS* __restrict__ v_arena,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const T* __restrict__ fresh_k, const T* __restrict__ fresh_v,
     const int* __restrict__ tables, const int* __restrict__ pos, T* __restrict__ out, int ng,
     int rows, int T_, int hs, int bs, int nbb, int L, int layer, int R, int nbt, float sm) {
@@ -282,8 +416,13 @@ __global__ void __launch_bounds__(128) paged_attn_verify_mma_kernel(
         if (j < n_blocks) {
           const int64_t at = tables[static_cast<int64_t>(b) * nbb + j] * block_stride +
                              head_off + i % tsz;
-          kv = *reinterpret_cast<const uint4*>(k_arena + at);
-          vv = *reinterpret_cast<const uint4*>(v_arena + at);
+          if constexpr (quantized<TS>::value) {
+            kv = dequant8<T>(k_arena + at, k_scale[at / hs]);
+            vv = dequant8<T>(v_arena + at, v_scale[at / hs]);
+          } else {
+            kv = *reinterpret_cast<const uint4*>(k_arena + at);
+            vv = *reinterpret_cast<const uint4*>(v_arena + at);
+          }
         }
       } else if (c0 + i / hs < T_) {     // the last fresh tile may be partial
         const int64_t at = fresh0 + static_cast<int64_t>(c0) * hs + i;
@@ -376,64 +515,59 @@ constexpr size_t kMaxSmem = 232448;                // shared memory a Hopper blo
 // arena blocks per key tile of the tensor-core body: up to 64 keys
 int verify_mma_blocks_per_tile(int bs) { return bs >= 64 ? 1 : 64 / bs; }
 
-template <typename T>
-cudaError_t launch_verify_mma(const void* q, const void* ka, const void* va, const void* fk,
-                              const void* fv, const int* tables, const int* pos, void* out,
-                              int B, int ng, int rows, int T_, int hs, int bs, int nbb, int L,
-                              int layer, float sm, cudaStream_t stream) {
+template <typename T, typename TS>
+cudaError_t launch_verify_mma(const void* q, const void* ka, const void* va, const float* ks,
+                              const float* vs, const void* fk, const void* fv,
+                              const int* tables, const int* pos, void* out, int B, int ng,
+                              int rows, int T_, int hs, int bs, int nbb, int L, int layer,
+                              float sm, cudaStream_t stream) {
   const int R = rows <= 16 ? 16 : rows <= 32 ? 32 : 64;
   const int nbt = verify_mma_blocks_per_tile(bs);
   const size_t smem = verify_mma_smem_bytes(R, hs, nbt * bs, sizeof(T));
-  auto kern = paged_attn_verify_mma_kernel<T>;
+  auto kern = paged_attn_verify_mma_kernel<T, TS>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   kern<<<dim3((rows + R - 1) / R, ng, B), 2 * R, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(ka), static_cast<const T*>(va),
+      static_cast<const T*>(q), static_cast<const TS*>(ka), static_cast<const TS*>(va), ks, vs,
       static_cast<const T*>(fk), static_cast<const T*>(fv), tables, pos, static_cast<T*>(out),
       ng, rows, T_, hs, bs, nbb, L, layer, R, nbt, sm);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_verify(const void* q, const void* ka, const void* va, const void* fk,
-                          const void* fv, const int* tables, const int* pos, void* out, int B,
-                          int ng, int rows, int T, int hs, int bs, int nbb, int L, int layer,
-                          int R, float sm, cudaStream_t stream) {
+template <typename TQ, typename TS, typename TC>
+cudaError_t launch_verify(const void* q, const void* ka, const void* va, const float* ks,
+                          const float* vs, const void* fk, const void* fv, const int* tables,
+                          const int* pos, void* out, int B, int ng, int rows, int T, int hs,
+                          int bs, int nbb, int L, int layer, int R, float sm,
+                          cudaStream_t stream) {
   const size_t smem = sizeof(float) * verify_smem_floats(R, hs, bs);
-  auto kern = paged_attn_verify_kernel<TQ, TKV>;
+  auto kern = paged_attn_verify_kernel<TQ, TS, TC>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   kern<<<dim3((rows + R - 1) / R, ng, B), kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(ka), static_cast<const TKV*>(va),
-      static_cast<const TKV*>(fk), static_cast<const TKV*>(fv), tables, pos,
+      static_cast<const TQ*>(q), static_cast<const TS*>(ka), static_cast<const TS*>(va), ks,
+      vs, static_cast<const TC*>(fk), static_cast<const TC*>(fv), tables, pos,
       static_cast<TQ*>(out), ng, rows, T, hs, bs, nbb, L, layer, R, sm);
   return cudaGetLastError();
 }
 
-template <typename TQ>
-cudaError_t verify_kv(int kv_dtype, const void* q, const void* ka, const void* va,
-                      const void* fk, const void* fv, const int* tables, const int* pos,
-                      void* out, int B, int ng, int rows, int T, int hs, int bs, int nbb, int L,
-                      int layer, int R, float sm, cudaStream_t s) {
-  switch (kv_dtype) {
-    case 0:
-      return launch_verify<TQ, float>(q, ka, va, fk, fv, tables, pos, out, B, ng, rows, T, hs,
-                                      bs, nbb, L, layer, R, sm, s);
-    case 1:
-      return launch_verify<TQ, __half>(q, ka, va, fk, fv, tables, pos, out, B, ng, rows, T, hs,
-                                       bs, nbb, L, layer, R, sm, s);
-    case 2:
-      return launch_verify<TQ, __nv_bfloat16>(q, ka, va, fk, fv, tables, pos, out, B, ng, rows,
-                                              T, hs, bs, nbb, L, layer, R, sm, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <typename TS, typename TV>
+cudaError_t launch_chunk_fused(void* arena, float* scale_arena, const void* vals, const int* dest,
+                               const int* pos, float* err, float* partial, int nc, int rows,
+                               int bs, int hs, int nbb, float inv_qmax, cudaStream_t s) {
+  paged_chunk_write_fused_kernel<TS, TV><<<dim3(rows, nc), 128, 0, s>>>(
+      static_cast<TS*>(arena), scale_arena, static_cast<const TV*>(vals), dest, pos, partial,
+      rows, bs, hs, nbb, inv_qmax);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  chunk_err_reduce_kernel<<<nc, 256, 0, s>>>(partial, err, dest, pos, rows, bs, nbb);
+  return cudaGetLastError();
 }
 
 template <typename V>
@@ -449,40 +583,90 @@ cudaError_t launch_chunk(void* arena, const void* vals, const int* dest, const i
   return cudaGetLastError();
 }
 
+// Whether the tensor-core body takes these dtype codes and shapes: bf16 or
+// f16 queries and fresh K/V, an arena of the same type or a quantized one,
+// bs and hs multiples of 16, and the shared memory of 64 rows fitting.
+bool verify_mma_ok(int q_dtype, int kv_dtype, int c_dtype, int hs, int bs) {
+  return q_dtype != 0 && c_dtype == q_dtype && (kv_dtype == q_dtype || kv_dtype >= 3) &&
+         bs % 16 == 0 && hs % 16 == 0 &&
+         verify_mma_smem_bytes(64, hs, verify_mma_blocks_per_tile(bs) * bs, 2) <= kMaxSmem;
+}
+
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = float16, 2 = bfloat16.  rows = rep * T.  R:
-// query rows per block of the scalar body (the wrapper picks it so the
-// shared memory fits); the tensor-core body picks its own (16, 32 or 64).
-// Returns the cudaError_t of the launch (0 = success).
+// dtype codes: q_dtype and c_dtype (the fresh K/V) 0 = float32,
+// 1 = float16, 2 = bfloat16; kv_dtype (the arena) those or 3 = int8,
+// 4 = float8_e4m3fn, whose k_scale/v_scale (num_blocks, L, ng, bs) float32
+// must then be given (null otherwise).  An unquantized arena has the fresh
+// K/V's dtype.  rows = rep * T.  R: query rows per block of the scalar body
+// (the wrapper picks it so the shared memory fits); the tensor-core body
+// picks its own (16, 32 or 64).  Returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int tt_paged_attn_verify(const void* q, const void* k_arena, const void* v_arena,
+                                    const float* k_scale, const float* v_scale,
                                     const void* fresh_k, const void* fresh_v,
                                     const int* tables, const int* pos, void* out, int B,
                                     int ng, int rows, int T, int hs, int bs, int nbb, int L,
                                     int layer, int R, float sm, int q_dtype, int kv_dtype,
-                                    void* stream) {
+                                    int c_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == kv_dtype && q_dtype != 0 && bs % 16 == 0 && hs % 16 == 0 &&
-      verify_mma_smem_bytes(64, hs, verify_mma_blocks_per_tile(bs) * bs, 2) <= kMaxSmem) {
-    if (q_dtype == 1)
-      return launch_verify_mma<__half>(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, out,
-                                       B, ng, rows, T, hs, bs, nbb, L, layer, sm, s);
-    return launch_verify_mma<__nv_bfloat16>(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos,
-                                            out, B, ng, rows, T, hs, bs, nbb, L, layer, sm, s);
+  if (verify_mma_ok(q_dtype, kv_dtype, c_dtype, hs, bs)) {
+    return tt::by_float(q_dtype, [&](auto tq) {
+      return tt::by_storage(kv_dtype, [&](auto ts) -> cudaError_t {
+        using TQ = decltype(tq);
+        using TS = decltype(ts);
+        if constexpr (std::is_same<TQ, float>::value || !tt::kv_pair_ok<TS, TQ>()) {
+          return cudaErrorInvalidValue;
+        } else {
+          return launch_verify_mma<TQ, TS>(q, k_arena, v_arena, k_scale, v_scale, fresh_k,
+                                           fresh_v, tables, pos, out, B, ng, rows, T, hs, bs,
+                                           nbb, L, layer, sm, s);
+        }
+      });
+    });
   }
-  switch (q_dtype) {
-    case 0:
-      return verify_kv<float>(kv_dtype, q, k_arena, v_arena, fresh_k, fresh_v, tables, pos,
-                              out, B, ng, rows, T, hs, bs, nbb, L, layer, R, sm, s);
-    case 1:
-      return verify_kv<__half>(kv_dtype, q, k_arena, v_arena, fresh_k, fresh_v, tables, pos,
-                               out, B, ng, rows, T, hs, bs, nbb, L, layer, R, sm, s);
-    case 2:
-      return verify_kv<__nv_bfloat16>(kv_dtype, q, k_arena, v_arena, fresh_k, fresh_v, tables,
-                                      pos, out, B, ng, rows, T, hs, bs, nbb, L, layer, R, sm, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return tt::by_float(q_dtype, [&](auto tq) {
+    return tt::by_float(c_dtype, [&](auto tc) {
+      return tt::by_storage(kv_dtype, [&](auto ts) -> cudaError_t {
+        using TQ = decltype(tq);
+        using TC = decltype(tc);
+        using TS = decltype(ts);
+        if constexpr (!tt::kv_pair_ok<TS, TC>()) {
+          return cudaErrorInvalidValue;
+        } else {
+          return launch_verify<TQ, TS, TC>(q, k_arena, v_arena, k_scale, v_scale, fresh_k,
+                                           fresh_v, tables, pos, out, B, ng, rows, T, hs, bs,
+                                           nbb, L, layer, R, sm, s);
+        }
+      });
+    });
+  });
+}
+
+// The chunk write into a quantized arena (kv_dtype 3 = int8, 4 = fp8
+// e4m3), quantizing vals (nc, rows, bs, hs) at v_dtype (0/1/2) on the way;
+// err: (nc, 2) float32, the masked sum|dq - x| and sum|x| of each chunk
+// block; partial: (nc, rows, 2) float32 scratch.  inv_qmax is f32(1/qmax).
+// Two launches: the write, then the fixed-order reduction of the sums.
+extern "C" int tt_paged_chunk_write_fused(void* arena, float* scale_arena, const void* vals,
+                                          const int* dest, const int* pos, float* err,
+                                          float* partial, int nc, int rows, int bs, int hs,
+                                          int nbb, float inv_qmax, int kv_dtype, int v_dtype,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nc == 0) return cudaSuccess;
+  return tt::by_float(v_dtype, [&](auto tv) {
+    return tt::by_storage(kv_dtype, [&](auto ts) -> cudaError_t {
+      using TV = decltype(tv);
+      using TS = decltype(ts);
+      if constexpr (!quantized<TS>::value) {
+        return cudaErrorInvalidValue;
+      } else {
+        return launch_chunk_fused<TS, TV>(arena, scale_arena, vals, dest, pos, err, partial, nc,
+                                          rows, bs, hs, nbb, inv_qmax, s);
+      }
+    });
+  });
 }
 
 // vec_bytes: 16, 8, 4, 2 or 1 — the widest that divides the slab and both

@@ -1,6 +1,6 @@
 """Kernel wrappers for the port's hand-written CUDA kernels.
 
-Counterpart of ``thunder_tpu/executors/pallasex.py`` for the five kernels
+Counterpart of ``thunder_tpu/executors/pallasex.py`` for the seven kernels
 of the serving paths:
 
 - :func:`paged_attn_decode` replaces ``pallasex.paged_attn_decode``
@@ -17,6 +17,19 @@ of the serving paths:
 - :func:`paged_token_write_masked` replaces
   ``pallasex.paged_token_write_masked`` (``pallasex.py:1462``): one chunk
   offset's K/V landed where the offset was accepted, else in the sink;
+- :func:`paged_token_write_fused` replaces
+  ``pallasex.paged_token_write_fused`` (``pallasex.py:1672``): the token
+  write (plain or masked) into a quantized (int8/fp8) arena, the absmax
+  quantization of ``serving.quant.quantize_kv`` done in the kernel;
+- :func:`paged_chunk_write_fused` replaces
+  ``pallasex.paged_chunk_write_fused`` (``pallasex.py:1616``): the chunk
+  write into a quantized arena, with the per-block error sums behind the
+  ``serving.kv_quant.rel_err`` gauge;
+
+``paged_attn_decode`` and ``paged_attn_verify`` read quantized arenas too
+(``k_scale``/``v_scale``): each tile is dequantized as it is loaded,
+``f32(x) * scale`` rounded to the compute dtype and then to the query
+dtype, as the Pallas kernels round (``pallasex.py:1094-1098``);
 
 and for the three kernels of a training step:
 
@@ -60,8 +73,12 @@ __all__ = [
     "paged_attn_verify_plain",
     "paged_available",
     "paged_chunk_write",
+    "paged_chunk_write_fused",
+    "paged_chunk_write_fused_plain",
     "paged_chunk_write_plain",
     "paged_token_write",
+    "paged_token_write_fused",
+    "paged_token_write_fused_plain",
     "paged_token_write_masked",
     "paged_token_write_masked_plain",
     "paged_token_write_plain",
@@ -73,9 +90,13 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 LAUNCHES = {"paged_attn_decode": 0, "paged_token_write": 0, "paged_attn_verify": 0,
             "paged_chunk_write": 0, "paged_token_write_masked": 0, "flash_fwd": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "paged_token_write_fused": 0,
+            "paged_chunk_write_fused": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# arena storage codes: the float dtypes above, then the quantized ones
+_QUANT_CODE = {torch.int8: 3, torch.float8_e4m3fn: 4}
+_STORAGE_CODE = {**_DTYPE_CODE, **_QUANT_CODE}
 _KERNEL_HEAD_SIZES = (64, 128, 256)
 _MAX_SMEM_BYTES = 232448      # shared memory one block may use on Hopper
 
@@ -138,14 +159,63 @@ def _online(m, l, acc, s, v, dt):
     return m_new, l_new, acc_new
 
 
+def _quant():
+    """``serving.quant``: the quantize math the fused writes' plain versions
+    share with the gather path.  Imported at call time, since the serving
+    package imports this module."""
+    from thunder_tpu_torch.serving import quant
+
+    return quant
+
+
+def _kv_tile(arena, scale, blk, layer: int, cdtype, dt):
+    """The (B, ng, bs, hs) tiles of ``layer`` in blocks ``blk``, at the
+    query dtype ``dt`` and as float32 numbers, loaded the way the kernels
+    load them: a quantized tile is dequantized first, ``f32(x) * scale``
+    rounded to the compute dtype ``cdtype``."""
+    if scale is None:
+        return arena[blk, layer].to(dt).float()
+    x = _quant().as_bytes(arena)[blk, layer].view(arena.dtype).float()
+    return (x * scale[blk, layer][..., None]).to(cdtype).to(dt).float()
+
+
+def _check_kv(name: str, k_arena, v_arena, fresh_k, fresh_v, k_scale, v_scale) -> bool:
+    """Dtype and shape checks of the arenas, their scales and the fresh
+    K/V; returns whether the arenas are quantized.  Unquantized arenas
+    share one float dtype with the fresh K/V; quantized ones are int8 or
+    fp8 e4m3 with float32 scales shaped ``arena.shape[:-1]``, both given,
+    and the fresh K/V are at the compute dtype."""
+    if k_scale is None and v_scale is None:
+        _require(k_arena.dtype in _DTYPE_CODE,
+                 f"{name}: arena dtype must be float32/float16/bfloat16 (or int8/fp8 with "
+                 f"k_scale/v_scale), got {k_arena.dtype}")
+        _require(v_arena.dtype == k_arena.dtype == fresh_k.dtype == fresh_v.dtype,
+                 f"{name}: arenas and fresh K/V must share one dtype")
+        return False
+    _require(k_scale is not None and v_scale is not None,
+             f"{name}: k_scale and v_scale go together: pass both or neither")
+    _require(k_arena.dtype in _QUANT_CODE and v_arena.dtype == k_arena.dtype,
+             f"{name}: scaled arenas must both be int8 or float8_e4m3fn, got "
+             f"{k_arena.dtype} {v_arena.dtype}")
+    want = tuple(k_arena.shape[:-1])
+    for arg, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _require(t.dtype == torch.float32 and tuple(t.shape) == want,
+                 f"{name}: {arg} must be float32 {want}, got {t.dtype} {tuple(t.shape)}")
+    _require(fresh_k.dtype in _DTYPE_CODE and fresh_v.dtype == fresh_k.dtype,
+             f"{name}: fresh K/V must share one compute dtype (float32/float16/bfloat16), "
+             f"got {fresh_k.dtype} {fresh_v.dtype}")
+    return True
+
+
 def paged_attn_decode_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *,
-                            layer: int, window: int | None = None):
+                            layer: int, k_scale=None, v_scale=None,
+                            window: int | None = None):
     """Plain PyTorch version of :func:`paged_attn_decode`: the same walk
     over each request's live blocks in table order, one online-softmax step
     per block, the fresh token folded last, with the kernel's numerics."""
     B, nh, hs = q.shape
     ng, bs = k_arena.shape[2], k_arena.shape[3]
-    rep, nbb, dt = nh // ng, tables.shape[1], q.dtype
+    rep, nbb, dt, cdtype = nh // ng, tables.shape[1], q.dtype, fresh_k.dtype
     sm = float(np.sqrt(hs))
     f32 = torch.float32
     qf = q.reshape(B, ng, rep, hs).float()
@@ -162,8 +232,8 @@ def paged_attn_decode_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, 
         if not bool(run.any()):
             continue
         blk = tables[:, j].long()
-        k = k_arena[blk, layer].to(dt).float()                 # (B, ng, bs, hs)
-        v = v_arena[blk, layer].to(dt).float()
+        k = _kv_tile(k_arena, k_scale, blk, layer, cdtype, dt)     # (B, ng, bs, hs)
+        v = _kv_tile(v_arena, v_scale, blk, layer, cdtype, dt)
         s = torch.matmul(qf, k.transpose(-1, -2)) / sm         # (B, ng, rep, bs)
         slot = j * bs + t
         keep = slot[None, :] < p_i[:, None]
@@ -187,15 +257,14 @@ def paged_attn_decode(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, lay
     ``q``: (B, nh, hs) queries; ``k_arena``/``v_arena``: the FULL
     (num_blocks, L, ng, bs, hs) pool arenas — ``layer`` picks the layer
     inside the kernel, so no per-layer arena slice is ever copied;
-    ``fresh_k``/``fresh_v``: (B, ng, hs) this step's K/V at the arena dtype
-    (not yet in the arena — :func:`paged_token_write` lands them after);
-    ``tables``: (B, nbb) int32 sink-padded block tables; ``pos``: (B,) int32
-    positions; ``window``: ``cfg.sliding_window``.  Returns (B, nh, hs) at
-    ``q.dtype``.  Quantized arenas (``k_scale``/``v_scale``) are not ported
-    yet and raise."""
+    ``k_scale``/``v_scale``: (num_blocks, L, ng, bs) float32 scales of
+    int8/fp8 arenas (both or neither), dequantized as each tile loads;
+    ``fresh_k``/``fresh_v``: (B, ng, hs) this step's K/V at the compute
+    dtype (the arena dtype when unquantized; not yet in the arena — a
+    token write lands them after); ``tables``: (B, nbb) int32 sink-padded
+    block tables; ``pos``: (B,) int32 positions; ``window``:
+    ``cfg.sliding_window``.  Returns (B, nh, hs) at ``q.dtype``."""
     name = "paged_attn_decode"
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(f"{name}: quantized arenas (k_scale/v_scale) are not ported yet")
     _require(q.ndim == 3 and k_arena.ndim == 5, f"{name}: q must be (B, nh, hs) and the "
              f"arenas (num_blocks, L, ng, bs, hs), got {tuple(q.shape)} {tuple(k_arena.shape)}")
     B, nh, hs = q.shape
@@ -205,17 +274,17 @@ def paged_attn_decode(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, lay
              f"{name}: q {tuple(q.shape)} does not fit arena {tuple(k_arena.shape)}")
     _require(tuple(fresh_k.shape) == (B, ng, hs) and tuple(fresh_v.shape) == (B, ng, hs),
              f"{name}: fresh K/V must be {(B, ng, hs)}")
-    _require(q.dtype in _DTYPE_CODE and k_arena.dtype in _DTYPE_CODE,
-             f"{name}: dtypes must be float32/float16/bfloat16, got {q.dtype} {k_arena.dtype}")
-    _require(v_arena.dtype == k_arena.dtype == fresh_k.dtype == fresh_v.dtype,
-             f"{name}: arenas and fresh K/V must share one dtype")
+    _require(q.dtype in _DTYPE_CODE,
+             f"{name}: q dtype must be float32/float16/bfloat16, got {q.dtype}")
+    quantized = _check_kv(name, k_arena, v_arena, fresh_k, fresh_v, k_scale, v_scale)
     _require(0 <= layer < L, f"{name}: layer {layer} out of range for L={L}")
     _require(window is None or window >= 1, f"{name}: window must be >= 1, got {window}")
+    scales = dict(k_scale=k_scale, v_scale=v_scale) if quantized else {}
     dev = _check_common(name, dict(q=q, k_arena=k_arena, v_arena=v_arena, fresh_k=fresh_k,
-                                   fresh_v=fresh_v), tables, pos, B)
+                                   fresh_v=fresh_v, **scales), tables, pos, B)
     if dev.type == "cpu":
         return paged_attn_decode_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos,
-                                       layer=layer, window=window)
+                                       layer=layer, window=window, **scales)
     rep, nbb = nh // ng, tables.shape[1]
     _require(hs in _KERNEL_HEAD_SIZES,
              f"{name}: the CUDA kernel takes head sizes {_KERNEL_HEAD_SIZES}, got {hs}")
@@ -225,14 +294,16 @@ def paged_attn_decode(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, lay
              f"(limit {_MAX_SMEM_BYTES})")
     lib = _build.load_library()
     out = torch.empty_like(q)
+    null = ctypes.c_void_p(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tt_paged_attn_decode(
-            _ptr(q), _ptr(k_arena), _ptr(v_arena), _ptr(fresh_k), _ptr(fresh_v),
-            _ptr(tables), _ptr(pos), _ptr(out),
+            _ptr(q), _ptr(k_arena), _ptr(v_arena),
+            _ptr(k_scale) if quantized else null, _ptr(v_scale) if quantized else null,
+            _ptr(fresh_k), _ptr(fresh_v), _ptr(tables), _ptr(pos), _ptr(out),
             B, ng, rep, hs, bs, nbb, L, layer, 0 if window is None else int(window),
             ctypes.c_float(float(np.sqrt(hs))), _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_arena.dtype], ctypes.c_void_p(stream))
+            _STORAGE_CODE[k_arena.dtype], _DTYPE_CODE[fresh_k.dtype], ctypes.c_void_p(stream))
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return out
@@ -305,7 +376,8 @@ def paged_token_write(arena, vals, tables, pos, *, block_size: int):
 #
 
 
-def paged_attn_verify_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, layer: int):
+def paged_attn_verify_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, layer: int,
+                            k_scale=None, v_scale=None):
     """Plain PyTorch version of :func:`paged_attn_verify`: the decode walk
     over each request's live blocks at rep·T query rows (the arena keep-mask
     ``slot < pos`` is the same for every query), then the chunk's own K/V
@@ -313,7 +385,7 @@ def paged_attn_verify_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, 
     t``, with the kernel's numerics."""
     B, nh, T, hs = q.shape
     ng, bs = k_arena.shape[2], k_arena.shape[3]
-    rep, nbb, dt = nh // ng, tables.shape[1], q.dtype
+    rep, nbb, dt, cdtype = nh // ng, tables.shape[1], q.dtype, fresh_k.dtype
     rows = rep * T
     sm = float(np.sqrt(hs))
     f32 = torch.float32
@@ -328,8 +400,8 @@ def paged_attn_verify_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, 
         if not bool(run.any()):
             continue
         blk = tables[:, j].long()
-        k = k_arena[blk, layer].to(dt).float()                 # (B, ng, bs, hs)
-        v = v_arena[blk, layer].to(dt).float()
+        k = _kv_tile(k_arena, k_scale, blk, layer, cdtype, dt)     # (B, ng, bs, hs)
+        v = _kv_tile(v_arena, v_scale, blk, layer, cdtype, dt)
         s = torch.matmul(qf, k.transpose(-1, -2)) / sm         # (B, ng, rows, bs)
         keep = (j * bs + t)[None, :] < p_i[:, None]
         s = torch.where(keep[:, None, None, :], s, MASK_VALUE)
@@ -368,18 +440,17 @@ def paged_attn_verify(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, lay
     prefill (T = the chunk width).
 
     ``q``: (B, nh, T, hs) queries at positions ``[pos, pos+T)``;
-    ``k_arena``/``v_arena``: the full (num_blocks, L, ng, bs, hs) arenas;
-    ``fresh_k``/``fresh_v``: (B, ng, T, hs) the chunk's own K/V at the arena
-    dtype (not yet in the arena: :func:`paged_token_write_masked` or
-    :func:`paged_chunk_write` land it after); ``tables``: (B, nbb) int32
-    sink-padded block tables; ``pos``: (B,) int32.  Every query sees the
-    arena slots ``< pos`` and the chunk's keys up to its own offset.  No
-    sliding window (windowed models take the gather path).  Returns
-    (B, nh, T, hs) at ``q.dtype``.  Quantized arenas are not ported yet and
-    raise."""
+    ``k_arena``/``v_arena``: the full (num_blocks, L, ng, bs, hs) arenas,
+    with ``k_scale``/``v_scale`` (num_blocks, L, ng, bs) float32 when they
+    are int8/fp8 (dequantized as each tile loads, in both kernel bodies);
+    ``fresh_k``/``fresh_v``: (B, ng, T, hs) the chunk's own K/V at the
+    compute dtype (not yet in the arena: a masked token write or a chunk
+    write lands it after); ``tables``: (B, nbb) int32 sink-padded block
+    tables; ``pos``: (B,) int32.  Every query sees the arena slots ``<
+    pos`` and the chunk's keys up to its own offset.  No sliding window
+    (windowed models take the gather path).  Returns (B, nh, T, hs) at
+    ``q.dtype``."""
     name = "paged_attn_verify"
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(f"{name}: quantized arenas (k_scale/v_scale) are not ported yet")
     _require(q.ndim == 4 and k_arena.ndim == 5, f"{name}: q must be (B, nh, T, hs) and the "
              f"arenas (num_blocks, L, ng, bs, hs), got {tuple(q.shape)} {tuple(k_arena.shape)}")
     B, nh, T, hs = q.shape
@@ -389,16 +460,16 @@ def paged_attn_verify(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, lay
              f"{name}: q {tuple(q.shape)} does not fit arena {tuple(k_arena.shape)}")
     _require(tuple(fresh_k.shape) == (B, ng, T, hs) and tuple(fresh_v.shape) == (B, ng, T, hs),
              f"{name}: fresh K/V must be {(B, ng, T, hs)}")
-    _require(q.dtype in _DTYPE_CODE and k_arena.dtype in _DTYPE_CODE,
-             f"{name}: dtypes must be float32/float16/bfloat16, got {q.dtype} {k_arena.dtype}")
-    _require(v_arena.dtype == k_arena.dtype == fresh_k.dtype == fresh_v.dtype,
-             f"{name}: arenas and fresh K/V must share one dtype")
+    _require(q.dtype in _DTYPE_CODE,
+             f"{name}: q dtype must be float32/float16/bfloat16, got {q.dtype}")
+    quantized = _check_kv(name, k_arena, v_arena, fresh_k, fresh_v, k_scale, v_scale)
     _require(0 <= layer < L, f"{name}: layer {layer} out of range for L={L}")
+    scales = dict(k_scale=k_scale, v_scale=v_scale) if quantized else {}
     dev = _check_common(name, dict(q=q, k_arena=k_arena, v_arena=v_arena, fresh_k=fresh_k,
-                                   fresh_v=fresh_v), tables, pos, B)
+                                   fresh_v=fresh_v, **scales), tables, pos, B)
     if dev.type == "cpu":
         return paged_attn_verify_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos,
-                                       layer=layer)
+                                       layer=layer, **scales)
     rep, nbb = nh // ng, tables.shape[1]
     _require(hs in _KERNEL_HEAD_SIZES,
              f"{name}: the CUDA kernel takes head sizes {_KERNEL_HEAD_SIZES}, got {hs}")
@@ -411,12 +482,14 @@ def paged_attn_verify(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, lay
         return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        null = ctypes.c_void_p(0)
         rc = lib.tt_paged_attn_verify(
-            _ptr(q), _ptr(k_arena), _ptr(v_arena), _ptr(fresh_k), _ptr(fresh_v),
-            _ptr(tables), _ptr(pos), _ptr(out),
+            _ptr(q), _ptr(k_arena), _ptr(v_arena),
+            _ptr(k_scale) if quantized else null, _ptr(v_scale) if quantized else null,
+            _ptr(fresh_k), _ptr(fresh_v), _ptr(tables), _ptr(pos), _ptr(out),
             B, ng, rep * T, T, hs, bs, nbb, L, layer, R,
             ctypes.c_float(float(np.sqrt(hs))), _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_arena.dtype], ctypes.c_void_p(stream))
+            _STORAGE_CODE[k_arena.dtype], _DTYPE_CODE[fresh_k.dtype], ctypes.c_void_p(stream))
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return out
@@ -546,6 +619,170 @@ def paged_token_write_masked(arena, vals, tables, pos, n_emit, offset: int, *, b
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return arena
+
+
+#
+# paged_token_write_fused, paged_chunk_write_fused: quantize on write
+#
+
+
+def _check_quant_arena(name: str, arena, scale_arena, vals) -> None:
+    _require(arena.dtype in _QUANT_CODE,
+             f"{name}: the arena must be int8 or float8_e4m3fn, got {arena.dtype}")
+    _require(scale_arena.dtype == torch.float32
+             and tuple(scale_arena.shape) == tuple(arena.shape[:-1]),
+             f"{name}: scale_arena must be float32 {tuple(arena.shape[:-1])}, got "
+             f"{scale_arena.dtype} {tuple(scale_arena.shape)}")
+    _require(vals.dtype in _DTYPE_CODE,
+             f"{name}: vals must be at the compute dtype (float32/float16/bfloat16), got "
+             f"{vals.dtype}")
+
+
+def paged_token_write_fused_plain(arena, scale_arena, vals, tables, pos, *, block_size: int,
+                                  n_emit=None, offset: int = 0):
+    """Plain PyTorch version of :func:`paged_token_write_fused` (in place):
+    ``serving.quant.quantize_kv``, then the token write of values and
+    scales (keep-masked when ``n_emit`` is given)."""
+    quant = _quant()
+    q, s = quant.quantize_kv(vals, arena.dtype)        # (B, L, ng, hs) / (B, L, ng)
+    blk, slot = _dest(tables, pos + offset, block_size)
+    if n_emit is not None:
+        live = offset < n_emit.long()
+        blk, slot = torch.where(live, blk, 0), torch.where(live, slot, 0)
+    quant.as_bytes(arena)[blk, :, :, slot, :] = quant.as_bytes(q)
+    scale_arena[blk, :, :, slot] = s
+    return arena, scale_arena
+
+
+def paged_token_write_fused(arena, scale_arena, vals, tables, pos, *, block_size: int,
+                            n_emit=None, offset: int = 0):
+    """In-place single-token write into a quantized arena, quantizing on the
+    way; returns ``(arena, scale_arena)`` themselves.
+
+    ``arena``: (num_blocks, L, ng, bs, hs) int8 or float8_e4m3fn;
+    ``scale_arena``: (num_blocks, L, ng, bs) float32; ``vals``: (B, L, ng,
+    hs) at the compute dtype.  Each (row, layer, group) vector is quantized
+    exactly as ``serving.quant.quantize_kv`` does (the kernel's stored bytes
+    and scales equal the plain version's, bit for bit) and lands with its
+    scale at block ``tables[i, pos[i] // bs]``, slot ``pos[i] % bs``.  With
+    ``n_emit`` (B,) int32 it is the keep-masked write of chunk offset
+    ``offset`` (:func:`paged_token_write_masked`): row ``i`` lands at
+    ``pos[i] + offset`` iff ``offset < n_emit[i]``, else in sink block 0,
+    slot 0."""
+    name = "paged_token_write_fused"
+    _require(arena.ndim == 5 and vals.ndim == 4,
+             f"{name}: arena must be (num_blocks, L, ng, bs, hs) and vals (B, L, ng, hs), got "
+             f"{tuple(arena.shape)} and {tuple(vals.shape)}")
+    B = vals.shape[0]
+    _, L, ng, bs, hs = arena.shape
+    _require(tuple(vals.shape) == (B, L, ng, hs),
+             f"{name}: vals must be {(B, L, ng, hs)}, got {tuple(vals.shape)}")
+    _require(block_size == bs, f"{name}: block_size={block_size} but the arena holds {bs}")
+    _check_quant_arena(name, arena, scale_arena, vals)
+    tensors = dict(arena=arena, scale_arena=scale_arena, vals=vals)
+    if n_emit is None:
+        _require(offset == 0, f"{name}: offset={offset} needs n_emit (the masked write)")
+    else:
+        _require(n_emit.dtype == torch.int32 and tuple(n_emit.shape) == (B,),
+                 f"{name}: n_emit must be int32 ({B},), got {n_emit.dtype} "
+                 f"{tuple(n_emit.shape)}")
+        _require(offset >= 0, f"{name}: offset must be >= 0, got {offset}")
+        tensors["n_emit"] = n_emit
+    dev = _check_common(name, tensors, tables, pos, B)
+    if dev.type == "cpu":
+        return paged_token_write_fused_plain(arena, scale_arena, vals, tables, pos,
+                                             block_size=block_size, n_emit=n_emit,
+                                             offset=offset)
+    if B == 0:
+        return arena, scale_arena
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tt_paged_token_write_fused(
+            _ptr(arena), _ptr(scale_arena), _ptr(vals), _ptr(tables), _ptr(pos),
+            _ptr(n_emit) if n_emit is not None else ctypes.c_void_p(0), int(offset),
+            B, L * ng, bs, hs, tables.shape[1], ctypes.c_float(_quant().inv_qmax(arena.dtype)),
+            _QUANT_CODE[arena.dtype], _DTYPE_CODE[vals.dtype], ctypes.c_void_p(stream))
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
+    return arena, scale_arena
+
+
+def _chunk_live(dest, pos, nc: int, block_size: int):
+    """Whether chunk block ``c`` lands in a real block: its dest entry lies
+    within the table and is not the sink (the error sums' mask)."""
+    nbb = dest.shape[0]
+    idx = pos.long()[0] // block_size + torch.arange(nc, device=dest.device)
+    return (idx < nbb) & (dest.long()[torch.clamp(idx, max=nbb - 1)] != 0)
+
+
+def paged_chunk_write_fused_plain(arena, scale_arena, vals, dest, pos, *, block_size: int):
+    """Plain PyTorch version of :func:`paged_chunk_write_fused` (in place):
+    ``serving.quant.quantize_kv`` of every slot-head, the chunk write of
+    values and scales, and the masked per-block error sums."""
+    quant = _quant()
+    nc = vals.shape[0]
+    q, s = quant.quantize_kv(vals, arena.dtype)        # (nc, L, ng, bs, hs) / (nc, L, ng, bs)
+    blk = _chunk_dest(dest, pos, nc, block_size)
+    quant.as_bytes(arena)[blk] = quant.as_bytes(q)
+    scale_arena[blk] = s
+    xf = vals.float()
+    dq = q.float() * s[..., None]
+    sums = torch.stack([(dq - xf).abs().reshape(nc, -1).sum(1),
+                        xf.abs().reshape(nc, -1).sum(1)], dim=1)
+    return arena, scale_arena, sums * _chunk_live(dest, pos, nc, block_size).float()[:, None]
+
+
+def paged_chunk_write_fused(arena, scale_arena, vals, dest, pos, *, block_size: int):
+    """In-place block-granule chunk write into a quantized arena,
+    quantizing on the way; returns ``(arena, scale_arena, err)``.
+
+    ``arena``/``scale_arena`` as :func:`paged_token_write_fused`; ``vals``:
+    (nc, L, ng, bs, hs) the chunk's fresh K (or V) at the compute dtype,
+    folded to block granules; ``dest``/``pos`` and the routing as
+    :func:`paged_chunk_write`.  ``err``: (nc, 2) float32, per chunk block
+    ``sum|dq - x|`` and ``sum|x|`` over its slab, zero for a block routed to
+    the sink (its dest entry is the sink or lies past the table) — the
+    Pallas kernel's ``[c, 0, 0]`` and ``[c, 0, 1]``; ``err[:, 0].sum() /
+    (err[:, 1].sum() + 1e-30)`` is the ``rel_err`` ``scatter_blocks_q``
+    reports.  Values and scales are bit-equal to the plain version's, the
+    sums equal up to the order of f32 additions."""
+    name = "paged_chunk_write_fused"
+    _require(arena.ndim == 5 and vals.ndim == 5 and tuple(vals.shape[1:]) == tuple(arena.shape[1:]),
+             f"{name}: arena must be (num_blocks, L, ng, bs, hs) and vals (nc, L, ng, bs, hs), "
+             f"got {tuple(arena.shape)} and {tuple(vals.shape)}")
+    _require(block_size == arena.shape[3],
+             f"{name}: block_size={block_size} but the arena holds {arena.shape[3]}")
+    _check_quant_arena(name, arena, scale_arena, vals)
+    _require(dest.dtype == torch.int32 and dest.ndim == 1 and dest.shape[0] >= 1,
+             f"{name}: dest must be int32 (nbb,), got {dest.dtype} {tuple(dest.shape)}")
+    _require(pos.dtype == torch.int32 and tuple(pos.shape) == (1,),
+             f"{name}: pos must be int32 (1,), got {pos.dtype} {tuple(pos.shape)}")
+    dev = arena.device
+    for arg, t in dict(arena=arena, scale_arena=scale_arena, vals=vals, dest=dest,
+                       pos=pos).items():
+        _require(t.device == dev, f"{name}: {arg} is on {t.device}, arena on {dev}")
+        _require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
+    _require(dev.type in ("cpu", "cuda"), f"{name}: unsupported device {dev}")
+    if dev.type == "cpu":
+        return paged_chunk_write_fused_plain(arena, scale_arena, vals, dest, pos,
+                                             block_size=block_size)
+    nc, L, ng, bs, hs = vals.shape
+    err = torch.empty((nc, 2), dtype=torch.float32, device=dev)
+    if nc == 0:
+        return arena, scale_arena, err
+    partial = torch.empty((nc, L * ng, 2), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tt_paged_chunk_write_fused(
+            _ptr(arena), _ptr(scale_arena), _ptr(vals), _ptr(dest), _ptr(pos), _ptr(err),
+            _ptr(partial), nc, L * ng, bs, hs, dest.shape[0],
+            ctypes.c_float(_quant().inv_qmax(arena.dtype)), _QUANT_CODE[arena.dtype],
+            _DTYPE_CODE[vals.dtype], ctypes.c_void_p(stream))
+    _raise_on(lib, rc, name)
+    LAUNCHES[name] += 1
+    return arena, scale_arena, err
 
 
 #

@@ -1,8 +1,9 @@
 """Serving subsystem of the port (counterpart of ``thunder_tpu/serving``):
 ``serve(None, params, cfg, ...)`` → a continuous-batching engine over a
 paged KV pool, decoding through the hand-written paged-attention kernels,
-with chunked prefill (``prefill_chunk=``) and speculative serving
-(``speculative=SpecConfig(...)``)."""
+with chunked prefill (``prefill_chunk=``), speculative serving
+(``speculative=SpecConfig(...)``) and int8/fp8 KV storage
+(``kv_dtype=``)."""
 from thunder_tpu_torch.serving.engine import (
     AdmissionError,
     EngineStalledError,

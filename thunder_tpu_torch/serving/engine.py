@@ -32,8 +32,17 @@ the step they finish.
   tokens per request;
 - the pool (:mod:`serving.kv_pool`) owns cache memory.  Arenas update in
   place, which replaces the JAX package's buffer donation: every step
-  reads and writes the same two tensors on one stream, so stream order is
+  reads and writes the same tensors on one stream, so stream order is
   what keeps a step's reads ahead of a later step's writes;
+- quantized KV (``kv_dtype="int8"|"fp8"``, :mod:`serving.quant`): the
+  arenas store 1-byte values and float32 scales.  The gather steps
+  dequantize on gather and quantize on scatter (``gather_dense_q``,
+  ``scatter_blocks_q``, ``scatter_token_q``); the paged steps run the same
+  kernels as above with the dequant inside the attention kernels and the
+  fused quantizing writers (``paged_token_write_fused``,
+  ``paged_chunk_write_fused``).  The paged/gather resolution does not look
+  at ``kv_dtype``.  Every prefill and chunk piece measures its
+  quantization error into the ``serving.kv_quant.rel_err`` gauge;
 - the scheduler (:mod:`serving.scheduler`) owns admission, FIFO order,
   deadlines and the bucket sets.  Batch, block and prefill buckets stay as
   in the JAX package, so each step runs at one of a bounded set of bucket
@@ -75,9 +84,6 @@ from thunder_tpu_torch.serving.kv_pool import (
     PagedKVPool,
     PrefixIndex,
     chunk_tables,
-    gather_dense,
-    scatter_blocks,
-    scatter_token,
 )
 from thunder_tpu_torch.serving.paged_attention import (
     forward_paged,
@@ -107,7 +113,7 @@ __all__ = [
 
 # engine options of the JAX package not ported yet, with their "off" values
 _DEFERRED_ENGINE = {
-    "model_fn": None, "quantized": False, "kv_dtype": None, "lora": None,
+    "model_fn": None, "quantized": False, "lora": None,
     "telemetry": None, "trace": None, "slo": None, "flight_recorder": None,
     "mesh": None, "shardings": None, "fault_plan": None,
     "retry": None, "watchdog_timeout_s": None, "replica_id": None,
@@ -225,6 +231,7 @@ class ServingEngine:
         async_step: bool = True,
         prefill_chunk: int | None = None,
         speculative: spec_lane.SpecConfig | None = None,
+        kv_dtype=None,
         device="cuda",
         **deferred,
     ):
@@ -255,7 +262,7 @@ class ServingEngine:
         self.prefix_sharing = bool(prefix_sharing)
         dtype = cache_dtype if cache_dtype is not None else params["wte"].dtype
         self.pool = PagedKVPool(cfg, num_blocks=num_blocks, block_size=block_size,
-                                dtype=dtype, device=self.device)
+                                dtype=dtype, kv_dtype=kv_dtype, device=self.device)
         if attn not in ("auto", "paged", "gather"):
             raise ValueError(f"attn= must be 'auto', 'paged', or 'gather', got {attn!r}")
         ok, why = paged_supported(cfg)
@@ -270,9 +277,13 @@ class ServingEngine:
         self.draft_pool = None
         if speculative is not None:
             spec_lane.validate_spec(speculative, cfg, device=self.device)
-            self.draft_pool = PagedKVPool(speculative.draft_cfg, num_blocks=num_blocks,
-                                          block_size=block_size, dtype=dtype,
-                                          device=self.device)
+            # the draft arena may quantize apart from the target's
+            # (SpecConfig.draft_kv_dtype; None inherits kv_dtype)
+            self.draft_pool = PagedKVPool(
+                speculative.draft_cfg, num_blocks=num_blocks, block_size=block_size,
+                dtype=dtype, device=self.device,
+                kv_dtype=(speculative.draft_kv_dtype
+                          if speculative.draft_kv_dtype is not None else kv_dtype))
         self.scheduler = Scheduler(
             self.pool, max_batch=max_batch, max_queue=max_queue, clock=clock,
             batch_buckets=batch_buckets, block_buckets=block_buckets,
@@ -533,6 +544,7 @@ class ServingEngine:
             "pool_free_blocks_low_water": self.pool.free_blocks_low_water,
             "pool_utilization": self.pool.utilization(),
             "arena_bytes": self.pool.arena_bytes(),
+            "kv_dtype": str(self.pool.kv_dtype),
             "async_step": self.async_step,
             "prefill_chunk": sch.prefill_chunk,
             "decode_steps": self.decode_steps,
@@ -708,11 +720,10 @@ class ServingEngine:
         prog, new = self._program(kind, Tb, nbb)
         req.prefill_compiled = req.prefill_compiled or new
         if final:
-            rec = {"kind": "prefill", "req": req,
-                   "tok": prog(toks, pos, n_real, table, dest, req.generator)}
+            tok, qerr = prog(toks, pos, n_real, table, dest, req.generator)
+            rec = {"kind": "prefill", "req": req, "tok": tok, "qerr": qerr}
         else:
-            prog(toks, pos, table, dest)
-            rec = {"kind": "chunk", "req": req}
+            rec = {"kind": "chunk", "req": req, "qerr": prog(toks, pos, table, dest)}
         req.pos = pos + n_real                             # written (stream-ordered)
         self._register_prefix(req, upto=req.pos)
         reg = registry()
@@ -736,8 +747,11 @@ class ServingEngine:
 
     def _prefill_harvest(self, rec: dict) -> None:
         """Delivers token 0 (TTFT stamps here: token availability); an
-        intermediate chunk delivers nothing."""
+        intermediate chunk delivers nothing.  A quantized pool's piece sets
+        the ``serving.kv_quant.rel_err`` gauge to the quantization error it
+        measured over the blocks it wrote."""
         if rec["kind"] == "chunk":
+            self._note_qerr(rec)
             return
         req = rec["req"]
         tok0 = int(rec["tok"][0])                          # blocks until the device delivers
@@ -746,7 +760,12 @@ class ServingEngine:
         req.first_token_t = self.scheduler.clock()
         self.tokens_generated += 1
         self._m_tokens.inc()
+        self._note_qerr(rec)
         self._emit_token(req, tok0)
+
+    def _note_qerr(self, rec: dict) -> None:
+        if self.pool.quantized_kv:
+            registry().gauge("serving.kv_quant.rel_err").set(float(rec["qerr"]))
 
     def _sample_occupancy(self) -> None:
         self.pool.sample_occupancy()
@@ -956,38 +975,34 @@ class ServingEngine:
         return torch.cat(rows)
 
     def _build_prefill(self, Tb: int, nbb: int) -> Callable:
+        """The final prefill piece over the gathered arena: returns token 0
+        and the piece's quantization error."""
         cfg, pool, dev = self.cfg, self.pool, self.device
         cos_all, sin_all = self._rope_cache(nbb)
 
         def prefill(toks, pos, n_real, table, dest, generator):
-            kd, vd = gather_dense(pool.k_arena, pool.v_arena,
-                                  torch.as_tensor(table, device=dev)[None])
+            t = torch.as_tensor(table, device=dev)[None]
             logits, cache = forward_with_cache(
                 self.params, torch.as_tensor(toks, device=dev)[None], pos,
-                {"k": kd, "v": vd}, cos_all, sin_all, cfg)
+                pool.gather(t), cos_all, sin_all, cfg)
             tok = sample_token(logits[:, n_real - 1], self.temperature, generator)  # (1,)
-            d = torch.as_tensor(dest, device=dev)
-            scatter_blocks(pool.k_arena, cache["k"], d)
-            scatter_blocks(pool.v_arena, cache["v"], d)
-            return tok
+            return tok, pool.scatter_dense(cache, torch.as_tensor(dest, device=dev))
 
         return prefill
 
     def _build_prefill_chunk(self, Tb: int, nbb: int) -> Callable:
         """An intermediate chunked-prefill piece on the gathered arena: the
-        chunk's K/V written back, nothing sampled."""
+        chunk's K/V written back, nothing sampled; returns the piece's
+        quantization error."""
         cfg, pool, dev = self.cfg, self.pool, self.device
         cos_all, sin_all = self._rope_cache(nbb)
 
         def prefill_chunk(toks, pos, table, dest):
-            kd, vd = gather_dense(pool.k_arena, pool.v_arena,
-                                  torch.as_tensor(table, device=dev)[None])
+            t = torch.as_tensor(table, device=dev)[None]
             _, cache = forward_with_cache(
                 self.params, torch.as_tensor(toks, device=dev)[None], pos,
-                {"k": kd, "v": vd}, cos_all, sin_all, cfg)
-            d = torch.as_tensor(dest, device=dev)
-            scatter_blocks(pool.k_arena, cache["k"], d)
-            scatter_blocks(pool.v_arena, cache["v"], d)
+                pool.gather(t), cos_all, sin_all, cfg)
+            return pool.scatter_dense(cache, torch.as_tensor(dest, device=dev))
 
         return prefill_chunk
 
@@ -996,8 +1011,9 @@ class ServingEngine:
         attention runs ``paged_attn_verify`` at T = the chunk width straight
         off the arena (earlier chunks and any shared prefix read in block
         granules, the causal intra-chunk mask in the kernel), and the fresh
-        K/V land block by block through ``paged_chunk_write``; no dense
-        cache and no logits materialize."""
+        K/V land block by block through ``paged_chunk_write`` (the fused
+        quantizing ``paged_chunk_write_fused`` on a quantized pool); no
+        dense cache and no logits materialize."""
         cfg, pool, dev = self.cfg, self.pool, self.device
         cos_all, sin_all = self._rope_cache(nbb)
 
@@ -1007,8 +1023,10 @@ class ServingEngine:
                 self.params, torch.as_tensor(toks, device=dev)[None], pv, pool.arenas,
                 torch.as_tensor(table, device=dev)[None], cos_all, sin_all, cfg,
                 cdtype=pool.dtype, head=False)
-            write_fresh_kv_chunk(pool.arenas, fresh, torch.as_tensor(dest, device=dev), pv,
-                                 block_size=pool.block_size)
+            _, qerr = write_fresh_kv_chunk(pool.arenas, fresh, torch.as_tensor(dest, device=dev),
+                                           pv, block_size=pool.block_size,
+                                           kv_dtype=pool.quantized_storage)
+            return qerr
 
         return prefill_chunk_paged
 
@@ -1023,13 +1041,11 @@ class ServingEngine:
             p = pos.long()
             col = torch.clamp(p // bs, max=tables.shape[1] - 1)
             dest_block = tables.long().gather(1, col[:, None])[:, 0]
-            kd, vd = gather_dense(pool.k_arena, pool.v_arena, tables)
             logits, cache = forward_with_cache(
-                self.params, toks[:, None], pos, {"k": kd, "v": vd}, cos_all, sin_all, cfg)
+                self.params, toks[:, None], pos, pool.gather(tables), cos_all, sin_all,
+                cfg)
             nxt = self._sample_rows(logits[:, 0], generators)
-            for name, arena in (("k", pool.k_arena), ("v", pool.v_arena)):
-                fresh = cache[name][:, rows, :, p].contiguous()    # (B, L, ng, hs)
-                scatter_token(arena, fresh, dest_block, p % bs)
+            pool.scatter_rows(cache, p, rows, dest_block, p % bs)
             return nxt
 
         return decode
@@ -1037,7 +1053,8 @@ class ServingEngine:
     def _build_decode_paged(self, Bb: int, nbb: int) -> Callable:
         """Paged decode: attention straight off the arenas through the
         ``paged_attn_decode`` kernel, the fresh K/V landed in place by
-        ``paged_token_write``; no dense cache ever materializes."""
+        ``paged_token_write`` (``paged_token_write_fused`` on a quantized
+        pool); no dense cache ever materializes."""
         cfg, pool = self.cfg, self.pool
         cos_all, sin_all = self._rope_cache(nbb)
 
@@ -1045,7 +1062,8 @@ class ServingEngine:
             logits, fresh = forward_paged(self.params, toks[:, None], pos, pool.arenas, tables,
                                           cos_all, sin_all, cfg, cdtype=pool.dtype)
             nxt = self._sample_rows(logits[:, 0], generators)
-            write_fresh_kv(pool.arenas, fresh, tables, pos, block_size=pool.block_size)
+            write_fresh_kv(pool.arenas, fresh, tables, pos, block_size=pool.block_size,
+                           kv_dtype=pool.quantized_storage)
             return nxt
 
         return decode_paged

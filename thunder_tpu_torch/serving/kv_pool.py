@@ -1,11 +1,16 @@
 """Paged KV-cache pool: a preallocated block arena + free-list allocator.
 
-Counterpart of ``thunder_tpu/serving/kv_pool.py`` (unquantized storage).
-All requests share one arena of fixed-size blocks ``(num_blocks, L,
-n_query_groups, block_size, hs)`` for K and V each (per-block geometry from
+Counterpart of ``thunder_tpu/serving/kv_pool.py``.  All requests share one
+arena of fixed-size blocks ``(num_blocks, L, n_query_groups, block_size,
+hs)`` for K and V each (per-block geometry from
 :func:`models.generate.kv_block_shape`), so a gather over a request's block
 table reassembles exactly the dense cache layout ``forward_with_cache``
 consumes.
+
+- Quantized block storage (``kv_dtype="int8"`` or ``"fp8"``): the arenas
+  store 1-byte values plus float32 scale arenas ``(num_blocks, L, ng, bs)``
+  (:mod:`serving.quant`); ``dtype`` stays the compute dtype K/V are
+  dequantized into.
 
 - Physical block 0 is a reserved garbage sink: batch-padding rows and
   not-yet-reached table entries point at it, and it is never attended.
@@ -28,6 +33,13 @@ import torch
 
 from thunder_tpu_torch._device import resolve_device
 from thunder_tpu_torch.models.generate import kv_block_shape
+from thunder_tpu_torch.serving.quant import (
+    gather_dense_q,
+    is_quantized_kv,
+    resolve_kv_dtype,
+    scatter_blocks_q,
+    scatter_token_q,
+)
 
 __all__ = ["PoolExhaustedError", "ArenaMismatchError", "PagedKVPool", "PrefixIndex",
            "SINK_BLOCK", "OCCUPANCY_WINDOW", "chunk_tables", "gather_dense",
@@ -46,7 +58,8 @@ class PoolExhaustedError(RuntimeError):
 class ArenaMismatchError(ValueError):
     """An arena write does not match the pool's geometry or dtype.
 
-    Attributes: ``arena``, ``field`` ("shape" | "dtype"), ``expected``,
+    Attributes: ``arena`` ("k" | "v" | "k_scale" | "v_scale" | "arenas" |
+    "scatter"), ``field`` ("shape" | "dtype" | "device"), ``expected``,
     ``got``."""
 
     def __init__(self, arena: str, field: str, expected, got, *, msg: str | None = None):
@@ -65,11 +78,13 @@ class ArenaMismatchError(ValueError):
 class PagedKVPool:
     """Block arena + free-list allocator + per-block reference counts.
 
-    ``dtype`` is the storage and compute dtype of the arenas; they live on
-    ``device`` (default: the card)."""
+    ``dtype`` is the compute dtype of the arenas; ``kv_dtype`` their storage
+    dtype (None: ``dtype``; ``"int8"``/``"fp8"``: 1-byte values plus float32
+    scale arenas ``k_scale``/``v_scale`` shaped ``(num_blocks, L, ng,
+    bs)``).  Everything lives on ``device`` (default: the card)."""
 
     def __init__(self, cfg, num_blocks: int, block_size: int, dtype=torch.bfloat16,
-                 *, device="cuda"):
+                 *, kv_dtype=None, device="cuda"):
         if num_blocks < 2:
             raise ValueError(f"num_blocks must be >= 2 (block 0 is the sink), got {num_blocks}")
         if block_size < 1:
@@ -77,11 +92,20 @@ class PagedKVPool:
         self.cfg = cfg
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
-        self.dtype = dtype
+        self.dtype = dtype                                  # compute/dequant dtype
+        self.kv_dtype = resolve_kv_dtype(kv_dtype, dtype)   # storage dtype
+        self.quantized_kv = is_quantized_kv(self.kv_dtype, dtype)
         self.device = resolve_device(device)
         self._arena_shape = (self.num_blocks, *kv_block_shape(cfg, self.block_size))
-        self.k_arena = torch.zeros(self._arena_shape, dtype=dtype, device=self.device)
-        self.v_arena = torch.zeros(self._arena_shape, dtype=dtype, device=self.device)
+        self._scale_shape = self._arena_shape[:-1]          # absmax over hs
+        self.k_arena = torch.zeros(self._arena_shape, dtype=self.kv_dtype, device=self.device)
+        self.v_arena = torch.zeros(self._arena_shape, dtype=self.kv_dtype, device=self.device)
+        self.k_scale = self.v_scale = None
+        if self.quantized_kv:
+            self.k_scale = torch.zeros(self._scale_shape, dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros(self._scale_shape, dtype=torch.float32,
+                                       device=self.device)
         # block 0 is permanently leased to the sink
         self._refcount = np.zeros(self.num_blocks, dtype=np.int32)
         self._refcount[SINK_BLOCK] = 1
@@ -188,6 +212,7 @@ class PagedKVPool:
             "shared_blocks": int((counts > 1).sum()),
             "lease_refs": int(counts.sum()),
             "dtype": str(self.dtype),
+            "kv_dtype": str(self.kv_dtype),
             "arena_bytes": self.arena_bytes(),
         }
 
@@ -199,16 +224,102 @@ class PagedKVPool:
         return n_blocks * self.block_size
 
     def block_bytes(self) -> int:
-        """Bytes one block costs across the K and V arenas."""
-        return 2 * self.k_arena[0].numel() * self.k_arena.element_size()
+        """Bytes one block costs across all arenas (K and V, plus the scale
+        arenas on the quantized path) — the unit of byte-based admission
+        accounting."""
+        total = 2 * self.k_arena[0].numel() * self.k_arena.element_size()
+        if self.quantized_kv:
+            total += 2 * self.k_scale[0].numel() * self.k_scale.element_size()
+        return total
 
     def arena_bytes(self) -> int:
         return self.block_bytes() * self.num_blocks
 
     @property
     def arenas(self) -> dict:
-        """The arena dict the decode/prefill steps read and update in place."""
-        return {"k": self.k_arena, "v": self.v_arena}
+        """The arena dict the decode/prefill steps read and update in place:
+        ``{"k", "v"}`` plus ``{"k_scale", "v_scale"}`` when quantized."""
+        out = {"k": self.k_arena, "v": self.v_arena}
+        if self.quantized_kv:
+            out["k_scale"] = self.k_scale
+            out["v_scale"] = self.v_scale
+        return out
+
+    @property
+    def quantized_storage(self):
+        """The storage dtype of a quantized pool (what the paged writers
+        take as ``kv_dtype``), else None."""
+        return self.kv_dtype if self.quantized_kv else None
+
+    #
+    # the gather steps' access to the arenas, quantized or not
+    #
+
+    def gather(self, tables) -> dict:
+        """The dense ``{"k", "v"}`` cache (L, B, ng, nb*bs, hs) of
+        ``tables``'s blocks at the compute dtype (dequantized from a
+        quantized pool)."""
+        if self.quantized_kv:
+            kd, vd = gather_dense_q(self.k_arena, self.v_arena, self.k_scale, self.v_scale,
+                                    tables, self.dtype)
+        else:
+            kd, vd = gather_dense(self.k_arena, self.v_arena, tables)
+        return {"k": kd, "v": vd}
+
+    def scatter_dense(self, cache: dict, dest) -> torch.Tensor | float:
+        """Writes a B=1 dense cache back block by block through ``dest``
+        (quantizing into a quantized pool); returns the quantization error
+        ``0.5 * (k_rel + v_rel)`` over the blocks written, a float32 scalar
+        tensor (the float 0.0 unquantized)."""
+        if not self.quantized_kv:
+            scatter_blocks(self.k_arena, cache["k"], dest)
+            scatter_blocks(self.v_arena, cache["v"], dest)
+            return 0.0
+        _, _, k_err = scatter_blocks_q(self.k_arena, self.k_scale, cache["k"], dest)
+        _, _, v_err = scatter_blocks_q(self.v_arena, self.v_scale, cache["v"], dest)
+        return 0.5 * (k_err + v_err)
+
+    def scatter_rows(self, cache: dict, p, rows, dest_block, dest_slot) -> None:
+        """Writes row ``rows[i]``'s K/V at position ``p[i]`` of a dense
+        cache (L, B, ng, T, hs) into (``dest_block[i]``, ``dest_slot[i]``),
+        quantizing into a quantized pool."""
+        for name, arena, scale in (("k", self.k_arena, self.k_scale),
+                                   ("v", self.v_arena, self.v_scale)):
+            fresh = cache[name][:, rows, :, p].contiguous()    # (B, L, ng, hs)
+            if self.quantized_kv:
+                scatter_token_q(arena, scale, fresh, dest_block, dest_slot)
+            else:
+                scatter_token(arena, fresh, dest_block, dest_slot)
+
+    def _check_arena(self, name: str, new: torch.Tensor) -> None:
+        scale = name.endswith("_scale")
+        want_shape = self._scale_shape if scale else self._arena_shape
+        want_dtype = torch.float32 if scale else self.kv_dtype
+        if tuple(new.shape) != want_shape:
+            raise ArenaMismatchError(name, "shape", want_shape, tuple(new.shape))
+        if new.dtype != want_dtype:
+            raise ArenaMismatchError(name, "dtype", want_dtype, new.dtype)
+        if new.device != self.device:
+            raise ArenaMismatchError(name, "device", self.device, new.device)
+
+    def set_arenas(self, arenas: dict) -> None:
+        """Installs replacement arena tensors (the steps update the pool's
+        own tensors in place; this is for callers that build new ones).
+        Validates the keys, geometry, dtype and device first, so a
+        mismatched arena raises :class:`ArenaMismatchError` naming it
+        instead of surfacing steps later as garbage KV."""
+        expected = set(self.arenas)
+        if set(arenas) != expected:
+            raise ArenaMismatchError(
+                "arenas", "shape", sorted(expected), sorted(arenas),
+                msg=f"arena keys {sorted(arenas)}, pool expects {sorted(expected)} "
+                    f"(kv_dtype={self.kv_dtype})",
+            )
+        for name, t in arenas.items():
+            self._check_arena(name, t)
+        self.k_arena, self.v_arena = arenas["k"], arenas["v"]
+        if self.quantized_kv:
+            self.k_scale, self.v_scale = arenas["k_scale"], arenas["v_scale"]
 
 
 class PrefixIndex:

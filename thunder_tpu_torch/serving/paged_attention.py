@@ -1,27 +1,35 @@
 """Paged attention: the serving forward that never densifies the KV.
 
-Counterpart of ``thunder_tpu/serving/paged_attention.py`` on unquantized
-arenas.  :func:`forward_paged` runs the same per-layer math as
+Counterpart of ``thunder_tpu/serving/paged_attention.py``.
+:func:`forward_paged` runs the same per-layer math as
 ``models.generate.forward_with_cache`` but attention reads K/V directly
 from the block arena through the ``executors.cudaex`` kernels, one launch
 per layer: ``paged_attn_decode`` for one new token per row (T = 1),
 ``paged_attn_verify`` for T > 1 (the speculative verify chunk, T = K+1, and
-the paged chunked-prefill piece, T = the chunk width).  The fresh K/V land
-in place afterwards:
+the paged chunked-prefill piece, T = the chunk width).  Quantized arenas
+(``k_scale``/``v_scale`` beside int8/fp8 K/V) are dequantized inside those
+kernels as each tile loads.  The fresh K/V land in place afterwards:
 
-- :func:`write_fresh_kv` — one decode step, through ``paged_token_write``;
+- :func:`write_fresh_kv` — one decode step, through ``paged_token_write``
+  (``paged_token_write_fused`` into a quantized arena);
 - :func:`write_fresh_kv_masked` — a verify step's accepted prefix, one
-  ``paged_token_write_masked`` call per chunk offset;
+  ``paged_token_write_masked`` (masked ``paged_token_write_fused``) call
+  per chunk offset;
 - :func:`write_fresh_kv_live` — one multi-step decode iteration, the masked
   write at offset 0 with the per-row liveness as ``n_emit``;
 - :func:`write_fresh_kv_chunk` — a prefill chunk, block by block, through
-  ``paged_chunk_write``.
+  ``paged_chunk_write`` (``paged_chunk_write_fused``, which also returns
+  the quantization error sums).
+
+The ``kv_dtype`` argument of the writers is the pool's storage dtype when
+it is quantized and None otherwise, as in the reference; the fused writers
+quantize exactly as ``serving.quant.quantize_kv`` does, so the stored bytes
+equal the gather path's.
 
 Parity contract: the kernels score the arena's committed slots and fold
 the fresh K/V — cast to the cache dtype, exactly what the dense path would
 have just written — as the final online-softmax term, so greedy tokens
-match the gather path and solo ``generate()``.  Quantized arenas (scale
-arenas beside K/V) are not ported yet and raise.
+match the gather path and solo ``generate()``.
 """
 from __future__ import annotations
 
@@ -31,7 +39,9 @@ from thunder_tpu_torch.executors.cudaex import (
     paged_attn_decode,
     paged_attn_verify,
     paged_chunk_write,
+    paged_chunk_write_fused,
     paged_token_write,
+    paged_token_write_fused,
     paged_token_write_masked,
 )
 from thunder_tpu_torch.models.generate import (
@@ -54,11 +64,6 @@ def paged_supported(cfg) -> tuple[bool, str]:
     return True, ""
 
 
-def _unquantized(arenas, where: str) -> None:
-    if "k_scale" in arenas or "v_scale" in arenas:
-        raise NotImplementedError(f"{where}: quantized arenas (kv_dtype) are not ported yet")
-
-
 def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cdtype,
                   head: bool = True):
     """Decode/verify/chunk forward straight off the KV block arenas.
@@ -66,20 +71,21 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
     ``idx``: (B, T) tokens at positions ``[pos, pos+T)`` — T = 1 is the
     decode step, T > 1 a verify chunk or a prefill chunk (causal
     intra-chunk mask inside the kernel); ``pos``: (B,) int32;
-    ``arenas``: the pool's ``{"k", "v"}``; ``tables``: (B, nbb) int32
-    sink-padded block tables; ``cdtype``: the cache dtype (fresh K/V are
-    cast to it before attending).  ``head=False`` skips the final norm and
-    the vocabulary projection (a prefill chunk needs only its K/V) and
-    returns ``None`` logits.  Returns ``(logits (B, T, V) float32, fresh)``
-    with ``fresh = {"k"/"v": (B, L, ng, hs)}`` for T = 1 or
-    ``(B, L, ng, T, hs)`` for T > 1, at ``cdtype``, which the caller
-    persists with one of the ``write_fresh_kv*`` functions."""
-    _unquantized(arenas, "forward_paged")
+    ``arenas``: the pool's ``{"k", "v"}``, plus ``{"k_scale", "v_scale"}``
+    when quantized; ``tables``: (B, nbb) int32 sink-padded block tables;
+    ``cdtype``: the cache compute dtype (fresh K/V are cast to it before
+    attending).  ``head=False`` skips the final norm and the vocabulary
+    projection (a prefill chunk needs only its K/V) and returns ``None``
+    logits.  Returns ``(logits (B, T, V) float32, fresh)`` with ``fresh =
+    {"k"/"v": (B, L, ng, hs)}`` for T = 1 or ``(B, L, ng, T, hs)`` for
+    T > 1, at ``cdtype``, which the caller persists with one of the
+    ``write_fresh_kv*`` functions."""
     B, T = idx.shape
     if T > 1 and cfg.sliding_window is not None:
         raise ValueError("forward_paged: multi-token queries have no sliding-window keep-mask; "
                          "windowed models take the gather path for T > 1")
     hs, nh = cfg.head_size, cfg.n_head
+    scales = {"k_scale": arenas.get("k_scale"), "v_scale": arenas.get("v_scale")}
     x, cos_t, sin_t = _embed(params, idx, pos, cos_all, sin_all, cfg)
     fresh_k, fresh_v = [], []
     for l, bp in enumerate(params["blocks"]):
@@ -89,12 +95,12 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
             fk = k[:, :, 0].to(cdtype).contiguous()        # (B, ng, hs)
             fv = v[:, :, 0].to(cdtype).contiguous()
             y = paged_attn_decode(q[:, :, 0].contiguous(), arenas["k"], arenas["v"], fk, fv,
-                                  tables, pos, layer=l, window=cfg.sliding_window)
+                                  tables, pos, layer=l, window=cfg.sliding_window, **scales)
         else:
             fk = k.to(cdtype).contiguous()                 # (B, ng, T, hs)
             fv = v.to(cdtype).contiguous()
             y = paged_attn_verify(q.contiguous(), arenas["k"], arenas["v"], fk, fv,
-                                  tables, pos, layer=l)    # (B, nh, T, hs)
+                                  tables, pos, layer=l, **scales)    # (B, nh, T, hs)
             y = y.transpose(1, 2)
         h = _linear(y.reshape(B, T, nh * hs), bp["attn"]["wo"], bp["attn"].get("bo"))
         fresh_k.append(fk)
@@ -104,43 +110,55 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
     return logits, {"k": torch.stack(fresh_k, dim=1), "v": torch.stack(fresh_v, dim=1)}
 
 
-def write_fresh_kv(arenas, fresh, tables, pos, *, block_size: int):
-    """Lands one decode step's fresh K/V (``{"k"/"v": (B, L, ng, hs)}``)
-    in the arenas, in place; padding rows land in sink block 0."""
-    _unquantized(arenas, "write_fresh_kv")
+def write_fresh_kv(arenas, fresh, tables, pos, *, block_size: int, kv_dtype=None):
+    """Lands one decode step's fresh K/V (``{"k"/"v": (B, L, ng, hs)}`` at
+    the compute dtype) in the arenas, in place; padding rows land in sink
+    block 0.  ``kv_dtype``: the storage dtype of a quantized pool (the
+    fused writer quantizes on the way), None otherwise."""
     for name in ("k", "v"):
-        paged_token_write(arenas[name], fresh[name], tables, pos, block_size=block_size)
+        if kv_dtype is None:
+            paged_token_write(arenas[name], fresh[name], tables, pos, block_size=block_size)
+        else:
+            paged_token_write_fused(arenas[name], arenas[name + "_scale"], fresh[name], tables,
+                                    pos, block_size=block_size)
     return arenas
 
 
-def write_fresh_kv_masked(arenas, fresh, tables, pos, n_emit, *, block_size: int):
+def _write_masked(arenas, vals: dict, tables, pos, n_emit, offset: int, *, block_size: int,
+                  kv_dtype) -> None:
+    for name in ("k", "v"):
+        if kv_dtype is None:
+            paged_token_write_masked(arenas[name], vals[name], tables, pos, n_emit, offset,
+                                     block_size=block_size)
+        else:
+            paged_token_write_fused(arenas[name], arenas[name + "_scale"], vals[name], tables,
+                                    pos, block_size=block_size, n_emit=n_emit, offset=offset)
+
+
+def write_fresh_kv_masked(arenas, fresh, tables, pos, n_emit, *, block_size: int,
+                          kv_dtype=None):
     """Lands a verify step's accepted prefix in the arenas, in place.
 
     ``fresh``: ``{"k"/"v": (B, L, ng, T, hs)}`` from a T = K+1
     :func:`forward_paged` call; ``n_emit``: (B,) int32 accepted counts.
     Offset ``k`` of row ``i`` lands at ``pos[i] + k`` iff ``k < n_emit[i]``;
     the rest go to the sink, so rejected drafts leave no trace and the next
-    round derives them again."""
-    _unquantized(arenas, "write_fresh_kv_masked")
-    T = fresh["k"].shape[3]
-    for name in ("k", "v"):
-        for k in range(T):
-            paged_token_write_masked(arenas[name], fresh[name][:, :, :, k].contiguous(), tables,
-                                     pos, n_emit, k, block_size=block_size)
+    round derives them again.  Quantized pools (``kv_dtype``) take the
+    masked fused write per offset."""
+    for k in range(fresh["k"].shape[3]):
+        _write_masked(arenas, {n: fresh[n][:, :, :, k].contiguous() for n in ("k", "v")},
+                      tables, pos, n_emit, k, block_size=block_size, kv_dtype=kv_dtype)
     return arenas
 
 
-def write_fresh_kv_live(arenas, fresh, tables, pos, live, *, block_size: int):
+def write_fresh_kv_live(arenas, fresh, tables, pos, live, *, block_size: int, kv_dtype=None):
     """Lands one multi-step decode iteration's fresh K/V
     (``{"k"/"v": (B, L, ng, hs)}``), keep-masked by the per-row liveness
     ``live`` (B,) bool: a live row commits at ``pos`` exactly like
     :func:`write_fresh_kv`, a dead row (finished earlier, or batch padding)
     lands in the sink.  An offset-0 masked write with ``n_emit = live``."""
-    _unquantized(arenas, "write_fresh_kv_live")
-    n_emit = live.to(torch.int32)
-    for name in ("k", "v"):
-        paged_token_write_masked(arenas[name], fresh[name], tables, pos, n_emit, 0,
-                                 block_size=block_size)
+    _write_masked(arenas, fresh, tables, pos, live.to(torch.int32), 0, block_size=block_size,
+                  kv_dtype=kv_dtype)
     return arenas
 
 
@@ -151,7 +169,7 @@ def _chunk_blocks(x, bs: int):
     return x[0].reshape(L, ng, T // bs, bs, hs).permute(2, 0, 1, 3, 4).contiguous()
 
 
-def write_fresh_kv_chunk(arenas, fresh, dest, pos, *, block_size: int):
+def write_fresh_kv_chunk(arenas, fresh, dest, pos, *, block_size: int, kv_dtype=None):
     """Lands one chunked-prefill piece's K/V in the arenas, block by block,
     in place.
 
@@ -160,9 +178,21 @@ def write_fresh_kv_chunk(arenas, fresh, dest, pos, *, block_size: int):
     (nbb,) int32 scatter table from ``kv_pool.chunk_tables`` (sink outside
     the chunk's own blocks); ``pos``: (1,) int32 block-aligned chunk start.
     Chunk block ``c`` lands as one (L, ng, bs, hs) slab at
-    ``dest[pos // bs + c]``."""
-    _unquantized(arenas, "write_fresh_kv_chunk")
+    ``dest[pos // bs + c]``; quantized pools (``kv_dtype``) take the fused
+    writer.  Returns ``(arenas, qerr)``: ``qerr`` is ``0.5 * (k_rel +
+    v_rel)``, each ``rel = sum|dq - x| / (sum|x| + 1e-30)`` over the blocks
+    actually written (a float32 scalar tensor on the arenas' device), the
+    figure the gather chunk step reports; the float 0.0 unquantized."""
+    rels = []
     for name in ("k", "v"):
-        vals = _chunk_blocks(fresh[name], block_size).to(arenas[name].dtype)
-        paged_chunk_write(arenas[name], vals, dest, pos, block_size=block_size)
-    return arenas
+        vals = _chunk_blocks(fresh[name], block_size)
+        if kv_dtype is None:
+            paged_chunk_write(arenas[name], vals.to(arenas[name].dtype), dest, pos,
+                              block_size=block_size)
+            continue
+        _, _, err = paged_chunk_write_fused(arenas[name], arenas[name + "_scale"], vals, dest,
+                                            pos, block_size=block_size)
+        rels.append(err[:, 0].sum() / (err[:, 1].sum() + 1e-30))
+    if not rels:
+        return arenas, 0.0
+    return arenas, 0.5 * (rels[0] + rels[1])

@@ -16,7 +16,12 @@ runs two bucket steps instead of one:
   ``models.speculative``, and a keep-masked commit that writes only the
   accepted prefix's K/V into the target arena (rejected offsets go to the
   sink).  ``verify_paged`` runs the ``paged_attn_verify`` kernel and the
-  ``paged_token_write_masked`` commit; ``verify`` gathers and scatters.
+  ``paged_token_write_masked`` commit (the masked ``paged_token_write_fused``
+  on a quantized pool); ``verify`` gathers and scatters.
+
+Quantized KV: the draft arena stores ``SpecConfig.draft_kv_dtype``, or the
+target's ``kv_dtype`` when that is None; the gathered steps dequantize on
+gather and quantize on scatter (``serving.quant``).
 
 Reproducibility: each request draws from its own ``torch.Generator`` in the
 solo order (K+1 draft draws, K uniforms, one residual draw per round; none
@@ -48,7 +53,7 @@ from thunder_tpu_torch.models.speculative import (
     emitted_tokens,
     greedy_acceptance,
 )
-from thunder_tpu_torch.serving.kv_pool import SINK_BLOCK, gather_dense, scatter_blocks, scatter_token
+from thunder_tpu_torch.serving.kv_pool import SINK_BLOCK
 from thunder_tpu_torch.serving.paged_attention import forward_paged, write_fresh_kv_masked
 
 __all__ = ["SpecConfig", "multi_step_supported", "validate_spec"]
@@ -62,8 +67,8 @@ class SpecConfig:
     engine's device (it must share the target's padded vocabulary).  ``K``:
     drafted tokens per round — a round costs K+1 draft forwards plus one
     (K+1)-position target verify, and emits 1..K+1 tokens.
-    ``draft_kv_dtype``: a quantized draft arena, not ported yet (must be
-    ``None``)."""
+    ``draft_kv_dtype``: the draft arena's storage (``"int8"``/``"fp8"``,
+    or the compute dtype); None inherits the engine's ``kv_dtype``."""
 
     draft_params: Any
     draft_cfg: Any
@@ -77,9 +82,6 @@ def validate_spec(spec: SpecConfig, cfg, *, device: torch.device) -> None:
         raise TypeError(f"speculative= expects SpecConfig, got {type(spec).__name__}")
     if spec.K < 1:
         raise ValueError(f"SpecConfig.K must be >= 1, got {spec.K}")
-    if spec.draft_kv_dtype is not None:
-        raise NotImplementedError(
-            "SpecConfig.draft_kv_dtype: quantized arenas (kv_dtype) are not ported yet")
     dcfg = spec.draft_cfg
     if dcfg.padded_vocab_size != cfg.padded_vocab_size:
         raise ValueError(
@@ -118,7 +120,8 @@ def multi_step_supported(spec: SpecConfig) -> tuple[bool, str | None]:
 def _prefill_both(eng, nbb: int):
     """The shared body of the two prefill kinds: both models over their
     gathered arenas, both caches scattered back through the same dest
-    table (shared block ids).  Returns the target logits."""
+    table (shared block ids).  Returns the target logits and the target
+    pool's quantization error over the blocks written."""
     cfg, dcfg, dev = eng.cfg, eng.spec.draft_cfg, eng.device
     cos, sin = eng._rope_cache(nbb)
     cos_d, sin_d = eng._rope_cache(nbb, draft=True)
@@ -129,14 +132,12 @@ def _prefill_both(eng, nbb: int):
         idx = torch.as_tensor(toks, device=dev)[None]
         t = torch.as_tensor(table, device=dev)[None]
         d = torch.as_tensor(dest, device=dev)
-        logits = None
+        out = None
         for pool, params, c, co, si in pools:
-            kd, vd = gather_dense(pool.k_arena, pool.v_arena, t)
-            lg, cache = forward_with_cache(params, idx, pos, {"k": kd, "v": vd}, co, si, c)
-            logits = lg if logits is None else logits
-            scatter_blocks(pool.k_arena, cache["k"], d)
-            scatter_blocks(pool.v_arena, cache["v"], d)
-        return logits
+            lg, cache = forward_with_cache(params, idx, pos, pool.gather(t), co, si, c)
+            qerr = pool.scatter_dense(cache, d)
+            out = (lg, qerr) if out is None else out
+        return out
 
     return run
 
@@ -147,8 +148,8 @@ def build_spec_prefill(eng, Tb: int, nbb: int):
     run = _prefill_both(eng, nbb)
 
     def spec_prefill(toks, pos, n_real, table, dest, generator):
-        logits = run(toks, pos, table, dest)
-        return sample_token(logits[:, n_real - 1], eng.temperature, generator)  # (1,)
+        logits, qerr = run(toks, pos, table, dest)
+        return sample_token(logits[:, n_real - 1], eng.temperature, generator), qerr  # (1,)
 
     return spec_prefill
 
@@ -159,13 +160,9 @@ def build_spec_prefill_chunk(eng, Tb: int, nbb: int):
     run = _prefill_both(eng, nbb)
 
     def spec_prefill_chunk(toks, pos, table, dest):
-        run(toks, pos, table, dest)
+        return run(toks, pos, table, dest)[1]
 
     return spec_prefill_chunk
-
-
-def _commit_rows(arena, cache, p_k, blk, slot, rows):
-    scatter_token(arena, cache[:, rows, :, p_k].contiguous(), blk, slot)
 
 
 def build_draft_decode(eng, Bb: int, nbb: int):
@@ -180,8 +177,7 @@ def build_draft_decode(eng, Bb: int, nbb: int):
     rows = torch.arange(Bb, device=eng.device)
 
     def draft_decode(toks, pos, tables, generators):
-        kd, vd = gather_dense(dpool.k_arena, dpool.v_arena, tables)
-        dc = {"k": kd, "v": vd}
+        dc = dpool.gather(tables)
         tok, dpos, outs, qs = toks, pos, [], []
         for _ in range(K + 1):
             dl, dc = forward_with_cache(eng.spec.draft_params, tok[:, None], dpos, dc,
@@ -196,8 +192,7 @@ def build_draft_decode(eng, Bb: int, nbb: int):
             p_k = (pos + k).long()
             col = torch.clamp(p_k // bs, max=nbb - 1)
             blk = tables.long().gather(1, col[:, None])[:, 0]
-            _commit_rows(dpool.k_arena, dc["k"], p_k, blk, p_k % bs, rows)
-            _commit_rows(dpool.v_arena, dc["v"], p_k, blk, p_k % bs, rows)
+            dpool.scatter_rows(dc, p_k, rows, blk, p_k % bs)
         drafts = torch.stack(outs[:K], dim=1)
         return drafts, (torch.stack(qs[:K], dim=1) if qs else None)
 
@@ -230,8 +225,7 @@ def build_verify(eng, Bb: int, nbb: int):
 
     def verify(toks, pos, tables, drafts, q_rows, generators):
         chunk = torch.cat([toks[:, None], drafts], dim=1)
-        kd, vd = gather_dense(pool.k_arena, pool.v_arena, tables)
-        tlogits, cache = forward_with_cache(eng.params, chunk, pos, {"k": kd, "v": vd},
+        tlogits, cache = forward_with_cache(eng.params, chunk, pos, pool.gather(tables),
                                             cos, sin, cfg)
         emitted, n_emit, y = _accept(eng, tlogits, drafts, q_rows, generators)
         for k in range(K + 1):
@@ -240,8 +234,7 @@ def build_verify(eng, Bb: int, nbb: int):
             col = torch.clamp(p_k // bs, max=nbb - 1)
             blk = torch.where(live, tables.long().gather(1, col[:, None])[:, 0], SINK_BLOCK)
             slot = torch.where(live, p_k % bs, 0)
-            _commit_rows(pool.k_arena, cache["k"], p_k, blk, slot, rows)
-            _commit_rows(pool.v_arena, cache["v"], p_k, blk, slot, rows)
+            pool.scatter_rows(cache, p_k, rows, blk, slot)
         return emitted, n_emit, y
 
     return verify
@@ -251,7 +244,8 @@ def build_verify_paged(eng, Bb: int, nbb: int):
     """The kernel twin of :func:`build_verify`: attention straight off the
     arena through ``paged_attn_verify`` (T = K+1, causal intra-chunk mask in
     the kernel), the accepted prefix committed by
-    ``paged_token_write_masked``; no dense cache materializes."""
+    ``paged_token_write_masked`` (the masked ``paged_token_write_fused`` on
+    a quantized pool); no dense cache materializes."""
     cfg, pool = eng.cfg, eng.pool
     cos, sin = eng._rope_cache(nbb)
 
@@ -261,7 +255,7 @@ def build_verify_paged(eng, Bb: int, nbb: int):
                                        cfg, cdtype=pool.dtype)
         emitted, n_emit, y = _accept(eng, tlogits, drafts, q_rows, generators)
         write_fresh_kv_masked(pool.arenas, fresh, tables, pos, n_emit,
-                              block_size=pool.block_size)
+                              block_size=pool.block_size, kv_dtype=pool.quantized_storage)
         return emitted, n_emit, y
 
     return verify_paged
