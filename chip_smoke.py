@@ -29,7 +29,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``paged_chunk_write_fused`` (32 blocks) with stored bytes and scales
    bitwise equal to the plain versions' and error sums within 1e-5
    relative; their times beside the bounds (no single PyTorch call
-   computes these functions, so no library time);
+   computes these functions, so no library time).  ``flash_ce`` at the
+   training step's (2048, 128256), float32 and bf16 logits, random
+   targets, loss and lse within 1e-5 of their largest magnitude, timed
+   beside ``F.cross_entropy(..., reduction="none")`` (the losses only);
+   ``lora_delta_fused`` at the decode (B=8, T=1), verify (B=8, T=5) and
+   chunk (B=1, T=512) shapes for wq, wk and wo, ranks 8, 16 and 64, x in
+   bf16 and float32, factors in float32 and bf16 (float32 within 1e-5 of
+   the output's max magnitude, bf16 by the ratio bar, base-slot rows
+   exactly 0), timed at each shape (no library call computes it);
 4. serve: Llama-3-8B at full width (random weights from a seed) through
    ``serve(None, params, cfg, attn="paged")``: 8 greedy requests with
    prompts of 128-1024 tokens and 32 new tokens each; the kernels' launch
@@ -54,10 +62,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    write), the ``serving.kv_quant.rel_err`` gauge in (0, 0.05), and one
    decode step's logits off the int8 arenas through the kernels against
    ``gather_dense_q`` and ``forward_with_cache`` (phase 4's bars);
+6c. LoRA serves: a registry of rank 16, alpha 32 (scaling 2), targets
+   wq/wk/wv/wo, three adapters of std 0.05 from a seeded generator; the
+   chunked serve of phase 5 and the speculative serve of phase 6 with two
+   requests per adapter and two base ones; exact launch counts
+   (``lora_delta_fused`` 4·n_layer per decode step, chunk piece and verify
+   round, none elsewhere), the tenant counters, TTFT/TPOT/tokens/s beside
+   the serves without LoRA, and one decode step's logits through the
+   kernels against the dense path with the plain delta (phase 4's bars);
 7. correctness at full width: served tokens, exact, in float32 at
    Llama-3-8B widths and 4 layers (chunked = unchunked, speculative =
    plain; on an int8 pool paged = gather, unchunked and chunked, with
-   chunked against unchunked reported); and at
+   chunked against unchunked reported; with LoRA paged = gather, alone =
+   mixed, adapters change tokens, base in a LoRA engine = registry-free,
+   and two adapters with a shared 2-block prefix each = their solo run);
+   and at
    full depth one prefill chunk (T=512) and one verify chunk (T=5) through
    the kernels against ``forward_with_cache`` over the gathered cache,
    float32 within 1e-3, bf16 error within twice the dense bf16 path's own;
@@ -68,11 +87,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and float32, each run twice bitwise equal; then their times beside the
    plain versions, ``F.scaled_dot_product_attention`` and the bounds;
 9. train correctness: one step's loss and grads at Llama-3-8B widths and 4
-   layers, through the kernels against their plain versions, float32 and
+   layers, through the kernels (flash attention and the fused
+   cross-entropy, one launch) against their plain versions, float32 and
    bf16;
 10. train at full width and depth: 4 AdamW steps of Llama-3-8B (bf16,
     B=1, T=2048, remat full_block, lr 1e-4) on one fixed batch, with
-    exact flash launch counts, no declines, finite losses and the last below
+    exact flash and ``flash_ce`` (one per step) launch counts, no declines
+    (attention or cross-entropy), finite losses and the last below
     the first; step time, tokens/s, model FLOPs and their share of peak,
     peak memory, and a profile of one more step by kernel group;
 11. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
@@ -106,7 +127,8 @@ from thunder_tpu_torch.models.llama import (
 )
 from thunder_tpu_torch.observability import registry
 from thunder_tpu_torch.train.optim import adamw
-from thunder_tpu_torch.serving import SpecConfig, serve
+from thunder_tpu_torch.serving import AdapterRegistry, SpecConfig, make_lora_factors, serve
+from thunder_tpu_torch.serving.lora import gather_adapter_slots
 from thunder_tpu_torch.serving.kv_pool import SINK_BLOCK, chunk_tables, gather_dense
 from thunder_tpu_torch.serving.paged_attention import forward_paged
 from thunder_tpu_torch.serving.quant import (
@@ -196,7 +218,7 @@ NO_LIBRARY = "no single PyTorch call computes this"
 
 
 def timed(name, label, kernel, plain, library, library_name, bound_ms_by, *, iters,
-          plain_iters, plain_warmup=3, device_kernel=None) -> dict:
+          plain_iters, plain_warmup=3, device_kernel=None, dtype_name="bf16") -> dict:
     """Per-call times of a kernel, its plain version and the library call
     computing the same function (``library`` None where no single PyTorch
     call does), the kernel's device time (of the CUDA kernels named like
@@ -207,7 +229,7 @@ def timed(name, label, kernel, plain, library, library_name, bound_ms_by, *, ite
     library_ms = time_ms(library, iters=iters) if library is not None else None
     bound_ms, bound_by = bound_ms_by
     lib = f"{library_name} {library_ms:.4f} ms" if library is not None else f"library: {NO_LIBRARY}"
-    say(f"{name} bf16{label} timing per call: kernel {ms:.4f} ms (device {dev_ms} ms), "
+    say(f"{name} {dtype_name}{label} timing per call: kernel {ms:.4f} ms (device {dev_ms} ms), "
         f"plain {plain_ms:.4f} ms, {lib}, bound {1e3 * bound_ms:.3f} us ({bound_by})")
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
@@ -779,6 +801,168 @@ def check_chunk_write_fused():
 
 
 #
+# phase 3, continued: the adapter delta of LoRA serving and the training
+# step's cross-entropy
+#
+
+# the per-request delta at the serving shapes: decode (B=8, T=1), verify
+# (B=8, T=5) and a prefill chunk (B=1, T=512); wq (4096 -> 4096), wk (4096 ->
+# 1024) and wo (4096 -> 4096) of Llama-3-8B
+LORA_SHAPES = {"decode": (8, 1), "verify": (8, 5), "chunk": (1, 512)}
+LORA_TARGETS = {"wq": (NH * HS, NH * HS), "wk": (NH * HS, NG * HS), "wo": (NH * HS, NH * HS)}
+LORA_RANKS = (8, 16, 64)
+LORA_SCALING = 2.0                      # alpha 32 over rank 16, the serves' registry
+# float32 delta: the same products summed in another order, within this
+# share of the output's largest magnitude
+LORA_REL_F32 = 1e-5
+
+
+def lora_bound(B_, T, fin, fout, r, x_dtype, f_dtype):
+    xb = torch.empty((), dtype=x_dtype).element_size()
+    fb = torch.empty((), dtype=f_dtype).element_size()
+    nbytes = B_ * T * fin * xb + B_ * r * (fin + fout) * fb + B_ * T * fout * xb
+    return bound(nbytes, 2 * B_ * T * r * (fin + fout), x_dtype)
+
+
+def lora_inputs(gen, B_, T, fin, fout, r, x_dtype, f_dtype):
+    """Unit activations, factors of std 0.05 (the serves' adapters); rows 2
+    and 6 of a batch of 8 ride the base slot (zero factors)."""
+    x = torch.randn((B_, T, fin), generator=gen, device=DEVICE).to(x_dtype)
+    a = (0.05 * torch.randn((B_, r, fin), generator=gen, device=DEVICE)).to(f_dtype)
+    b = (0.05 * torch.randn((B_, fout, r), generator=gen, device=DEVICE)).to(f_dtype)
+    base = [2, 6] if B_ == 8 else []
+    a[base], b[base] = 0, 0
+    return x, a, b, base
+
+
+def check_lora():
+    """``lora_delta_fused`` against its plain version at every shape,
+    target and rank above, x in bf16 and float32, factors in float32 and
+    bf16: float32 x within LORA_REL_F32 of the output's max magnitude; bf16
+    x against the float32 plain result of the same inputs, the kernel's
+    error at most LOWP_ERR_RATIO times the plain version's own; base-slot
+    rows exactly 0.  Then times at each shape (wq, rank 16, bf16 x, float32
+    factors: what the bf16 serves run)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    worst = {}
+    main_err = None
+    for shape, (B_, T) in LORA_SHAPES.items():
+        for target, (fin, fout) in LORA_TARGETS.items():
+            for r in LORA_RANKS:
+                for x_dtype in (torch.bfloat16, torch.float32):
+                    for f_dtype in (torch.float32, torch.bfloat16):
+                        x, a, b, base = lora_inputs(gen, B_, T, fin, fout, r, x_dtype, f_dtype)
+                        got = cudaex.lora_delta_fused(x, a, b, LORA_SCALING)
+                        torch.cuda.synchronize()
+                        want = cudaex.lora_delta_fused_plain(x, a, b, LORA_SCALING)
+                        err = (got.float() - want.float()).abs().max().item()
+                        zero = all(bool((got[i] == 0).all()) for i in base)
+                        if x_dtype == torch.float32:
+                            lim = LORA_REL_F32 * want.abs().max().item()
+                            ok, bar = err <= lim, f"atol {lim:.2e}"
+                        else:
+                            ref = cudaex.lora_delta_fused_plain(x.float(), a.float(), b.float(),
+                                                                LORA_SCALING)
+                            ek = (got.float() - ref).abs().max().item()
+                            ep = (want.float() - ref).abs().max().item()
+                            ok = ek <= LOWP_ERR_RATIO * ep
+                            bar = f"against float32: kernel {ek:.3e}, plain {ep:.3e}"
+                        ok = ok and zero and bool(torch.isfinite(got).all())
+                        label = (f"{shape} {target} r={r} x {str(x_dtype)[6:]} factors "
+                                 f"{str(f_dtype)[6:]}")
+                        key = str(x_dtype)[6:]
+                        worst[key] = max(worst.get(key, 0.0), err)
+                        if (shape, target, r, x_dtype, f_dtype) == (
+                                "decode", "wq", 16, torch.bfloat16, torch.float32):
+                            main_err = err
+                        if not ok:
+                            say(f"lora_delta_fused {label}: max_abs_err={err:.3e} ({bar}); "
+                                f"base rows zero {zero} FAIL")
+                            raise AssertionError(f"lora_delta_fused {label} disagrees with its "
+                                                 "plain version")
+    n = len(LORA_SHAPES) * len(LORA_TARGETS) * len(LORA_RANKS) * 4
+    say(f"lora_delta_fused: {n} cases (shapes {LORA_SHAPES}, targets {LORA_TARGETS}, ranks "
+        f"{LORA_RANKS}, x bf16/float32, factors float32/bf16) ok; worst max_abs_err {worst}; "
+        f"base-slot rows exactly 0")
+    shapes = {}
+    for shape, (B_, T) in LORA_SHAPES.items():
+        fin, fout = LORA_TARGETS["wq"]
+        x, a, b, _ = lora_inputs(gen, B_, T, fin, fout, 16, torch.bfloat16, torch.float32)
+        shapes[shape] = timed(
+            "lora_delta_fused", f" {shape} wq r=16 (B={B_}, T={T})",
+            lambda: cudaex.lora_delta_fused(x, a, b, LORA_SCALING),
+            lambda: cudaex.lora_delta_fused_plain(x, a, b, LORA_SCALING),
+            None, None, lora_bound(B_, T, fin, fout, 16, torch.bfloat16, torch.float32),
+            iters=200, plain_iters=50, device_kernel="lora_delta_kernel")
+    rec = dict(shapes["decode"], max_abs_err=main_err, shapes=shapes)
+    return rec
+
+
+CE_N, CE_V = 2048, 128256               # Llama-3-8B's training step: B=1, T=2048
+# float32 row losses: a sum of exp over 128256 logits in another order,
+# within this share of the largest loss (both paths upcast bf16 logits
+# exactly and compute in float32, so bf16 takes the same bar)
+CE_REL = 1e-5
+# a shape the TPU kernel's tiling refuses (no row block divides N, no ×128
+# tile divides V, GPT-2's vocabulary): the kernel takes it on its scalar walk
+CE_ODD_N, CE_ODD_V = 2047, 50257
+
+
+def check_ce():
+    """``flash_cross_entropy`` against its plain version at (2048, 128256),
+    float32 and bf16 logits, random targets: loss and lse within CE_REL of
+    their largest magnitude; then times beside ``F.cross_entropy``
+    (reduction "none": the losses only, no lse) and the bound."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = torch.randn((CE_N, CE_V), generator=gen, device=DEVICE).to(dtype)
+        target = torch.randint(0, CE_V, (CE_N,), generator=gen, device=DEVICE)
+        loss, lse = cudaex.flash_cross_entropy(logits, target)
+        torch.cuda.synchronize()
+        want_loss, want_lse = cudaex.flash_cross_entropy_plain(logits, target)
+        err = (loss - want_loss).abs().max().item()
+        err_lse = (lse - want_lse).abs().max().item()
+        lim = CE_REL * want_loss.abs().max().item()
+        ok = (err <= lim and err_lse <= CE_REL * want_lse.abs().max().item()
+              and bool(torch.isfinite(loss).all()))
+        name = str(dtype)[6:]
+        say(f"flash_ce {name} ({CE_N}, {CE_V}): loss max_abs_err={err:.3e}, lse "
+            f"max_abs_err={err_lse:.3e} (bar {lim:.2e}; lse mean {want_lse.mean().item():.4f}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_ce {name} disagrees with its plain version")
+        esize = logits.element_size()
+        nbytes = CE_N * CE_V * esize + CE_N * target.element_size() + 2 * CE_N * 4
+        rec[name] = dict(timed(
+            "flash_ce", f" ({CE_N}, {CE_V})", lambda: cudaex.flash_cross_entropy(logits, target),
+            lambda: cudaex.flash_cross_entropy_plain(logits, target),
+            lambda: F.cross_entropy(logits, target, reduction="none"),
+            "F.cross_entropy (reduction none, losses only)",
+            bound(nbytes, 4 * CE_N * CE_V, torch.float32), iters=20, plain_iters=5,
+            device_kernel="flash_ce_kernel", dtype_name=name), max_abs_err=err)
+        del logits, loss, lse, want_loss, want_lse
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = torch.randn((CE_ODD_N, CE_ODD_V), generator=gen, device=DEVICE).to(dtype)
+        target = torch.randint(0, CE_ODD_V, (CE_ODD_N,), generator=gen, device=DEVICE)
+        loss, lse = cudaex.flash_cross_entropy(logits, target)
+        want_loss, want_lse = cudaex.flash_cross_entropy_plain(logits, target)
+        err = (loss - want_loss).abs().max().item()
+        err_lse = (lse - want_lse).abs().max().item()
+        ok = (err <= CE_REL * want_loss.abs().max().item()
+              and err_lse <= CE_REL * want_lse.abs().max().item())
+        say(f"flash_ce {str(dtype)[6:]} ({CE_ODD_N}, {CE_ODD_V}), scalar walk: loss "
+            f"max_abs_err={err:.3e}, lse max_abs_err={err_lse:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_ce disagrees with its plain version at "
+                                 f"({CE_ODD_N}, {CE_ODD_V})")
+    torch.cuda.empty_cache()
+    return dict(rec["float32"], dtypes=rec,
+                library="F.cross_entropy(logits, target, reduction='none'): the row losses "
+                        "only (no lse)")
+
+
+#
 # phase 4: serve Llama-3-8B at full width
 #
 
@@ -893,13 +1077,15 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
-def compare_logits(eng, params, cfg, prompts, results, tables):
+def compare_logits(eng, params, cfg, prompts, results, tables, slots=None):
     """One decode step at the served rows' last positions (their blocks
     still hold the K/V the run wrote), through the kernels and through the
     dense path over the same gathered cache, in bf16 and in float32.  A
     quantized pool keeps its bytes and scales in both: the kernels
     dequantize them in-kernel, the dense path through ``gather_dense_q``,
-    each into the compute dtype of the run."""
+    each into the compute dtype of the run.  ``slots``: the rows' adapter
+    slots in a LoRA engine; the kernel path then adds the deltas through
+    ``lora_delta_fused``, the dense path through the plain delta."""
     Bb = len(results)
     nbb = eng._nbb(max(len(t) for t in tables))
     tab = np.full((Bb, nbb), SINK_BLOCK, dtype=np.int32)
@@ -913,15 +1099,20 @@ def compare_logits(eng, params, cfg, prompts, results, tables):
     cos, sin = build_rope_cache(cfg, nbb * eng.pool.block_size, device=dev)
 
     quantized = eng.pool.quantized_kv
+    reg = eng._registry
+    lora = ({} if slots is None else
+            {"lora": gather_adapter_slots(reg.arenas, torch.as_tensor(slots, device=dev)),
+             "lora_scaling": reg.scaling})
 
     def both_paths(p, arenas, cdtype):
-        lp, _ = forward_paged(p, toks_d, pos_d, arenas, tab_d, cos, sin, cfg, cdtype=cdtype)
+        lp, _ = forward_paged(p, toks_d, pos_d, arenas, tab_d, cos, sin, cfg, cdtype=cdtype,
+                              **lora)
         if quantized:
             kd, vd = gather_dense_q(arenas["k"], arenas["v"], arenas["k_scale"],
                                     arenas["v_scale"], tab_d, cdtype)
         else:
             kd, vd = gather_dense(arenas["k"], arenas["v"], tab_d)
-        lg, _ = forward_with_cache(p, toks_d, pos_d, {"k": kd, "v": vd}, cos, sin, cfg)
+        lg, _ = forward_with_cache(p, toks_d, pos_d, {"k": kd, "v": vd}, cos, sin, cfg, **lora)
         return lp, lg
 
     with torch.no_grad():
@@ -938,7 +1129,8 @@ def compare_logits(eng, params, cfg, prompts, results, tables):
     replay = int((lp.argmax(-1)[:, 0] == served).sum())
     ok = (bool(torch.isfinite(lp).all()) and err32 <= LOGITS_ATOL_F32
           and err_kernel <= BF16_ERR_RATIO * err_dense)
-    say(f"decode logits{' off ' + str(eng.pool.kv_dtype)[6:] + ' arenas' if quantized else ''}, "
+    say(f"decode logits{' off ' + str(eng.pool.kv_dtype)[6:] + ' arenas' if quantized else ''}"
+        f"{', LoRA slots ' + str(slots) if slots is not None else ''}, "
         f"kernels vs dense path ({Bb} rows, nbb={nbb}, logits std "
         f"{lg32.std().item():.3f}): float32 max_abs_err={err32:.3e} (atol {LOGITS_ATOL_F32}); "
         f"bf16 max_abs_err={err:.4f}, against float32 dense: kernel path {err_kernel:.4f}, "
@@ -993,10 +1185,41 @@ def check_gauge(name, kv_dtype) -> float | None:
     return gauge
 
 
-def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_blocks=2048):
+def submit_all(eng, prompts, new_tokens, lora):
+    """Submits every prompt; with a registry, two requests per adapter and
+    two base ones (``LORA_IDS``)."""
+    ids = LORA_IDS if lora is not None else [None] * len(prompts)
+    return [eng.submit(p, max_new_tokens=new_tokens, adapter_id=a) for p, a in zip(prompts, ids)]
+
+
+def lora_launches(cfg, lora, calls: int) -> dict:
+    """The expected ``lora_delta_fused`` launches: wq, wk, wv, wo in every
+    layer of every kernel-path call (decode step, chunk piece, verify
+    round) of a LoRA engine."""
+    return {"lora_delta_fused": 4 * cfg.n_layer * calls} if lora is not None else {}
+
+
+def tenant_report(name, lora):
+    if lora is None:
+        return None
+    snap = registry().snapshot("serving.tenant.")
+    tenants = {a: {"tokens": snap[f"serving.tenant.{a}.tokens"],
+                   "requests": snap[f"serving.tenant.{a}.requests"],
+                   "ttft_p50_ms": 1e3 * snap[f"serving.tenant.{a}.ttft_s"]["p50"],
+                   "e2e_p50_ms": 1e3 * snap[f"serving.tenant.{a}.e2e_s"]["p50"]}
+               for a in LORA_ADAPTERS}
+    say(f"{name}: tenant counters {tenants}")
+    if any(t["requests"] != 2 for t in tenants.values()) or any(
+            k.startswith("serving.tenant.None") for k in snap):
+        raise AssertionError(f"{name}: tenant counters {snap}")
+    return tenants
+
+
+def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_blocks=2048,
+                  lora=None):
     eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=num_blocks,
                 max_batch=8, prefill_chunk=CHUNK, prefill_buckets=CHUNK_BUCKETS,
-                kv_dtype=kv_dtype, device=DEVICE)
+                kv_dtype=kv_dtype, lora=lora, device=DEVICE)
     kind = eng.stats()["attn"]["kinds"]["prefill_chunk"]
     say(f"chunked serve (kv_dtype {kv_dtype}): chunk kind {kind['mode']!r} (fallback reason "
         f"{kind['fallback_reason']}), {eng.pool.num_blocks} blocks of "
@@ -1010,11 +1233,11 @@ def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_b
     eng.run([prompts[0][:600]], max_new_tokens=2)            # warm-up: one chunk + final piece
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    registry().gauge("serving.kv_quant.rel_err").reset()
+    registry().reset()
     steps0, chunks0 = eng.decode_steps, eng.chunk_runs
     cudaex.reset_launches()
     t0 = time.perf_counter()
-    handles = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    handles = submit_all(eng, prompts, new_tokens, lora)
     eng.step()                                              # admits every request
     tables = [list(h._req.block_table) for h in handles]
     eng.drain()
@@ -1024,13 +1247,15 @@ def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_b
     steps, pieces = eng.decode_steps - steps0, eng.chunk_runs - chunks0
     results = [h.result(drive=False) for h in handles]
     check_results(results, new_tokens, cfg.padded_vocab_size)
-    rec = serve_stats(f"chunked serve {cfg.name} bf16, kv_dtype {kv_dtype} (prompts "
+    tag = f", LoRA rank {lora.rank} ids {LORA_IDS}" if lora is not None else ""
+    rec = serve_stats(f"chunked serve {cfg.name} bf16, kv_dtype {kv_dtype}{tag} (prompts "
                       f"{sorted(len(p) for p in prompts)}, prefill_chunk {CHUNK})", results, wall)
     q = "_fused" if kv_dtype is not None else ""
     want = no_launches_but(paged_attn_verify=pieces * cfg.n_layer,
                            paged_attn_decode=steps * cfg.n_layer,
                            **{f"paged_chunk_write{q}": pieces * 2,
-                              f"paged_token_write{q}": steps * 2})
+                              f"paged_token_write{q}": steps * 2},
+                           **lora_launches(cfg, lora, pieces + steps))
     say(f"launches during chunked serve: {launches} ({pieces} intermediate pieces, "
         f"{steps} decode steps; expected {want})")
     if launches != want or not pieces:
@@ -1038,8 +1263,24 @@ def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_b
                              f"({pieces} intermediate pieces)")
     rec.update(launches=launches, pieces=pieces, steps=steps, blocks=eng.pool.num_blocks,
                arena_bytes=eng.pool.arena_bytes(),
-               rel_err=check_gauge("chunked serve", kv_dtype))
+               rel_err=check_gauge("chunked serve", kv_dtype),
+               tenants=tenant_report("chunked LoRA serve", lora))
     return rec, eng, prompts, tables, results
+
+
+LORA_RANK, LORA_ALPHA = 16, 32         # scaling 2.0
+LORA_ADAPTERS = ("tenant-a", "tenant-b", "tenant-c")
+LORA_IDS = [*LORA_ADAPTERS, None] * 2   # two requests per adapter, two base
+
+
+def make_registry(cfg):
+    """Rank 16, alpha 32, the default targets wq/wk/wv/wo, four slots,
+    three adapters of std 0.05 from a seeded generator, float32 factors."""
+    reg = AdapterRegistry(cfg, rank=LORA_RANK, alpha=LORA_ALPHA, max_adapters=4, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    for name in LORA_ADAPTERS:
+        reg.register(name, make_lora_factors(cfg, LORA_RANK, gen, std=0.05))
+    return reg
 
 
 def layer_skip_draft(params, cfg, n_layer=2):
@@ -1049,21 +1290,23 @@ def layer_skip_draft(params, cfg, n_layer=2):
                                                                                n_layer=n_layer)
 
 
-def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, self_draft=True):
+def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, self_draft=True,
+               lora=None):
     dparams, dcfg = layer_skip_draft(params, cfg)
     eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=1024, max_batch=8,
-                speculative=SpecConfig(dparams, dcfg, K=K), kv_dtype=kv_dtype, device=DEVICE)
+                speculative=SpecConfig(dparams, dcfg, K=K), kv_dtype=kv_dtype, lora=lora,
+                device=DEVICE)
     rng = np.random.default_rng(SEED + 6)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in rng.integers(128, 1025, n_requests)]
     eng.run([prompts[0][:64]], max_new_tokens=8)             # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    registry().gauge("serving.kv_quant.rel_err").reset()
+    registry().reset()
     rounds0 = eng.spec_rounds
     cudaex.reset_launches()
     t0 = time.perf_counter()
-    handles = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    handles = submit_all(eng, prompts, new_tokens, lora)
     eng.step()
     tables = [list(h._req.block_table) for h in handles]
     eng.drain()
@@ -1074,15 +1317,16 @@ def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, sel
     results = [h.result(drive=False) for h in handles]
     check_results(results, new_tokens, cfg.padded_vocab_size)
     st = eng.stats()["speculative"]
+    tag = f", LoRA rank {lora.rank} on the target, ids {LORA_IDS}" if lora is not None else ""
     rec = serve_stats(f"speculative serve {cfg.name} bf16, kv_dtype {kv_dtype} (draft arena "
-                      f"{eng.draft_pool.kv_dtype}), {dcfg.n_layer}-layer draft, K={K} "
+                      f"{eng.draft_pool.kv_dtype}), {dcfg.n_layer}-layer draft, K={K}{tag} "
                       f"(prompts {sorted(len(p) for p in prompts)})", results, wall)
     say(f"speculative serve: {rounds} rounds, acceptance rate {st['acceptance_rate']:.4f}, "
         f"tokens per round {st['tokens_per_round']:.3f}, accept_len histogram "
         f"{st['accept_len_hist']} (warm-up included)")
     write = "paged_token_write_fused" if kv_dtype is not None else "paged_token_write_masked"
     want = no_launches_but(paged_attn_verify=rounds * cfg.n_layer,
-                           **{write: rounds * 2 * (K + 1)})
+                           **{write: rounds * 2 * (K + 1)}, **lora_launches(cfg, lora, rounds))
     say(f"launches during speculative serve: {launches} (expected {want}); pool "
         f"{eng.pool.num_blocks} blocks, arena {eng.pool.arena_bytes()} B")
     if launches != want or not rounds:
@@ -1091,7 +1335,8 @@ def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, sel
     rec.update(launches=launches, rounds=rounds, acceptance_rate=st["acceptance_rate"],
                tokens_per_round=st["tokens_per_round"], blocks=eng.pool.num_blocks,
                arena_bytes=eng.pool.arena_bytes(),
-               rel_err=check_gauge("speculative serve", kv_dtype))
+               rel_err=check_gauge("speculative serve", kv_dtype),
+               tenants=tenant_report("speculative LoRA serve", lora))
     if not self_draft:
         return rec, eng, prompts, results, tables
     # draft = target: every draft should be accepted (bf16 argmax flips
@@ -1177,6 +1422,63 @@ def _exact_tokens_quant(params32, cfg4, n_new=8):
     if not all(same.values()):
         raise AssertionError(f"the int8 paged lanes serve other tokens than the gather lanes: "
                              f"{got}")
+
+
+def _exact_tokens_lora(params32, cfg4, n_new=8):
+    """LoRA tokens, exact, in float32 at Llama-3-8B widths and 4 layers:
+    paged (the kernel) = gather (the plain delta); each request alone =
+    mixed; every adapter changes the tokens of its prompt; a base request
+    in a LoRA engine = a registry-free engine's; and two adapters with a
+    shared 2-block prompt prefix each serve their solo tokens (no K/V
+    shared across adapters), while a third request of the first adapter
+    shares the prefix and serves its solo tokens too."""
+    reg = make_registry(cfg4)
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [rng.integers(0, cfg4.vocab_size, n).astype(np.int32) for n in (90, 200, 333, 411)]
+    ids = [*LORA_ADAPTERS, None]
+    common = dict(block_size=16, num_blocks=512, max_batch=4, device=DEVICE)
+
+    def tokens(ps, ids_, lora=reg, attn="paged"):
+        eng = serve(None, params32, cfg4, attn=attn, lora=lora, **common)
+        hs = [eng.submit(p, max_new_tokens=n_new, adapter_id=a) for p, a in zip(ps, ids_)]
+        eng.drain()
+        return [h.result(drive=False).new_tokens for h in hs]
+
+    cudaex.reset_launches()
+    mixed = tokens(prompts, ids)
+    kernel_launches = cudaex.LAUNCHES["lora_delta_fused"]
+    gather = tokens(prompts, ids, attn="gather")
+    solo = [tokens([p], [a])[0] for p, a in zip(prompts, ids)]
+    base = tokens(prompts, [None] * 4)
+    plain = tokens(prompts[3:], [None], lora=None)
+    differ = [mixed[i] != base[i] for i in range(3)]
+    say(f"float32, 4 layers, LoRA (rank {LORA_RANK}, scaling {reg.scaling}): paged = gather "
+        f"{mixed == gather}; alone = mixed {solo == mixed}; adapters change their tokens "
+        f"{differ}; base in a LoRA engine = registry-free {base[3] == plain[0] == mixed[3]} "
+        f"(paged lora_delta_fused launches {kernel_launches}); tokens {mixed}")
+    if not (mixed == gather and solo == mixed and all(differ) and base[3] == plain[0] == mixed[3]
+            and kernel_launches > 0):
+        raise AssertionError("LoRA float32 tokens: an equality failed")
+    prefix = rng.integers(0, cfg4.vocab_size, 32).astype(np.int32)
+    tails = [rng.integers(0, cfg4.vocab_size, n).astype(np.int32) for n in (40, 57, 23)]
+    shared = [np.concatenate([prefix, t]) for t in tails]
+    sids = [LORA_ADAPTERS[0], LORA_ADAPTERS[1], LORA_ADAPTERS[0]]
+    eng = serve(None, params32, cfg4, attn="paged", lora=reg, **common)
+    hs = []
+    for p, a in zip(shared, sids):
+        hs.append(eng.submit(p, max_new_tokens=n_new, adapter_id=a))
+        eng.step()                                        # admit: the prefix registers
+    eng.drain()
+    got = [h.result(drive=False) for h in hs]
+    want = [tokens([p], [a])[0] for p, a in zip(shared, sids)]
+    blocks = [r.shared_prefix_blocks for r in got]
+    ok = [r.new_tokens for r in got] == want and blocks == [0, 0, 2]
+    say(f"float32, 4 layers, LoRA shared 2-block prefix: adapters {sids}, shared blocks "
+        f"{blocks} (expected [0, 0, 2]), each = its solo run "
+        f"{[r.new_tokens for r in got] == want} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("LoRA prefix sharing: a request differs from its solo run or "
+                             "shared across adapters")
 
 
 def _compact(arenas, table_rows):
@@ -1479,20 +1781,24 @@ def make_step(cfg, remat="full_block"):
 
 
 @contextlib.contextmanager
-def plain_flash():
-    """The attention function calls the kernels' plain versions."""
-    saved = dict(ltorch.FLASH)
+def plain_kernels():
+    """The attention and cross-entropy functions call the kernels' plain
+    versions."""
+    saved, saved_ce = dict(ltorch.FLASH), dict(ltorch.CE)
     ltorch.FLASH.update(forward=cudaex.flash_sdpa_plain,
                         backward=cudaex.flash_sdpa_backward_plain)
+    ltorch.CE.update(forward=cudaex.flash_cross_entropy_plain)
     try:
         yield
     finally:
         ltorch.FLASH.update(saved)
+        ltorch.CE.update(saved_ce)
 
 
 def train_correctness(params, cfg):
     """One step's loss and grads at Llama-3-8B widths and 4 layers, through
-    the kernels and through their plain versions: float32 (TF32 off) within
+    the kernels (flash attention and the fused cross-entropy) and through
+    their plain versions: float32 (TF32 off) within
     TRAIN_LOSS_REL / TRAIN_GRAD_REL; bf16 held against the float32 kernel
     step, the kernel path's error at most LOWP_ERR_RATIO times the plain
     path's own (loss, and the relative L2 error of all grads)."""
@@ -1501,8 +1807,12 @@ def train_correctness(params, cfg):
     step = make_step(cfg4)
     p16 = {**params, "blocks": params["blocks"][:4]}
     p32 = _cast(p16, torch.float32)
+    cudaex.reset_launches()
     loss_k, g_k = step.grads(p32, None, *batch)
-    with plain_flash():
+    if cudaex.LAUNCHES["flash_ce"] != 1:
+        raise AssertionError(f"the float32 step launched flash_ce {cudaex.LAUNCHES['flash_ce']} "
+                             "times, not once")
+    with plain_kernels():
         loss_p, g_p = step.grads(p32, None, *batch)
     torch.cuda.synchronize()
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
@@ -1521,7 +1831,7 @@ def train_correctness(params, cfg):
                              "plain versions")
     del p32, g_p
     loss16_k, g16_k = step.grads(p16, None, *batch)
-    with plain_flash():
+    with plain_kernels():
         loss16_p, g16_p = step.grads(p16, None, *batch)
     torch.cuda.synchronize()
 
@@ -1592,7 +1902,7 @@ def train_full_width(params, cfg):
     peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layer
     want = no_launches_but(flash_fwd=2 * L * TRAIN_STEPS, flash_bwd_dq=L * TRAIN_STEPS,
-                           flash_bwd_dkv=L * TRAIN_STEPS)
+                           flash_bwd_dkv=L * TRAIN_STEPS, flash_ce=TRAIN_STEPS)
     step_s = float(np.mean(times[1:]))
     flops = model_flops(cfg, param_count(params))
     say(f"train {cfg.name} bf16, {L} layers, B={TRAIN_B} T={TRAIN_T}, remat "
@@ -1633,6 +1943,7 @@ def profile_train_step(step, params, opt_state, batch):
         key = ("flash fwd" if "flash_fwd_kernel" in low
                else "flash dq" if "flash_bwd_dq_kernel" in low
                else "flash dk/dv" if "flash_bwd_dkv_kernel" in low
+               else "flash ce" if "flash_ce_kernel" in low
                else "cuBLAS GEMMs" if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma",
                                                              "nvjet"))
                else "optimizer" if "adam" in low
@@ -1681,6 +1992,8 @@ def main() -> int:
     recs["paged_token_write_fused"] = {**tw["int8"], "quantized": tw}
     cw = check_chunk_write_fused()
     recs["paged_chunk_write_fused"] = {**cw["int8"], "quantized": cw}
+    recs["flash_ce"] = check_ce()
+    recs["lora_delta_fused"] = check_lora()
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     params, cfg = make_params()
@@ -1715,10 +2028,32 @@ def main() -> int:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    # multi-tenant LoRA: the chunked and speculative serves again, two
+    # requests per adapter and two base ones
+    reg = make_registry(cfg)
+    lrec, eng, prompts, tables, results = chunked_serve(params, cfg, lora=reg)
+    served["chunked LoRA serve"] = lrec["launches"]
+    lrec["decode_logits"] = compare_logits(
+        eng, params, cfg, prompts, results, tables,
+        slots=[reg.slot(a) if a is not None else 0 for a in LORA_IDS])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    slrec, eng, *_ = spec_serve(params, cfg, lora=reg, self_draft=False)
+    served["speculative LoRA serve"] = slrec["launches"]
+    del eng, reg
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("tokens_per_s", "ttft_p50_ms", "tpot_p50_ms")
+    say("LoRA serves beside the same run's serves without LoRA: " + json.dumps({
+        "chunked": {"lora": {k: lrec[k] for k in keys}, "base": {k: crec[k] for k in keys}},
+        "speculative": {"lora": {k: slrec[k] for k in keys},
+                        "base": {k: srec[k] for k in keys}}}))
     cfg4 = Config.from_name(cfg.name, n_layer=4)
     params32_4 = _cast({**params, "blocks": params["blocks"][:4]}, torch.float32)
     _exact_tokens(params32_4, cfg4)
     _exact_tokens_quant(params32_4, cfg4)
+    _exact_tokens_lora(params32_4, cfg4)
     del params32_4
     torch.cuda.empty_cache()
     chunk_and_verify_logits(params, cfg, chunk_case, spec_case)
@@ -1737,15 +2072,18 @@ def main() -> int:
                "flash_fwd": "flash_attention.cu", "flash_bwd_dq": "flash_attention.cu",
                "flash_bwd_dkv": "flash_attention.cu",
                "paged_token_write_fused": "paged_attention.cu",
-               "paged_chunk_write_fused": "paged_verify.cu"}
+               "paged_chunk_write_fused": "paged_verify.cu", "flash_ce": "cross_entropy.cu",
+               "lora_delta_fused": "lora_delta.cu"}
     replaces = {"paged_attn_decode": 1165, "paged_token_write": 1249, "paged_attn_verify": 1376,
                 "paged_chunk_write": 1535, "paged_token_write_masked": 1462, "flash_fwd": 293,
                 "flash_bwd_dq": 460, "flash_bwd_dkv": 460, "paged_token_write_fused": 1672,
-                "paged_chunk_write_fused": 1616}
+                "paged_chunk_write_fused": 1616, "flash_ce": 911, "lora_delta_fused": 1740}
     # the Pallas function and its pallas_call site, where they differ
     counterpart = {"flash_fwd": "_flash_fwd (pallas_call :322)",
                    "flash_bwd_dq": "_flash_bwd (dq pallas_call :495)",
-                   "flash_bwd_dkv": "_flash_bwd (dk/dv pallas_call :526)"}
+                   "flash_bwd_dkv": "_flash_bwd (dk/dv pallas_call :526)",
+                   "flash_ce": "_flash_ce (pallas_call :921; flash_cross_entropy :984)",
+                   "lora_delta_fused": "lora_delta_fused (pallas_call :1756)"}
     kernels = []
     for name, rec in recs.items():
         by_path = {path: counts[name] for path, counts in served.items() if counts[name]}
@@ -1761,8 +2099,9 @@ def main() -> int:
             device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_us=1e3 * rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"], card=CARD,
-            **{k: rec[k] for k in ("shapes", "quantized", "library") if k in rec}))
+            **{k: rec[k] for k in ("shapes", "quantized", "dtypes", "library") if k in rec}))
     say("quantized serves: " + json.dumps({"chunked int8": qrec, "speculative fp8": frec}))
+    say("LoRA serves: " + json.dumps({"chunked": lrec, "speculative": slrec}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

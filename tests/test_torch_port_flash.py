@@ -240,13 +240,15 @@ def test_sdpa_dispatch_counts_declines():
     k = torch.randn(1, 2, 100, 16, requires_grad=True)
     out = ltorch.scaled_dot_product_attention(q, k, k, is_causal=True)
     out.sum().backward()
-    assert ltorch.DECLINES == {"flash_sdpa": 1, "flash_sdpa_backward": 1}
+    assert ltorch.DECLINES == {"flash_sdpa": 1, "flash_sdpa_backward": 1,
+                               "flash_cross_entropy": 0}
     want, _ = ltorch.sdpa_reference(q, k, k, None, True, 0.25)
     torch.testing.assert_close(out, want)
     q = torch.randn(1, 4, 128, 16, requires_grad=True)
     k = torch.randn(1, 2, 128, 16, requires_grad=True)
     ltorch.scaled_dot_product_attention(q, k, k, is_causal=True).sum().backward()
-    assert ltorch.DECLINES == {"flash_sdpa": 1, "flash_sdpa_backward": 1}
+    assert ltorch.DECLINES == {"flash_sdpa": 1, "flash_sdpa_backward": 1,
+                               "flash_cross_entropy": 0}
     ltorch.scaled_dot_product_attention(q.half(), k.half(), k.half(), is_causal=True)
     assert ltorch.DECLINES["flash_sdpa"] == 2
 

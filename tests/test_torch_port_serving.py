@@ -217,7 +217,7 @@ def test_admission_rejects_requests_that_never_fit(micro):
 
 
 DEFERRED = [
-    ("quantized", True), ("lora", object()),
+    ("quantized", True),
     ("mesh", object()), ("shardings", object()),
     ("decode_steps", 2), ("sessions", True), ("priorities", True),
     ("constraints", True), ("fault_plan", object()), ("trace", True), ("slo", {"ttft_s": 1}),
@@ -236,7 +236,7 @@ def test_out_of_slice_engine_options_raise(micro, name, value):
             _port(tcfg, tp, **{name: value})
 
 
-@pytest.mark.parametrize("name", ["adapter_id", "session_id", "priority", "constraint"])
+@pytest.mark.parametrize("name", ["session_id", "priority", "constraint"])
 def test_out_of_slice_submit_options_raise(micro, name):
     tcfg, tp, _, _ = micro
     with pytest.raises(NotImplementedError, match=name):

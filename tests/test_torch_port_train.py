@@ -113,9 +113,10 @@ def test_gpt_loss_and_grads_match_jax(name):
     cfg = tllama.Config.from_name(name)
     params = _port_params(jparams)
     step = _port_step(cfg, remat=False)
-    ttt.ltorch.DECLINES.update(flash_sdpa=0, flash_sdpa_backward=0)
+    ttt.ltorch.DECLINES.update(flash_sdpa=0, flash_sdpa_backward=0, flash_cross_entropy=0)
     loss, grads = step.grads(params, None, *_port_batch(cfg, idx, tgt))
-    assert ttt.ltorch.DECLINES == {"flash_sdpa": 0, "flash_sdpa_backward": 0}
+    assert ttt.ltorch.DECLINES == {"flash_sdpa": 0, "flash_sdpa_backward": 0,
+                                   "flash_cross_entropy": 0}
     _rel_close(loss.item(), float(jl), 1e-5)
     got, want = tree_leaves(grads), jax.tree_util.tree_leaves(jg)
     assert len(got) == len(want)

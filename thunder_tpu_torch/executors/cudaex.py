@@ -31,20 +31,30 @@ of the serving paths:
 ``f32(x) * scale`` rounded to the compute dtype and then to the query
 dtype, as the Pallas kernels round (``pallasex.py:1094-1098``);
 
-and for the three kernels of a training step:
+and for the kernels of a training step:
 
 - :func:`flash_sdpa` replaces ``pallasex.flash_sdpa`` (``pallasex.py:711``,
   ``_flash_fwd`` :293): blockwise flash attention, out and f32 lse;
 - :func:`flash_sdpa_backward` replaces ``pallasex.flash_sdpa_backward``
   (``pallasex.py:739``, ``_flash_bwd`` :460): the dq kernel and the dk/dv
-  kernel (two launches, counted as ``flash_bwd_dq`` and ``flash_bwd_dkv``).
+  kernel (two launches, counted as ``flash_bwd_dq`` and ``flash_bwd_dkv``);
+- :func:`flash_cross_entropy` replaces ``pallasex.flash_cross_entropy``
+  (``pallasex.py:984``, ``_flash_ce`` :911): the loss's row losses and
+  logsumexps in one pass over the logits (counted as ``flash_ce``);
+  :func:`ce_supported` says which inputs the kernel takes;
+
+and for the adapter delta of multi-tenant LoRA serving:
+
+- :func:`lora_delta_fused` replaces ``pallasex.lora_delta_fused``
+  (``pallasex.py:1740``): per request ``scaling·(x·Aᵀ)·Bᵀ``.
 
 Each wrapper checks device, dtype, shape and contiguity, then routes by the
 device of its tensors: CPU tensors run the plain PyTorch version beside it
 (``*_plain``, the same arithmetic, which the CPU tests hold against the
 Pallas kernels); CUDA tensors launch the kernel from
 ``thunder_tpu_torch/csrc/`` (``paged_attention.cu``, ``paged_verify.cu``,
-``flash_attention.cu``) on the current stream or raise — there is no
+``flash_attention.cu``, ``cross_entropy.cu``, ``lora_delta.cu``) on the
+current stream or raise — there is no
 fallback.  ``LAUNCHES`` counts kernel launches, one per kernel a wrapper
 call launched, so a run can show that its main path went through the
 kernels.
@@ -60,13 +70,19 @@ from thunder_tpu_torch.executors import _build
 
 __all__ = [
     "LAUNCHES",
+    "LORA_MAX_RANK",
     "MASK_VALUE",
     "causal_keep",
+    "ce_supported",
+    "flash_cross_entropy",
+    "flash_cross_entropy_plain",
     "flash_sdpa",
     "flash_sdpa_backward",
     "flash_sdpa_backward_plain",
     "flash_sdpa_plain",
     "flash_supported",
+    "lora_delta_fused",
+    "lora_delta_fused_plain",
     "paged_attn_decode",
     "paged_attn_decode_plain",
     "paged_attn_verify",
@@ -91,7 +107,7 @@ MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 LAUNCHES = {"paged_attn_decode": 0, "paged_token_write": 0, "paged_attn_verify": 0,
             "paged_chunk_write": 0, "paged_token_write_masked": 0, "flash_fwd": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "paged_token_write_fused": 0,
-            "paged_chunk_write_fused": 0}
+            "paged_chunk_write_fused": 0, "flash_ce": 0, "lora_delta_fused": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # arena storage codes: the float dtypes above, then the quantized ones
@@ -1134,3 +1150,155 @@ def flash_sdpa_backward(g, q, k, v, out, lse, mask=None, *, causal: bool, scale:
         _raise_on(lib, rc, f"{name} (dk/dv)")
         LAUNCHES["flash_bwd_dkv"] += 1
     return dq, dk, dv
+
+
+#
+# flash_cross_entropy: the training step's loss
+#
+
+_CE_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
+
+
+def ce_supported(logits_shape, target_shape, dtype) -> bool:
+    """Whether :func:`flash_cross_entropy` takes these inputs: 2-D float32
+    or bfloat16 logits with at least one column and (N,) targets.  The
+    kernel takes any N and V (a scalar walk where V is no multiple of the
+    vector width), so this admits every shape the JAX package's
+    ``_ce_supported`` (``pallasex.py:947``) does, and also those its TPU
+    tiling refuses."""
+    return (len(logits_shape) == 2 and tuple(target_shape) == (logits_shape[0],)
+            and logits_shape[1] >= 1 and dtype in _CE_DTYPE_CODE)
+
+
+def flash_cross_entropy_plain(logits, target):
+    """Plain PyTorch version of :func:`flash_cross_entropy`, the formula of
+    ``jaxex._cross_entropy_fwd_reference`` (``jaxex.py:594``): float32
+    ``lse = logsumexp(logits)`` and ``loss = lse - logits[target]``."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    picked = lg.gather(1, target.long()[:, None])[:, 0]
+    return lse - picked, lse
+
+
+def flash_cross_entropy(logits, target):
+    """Row losses and logsumexps of (N, V) logits: ``(loss, lse)``, both
+    (N,) float32, from one pass over each row (``csrc/cross_entropy.cu``).
+    ``logits``: float32 or bfloat16; ``target``: (N,) integer class ids in
+    [0, V)."""
+    name = "flash_cross_entropy"
+    _require(isinstance(logits, torch.Tensor) and isinstance(target, torch.Tensor),
+             f"{name}: logits and target must be tensors")
+    _require(target.device == logits.device,
+             f"{name}: target is on {target.device}, logits on {logits.device}")
+    _require(logits.device.type in ("cpu", "cuda"), f"{name}: unsupported device {logits.device}")
+    _require(logits.ndim == 2 and logits.dtype in _CE_DTYPE_CODE,
+             f"{name}: logits must be 2-D float32 or bfloat16, got {logits.dtype} "
+             f"{tuple(logits.shape)}")
+    N, V = logits.shape
+    _require(tuple(target.shape) == (N,) and not target.is_floating_point(),
+             f"{name}: target must be integer ({N},), got {target.dtype} {tuple(target.shape)}")
+    _require(V >= 1, f"{name}: logits have no columns")
+    if logits.device.type == "cpu":
+        return flash_cross_entropy_plain(logits, target)
+    if N == 0:                      # an empty grid: nothing to launch
+        empty = torch.empty(0, dtype=torch.float32, device=logits.device)
+        return empty, empty.clone()
+    logits = logits.contiguous()
+    tgt = target.to(torch.int32).contiguous()
+    width = 16 // logits.element_size()
+    vec = width if V % width == 0 and logits.data_ptr() % 16 == 0 else 1
+    lib = _build.load_library()
+    loss = torch.empty(N, dtype=torch.float32, device=logits.device)
+    lse = torch.empty(N, dtype=torch.float32, device=logits.device)
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        rc = lib.tt_flash_ce(_ptr(logits), _ptr(tgt), _ptr(loss), _ptr(lse), N, V, vec,
+                             _CE_DTYPE_CODE[logits.dtype], ctypes.c_void_p(stream))
+    _raise_on(lib, rc, name)
+    LAUNCHES["flash_ce"] += 1
+    return loss, lse
+
+
+#
+# lora_delta_fused: the per-request adapter delta of the serving paths
+#
+
+LORA_MAX_RANK = 64              # the kernel's shared-memory tile (csrc/lora_delta.cu)
+_LORA_ROWS, _LORA_COLS = 16, 128
+
+
+def _as_dtype_scalar(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype``: the reference multiplies by a weakly
+    typed Python scalar, which takes the array's dtype first."""
+    return float(torch.tensor(float(value), dtype=dtype))
+
+
+def lora_delta_fused_plain(x, a, b, scaling):
+    """Plain PyTorch version of :func:`lora_delta_fused`: the factors
+    rounded to x's dtype, ``d = x·Aᵀ`` accumulated in float32 and rounded to
+    x's dtype, ``d·Bᵀ`` likewise, then times ``scaling`` (rounded to x's
+    dtype) in float32 and rounded once more."""
+    ft = _acc_dtype(x.dtype)
+    d = torch.matmul(x.to(ft), a.to(x.dtype).to(ft).transpose(-1, -2)).to(x.dtype)
+    o = torch.matmul(d.to(ft), b.to(x.dtype).to(ft).transpose(-1, -2)).to(x.dtype)
+    return (o.to(ft) * _as_dtype_scalar(scaling, x.dtype)).to(x.dtype)
+
+
+_SM_COUNT: dict = {}
+
+
+def _lora_split(dev, B: int, T: int, fout: int) -> int:
+    """Blocks along fout: enough for about two blocks per SM in all, at most
+    one per 128-column tile."""
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = -(-fout // _LORA_COLS)
+    rows = B * -(-T // _LORA_ROWS)
+    return max(1, min(tiles, -(-2 * _SM_COUNT[dev] // rows)))
+
+
+def lora_delta_fused(x, a, b, scaling):
+    """Per-request LoRA delta ``scaling·(x·Aᵀ)·Bᵀ`` (``csrc/lora_delta.cu``).
+
+    ``x``: (B, T, fin) float32/float16/bfloat16, contiguous; ``a``:
+    (B, r, fin) and ``b``: (B, fout, r) at the registry's dtype, each
+    request's slab contiguous (a per-layer view ``stack[:, l]`` of a
+    (B, L, ...) stack is taken as it is), ``r`` ≤ :data:`LORA_MAX_RANK`.
+    Returns (B, T, fout) at x's dtype, with the reference's rounding points
+    (see :func:`lora_delta_fused_plain`)."""
+    name = "lora_delta_fused"
+    for arg, t in (("x", x), ("a", a), ("b", b)):
+        _require(isinstance(t, torch.Tensor) and t.ndim == 3,
+                 f"{name}: {arg} must be a 3-D tensor")
+        _require(t.device == x.device, f"{name}: {arg} is on {t.device}, x on {x.device}")
+        _require(t.dtype in _DTYPE_CODE,
+                 f"{name}: {arg} must be float32/float16/bfloat16, got {t.dtype}")
+    _require(x.device.type in ("cpu", "cuda"), f"{name}: unsupported device {x.device}")
+    B, T, fin = x.shape
+    r, fout = a.shape[1], b.shape[1]
+    _require(tuple(a.shape) == (B, r, fin) and tuple(b.shape) == (B, fout, r),
+             f"{name}: want a (B, r, fin) and b (B, fout, r) for x {tuple(x.shape)}, got "
+             f"{tuple(a.shape)} and {tuple(b.shape)}")
+    _require(a.dtype == b.dtype, f"{name}: a and b must share one dtype")
+    _require(1 <= r <= LORA_MAX_RANK,
+             f"{name}: the kernel takes ranks 1..{LORA_MAX_RANK}, got {r}")
+    if x.device.type == "cpu":
+        return lora_delta_fused_plain(x, a, b, scaling)
+    _require(x.is_contiguous(), f"{name}: x must be contiguous")
+    for arg, t, inner in (("a", a, fin), ("b", b, r)):
+        _require(t.stride(2) == 1 and t.stride(1) == inner,
+                 f"{name}: each request's {arg} must be one contiguous slab")
+    out = torch.empty((B, T, fout), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _require(fin >= 1, f"{name}: fin must be at least 1")
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.tt_lora_delta(
+            _ptr(x), _ptr(a), _ptr(b), _ptr(out), B, T, fin, fout, r, a.stride(0), b.stride(0),
+            _lora_split(x.device, B, T, fout), ctypes.c_float(scaling), _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[a.dtype], ctypes.c_void_p(stream))
+    _raise_on(lib, rc, name)
+    LAUNCHES["lora_delta_fused"] += 1
+    return out

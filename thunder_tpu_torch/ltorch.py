@@ -21,7 +21,13 @@ eager PyTorch autograd, so each prim with a backward rule is a
   nothing falls back.  Under a selective checkpoint policy the function is
   opaque (a ``ctypes`` call inside), so its forward reruns in the recompute.
 - :class:`_CrossEntropy` saves ``(logits, target, lse)`` and recomputes
-  dlogits from them: no (N, C) log-probability residual.
+  dlogits from them: no (N, C) log-probability residual.  Its forward
+  mirrors ``_cross_entropy_fwd_impl`` (``jaxex.py:601``), which tries the
+  Pallas CE kernel first: input the kernel takes
+  (:func:`~thunder_tpu_torch.executors.cudaex.ce_supported`: 2-D float32 or
+  bfloat16 logits of any shape) runs ``flash_cross_entropy`` (one launch
+  per call), other dtypes run the plain version and count a decline.  The backward is the prim's rule
+  in PyTorch, as the JAX package has no CE backward kernel.
 """
 from __future__ import annotations
 
@@ -32,14 +38,15 @@ import torch.nn.functional as F
 
 from thunder_tpu_torch.executors import cudaex
 
-__all__ = ["DECLINES", "FLASH", "cross_entropy", "scaled_dot_product_attention",
+__all__ = ["CE", "DECLINES", "FLASH", "cross_entropy", "scaled_dot_product_attention",
            "sdpa_backward_reference", "sdpa_reference"]
 
-# shapes the flash kernels declined (the reference decomposition ran instead)
-DECLINES = {"flash_sdpa": 0, "flash_sdpa_backward": 0}
-# the kernel wrappers the attention function calls; a check may swap in the
-# plain versions to run the same step through them on the card
+# shapes the kernels declined (the reference decomposition ran instead)
+DECLINES = {"flash_sdpa": 0, "flash_sdpa_backward": 0, "flash_cross_entropy": 0}
+# the kernel wrappers the attention and cross-entropy functions call; a check
+# may swap in the plain versions to run the same step through them on the card
 FLASH = {"forward": cudaex.flash_sdpa, "backward": cudaex.flash_sdpa_backward}
+CE = {"forward": cudaex.flash_cross_entropy}
 
 _NEG_F32_MAX = -0.7 * 3.4028235e38   # additive form of a False boolean mask
 
@@ -205,12 +212,14 @@ class _CrossEntropy(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, logits, target):
-        lg = logits.float()
-        lse = torch.logsumexp(lg, dim=-1)
-        picked = lg.gather(1, target[:, None])[:, 0]
+        if cudaex.ce_supported(tuple(logits.shape), tuple(target.shape), logits.dtype):
+            losses, lse = CE["forward"](logits, target)
+        else:
+            DECLINES["flash_cross_entropy"] += 1
+            losses, lse = cudaex.flash_cross_entropy_plain(logits, target)
         ctx.save_for_backward(logits, target, lse)
         ctx.set_materialize_grads(False)
-        return lse - picked, lse
+        return losses, lse
 
     @staticmethod
     def backward(ctx, g_losses, g_lse):

@@ -13,9 +13,13 @@ Attention mirrors the JAX scoring tail exactly — float32 scores divided by
 query dtype — with plain matmul and softmax rather than a fused SDPA call,
 which would reorder the math and change greedy tokens.
 
+``forward_with_cache(lora=...)`` takes per-request LoRA factors, one adapter
+per batch row, and adds each target's delta next to its matmul (the layout
+``serving.lora.gather_adapter_slots`` produces).
+
 Not ported in this slice (each raises ``NotImplementedError``): the ring
 cache of sliding-window models whose cache is exactly one window long,
-LLaMAMoE MLPs, int8 weight matmuls and LoRA deltas.
+LLaMAMoE MLPs and int8 weight matmuls.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from thunder_tpu_torch._device import resolve_device
 from thunder_tpu_torch.models.llama import (
     Config,
     _linear,
+    _lora_delta,
     _norm,
     _project_qkv,
     build_rope_cache,
@@ -87,14 +92,15 @@ def _expand_groups(kk, vv, nh):
     return kk, vv
 
 
-def _attn_with_cache(ap, x, cos_t, sin_t, ck, cv, pos, cfg: Config):
+def _attn_with_cache(ap, x, cos_t, sin_t, ck, cv, pos, cfg: Config, *, lora=None,
+                     lora_scaling=1.0):
     """x: (B, T, C) new tokens at global positions [pos, pos+T).  Writes
     their K/V into the per-layer cache (ck/cv: (B, ng, Tc, hs), in place)
     and attends against every slot the model may see (plain layout: slot =
-    position)."""
+    position).  ``lora``: this layer's ``{target: (a, b)}`` factors."""
     B, T, _ = x.shape
     hs, nh = cfg.head_size, cfg.n_head
-    q, k, v = _project_qkv(ap, x, cos_t, sin_t, cfg)
+    q, k, v = _project_qkv(ap, x, cos_t, sin_t, cfg, lora=lora, lora_scaling=lora_scaling)
     Tc = ck.shape[2]
     W = cfg.sliding_window
     if W is not None and Tc == W:
@@ -121,7 +127,10 @@ def _attn_with_cache(ap, x, cos_t, sin_t, ck, cv, pos, cfg: Config):
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     y = torch.matmul(w, vv.to(q.dtype))
     y = y.transpose(1, 2).reshape(B, T, nh * hs)
-    return _linear(y, ap["wo"], ap.get("bo"))
+    out = _linear(y, ap["wo"], ap.get("bo"))
+    if lora is not None and "wo" in lora:
+        out = out + _lora_delta(y, *lora["wo"], lora_scaling)
+    return out
 
 
 def _embed(params, idx, pos, cos_all, sin_all, cfg: Config):
@@ -149,25 +158,40 @@ def _head(params, x, cfg: Config):
     return _linear(x, head, params.get("lm_head_b")).float()
 
 
-def _block_tail(bp, x, n1, h, cfg: Config):
+def _block_tail(bp, x, n1, h, cfg: Config, *, lora=None, lora_scaling=1.0):
     """Residual + MLP half of a block, given the attention output ``h``."""
+    kw = dict(lora=lora, lora_scaling=lora_scaling)
     if cfg.parallel_residual:
         n2 = n1 if cfg.shared_attention_norm else _norm(x, bp["norm_2"], cfg, bp.get("norm_2_b"))
-        return x + h + mlp(bp["mlp"], n2, cfg)
+        return x + h + mlp(bp["mlp"], n2, cfg, **kw)
     x = x + h
-    return x + mlp(bp["mlp"], _norm(x, bp["norm_2"], cfg, bp.get("norm_2_b")), cfg)
+    return x + mlp(bp["mlp"], _norm(x, bp["norm_2"], cfg, bp.get("norm_2_b")), cfg, **kw)
 
 
-def forward_with_cache(params, idx, pos, cache, cos_all, sin_all, cfg: Config):
+def _layer_lora(lora, l: int):
+    """Layer ``l``'s ``{target: (a, b)}`` views of the per-request stacks
+    ``{target: {"a": (B, L, r, fin), "b": (B, L, fout, r)}}``, or None."""
+    if not lora:
+        return None
+    return {t: (ab["a"][:, l], ab["b"][:, l]) for t, ab in lora.items()}
+
+
+def forward_with_cache(params, idx, pos, cache, cos_all, sin_all, cfg: Config, *, lora=None,
+                       lora_scaling=1.0):
     """Forward of new tokens ``idx`` (B, T) at global positions [pos, pos+T)
     against/into ``cache`` (updated in place).  ``pos`` is a Python int or
-    a (B,) integer tensor of per-row positions.  Returns (logits (B, T, V)
+    a (B,) integer tensor of per-row positions.  ``lora``: optional
+    per-request factors ``{target: {"a": (B, L, r, fin), "b": (B, L, fout,
+    r)}}``, one adapter per batch row; the delta ``lora_scaling * B(A(x))``
+    lands next to each target's matmul.  Returns (logits (B, T, V)
     float32, cache)."""
     x, cos_t, sin_t = _embed(params, idx, pos, cos_all, sin_all, cfg)
     for l, bp in enumerate(params["blocks"]):
+        lora_l = _layer_lora(lora, l)
         n1 = _norm(x, bp["norm_1"], cfg, bp.get("norm_1_b"))
-        h = _attn_with_cache(bp["attn"], n1, cos_t, sin_t, cache["k"][l], cache["v"][l], pos, cfg)
-        x = _block_tail(bp, x, n1, h, cfg)
+        h = _attn_with_cache(bp["attn"], n1, cos_t, sin_t, cache["k"][l], cache["v"][l], pos, cfg,
+                             lora=lora_l, lora_scaling=lora_scaling)
+        x = _block_tail(bp, x, n1, h, cfg, lora=lora_l, lora_scaling=lora_scaling)
     return _head(params, x, cfg), cache
 
 

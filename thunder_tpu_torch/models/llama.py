@@ -16,9 +16,12 @@ eagerly under autograd where the JAX package traces it: attention and
 cross-entropy go through :mod:`thunder_tpu_torch.ltorch` (the flash kernels
 and their backward), and each block runs under the remat policy of the
 enclosing train step (:func:`thunder_tpu_torch.train.remat.run_block`).
-MoE MLPs, ``fused_head_ce`` and the attention ``lora`` hook are not ported
-and raise ``NotImplementedError``.  The serving forward lives in
-:mod:`thunder_tpu_torch.models.generate`; both share the block helpers here.
+MoE MLPs and ``fused_head_ce`` are not ported and raise
+``NotImplementedError``.  The serving forward lives in
+:mod:`thunder_tpu_torch.models.generate`; both share the block helpers here,
+which take per-request LoRA factors (``lora=``, the serving engine's
+adapters) beside the training forward's single-adapter hook
+(``ap["lora"]``).
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 from thunder_tpu_torch import ltorch
 from thunder_tpu_torch._device import resolve_device
 from thunder_tpu_torch._tree import tree_leaves
+from thunder_tpu_torch.executors.cudaex import _as_dtype_scalar
 from thunder_tpu_torch.train import remat
 
 __all__ = [
@@ -350,9 +354,27 @@ def apply_rope(x, cos, sin):
     return (x * cos + rotated * sin).to(x.dtype)
 
 
-def mlp(mp, x, cfg: Config):
+def _lora_delta(x, a, b, scaling):
+    """Per-request LoRA delta ``scaling * B(A(x))``, one adapter per batch
+    row (``_lora_delta``, reference ``models/generate.py:123``): ``x``
+    (B, T, fin), ``a`` (B, r, fin), ``b`` (B, fout, r) → (B, T, fout).  The
+    factors are cast to x's dtype; ``scaling`` takes x's dtype too, as the
+    reference's weakly typed scalar does.  Row ``i``'s delta depends only on
+    row ``i``, so a request's math is the same whatever shares its batch."""
+    d = torch.matmul(x, a.to(x.dtype).transpose(-1, -2))
+    o = torch.matmul(d, b.to(x.dtype).transpose(-1, -2))
+    return o * _as_dtype_scalar(scaling, x.dtype)
+
+
+def mlp(mp, x, cfg: Config, *, lora=None, lora_scaling=1.0):
+    """The block's MLP.  ``lora``: optional ``{target: (a, b)}`` per-request
+    factors of this layer; a targeted matmul adds the plain delta of its
+    own input (reference ``_mlp``, ``models/generate.py:82``)."""
     def ll(name, inp, bias=None):
-        return _linear(inp, mp[name], mp.get(bias) if bias else None)
+        o = _linear(inp, mp[name], mp.get(bias) if bias else None)
+        if lora is not None and name in lora:
+            o = o + _lora_delta(inp, *lora[name], lora_scaling)
+        return o
 
     if cfg.mlp_class == "LLaMAMoE":
         raise NotImplementedError("the LLaMAMoE MLP is not ported yet")
@@ -365,15 +387,27 @@ def mlp(mp, x, cfg: Config):
     return ll("proj", F.gelu(ll("fc", x, "fc_b"), approximate=approx), "proj_b")
 
 
-def _project_qkv(ap, x, cos_t, sin_t, cfg: Config):
+def _project_qkv(ap, x, cos_t, sin_t, cfg: Config, *, lora=None, lora_scaling=1.0,
+                 delta_fn=None):
     """QKV projections + partial rotary for new tokens: x (B, T, C) →
     q (B, nh, T, hs), k/v (B, ng, T, hs) — K/V stay at the grouped head
-    count."""
+    count.  ``lora``: optional ``{target: (a, b)}`` factors of this layer;
+    ``delta_fn(x, a, b, scaling)`` computes a target's delta (default the
+    plain :func:`_lora_delta`; the serving kernel path passes
+    ``cudaex.lora_delta_fused``)."""
     B, T, _ = x.shape
     hs, nh, ng = cfg.head_size, cfg.n_head, cfg.n_query_groups
-    q = _linear(x, ap["wq"], ap.get("bq")).reshape(B, T, nh, hs).transpose(1, 2)
-    k = _linear(x, ap["wk"], ap.get("bk")).reshape(B, T, ng, hs).transpose(1, 2)
-    v = _linear(x, ap["wv"], ap.get("bv")).reshape(B, T, ng, hs).transpose(1, 2)
+    delta_fn = _lora_delta if delta_fn is None else delta_fn
+
+    def proj(name, bias):
+        o = _linear(x, ap[name], ap.get(bias))
+        if lora is not None and name in lora:
+            o = o + delta_fn(x, *lora[name], lora_scaling)
+        return o
+
+    q = proj("wq", "bq").reshape(B, T, nh, hs).transpose(1, 2)
+    k = proj("wk", "bk").reshape(B, T, ng, hs).transpose(1, 2)
+    v = proj("wv", "bv").reshape(B, T, ng, hs).transpose(1, 2)
     n_elem = cfg.rope_n_elem
     if n_elem > 0:
         q_r = apply_rope(q[..., :n_elem], cos_t, sin_t)
@@ -389,18 +423,29 @@ def _project_qkv(ap, x, cos_t, sin_t, cfg: Config):
 #
 
 
+def _hook_delta(x, a, b, scaling):
+    """The single-adapter hook's delta ``B(A(x))`` (a (r, fin), b (fout, r);
+    any scaling is folded into b)."""
+    return _linear(_linear(x, a), b)
+
+
 def attention(ap, x, cos, sin, config: Config):
     """Causal self-attention of one block: x (B, T, C) → (B, T, C).  GQA
     K/V go to the SDPA op at the grouped head count (the flash kernels
-    gather each group by index)."""
-    if ap.get("lora"):
-        raise NotImplementedError("attention: the lora hook (ap['lora']) is not ported")
+    gather each group by index).  ``ap["lora"]``: the optional
+    single-adapter hook ``{target: (a, b)}`` (reference
+    ``models/llama.py:396-407``), whose ``B(A(x))`` rides next to each
+    target's matmul."""
     B, T, _ = x.shape
-    q, k, v = _project_qkv(ap, x, cos, sin, config)
+    hook = ap.get("lora") or None
+    q, k, v = _project_qkv(ap, x, cos, sin, config, lora=hook, delta_fn=_hook_delta)
     y = ltorch.scaled_dot_product_attention(q, k, v, is_causal=True,
                                             sliding_window=config.sliding_window)
     y = y.transpose(1, 2).reshape(B, T, config.n_head * config.head_size)
-    return _linear(y, ap["wo"], ap.get("bo"))
+    out = _linear(y, ap["wo"], ap.get("bo"))
+    if hook is not None and "wo" in hook:
+        out = out + _hook_delta(y, *hook["wo"], 1.0)
+    return out
 
 
 def block_forward(bp, x, cos, sin, config: Config):

@@ -99,7 +99,8 @@ def emitted_tokens(drafts, m, y):
 def speculative_generate(params, draft_params, prompt, cfg: Config, draft_cfg: Config,
                          max_new_tokens: int, *, K: int = 4, T_max: int | None = None,
                          temperature: float = 0.0, generator: torch.Generator | None = None,
-                         cache_dtype=None, device="cuda") -> torch.Tensor:
+                         cache_dtype=None, lora=None, lora_scaling: float = 1.0,
+                         device="cuda") -> torch.Tensor:
     """Speculative decoding over dense caches; returns (B, T_prompt +
     max_new_tokens) int32 tokens on ``device`` (default: the card; raises
     without one unless ``device="cpu"``).
@@ -109,7 +110,12 @@ def speculative_generate(params, draft_params, prompt, cfg: Config, draft_cfg: C
     seed 0), in the draw order the module docstring gives.  Rows advance at
     their own rates; finished rows freeze while slower rows catch up.
     ``speculative_generate.last_tokens_per_round`` holds the mean tokens a
-    row emitted per active round (K+1: every draft accepted)."""
+    row emitted per active round (K+1: every draft accepted).
+
+    ``lora``/``lora_scaling``: optional per-request LoRA factors
+    (``forward_with_cache``'s layout, one adapter per row) applied to the
+    target's forwards only; the draft stays the base model and the
+    acceptance rule corrects the mismatch."""
     dev = resolve_device(device)
     if params["wte"].device.type != dev.type or draft_params["wte"].device.type != dev.type:
         raise ValueError(f"params must live on {dev}")
@@ -140,7 +146,8 @@ def speculative_generate(params, draft_params, prompt, cfg: Config, draft_cfg: C
     tcache = init_cache(cfg, B, T_max, dtype, device=dev)
     dcache = init_cache(draft_cfg, B, T_max, dtype, device=dev)
     with torch.no_grad():
-        tlogits, tcache = forward_with_cache(params, prompt, 0, tcache, cos, sin, cfg)
+        tlora = dict(lora=lora, lora_scaling=lora_scaling)
+        tlogits, tcache = forward_with_cache(params, prompt, 0, tcache, cos, sin, cfg, **tlora)
         forward_with_cache(draft_params, prompt, 0, dcache, cos_d, sin_d, draft_cfg)
         first = sample_token(tlogits[:, -1], temperature, generator)
         buf = torch.zeros((B, max_new_tokens + K + 1), dtype=torch.int32, device=dev)
@@ -165,7 +172,8 @@ def speculative_generate(params, draft_params, prompt, cfg: Config, draft_cfg: C
                 dpos = dpos + 1
             drafts = torch.stack(drafts[:K], dim=1)            # (B, K)
             chunk = torch.cat([cur[:, None], drafts], dim=1)
-            tlogits, tcache = forward_with_cache(params, chunk, pos_in, tcache, cos, sin, cfg)
+            tlogits, tcache = forward_with_cache(params, chunk, pos_in, tcache, cos, sin, cfg,
+                                                 **tlora)
             if temperature == 0.0:
                 m, y = greedy_acceptance(tlogits, drafts)
             else:

@@ -48,6 +48,13 @@ the step they finish.
   in the JAX package, so each step runs at one of a bounded set of bucket
   geometries; ``compile_counts`` counts the geometries seen (PyTorch runs
   eagerly and compiles nothing);
+- multi-tenant LoRA (``lora=AdapterRegistry(...)``, :mod:`serving.lora`):
+  ``submit(..., adapter_id=...)`` routes a request through a registered
+  adapter.  Every lane gathers each row's factors by slot once per step:
+  the dense prefill, gather decode and gather chunk add the plain delta,
+  the paged decode, paged chunk and ``verify_paged`` the
+  ``lora_delta_fused`` kernel (wq, wk, wv, wo: four launches per layer).
+  Requests of different adapters never share a prompt prefix;
 - greedy and temperature sampling; each request draws from its own
   ``torch.Generator`` — one draw at the prefill and one per decode step,
   like a solo ``generate()`` — so its tokens do not depend on what else
@@ -75,10 +82,12 @@ import numpy as np
 import torch
 
 from thunder_tpu_torch._device import resolve_device
+from thunder_tpu_torch.executors.cudaex import LORA_MAX_RANK
 from thunder_tpu_torch.models.generate import forward_with_cache, sample_token
 from thunder_tpu_torch.models.llama import build_rope_cache
 from thunder_tpu_torch.serving import speculative as spec_lane
 from thunder_tpu_torch.observability.metrics import registry
+from thunder_tpu_torch.serving.lora import AdapterRegistry, gather_adapter_slots
 from thunder_tpu_torch.serving.kv_pool import (
     SINK_BLOCK,
     PagedKVPool,
@@ -113,15 +122,14 @@ __all__ = [
 
 # engine options of the JAX package not ported yet, with their "off" values
 _DEFERRED_ENGINE = {
-    "model_fn": None, "quantized": False, "lora": None,
+    "model_fn": None, "quantized": False,
     "telemetry": None, "trace": None, "slo": None, "flight_recorder": None,
     "mesh": None, "shardings": None, "fault_plan": None,
     "retry": None, "watchdog_timeout_s": None, "replica_id": None,
     "decode_steps": 1, "sessions": None, "priorities": None, "constraints": None,
     "goodput": None, "replicas": 1, "fault_plans": None,
 }
-_DEFERRED_SUBMIT = {"key": None, "adapter_id": None, "session_id": None, "priority": None,
-                    "constraint": None}
+_DEFERRED_SUBMIT = {"key": None, "session_id": None, "priority": None, "constraint": None}
 
 
 def _reject_deferred(where: str, given: dict, table: dict) -> None:
@@ -232,6 +240,7 @@ class ServingEngine:
         prefill_chunk: int | None = None,
         speculative: spec_lane.SpecConfig | None = None,
         kv_dtype=None,
+        lora: AdapterRegistry | None = None,
         device="cuda",
         **deferred,
     ):
@@ -253,6 +262,17 @@ class ServingEngine:
                              f"the engine on {self.device}")
         self.params = params
         self.cfg = cfg
+        # multi-tenant LoRA: the registry's arenas are step arguments, read
+        # anew every step, so register/evict land without touching the steps
+        self._registry = lora
+        if lora is not None:
+            for dim in ("n_layer", "n_head", "n_query_groups", "head_size", "n_embd"):
+                if getattr(lora.cfg, dim) != getattr(cfg, dim):
+                    raise ValueError(f"lora registry was built for {dim}={getattr(lora.cfg, dim)} "
+                                     f"but the engine serves {dim}={getattr(cfg, dim)}")
+            if lora.device.type != self.device.type:
+                raise ValueError(f"the lora registry lives on {lora.device}, the engine on "
+                                 f"{self.device}")
         self.async_step = bool(async_step)
         if prefill_chunk is not None and not self.async_step:
             raise ValueError("prefill_chunk= requires async_step=True: the chunked prefill "
@@ -270,6 +290,9 @@ class ServingEngine:
             raise ValueError(f"attn={attn!r} is unsupported here: {why}")
         self._attn_requested = attn
         self.attn = "gather" if attn == "gather" else "paged"
+        if lora is not None and self.attn == "paged" and lora.rank > LORA_MAX_RANK:
+            raise ValueError(f"lora rank {lora.rank}: the paged lanes' lora_delta_fused kernel "
+                             f"takes ranks up to {LORA_MAX_RANK} (attn='gather' takes any)")
         self.attn_kernel_steps = 0
         # speculative serving: a draft arena beside the target arena, indexed
         # by the target pool's block tables (its own free list is unused)
@@ -377,18 +400,27 @@ class ServingEngine:
 
     def submit(self, prompt, *, max_new_tokens: int, deadline: float | None = None,
                generator: torch.Generator | None = None,
-               stream_cb: Callable[[int], Any] | None = None, **deferred) -> RequestHandle:
+               stream_cb: Callable[[int], Any] | None = None, adapter_id: str | None = None,
+               **deferred) -> RequestHandle:
         """Enqueues one request; returns immediately with a handle.
 
         ``deadline`` is seconds from now.  ``generator`` is the request's
         private sampling generator on the engine's device (default: a fresh
         one seeded 0, like ``generate``).  ``stream_cb`` receives each
-        generated token id as soon as the host sees it.  Raises
-        :class:`AdmissionError` when the wait queue is full or the request
-        can never fit the pool."""
+        generated token id as soon as the host sees it.  ``adapter_id``
+        routes the request through a LoRA adapter of the engine's ``lora=``
+        registry, resolved to its slot here (an unknown id raises
+        ``KeyError``).  Raises :class:`AdmissionError` when the wait queue
+        is full or the request can never fit the pool."""
         if self._closed:
             raise RuntimeError("engine is shut down")
         _reject_deferred("submit", deferred, _DEFERRED_SUBMIT)
+        adapter_slot = 0
+        if adapter_id is not None:
+            if self._registry is None:
+                raise ValueError(f"adapter_id={adapter_id!r} requires an engine built with "
+                                 f"lora=AdapterRegistry(...)")
+            adapter_slot = self._registry.slot(adapter_id)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         elif generator.device.type != self.device.type:
@@ -396,7 +428,8 @@ class ServingEngine:
         reg = registry()
         try:
             req = self.scheduler.submit(prompt, max_new_tokens, generator=generator,
-                                        deadline_s=deadline, stream_cb=stream_cb)
+                                        deadline_s=deadline, stream_cb=stream_cb,
+                                        adapter_id=adapter_id, adapter_slot=adapter_slot)
         except AdmissionError:
             reg.counter("serving.requests.rejected").inc()
             raise
@@ -584,6 +617,7 @@ class ServingEngine:
             "prefix_hits": self._prefix_index.hits,
             "speculative": self._spec_stats() if self.spec is not None else None,
             "pool_occupancy": self.pool.occupancy_snapshot(),
+            **({"lora": self._registry.state_snapshot()} if self._registry is not None else {}),
         }
 
     def _spec_stats(self) -> dict:
@@ -655,15 +689,26 @@ class ServingEngine:
         n_needed = sch.blocks_needed(req)
         table = self.pool.share(shared) + self.pool.alloc(n_needed - len(shared))
         sch.admit(req, table, len(shared))
+        if self._registry is not None:
+            req.adapter_version = self._registry.version(req.adapter_slot)
         self._prefill(req)
         return True
 
+    def _factor_tag(self, req: Request):
+        """What decides a request's K/V besides its tokens: the (slot,
+        version) of its adapter's factors as they stand now, None without a
+        registry."""
+        if self._registry is None:
+            return None
+        return (req.adapter_slot, self._registry.version(req.adapter_slot))
+
     def _find_shared_prefix(self, req: Request) -> list[int]:
         """Longest block-aligned prompt prefix already resident in a live
-        request's blocks."""
+        request's blocks whose K/V were computed with this request's
+        adapter factors."""
         if not self.prefix_sharing:
             return []
-        return self._prefix_index.find(req.prompt, self._prefix_alive)
+        return self._prefix_index.find(req.prompt, self._prefix_alive, tag=self._factor_tag(req))
 
     def _prefix_alive(self, hit: tuple[int, tuple[int, ...]]) -> bool:
         """A registered prefix is shareable only while its owner is running
@@ -675,9 +720,16 @@ class ServingEngine:
         return all(t == b != SINK_BLOCK for t, b in zip(owner.block_table, blocks))
 
     def _register_prefix(self, req: Request, upto: int | None = None) -> None:
-        if self.prefix_sharing:
-            self._prefix_index.register(req.rid, req.prompt, req.block_table,
-                                        self._prefix_alive, upto=upto)
+        """Registers ``req``'s written prefixes under its factor tag; not at
+        all once its adapter's slot was written after admission (its K/V
+        then mix two sets of factors)."""
+        if not self.prefix_sharing:
+            return
+        tag = self._factor_tag(req)
+        if tag is not None and tag[1] != req.adapter_version:
+            return
+        self._prefix_index.register(req.rid, req.prompt, req.block_table, self._prefix_alive,
+                                    upto=upto, tag=tag)
 
     def _unregister_prefix(self, req: Request) -> None:
         self._prefix_index.unregister(req.rid)
@@ -719,11 +771,12 @@ class ServingEngine:
             kind = "prefill" if final else self._chunk_kind()
         prog, new = self._program(kind, Tb, nbb)
         req.prefill_compiled = req.prefill_compiled or new
+        slots = self._slots([req], 1)
         if final:
-            tok, qerr = prog(toks, pos, n_real, table, dest, req.generator)
+            tok, qerr = prog(toks, pos, n_real, table, dest, req.generator, slots)
             rec = {"kind": "prefill", "req": req, "tok": tok, "qerr": qerr}
         else:
-            rec = {"kind": "chunk", "req": req, "qerr": prog(toks, pos, table, dest)}
+            rec = {"kind": "chunk", "req": req, "qerr": prog(toks, pos, table, dest, slots)}
         req.pos = pos + n_real                             # written (stream-ordered)
         self._register_prefix(req, upto=req.pos)
         reg = registry()
@@ -795,6 +848,7 @@ class ServingEngine:
             # steady state: this step's inputs are the previous step's
             # device outputs plus the cached tables — no host→device copy
             toks_d, pos_d, tables_d = st["toks"], st["pos"], st["tables"]
+            slots_d = st["slots"]
             host_pos = st["host_pos"] + 1
         else:
             toks = np.zeros(Bb, dtype=np.int32)
@@ -807,15 +861,16 @@ class ServingEngine:
             toks_d = torch.as_tensor(toks, device=dev)
             pos_d = torch.as_tensor(host_pos, device=dev)
             tables_d = torch.as_tensor(tables, device=dev)
+            slots_d = self._slots(running, Bb)
         kind = "decode_paged" if self.attn == "paged" else "decode"
         decode, _ = self._program(kind, Bb, nbb)
         if self.attn == "paged":
             self.attn_kernel_steps += 1
             self._attn_steps["decode"][0] += 1
             self._m_attn_kernel.inc()
-        nxt = decode(toks_d, pos_d, tables_d, [r.generator for r in running])
+        nxt = decode(toks_d, pos_d, tables_d, [r.generator for r in running], slots_d)
         self._decode_state = {"sig": sig, "toks": nxt, "pos": pos_d + 1,
-                              "tables": tables_d, "host_pos": host_pos}
+                              "tables": tables_d, "slots": slots_d, "host_pos": host_pos}
         self.decode_steps += 1
         self._occupancy_sum += len(running)
         self._m_steps_decode.inc()
@@ -896,6 +951,15 @@ class ServingEngine:
             reg.histogram("serving.tpot_s").observe(res.tpot_s)
         if res.tokens_per_sec is not None:
             reg.histogram("serving.tokens_per_sec").observe(res.tokens_per_sec)
+        if req.adapter_id is not None:
+            # per-tenant accounting: which adapter consumed the tokens and
+            # what latency its requests saw
+            reg.counter(f"serving.tenant.{req.adapter_id}.tokens").inc(len(req.generated))
+            reg.counter(f"serving.tenant.{req.adapter_id}.requests").inc()
+            if res.ttft_s is not None:
+                reg.histogram(f"serving.tenant.{req.adapter_id}.ttft_s").observe(res.ttft_s)
+            if res.e2e_s is not None:
+                reg.histogram(f"serving.tenant.{req.adapter_id}.e2e_s").observe(res.e2e_s)
 
     def _result(self, req: Request) -> RequestResult:
         n = len(req.generated)
@@ -962,6 +1026,24 @@ class ServingEngine:
             self._rope[draft, cap] = build_rope_cache(cfg, cap, device=self.device)
         return self._rope[draft, cap]
 
+    def _slots(self, reqs, Bb: int) -> torch.Tensor | None:
+        """(Bb,) adapter slots of ``reqs`` on the device; padding rows ride
+        the base slot.  None without a registry: no copy to the device."""
+        if self._registry is None:
+            return None
+        slots = np.zeros(Bb, dtype=np.int32)
+        slots[:len(reqs)] = [r.adapter_slot for r in reqs]
+        return torch.as_tensor(slots, device=self.device)
+
+    def _lora_kwargs(self, slots) -> dict:
+        """The forward kwargs of a step's rows: their factors gathered by
+        slot (one copy per step) and the registry's scaling; none without a
+        registry."""
+        if self._registry is None:
+            return {}
+        return {"lora": gather_adapter_slots(self._registry.arenas, slots),
+                "lora_scaling": self._registry.scaling}
+
     def _sample_rows(self, logits, generators) -> torch.Tensor:
         """One token per batch row; each live row draws from its own
         generator exactly as a solo B=1 call would; padding rows get 0."""
@@ -980,11 +1062,11 @@ class ServingEngine:
         cfg, pool, dev = self.cfg, self.pool, self.device
         cos_all, sin_all = self._rope_cache(nbb)
 
-        def prefill(toks, pos, n_real, table, dest, generator):
+        def prefill(toks, pos, n_real, table, dest, generator, slots):
             t = torch.as_tensor(table, device=dev)[None]
             logits, cache = forward_with_cache(
                 self.params, torch.as_tensor(toks, device=dev)[None], pos,
-                pool.gather(t), cos_all, sin_all, cfg)
+                pool.gather(t), cos_all, sin_all, cfg, **self._lora_kwargs(slots))
             tok = sample_token(logits[:, n_real - 1], self.temperature, generator)  # (1,)
             return tok, pool.scatter_dense(cache, torch.as_tensor(dest, device=dev))
 
@@ -997,11 +1079,11 @@ class ServingEngine:
         cfg, pool, dev = self.cfg, self.pool, self.device
         cos_all, sin_all = self._rope_cache(nbb)
 
-        def prefill_chunk(toks, pos, table, dest):
+        def prefill_chunk(toks, pos, table, dest, slots):
             t = torch.as_tensor(table, device=dev)[None]
             _, cache = forward_with_cache(
                 self.params, torch.as_tensor(toks, device=dev)[None], pos,
-                pool.gather(t), cos_all, sin_all, cfg)
+                pool.gather(t), cos_all, sin_all, cfg, **self._lora_kwargs(slots))
             return pool.scatter_dense(cache, torch.as_tensor(dest, device=dev))
 
         return prefill_chunk
@@ -1017,12 +1099,12 @@ class ServingEngine:
         cfg, pool, dev = self.cfg, self.pool, self.device
         cos_all, sin_all = self._rope_cache(nbb)
 
-        def prefill_chunk_paged(toks, pos, table, dest):
+        def prefill_chunk_paged(toks, pos, table, dest, slots):
             pv = torch.tensor([pos], dtype=torch.int32, device=dev)
             _, fresh = forward_paged(
                 self.params, torch.as_tensor(toks, device=dev)[None], pv, pool.arenas,
                 torch.as_tensor(table, device=dev)[None], cos_all, sin_all, cfg,
-                cdtype=pool.dtype, head=False)
+                cdtype=pool.dtype, head=False, **self._lora_kwargs(slots))
             _, qerr = write_fresh_kv_chunk(pool.arenas, fresh, torch.as_tensor(dest, device=dev),
                                            pv, block_size=pool.block_size,
                                            kv_dtype=pool.quantized_storage)
@@ -1037,13 +1119,13 @@ class ServingEngine:
         cos_all, sin_all = self._rope_cache(nbb)
         rows = torch.arange(Bb, device=self.device)
 
-        def decode(toks, pos, tables, generators):
+        def decode(toks, pos, tables, generators, slots):
             p = pos.long()
             col = torch.clamp(p // bs, max=tables.shape[1] - 1)
             dest_block = tables.long().gather(1, col[:, None])[:, 0]
             logits, cache = forward_with_cache(
                 self.params, toks[:, None], pos, pool.gather(tables), cos_all, sin_all,
-                cfg)
+                cfg, **self._lora_kwargs(slots))
             nxt = self._sample_rows(logits[:, 0], generators)
             pool.scatter_rows(cache, p, rows, dest_block, p % bs)
             return nxt
@@ -1058,9 +1140,10 @@ class ServingEngine:
         cfg, pool = self.cfg, self.pool
         cos_all, sin_all = self._rope_cache(nbb)
 
-        def decode_paged(toks, pos, tables, generators):
+        def decode_paged(toks, pos, tables, generators, slots):
             logits, fresh = forward_paged(self.params, toks[:, None], pos, pool.arenas, tables,
-                                          cos_all, sin_all, cfg, cdtype=pool.dtype)
+                                          cos_all, sin_all, cfg, cdtype=pool.dtype,
+                                          **self._lora_kwargs(slots))
             nxt = self._sample_rows(logits[:, 0], generators)
             write_fresh_kv(pool.arenas, fresh, tables, pos, block_size=pool.block_size,
                            kv_dtype=pool.quantized_storage)

@@ -328,7 +328,14 @@ class PrefixIndex:
     Liveness is delegated: every query takes an ``alive(hit) -> bool``
     callback (the engine checks that the owner is still running and every
     snapshot block id is still its live table entry).  :meth:`find` counts
-    lookups/hits and scrubs stale entries."""
+    lookups/hits and scrubs stale entries.
+
+    Every entry is keyed by a ``tag`` beside the prompt tokens: what else
+    decided the K/V in those blocks.  A LoRA engine tags each prefix with
+    the (slot, version) of the factors it was computed with, so requests of
+    different adapters never share K/V (the reference keys on the tokens
+    alone, ``thunder_tpu/serving/engine.py:1311-1340``, and lets a request
+    reuse K/V computed with another adapter's ``wk``/``wv`` deltas)."""
 
     def __init__(self, block_size: int):
         self.block_size = int(block_size)
@@ -339,15 +346,16 @@ class PrefixIndex:
     def __len__(self) -> int:
         return len(self._index)
 
-    def find(self, prompt: np.ndarray, alive) -> list[int]:
-        """Longest block-aligned prefix of ``prompt`` with a live owner:
-        the shared block ids (capped one token short of the full prompt, so
-        the last prompt token always re-prefills), or ``[]``."""
+    def find(self, prompt: np.ndarray, alive, *, tag=None) -> list[int]:
+        """Longest block-aligned prefix of ``prompt`` registered under
+        ``tag`` with a live owner: the shared block ids (capped one token
+        short of the full prompt, so the last prompt token always
+        re-prefills), or ``[]``."""
         self.lookups += 1
         bs = self.block_size
         max_share = ((int(prompt.shape[0]) - 1) // bs) * bs
         for k in range(max_share, 0, -bs):
-            key = tuple(prompt[:k].tolist())
+            key = (tag, tuple(prompt[:k].tolist()))
             hit = self._index.get(key)
             if hit is None:
                 continue
@@ -358,17 +366,17 @@ class PrefixIndex:
         return []
 
     def register(self, rid: int, prompt: np.ndarray, block_table, alive, *,
-                 upto: int | None = None) -> None:
+                 upto: int | None = None, tag=None) -> None:
         """Registers every block-aligned prefix of ``prompt`` (owner
-        ``rid``) up to ``upto`` written tokens; live entries are never
-        displaced."""
+        ``rid``) up to ``upto`` written tokens, under ``tag``; live entries
+        are never displaced."""
         bs = self.block_size
         n = int(prompt.shape[0])
         limit = n if upto is None else min(upto, n)
         hi = min((limit // bs) * bs, ((n - 1) // bs) * bs)
         toks = prompt.tolist()
         for k in range(bs, hi + 1, bs):
-            key = tuple(toks[:k])
+            key = (tag, tuple(toks[:k]))
             cur = self._index.get(key)
             if cur is None or not alive(cur):
                 self._index[key] = (rid, tuple(block_table[: k // bs]))

@@ -26,6 +26,11 @@ it is quantized and None otherwise, as in the reference; the fused writers
 quantize exactly as ``serving.quant.quantize_kv`` does, so the stored bytes
 equal the gather path's.
 
+Per-request LoRA factors (``lora=``) add each target's delta next to its
+matmul: the qkv and wo deltas go through the ``lora_delta_fused`` kernel
+(four launches per layer), while the MLP targets keep the plain delta, as
+the reference's ``_mlp`` does.
+
 Parity contract: the kernels score the arena's committed slots and fold
 the fresh K/V — cast to the cache dtype, exactly what the dense path would
 have just written — as the final online-softmax term, so greedy tokens
@@ -36,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from thunder_tpu_torch.executors.cudaex import (
+    lora_delta_fused,
     paged_attn_decode,
     paged_attn_verify,
     paged_chunk_write,
@@ -48,6 +54,7 @@ from thunder_tpu_torch.models.generate import (
     _block_tail,
     _embed,
     _head,
+    _layer_lora,
     _linear,
     _norm,
     _project_qkv,
@@ -65,7 +72,7 @@ def paged_supported(cfg) -> tuple[bool, str]:
 
 
 def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cdtype,
-                  head: bool = True):
+                  head: bool = True, lora=None, lora_scaling=1.0):
     """Decode/verify/chunk forward straight off the KV block arenas.
 
     ``idx``: (B, T) tokens at positions ``[pos, pos+T)`` — T = 1 is the
@@ -79,7 +86,9 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
     logits.  Returns ``(logits (B, T, V) float32, fresh)`` with ``fresh =
     {"k"/"v": (B, L, ng, hs)}`` for T = 1 or ``(B, L, ng, T, hs)`` for
     T > 1, at ``cdtype``, which the caller persists with one of the
-    ``write_fresh_kv*`` functions."""
+    ``write_fresh_kv*`` functions.  ``lora``/``lora_scaling``: per-request
+    factors as ``forward_with_cache`` takes them; the wq/wk/wv/wo deltas
+    go through ``cudaex.lora_delta_fused``."""
     B, T = idx.shape
     if T > 1 and cfg.sliding_window is not None:
         raise ValueError("forward_paged: multi-token queries have no sliding-window keep-mask; "
@@ -89,8 +98,10 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
     x, cos_t, sin_t = _embed(params, idx, pos, cos_all, sin_all, cfg)
     fresh_k, fresh_v = [], []
     for l, bp in enumerate(params["blocks"]):
+        lora_l = _layer_lora(lora, l)
         n1 = _norm(x, bp["norm_1"], cfg, bp.get("norm_1_b"))
-        q, k, v = _project_qkv(bp["attn"], n1, cos_t, sin_t, cfg)
+        q, k, v = _project_qkv(bp["attn"], n1, cos_t, sin_t, cfg, lora=lora_l,
+                               lora_scaling=lora_scaling, delta_fn=lora_delta_fused)
         if T == 1:
             fk = k[:, :, 0].to(cdtype).contiguous()        # (B, ng, hs)
             fv = v[:, :, 0].to(cdtype).contiguous()
@@ -102,10 +113,13 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
             y = paged_attn_verify(q.contiguous(), arenas["k"], arenas["v"], fk, fv,
                                   tables, pos, layer=l, **scales)    # (B, nh, T, hs)
             y = y.transpose(1, 2)
-        h = _linear(y.reshape(B, T, nh * hs), bp["attn"]["wo"], bp["attn"].get("bo"))
+        y = y.reshape(B, T, nh * hs)
+        h = _linear(y, bp["attn"]["wo"], bp["attn"].get("bo"))
+        if lora_l is not None and "wo" in lora_l:
+            h = h + lora_delta_fused(y, *lora_l["wo"], lora_scaling)
         fresh_k.append(fk)
         fresh_v.append(fv)
-        x = _block_tail(bp, x, n1, h, cfg)
+        x = _block_tail(bp, x, n1, h, cfg, lora=lora_l, lora_scaling=lora_scaling)
     logits = _head(params, x, cfg) if head else None
     return logits, {"k": torch.stack(fresh_k, dim=1), "v": torch.stack(fresh_v, dim=1)}
 

@@ -110,6 +110,7 @@ class Request:
     # decodes through; slot 0 is the reserved base (no-adapter) slot
     adapter_id: str | None = None
     adapter_slot: int = 0
+    adapter_version: int = 0                # the slot's factor version at admission
     # stateful serving: session identity (prefix blocks parked on finish),
     # priority class (lower level = more urgent; 1 = "normal" everywhere
     # when priorities are off), and the host-side decoding automaton

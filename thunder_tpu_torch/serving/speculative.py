@@ -36,7 +36,13 @@ outputs ``(y, pos + n_emit)``.
 
 The prefill of a speculative engine runs both models over the gathered
 arenas (``spec_prefill``, and ``spec_prefill_chunk`` for intermediate
-chunks).  The fault points of the JAX module wait for ``serving/faults.py``.
+chunks).
+
+LoRA rides the target only (reference ``serving/speculative.py:268-270``):
+the target's prefill, chunk and verify steps take each row's adapter
+factors (``verify_paged`` through the ``lora_delta_fused`` kernel), the
+draft proposes with the base model, and the rejection rule corrects the
+mismatch, so greedy tokens equal the LoRA engine's plain decode.  The fault points of the JAX module wait for ``serving/faults.py``.
 """
 from __future__ import annotations
 
@@ -128,13 +134,14 @@ def _prefill_both(eng, nbb: int):
     pools = ((eng.pool, eng.params, cfg, cos, sin),
              (eng.draft_pool, eng.spec.draft_params, dcfg, cos_d, sin_d))
 
-    def run(toks, pos, table, dest):
+    def run(toks, pos, table, dest, slots):
         idx = torch.as_tensor(toks, device=dev)[None]
         t = torch.as_tensor(table, device=dev)[None]
         d = torch.as_tensor(dest, device=dev)
         out = None
         for pool, params, c, co, si in pools:
-            lg, cache = forward_with_cache(params, idx, pos, pool.gather(t), co, si, c)
+            kw = eng._lora_kwargs(slots) if out is None else {}   # the target only
+            lg, cache = forward_with_cache(params, idx, pos, pool.gather(t), co, si, c, **kw)
             qerr = pool.scatter_dense(cache, d)
             out = (lg, qerr) if out is None else out
         return out
@@ -147,8 +154,8 @@ def build_spec_prefill(eng, Tb: int, nbb: int):
     written, token 0 drawn from the target's logits."""
     run = _prefill_both(eng, nbb)
 
-    def spec_prefill(toks, pos, n_real, table, dest, generator):
-        logits, qerr = run(toks, pos, table, dest)
+    def spec_prefill(toks, pos, n_real, table, dest, generator, slots):
+        logits, qerr = run(toks, pos, table, dest, slots)
         return sample_token(logits[:, n_real - 1], eng.temperature, generator), qerr  # (1,)
 
     return spec_prefill
@@ -159,8 +166,8 @@ def build_spec_prefill_chunk(eng, Tb: int, nbb: int):
     arenas, no sampling."""
     run = _prefill_both(eng, nbb)
 
-    def spec_prefill_chunk(toks, pos, table, dest):
-        return run(toks, pos, table, dest)[1]
+    def spec_prefill_chunk(toks, pos, table, dest, slots):
+        return run(toks, pos, table, dest, slots)[1]
 
     return spec_prefill_chunk
 
@@ -223,10 +230,10 @@ def build_verify(eng, Bb: int, nbb: int):
     cos, sin = eng._rope_cache(nbb)
     rows = torch.arange(Bb, device=eng.device)
 
-    def verify(toks, pos, tables, drafts, q_rows, generators):
+    def verify(toks, pos, tables, drafts, q_rows, generators, slots):
         chunk = torch.cat([toks[:, None], drafts], dim=1)
         tlogits, cache = forward_with_cache(eng.params, chunk, pos, pool.gather(tables),
-                                            cos, sin, cfg)
+                                            cos, sin, cfg, **eng._lora_kwargs(slots))
         emitted, n_emit, y = _accept(eng, tlogits, drafts, q_rows, generators)
         for k in range(K + 1):
             p_k = (pos + k).long()
@@ -249,10 +256,10 @@ def build_verify_paged(eng, Bb: int, nbb: int):
     cfg, pool = eng.cfg, eng.pool
     cos, sin = eng._rope_cache(nbb)
 
-    def verify_paged(toks, pos, tables, drafts, q_rows, generators):
+    def verify_paged(toks, pos, tables, drafts, q_rows, generators, slots):
         chunk = torch.cat([toks[:, None], drafts], dim=1)
         tlogits, fresh = forward_paged(eng.params, chunk, pos, pool.arenas, tables, cos, sin,
-                                       cfg, cdtype=pool.dtype)
+                                       cfg, cdtype=pool.dtype, **eng._lora_kwargs(slots))
         emitted, n_emit, y = _accept(eng, tlogits, drafts, q_rows, generators)
         write_fresh_kv_masked(pool.arenas, fresh, tables, pos, n_emit,
                               block_size=pool.block_size, kv_dtype=pool.quantized_storage)
@@ -278,7 +285,7 @@ def spec_decode_dispatch(eng) -> dict:
     sig = (tuple(r.rid for r in running), Bb, nbb)
     st = eng._spec_state
     if st is not None and st["sig"] == sig:
-        toks_d, pos_d, tables_d = st["toks"], st["pos"], st["tables"]
+        toks_d, pos_d, tables_d, slots_d = st["toks"], st["pos"], st["tables"], st["slots"]
         host_pos = st["host_pos"]
     else:
         toks = np.zeros(Bb, dtype=np.int32)
@@ -291,6 +298,7 @@ def spec_decode_dispatch(eng) -> dict:
         toks_d = torch.as_tensor(toks, device=dev)
         pos_d = torch.as_tensor(host_pos, device=dev)
         tables_d = torch.as_tensor(tables, device=dev)
+        slots_d = eng._slots(running, Bb)
     generators = [r.generator for r in running]
     draft, _ = eng._program("draft_decode", Bb, nbb)
     drafts, q_rows = draft(toks_d, pos_d, tables_d, generators)
@@ -299,9 +307,9 @@ def spec_decode_dispatch(eng) -> dict:
     if eng.attn == "paged":
         eng.attn_kernel_steps += 1
         eng._m_attn_kernel.inc()
-    emitted, n_emit, y = verify(toks_d, pos_d, tables_d, drafts, q_rows, generators)
+    emitted, n_emit, y = verify(toks_d, pos_d, tables_d, drafts, q_rows, generators, slots_d)
     eng._spec_state = {"sig": sig, "toks": y, "pos": pos_d + n_emit, "tables": tables_d,
-                       "host_pos": host_pos}
+                       "slots": slots_d, "host_pos": host_pos}
     eng.decode_steps += 1
     eng.spec_rounds += 1
     eng._occupancy_sum += len(running)
