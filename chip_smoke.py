@@ -29,15 +29,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``paged_chunk_write_fused`` (32 blocks) with stored bytes and scales
    bitwise equal to the plain versions' and error sums within 1e-5
    relative; their times beside the bounds (no single PyTorch call
-   computes these functions, so no library time).  ``flash_ce`` at the
+   computes these functions, so no library time).  The decode and verify
+   kernels at head sizes 16 and 80 (off the 64/128/256 grid), bf16 and
+   float32, by the same bars.  ``flash_ce`` at the
    training step's (2048, 128256), float32 and bf16 logits, random
    targets, loss and lse within 1e-5 of their largest magnitude, timed
    beside ``F.cross_entropy(..., reduction="none")`` (the losses only);
    ``lora_delta_fused`` at the decode (B=8, T=1), verify (B=8, T=5) and
-   chunk (B=1, T=512) shapes for wq, wk and wo, ranks 8, 16 and 64, x in
+   chunk (B=1, T=512) shapes for wq, wk and wo, ranks 8, 16, 64 and 128
+   (two of the kernel's 64-rank chunks), x in
    bf16 and float32, factors in float32 and bf16 (float32 within 1e-5 of
    the output's max magnitude, bf16 by the ratio bar, base-slot rows
-   exactly 0), timed at each shape (no library call computes it);
+   exactly 0), timed at each shape and at rank 128 (no library call
+   computes it);
 4. serve: Llama-3-8B at full width (random weights from a seed) through
    ``serve(None, params, cfg, attn="paged")``: 8 greedy requests with
    prompts of 128-1024 tokens and 32 new tokens each; the kernels' launch
@@ -76,6 +80,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    chunked against unchunked reported; with LoRA paged = gather, alone =
    mixed, adapters change tokens, base in a LoRA engine = registry-free,
    and two adapters with a shared 2-block prefix each = their solo run);
+   tiny-llama-debug at its own hs 16 served on the default attn, which must
+   resolve paged, through the decode kernel, with the gather path's tokens;
    and at
    full depth one prefill chunk (T=512) and one verify chunk (T=5) through
    the kernels against ``forward_with_cache`` over the gathered cache,
@@ -84,8 +90,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    dk/dv kernels against their plain versions at the training shape (B=1,
    32 heads over 8 KV groups, T=2048, hs=128, causal) and at small shapes
    (non-causal, a window, Tq != Tk, hs 64 and 256, every mask layout), bf16
-   and float32, each run twice bitwise equal; then their times beside the
-   plain versions, ``F.scaled_dot_product_attention`` and the bounds;
+   and float32, each run twice bitwise equal, each case printing the body
+   the wrappers picked (bf16 at hs 64/128: the warpgroup body); then their
+   times beside the plain versions, ``F.scaled_dot_product_attention`` and
+   the bounds;
 9. train correctness: one step's loss and grads at Llama-3-8B widths and 4
    layers, through the kernels (flash attention and the fused
    cross-entropy, one launch) against their plain versions, float32 and
@@ -95,16 +103,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     exact flash and ``flash_ce`` (one per step) launch counts, no declines
     (attention or cross-entropy), finite losses and the last below
     the first; step time, tokens/s, model FLOPs and their share of peak,
-    peak memory, and a profile of one more step by kernel group;
+    peak memory; then two more steps profiled by kernel group, one on the
+    flash bodies the wrappers pick (the warpgroup kernels, by name) and one
+    on the WMMA body (the earlier tensor-core body): the step's device
+    time must fall by at least 0.9 of the flash groups' saving;
 11. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -191,10 +202,11 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
+def device_ms(fn, kernel: str, iters: int = 20, also=()) -> float | None:
     """Mean device time of the kernels whose name contains ``kernel``, from
-    the profiler's CUDA activity (host launch overhead excluded); None when
-    the profiler sees no device activity."""
+    the profiler's CUDA activity (host launch overhead excluded), plus that
+    of the kernels named like an entry of ``also`` that ``fn`` launches
+    beside it; None when the profiler sees no device activity."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -206,6 +218,8 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
         if kernel in evt.key:
             total += evt.device_time_total
             count += evt.count
+        elif any(a in evt.key for a in also):
+            total += evt.device_time_total
     return total / count / 1e3 if count else None
 
 
@@ -218,13 +232,14 @@ NO_LIBRARY = "no single PyTorch call computes this"
 
 
 def timed(name, label, kernel, plain, library, library_name, bound_ms_by, *, iters,
-          plain_iters, plain_warmup=3, device_kernel=None, dtype_name="bf16") -> dict:
+          plain_iters, plain_warmup=3, device_kernel=None, device_also=(),
+          dtype_name="bf16") -> dict:
     """Per-call times of a kernel, its plain version and the library call
     computing the same function (``library`` None where no single PyTorch
     call does), the kernel's device time (of the CUDA kernels named like
     ``device_kernel``, default ``name``), and its bound."""
     ms = time_ms(kernel, iters=iters)
-    dev_ms = device_ms(kernel, device_kernel or name)
+    dev_ms = device_ms(kernel, device_kernel or name, also=device_also)
     plain_ms = time_ms(plain, iters=plain_iters, warmup=plain_warmup)
     library_ms = time_ms(library, iters=iters) if library is not None else None
     bound_ms, bound_by = bound_ms_by
@@ -491,6 +506,51 @@ def time_verify(x, pos, layer, nbb):
                                                         enable_gqa=True),
                  "SDPA", verify_bound(pos, T, nbb, x["q"].dtype), iters=50, plain_iters=5,
                  plain_warmup=1)
+
+
+# the decode and verify kernels at head sizes off the 64/128/256 grid the
+# wrappers once required: tiny-llama-debug's 16 and 80 (bf16 takes the
+# verify kernel's tensor-core body, float32 its scalar one); 32 heads over
+# 8 groups, block 16, ragged positions with a padding row and a block edge
+ODD_HEAD_SIZES = (16, 80)
+
+
+def odd_head_inputs(dtype, gen, hs, T=None):
+    """Decode (T None) or verify (T tokens per request) inputs at head size
+    ``hs``: 4 requests over a 2-layer, 128-block arena."""
+    dev, Bo, nbb, nblocks = DEVICE, 4, 16, 128
+    pos = np.array([0, 37, 128, 250 - (T or 0)], np.int32)
+    tables = np.full((Bo, nbb), SINK_BLOCK, dtype=np.int32)
+    free = np.random.default_rng(SEED + hs).permutation(np.arange(1, nblocks))
+    k = 0
+    for i, p in enumerate(pos):
+        n = -(-(int(p) + (T or 0)) // BS)
+        tables[i, :n] = free[k:k + n]
+        k += n
+    shape = (nblocks, 2, NG, BS, hs)
+    qs, fs = ((Bo, NH, hs), (Bo, NG, hs)) if T is None else ((Bo, NH, T, hs), (Bo, NG, T, hs))
+    return dict(
+        q=torch.randn(qs, generator=gen, device=dev).to(dtype),
+        k_arena=torch.randn(shape, generator=gen, device=dev).to(dtype),
+        v_arena=torch.randn(shape, generator=gen, device=dev).to(dtype),
+        fresh_k=torch.randn(fs, generator=gen, device=dev).to(dtype),
+        fresh_v=torch.randn(fs, generator=gen, device=dev).to(dtype),
+        tables=torch.as_tensor(tables, device=dev),
+        pos=torch.as_tensor(pos, device=dev),
+    )
+
+
+def check_head_sizes() -> None:
+    """``paged_attn_decode`` and ``paged_attn_verify`` (T=5) at each of
+    ODD_HEAD_SIZES against their plain versions, phase 3's bars."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    for hs in ODD_HEAD_SIZES:
+        for dtype in (torch.bfloat16, torch.float32):
+            check_attn("paged_attn_decode", f"hs={hs}", cudaex.paged_attn_decode,
+                       cudaex.paged_attn_decode_plain, odd_head_inputs(dtype, gen, hs), layer=1)
+            check_attn("paged_attn_verify", f"hs={hs} T=5", cudaex.paged_attn_verify,
+                       cudaex.paged_attn_verify_plain, odd_head_inputs(dtype, gen, hs, T=5),
+                       layer=1)
 
 
 def check_chunk_write():
@@ -810,7 +870,7 @@ def check_chunk_write_fused():
 # 1024) and wo (4096 -> 4096) of Llama-3-8B
 LORA_SHAPES = {"decode": (8, 1), "verify": (8, 5), "chunk": (1, 512)}
 LORA_TARGETS = {"wq": (NH * HS, NH * HS), "wk": (NH * HS, NG * HS), "wo": (NH * HS, NH * HS)}
-LORA_RANKS = (8, 16, 64)
+LORA_RANKS = (8, 16, 64, 128)       # 128: two of the kernel's 64-rank chunks
 LORA_SCALING = 2.0                      # alpha 32 over rank 16, the serves' registry
 # float32 delta: the same products summed in another order, within this
 # share of the output's largest magnitude
@@ -894,6 +954,14 @@ def check_lora():
             lambda: cudaex.lora_delta_fused_plain(x, a, b, LORA_SCALING),
             None, None, lora_bound(B_, T, fin, fout, 16, torch.bfloat16, torch.float32),
             iters=200, plain_iters=50, device_kernel="lora_delta_kernel")
+    B_, T = LORA_SHAPES["decode"]
+    x, a, b, _ = lora_inputs(gen, B_, T, fin, fout, 128, torch.bfloat16, torch.float32)
+    shapes["decode r=128"] = timed(
+        "lora_delta_fused", f" decode wq r=128 (B={B_}, T={T})",
+        lambda: cudaex.lora_delta_fused(x, a, b, LORA_SCALING),
+        lambda: cudaex.lora_delta_fused_plain(x, a, b, LORA_SCALING),
+        None, None, lora_bound(B_, T, fin, fout, 128, torch.bfloat16, torch.float32),
+        iters=200, plain_iters=50, device_kernel="lora_delta_kernel")
     rec = dict(shapes["decode"], max_abs_err=main_err, shapes=shapes)
     return rec
 
@@ -1392,6 +1460,32 @@ def _exact_tokens(params32, cfg4, n_new=8):
         raise AssertionError(f"speculative serving serves other tokens: {spec} vs {plain}")
 
 
+def _exact_tokens_tiny(n_new=8):
+    """tiny-llama-debug at its own head size (16): the default attn resolves
+    paged on the card, every decode step goes through the kernels, and the
+    float32 tokens equal the gather path's."""
+    cfg = Config.from_name("tiny-llama-debug")
+    params = init_params(cfg, generator=torch.Generator(DEVICE).manual_seed(SEED + 11),
+                         dtype=torch.float32, device=DEVICE)
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (3, 17, 30, 61)]
+    common = dict(block_size=16, num_blocks=64, max_batch=4, device=DEVICE)
+    eng = serve(None, params, cfg, **common)
+    cudaex.reset_launches()
+    paged = [r.new_tokens for r in eng.run(prompts, max_new_tokens=n_new)]
+    torch.cuda.synchronize()
+    launches = cudaex.LAUNCHES["paged_attn_decode"]
+    gather = [r.new_tokens for r in serve(None, params, cfg, attn="gather", **common).run(
+        prompts, max_new_tokens=n_new)]
+    ok = eng.attn == "paged" and launches == eng.decode_steps * cfg.n_layer > 0 and paged == gather
+    say(f"float32, tiny-llama-debug (hs {cfg.head_size}): default attn {eng.attn!r}, "
+        f"paged_attn_decode launches {launches} ({eng.decode_steps} decode steps x "
+        f"{cfg.n_layer} layers); tokens equal gather: {paged == gather} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("tiny-llama-debug does not serve paged through the kernels with "
+                             "the gather path's tokens")
+
+
 def _exact_tokens_quant(params32, cfg4, n_new=8):
     """Tokens, exact, in float32 at Llama-3-8B widths and 4 layers on an
     int8 pool: the paged lanes (kernels) serve the gather lanes' tokens,
@@ -1610,7 +1704,8 @@ def check_flash_case(label, q, k, v, g, mask, kw) -> float:
             ok = ok and ek <= LOWP_ERR_RATIO * ep
             notes.append(f"{n} {ek:.2e}/{ep:.2e}")
         del ref
-    say(f"flash {label} {str(q.dtype)[6:]}: max_abs_err vs plain "
+    body = cudaex.flash_body("fwd", q.shape[-1], q.dtype, (q, k, v))[0]
+    say(f"flash {label} {str(q.dtype)[6:]} ({body} body): max_abs_err vs plain "
         + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
         + (f"; against float32 kernel/plain: {', '.join(notes)} (ratio limit {LOWP_ERR_RATIO})"
            if notes else f" (bar {FLASH_REL_F32:.0e} of each output's max)")
@@ -1696,29 +1791,21 @@ def time_flash(q, k, v, g, kw):
     yardstick (``F.scaled_dot_product_attention(..., is_causal=True,
     enable_gqa=True)``: its forward beside ``flash_fwd``, its backward
     through autograd, which computes dq, dk and dv together, beside each
-    backward kernel) at the training shape, beside the bounds."""
+    backward kernel) at the training shape, beside the bounds.  The device
+    times count the kernels of the body the wrappers pick (the dk/dv time
+    includes the fixed-order sum of its split partials)."""
     out, lse = cudaex.flash_sdpa(q, k, v, **kw)
-    hs = q.shape[-1]
     delta = (g.float() * out.float()).sum(dim=-1)
-    mma = cudaex._flash_mma(hs, q.dtype, (g, q, k, v))
-    lib = _build.load_library()
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    _, ints = cudaex._flash_args(q, k, None, kw["causal"], kw["window"])
+    mask3, ints = cudaex._flash_args(q, k, None, kw["causal"], kw["window"])
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    P = cudaex._ptr
-    tiles = {kind: cudaex._flash_tiles(kind, hs, q.dtype, mma) for kind in ("dq", "dkv")}
-    code = cudaex._FLASH_DTYPE_CODE[q.dtype]
-    scale = ctypes.c_float(kw["scale"])
+    body = cudaex.flash_body("fwd", q.shape[-1], q.dtype, (q, k, v))[0]
+    tag = "_wg" if body == "wgmma" else ""
 
     def dq_kernel():       # the dq launch alone, as flash_sdpa_backward makes it
-        rc = lib.tt_flash_bwd_dq(P(g), P(q), P(k), P(v), P(lse), P(delta), None, P(dq), *ints,
-                                 *tiles["dq"], int(mma), scale, code, stream)
-        cudaex._raise_on(lib, rc, "flash_bwd_dq")
+        cudaex._flash_bwd_dq(g, q, k, v, lse, delta, mask3, ints, kw["scale"], dq)
 
     def dkv_kernel():
-        rc = lib.tt_flash_bwd_dkv(P(g), P(q), P(k), P(v), P(lse), P(delta), None, P(dk), P(dv),
-                                  *ints, *tiles["dkv"], int(mma), scale, code, stream)
-        cudaex._raise_on(lib, rc, "flash_bwd_dkv")
+        cudaex._flash_bwd_dkv(g, q, k, v, lse, delta, mask3, ints, kw["scale"], dk, dv)
 
     ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=True)
@@ -1735,19 +1822,22 @@ def time_flash(q, k, v, g, kw):
         "flash_fwd": timed("flash_fwd", "", lambda: cudaex.flash_sdpa(q, k, v, **kw),
                            lambda: cudaex.flash_sdpa_plain(q, k, v, **kw), lib_fwd,
                            "SDPA forward", bounds["flash_fwd"], iters=20, plain_iters=3,
-                           plain_warmup=1, device_kernel="flash_fwd_kernel"),
+                           plain_warmup=1, device_kernel=f"flash_fwd{tag}_kernel"),
         "flash_bwd_dq": timed("flash_bwd_dq", "", dq_kernel,
                               lambda: cudaex.flash_sdpa_backward_plain(g, q, k, v, out, lse, **kw),
                               lib_bwd, "SDPA backward (dq, dk, dv)", bounds["flash_bwd_dq"],
                               iters=20, plain_iters=3, plain_warmup=1,
-                              device_kernel="flash_bwd_dq_kernel"),
+                              device_kernel=f"flash_bwd_dq{tag}_kernel"),
         "flash_bwd_dkv": timed("flash_bwd_dkv", "", dkv_kernel,
                                lambda: cudaex.flash_sdpa_backward_plain(g, q, k, v, out, lse,
                                                                         **kw),
                                lib_bwd, "SDPA backward (dq, dk, dv)", bounds["flash_bwd_dkv"],
                                iters=20, plain_iters=3, plain_warmup=1,
-                               device_kernel="flash_bwd_dkv_kernel"),
+                               device_kernel=f"flash_bwd_dkv{tag}_kernel",
+                               device_also=("flash_dkv_sum_kernel",)),
     }
+    for name in rec:
+        rec[name]["body"] = body
     say("flash plain times: the backward's plain version computes dq, dk and dv together, "
         "so both backward rows carry the same plain time")
     return rec
@@ -1877,8 +1967,8 @@ def model_flops(cfg, n_params):
 def train_full_width(params, cfg):
     """TRAIN_STEPS AdamW steps of Llama-3-8B at full width and depth on one
     fixed batch, remat full_block, bf16: exact flash launch counts, no
-    declines, finite losses, the last below the first; then one more step
-    under the profiler."""
+    declines, finite losses, the last below the first; then two more steps
+    under the profiler (``compare_train_profiles``)."""
     batch = train_batch(cfg, SEED + 10)
     step = make_step(cfg)
     t0 = time.perf_counter()
@@ -1919,13 +2009,31 @@ def train_full_width(params, cfg):
         raise AssertionError(f"train launch counts {launches} != {want} or declines {declines}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train losses {losses}: not finite or not falling")
-    profile_train_step(step, params, opt_state, batch)
-    return dict(launches=launches, losses=losses, step_ms=1e3 * step_s, peak_gib=peak / 2**30)
+    profiles = compare_train_profiles(step, params, opt_state, batch)
+    return dict(launches=launches, losses=losses, step_ms=1e3 * step_s, peak_gib=peak / 2**30,
+                profiles=profiles)
 
 
-def profile_train_step(step, params, opt_state, batch):
+FLASH_GROUPS = ("flash fwd", "flash dq", "flash dk/dv")
+
+
+def _kernel_group(name: str) -> str:
+    low = name.lower()
+    return ("flash fwd" if "flash_fwd" in low
+            else "flash dq" if "flash_bwd_dq" in low
+            else "flash dk/dv" if "flash_bwd_dkv" in low or "flash_dkv_sum" in low
+            else "flash ce" if "flash_ce_kernel" in low
+            else "cuBLAS GEMMs" if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma",
+                                                          "nvjet"))
+            else "optimizer" if "adam" in low
+            else "the rest")
+
+
+def profile_train_step(step, params, opt_state, batch, label):
     """Device time of one more train step by kernel group, from the
-    profiler's CUDA activity, and the card's idle share of its kernel span."""
+    profiler's CUDA activity, the card's idle share of its kernel span, and
+    the flash kernels' names; None when the profiler sees no CUDA
+    activity."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         step(params, opt_state, *batch)[2].item()
@@ -1933,25 +2041,76 @@ def profile_train_step(step, params, opt_state, batch):
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
-        say("train step profile: not measured (the profiler saw no CUDA activity)")
-        return
+        say(f"train step profile ({label}): not measured (the profiler saw no CUDA activity)")
+        return None
     busy = sum(end - start for _, start, end in spans)
     window = max(end for *_, end in spans) - min(start for _, start, _ in spans)
     groups: dict[str, float] = {}
+    names = set()
     for name, start, end in spans:
-        low = name.lower()
-        key = ("flash fwd" if "flash_fwd_kernel" in low
-               else "flash dq" if "flash_bwd_dq_kernel" in low
-               else "flash dk/dv" if "flash_bwd_dkv_kernel" in low
-               else "flash ce" if "flash_ce_kernel" in low
-               else "cuBLAS GEMMs" if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma",
-                                                             "nvjet"))
-               else "optimizer" if "adam" in low
-               else "the rest")
+        key = _kernel_group(name)
         groups[key] = groups.get(key, 0.0) + (end - start)
-    say(f"train step profile: device busy {busy / 1e3:.3f} ms over a {window / 1e3:.3f} ms kernel "
-        f"span (idle share {1 - busy / window:.4f}); device ms by group: "
-        f"{ {k: round(v / 1e3, 3) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])} }")
+        found = re.search(r"flash_\w+", name)
+        if key in FLASH_GROUPS and found:
+            names.add(found.group(0))
+    groups = {k: v / 1e3 for k, v in groups.items()}
+    say(f"train step profile ({label}): device busy {busy / 1e3:.3f} ms over a "
+        f"{window / 1e3:.3f} ms kernel span (idle share {1 - busy / window:.4f}); device ms by "
+        f"group: { {k: round(v, 3) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])} }"
+        f"; flash kernels: {sorted(names)}")
+    return dict(busy_ms=busy / 1e3, span_ms=window / 1e3, groups=groups, names=sorted(names))
+
+
+@contextlib.contextmanager
+def wmma_flash_body():
+    """The flash wrappers take the WMMA body (the earlier tensor-core body)
+    where they would take the warpgroup body: the same run's yardstick for
+    the redesign."""
+    pick = cudaex.flash_body
+
+    def wmma(kind, hs, dtype, tensors=()):
+        body, R, KT = pick(kind, hs, dtype, tensors)
+        if body != "wgmma":
+            return body, R, KT
+        R, KT = next(rk for rk in cudaex._FLASH_TILES
+                     if cudaex._flash_smem(kind, *rk, hs, 2, "wmma") <= cudaex._MAX_SMEM_BYTES)
+        return "wmma", R, KT
+
+    cudaex.flash_body = wmma
+    try:
+        yield
+    finally:
+        cudaex.flash_body = pick
+
+
+# the step's device time must fall by at least this share of the flash
+# kernels' own saving, both read from profiles of two steps in one run
+TRAIN_FALL_SHARE = 0.9
+
+
+def compare_train_profiles(step, params, opt_state, batch):
+    """One profiled step on the kernels the wrappers pick, one on the WMMA
+    body: the flash groups' saving and the step's device-time fall."""
+    new = profile_train_step(step, params, opt_state, batch, "redesigned flash body")
+    with wmma_flash_body():
+        old = profile_train_step(step, params, opt_state, batch, "WMMA flash body")
+    if new is None or old is None:
+        return None
+    want = {"flash_fwd_wg_kernel", "flash_bwd_dq_wg_kernel", "flash_bwd_dkv_wg_kernel",
+            "flash_dkv_sum_kernel"}
+    if set(new["names"]) != want:
+        raise AssertionError(f"the train step ran flash kernels {new['names']}, not the "
+                             f"warpgroup body's {sorted(want)}")
+    saving = sum(old["groups"].get(g, 0.0) - new["groups"].get(g, 0.0) for g in FLASH_GROUPS)
+    fall = old["busy_ms"] - new["busy_ms"]
+    ok = fall >= TRAIN_FALL_SHARE * saving
+    say(f"train step device time: {old['busy_ms']:.3f} ms on the WMMA body, {new['busy_ms']:.3f} "
+        f"ms redesigned: fell {fall:.3f} ms against the flash groups' saving {saving:.3f} ms "
+        f"(at least {TRAIN_FALL_SHARE} of it) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the train step's device time fell by less than the flash kernels' "
+                             "saving")
+    return dict(redesigned=new, wmma=old, flash_saving_ms=saving, step_fall_ms=fall)
 
 
 def main() -> int:
@@ -1986,6 +2145,7 @@ def main() -> int:
     # their kernels' entries) and the two fused writes (the token write's
     # entry is its int8 form, which the chunked int8 serve's decode steps
     # run; fp8 rides beside it)
+    check_head_sizes()
     recs["paged_attn_decode"]["quantized"] = check_decode_quant()
     recs["paged_attn_verify"]["quantized"] = check_verify_quant()
     tw = check_token_write_fused()
@@ -2054,6 +2214,7 @@ def main() -> int:
     _exact_tokens(params32_4, cfg4)
     _exact_tokens_quant(params32_4, cfg4)
     _exact_tokens_lora(params32_4, cfg4)
+    _exact_tokens_tiny()
     del params32_4
     torch.cuda.empty_cache()
     chunk_and_verify_logits(params, cfg, chunk_case, spec_case)
@@ -2099,7 +2260,8 @@ def main() -> int:
             device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_us=1e3 * rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"], card=CARD,
-            **{k: rec[k] for k in ("shapes", "quantized", "dtypes", "library") if k in rec}))
+            **{k: rec[k] for k in ("shapes", "quantized", "dtypes", "library", "body")
+               if k in rec}))
     say("quantized serves: " + json.dumps({"chunked int8": qrec, "speculative fp8": frec}))
     say("LoRA serves: " + json.dumps({"chunked": lrec, "speculative": slrec}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -179,6 +179,37 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take():
         cudaex.flash_sdpa_backward(q, q, k, k, out, lse[..., :64], causal=True, scale=1.0)
 
 
+@pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
+@pytest.mark.parametrize("dtype,hs,aligned,want", [
+    (torch.bfloat16, 64, True, "wgmma"), (torch.bfloat16, 128, True, "wgmma"),
+    (torch.bfloat16, 128, False, "scalar"), (torch.bfloat16, 16, True, "wmma"),
+    (torch.bfloat16, 80, True, "wmma"), (torch.bfloat16, 256, True, "wmma"),
+    (torch.bfloat16, 512, True, "wmma"), (torch.bfloat16, 72, True, "scalar"),
+    (torch.float32, 64, True, "scalar"), (torch.float32, 128, True, "scalar"),
+    (torch.float32, 512, True, "scalar")])
+def test_flash_body_choice(kind, dtype, hs, aligned, want):
+    """The body each (dtype, hs, alignment) gets on the card, and that its
+    tiles' shared memory fits a Hopper block (232,448 B); the warpgroup
+    body's tiles are the 64 x 64 ones the plain forward walks."""
+    t = torch.zeros(64, dtype=dtype)
+    body, R, KT = cudaex.flash_body(kind, hs, dtype, (t if aligned else t[1:],))
+    assert body == want
+    assert cudaex._flash_smem(kind, R, KT, hs, t.element_size(), body) <= 232448
+    if body == "wgmma":
+        assert (R, KT) == (64, 64)
+    # the plain versions (no tensors) take the aligned body's tiles
+    assert cudaex.flash_body(kind, hs, dtype)[1:] == cudaex.flash_body(kind, hs, dtype, (t,))[1:]
+
+
+def test_dkv_splits():
+    """The warpgroup dk/dv kernel shares a group's q heads between two
+    blocks when their count is even; the other bodies never split."""
+    assert cudaex.dkv_splits(32, 8, "wgmma") == 2
+    assert cudaex.dkv_splits(6, 2, "wgmma") == 1
+    assert cudaex.dkv_splits(4, 4, "wgmma") == 1
+    assert cudaex.dkv_splits(32, 8, "wmma") == 1
+
+
 def test_cpu_calls_launch_nothing():
     cudaex.reset_launches()
     x = [torch.zeros(1, 2, 128, 16) for _ in range(3)]
@@ -327,14 +358,7 @@ def _card_case(B, H, G, Tq, Tk, hs, mask, dtype, card, seed=7):
     return t, None if m is None else torch.as_tensor(m, device=card)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,G,Tq,Tk,hs,causal,window,mask", [
-    (1, 32, 8, 256, 256, 128, True, None, None), (2, 4, 4, 128, 128, 64, False, None, None),
-    (1, 8, 2, 128, 256, 64, True, None, None), (1, 4, 2, 256, 256, 256, True, 100, None),
-    (2, 4, 2, 128, 128, 64, False, None, "batch-1"), (1, 4, 1, 128, 128, 16, False, None, "full-T"),
-    (1, 2, 2, 128, 128, 512, True, None, None), (2, 4, 2, 128, 128, 72, True, None, "head-T")])
-def test_cuda_flash_kernels_match_plain(card, dtype, B, H, G, Tq, Tk, hs, causal, window, mask):
+def _check_card_case(dtype, B, H, G, Tq, Tk, hs, causal, window, mask, card):
     """float32 within 1e-5 of each output's largest magnitude; bf16 held
     against the float32 plain result of the same inputs: the kernels' error
     at most twice the plain version's own; the kernels bitwise repeatable."""
@@ -362,3 +386,36 @@ def test_cuda_flash_kernels_match_plain(card, dtype, B, H, G, Tq, Tk, hs, causal
         floor = 1e-5 * r.abs().max().item()    # lse: both sides at f32 rounding
         assert torch.isfinite(a).all() and err_kernel <= 2 * err_plain + floor, (err_kernel,
                                                                                 err_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,G,Tq,Tk,hs,causal,window,mask", [
+    (1, 32, 8, 2048, 2048, 128, True, None, None), (2, 4, 4, 256, 256, 64, False, None, None),
+    (1, 8, 2, 256, 256, 64, True, 100, None), (1, 8, 2, 128, 256, 64, True, None, None),
+    (1, 8, 2, 256, 128, 128, True, None, None), (1, 4, 2, 384, 384, 128, True, 200, None),
+    (1, 6, 2, 256, 256, 64, True, None, None), (2, 4, 2, 128, 128, 64, False, None, "shared-1"),
+    (2, 4, 2, 128, 128, 64, False, None, "shared-T"),
+    (2, 4, 2, 128, 128, 64, False, None, "batch-1"), (2, 4, 2, 128, 128, 64, False, None, "batch-T"),
+    (2, 4, 2, 128, 128, 128, False, None, "head-1"), (2, 4, 2, 128, 128, 64, False, None, "head-T"),
+    (2, 4, 2, 128, 128, 64, True, None, "full-1"), (2, 4, 2, 128, 128, 128, True, None, "full-T")])
+def test_cuda_flash_warpgroup_body_matches_plain(card, B, H, G, Tq, Tk, hs, causal, window, mask):
+    """The warpgroup body (bf16, hs 64/128) at the training shape and at
+    small shapes: non-causal, windows, Tq != Tk both ways, every mask
+    layout, GQA with an odd and an even number of heads per group (split
+    and unsplit dk/dv)."""
+    assert cudaex.flash_body("fwd", hs, torch.bfloat16)[0] == "wgmma"
+    _check_card_case(torch.bfloat16, B, H, G, Tq, Tk, hs, causal, window, mask, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,Tq,Tk,hs,causal,window,mask", [
+    (1, 32, 8, 256, 256, 128, True, None, None), (2, 4, 4, 128, 128, 64, False, None, None),
+    (1, 8, 2, 128, 256, 64, True, None, None), (1, 4, 2, 256, 256, 256, True, 100, None),
+    (2, 4, 2, 128, 128, 64, False, None, "batch-1"), (1, 4, 1, 128, 128, 16, False, None, "full-T"),
+    (1, 2, 2, 128, 128, 512, True, None, None), (2, 4, 2, 128, 128, 72, True, None, "head-T")])
+def test_cuda_flash_kernels_match_plain(card, dtype, B, H, G, Tq, Tk, hs, causal, window, mask):
+    """float32 within 1e-5 of each output's largest magnitude; bf16 held
+    against the float32 plain result of the same inputs: the kernels' error
+    at most twice the plain version's own; the kernels bitwise repeatable."""
+    _check_card_case(dtype, B, H, G, Tq, Tk, hs, causal, window, mask, card)

@@ -383,3 +383,33 @@ def test_cuda_paged_chunk_and_masked_writes_match_plain(card, dtype):
                                               offset, block_size=16)
         torch.cuda.synchronize()
         assert torch.equal(got[1:], want[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hs", [16, 48, 72, 80])
+def test_cuda_paged_kernels_take_any_head_size(card, dtype, hs):
+    """Decode and verify at head sizes off the 64/128/256 grid (hs 72 takes
+    the verify kernel's scalar body in bf16 too): the decode bars above, and
+    the verify kernel within 1e-5 in float32, else at most twice the plain
+    version's own error against the float32 result."""
+    case = _torch(_case(4, 8, 2, hs, 16, 4, 3, [0, 1, 33, 64]), device=card)
+    case = {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in case.items()}
+    got = cudaex.paged_attn_decode(**case, layer=2)
+    torch.cuda.synchronize()
+    want = cudaex.paged_attn_decode_plain(**case, layer=2)
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    case32 = _torch(_verify_case(4, 8, 2, hs, 16, 24, 3, 5, [0, 1, 33, 64], num_blocks=64),
+                    device=card)
+    vcase = {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in case32.items()}
+    got = cudaex.paged_attn_verify(**vcase, layer=2)
+    torch.cuda.synchronize()
+    want = cudaex.paged_attn_verify_plain(**vcase, layer=2)
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+        return
+    ref = cudaex.paged_attn_verify_plain(**case32, layer=2)
+    err_kernel = (got.float() - ref).abs().max().item()
+    err_plain = (want.float() - ref).abs().max().item()
+    assert torch.isfinite(got).all() and err_kernel <= 2 * err_plain, (err_kernel, err_plain)

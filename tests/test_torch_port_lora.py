@@ -75,22 +75,23 @@ def _pair(seed=0, **overrides):
     return jcfg, tcfg, jp, tp
 
 
-def _factors(cfg, seed, targets=("wq", "wk", "wv", "wo"), std=0.5):
+def _factors(cfg, seed, targets=("wq", "wk", "wv", "wo"), std=0.5, rank=RANK):
     """One adapter's factors, drawn with numpy: {target: (A, B)} float32."""
     rng = np.random.default_rng(seed)
     out = {}
     for t in targets:
         fin, fout = _target_features(cfg, t)
-        out[t] = ((rng.standard_normal((cfg.n_layer, RANK, fin)) * std).astype(np.float32),
-                  (rng.standard_normal((cfg.n_layer, fout, RANK)) * std).astype(np.float32))
+        out[t] = ((rng.standard_normal((cfg.n_layer, rank, fin)) * std).astype(np.float32),
+                  (rng.standard_normal((cfg.n_layer, fout, rank)) * std).astype(np.float32))
     return out
 
 
-def _registries(jcfg, tcfg, targets=("wq", "wk", "wv", "wo"), names=ADAPTERS):
-    jreg = JRegistry(jcfg, rank=RANK, max_adapters=4, targets=targets)
-    treg = ttt.AdapterRegistry(tcfg, rank=RANK, max_adapters=4, targets=targets, device="cpu")
+def _registries(jcfg, tcfg, targets=("wq", "wk", "wv", "wo"), names=ADAPTERS, rank=RANK,
+                std=0.5):
+    jreg = JRegistry(jcfg, rank=rank, max_adapters=4, targets=targets)
+    treg = ttt.AdapterRegistry(tcfg, rank=rank, max_adapters=4, targets=targets, device="cpu")
     for i, name in enumerate(names):
-        f = _factors(tcfg, 10 + i, targets)
+        f = _factors(tcfg, 10 + i, targets, std=std, rank=rank)
         jreg.register(name, f)
         treg.register(name, f)
     return jreg, treg
@@ -262,8 +263,9 @@ def _delta_case(B, T, fin, fout, r, seed):
                                              ("bfloat16", "bfloat16"), ("float32", "bfloat16")])
 @pytest.mark.parametrize("B,T,fin,fout,r,scaling", [(3, 1, 64, 32, 8, 2.0),
                                                     (2, 5, 48, 80, 4, 0.3),
-                                                    (1, 12, 32, 64, 16, 1.0)],
-                         ids=["decode", "verify", "chunk"])
+                                                    (1, 12, 32, 64, 16, 1.0),
+                                                    (2, 3, 48, 40, 128, 0.5)],
+                         ids=["decode", "verify", "chunk", "rank128"])
 def test_lora_delta_plain_matches_pallas(B, T, fin, fout, r, scaling, x_dtype, f_dtype):
     """float32 within 1e-6 absolute; bf16 within one ulp of the output
     (both round d, the product and the scaled product to bf16, but sum in
@@ -289,8 +291,14 @@ def test_lora_delta_plain_matches_pallas(B, T, fin, fout, r, scaling, x_dtype, f
 
 def test_lora_delta_wrapper_checks():
     x = torch.zeros(2, 1, 16)
-    with pytest.raises(ValueError, match="ranks 1..64"):
-        cudaex.lora_delta_fused(x, torch.zeros(2, 65, 16), torch.zeros(2, 8, 65), 1.0)
+    # any rank: 65 (past one 64-rank chunk of the kernel) takes the plain version here
+    rng = np.random.default_rng(3)
+    x65, a65, b65 = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+                     for s in ((2, 1, 16), (2, 65, 16), (2, 8, 65)))
+    torch.testing.assert_close(cudaex.lora_delta_fused(x65, a65, b65, 1.0),
+                               cudaex.lora_delta_fused_plain(x65, a65, b65, 1.0), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="rank must be at least 1"):
+        cudaex.lora_delta_fused(x, torch.zeros(2, 0, 16), torch.zeros(2, 8, 0), 1.0)
     with pytest.raises(ValueError, match="want a"):
         cudaex.lora_delta_fused(x, torch.zeros(2, 4, 8), torch.zeros(2, 8, 4), 1.0)
     with pytest.raises(ValueError, match="float32/float16/bfloat16"):
@@ -430,6 +438,18 @@ def test_int8_kv_tokens_equal_jax_engine(micro, regs):
         assert _drive(eng, _prompts(), IDS) == want
 
 
+@pytest.mark.parametrize("rank", [65, 128])
+def test_high_rank_tokens_equal_jax_engine(micro, rank):
+    """Ranks past the kernel's 64-rank chunk serve on the default attn (the
+    paged lanes) with the JAX engine's tokens."""
+    jcfg, tcfg, jp, tp = micro
+    jreg, treg = _registries(jcfg, tcfg, rank=rank, std=0.1)
+    want = _drive(_jax(jcfg, jp, lora=jreg, **ENGINE), _prompts(), IDS)
+    eng = _port(tcfg, tp, lora=treg, **ENGINE)
+    assert eng.attn == "paged"
+    assert _drive(eng, _prompts(), IDS) == want
+
+
 def test_mlp_targets_tokens_equal_jax_engine(micro):
     jcfg, tcfg, jp, tp = micro
     jreg, treg = _registries(jcfg, tcfg, targets=FULL, names=("full",))
@@ -515,8 +535,7 @@ def test_submit_validation(micro, regs):
     with pytest.raises(ValueError, match="registry was built for"):
         _port(wrong, wrong_params, lora=regs[1], **ENGINE)
     big = ttt.AdapterRegistry(tcfg, rank=65, max_adapters=1, device="cpu")
-    with pytest.raises(ValueError, match="ranks up to 64"):
-        _port(tcfg, tp, lora=big, **ENGINE)
+    assert _port(tcfg, tp, lora=big, **ENGINE).attn == "paged"    # any rank serves paged
     _port(tcfg, tp, lora=big, attn="gather", **ENGINE)
 
 
@@ -646,7 +665,9 @@ def card():
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("f_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,fin,fout,r", [(8, 1, 4096, 4096, 16), (8, 5, 4096, 1024, 64),
-                                            (1, 40, 256, 300, 3), (3, 17, 130, 129, 8)])
+                                            (1, 40, 256, 300, 3), (3, 17, 130, 129, 8),
+                                            (4, 3, 512, 300, 65), (2, 20, 1024, 512, 128),
+                                            (8, 1, 4096, 1024, 256)])
 def test_cuda_lora_delta_matches_plain(card, B, T, fin, fout, r, x_dtype, f_dtype):
     """float32 within 1e-5 of the output's largest magnitude (the same
     products in another order); bf16 within 2 ulps of the plain version's

@@ -313,3 +313,64 @@ def test_cuda_engine_decodes_through_the_kernels(card, dtype):
     assert set(none.values()) == {0}
     if dtype == torch.float32:
         assert paged == gather
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_llama_serves_paged_at_its_own_head_size(card):
+    """tiny-llama-debug at its own hs 16 (no longer widened to a 64/128/256
+    head): the default attn resolves paged on the card, every decode step
+    goes through the kernels, and the float32 tokens equal gather's."""
+    cfg = ttt.Config.from_name("tiny-llama-debug")
+    assert cfg.head_size == 16
+    params = ttt.init_params(cfg, generator=torch.Generator(card).manual_seed(0),
+                             dtype=torch.float32, device=card)
+    prompts = _prompts(lens=(3, 17, 30, 9))
+
+    def run(attn):
+        eng = ttt.serve(None, params, cfg, attn=attn, device=card, block_size=16,
+                        num_blocks=32, max_batch=4)
+        cudaex.reset_launches()
+        toks = _drive(eng, prompts, n=6)
+        torch.cuda.synchronize()
+        return toks, dict(cudaex.LAUNCHES), eng
+
+    paged, launches, eng = run("auto")
+    assert eng.attn == "paged"
+    assert launches["paged_attn_decode"] == eng.decode_steps * cfg.n_layer > 0
+    gather, _, _ = run("gather")
+    assert paged == gather
+
+
+def test_paged_supported_declines_what_the_kernels_cannot_hold():
+    """On the card the paged path declines, with the reason, a head size
+    whose decode block does not fit shared memory; the CPU (plain versions)
+    takes it; tiny-llama-debug's hs 16 fits."""
+    from thunder_tpu_torch.serving.paged_attention import paged_supported
+
+    tiny = ttt.Config.from_name("tiny-llama-debug")
+    assert paged_supported(tiny, block_size=16, device="cuda") == (True, "")
+    wide = ttt.Config.from_name("tiny-llama-debug", n_embd=8192, n_head=2, n_query_groups=1)
+    assert wide.head_size == 4096
+    ok, why = paged_supported(wide, block_size=16, device="cuda")
+    assert not ok and "paged_attn_decode needs" in why and "hs=4096" in why
+    assert paged_supported(wide, block_size=16, device="cpu") == (True, "")
+    assert cudaex.paged_kernels_decline(4, 16, 4096).startswith("paged_attn_decode needs")
+    assert cudaex.paged_kernels_decline(4, 16, 80) == ""
+
+
+def test_auto_serves_gather_where_paged_declines(micro, monkeypatch):
+    """attn="auto" falls back to the gather path where ``paged_supported``
+    declines (as on the card for a head size the kernels cannot hold);
+    attn="paged" raises at construction with the reason."""
+    from thunder_tpu_torch.serving import engine as engine_mod
+
+    tcfg, tp, _, _ = micro
+    monkeypatch.setattr(engine_mod, "paged_supported", lambda cfg, **kw: (False, "too wide"))
+    eng = _port(tcfg, tp)
+    assert eng.attn == "gather"
+    kinds = eng.stats()["attn"]["kinds"]
+    assert kinds["decode"]["fallback_reason"] == kinds["prefill_chunk"]["fallback_reason"] \
+        == "too wide"
+    assert _drive(eng, _prompts()) == micro[2]                # the reference's tokens
+    with pytest.raises(ValueError, match="too wide"):
+        _port(tcfg, tp, attn="paged")

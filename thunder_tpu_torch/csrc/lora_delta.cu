@@ -23,17 +23,21 @@
 // Design (simple and right first):
 //   * Grid (request x row tile of kRows rows, fout split).  The TPU kernel
 //     holds one request's whole (T, fin) slab in VMEM; a Hopper block holds
-//     its rows' d = x . A^T (kRows x r floats, r <= kMaxRank) in shared
-//     memory, computed once per block: one warp per (row, rank) pair,
-//     lanes striding over fin (coalesced x and A rows), a butterfly sum.
-//   * Then the block walks fout tiles of kCols columns (tile = blockIdx.y,
-//     + gridDim.y, ...): the tile's B rows are contiguous in memory, so they
-//     load coalesced into shared memory (rounded, rows padded to r + 1
-//     floats against bank conflicts), and each thread computes one output
-//     column for every row of the tile.  The wrapper sets the fout split so
-//     that the grid has about two blocks per SM: at the decode shape each
-//     block takes one tile, at the chunk shape a few, which bounds how often
-//     d is recomputed.
+//     its rows' d = x . A^T in shared memory one rank chunk at a time
+//     (kRows x kRankChunk floats, rounded to x's dtype): one warp per
+//     (row, rank) pair, lanes striding over fin (coalesced x and A rows), a
+//     butterfly sum.  Any rank runs: each thread keeps one f32 accumulator
+//     per output element of its column across the chunks, adding the ranks
+//     in order (the sum a single chunk took before), and rounds and scales
+//     once at the end, as the reference does.
+//   * The block walks fout tiles of kCols columns (tile = blockIdx.y,
+//     + gridDim.y, ...): each chunk of the tile's B rows loads into shared
+//     memory (rounded, rows padded to kRankChunk + 1 floats against bank
+//     conflicts), and each thread computes one output column for every row
+//     of the tile.  With one chunk (r <= kRankChunk) d is computed once per
+//     block; with several, once per chunk and tile.  The wrapper sets the
+//     fout split so that the grid has about two blocks per SM: at the
+//     decode shape each block takes one tile, at the chunk shape a few.
 //   * A and B may be per-layer views of a (B, L, ...) stack: the wrapper
 //     passes each factor's stride between requests; rows within a request
 //     are contiguous.
@@ -50,7 +54,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCols = kThreads;  // one output column per thread
 constexpr int kRows = 16;        // rows of x per block
-constexpr int kMaxRank = 64;     // keeps shared memory under 48 KB
+constexpr int kRankChunk = 64;  // ranks per chunk: shared memory stays under 48 KB
 
 template <typename TX, typename TF>
 __global__ void __launch_bounds__(kThreads)
@@ -59,8 +63,8 @@ lora_delta_kernel(const TX* __restrict__ x, const TF* __restrict__ a,
                   int r, long long a_bstride, long long b_bstride, int row_tiles,
                   float scaling) {
   extern __shared__ float smem[];
-  float* sd = smem;              // (kRows, r): d, rounded to TX
-  float* sb = smem + kRows * r;  // (kCols, r + 1): the B tile, rounded to TX
+  float* sd = smem;                       // (kRows, kRankChunk): d, rounded to TX
+  float* sb = smem + kRows * kRankChunk;  // (kCols, kRankChunk + 1): B, rounded to TX
   const int req = blockIdx.x / row_tiles;
   const int t0 = (blockIdx.x % row_tiles) * kRows;
   const int nt = min(kRows, T - t0);
@@ -69,41 +73,63 @@ lora_delta_kernel(const TX* __restrict__ x, const TF* __restrict__ a,
   const TF* ar = a + static_cast<size_t>(req) * a_bstride;
   const TF* br = b + static_cast<size_t>(req) * b_bstride;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_chunks = (r + kRankChunk - 1) / kRankChunk;
 
-  // d[t][j] = round(sum_k x[t][k] * round(A[j][k])), f32 accumulation
-  for (int p = warp; p < nt * r; p += kWarps) {
-    const int t = p / r, j = p % r;
-    const TX* xt = xr + static_cast<size_t>(t) * fin;
-    const TF* aj = ar + static_cast<size_t>(j) * fin;
-    float acc = 0.f;
-    for (int k = lane; k < fin; k += 32) {
-      acc = fmaf(to_f<TX>(xt[k]), round_to<TX>(to_f<TF>(aj[k])), acc);
-    }
+  // d[t][j] = round(sum_k x[t][k] * round(A[j0 + j][k])), f32 accumulation
+  auto rank_chunk = [&](int j0, int rc) {
+    for (int p = warp; p < nt * rc; p += kWarps) {
+      const int t = p / rc, j = p % rc;
+      const TX* xt = xr + static_cast<size_t>(t) * fin;
+      const TF* aj = ar + static_cast<size_t>(j0 + j) * fin;
+      float acc = 0.f;
+      for (int k = lane; k < fin; k += 32) {
+        acc = fmaf(to_f<TX>(xt[k]), round_to<TX>(to_f<TF>(aj[k])), acc);
+      }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) sd[t * r + j] = round_to<TX>(acc);
-  }
+      for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) sd[t * kRankChunk + j] = round_to<TX>(acc);
+    }
+  };
+  if (n_chunks == 1) rank_chunk(0, r);
 
   const float sc = round_to<TX>(scaling);
   const int n_tiles = (fout + kCols - 1) / kCols;
+  const int c = threadIdx.x;
   for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
     const int c0 = tile * kCols;
     const int nc = min(kCols, fout - c0);
-    __syncthreads();  // d is written; the previous tile's B is no longer read
     const TF* bt = br + static_cast<size_t>(c0) * r;
-    for (int i = threadIdx.x; i < nc * r; i += kThreads) {
-      sb[(i / r) * (r + 1) + i % r] = round_to<TX>(to_f<TF>(bt[i]));
+    float acc[kRows];
+#pragma unroll
+    for (int t = 0; t < kRows; ++t) acc[t] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int j0 = ch * kRankChunk, rc = min(kRankChunk, r - j0);
+      __syncthreads();  // the last chunk's d and B are no longer read
+      if (n_chunks > 1) rank_chunk(j0, rc);
+      for (int i = threadIdx.x; i < nc * rc; i += kThreads) {
+        const int col = i / rc, j = i % rc;
+        sb[col * (kRankChunk + 1) + j] =
+            round_to<TX>(to_f<TF>(bt[static_cast<size_t>(col) * r + j0 + j]));
+      }
+      __syncthreads();
+      if (c < nc) {
+        const float* bc = sb + c * (kRankChunk + 1);
+        for (int j = 0; j < rc; ++j) {
+          const float bj = bc[j];
+#pragma unroll
+          for (int t = 0; t < kRows; ++t) {
+            if (t < nt) acc[t] = fmaf(sd[t * kRankChunk + j], bj, acc[t]);
+          }
+        }
+      }
     }
-    __syncthreads();
-    const int c = threadIdx.x;
     if (c < nc) {
-      const float* bc = sb + c * (r + 1);
       TX* oc = out + row0 * fout + c0 + c;
-      for (int t = 0; t < nt; ++t) {
-        const float* dt = sd + t * r;
-        float acc = 0.f;
-        for (int j = 0; j < r; ++j) acc = fmaf(dt[j], bc[j], acc);
-        oc[static_cast<size_t>(t) * fout] = from_f<TX>(__fmul_rn(round_to<TX>(acc), sc));
+#pragma unroll
+      for (int t = 0; t < kRows; ++t) {
+        if (t < nt) {
+          oc[static_cast<size_t>(t) * fout] = from_f<TX>(__fmul_rn(round_to<TX>(acc[t]), sc));
+        }
       }
     }
   }
@@ -114,8 +140,7 @@ cudaError_t launch_lora(const void* x, const void* a, const void* b, void* out, 
                         int fin, int fout, int r, long long a_bstride, long long b_bstride,
                         int n_split, float scaling, cudaStream_t stream) {
   const int row_tiles = (T + kRows - 1) / kRows;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kRows) * r +
-                                       static_cast<size_t>(kCols) * (r + 1));
+  const size_t smem = sizeof(float) * (kRows * kRankChunk + kCols * (kRankChunk + 1));
   lora_delta_kernel<TX, TF><<<dim3(B * row_tiles, n_split), kThreads, smem, stream>>>(
       static_cast<const TX*>(x), static_cast<const TF*>(a), static_cast<const TF*>(b),
       static_cast<TX*>(out), T, fin, fout, r, a_bstride, b_bstride, row_tiles, scaling);
@@ -128,14 +153,14 @@ cudaError_t launch_lora(const void* x, const void* a, const void* b, void* out, 
 // a + b * a_bstride elements; b: B rows of (fout, r) at b_bstride; out
 // (B, T, fout) contiguous at x's dtype.  Dtype codes 0 = float32,
 // 1 = float16, 2 = bfloat16 (x_dtype for x and out, f_dtype for a and b).
-// 1 <= r <= 64; n_split: blocks along fout (1 .. ceil(fout / 128)).
+// r >= 1; n_split: blocks along fout (1 .. ceil(fout / 128)).
 extern "C" int tt_lora_delta(const void* x, const void* a, const void* b, void* out, int B,
                              int T, int fin, int fout, int r, long long a_bstride,
                              long long b_bstride, int n_split, float scaling, int x_dtype,
                              int f_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || T == 0 || fout == 0) return cudaSuccess;
-  if (r < 1 || r > kMaxRank || fin < 1 || n_split < 1) return cudaErrorInvalidValue;
+  if (r < 1 || fin < 1 || n_split < 1) return cudaErrorInvalidValue;
   return tt::by_float(x_dtype, [&](auto tx) {
     return tt::by_float(f_dtype, [&](auto tf) -> cudaError_t {
       using TX = decltype(tx);

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "tt_paged_chunk_write_fused": ([_P] * 7 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I),
     "tt_flash_fwd": ([_P] * 6 + [_I] * 13 + [ctypes.c_float, _I, _P], _I),
     "tt_flash_bwd_dq": ([_P] * 8 + [_I] * 13 + [ctypes.c_float, _I, _P], _I),
-    "tt_flash_bwd_dkv": ([_P] * 9 + [_I] * 13 + [ctypes.c_float, _I, _P], _I),
+    "tt_flash_bwd_dkv": ([_P] * 10 + [_I] * 14 + [ctypes.c_float, _I, _P], _I),
     "tt_flash_ce": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "tt_lora_delta": ([_P] * 4 + [_I] * 5 + [ctypes.c_int64] * 2
                       + [_I, ctypes.c_float, _I, _I, _P], _I),

@@ -82,7 +82,6 @@ import numpy as np
 import torch
 
 from thunder_tpu_torch._device import resolve_device
-from thunder_tpu_torch.executors.cudaex import LORA_MAX_RANK
 from thunder_tpu_torch.models.generate import forward_with_cache, sample_token
 from thunder_tpu_torch.models.llama import build_rope_cache
 from thunder_tpu_torch.serving import speculative as spec_lane
@@ -285,14 +284,13 @@ class ServingEngine:
                                 dtype=dtype, kv_dtype=kv_dtype, device=self.device)
         if attn not in ("auto", "paged", "gather"):
             raise ValueError(f"attn= must be 'auto', 'paged', or 'gather', got {attn!r}")
-        ok, why = paged_supported(cfg)
-        if attn != "gather" and not ok:
-            raise ValueError(f"attn={attn!r} is unsupported here: {why}")
+        ok, why = paged_supported(cfg, block_size=block_size, device=self.device)
+        if attn == "paged" and not ok:
+            raise ValueError(f"attn='paged' is unsupported here: {why}")
         self._attn_requested = attn
-        self.attn = "gather" if attn == "gather" else "paged"
-        if lora is not None and self.attn == "paged" and lora.rank > LORA_MAX_RANK:
-            raise ValueError(f"lora rank {lora.rank}: the paged lanes' lora_delta_fused kernel "
-                             f"takes ranks up to {LORA_MAX_RANK} (attn='gather' takes any)")
+        # "auto" serves through the gather path where the paged one declines
+        self.attn = "paged" if attn != "gather" and ok else "gather"
+        self._attn_fallback_reason = None if attn == "gather" or ok else why
         self.attn_kernel_steps = 0
         # speculative serving: a draft arena beside the target arena, indexed
         # by the target pool's block tables (its own free list is unused)
@@ -323,7 +321,7 @@ class ServingEngine:
         # piece runs the ordinary prefill and may stay ragged)
         sch = self.scheduler
         if self.attn != "paged":
-            chunk_why = "attn='gather' requested"
+            chunk_why = self._attn_fallback_reason or "attn='gather' requested"
         elif speculative is not None:
             chunk_why = "speculative prefill writes the draft arena (gather chunk)"
         elif cfg.sliding_window is not None:
@@ -600,7 +598,7 @@ class ServingEngine:
                 "kinds": {
                     "decode": {
                         "mode": self.attn,
-                        "fallback_reason": None,
+                        "fallback_reason": self._attn_fallback_reason,
                         "kernel_steps": self._attn_steps["decode"][0],
                         "fallback_steps": self._attn_steps["decode"][1],
                     },

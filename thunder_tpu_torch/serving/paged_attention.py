@@ -46,6 +46,7 @@ from thunder_tpu_torch.executors.cudaex import (
     paged_attn_verify,
     paged_chunk_write,
     paged_chunk_write_fused,
+    paged_kernels_decline,
     paged_token_write,
     paged_token_write_fused,
     paged_token_write_masked,
@@ -64,10 +65,18 @@ __all__ = ["forward_paged", "write_fresh_kv", "write_fresh_kv_live", "write_fres
            "write_fresh_kv_chunk", "paged_supported"]
 
 
-def paged_supported(cfg) -> tuple[bool, str]:
-    """Structural support check for the paged decode path: ``(ok, why)``."""
+def paged_supported(cfg, *, block_size: int, device) -> tuple[bool, str]:
+    """Support check for the paged path of a pool of ``block_size`` on
+    ``device``: ``(ok, why)``.  Structural on any device; on a CUDA device
+    also whether the paged attention kernels hold the config's query heads
+    per group, block size and head size (``cudaex.paged_kernels_decline``)
+    — the CPU runs the kernels' plain versions, which take any."""
     if cfg.mlp_class == "LLaMAMoE":
         return False, "the LLaMAMoE MLP is not ported yet"
+    if torch.device(device).type == "cuda":
+        why = paged_kernels_decline(cfg.n_head // cfg.n_query_groups, block_size, cfg.head_size)
+        if why:
+            return False, why
     return True, ""
 
 
