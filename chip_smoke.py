@@ -2,6 +2,7 @@
 """Chip smoke test of thunder_tpu_torch, the PyTorch/CUDA port, on one GPU.
 
     python3 chip_smoke.py            # needs one NVIDIA H100 (sm_90a) and nvcc
+    python3 -P chip_smoke.py --paged-times LABEL   # paged attention device ms only
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -16,14 +17,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    batch-padding rows: the decode kernels at B=8 with and without a
    sliding window, bf16 and f32; ``paged_attn_verify`` at the speculative
    shape (B=8, T=5) and the chunk shape (B=1, T=512, pos 2560), bf16, f16
-   and f32 (attention in float32 within 1e-5 of the plain version, in
-   bf16/f16 with an error against the float32 result at most twice the
-   plain version's own); the chunk and masked writes bitwise outside sink
+   and f32 (attention in float32 within 1e-5 of the plain version cut as
+   the kernel's body cuts the arena walk, in bf16/f16 with an error
+   against the float32 result at most twice the plain version's own); each
+   case prints the body ``cudaex.paged_body`` names (split-K for decode and
+   the spec shape, the warpgroup body for the chunk shape), the profiler
+   must see that body's kernels by name, and two calls must agree
+   bitwise; the chunk and masked writes bitwise outside sink
    block 0, every offset of the masked write.  Then CUDA-event and profiler times of kernel, plain
    version and one library call computing the same function, beside the
    bound.  On int8 and fp8 arenas (quantized KV): ``paged_attn_decode``
-   (B=8) and ``paged_attn_verify`` (both shapes; the profiler must see the
-   tensor-core body run on the quantized arena) in float32 within 1e-5 and
+   (B=8) and ``paged_attn_verify`` (both shapes; the same body checks) in
+   float32 within 1e-5 and
    in bf16 by the ratio bar; ``paged_token_write_fused`` (B=8, the plain
    write and every offset 0..4 of the masked one) and
    ``paged_chunk_write_fused`` (32 blocks) with stored bytes and scales
@@ -31,7 +36,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    relative; their times beside the bounds (no single PyTorch call
    computes these functions, so no library time).  The decode and verify
    kernels at head sizes 16 and 80 (off the 64/128/256 grid), bf16 and
-   float32, by the same bars.  ``flash_ce`` at the
+   float32, by the same bars; verify at hs 80 with 256 rows per group
+   (the WMMA body) in bf16 and f16 and on int8 and fp8 arenas, by the
+   same bars and body checks.  ``flash_ce`` at the
    training step's (2048, 128256), float32 and bf16 logits, random
    targets, loss and lse within 1e-5 of their largest magnitude, timed
    beside ``F.cross_entropy(..., reduction="none")`` (the losses only);
@@ -47,18 +54,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    prompts of 128-1024 tokens and 32 new tokens each; the kernels' launch
    counts must equal the decode steps times n_layer and times 2; then one
    decode step's logits through the kernels against the dense path over
-   the same gathered cache;
+   the same gathered cache; then four decode steps profiled by kernel
+   group: the ``paged_attn_decode`` group (the split-K body's two kernels)
+   at most 2.0 ms per step, and the step's device busy time fallen from
+   the 35.6 ms it read on the previous decode kernel by at least 0.9 of
+   the group's saving on that kernel's 27.2 ms (a profile that records no
+   CUDA activity is taken again, up to three times, and then fails);
 5. chunked serve: the same model with ``prefill_chunk=512``, block-aligned
    prefill buckets (16..512), 8 greedy requests with prompts of 1024-3072
    tokens, 32 new tokens each; the chunk kind must resolve "paged", and
    ``paged_attn_verify`` must launch n_layer and ``paged_chunk_write`` 2
-   times per intermediate piece, the decode kernels as in phase 4;
+   times per intermediate piece, the decode kernels as in phase 4; then one
+   steady chunk piece profiled by kernel group (``paged_attn_verify`` /
+   matmul / the rest);
 6. speculative serve: the same target with a layer-skip draft (its own
    embedding, first two blocks, final norm and head), K=4, 8 greedy
    requests; ``paged_attn_verify`` launches n_layer and
    ``paged_token_write_masked`` 2(K+1) times per round, the decode kernels
-   never; then once more with draft = target, which must accept K drafts
-   in some round;
+   never; one verify round profiled by kernel group; then once more with
+   draft = target, which must accept K drafts in some round;
 6b. quantized serves: the chunked serve with ``kv_dtype="int8"`` on a pool
    of the bf16 chunked pool's bytes (1.94x the blocks), then the
    speculative serve with ``kv_dtype="fp8"`` (the draft arena inherits
@@ -112,6 +126,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -295,11 +310,37 @@ def attn_bound(pos, window, dtype):
     return bound(nbytes, ops, dtype)
 
 
+def attn_body(name, x) -> tuple[str, int]:
+    """The body a paged attention call on ``x`` takes (``cudaex.paged_body``)
+    and the splits of its arena walk (1 off the split body)."""
+    q, arena, fresh = x["q"], x["k_arena"], x["fresh_k"]
+    T = q.shape[2] if q.ndim == 4 else 1
+    kind = "decode" if name == "paged_attn_decode" else "verify"
+    body = cudaex.paged_body(kind, q.shape[1] // arena.shape[2] * T, q.shape[-1], arena.shape[3],
+                             q.dtype, arena.dtype, fresh.dtype)
+    splits = (cudaex._split_plan(kind, q.shape, arena.shape, x["tables"].shape[1], T, q.dtype,
+                                 arena.dtype, fresh.dtype)["splits"] if body == "split" else 1)
+    return body, splits
+
+
+# the kernels each body launches, as the profiler names them
+BODY_KERNELS = {("paged_attn_decode", "split"): ("paged_attn_split", "paged_attn_decode_combine"),
+                ("paged_attn_verify", "split"): ("paged_attn_split", "paged_attn_verify_combine"),
+                ("paged_attn_verify", "wg"): ("paged_attn_verify_wg",),
+                ("paged_attn_verify", "mma"): ("paged_attn_verify_mma",),
+                ("paged_attn_verify", "scalar"): ("paged_attn_verify_kernel",)}
+
+
 def check_attn(name, label, kernel, plain, x, **kw) -> float:
-    """``kernel`` against ``plain`` on the inputs ``x``: float32 within
-    ATOL_F32; bf16/f16 against the float32 plain result of the same inputs,
-    the kernel's error within LOWP_ERR_RATIO times the plain version's own.
-    Returns the kernel's max abs difference from the plain version."""
+    """``kernel`` against ``plain`` on the inputs ``x``, the plain version
+    cutting the arena walk as the kernel's body does (``splits``): float32
+    within ATOL_F32; bf16/f16 against the float32 plain result of the same
+    inputs, the kernel's error within LOWP_ERR_RATIO times the plain
+    version's own.  Returns the kernel's max abs difference from the plain
+    version."""
+    body, splits = attn_body(name, x)
+    plain = functools.partial(plain, splits=splits)
+    label = f"{label} [body {body}, splits {splits}]"
     got = kernel(**x, **kw)
     torch.cuda.synchronize()
     want = plain(**x, **kw)
@@ -324,6 +365,34 @@ def check_attn(name, label, kernel, plain, x, **kw) -> float:
     return err
 
 
+def check_body_kernels(name, label, fn, x) -> str:
+    """The profiler must see every kernel of the body the call takes, and
+    two calls must agree bitwise.  Returns the body."""
+    body, _ = attn_body(name, x)
+    want = BODY_KERNELS[name, body]
+    a = fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):         # a short profile now and then records no kernel at all
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        seen = sorted({e.key for e in prof.key_averages() if any(k in e.key for k in want)})
+        if all(any(k in e for e in seen) for k in want):
+            break
+    b = fn()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, b))
+    ok = same and all(any(k in e for e in seen) for k in want)
+    say(f"{name} {label}: body {body!r}, kernels seen {[e[:60] for e in seen]}; two calls "
+        f"bitwise equal: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {label}: the {body} body's kernels {want} did not run, or "
+                             "two calls differ")
+    return body
+
+
 def check_decode(layer=L - 3):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     result = {}
@@ -335,6 +404,8 @@ def check_decode(layer=L - 3):
             if dtype == torch.bfloat16 and window is None:
                 result["max_abs_err"] = err
         if dtype == torch.bfloat16:
+            result["body"] = check_body_kernels(
+                "paged_attn_decode", "B=8", lambda: cudaex.paged_attn_decode(**x, layer=layer), x)
             result.update(time_decode(x, pos, layer))
         del x
     return result
@@ -359,7 +430,14 @@ def time_decode(x, pos, layer):
                  lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
                                                         enable_gqa=True),
                  "SDPA", attn_bound(pos, None, x["q"].dtype), iters=200, plain_iters=10,
-                 plain_warmup=1)
+                 plain_warmup=1, **device_names("paged_attn_decode", x))
+
+
+def device_names(name, x) -> dict:
+    """``timed``'s device kernel names for the body a call on ``x`` takes:
+    every kernel of the body is timed (the split kernel with its combine)."""
+    first, *rest = BODY_KERNELS[name, attn_body(name, x)[0]][::-1]
+    return dict(device_kernel=first, device_also=tuple(rest))
 
 
 def check_write():
@@ -467,15 +545,19 @@ def check_verify(layer=L - 3):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     result = {"shapes": {}}
     for shape, dims in VERIFY_SHAPES.items():
-        # bf16 and f16 run the tensor-core body, float32 the scalar one
+        # the spec shape takes the split body; the chunk shape the
+        # warpgroup body in bf16 and f16, the scalar one in float32
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             x, pos = verify_inputs(dtype, gen, **dims)
-            err = check_attn("paged_attn_verify", f"{shape} B={dims['Bv']} T={dims['T']}",
-                             cudaex.paged_attn_verify, cudaex.paged_attn_verify_plain, x,
-                             layer=layer)
+            label = f"{shape} B={dims['Bv']} T={dims['T']}"
+            err = check_attn("paged_attn_verify", label, cudaex.paged_attn_verify,
+                             cudaex.paged_attn_verify_plain, x, layer=layer)
+            if dtype != torch.float32:
+                body = check_body_kernels("paged_attn_verify", f"{label} {str(dtype)[6:]}",
+                                          lambda: cudaex.paged_attn_verify(**x, layer=layer), x)
             if dtype == torch.bfloat16:
                 rec = time_verify(x, pos, layer, dims["nbb"])
-                rec["max_abs_err"] = err
+                rec.update(max_abs_err=err, body=body)
                 result["shapes"][shape] = rec
             del x
     result.update(result["shapes"]["chunk"])
@@ -505,14 +587,15 @@ def time_verify(x, pos, layer, nbb):
                  lambda: F.scaled_dot_product_attention(x["q"], kd, vd, attn_mask=mask,
                                                         enable_gqa=True),
                  "SDPA", verify_bound(pos, T, nbb, x["q"].dtype), iters=50, plain_iters=5,
-                 plain_warmup=1)
+                 plain_warmup=1, **device_names("paged_attn_verify", x))
 
 
 # the decode and verify kernels at head sizes off the 64/128/256 grid the
-# wrappers once required: tiny-llama-debug's 16 and 80 (bf16 takes the
-# verify kernel's tensor-core body, float32 its scalar one); 32 heads over
-# 8 groups, block 16, ragged positions with a padding row and a block edge
+# wrappers once required: tiny-llama-debug's 16 and 80 (both take the split
+# body: mma.sync products in bf16, FMA in float32); 32 heads over 8 groups,
+# block 16, ragged positions with a padding row and a block edge
 ODD_HEAD_SIZES = (16, 80)
+MMA_T = 64             # verify tokens at hs 80: rep·T = 256 rows take the WMMA body
 
 
 def odd_head_inputs(dtype, gen, hs, T=None):
@@ -542,7 +625,10 @@ def odd_head_inputs(dtype, gen, hs, T=None):
 
 def check_head_sizes() -> None:
     """``paged_attn_decode`` and ``paged_attn_verify`` (T=5) at each of
-    ODD_HEAD_SIZES against their plain versions, phase 3's bars."""
+    ODD_HEAD_SIZES against their plain versions, phase 3's bars; then
+    verify at hs 80 with many rows (T=MMA_T), which takes the WMMA body, in
+    bf16 and f16 and on int8 and fp8 arenas, whose kernel the profiler
+    must see run, twice bitwise equal."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
     for hs in ODD_HEAD_SIZES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -551,6 +637,18 @@ def check_head_sizes() -> None:
             check_attn("paged_attn_verify", f"hs={hs} T=5", cudaex.paged_attn_verify,
                        cudaex.paged_attn_verify_plain, odd_head_inputs(dtype, gen, hs, T=5),
                        layer=1)
+    for dtype, storage in ((torch.bfloat16, None), (torch.float16, None),
+                           (torch.bfloat16, "int8"), (torch.bfloat16, "fp8")):
+        x = odd_head_inputs(dtype, gen, 80, T=MMA_T)
+        if storage is not None:
+            x = quantize_arenas(x, QUANT[storage])
+        label = f"hs=80 T={MMA_T}{f' {storage} arena' if storage else ''}"
+        check_attn("paged_attn_verify", label, cudaex.paged_attn_verify,
+                   cudaex.paged_attn_verify_plain, x, layer=1)
+        body = check_body_kernels("paged_attn_verify", f"{label} {str(dtype)[6:]}",
+                                  lambda: cudaex.paged_attn_verify(**x, layer=1), x)
+        if body != "mma":
+            raise AssertionError(f"paged_attn_verify {label}: took the {body} body, not mma")
 
 
 def check_chunk_write():
@@ -696,7 +794,8 @@ def _cast_inputs(x, dtype):
 
 def check_decode_quant(layer=L - 3):
     """``paged_attn_decode`` on int8 and fp8 arenas at the decode shape:
-    float32 within ATOL_F32 of the plain version, bf16 by the ratio bar;
+    float32 within ATOL_F32 of the plain version, bf16 by the ratio bar,
+    the split body's kernels seen by the profiler, twice bitwise equal;
     then the bf16 times."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
     result = {}
@@ -709,13 +808,16 @@ def check_decode_quant(layer=L - 3):
             err = check_attn("paged_attn_decode", f"{kind} arena", cudaex.paged_attn_decode,
                              cudaex.paged_attn_decode_plain, xd, layer=layer)
             if dtype == torch.bfloat16:
+                def kernel():
+                    return cudaex.paged_attn_decode(**xd, layer=layer)
+
+                body = check_body_kernels("paged_attn_decode", f"{kind} arena", kernel, xd)
                 rec = timed(
-                    "paged_attn_decode", f" {kind} arena",
-                    lambda: cudaex.paged_attn_decode(**xd, layer=layer),
+                    "paged_attn_decode", f" {kind} arena", kernel,
                     lambda: cudaex.paged_attn_decode_plain(**xd, layer=layer),
                     None, None, quant_attn_bound(pos, 1, NBB, dtype), iters=200, plain_iters=10,
-                    plain_warmup=1)
-                rec["max_abs_err"] = err
+                    plain_warmup=1, **device_names("paged_attn_decode", xd))
+                rec.update(max_abs_err=err, body=body)
                 result[kind] = rec
             del xd
         del xq
@@ -724,8 +826,9 @@ def check_decode_quant(layer=L - 3):
 
 def check_verify_quant(layer=L - 3):
     """``paged_attn_verify`` on int8 and fp8 arenas at the spec and chunk
-    shapes, bf16 (the tensor-core body, which the profiler must see run)
-    and float32 (the scalar body); then the bf16 times."""
+    shapes, bf16 (the split and warpgroup bodies, whose kernels the
+    profiler must see run, twice bitwise equal) and float32; then the bf16
+    times."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
     result = {}
     for kind, storage in QUANT.items():
@@ -744,19 +847,15 @@ def check_verify_quant(layer=L - 3):
                     def kernel():
                         return cudaex.paged_attn_verify(**xd, layer=layer)
 
-                    mma = device_ms(kernel, "paged_attn_verify_mma", iters=3)
-                    say(f"paged_attn_verify {kind} arena, {shape}: tensor-core body "
-                        f"paged_attn_verify_mma_kernel device time {mma} ms")
-                    if mma is None:
-                        raise AssertionError(f"paged_attn_verify on the {kind} arena did not "
-                                             "run its tensor-core body")
+                    body = check_body_kernels("paged_attn_verify", f"{kind} arena, {shape}",
+                                              kernel, xd)
                     rec = timed(
                         "paged_attn_verify", f" {kind} arena B={dims['Bv']} T={dims['T']}",
                         kernel, lambda: cudaex.paged_attn_verify_plain(**xd, layer=layer),
                         None, None, quant_attn_bound(pos, dims["T"], dims["nbb"], dtype),
-                        iters=50,
-                        plain_iters=3, plain_warmup=1)
-                    rec["max_abs_err"] = err
+                        iters=50, plain_iters=3, plain_warmup=1,
+                        **device_names("paged_attn_verify", xd))
+                    rec.update(max_abs_err=err, body=body)
                     result[kind][shape] = rec
                 del xd
             del xq
@@ -1091,50 +1190,114 @@ def serve_full_width(params, cfg, n_requests=8, new_tokens=32):
                                    paged_token_write=steps * 2):
         raise AssertionError(f"launch counts {launches} do not match {steps} decode steps")
     compare_logits(eng, params, cfg, prompts, results, tables)
-    profile_decode(eng, prompts)
-    return launches
+    return launches, profile_decode(eng, prompts)
 
 
-def profile_decode(eng, prompts, steps=4):
-    """Device time of a few steady decode steps of the same batch, by
-    kernel, from the profiler's CUDA activity: where the decode step's time
-    goes, and how much of the span between the first and the last kernel
-    the card sits idle."""
-    handles = [eng.submit(p, max_new_tokens=steps + 3) for p in prompts]
-    eng.step()                                             # admit + prefill
-    eng.step()                                             # token 0, first decode dispatch
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-    eng.drain()
-    if not all(h.done() for h in handles):
-        raise AssertionError("profiled requests did not finish")
+# the decode step on the previous decode kernel, one block per (request,
+# group), in every run that profiled it (PERF.md 5): device busy per step
+# and its paged_attn_decode group, ms
+DECODE_STEP_BUSY_BEFORE_MS, DECODE_GROUP_BEFORE_MS = 35.6, 27.2
+DECODE_GROUP_MAX_MS = 2.0        # the paged_attn_decode group per step, at most
+DECODE_FALL_SHARE = 0.9          # the step's busy time falls by this share of its saving
+
+
+def _group(name: str, attn: str) -> str:
+    """Kernel group of a serving profile: the paged attention call ``attn``
+    (its split and combine kernels included), the token writes, cuBLAS, or
+    the rest."""
+    low = name.lower()
+    return (attn if attn in low or "paged_attn_split" in low
+            else "paged_token_write" if "paged_token_write" in low
+            else "matmul" if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet"))
+            else "other")
+
+
+def profile_spans(prof, steps, attn, label) -> dict | None:
+    """Device busy time per step, the idle share of the kernel span and the
+    time by kernel group of a profile of ``steps`` engine steps."""
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     if not spans:
-        say("decode step profile: not measured (the profiler saw no CUDA activity)")
-        return
+        say(f"{label} profile: not measured (the profiler saw no CUDA activity)")
+        return None
     busy = sum(end - start for _, start, end in spans)
     window = max(end for *_, end in spans) - min(start for _, start, _ in spans)
     groups: dict[str, float] = {}
     by_name: dict[str, float] = {}
     for name, start, end in spans:
-        low = name.lower()
-        key = ("paged_attn_decode" if "paged_attn_decode" in low
-               else "paged_token_write" if "paged_token_write" in low
-               else "matmul" if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet"))
-               else "other")
+        key = _group(name, attn)
         groups[key] = groups.get(key, 0.0) + (end - start)
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     per_step = {k: round(v / steps / 1e3, 4) for k, v in sorted(groups.items())}
-    say(f"decode step profile ({steps} steps, 8 rows): device busy {busy / steps / 1e3:.3f} ms "
-        f"per step over a {window / steps / 1e3:.3f} ms kernel span (idle share "
-        f"{1 - busy / window:.3f}); device ms per step by kernel group: {per_step}")
+    say(f"{label} profile ({steps} step(s)): device busy {busy / steps / 1e3:.3f} ms per step "
+        f"over a {window / steps / 1e3:.3f} ms kernel span (idle share {1 - busy / window:.3f}); "
+        f"device ms per step by kernel group: {per_step}")
     for name, total in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         say(f"  {total / steps / 1e3:.4f} ms per step: {name[:110]}")
+    return dict(busy_ms=busy / steps / 1e3, span_ms=window / steps / 1e3,
+                idle_share=1 - busy / window, groups_ms=per_step)
+
+
+def profile_decode(eng, prompts, steps=4, tries=3) -> dict:
+    """Device time of a few steady decode steps of the same batch, by
+    kernel, from the profiler's CUDA activity: where the decode step's time
+    goes, and how much of the span between the first and the last kernel
+    the card sits idle.  The ``paged_attn_decode`` group (the split body's
+    two kernels) must read at most DECODE_GROUP_MAX_MS per step, and the
+    step's busy time must have fallen from the previous decode kernel's by
+    at least DECODE_FALL_SHARE of the group's saving."""
+    handles = [eng.submit(p, max_new_tokens=tries * steps + 3) for p in prompts]
+    eng.step()                                             # admit + prefill
+    eng.step()                                             # token 0, first decode dispatch
+    torch.cuda.synchronize()
+    rec = None
+    for _ in range(tries):     # a profile now and then records no kernel at all
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+        rec = profile_spans(prof, steps, "paged_attn_decode", "decode step (8 rows)")
+        if rec is not None:
+            break
+    eng.drain()
+    if not all(h.done() for h in handles):
+        raise AssertionError("profiled requests did not finish")
+    if rec is None:
+        raise AssertionError(f"decode step: {tries} profiles recorded no CUDA activity, so the "
+                             "decode group's bar was not measured")
+    group = rec["groups_ms"].get("paged_attn_decode", 0.0)
+    saving = DECODE_GROUP_BEFORE_MS - group
+    fall = DECODE_STEP_BUSY_BEFORE_MS - rec["busy_ms"]
+    ok = group <= DECODE_GROUP_MAX_MS and fall >= DECODE_FALL_SHARE * saving
+    say(f"decode step: paged_attn_decode group {group:.4f} ms per step (at most "
+        f"{DECODE_GROUP_MAX_MS}; {DECODE_GROUP_BEFORE_MS} on the previous kernel), busy "
+        f"{rec['busy_ms']:.3f} ms fell {fall:.3f} ms from {DECODE_STEP_BUSY_BEFORE_MS} against "
+        f"the group's saving {saving:.3f} ms (at least {DECODE_FALL_SHARE} of it) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the decode step's paged_attn_decode group or busy time missed "
+                             "its bar")
+    return rec
+
+
+def profile_one_step(eng, counter: str, attn: str, label: str, tries: int = 6) -> dict | None:
+    """Device time by kernel group of the first engine step that advances
+    ``counter`` (``chunk_runs``: a chunk piece; ``spec_rounds``: a verify
+    round) by exactly one, with its idle share."""
+    for _ in range(tries):
+        before = getattr(eng, counter)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+        if getattr(eng, counter) - before == 1:
+            rec = profile_spans(prof, 1, attn, label)
+            if rec is not None:
+                return rec
+    say(f"{label} profile: not measured (no profiled step advanced {counter} by one in {tries})")
+    return None
 
 
 def _cast(tree, dtype):
@@ -1284,7 +1447,7 @@ def tenant_report(name, lora):
 
 
 def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_blocks=2048,
-                  lora=None):
+                  lora=None, profile=False):
     eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=num_blocks,
                 max_batch=8, prefill_chunk=CHUNK, prefill_buckets=CHUNK_BUCKETS,
                 kv_dtype=kv_dtype, lora=lora, device=DEVICE)
@@ -1333,6 +1496,13 @@ def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_b
                arena_bytes=eng.pool.arena_bytes(),
                rel_err=check_gauge("chunked serve", kv_dtype),
                tenants=tenant_report("chunked LoRA serve", lora))
+    if profile:        # one steady chunk piece alone: a 3.2 k-token prompt's second piece
+        prompt = rng.integers(0, cfg.vocab_size, 3 * CHUNK + 100).astype(np.int32)
+        eng.submit(prompt, max_new_tokens=2)
+        eng.step()                                          # admits, dispatches piece 0
+        rec["chunk_piece_profile"] = profile_one_step(
+            eng, "chunk_runs", "paged_attn_verify", f"chunked serve, one chunk piece (T={CHUNK})")
+        eng.drain()
     return rec, eng, prompts, tables, results
 
 
@@ -1359,7 +1529,7 @@ def layer_skip_draft(params, cfg, n_layer=2):
 
 
 def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, self_draft=True,
-               lora=None):
+               lora=None, profile=False):
     dparams, dcfg = layer_skip_draft(params, cfg)
     eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=1024, max_batch=8,
                 speculative=SpecConfig(dparams, dcfg, K=K), kv_dtype=kv_dtype, lora=lora,
@@ -1405,6 +1575,13 @@ def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, sel
                arena_bytes=eng.pool.arena_bytes(),
                rel_err=check_gauge("speculative serve", kv_dtype),
                tenants=tenant_report("speculative LoRA serve", lora))
+    if profile:        # one verify round of the 8 rows (the draft's K steps included)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=8)
+        eng.step()                                          # admits, prefills
+        rec["verify_round_profile"] = profile_one_step(
+            eng, "spec_rounds", "paged_attn_verify", f"speculative serve, one verify round (K={K})")
+        eng.drain()
     if not self_draft:
         return rec, eng, prompts, results, tables
     # draft = target: every draft should be accepted (bf16 argmax flips
@@ -2157,14 +2334,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     params, cfg = make_params()
-    served = {"decode serve": serve_full_width(params, cfg)}
-    crec, eng, prompts, tables, _ = chunked_serve(params, cfg)
+    served = {}
+    served["decode serve"], decode_profile = serve_full_width(params, cfg)
+    crec, eng, prompts, tables, _ = chunked_serve(params, cfg, profile=True)
     served["chunked serve"] = crec["launches"]
     chunk_case = (_compact(eng.pool.arenas, [tables[0]]), prompts[0])
     bf16_pool_bytes = eng.pool.arena_bytes()
     del eng
     torch.cuda.empty_cache()
-    srec, eng, prompts, results, tables = spec_serve(params, cfg)
+    srec, eng, prompts, results, tables = spec_serve(params, cfg, profile=True)
     served["speculative serve"] = srec["launches"]
     spec_case = (_compact(eng.pool.arenas, tables), prompts, results)
     del eng
@@ -2264,6 +2442,9 @@ def main() -> int:
                if k in rec}))
     say("quantized serves: " + json.dumps({"chunked int8": qrec, "speculative fp8": frec}))
     say("LoRA serves: " + json.dumps({"chunked": lrec, "speculative": slrec}))
+    say("serve profiles: " + json.dumps({
+        "decode step": decode_profile, "chunk piece": crec.get("chunk_piece_profile"),
+        "verify round": srec.get("verify_round_profile")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2271,5 +2452,41 @@ def main() -> int:
     return 0
 
 
+def paged_times(label: str) -> int:
+    """Device ms per call of ``paged_attn_decode`` (B=8) and
+    ``paged_attn_verify`` at the spec and chunk shapes, each on bf16, int8
+    and fp8 arenas, from phase 3's inputs: every kernel of the call summed
+    (a body's split and combine kernels together), over 20 profiled calls.
+    Prints one line ``AB LABEL {...}``.  To compare two checkouts of the
+    port on one card, run, in turns (A, B, B, A) in one call,
+
+        PYTHONPATH=<checkout> python3 -P chip_smoke.py --paged-times LABEL
+
+    (``-P`` keeps this script's directory off ``sys.path``, so the package
+    and its kernels come from ``<checkout>``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cases = {"decode": decode_inputs(torch.bfloat16, gen)[0]}
+    cases.update({shape: verify_inputs(torch.bfloat16, gen, **dims)[0]
+                  for shape, dims in VERIFY_SHAPES.items()})
+    times = {}
+    for shape, x in cases.items():
+        name = "paged_attn_decode" if shape == "decode" else "paged_attn_verify"
+        for arena, storage in {"bf16": None, **QUANT}.items():
+            xa = x if storage is None else quantize_arenas(x, storage)
+            times[f"{shape} {arena}"] = device_ms(
+                lambda: getattr(cudaex, name)(**xa, layer=L - 3), name,
+                also=("paged_attn_split",))
+            del xa
+        torch.cuda.empty_cache()
+    print("AB", label, json.dumps(times), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--paged-times"]:
+        sys.exit(paged_times(sys.argv[2] if len(sys.argv) > 2 else "tree"))
     sys.exit(main())

@@ -341,10 +341,12 @@ def test_cuda_paged_token_write_matches_plain(card, dtype):
 @pytest.mark.parametrize("nh,ng,hs,T", [(32, 8, 128, 5), (8, 8, 64, 40), (8, 1, 64, 2),
                                         (4, 2, 256, 33), (32, 8, 128, 130)])
 def test_cuda_paged_attn_verify_matches_plain(card, dtype, nh, ng, hs, T):
-    """float32 (the scalar body) within 1e-5 of the plain version; bf16 and
-    f16 (the tensor-core body) round where the plain version rounds, over
-    other key tiles, so each is held against the float32 result of the same
-    inputs: the kernel's error at most twice the plain version's own."""
+    """float32 within 1e-5 of the plain version; bf16 and f16 round where the
+    plain version rounds, over other key tiles, so each is held against the
+    float32 result of the same inputs: the kernel's error at most twice the
+    plain version's own.  The cases take every body ``cudaex.paged_body``
+    names: split-K at rep·T <= 64, the warpgroup body at T=130, WMMA (bf16,
+    hs 256) and scalar (float32) at 66 rows."""
     case32 = _torch(_verify_case(4, nh, ng, hs, 16, 24, 3, T, [0, 1, 33, 64], num_blocks=64),
                     device=card)
     case = {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in case32.items()}
@@ -389,10 +391,10 @@ def test_cuda_paged_chunk_and_masked_writes_match_plain(card, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hs", [16, 48, 72, 80])
 def test_cuda_paged_kernels_take_any_head_size(card, dtype, hs):
-    """Decode and verify at head sizes off the 64/128/256 grid (hs 72 takes
-    the verify kernel's scalar body in bf16 too): the decode bars above, and
-    the verify kernel within 1e-5 in float32, else at most twice the plain
-    version's own error against the float32 result."""
+    """Decode and verify at head sizes off the 64/128/256 grid (both take
+    the split-K body at these rows: hs 72 on FMA products in bf16 too): the
+    decode bars above, and the verify kernel within 1e-5 in float32, else at
+    most twice the plain version's own error against the float32 result."""
     case = _torch(_case(4, 8, 2, hs, 16, 4, 3, [0, 1, 33, 64]), device=card)
     case = {k: (v.to(dtype) if v.is_floating_point() else v) for k, v in case.items()}
     got = cudaex.paged_attn_decode(**case, layer=2)

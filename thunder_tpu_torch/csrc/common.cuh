@@ -29,6 +29,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
+// x / d rounded to nearest even, as the IEEE division rounds it, given
+// inv = 1/d rounded to nearest (__frcp_rn(d)): Markstein's correction of the
+// product x * inv by its exact residual, two FMAs in place of a division's
+// subroutine (for the finite, normal quotients of attention scores).
+__device__ __forceinline__ float div_rn(float x, float d, float inv) {
+  const float q = __fmul_rn(x, inv);
+  return __fmaf_rn(__fmaf_rn(-q, d, x), inv, q);
+}
+
 // the value x holds after a cast to T (round to nearest even)
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f<T>(from_f<T>(x));
@@ -68,6 +77,31 @@ __device__ __forceinline__ float load_kv(TS x, float scale) {
     return round_to<TC>(__fmul_rn(to_f<TS>(x), scale));
   } else {
     return to_f<TS>(x);
+  }
+}
+
+// Four quantized storage values (the bytes of w, lowest first) dequantized,
+// f32(x) * scale, exactly as load_kv multiplies them, with few conversion
+// instructions (the slow ones): int8 x as 2^23 + (x + 128) - (2^23 + 128),
+// built from its biased byte by a byte permute; e4m3 two bytes to two
+// halves per conversion (exact), then to f32.
+template <typename TS>
+__device__ __forceinline__ void dequant4(uint32_t w, float scale, float (&v)[4]) {
+  if constexpr (std::is_same<TS, int8_t>::value) {
+    const uint32_t biased = w ^ 0x80808080u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = __fmul_rn(__uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650u | k)) - 8388736.f,
+                       scale);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>(w >> (16 * k)), __NV_E4M3);
+      const float2 f = __half22float2(__half2(h));
+      v[2 * k] = __fmul_rn(f.x, scale);
+      v[2 * k + 1] = __fmul_rn(f.y, scale);
+    }
   }
 }
 

@@ -518,6 +518,10 @@ namespace wgb {
 
 using bf16 = __nv_bfloat16;
 namespace wg = tt::wg;
+using wg::mma_rs;
+using wg::mma_ss;
+using wg::quad_max;
+using wg::quad_sum;
 
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int kRows = 64;      // query rows (dk/dv: keys) per warpgroup
@@ -552,35 +556,6 @@ template <int HS> __host__ __device__ constexpr size_t dkv_smem() {
 // 5% slower in the forward on an H100.)
 __device__ __forceinline__ void wg_sync(int w) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(w + 1) : "memory");
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// O (64 x HS) += A . B, B MN-major
-template <int HS>
-__device__ __forceinline__ void mma_rs(float (&d)[HS / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (HS == 128) {
-    wg::wgmma_rs_m64n128(d, a, db, 1);
-  } else {
-    wg::wgmma_rs_m64n64(d, a, db, 1);
-  }
-}
-
-// S (64 x 64) = A . B^T over HS, both K-major: A rows a_row0.. of an
-// a_rows-row tile, B the 64-row tile b.
-template <int HS>
-__device__ __forceinline__ void mma_ss(float (&s)[32], uint32_t a, int a_rows, int a_row0,
-                                       uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < HS / 16; ++kk)
-    wg::wgmma_ss_m64n64(s, wg::desc_k(a, a_rows, a_row0, kk), wg::desc_k(b, kTile, 0, kk), kk > 0);
 }
 
 // Column of accumulator element i of lane l in a tile starting at column c0;

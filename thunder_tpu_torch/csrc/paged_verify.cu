@@ -1,15 +1,18 @@
-// Multi-query paged attention and the chunk arena write for NVIDIA Hopper
-// (sm_90a), plain C ABI.
+// Multi-query paged attention at many query rows and the chunk arena write
+// for NVIDIA Hopper (sm_90a), plain C ABI.
 //
 // Replaces two Pallas TPU kernels of thunder_tpu/executors/pallasex.py that
 // the chunked-prefill and speculative serving paths run (their third, the
 // masked token write, shares paged_attention.cu's token-write kernel):
 //
-//   paged_attn_verify (pallasex.py:1376, body _paged_verify_kernel :1296):
-//     T queries per request against the committed arena (every query sees
-//     the slots < pos), then the chunk's own K/V folded last under the
-//     causal mask col <= t.  T = K+1 in a speculative verify, the chunk
-//     width (e.g. 512) in a chunked prefill.
+//   paged_attn_verify (pallasex.py:1376, pallas_call :1441, body
+//     _paged_verify_kernel :1296): T queries per request against the
+//     committed arena (every query sees the slots < pos), then the chunk's
+//     own K/V folded last under the causal mask col <= t.  T = the chunk
+//     width (e.g. 512) in a chunked prefill.  Calls with few query rows
+//     (rep * T <= 64: the speculative verify, T = K+1, and small chunk
+//     pieces) take paged_attention.cu's split-K body instead
+//     (cudaex.paged_body names the body of every call).
 //   paged_chunk_write (pallasex.py:1535, routing _chunk_dest :1520): chunk
 //     block c lands as one (L, ng, bs, hs) slab at dest[pos / bs + c].
 //   paged_chunk_write_fused (pallasex.py:1616, body :1595, the quantize
@@ -18,20 +21,15 @@
 //     token write), plus the masked error sums sum|dq - x| and sum|x| of
 //     each chunk block behind the serving.kv_quant.rel_err gauge.
 //
-// Both verify bodies also read quantized arenas: each K/V element is
+// Every verify body also reads quantized arenas: each K/V element is
 // dequantized as its tile loads (f32(x) * scale, rounded to the compute
 // dtype, then to the query dtype, as the Pallas kernel rounds), so no
-// dequantized arena ever exists and the tensor-core body runs on int8 and
-// fp8 arenas too.
+// dequantized arena ever exists.
 //
 // What bounds them on an H100:
-//   * verify at the spec shape (B=8, T=5) reads the live K/V once, like
-//     decode: bytes.  At the chunk shape (B=1, T=512, pos up to ~3000) it
-//     does 4*nh*hs*(pos*T + T*T/2) flops per layer, tens of GFLOP against
-//     ~0.1 GB of K/V: operations.  The bf16 body runs WMMA tiles with the
-//     running accumulators in shared memory (one load and store of them per
-//     key tile), far from the 989 TFLOP/s peak still; wgmma with
-//     register-resident accumulators is the next step.
+//   * verify at the chunk shape (B=1, T=512, pos ~2500) does
+//     4*nh*hs*(pos*T + T*T/2) flops per layer, tens of GFLOP against
+//     ~0.1 GB of K/V: operations (23.9 us at 989 TFLOP/s at pos 2560).
 //   * the chunk write moves bytes only (a 1 MiB slab per chunk block at
 //     Llama-3-8B in bf16): bytes-bound.  So does the fused one: it reads
 //     the compute-dtype slab and writes half as many bytes plus 3% of
@@ -41,7 +39,40 @@
 //     the sums repeat bit for bit (the TPU kernel adds them on one core in
 //     grid order; here blocks finish in any order).
 //
-// Design of paged_attn_verify (simple and right first):
+// Three verify bodies; the wrapper names one (cudaex.paged_body):
+//
+// The warpgroup body (bf16/f16 queries with the arena in that type or
+// quantized, hs 64 or 128, 64 % bs == 0): the chunk shape.  Hopper's wgmma
+// with every accumulator in registers (wgmma.cuh), as flash_attention.cu's
+// forward:
+//   * A block is one warpgroup owning 64 query rows of one (request,
+//     group); 82-103 KB of shared memory, so two blocks share an SM and one's
+//     softmax overlaps the other's products.  The grid (ng, B, row tiles)
+//     schedules the heaviest row tiles (the last t of each head) first.
+//   * Key tiles are 64 keys: 64 / bs arena blocks, each a contiguous bs*hs
+//     slab at 64-bit strides inside the whole arena, the table entries read
+//     by the block itself (each thread reads the entries its copies need
+//     before it issues any); then the fresh keys.  They arrive through a
+//     two-stage cp.async ring in the 128-byte swizzle the descriptors read:
+//     the copies of tile it + 1 are issued while tile it's S product runs.
+//     A quantized tile's stored bytes and scales arrive by cp.async a tile
+//     earlier still, into raw slots each thread owns (16 bytes, 16 values,
+//     per copy); the thread dequantizes its own slots into the tile the
+//     products read, so no dequantized arena exists and no extra barrier
+//     guards the slots.
+//   * S = Q.K^T is an SS m64n64k16 wgmma, P.V an RS m64nHSk16 with V read
+//     MN-major; the online softmax stays in registers and P, rounded to the
+//     query type (the reference's rounding), is packed straight into the A
+//     operand.
+//   * Masks: the arena keep-mask slot < pos is the same for every row, so
+//     only the last partial tile does per-element work; the fresh walk keeps
+//     col <= t and stops after the tile holding the largest t of the block's
+//     rows (a 64-row tile may straddle two heads when T % 64 != 0), so the
+//     tiles wholly above the diagonal are never walked.
+//
+// The WMMA body (bf16/f16 at other head sizes that are multiples of 16, bs
+// a multiple of 16) and the scalar body (float32, other shapes), simple and
+// right first:
 //   * The Pallas kernel keeps a (rep*T, hs) f32 accumulator of one (request,
 //     group) in VMEM: 1 MiB at T=512, rep=4, past a Hopper block's 227 KB.
 //     So the rep*T query rows (row r = rep_idx*T + t, the layout of q viewed
@@ -49,30 +80,25 @@
 //     of one (request, group) and keeps their queries, accumulators and
 //     m/l in shared memory.
 //   * The block walks key tiles: first the live arena blocks
-//     [0, ceil(pos/bs)) of the table (keep-mask slot < pos, the same for
-//     every query), then the fresh keys (keep col <= t, t = r % T; the
-//     diagonal is always kept, so no row is ever fully masked).  One
-//     online-softmax step per tile.
-//   * Numerics copied from the Pallas kernel: mask value -0.7*FLT_MAX,
-//     scores / sqrt(hs), arena and fresh K/V cast to the query dtype, p cast
-//     to the query dtype before P.V, f32 m, l and accumulators, the fresh
-//     term folded last.  Arena offsets are 64-bit.
-//   * Two bodies share that walk.  When q and the arena are both bf16 (or
-//     both f16) and bs and hs are multiples of 16, the products run on the
-//     tensor cores (WMMA 16x16x16, f32 accumulation: the Pallas kernel's
-//     dot_general with preferred_element_type=f32).  Each warp owns 16 query
-//     rows, so the block's warps meet only at the two barriers around each
-//     K/V tile load; a key tile spans up to four arena blocks (64 keys), so
-//     the accumulators in shared memory are rescaled once per 64 keys.
-//     Quantized arenas take it too, with the fresh K/V at the query dtype:
-//     the tile load reads 8 storage bytes per thread, dequantizes them
-//     with their slot's scale and stores the bf16/f16 values the products
-//     read.  Otherwise (float32 queries, mixed dtypes, other block sizes) a
-//     scalar-FMA body computes the same function over tiles of bs keys.
+//     [0, ceil(pos/bs)) of the table (keep-mask slot < pos), then the fresh
+//     keys (keep col <= t, t = r % T; the diagonal is always kept, so no row
+//     is ever fully masked).  One online-softmax step per tile.
+//   * The WMMA body runs WMMA 16x16x16 tiles (f32 accumulation: the Pallas
+//     kernel's dot_general with preferred_element_type=f32) with the running
+//     accumulators in shared memory, a key tile of up to four arena blocks
+//     (64 keys); quantized arenas take it too, 8 storage bytes dequantized
+//     per load.  The scalar body computes the same function on FMAs over
+//     tiles of bs keys.
+//
+// Numerics copied from the Pallas kernel: mask value -0.7*FLT_MAX, scores /
+// sqrt(hs), arena and fresh K/V cast to the query dtype, p cast to the query
+// dtype before P.V, f32 m, l and accumulators, the fresh term folded last.
+// Arena offsets are 64-bit.
 
 #include <mma.h>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -504,6 +530,324 @@ __global__ void __launch_bounds__(128) paged_attn_verify_mma_kernel(
   }
 }
 
+//
+// The warpgroup body (bf16/f16 at hs 64 or 128, many query rows): wgmma
+// products with register accumulators, K/V tiles through a cp.async ring.
+//
+
+namespace wgv {
+
+namespace wg = tt::wg;
+
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kRows = 64;      // query rows per block
+constexpr int kTile = 64;      // keys per K/V tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HS> __host__ __device__ constexpr uint32_t tile_bytes() { return kTile * HS * 2; }
+// Q and a two-stage K/V ring, 1024 bytes of alignment slack included; a
+// quantized arena adds its raw slots: 64 keys of HS stored bytes and 64
+// scales per slot of a key chunk, for K and V.
+template <int HS, bool kQuant> __host__ __device__ constexpr size_t smem_bytes() {
+  return 1024 + 5 * tile_bytes<HS>() + (kQuant ? 2 * kTile * HS + 2 * kTile * (HS / 16) * 4 : 0);
+}
+
+__device__ __forceinline__ void st_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr), "r"(0) : "memory");
+}
+__device__ __forceinline__ void st_zero4(uint32_t addr) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// grid (ng, B, ceil(rows / 64)), block 128: one warpgroup owns 64 query rows
+// (r = rep_idx * T + t) of one (request, group) and walks 64-key tiles:
+// first the live arena blocks [0, ceil(pos / bs)) of the table, 64 / bs
+// blocks per tile (keep slot < pos, per element only in the last tile),
+// then the fresh keys up to the largest t of its rows (keep col <= t; the
+// tiles wholly above the diagonal are not walked).  The heaviest tiles (the
+// last t of every head) are scheduled first.  Tile it + 1 is loaded into
+// the other stage while tile it's S product runs: by cp.async, or, from a
+// quantized arena, dequantized from raw slots that cp.async filled a tile
+// earlier (16 values per 16-byte copy).  TS: the arena's storage, T or
+// quantized.
+template <typename T, typename TS, int HS>
+__global__ void __launch_bounds__(kThreads) paged_attn_verify_wg_kernel(
+    const T* __restrict__ q, const TS* __restrict__ k_arena, const TS* __restrict__ v_arena,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const T* __restrict__ fresh_k, const T* __restrict__ fresh_v, const int* __restrict__ tables,
+    const int* __restrict__ pos, T* __restrict__ out, int ng, int rows, int T_, int bs, int nbb,
+    int L, int layer, float sm) {
+  constexpr bool kQuant = quantized<TS>::value;
+  constexpr uint32_t kT = tile_bytes<HS>();
+  constexpr int kChunks = HS / 8;                // 16-byte chunks of a T row
+  constexpr int kPer = kTile * kChunks / kThreads;  // T chunks per thread per tile
+  constexpr int kRaw = HS / 16;                  // 16-byte chunks of a stored row (quantized)
+  constexpr int kRawPer = kTile * kRaw / kThreads;  // stored chunks per thread per tile
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t s0 = wg::smem_u32(smem);
+  const uint32_t sq = (s0 + 1023) & ~1023u;
+  const uint32_t skv = sq + kT;     // stage st: K at skv + 2 st kT, V kT after it
+  const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
+
+  const int grp = blockIdx.x, b = blockIdx.y;
+  int x;                            // this block's row tile, heaviest first
+  if (T_ % kRows == 0) {
+    const int per = T_ / kRows, rep = rows / T_, i = blockIdx.z;
+    x = (i % rep) * per + per - 1 - i / rep;
+  } else {
+    x = gridDim.z - 1 - blockIdx.z;
+  }
+  const int r0 = x * kRows, nr = min(kRows, rows - r0);
+  const int p = pos[b];
+  const int64_t pair = static_cast<int64_t>(b) * ng + grp;
+  // the largest t of the rows: a tile may straddle two heads
+  const int t_max = r0 / T_ == (r0 + nr - 1) / T_ ? (r0 + nr - 1) % T_ : T_ - 1;
+  const int n_fresh = t_max / kTile + 1;
+  const int nbt = kTile / bs;       // arena blocks per key tile
+  const int n_blocks = min((p + bs - 1) / bs, nbb);
+  const int n_arena = (n_blocks + nbt - 1) / nbt;
+  const int p_arena = min(p, nbb * bs);  // the slots the table holds
+  const int n_it = n_arena + n_fresh;
+  const int r_lo = 16 * w + (l >> 2);  // the lane's rows r_lo, r_lo + 8
+  const int t0 = (r0 + r_lo) % T_, t1 = (r0 + r_lo + 8) % T_;
+  const float inv_sm = __frcp_rn(sm);
+
+  const int64_t tsz = static_cast<int64_t>(bs) * HS;
+  const int64_t layer_stride = ng * tsz, block_stride = L * layer_stride;
+  const int64_t head_off = layer * layer_stride + grp * tsz;
+  const int* trow = tables + static_cast<int64_t>(b) * nbb;
+  const T* fk = fresh_k + pair * T_ * HS;
+  const T* fv = fresh_v + pair * T_ * HS;
+  // element offset of key r's slot in arena tile it, or -1 past the live
+  // blocks (its table entry is read before any copy is issued)
+  auto slot_at = [&](int it, int r) -> int64_t {
+    const int j = it * nbt + r / bs;
+    return j < n_blocks ? trow[j] * block_stride + head_off + (r % bs) * HS : -1;
+  };
+
+  // tile it into stage st by cp.async: arena keys (unquantized) or fresh ones
+  auto copy_tile = [&](int it, int st) {
+    const uint32_t sk = skv + st * 2 * kT;
+    int64_t at[kPer];
+    if (it < n_arena) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) at[k] = slot_at(it, (tid + k * kThreads) / kChunks);
+    } else {
+      const int c0 = (it - n_arena) * kTile;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int c = c0 + (tid + k * kThreads) / kChunks;
+        at[k] = c < T_ ? static_cast<int64_t>(c) * HS : -1;  // the last fresh tile may be partial
+      }
+    }
+    const T* kg = it < n_arena ? reinterpret_cast<const T*>(k_arena) : fk;
+    const T* vg = it < n_arena ? reinterpret_cast<const T*>(v_arena) : fv;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = tid + k * kThreads, r = i / kChunks, ch = i % kChunks;
+      const uint32_t dk = sk + wg::swizzled(kTile, r, ch), dv = dk + kT;
+      if (at[k] >= 0) {
+        wg::cp_async16(dk, kg + at[k] + 8 * ch);
+        wg::cp_async16(dv, vg + at[k] + 8 * ch);
+      } else {
+        st_zero16(dk);
+        st_zero16(dv);
+      }
+    }
+  };
+
+  // A quantized arena tile's stored bytes and scales come by cp.async into
+  // raw slots that each thread owns (16 stored bytes and one scale per
+  // slot, K then V), a tile ahead; the same thread dequantizes them
+  // (f32(x) * scale rounded to T) into the stage, so no barrier guards them.
+  const uint32_t sraw = skv + 4 * kT;
+  auto raw_slot = [&](int kv, int k) { return sraw + ((kv * kRawPer + k) * kThreads + tid) * 16; };
+  auto scale_slot = [&](int kv, int k) {
+    return sraw + 2 * kRawPer * kThreads * 16 + ((kv * kRawPer + k) * kThreads + tid) * 4;
+  };
+  auto load_raw = [&](int it) {
+    int64_t at[kRawPer];
+#pragma unroll
+    for (int k = 0; k < kRawPer; ++k) at[k] = slot_at(it, (tid + k * kThreads) / kRaw);
+#pragma unroll
+    for (int k = 0; k < kRawPer; ++k) {
+      const int ch = (tid + k * kThreads) % kRaw;
+      if (at[k] >= 0) {
+        wg::cp_async16(raw_slot(0, k), k_arena + at[k] + 16 * ch);
+        wg::cp_async16(raw_slot(1, k), v_arena + at[k] + 16 * ch);
+        cp_async4(scale_slot(0, k), k_scale + at[k] / HS);
+        cp_async4(scale_slot(1, k), v_scale + at[k] / HS);
+      } else {  // past the live blocks: zero bytes, zero scale
+        st_zero16(raw_slot(0, k));
+        st_zero16(raw_slot(1, k));
+        st_zero4(scale_slot(0, k));
+        st_zero4(scale_slot(1, k));
+      }
+    }
+  };
+  auto store_raw = [&](int st) {
+#pragma unroll
+    for (int k = 0; k < kRawPer; ++k) {
+      const int i = tid + k * kThreads, r = i / kRaw, ch = i % kRaw;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const uint4 bytes = *reinterpret_cast<const uint4*>(smem + (raw_slot(kv, k) - s0));
+        const float scale = *reinterpret_cast<const float*>(smem + (scale_slot(kv, k) - s0));
+        const uint32_t words[4] = {bytes.x, bytes.y, bytes.z, bytes.w};
+        uint32_t packed[8];  // 16 values, two per word, rounded to T
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v[4];
+          tt::dequant4<TS>(words[e], scale, v);
+          packed[2 * e] = wg::pack2<T>(v[0], v[1]);
+          packed[2 * e + 1] = wg::pack2<T>(v[2], v[3]);
+        }
+        const uint4 lo = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        const uint4 hi = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+        const uint32_t tile = skv + st * 2 * kT + kv * kT;
+        *reinterpret_cast<uint4*>(smem + (tile + wg::swizzled(kTile, r, 2 * ch) - s0)) = lo;
+        *reinterpret_cast<uint4*>(smem + (tile + wg::swizzled(kTile, r, 2 * ch + 1) - s0)) = hi;
+      }
+    }
+  };
+  // tile it into stage st, whichever way it arrives
+  auto produce = [&](int it, int st) {
+    if constexpr (kQuant) {
+      if (it < n_arena) {
+        store_raw(st);                           // loaded a tile earlier
+        if (it + 1 < n_arena) load_raw(it + 1);
+        return;
+      }
+    }
+    copy_tile(it, st);
+  };
+
+  // the query rows (rows past the end repeat the last one; never written)
+  const T* qg = q + (pair * rows + r0) * HS;
+  for (int i = tid; i < kRows * kChunks; i += kThreads) {
+    const int r = i / kChunks, ch = i - r * kChunks;
+    wg::cp_async16(sq + wg::swizzled(kRows, r, ch),
+                   qg + static_cast<int64_t>(min(r, nr - 1)) * HS + 8 * ch);
+  }
+  if constexpr (kQuant) {
+    if (n_arena > 0) {  // the first tile's raw slots, before its dequantization
+      load_raw(0);
+      wg::cp_async_commit();
+      wg::cp_async_wait<0>();
+    }
+  }
+  produce(0, 0);
+  wg::cp_async_commit();
+
+  float o[HS / 2], s[32];
+#pragma unroll
+  for (int i = 0; i < HS / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  float m0 = kMaskValue, m1 = kMaskValue, l0 = 0.f, l1 = 0.f;  // rows r_lo, r_lo + 8
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    const uint32_t sk = skv + st * 2 * kT, sv = sk + kT;
+    wg::cp_async_wait<0>();
+    wg::fence_async_smem();
+    __syncthreads();
+    wg::fence();
+    wg::mma_ss<HS, T>(s, sq, kRows, 0, sk);
+    wg::commit();
+    if (it + 1 < n_it) produce(it + 1, st ^ 1);  // while the product runs
+    wg::cp_async_commit();
+    wg::wait<0>();
+    wg::pin(s);
+    const bool arena = it < n_arena;
+    const int c0 = arena ? it * kTile : (it - n_arena) * kTile;
+    const bool edge = !arena || c0 + kTile > p_arena;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = tt::div_rn(s[i], sm, inv_sm);  // s / sqrt(hs), correctly rounded
+      if (edge) {
+        const int col = c0 + 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
+        const bool keep = arena ? col < p_arena : col < T_ && col <= ((i & 2) ? t1 : t0);
+        if (!keep) x = kMaskValue;
+      }
+      s[i] = x;
+      if (i & 2) {
+        mx1 = fmaxf(mx1, x);
+      } else {
+        mx0 = fmaxf(mx0, x);
+      }
+    }
+    mx0 = wg::quad_max(mx0);
+    mx1 = wg::quad_max(mx1);
+    const float c_0 = exp2f((m0 - mx0) * kLog2e), c_1 = exp2f((m1 - mx1) * kLog2e);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float pv = exp2f((s[i] - ((i & 2) ? mx1 : mx0)) * kLog2e);
+      s[i] = pv;
+      if (i & 2) {
+        sum1 += pv;
+      } else {
+        sum0 += pv;
+      }
+    }
+    l0 = l0 * c_0 + sum0;  // this lane's share of the row sum
+    l1 = l1 * c_1 + sum1;
+#pragma unroll
+    for (int i = 0; i < HS / 2; ++i) o[i] *= (i & 2) ? c_1 : c_0;
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::pack_a<T>(s, kk, a[kk]);  // p in the query type
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::mma_rs<HS, T>(o, a[kk], wg::desc_mn(sv, kTile, kk));
+    wg::commit();
+    wg::wait<0>();
+    wg::pin(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg::pin(a[kk]);
+    __syncthreads();  // this stage is free for the load two tiles on
+  }
+  wg::cp_async_wait<0>();
+  l0 = wg::quad_sum(l0);
+  l1 = wg::quad_sum(l1);
+  T* o0 = out + (pair * rows + r0 + r_lo) * HS;
+  T* o1 = o0 + 8 * HS;
+#pragma unroll
+  for (int jj = 0; jj < HS / 8; ++jj) {
+    const int c = 8 * jj + 2 * (l & 3);
+    if (r_lo < nr)
+      *reinterpret_cast<uint32_t*>(o0 + c) = wg::pack2<T>(o[4 * jj] / l0, o[4 * jj + 1] / l0);
+    if (r_lo + 8 < nr)
+      *reinterpret_cast<uint32_t*>(o1 + c) =
+          wg::pack2<T>(o[4 * jj + 2] / l1, o[4 * jj + 3] / l1);
+  }
+}
+
+}  // namespace wgv
+
+template <typename T, typename TS, int HS>
+cudaError_t launch_verify_wg(const void* q, const void* ka, const void* va, const float* ks,
+                             const float* vs, const void* fk, const void* fv, const int* tables,
+                             const int* pos, void* out, int B, int ng, int rows, int T_, int bs,
+                             int nbb, int L, int layer, float sm, cudaStream_t stream) {
+  constexpr size_t smem = wgv::smem_bytes<HS, quantized<TS>::value>();
+  auto kern = wgv::paged_attn_verify_wg_kernel<T, TS, HS>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(ng, B, (rows + wgv::kRows - 1) / wgv::kRows), wgv::kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const TS*>(ka), static_cast<const TS*>(va), ks, vs,
+      static_cast<const T*>(fk), static_cast<const T*>(fv), tables, pos, static_cast<T*>(out),
+      ng, rows, T_, bs, nbb, L, layer, sm);
+  return cudaGetLastError();
+}
+
 // bytes of dynamic shared memory one tensor-core verify block uses
 size_t verify_mma_smem_bytes(int R, int hs, int KT, size_t esize) {
   const size_t r = R, ldt = hs + 8, lda = hs + 4, lds = KT + 4, ldp = KT + 8;
@@ -598,33 +942,46 @@ bool verify_mma_ok(int q_dtype, int kv_dtype, int c_dtype, int hs, int bs) {
 // 1 = float16, 2 = bfloat16; kv_dtype (the arena) those or 3 = int8,
 // 4 = float8_e4m3fn, whose k_scale/v_scale (num_blocks, L, ng, bs) float32
 // must then be given (null otherwise).  An unquantized arena has the fresh
-// K/V's dtype.  rows = rep * T.  R: query rows per block of the scalar body
-// (the wrapper picks it so the shared memory fits); the tensor-core body
-// picks its own (16, 32 or 64).  Returns the cudaError_t of the launch
-// (0 = success).
+// K/V's dtype.  rows = rep * T.  body (cudaex.paged_body): 0 the scalar
+// body, R query rows per block (the wrapper picks R so the shared memory
+// fits); 1 the WMMA body (16, 32 or 64 rows per block, its own pick); 2 the
+// warpgroup body (64 rows per warpgroup).  A body that does not take the
+// types or shapes returns cudaErrorInvalidValue; none gives way to another.
+// Returns the cudaError_t of the launch (0 = success).
 extern "C" int tt_paged_attn_verify(const void* q, const void* k_arena, const void* v_arena,
                                     const float* k_scale, const float* v_scale,
                                     const void* fresh_k, const void* fresh_v,
                                     const int* tables, const int* pos, void* out, int B,
                                     int ng, int rows, int T, int hs, int bs, int nbb, int L,
                                     int layer, int R, float sm, int q_dtype, int kv_dtype,
-                                    int c_dtype, void* stream) {
+                                    int c_dtype, int body, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (verify_mma_ok(q_dtype, kv_dtype, c_dtype, hs, bs)) {
+  if (body == 1 || body == 2) {
+    if (!verify_mma_ok(q_dtype, kv_dtype, c_dtype, hs, bs)) return cudaErrorInvalidValue;
+    if (body == 2 && !((hs == 64 || hs == 128) && 64 % bs == 0)) return cudaErrorInvalidValue;
     return tt::by_float(q_dtype, [&](auto tq) {
       return tt::by_storage(kv_dtype, [&](auto ts) -> cudaError_t {
         using TQ = decltype(tq);
         using TS = decltype(ts);
         if constexpr (std::is_same<TQ, float>::value || !tt::kv_pair_ok<TS, TQ>()) {
           return cudaErrorInvalidValue;
-        } else {
+        } else if (body == 1) {
           return launch_verify_mma<TQ, TS>(q, k_arena, v_arena, k_scale, v_scale, fresh_k,
                                            fresh_v, tables, pos, out, B, ng, rows, T, hs, bs,
                                            nbb, L, layer, sm, s);
+        } else if (hs == 128) {
+          return launch_verify_wg<TQ, TS, 128>(q, k_arena, v_arena, k_scale, v_scale, fresh_k,
+                                               fresh_v, tables, pos, out, B, ng, rows, T, bs,
+                                               nbb, L, layer, sm, s);
+        } else {
+          return launch_verify_wg<TQ, TS, 64>(q, k_arena, v_arena, k_scale, v_scale, fresh_k,
+                                              fresh_v, tables, pos, out, B, ng, rows, T, bs,
+                                              nbb, L, layer, sm, s);
         }
       });
     });
   }
+  if (body != 0) return cudaErrorInvalidValue;
   return tt::by_float(q_dtype, [&](auto tq) {
     return tt::by_float(c_dtype, [&](auto tc) {
       return tt::by_storage(kv_dtype, [&](auto ts) -> cudaError_t {

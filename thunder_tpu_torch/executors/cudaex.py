@@ -29,7 +29,11 @@ of the serving paths:
 ``paged_attn_decode`` and ``paged_attn_verify`` read quantized arenas too
 (``k_scale``/``v_scale``): each tile is dequantized as it is loaded,
 ``f32(x) * scale`` rounded to the compute dtype and then to the query
-dtype, as the Pallas kernels round (``pallasex.py:1094-1098``);
+dtype, as the Pallas kernels round (``pallasex.py:1094-1098``).
+:func:`paged_body` names the kernel body each call takes on the card:
+split-K (``"split"``: every decode, and verify at rep·T <= 64, with
+:func:`paged_splits` splits from shapes alone), the Hopper warpgroup body
+(``"wg"``), the WMMA body (``"mma"``) or the scalar one (``"scalar"``);
 
 and for the kernels of a training step:
 
@@ -64,6 +68,7 @@ kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -91,11 +96,13 @@ __all__ = [
     "paged_attn_verify",
     "paged_attn_verify_plain",
     "paged_available",
+    "paged_body",
     "paged_chunk_write",
     "paged_chunk_write_fused",
     "paged_chunk_write_fused_plain",
     "paged_chunk_write_plain",
     "paged_kernels_decline",
+    "paged_splits",
     "paged_token_write",
     "paged_token_write_fused",
     "paged_token_write_fused_plain",
@@ -132,23 +139,29 @@ def paged_available() -> bool:
     return torch.cuda.is_available() and _build.nvcc_path() is not None
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg) -> None:
+    """Raises ValueError(msg) unless ``cond``; ``msg`` may be a callable that
+    makes the message, so a passing check formats nothing."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)
 
 
 def _check_common(name: str, tensors: dict, tables, pos, B: int) -> torch.device:
-    dev = tables.device
+    dev, index = tables.device, tables.get_device()   # index: -1 off CUDA
     for arg, t in tensors.items():
-        _require(isinstance(t, torch.Tensor), f"{name}: {arg} must be a tensor")
-        _require(t.device == dev, f"{name}: {arg} is on {t.device}, tables on {dev}")
-        _require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
+        if (isinstance(t, torch.Tensor) and index >= 0 and t.get_device() == index
+                and t.is_contiguous()):
+            continue                     # the fast path of a card's tensors
+        _require(isinstance(t, torch.Tensor), lambda: f"{name}: {arg} must be a tensor")
+        _require(t.device == dev, lambda: f"{name}: {arg} is on {t.device}, tables on {dev}")
+        _require(t.is_contiguous(), lambda: f"{name}: {arg} must be contiguous")
     _require(tables.dtype == torch.int32 and tables.ndim == 2 and tables.shape[0] == B,
-             f"{name}: tables must be int32 (B={B}, nbb), got {tables.dtype} {tuple(tables.shape)}")
+             lambda: f"{name}: tables must be int32 (B={B}, nbb), got {tables.dtype} "
+                     f"{tuple(tables.shape)}")
     _require(pos.dtype == torch.int32 and tuple(pos.shape) == (B,),
-             f"{name}: pos must be int32 ({B},), got {pos.dtype} {tuple(pos.shape)}")
-    _require(tables.shape[1] >= 1, f"{name}: tables need at least one column")
-    _require(dev.type in ("cpu", "cuda"), f"{name}: unsupported device {dev}")
+             lambda: f"{name}: pos must be int32 ({B},), got {pos.dtype} {tuple(pos.shape)}")
+    _require(tables.shape[1] >= 1, lambda: f"{name}: tables need at least one column")
+    _require(dev.type in ("cpu", "cuda"), lambda: f"{name}: unsupported device {dev}")
     return dev
 
 
@@ -206,42 +219,126 @@ def _check_kv(name: str, k_arena, v_arena, fresh_k, fresh_v, k_scale, v_scale) -
     and the fresh K/V are at the compute dtype."""
     if k_scale is None and v_scale is None:
         _require(k_arena.dtype in _DTYPE_CODE,
-                 f"{name}: arena dtype must be float32/float16/bfloat16 (or int8/fp8 with "
+                 lambda: f"{name}: arena dtype must be float32/float16/bfloat16 (or int8/fp8 with "
                  f"k_scale/v_scale), got {k_arena.dtype}")
         _require(v_arena.dtype == k_arena.dtype == fresh_k.dtype == fresh_v.dtype,
-                 f"{name}: arenas and fresh K/V must share one dtype")
+                 lambda: f"{name}: arenas and fresh K/V must share one dtype")
         return False
     _require(k_scale is not None and v_scale is not None,
-             f"{name}: k_scale and v_scale go together: pass both or neither")
+             lambda: f"{name}: k_scale and v_scale go together: pass both or neither")
     _require(k_arena.dtype in _QUANT_CODE and v_arena.dtype == k_arena.dtype,
-             f"{name}: scaled arenas must both be int8 or float8_e4m3fn, got "
+             lambda: f"{name}: scaled arenas must both be int8 or float8_e4m3fn, got "
              f"{k_arena.dtype} {v_arena.dtype}")
     want = tuple(k_arena.shape[:-1])
     for arg, t in (("k_scale", k_scale), ("v_scale", v_scale)):
         _require(t.dtype == torch.float32 and tuple(t.shape) == want,
-                 f"{name}: {arg} must be float32 {want}, got {t.dtype} {tuple(t.shape)}")
+                 lambda: f"{name}: {arg} must be float32 {want}, got {t.dtype} {tuple(t.shape)}")
     _require(fresh_k.dtype in _DTYPE_CODE and fresh_v.dtype == fresh_k.dtype,
-             f"{name}: fresh K/V must share one compute dtype (float32/float16/bfloat16), "
+             lambda: f"{name}: fresh K/V must share one compute dtype (float32/float16/bfloat16), "
              f"got {fresh_k.dtype} {fresh_v.dtype}")
     return True
 
 
-def _decode_smem(rep: int, bs: int, hs: int) -> int:
-    """Bytes of shared memory of one decode block (``launch_decode`` in
-    ``csrc/paged_attention.cu``): the group's queries and accumulators, one
-    K and one V tile, the scores and the softmax state, all f32.  The kernel
-    walks any head size at run time."""
-    return 4 * (2 * rep * hs + 2 * bs * hs + rep * bs + 3 * rep)
+# The split-K body (csrc/paged_attention.cu) serves every decode call and the
+# verify calls of at most _SPLIT_MAX_ROWS query rows; its block count aims
+# at _SPLIT_TARGET_BLOCKS (two waves of two blocks per SM on the H100's 132).
+_SPLIT_MAX_ROWS = 64
+_SPLIT_ROW_TILE = 64          # query rows per block of the mma.sync products
+_SPLIT_MMA_BS = 16            # the block size the mma.sync products take
+_SPLIT_TARGET_BLOCKS = 4 * 132
+_SPLIT_MAX = 64               # kMaxSplits
+_LOWP = (torch.float16, torch.bfloat16)
+PAGED_BODIES = ("wg", "split", "mma", "scalar")
+_PAGED_BODY_CODE = {"scalar": 0, "mma": 1, "wg": 2}
+_SPLIT_PRODUCTS_CODE = {"fma": 0, "mma": 1}
+
+
+def _lowp_types(q_dtype, kv_dtype, c_dtype) -> bool:
+    """bf16 or f16 queries and fresh K/V, the arena in that type or
+    quantized: the types the tensor-core bodies take."""
+    return (q_dtype in _LOWP and c_dtype == q_dtype
+            and (kv_dtype == q_dtype or kv_dtype in _QUANT_CODE))
+
+
+def _verify_mma_smem(R: int, hs: int, bs: int) -> int:
+    """Bytes of shared memory of one WMMA verify block (``verify_mma_smem_bytes``
+    in ``csrc/paged_verify.cu``): R query rows, key tiles of up to 64 keys."""
+    KT = bs * (1 if bs >= 64 else 64 // bs)
+    return (2 * ((R + 2 * KT) * (hs + 8) + R * (KT + 8)) + 4 * R * (hs + 4)
+            + 4 * R * (KT + 4) + 12 * R)
+
+
+def _split_fma_smem(RT: int, hs: int, bs: int) -> int:
+    """Bytes of shared memory of one split block on FMA products
+    (``fma_split_floats``): RT query rows and their accumulators, one K and
+    V block, the scores and the softmax state, all f32."""
+    return 4 * (RT * (hs + 1) + RT * hs + bs * (hs + 1) + bs * hs + RT * bs + 3 * RT)
+
+
+def _split_products(hs: int, bs: int, q_dtype, kv_dtype, c_dtype) -> str:
+    """The split body's products: ``"mma"`` (mma.sync tensor-core tiles) for
+    the low-precision types at bs 16 and hs a multiple of 16 up to 128, else
+    ``"fma"``."""
+    mma = (_lowp_types(q_dtype, kv_dtype, c_dtype) and bs == _SPLIT_MMA_BS and hs % 16 == 0
+           and hs <= 128)
+    return "mma" if mma else "fma"
+
+
+def _split_row_tile(rows: int, hs: int, bs: int, products: str) -> int | None:
+    """Query rows per split block: 64 on the mma.sync products; on the FMA
+    products min(rows, 64), halved until the block's shared memory fits;
+    None when even one row does not."""
+    if products == "mma":
+        return _SPLIT_ROW_TILE
+    RT = min(rows, _SPLIT_ROW_TILE)
+    while RT >= 1:
+        if _split_fma_smem(RT, hs, bs) <= _MAX_SMEM_BYTES:
+            return RT
+        RT //= 2
+    return None
+
+
+def paged_splits(B: int, ng: int, row_tiles: int, nbb: int) -> int:
+    """Splits of the arena walk of every (request, group, row tile) of a
+    split-body call, from shapes alone: enough for about
+    ``_SPLIT_TARGET_BLOCKS`` blocks, at most half the table's width (two
+    blocks a split when the table is full) and ``_SPLIT_MAX``.  Never from
+    ``pos`` or the tables' values: no launch reads a device value on the
+    host."""
+    blocks = max(1, B * ng * row_tiles)
+    return max(1, min(-(-_SPLIT_TARGET_BLOCKS // blocks), -(-nbb // 2), _SPLIT_MAX))
+
+
+def paged_body(kind: str, rows: int, hs: int, bs: int, q_dtype, kv_dtype, c_dtype=None) -> str:
+    """The kernel body a ``paged_attn_decode`` (``kind="decode"``) or
+    ``paged_attn_verify`` (``"verify"``) call with ``rows`` = rep·T query
+    rows per (request, group) takes on the card: ``"split"`` (split-K,
+    ``csrc/paged_attention.cu``) for every decode and every verify of at
+    most 64 rows; else ``"wg"`` (Hopper warpgroup, ``csrc/paged_verify.cu``)
+    for bf16/f16 at hs 64 or 128 with ``64 % bs == 0``, ``"mma"`` (WMMA) for
+    bf16/f16 at other multiples of 16, ``"scalar"`` otherwise (float32).
+    ``c_dtype``: the fresh K/V's dtype (default: ``q_dtype`` beside a
+    quantized arena, else the arena's)."""
+    if c_dtype is None:
+        c_dtype = q_dtype if kv_dtype in _QUANT_CODE else kv_dtype
+    if kind == "decode" or rows <= _SPLIT_MAX_ROWS:
+        return "split"
+    lowp = _lowp_types(q_dtype, kv_dtype, c_dtype) and hs % 16 == 0 and bs % 16 == 0
+    if lowp and hs in (64, 128) and 64 % bs == 0:
+        return "wg"
+    if lowp and _verify_mma_smem(64, hs, bs) <= _MAX_SMEM_BYTES:
+        return "mma"
+    return "scalar"
 
 
 def paged_kernels_decline(rep: int, bs: int, hs: int) -> str:
     """Why the paged attention kernels cannot serve ``rep`` query heads per
     KV group at block size ``bs`` and head size ``hs`` on the card, or ""
-    when they can.  The decode kernel must fit one block's shared memory;
-    so must the verify kernel's scalar body at its smallest tile (16 query
-    rows), which takes every shape its tensor-core body refuses (``hs`` or
-    ``bs`` not a multiple of 16, float32)."""
-    smem = _decode_smem(rep, bs, hs)
+    when they can.  The split body on FMA products (which takes every type)
+    must fit one block's shared memory at a single query row; so must the
+    verify kernel's scalar body at its smallest tile (16 query rows), which
+    takes every many-row shape the tensor-core bodies refuse."""
+    smem = _split_fma_smem(1, hs, bs)
     if smem > _MAX_SMEM_BYTES:
         return (f"paged_attn_decode needs {smem} B of shared memory for rep={rep}, bs={bs}, "
                 f"hs={hs} (limit {_MAX_SMEM_BYTES})")
@@ -251,34 +348,42 @@ def paged_kernels_decline(rep: int, bs: int, hs: int) -> str:
     return ""
 
 
-def paged_attn_decode_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *,
-                            layer: int, k_scale=None, v_scale=None,
-                            window: int | None = None):
-    """Plain PyTorch version of :func:`paged_attn_decode`: the same walk
-    over each request's live blocks in table order, one online-softmax step
-    per block, the fresh token folded last, with the kernel's numerics."""
-    B, nh, hs = q.shape
-    ng, bs = k_arena.shape[2], k_arena.shape[3]
-    rep, nbb, dt, cdtype = nh // ng, tables.shape[1], q.dtype, fresh_k.dtype
+def _split_range(pos, bs: int, nbb: int, window, s: int, splits: int):
+    """Split ``s``'s share ``[jb, je)`` of each request's live arena blocks
+    (``split_range`` in ``csrc/paged_attention.cu``): slots ``[0, pos)``
+    clipped to the window, the table bounding the walk, cut into ``splits``
+    contiguous shares of ``ceil(n / splits)`` blocks."""
+    p = pos.long()
+    hi = torch.clamp((p + bs - 1) // bs, max=nbb)
+    lo = (torch.clamp(p - (window - 1), min=0) // bs if window is not None
+          else torch.zeros_like(p))
+    n = torch.clamp(hi - lo, min=0)
+    per = (n + splits - 1) // splits
+    jb = torch.minimum(lo + s * per, lo + n)
+    return jb, torch.minimum(jb + per, lo + n)
+
+
+def _arena_walk(qf, k_arena, v_arena, k_scale, v_scale, tables, pos, jb, je, *, layer: int,
+                dt, cdtype, window):
+    """Online softmax over each request's arena blocks ``[jb, je)`` in table
+    order, one step per block: the (m, l, acc) of the (B, ng, rows, hs)
+    float32 queries ``qf``, with the kernels' numerics."""
+    B, ng, rows, hs = qf.shape
+    bs, nbb = k_arena.shape[3], tables.shape[1]
     sm = float(np.sqrt(hs))
-    f32 = torch.float32
-    qf = q.reshape(B, ng, rep, hs).float()
-    m = torch.full((B, ng, rep, 1), MASK_VALUE, dtype=f32, device=q.device)
-    l = torch.zeros((B, ng, rep, 1), dtype=f32, device=q.device)
-    acc = torch.zeros((B, ng, rep, hs), dtype=f32, device=q.device)
+    m = torch.full((B, ng, rows, 1), MASK_VALUE, dtype=torch.float32, device=qf.device)
+    l = torch.zeros((B, ng, rows, 1), dtype=torch.float32, device=qf.device)
+    acc = torch.zeros((B, ng, rows, hs), dtype=torch.float32, device=qf.device)
     p_i = pos.long()
-    hi = (p_i + bs - 1) // bs
-    lo = (torch.clamp(p_i - (window - 1), min=0) // bs if window is not None
-          else torch.zeros_like(p_i))
-    t = torch.arange(bs, device=q.device)
+    t = torch.arange(bs, device=qf.device)
     for j in range(nbb):
-        run = (j >= lo) & (j < hi)
+        run = (j >= jb) & (j < je)
         if not bool(run.any()):
             continue
         blk = tables[:, j].long()
         k = _kv_tile(k_arena, k_scale, blk, layer, cdtype, dt)     # (B, ng, bs, hs)
         v = _kv_tile(v_arena, v_scale, blk, layer, cdtype, dt)
-        s = torch.matmul(qf, k.transpose(-1, -2)) / sm         # (B, ng, rep, bs)
+        s = torch.matmul(qf, k.transpose(-1, -2)) / sm         # (B, ng, rows, bs)
         slot = j * bs + t
         keep = slot[None, :] < p_i[:, None]
         if window is not None:
@@ -287,11 +392,96 @@ def paged_attn_decode_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, 
         m_new, l_new, acc_new = _online(m, l, acc, s, v, dt)
         r = run[:, None, None, None]
         m, l, acc = torch.where(r, m_new, m), torch.where(r, l_new, l), torch.where(r, acc_new, acc)
+    return m, l, acc
+
+
+def _split_walk(qf, k_arena, v_arena, k_scale, v_scale, tables, pos, *, layer: int, dt, cdtype,
+                window, splits: int):
+    """The arena walk cut as the split body cuts it: each split's share
+    walked alone, then the partials folded in split order (the combine
+    kernel's fold).  ``splits=1`` is the one walk over every live block."""
+    bs, nbb = k_arena.shape[3], tables.shape[1]
+    kw = dict(layer=layer, dt=dt, cdtype=cdtype, window=window)
+    if splits == 1:
+        return _arena_walk(qf, k_arena, v_arena, k_scale, v_scale, tables, pos,
+                           *_split_range(pos, bs, nbb, window, 0, 1), **kw)
+    m = torch.full(qf.shape[:-1] + (1,), MASK_VALUE, dtype=torch.float32, device=qf.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qf.shape, dtype=torch.float32, device=qf.device)
+    for s in range(splits):
+        ms, ls, accs = _arena_walk(qf, k_arena, v_arena, k_scale, v_scale, tables, pos,
+                                   *_split_range(pos, bs, nbb, window, s, splits), **kw)
+        mn = torch.maximum(m, ms)
+        co, cs = torch.exp(m - mn), torch.exp(ms - mn)
+        m, l, acc = mn, l * co + ls * cs, acc * co + accs * cs
+    return m, l, acc
+
+
+def paged_attn_decode_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *,
+                            layer: int, k_scale=None, v_scale=None,
+                            window: int | None = None, splits: int = 1):
+    """Plain PyTorch version of :func:`paged_attn_decode`: the same walk
+    over each request's live blocks in table order, one online-softmax step
+    per block, the fresh token folded last, with the kernel's numerics.
+    ``splits`` cuts the walk as the split-K body does (``splits`` shares
+    folded in order); 1 walks every block in one pass."""
+    B, nh, hs = q.shape
+    ng = k_arena.shape[2]
+    rep, dt, cdtype = nh // ng, q.dtype, fresh_k.dtype
+    sm = float(np.sqrt(hs))
+    qf = q.reshape(B, ng, rep, hs).float()
+    m, l, acc = _split_walk(qf, k_arena, v_arena, k_scale, v_scale, tables, pos, layer=layer,
+                            dt=dt, cdtype=cdtype, window=window, splits=splits)
     fk = fresh_k.to(dt).float()                                 # (B, ng, hs)
     fv = fresh_v.to(dt).float()
     s_f = torch.matmul(qf, fk[..., None]) / sm                  # (B, ng, rep, 1)
     m, l, acc = _online(m, l, acc, s_f, fv[:, :, None, :], dt)
     return (acc / l).to(dt).reshape(B, nh, hs)
+
+
+@functools.lru_cache(maxsize=256)
+def _split_plan(kind: str, q_shape, arena_shape, nbb: int, T: int, q_dtype, kv_dtype,
+                c_dtype) -> dict:
+    """The launch plan of one split-body call, from shapes and dtypes alone
+    (no tensor value is read): the products, query rows per block
+    (``row_tile``), the split count, the scalar arguments of
+    ``tt_paged_attn_split`` before (``head``) and after (``tail``) ``layer``
+    and ``window``, and the float count of the f32 partials."""
+    B, nh, hs = q_shape[0], q_shape[1], q_shape[-1]
+    _, L, ng, bs, _ = arena_shape
+    rows = nh // ng * T
+    products = _split_products(hs, bs, q_dtype, kv_dtype, c_dtype)
+    RT = _split_row_tile(rows, hs, bs, products)
+    _require(RT is not None, f"paged attention: bs={bs}, hs={hs} needs "
+             f"{_split_fma_smem(1, hs, bs)} B of shared memory (limit {_MAX_SMEM_BYTES})")
+    splits = paged_splits(B, ng, -(-rows // RT), nbb)
+    tail = (splits, RT, float(np.sqrt(hs)), _DTYPE_CODE[q_dtype], _STORAGE_CODE[kv_dtype],
+            _DTYPE_CODE[c_dtype], _SPLIT_PRODUCTS_CODE[products], 0 if kind == "decode" else 1)
+    return dict(products=products, row_tile=RT, splits=splits,
+                head=(B, ng, rows, T, hs, bs, nbb, L), tail=tail,
+                n_partial=B * ng * splits * rows * (hs + 2))
+
+
+def _launch_split(kind: str, dev, q, k_arena, v_arena, k_scale, v_scale, fresh_k, fresh_v,
+                  tables, pos, *, T: int, layer: int, window):
+    """Launches the split body (the split kernel and its combine kernel) on
+    an f32 partials' scratch; returns the output."""
+    plan = _split_plan(kind, q.shape, k_arena.shape, tables.shape[1], T, q.dtype,
+                       k_arena.dtype, fresh_k.dtype)
+    out = torch.empty_like(q)
+    partial = torch.empty(plan["n_partial"], dtype=torch.float32, device=q.device)
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if k_scale is not None else (None, None)
+    lib = _build.load_library()
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)   # current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.tt_paged_attn_split(
+            q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *scales, fresh_k.data_ptr(),
+            fresh_v.data_ptr(), tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), *plan["head"], layer, 0 if window is None else int(window),
+            *plan["tail"], stream)
+    _raise_on(lib, rc, f"paged_attn_{kind}")
+    del partial            # the stream orders its reuse after the kernels
+    return out
 
 
 def paged_attn_decode(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, layer: int,
@@ -307,46 +497,37 @@ def paged_attn_decode(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, lay
     dtype (the arena dtype when unquantized; not yet in the arena — a
     token write lands them after); ``tables``: (B, nbb) int32 sink-padded
     block tables; ``pos``: (B,) int32 positions; ``window``:
-    ``cfg.sliding_window``.  Returns (B, nh, hs) at ``q.dtype``."""
+    ``cfg.sliding_window``.  Returns (B, nh, hs) at ``q.dtype``.
+
+    On the card every call takes the split-K body (:func:`paged_body`):
+    the split kernel, then its combine kernel, one counted launch."""
     name = "paged_attn_decode"
-    _require(q.ndim == 3 and k_arena.ndim == 5, f"{name}: q must be (B, nh, hs) and the "
+    _require(q.ndim == 3 and k_arena.ndim == 5, lambda: f"{name}: q must be (B, nh, hs) and the "
              f"arenas (num_blocks, L, ng, bs, hs), got {tuple(q.shape)} {tuple(k_arena.shape)}")
     B, nh, hs = q.shape
     num_blocks, L, ng, bs, hs_a = k_arena.shape
-    _require(tuple(v_arena.shape) == tuple(k_arena.shape), f"{name}: K/V arena shapes differ")
+    _require(tuple(v_arena.shape) == tuple(k_arena.shape),
+             lambda: f"{name}: K/V arena shapes differ")
     _require(hs_a == hs and nh % ng == 0,
-             f"{name}: q {tuple(q.shape)} does not fit arena {tuple(k_arena.shape)}")
+             lambda: f"{name}: q {tuple(q.shape)} does not fit arena {tuple(k_arena.shape)}")
     _require(tuple(fresh_k.shape) == (B, ng, hs) and tuple(fresh_v.shape) == (B, ng, hs),
-             f"{name}: fresh K/V must be {(B, ng, hs)}")
+             lambda: f"{name}: fresh K/V must be {(B, ng, hs)}")
     _require(q.dtype in _DTYPE_CODE,
-             f"{name}: q dtype must be float32/float16/bfloat16, got {q.dtype}")
+             lambda: f"{name}: q dtype must be float32/float16/bfloat16, got {q.dtype}")
     quantized = _check_kv(name, k_arena, v_arena, fresh_k, fresh_v, k_scale, v_scale)
-    _require(0 <= layer < L, f"{name}: layer {layer} out of range for L={L}")
-    _require(window is None or window >= 1, f"{name}: window must be >= 1, got {window}")
+    _require(0 <= layer < L, lambda: f"{name}: layer {layer} out of range for L={L}")
+    _require(window is None or window >= 1, lambda: f"{name}: window must be >= 1, got {window}")
     scales = dict(k_scale=k_scale, v_scale=v_scale) if quantized else {}
     dev = _check_common(name, dict(q=q, k_arena=k_arena, v_arena=v_arena, fresh_k=fresh_k,
                                    fresh_v=fresh_v, **scales), tables, pos, B)
     if dev.type == "cpu":
         return paged_attn_decode_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos,
                                        layer=layer, window=window, **scales)
-    rep, nbb = nh // ng, tables.shape[1]
-    smem = _decode_smem(rep, bs, hs)
-    _require(smem <= _MAX_SMEM_BYTES,
-             f"{name}: rep={rep}, bs={bs}, hs={hs} needs {smem} B of shared memory "
-             f"(limit {_MAX_SMEM_BYTES})")
-    lib = _build.load_library()
-    out = torch.empty_like(q)
-    null = ctypes.c_void_p(0)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_paged_attn_decode(
-            _ptr(q), _ptr(k_arena), _ptr(v_arena),
-            _ptr(k_scale) if quantized else null, _ptr(v_scale) if quantized else null,
-            _ptr(fresh_k), _ptr(fresh_v), _ptr(tables), _ptr(pos), _ptr(out),
-            B, ng, rep, hs, bs, nbb, L, layer, 0 if window is None else int(window),
-            ctypes.c_float(float(np.sqrt(hs))), _DTYPE_CODE[q.dtype],
-            _STORAGE_CODE[k_arena.dtype], _DTYPE_CODE[fresh_k.dtype], ctypes.c_void_p(stream))
-    _raise_on(lib, rc, name)
+    if B == 0:
+        return torch.empty_like(q)
+    out = _launch_split("decode", dev, q, k_arena, v_arena, k_scale if quantized else None,
+                        v_scale if quantized else None, fresh_k, fresh_v, tables, pos, T=1,
+                        layer=layer, window=window)
     LAUNCHES[name] += 1
     return out
 
@@ -419,37 +600,21 @@ def paged_token_write(arena, vals, tables, pos, *, block_size: int):
 
 
 def paged_attn_verify_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, layer: int,
-                            k_scale=None, v_scale=None):
+                            k_scale=None, v_scale=None, splits: int = 1):
     """Plain PyTorch version of :func:`paged_attn_verify`: the decode walk
     over each request's live blocks at rep·T query rows (the arena keep-mask
     ``slot < pos`` is the same for every query), then the chunk's own K/V
     folded in one last online-softmax step under the causal mask ``col <=
-    t``, with the kernel's numerics."""
+    t``, with the kernel's numerics.  ``splits`` cuts the arena walk as the
+    split-K body does; 1 walks every block in one pass."""
     B, nh, T, hs = q.shape
-    ng, bs = k_arena.shape[2], k_arena.shape[3]
-    rep, nbb, dt, cdtype = nh // ng, tables.shape[1], q.dtype, fresh_k.dtype
+    ng = k_arena.shape[2]
+    rep, dt, cdtype = nh // ng, q.dtype, fresh_k.dtype
     rows = rep * T
     sm = float(np.sqrt(hs))
-    f32 = torch.float32
     qf = q.reshape(B, ng, rows, hs).float()            # row r = rep_idx * T + t
-    m = torch.full((B, ng, rows, 1), MASK_VALUE, dtype=f32, device=q.device)
-    l = torch.zeros((B, ng, rows, 1), dtype=f32, device=q.device)
-    acc = torch.zeros((B, ng, rows, hs), dtype=f32, device=q.device)
-    p_i = pos.long()
-    t = torch.arange(bs, device=q.device)
-    for j in range(nbb):
-        run = j * bs < p_i
-        if not bool(run.any()):
-            continue
-        blk = tables[:, j].long()
-        k = _kv_tile(k_arena, k_scale, blk, layer, cdtype, dt)     # (B, ng, bs, hs)
-        v = _kv_tile(v_arena, v_scale, blk, layer, cdtype, dt)
-        s = torch.matmul(qf, k.transpose(-1, -2)) / sm         # (B, ng, rows, bs)
-        keep = (j * bs + t)[None, :] < p_i[:, None]
-        s = torch.where(keep[:, None, None, :], s, MASK_VALUE)
-        m_new, l_new, acc_new = _online(m, l, acc, s, v, dt)
-        r = run[:, None, None, None]
-        m, l, acc = torch.where(r, m_new, m), torch.where(r, l_new, l), torch.where(r, acc_new, acc)
+    m, l, acc = _split_walk(qf, k_arena, v_arena, k_scale, v_scale, tables, pos, layer=layer,
+                            dt=dt, cdtype=cdtype, window=None, splits=splits)
     fk = fresh_k.to(dt).float()                                 # (B, ng, T, hs)
     fv = fresh_v.to(dt).float()
     s_f = torch.matmul(qf, fk.transpose(-1, -2)) / sm           # (B, ng, rows, T)
@@ -484,42 +649,55 @@ def paged_attn_verify(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, lay
     ``q``: (B, nh, T, hs) queries at positions ``[pos, pos+T)``;
     ``k_arena``/``v_arena``: the full (num_blocks, L, ng, bs, hs) arenas,
     with ``k_scale``/``v_scale`` (num_blocks, L, ng, bs) float32 when they
-    are int8/fp8 (dequantized as each tile loads, in both kernel bodies);
+    are int8/fp8 (dequantized as each tile loads, in every kernel body);
     ``fresh_k``/``fresh_v``: (B, ng, T, hs) the chunk's own K/V at the
     compute dtype (not yet in the arena: a masked token write or a chunk
     write lands it after); ``tables``: (B, nbb) int32 sink-padded block
     tables; ``pos``: (B,) int32.  Every query sees the arena slots ``<
     pos`` and the chunk's keys up to its own offset.  No sliding window
     (windowed models take the gather path).  Returns (B, nh, T, hs) at
-    ``q.dtype``."""
+    ``q.dtype``.
+
+    On the card the call takes the body :func:`paged_body` names: split-K
+    (the split and combine kernels, one counted launch) at rep·T <= 64, the
+    Hopper warpgroup body for bf16/f16 at hs 64/128, the WMMA body for
+    bf16/f16 at other multiples of 16, the scalar one otherwise."""
     name = "paged_attn_verify"
-    _require(q.ndim == 4 and k_arena.ndim == 5, f"{name}: q must be (B, nh, T, hs) and the "
+    _require(q.ndim == 4 and k_arena.ndim == 5, lambda: f"{name}: q must be (B, nh, T, hs) and the "
              f"arenas (num_blocks, L, ng, bs, hs), got {tuple(q.shape)} {tuple(k_arena.shape)}")
     B, nh, T, hs = q.shape
     num_blocks, L, ng, bs, hs_a = k_arena.shape
-    _require(tuple(v_arena.shape) == tuple(k_arena.shape), f"{name}: K/V arena shapes differ")
+    _require(tuple(v_arena.shape) == tuple(k_arena.shape),
+             lambda: f"{name}: K/V arena shapes differ")
     _require(hs_a == hs and nh % ng == 0 and T >= 1,
-             f"{name}: q {tuple(q.shape)} does not fit arena {tuple(k_arena.shape)}")
+             lambda: f"{name}: q {tuple(q.shape)} does not fit arena {tuple(k_arena.shape)}")
     _require(tuple(fresh_k.shape) == (B, ng, T, hs) and tuple(fresh_v.shape) == (B, ng, T, hs),
-             f"{name}: fresh K/V must be {(B, ng, T, hs)}")
+             lambda: f"{name}: fresh K/V must be {(B, ng, T, hs)}")
     _require(q.dtype in _DTYPE_CODE,
-             f"{name}: q dtype must be float32/float16/bfloat16, got {q.dtype}")
+             lambda: f"{name}: q dtype must be float32/float16/bfloat16, got {q.dtype}")
     quantized = _check_kv(name, k_arena, v_arena, fresh_k, fresh_v, k_scale, v_scale)
-    _require(0 <= layer < L, f"{name}: layer {layer} out of range for L={L}")
+    _require(0 <= layer < L, lambda: f"{name}: layer {layer} out of range for L={L}")
     scales = dict(k_scale=k_scale, v_scale=v_scale) if quantized else {}
     dev = _check_common(name, dict(q=q, k_arena=k_arena, v_arena=v_arena, fresh_k=fresh_k,
                                    fresh_v=fresh_v, **scales), tables, pos, B)
     if dev.type == "cpu":
         return paged_attn_verify_plain(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos,
                                        layer=layer, **scales)
-    rep, nbb = nh // ng, tables.shape[1]
-    R = _verify_rows_per_block(rep * T, hs, bs)
-    _require(R is not None, f"{name}: bs={bs}, hs={hs} needs more shared memory than "
-             f"{_MAX_SMEM_BYTES} B even at 16 rows per block")
-    lib = _build.load_library()
     out = torch.empty_like(q)
     if B == 0:
         return out
+    rep, nbb = nh // ng, tables.shape[1]
+    body = paged_body("verify", rep * T, hs, bs, q.dtype, k_arena.dtype, fresh_k.dtype)
+    if body == "split":
+        out = _launch_split("verify", dev, q, k_arena, v_arena, k_scale if quantized else None,
+                            v_scale if quantized else None, fresh_k, fresh_v, tables, pos, T=T,
+                            layer=layer, window=None)
+        LAUNCHES[name] += 1
+        return out
+    R = _verify_rows_per_block(rep * T, hs, bs) if body == "scalar" else 0
+    _require(R is not None, lambda: f"{name}: bs={bs}, hs={hs} needs more shared memory than "
+             f"{_MAX_SMEM_BYTES} B even at 16 rows per block")
+    lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         null = ctypes.c_void_p(0)
@@ -529,7 +707,8 @@ def paged_attn_verify(q, k_arena, v_arena, fresh_k, fresh_v, tables, pos, *, lay
             _ptr(fresh_k), _ptr(fresh_v), _ptr(tables), _ptr(pos), _ptr(out),
             B, ng, rep * T, T, hs, bs, nbb, L, layer, R,
             ctypes.c_float(float(np.sqrt(hs))), _DTYPE_CODE[q.dtype],
-            _STORAGE_CODE[k_arena.dtype], _DTYPE_CODE[fresh_k.dtype], ctypes.c_void_p(stream))
+            _STORAGE_CODE[k_arena.dtype], _DTYPE_CODE[fresh_k.dtype], _PAGED_BODY_CODE[body],
+            ctypes.c_void_p(stream))
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return out
