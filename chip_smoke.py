@@ -43,12 +43,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    targets, loss and lse within 1e-5 of their largest magnitude, timed
    beside ``F.cross_entropy(..., reduction="none")`` (the losses only);
    ``lora_delta_fused`` at the decode (B=8, T=1), verify (B=8, T=5) and
-   chunk (B=1, T=512) shapes for wq, wk and wo, ranks 8, 16, 64 and 128
-   (two of the kernel's 64-rank chunks), x in
+   chunk (B=1, T=512) shapes for wq, wk and wo, ranks 8, 16, 64, 128 and
+   256 (up to four of phase 2's 64-rank chunks), x in
    bf16 and float32, factors in float32 and bf16 (float32 within 1e-5 of
    the output's max magnitude, bf16 by the ratio bar, base-slot rows
-   exactly 0), timed at each shape and at rank 128 (no library call
-   computes it);
+   exactly 0, two calls bitwise equal); the slot read (8 requests over a
+   4-slot arena of 32 layers, slots [1, 2, 0, 3, 1, 2, 0, 3]) bitwise equal
+   to the gathered call and within 1.1x of its device time (the medians
+   of five alternate rounds); the profiler
+   must see both phases' kernels; timed at each shape and at rank 128
+   beside two ``torch.bmm`` calls over the gathered factors (a reference:
+   no single library call computes it), device ms at most 0.008 (decode),
+   0.010 (verify), 0.020 (chunk, also below its plain version) and 0.030
+   (rank 128), and the decode call's CUDA-event time (the median of five
+   rounds of 200 calls, taken right after the build, before the first
+   profile) at most 0.030 ms; a profile that records no kernel
+   is taken again, up to three times;
 4. serve: Llama-3-8B at full width (random weights from a seed) through
    ``serve(None, params, cfg, attn="paged")``: 8 greedy requests with
    prompts of 128-1024 tokens and 32 new tokens each; the kernels' launch
@@ -88,12 +98,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    round, none elsewhere), the tenant counters, TTFT/TPOT/tokens/s beside
    the serves without LoRA, and one decode step's logits through the
    kernels against the dense path with the plain delta (phase 4's bars);
+   then one decode step (8 rows) and one chunk piece of the chunked LoRA
+   serve and one verify round of the speculative one profiled by kernel
+   group: the ``lora_delta`` group (both phases' kernels) nonzero and at
+   most 1.2 / 3.0 / 1.5 ms, and the LoRA chunk piece's busy time at most
+   1.25x phase 5's chunk piece (a profile that records nothing is taken
+   again, then fails);
 7. correctness at full width: served tokens, exact, in float32 at
    Llama-3-8B widths and 4 layers (chunked = unchunked, speculative =
    plain; on an int8 pool paged = gather, unchunked and chunked, with
    chunked against unchunked reported; with LoRA paged = gather, alone =
    mixed, adapters change tokens, base in a LoRA engine = registry-free,
-   and two adapters with a shared 2-block prefix each = their solo run);
+   and two adapters with a shared 2-block prefix each = their solo run;
+   LoRA with MLP targets, and LoRA on an int8 pool, paged = gather);
    tiny-llama-debug at its own hs 16 served on the default attn, which must
    resolve paged, through the decode kernel, with the gather path's tokens;
    and at
@@ -131,6 +148,7 @@ import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -154,7 +172,7 @@ from thunder_tpu_torch.models.llama import (
 from thunder_tpu_torch.observability import registry
 from thunder_tpu_torch.train.optim import adamw
 from thunder_tpu_torch.serving import AdapterRegistry, SpecConfig, make_lora_factors, serve
-from thunder_tpu_torch.serving.lora import gather_adapter_slots
+from thunder_tpu_torch.serving.lora import gather_adapter_slots, valid_targets
 from thunder_tpu_torch.serving.kv_pool import SINK_BLOCK, chunk_tables, gather_dense
 from thunder_tpu_torch.serving.paged_attention import forward_paged
 from thunder_tpu_torch.serving.quant import (
@@ -217,25 +235,38 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20, also=()) -> float | None:
+def device_ms(fn, kernel: str, iters: int = 20, also=(), tries: int = 3,
+              whole: bool = False) -> float | None:
     """Mean device time of the kernels whose name contains ``kernel``, from
     the profiler's CUDA activity (host launch overhead excluded), plus that
     of the kernels named like an entry of ``also`` that ``fn`` launches
-    beside it; None when the profiler sees no device activity."""
+    beside it.  A profile that records no such kernel (a short one now and
+    then records nothing at all) is taken again, ``tries`` times in all;
+    so is one that misses a launch when ``whole`` (``fn`` launches
+    ``kernel`` and each entry of ``also`` once a call: a profile that lost
+    one kernel's records would time the others alone).  None when no
+    profile qualifies."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = count = 0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total += evt.device_time_total
-            count += evt.count
-        elif any(a in evt.key for a in also):
-            total += evt.device_time_total
-    return total / count / 1e3 if count else None
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        seen = dict.fromkeys(also, 0)
+        for evt in prof.key_averages():
+            if kernel in evt.key:
+                total += evt.device_time_total
+                count += evt.count
+            elif any(a in evt.key for a in also):
+                total += evt.device_time_total
+                for a in also:
+                    if a in evt.key:
+                        seen[a] += evt.count
+        if count and not (whole and (count != iters or any(n != iters for n in seen.values()))):
+            return total / count / 1e3
+    return None
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
@@ -247,14 +278,14 @@ NO_LIBRARY = "no single PyTorch call computes this"
 
 
 def timed(name, label, kernel, plain, library, library_name, bound_ms_by, *, iters,
-          plain_iters, plain_warmup=3, device_kernel=None, device_also=(),
+          plain_iters, plain_warmup=3, device_kernel=None, device_also=(), device_whole=False,
           dtype_name="bf16") -> dict:
     """Per-call times of a kernel, its plain version and the library call
     computing the same function (``library`` None where no single PyTorch
     call does), the kernel's device time (of the CUDA kernels named like
     ``device_kernel``, default ``name``), and its bound."""
     ms = time_ms(kernel, iters=iters)
-    dev_ms = device_ms(kernel, device_kernel or name, also=device_also)
+    dev_ms = device_ms(kernel, device_kernel or name, also=device_also, whole=device_whole)
     plain_ms = time_ms(plain, iters=plain_iters, warmup=plain_warmup)
     library_ms = time_ms(library, iters=iters) if library is not None else None
     bound_ms, bound_by = bound_ms_by
@@ -969,17 +1000,32 @@ def check_chunk_write_fused():
 # 1024) and wo (4096 -> 4096) of Llama-3-8B
 LORA_SHAPES = {"decode": (8, 1), "verify": (8, 5), "chunk": (1, 512)}
 LORA_TARGETS = {"wq": (NH * HS, NH * HS), "wk": (NH * HS, NG * HS), "wo": (NH * HS, NH * HS)}
-LORA_RANKS = (8, 16, 64, 128)       # 128: two of the kernel's 64-rank chunks
+LORA_RANKS = (8, 16, 64, 128, 256)      # 128, 256: two and four of phase 2's 64-rank chunks
 LORA_SCALING = 2.0                      # alpha 32 over rank 16, the serves' registry
 # float32 delta: the same products summed in another order, within this
 # share of the output's largest magnitude
 LORA_REL_F32 = 1e-5
+# the kernels of each body (``cudaex.lora_plan``), as the profiler names them
+LORA_BODY_KERNELS = {"mma": ("lora_delta_d_mma", "lora_delta_fold", "lora_delta_out_mma"),
+                     "fma": ("lora_delta_d_fma", "lora_delta_out_fma")}
+# device ms per call (wq, rank 16, bf16 x, float32 factors) at most, and
+# the decode call's CUDA-event ms; the slot read's device time at most this
+# share of the gathered call's
+LORA_DEVICE_MAX_MS = {"decode": 0.008, "verify": 0.010, "chunk": 0.020, "decode r=128": 0.030}
+LORA_DECODE_EVENT_MAX_MS = 0.030
+LORA_EVENT_ROUNDS = 5                   # rounds of 200 calls; a host's stall moves one
+LORA_SLOT_TIME_RATIO = 1.1
+LORA_SLOT_ROUNDS = 5                    # alternate rounds of the slot read's time bar
+LORA_ARENA_SLOTS = [1, 2, 0, 3, 1, 2, 0, 3]   # 8 requests over 4 slots, slot 0 the base
 
 
-def lora_bound(B_, T, fin, fout, r, x_dtype, f_dtype):
+def lora_bound(B_, T, fin, fout, r, x_dtype, f_dtype, n_factors=None):
+    """x, the factors of ``n_factors`` requests (default every request)
+    and the output, once each; the two products' operations."""
     xb = torch.empty((), dtype=x_dtype).element_size()
     fb = torch.empty((), dtype=f_dtype).element_size()
-    nbytes = B_ * T * fin * xb + B_ * r * (fin + fout) * fb + B_ * T * fout * xb
+    nf = B_ if n_factors is None else n_factors
+    nbytes = B_ * T * fin * xb + nf * r * (fin + fout) * fb + B_ * T * fout * xb
     return bound(nbytes, 2 * B_ * T * r * (fin + fout), x_dtype)
 
 
@@ -994,14 +1040,86 @@ def lora_inputs(gen, B_, T, fin, fout, r, x_dtype, f_dtype):
     return x, a, b, base
 
 
-def check_lora():
+def lora_kernels(x, a) -> tuple:
+    """The kernels a call on ``x`` and ``a`` launches, last first
+    (``timed``'s device kernel, then the rest)."""
+    B_, T, fin = x.shape
+    return LORA_BODY_KERNELS[cudaex.lora_plan(B_, T, fin, a.shape[1], x.dtype)["body"]][::-1]
+
+
+def lora_kernels_seen(fn, x, a, label) -> list:
+    """The profiler must see every kernel of the body a call on ``x`` and
+    ``a`` takes."""
+    want, seen = lora_kernels(x, a), []
+    for _ in range(3):         # a short profile now and then records no kernel at all
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        seen = sorted({e.key for e in prof.key_averages() if "lora_delta" in e.key})
+        if all(any(k in e for e in seen) for k in want):
+            break
+    ok = all(any(k in e for e in seen) for k in want)
+    say(f"lora_delta_fused {label}: kernels seen {[e[:60] for e in seen]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"lora_delta_fused {label}: the profiler did not see the kernels "
+                             f"{want}")
+    return seen
+
+
+def lora_timed(label, x, a, b, bound_ms_by, slots=None):
+    """``timed`` for ``lora_delta_fused`` (the device time of every kernel
+    of its body), with the time of two ``torch.bmm`` calls over the
+    gathered factors (cast to x's dtype beforehand) beside it as an
+    unbarred reference."""
+    last, *rest = lora_kernels(x, a)
+    rec = timed("lora_delta_fused", label,
+                lambda: cudaex.lora_delta_fused(x, a, b, LORA_SCALING, slots=slots),
+                lambda: cudaex.lora_delta_fused_plain(x, a, b, LORA_SCALING, slots),
+                None, None, bound_ms_by, iters=200, plain_iters=50,
+                device_kernel=last, device_also=tuple(rest), device_whole=True)
+    call = functools.partial(cudaex.lora_delta_fused, x, a, b, LORA_SCALING, slots=slots)
+    rec["kernels_device_ms"] = {k: device_ms(call, k, whole=True) for k in (last, *rest)}
+    idx = slots.long() if slots is not None else None
+    ag = (a if idx is None else a[idx]).to(x.dtype).transpose(1, 2)
+    bg = (b if idx is None else b[idx]).to(x.dtype).transpose(1, 2)
+    rec["bmm_ms"] = time_ms(lambda: torch.bmm(torch.bmm(x, ag), bg), iters=200)
+    say(f"lora_delta_fused{label}: device ms by kernel {rec['kernels_device_ms']}; two torch.bmm "
+        f"over the gathered factors {rec['bmm_ms']:.4f} ms per call (a reference, not barred; "
+        f"rounds d only to x's dtype)")
+    return rec
+
+
+def lora_event_rounds() -> list:
+    """The decode call's CUDA-event ms (wq, rank 16, bf16 x, float32
+    factors) in LORA_EVENT_ROUNDS rounds of 200 calls.  Taken before the
+    process's first profiler session: once a profile has run, every launch
+    costs the host more (the profiler's callbacks stay registered), which
+    would bill the profiler to the wrapper."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    fin, fout = LORA_TARGETS["wq"]
+    B_, T = LORA_SHAPES["decode"]
+    x, a, b, _ = lora_inputs(gen, B_, T, fin, fout, 16, torch.bfloat16, torch.float32)
+    return [time_ms(lambda: cudaex.lora_delta_fused(x, a, b, LORA_SCALING), iters=200)
+            for _ in range(LORA_EVENT_ROUNDS)]
+
+
+def check_lora(event_rounds: list):
     """``lora_delta_fused`` against its plain version at every shape,
     target and rank above, x in bf16 and float32, factors in float32 and
     bf16: float32 x within LORA_REL_F32 of the output's max magnitude; bf16
     x against the float32 plain result of the same inputs, the kernel's
     error at most LOWP_ERR_RATIO times the plain version's own; base-slot
-    rows exactly 0.  Then times at each shape (wq, rank 16, bf16 x, float32
-    factors: what the bf16 serves run)."""
+    rows exactly 0; two calls bitwise equal.  Then the slot read: 8
+    requests over a 4-slot arena of 32 layers (``LORA_ARENA_SLOTS``, one
+    layer's view as the engine passes it) bitwise equal to the call on the
+    gathered factors and within LORA_SLOT_TIME_RATIO of its device time
+    (each side's median over LORA_SLOT_ROUNDS alternate rounds).
+    Then times at each shape (wq, rank 16, bf16 x, float32 factors: what
+    the bf16 serves run) and at rank 128, held to LORA_DEVICE_MAX_MS, the
+    chunk also below its plain version, and the decode call's CUDA-event
+    time (the median of ``event_rounds``, :func:`lora_event_rounds`) to
+    LORA_DECODE_EVENT_MAX_MS."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
     worst = {}
     main_err = None
@@ -1012,10 +1130,12 @@ def check_lora():
                     for f_dtype in (torch.float32, torch.bfloat16):
                         x, a, b, base = lora_inputs(gen, B_, T, fin, fout, r, x_dtype, f_dtype)
                         got = cudaex.lora_delta_fused(x, a, b, LORA_SCALING)
+                        again = cudaex.lora_delta_fused(x, a, b, LORA_SCALING)
                         torch.cuda.synchronize()
                         want = cudaex.lora_delta_fused_plain(x, a, b, LORA_SCALING)
                         err = (got.float() - want.float()).abs().max().item()
                         zero = all(bool((got[i] == 0).all()) for i in base)
+                        same = bool(torch.equal(got, again))
                         if x_dtype == torch.float32:
                             lim = LORA_REL_F32 * want.abs().max().item()
                             ok, bar = err <= lim, f"atol {lim:.2e}"
@@ -1026,7 +1146,7 @@ def check_lora():
                             ep = (want.float() - ref).abs().max().item()
                             ok = ek <= LOWP_ERR_RATIO * ep
                             bar = f"against float32: kernel {ek:.3e}, plain {ep:.3e}"
-                        ok = ok and zero and bool(torch.isfinite(got).all())
+                        ok = ok and zero and same and bool(torch.isfinite(got).all())
                         label = (f"{shape} {target} r={r} x {str(x_dtype)[6:]} factors "
                                  f"{str(f_dtype)[6:]}")
                         key = str(x_dtype)[6:]
@@ -1036,32 +1156,105 @@ def check_lora():
                             main_err = err
                         if not ok:
                             say(f"lora_delta_fused {label}: max_abs_err={err:.3e} ({bar}); "
-                                f"base rows zero {zero} FAIL")
+                                f"base rows zero {zero}; two calls bitwise equal {same} FAIL")
                             raise AssertionError(f"lora_delta_fused {label} disagrees with its "
                                                  "plain version")
     n = len(LORA_SHAPES) * len(LORA_TARGETS) * len(LORA_RANKS) * 4
     say(f"lora_delta_fused: {n} cases (shapes {LORA_SHAPES}, targets {LORA_TARGETS}, ranks "
         f"{LORA_RANKS}, x bf16/float32, factors float32/bf16) ok; worst max_abs_err {worst}; "
-        f"base-slot rows exactly 0")
+        f"base-slot rows exactly 0; two calls bitwise equal")
     shapes = {}
+    fin, fout = LORA_TARGETS["wq"]
     for shape, (B_, T) in LORA_SHAPES.items():
-        fin, fout = LORA_TARGETS["wq"]
         x, a, b, _ = lora_inputs(gen, B_, T, fin, fout, 16, torch.bfloat16, torch.float32)
-        shapes[shape] = timed(
-            "lora_delta_fused", f" {shape} wq r=16 (B={B_}, T={T})",
-            lambda: cudaex.lora_delta_fused(x, a, b, LORA_SCALING),
-            lambda: cudaex.lora_delta_fused_plain(x, a, b, LORA_SCALING),
-            None, None, lora_bound(B_, T, fin, fout, 16, torch.bfloat16, torch.float32),
-            iters=200, plain_iters=50, device_kernel="lora_delta_kernel")
+        plan = cudaex.lora_plan(B_, T, fin, 16, x.dtype)
+        lora_kernels_seen(lambda: cudaex.lora_delta_fused(x, a, b, LORA_SCALING), x, a,
+                          f"{shape} (plan {plan})")
+        shapes[shape] = lora_timed(f" {shape} wq r=16 (B={B_}, T={T})", x, a, b,
+                                   lora_bound(B_, T, fin, fout, 16, torch.bfloat16,
+                                              torch.float32))
     B_, T = LORA_SHAPES["decode"]
     x, a, b, _ = lora_inputs(gen, B_, T, fin, fout, 128, torch.bfloat16, torch.float32)
-    shapes["decode r=128"] = timed(
-        "lora_delta_fused", f" decode wq r=128 (B={B_}, T={T})",
-        lambda: cudaex.lora_delta_fused(x, a, b, LORA_SCALING),
-        lambda: cudaex.lora_delta_fused_plain(x, a, b, LORA_SCALING),
-        None, None, lora_bound(B_, T, fin, fout, 128, torch.bfloat16, torch.float32),
-        iters=200, plain_iters=50, device_kernel="lora_delta_kernel")
-    rec = dict(shapes["decode"], max_abs_err=main_err, shapes=shapes)
+    shapes["decode r=128"] = lora_timed(
+        f" decode wq r=128 (B={B_}, T={T})", x, a, b,
+        lora_bound(B_, T, fin, fout, 128, torch.bfloat16, torch.float32))
+    shapes["slot read"] = check_lora_slots(gen)
+    shapes["decode"]["event_rounds_ms"] = event_rounds
+    event_ms = statistics.median(event_rounds)
+    ok = event_ms <= LORA_DECODE_EVENT_MAX_MS
+    for shape, lim in LORA_DEVICE_MAX_MS.items():
+        dev_ms = shapes[shape]["device_ms"]
+        ok = ok and dev_ms is not None and dev_ms <= lim
+    ok = ok and shapes["chunk"]["ms"] < shapes["chunk"]["plain_ms"]
+    say("lora_delta_fused times: device ms " + json.dumps(
+        {k: v["device_ms"] for k, v in shapes.items()}) + f" (at most {LORA_DEVICE_MAX_MS}); "
+        f"decode CUDA-event {event_ms:.4f} ms, the median of rounds "
+        f"{[round(t, 4) for t in event_rounds]} taken before the first profile (at most "
+        f"{LORA_DECODE_EVENT_MAX_MS}; {shapes['decode']['ms']:.4f} ms after this phase's "
+        f"profiles, not barred); "
+        f"chunk {shapes['chunk']['ms']:.4f} ms against its plain version's "
+        f"{shapes['chunk']['plain_ms']:.4f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("lora_delta_fused missed a time bar")
+    return dict(shapes["decode"], max_abs_err=main_err, shapes=shapes)
+
+
+def check_lora_slots(gen) -> dict:
+    """The slot read at the decode shape (wq, rank 16, bf16 x, float32
+    factors): request i reads slot ``LORA_ARENA_SLOTS[i]`` of one layer's
+    view of a (4, 32, ...) arena, as the engine passes it."""
+    fin, fout = LORA_TARGETS["wq"]
+    B_, T = LORA_SHAPES["decode"]
+    S = max(LORA_ARENA_SLOTS) + 1
+    x = torch.randn((B_, T, fin), generator=gen, device=DEVICE).to(torch.bfloat16)
+    arena_a = 0.05 * torch.randn((S, L, 16, fin), generator=gen, device=DEVICE)
+    arena_b = 0.05 * torch.randn((S, L, fout, 16), generator=gen, device=DEVICE)
+    arena_a[0], arena_b[0] = 0, 0
+    a, b = arena_a[:, L - 3], arena_b[:, L - 3]
+    slots = torch.as_tensor(LORA_ARENA_SLOTS, dtype=torch.int32, device=DEVICE)
+    idx = slots.long()
+    ga, gb = a[idx].contiguous(), b[idx].contiguous()
+    got = cudaex.lora_delta_fused(x, a, b, LORA_SCALING, slots=slots)
+    gathered = cudaex.lora_delta_fused(x, ga, gb, LORA_SCALING)
+    torch.cuda.synchronize()
+    want = cudaex.lora_delta_fused_plain(x, a, b, LORA_SCALING, slots)
+    ref = cudaex.lora_delta_fused_plain(x.float(), a, b, LORA_SCALING, slots)
+    ek = (got.float() - ref).abs().max().item()
+    ep = (want.float() - ref).abs().max().item()
+    same = bool(torch.equal(got, gathered))
+    zero = bool((got[idx == 0] == 0).all())
+    lora_kernels_seen(lambda: cudaex.lora_delta_fused(x, a, b, LORA_SCALING, slots=slots), x, a,
+                      "slot read")
+    rec = lora_timed(f" slot read wq r=16 (B={B_}, T={T}, slots {LORA_ARENA_SLOTS})", x, a, b,
+                     lora_bound(B_, T, fin, fout, 16, torch.bfloat16, torch.float32,
+                                n_factors=len(set(LORA_ARENA_SLOTS))), slots=slots)
+    # the two device times in alternate rounds, each side's median: one
+    # round's jitter (a few hundred ns on a 6 us call) moves neither
+    last, *rest = lora_kernels(x, a)
+    by_slot, gathered_ms = [], []
+    for _ in range(LORA_SLOT_ROUNDS):
+        by_slot.append(device_ms(lambda: cudaex.lora_delta_fused(x, a, b, LORA_SCALING,
+                                                                 slots=slots),
+                                 last, iters=50, also=tuple(rest), whole=True))
+        gathered_ms.append(device_ms(lambda: cudaex.lora_delta_fused(x, ga, gb, LORA_SCALING),
+                                     last, iters=50, also=tuple(rest), whole=True))
+    measured = None not in by_slot and None not in gathered_ms
+    rec["slot_rounds_device_ms"], rec["gathered_rounds_device_ms"] = by_slot, gathered_ms
+    rec["gathered_device_ms"] = statistics.median(gathered_ms) if measured else None
+    ratio = statistics.median(by_slot) / rec["gathered_device_ms"] if measured else None
+    faults = [why for bad, why in (
+        (not same, "differs from the gathered call"), (not zero, "base rows are not 0"),
+        (ek > LOWP_ERR_RATIO * ep, "is further from float32 than the bar"),
+        (not measured, "no profile saw every launch of its kernels"),
+        (measured and ratio > LORA_SLOT_TIME_RATIO, "is slower than its time bar")) if bad]
+    say(f"lora_delta_fused slot read: bitwise equal to the gathered call {same}; base rows "
+        f"zero {zero}; against float32: kernel {ek:.3e}, plain {ep:.3e}; device ms in "
+        f"{LORA_SLOT_ROUNDS} alternate rounds {by_slot} against the gathered call's "
+        f"{gathered_ms} (ratio of medians {ratio}, at most {LORA_SLOT_TIME_RATIO}) "
+        f"{'FAIL: ' + '; '.join(faults) if faults else 'ok'}")
+    if faults:
+        raise AssertionError("lora_delta_fused's slot read " + "; ".join(faults))
+    rec["max_abs_err"] = (got.float() - want.float()).abs().max().item()
     return rec
 
 
@@ -1203,10 +1396,11 @@ DECODE_FALL_SHARE = 0.9          # the step's busy time falls by this share of i
 
 def _group(name: str, attn: str) -> str:
     """Kernel group of a serving profile: the paged attention call ``attn``
-    (its split and combine kernels included), the token writes, cuBLAS, or
-    the rest."""
+    (its split and combine kernels included), the token writes, the LoRA
+    delta (both phases' kernels), cuBLAS, or the rest."""
     low = name.lower()
-    return (attn if attn in low or "paged_attn_split" in low
+    return ("lora_delta" if "lora_delta" in low
+            else attn if attn in low or "paged_attn_split" in low
             else "paged_token_write" if "paged_token_write" in low
             else "matmul" if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet"))
             else "other")
@@ -1238,34 +1432,54 @@ def profile_spans(prof, steps, attn, label) -> dict | None:
                 idle_share=1 - busy / window, groups_ms=per_step)
 
 
-def profile_decode(eng, prompts, steps=4, tries=3) -> dict:
+def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3) -> dict:
     """Device time of a few steady decode steps of the same batch, by
-    kernel, from the profiler's CUDA activity: where the decode step's time
-    goes, and how much of the span between the first and the last kernel
-    the card sits idle.  The ``paged_attn_decode`` group (the split body's
-    two kernels) must read at most DECODE_GROUP_MAX_MS per step, and the
-    step's busy time must have fallen from the previous decode kernel's by
-    at least DECODE_FALL_SHARE of the group's saving."""
-    handles = [eng.submit(p, max_new_tokens=tries * steps + 3) for p in prompts]
+    kernel group, from the profiler's CUDA activity: where the decode
+    step's time goes, and how much of the span between the first and the
+    last kernel the card sits idle.  The prompts (with adapters ``ids``)
+    are prefilled first; a profiled window must hold decode steps alone.
+    A profile that records no CUDA activity is taken again, ``tries``
+    times, and then fails."""
+    ids = ids or [None] * len(prompts)
+    handles = [eng.submit(p, max_new_tokens=tries * steps + 3, adapter_id=a)
+               for p, a in zip(prompts, ids)]
     eng.step()                                             # admit + prefill
     eng.step()                                             # token 0, first decode dispatch
+    while not all(h._req.generated for h in handles):      # chunked prompts: the last pieces
+        eng.step()
     torch.cuda.synchronize()
     rec = None
     for _ in range(tries):     # a profile now and then records no kernel at all
+        before = (eng.decode_steps, eng.chunk_runs, eng.prefill_runs)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 eng.step()
             torch.cuda.synchronize()
-        rec = profile_spans(prof, steps, "paged_attn_decode", "decode step (8 rows)")
+        after = (eng.decode_steps, eng.chunk_runs, eng.prefill_runs)
+        if after != (before[0] + steps, *before[1:]):
+            raise AssertionError(f"{label}: the profiled window was not {steps} decode steps "
+                                 f"alone (decode steps, chunk pieces, prefills {before} -> "
+                                 f"{after})")
+        rec = profile_spans(prof, steps, "paged_attn_decode", label)
         if rec is not None:
             break
     eng.drain()
     if not all(h.done() for h in handles):
         raise AssertionError("profiled requests did not finish")
     if rec is None:
-        raise AssertionError(f"decode step: {tries} profiles recorded no CUDA activity, so the "
-                             "decode group's bar was not measured")
+        raise AssertionError(f"{label}: {tries} profiles recorded no CUDA activity, so its bars "
+                             "were not measured")
+    return rec
+
+
+def profile_decode(eng, prompts) -> dict:
+    """Four steady decode steps profiled (``profile_decode_steps``): the
+    ``paged_attn_decode`` group (the split body's two kernels) must read at
+    most DECODE_GROUP_MAX_MS per step, and the step's busy time must have
+    fallen from the previous decode kernel's by at least DECODE_FALL_SHARE
+    of the group's saving."""
+    rec = profile_decode_steps(eng, prompts, "decode step (8 rows)")
     group = rec["groups_ms"].get("paged_attn_decode", 0.0)
     saving = DECODE_GROUP_BEFORE_MS - group
     fall = DECODE_STEP_BUSY_BEFORE_MS - rec["busy_ms"]
@@ -1281,10 +1495,11 @@ def profile_decode(eng, prompts, steps=4, tries=3) -> dict:
     return rec
 
 
-def profile_one_step(eng, counter: str, attn: str, label: str, tries: int = 6) -> dict | None:
+def profile_one_step(eng, counter: str, attn: str, label: str, tries: int = 6) -> dict:
     """Device time by kernel group of the first engine step that advances
     ``counter`` (``chunk_runs``: a chunk piece; ``spec_rounds``: a verify
-    round) by exactly one, with its idle share."""
+    round) by exactly one, with its idle share; raises when no profiled
+    step of ``tries`` did so with CUDA activity recorded."""
     for _ in range(tries):
         before = getattr(eng, counter)
         torch.cuda.synchronize()
@@ -1296,8 +1511,8 @@ def profile_one_step(eng, counter: str, attn: str, label: str, tries: int = 6) -
             rec = profile_spans(prof, 1, attn, label)
             if rec is not None:
                 return rec
-    say(f"{label} profile: not measured (no profiled step advanced {counter} by one in {tries})")
-    return None
+    raise AssertionError(f"{label} profile: no profiled step of {tries} advanced {counter} by one "
+                         "with CUDA activity recorded")
 
 
 def _cast(tree, dtype):
@@ -1496,14 +1711,22 @@ def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_b
                arena_bytes=eng.pool.arena_bytes(),
                rel_err=check_gauge("chunked serve", kv_dtype),
                tenants=tenant_report("chunked LoRA serve", lora))
-    if profile:        # one steady chunk piece alone: a 3.2 k-token prompt's second piece
-        prompt = rng.integers(0, cfg.vocab_size, 3 * CHUNK + 100).astype(np.int32)
-        eng.submit(prompt, max_new_tokens=2)
-        eng.step()                                          # admits, dispatches piece 0
-        rec["chunk_piece_profile"] = profile_one_step(
-            eng, "chunk_runs", "paged_attn_verify", f"chunked serve, one chunk piece (T={CHUNK})")
-        eng.drain()
+    if profile:
+        rec["chunk_piece_profile"] = profile_chunk_piece(eng, cfg, "chunked serve")
     return rec, eng, prompts, tables, results
+
+
+def profile_chunk_piece(eng, cfg, label, adapter_id=None) -> dict:
+    """One steady chunk piece alone, by kernel group: a 3.2 k-token
+    prompt's second piece."""
+    rng = np.random.default_rng(SEED + 13)
+    prompt = rng.integers(0, cfg.vocab_size, 3 * CHUNK + 100).astype(np.int32)
+    eng.submit(prompt, max_new_tokens=2, adapter_id=adapter_id)
+    eng.step()                                          # admits, dispatches piece 0
+    rec = profile_one_step(eng, "chunk_runs", "paged_attn_verify",
+                           f"{label}, one chunk piece (T={CHUNK})")
+    eng.drain()
+    return rec
 
 
 LORA_RANK, LORA_ALPHA = 16, 32         # scaling 2.0
@@ -1511,14 +1734,47 @@ LORA_ADAPTERS = ("tenant-a", "tenant-b", "tenant-c")
 LORA_IDS = [*LORA_ADAPTERS, None] * 2   # two requests per adapter, two base
 
 
-def make_registry(cfg):
-    """Rank 16, alpha 32, the default targets wq/wk/wv/wo, four slots,
-    three adapters of std 0.05 from a seeded generator, float32 factors."""
-    reg = AdapterRegistry(cfg, rank=LORA_RANK, alpha=LORA_ALPHA, max_adapters=4, device=DEVICE)
+def make_registry(cfg, targets=("wq", "wk", "wv", "wo")):
+    """Rank 16, alpha 32, the default targets wq/wk/wv/wo (or ``targets``),
+    four slots, three adapters of std 0.05 from a seeded generator, float32
+    factors."""
+    reg = AdapterRegistry(cfg, rank=LORA_RANK, alpha=LORA_ALPHA, max_adapters=4, targets=targets,
+                          device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
     for name in LORA_ADAPTERS:
-        reg.register(name, make_lora_factors(cfg, LORA_RANK, gen, std=0.05))
+        reg.register(name, make_lora_factors(cfg, LORA_RANK, gen, targets, std=0.05))
     return reg
+
+
+# the LoRA serves' lora_delta group (both phases' kernels) per profiled
+# step, ms at most; the LoRA chunk piece's busy time at most this multiple
+# of phase 5's chunk piece in the same run
+LORA_GROUP_MAX_MS = {"decode step": 1.2, "chunk piece": 3.0, "verify round": 1.5}
+LORA_CHUNK_BUSY_RATIO = 1.25
+
+
+def profile_lora_serves(lrec, slrec, crec) -> dict:
+    """The LoRA serves' profiles by kernel group: one decode step and one
+    chunk piece of the chunked LoRA serve, one verify round of the
+    speculative one; the ``lora_delta`` group nonzero and within
+    LORA_GROUP_MAX_MS in each, and the chunk piece's busy time within
+    LORA_CHUNK_BUSY_RATIO of phase 5's."""
+    profiles = {"decode step": lrec["decode_step_profile"],
+                "chunk piece": lrec["chunk_piece_profile"],
+                "verify round": slrec["verify_round_profile"]}
+    groups = {k: v["groups_ms"].get("lora_delta", 0.0) for k, v in profiles.items()}
+    ratio = profiles["chunk piece"]["busy_ms"] / crec["chunk_piece_profile"]["busy_ms"]
+    ok = (all(0 < groups[k] <= lim for k, lim in LORA_GROUP_MAX_MS.items())
+          and ratio <= LORA_CHUNK_BUSY_RATIO)
+    say(f"LoRA serves: lora_delta group ms per profiled step {groups} (at most "
+        f"{LORA_GROUP_MAX_MS}); idle shares "
+        f"{ {k: round(v['idle_share'], 3) for k, v in profiles.items()} }; the LoRA chunk "
+        f"piece's busy {profiles['chunk piece']['busy_ms']:.3f} ms = {ratio:.3f} x phase 5's "
+        f"{crec['chunk_piece_profile']['busy_ms']:.3f} (at most {LORA_CHUNK_BUSY_RATIO}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the LoRA serves' lora_delta group or chunk piece missed a bar")
+    return dict(profiles, lora_delta_ms=groups, chunk_busy_ratio=ratio)
 
 
 def layer_skip_draft(params, cfg, n_layer=2):
@@ -1576,11 +1832,12 @@ def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, sel
                rel_err=check_gauge("speculative serve", kv_dtype),
                tenants=tenant_report("speculative LoRA serve", lora))
     if profile:        # one verify round of the 8 rows (the draft's K steps included)
-        for p in prompts:
-            eng.submit(p, max_new_tokens=8)
+        for p, a in zip(prompts, LORA_IDS if lora is not None else [None] * len(prompts)):
+            eng.submit(p, max_new_tokens=8, adapter_id=a)
         eng.step()                                          # admits, prefills
         rec["verify_round_profile"] = profile_one_step(
-            eng, "spec_rounds", "paged_attn_verify", f"speculative serve, one verify round (K={K})")
+            eng, "spec_rounds", "paged_attn_verify",
+            f"speculative{' LoRA' if lora is not None else ''} serve, one verify round (K={K})")
         eng.drain()
     if not self_draft:
         return rec, eng, prompts, results, tables
@@ -1750,6 +2007,42 @@ def _exact_tokens_lora(params32, cfg4, n_new=8):
     if not ok:
         raise AssertionError("LoRA prefix sharing: a request differs from its solo run or "
                              "shared across adapters")
+
+
+def _exact_tokens_lora_cases(params32, cfg4, n_new=8):
+    """Two LoRA cases more, tokens exact in float32 at Llama-3-8B widths
+    and 4 layers, paged (the kernel) = gather (the plain delta): MLP
+    targets (wq..wo and fc_1/fc_2/proj: the kernel reads the attention
+    targets' arenas by slot, the plain MLP deltas take theirs by slot layer
+    by layer) and LoRA on an
+    int8 pool; the paged lanes launch ``lora_delta_fused`` 4·n_layer times
+    per decode step."""
+    rng = np.random.default_rng(SEED + 14)
+    prompts = [rng.integers(0, cfg4.vocab_size, n).astype(np.int32) for n in (90, 200, 333, 411)]
+    ids = [*LORA_ADAPTERS, None]
+    common = dict(block_size=16, num_blocks=512, max_batch=4, device=DEVICE)
+    cases = {"MLP targets": (make_registry(cfg4, targets=valid_targets(cfg4)), {}),
+             "int8 pool": (make_registry(cfg4), {"kv_dtype": "int8"})}
+    for case, (reg, kw) in cases.items():
+        got, launches = {}, {}
+        for attn in ("paged", "gather"):
+            eng = serve(None, params32, cfg4, attn=attn, lora=reg, **common, **kw)
+            cudaex.reset_launches()
+            hs = [eng.submit(p, max_new_tokens=n_new, adapter_id=a) for p, a in zip(prompts, ids)]
+            eng.drain()
+            torch.cuda.synchronize()
+            got[attn] = [h.result(drive=False).new_tokens for h in hs]
+            launches[attn] = (cudaex.LAUNCHES["lora_delta_fused"], eng.decode_steps)
+        (n_paged, steps), (n_gather, _) = launches["paged"], launches["gather"]
+        ok = got["paged"] == got["gather"] and n_paged == 4 * cfg4.n_layer * steps > 0 == n_gather
+        say(f"float32, 4 layers, LoRA {case} (targets {list(reg.targets)}, KV "
+            f"{kw.get('kv_dtype', 'float32')}): "
+            f"paged = gather {got['paged'] == got['gather']}; paged lora_delta_fused launches "
+            f"{n_paged} ({steps} decode steps), gather {n_gather}; tokens {got['paged']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"LoRA {case}: the paged lanes serve other tokens than gather, "
+                                 "or the kernel's launches are off")
 
 
 def _compact(arenas, table_rows):
@@ -2314,6 +2607,7 @@ def main() -> int:
         for line in src["log"].splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
                 say(f"ptxas: {line.strip()}")
+    lora_events = lora_event_rounds()       # before any profile (phase 3 reads it)
 
     recs = {"paged_attn_decode": check_decode(), "paged_token_write": check_write(),
             "paged_attn_verify": check_verify(), "paged_chunk_write": check_chunk_write(),
@@ -2330,7 +2624,7 @@ def main() -> int:
     cw = check_chunk_write_fused()
     recs["paged_chunk_write_fused"] = {**cw["int8"], "quantized": cw}
     recs["flash_ce"] = check_ce()
-    recs["lora_delta_fused"] = check_lora()
+    recs["lora_delta_fused"] = check_lora(lora_events)
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     params, cfg = make_params()
@@ -2374,14 +2668,21 @@ def main() -> int:
     lrec["decode_logits"] = compare_logits(
         eng, params, cfg, prompts, results, tables,
         slots=[reg.slot(a) if a is not None else 0 for a in LORA_IDS])
+    # profiled after the logits, whose rows' blocks the served run wrote
+    lrec["decode_step_profile"] = profile_decode_steps(
+        eng, [p[:CHUNK - 12] for p in prompts], "chunked LoRA serve, decode step (8 rows)",
+        ids=LORA_IDS)
+    lrec["chunk_piece_profile"] = profile_chunk_piece(eng, cfg, "chunked LoRA serve",
+                                                      adapter_id=LORA_ADAPTERS[0])
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    slrec, eng, *_ = spec_serve(params, cfg, lora=reg, self_draft=False)
+    slrec, eng, *_ = spec_serve(params, cfg, lora=reg, self_draft=False, profile=True)
     served["speculative LoRA serve"] = slrec["launches"]
     del eng, reg
     gc.collect()
     torch.cuda.empty_cache()
+    lora_profiles = profile_lora_serves(lrec, slrec, crec)
     keys = ("tokens_per_s", "ttft_p50_ms", "tpot_p50_ms")
     say("LoRA serves beside the same run's serves without LoRA: " + json.dumps({
         "chunked": {"lora": {k: lrec[k] for k in keys}, "base": {k: crec[k] for k in keys}},
@@ -2392,6 +2693,7 @@ def main() -> int:
     _exact_tokens(params32_4, cfg4)
     _exact_tokens_quant(params32_4, cfg4)
     _exact_tokens_lora(params32_4, cfg4)
+    _exact_tokens_lora_cases(params32_4, cfg4)
     _exact_tokens_tiny()
     del params32_4
     torch.cuda.empty_cache()
@@ -2443,8 +2745,8 @@ def main() -> int:
     say("quantized serves: " + json.dumps({"chunked int8": qrec, "speculative fp8": frec}))
     say("LoRA serves: " + json.dumps({"chunked": lrec, "speculative": slrec}))
     say("serve profiles: " + json.dumps({
-        "decode step": decode_profile, "chunk piece": crec.get("chunk_piece_profile"),
-        "verify round": srec.get("verify_round_profile")}))
+        "decode step": decode_profile, "chunk piece": crec["chunk_piece_profile"],
+        "verify round": srec["verify_round_profile"], "LoRA": lora_profiles}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

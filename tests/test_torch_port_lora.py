@@ -650,6 +650,171 @@ def test_llama_attention_lora_hook_matches_jax(micro):
 
 
 #
+# the kernel's slot read (the registry's arenas, no gathered copy)
+#
+
+
+def _arena_case(S, B, T, fin, fout, r, seed, x_dtype=torch.float32, f_dtype=torch.float32):
+    """An S-slot arena (slot 0 the all-zero base slot) of one layer's
+    factors, x for B requests and their slots, with repeats and the base
+    slot."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal((B, T, fin)).astype(np.float32)).to(x_dtype)
+    a = torch.as_tensor((rng.standard_normal((S, r, fin)) * 0.05).astype(np.float32)).to(f_dtype)
+    b = torch.as_tensor((rng.standard_normal((S, fout, r)) * 0.05).astype(np.float32)).to(f_dtype)
+    a[0], b[0] = 0, 0
+    slots = torch.as_tensor([(1 + i) % S if i % 3 else 0 for i in range(B)], dtype=torch.int32)
+    return x, a, b, slots
+
+
+@pytest.mark.parametrize("x_dtype,f_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B,T,fin,fout,r", [(8, 1, 64, 32, 8), (8, 5, 48, 80, 4),
+                                            (1, 12, 32, 64, 16), (5, 3, 40, 24, 65)],
+                         ids=["decode", "verify", "chunk", "rank65"])
+def test_lora_delta_slots_equal_gathered(B, T, fin, fout, r, x_dtype, f_dtype):
+    """Reading the arena by slot is the gathered call, bit for bit, in the
+    plain version and through the wrapper (which takes it on the CPU); the
+    base slot's rows are exactly 0."""
+    x, a, b, slots = _arena_case(4, B, T, fin, fout, r, seed=fin + r, x_dtype=x_dtype,
+                                 f_dtype=f_dtype)
+    idx = slots.long()
+    want = cudaex.lora_delta_fused_plain(x, a[idx], b[idx], 2.0)
+    for got in (cudaex.lora_delta_fused_plain(x, a, b, 2.0, slots),
+                cudaex.lora_delta_fused(x, a, b, 2.0, slots=slots)):
+        assert got.dtype == x.dtype and torch.equal(got, want)
+        assert bool((got[slots.long() == 0] == 0).all())
+
+
+def test_lora_delta_slot_checks():
+    x, a, b, slots = _arena_case(4, 3, 2, 16, 8, 4, seed=5)
+    with pytest.raises(ValueError, match="int32"):
+        cudaex.lora_delta_fused(x, a, b, 1.0, slots=slots.long())
+    with pytest.raises(ValueError, match=r"\(3,\) int32"):
+        cudaex.lora_delta_fused(x, a, b, 1.0, slots=slots[:2])
+    with pytest.raises(ValueError, match="slots are on meta"):
+        cudaex.lora_delta_fused(x, a, b, 1.0, slots=slots.to("meta"))
+    with pytest.raises(ValueError, match="out of range for 4 arena slots"):
+        cudaex.lora_delta_fused(x, a, b, 1.0, slots=torch.tensor([0, 4, 1], dtype=torch.int32))
+    with pytest.raises(ValueError, match="out of range"):
+        cudaex.lora_delta_fused(x, a, b, 1.0, slots=torch.tensor([0, -1, 1], dtype=torch.int32))
+    # arenas of the wrong shape: slot counts that differ, fin or rank off
+    with pytest.raises(ValueError, match="want a"):
+        cudaex.lora_delta_fused(x, a, b[:3], 1.0, slots=slots)
+    with pytest.raises(ValueError, match="want a"):
+        cudaex.lora_delta_fused(x, a[:, :, :8], b, 1.0, slots=slots)
+    with pytest.raises(ValueError, match="want a"):
+        cudaex.lora_delta_fused(x, a, b[:, :, :3], 1.0, slots=slots)
+    # without slots the factors must be per request
+    with pytest.raises(ValueError, match="without slots"):
+        cudaex.lora_delta_fused(x, a, b, 1.0)
+    cudaex.reset_launches()
+    cudaex.lora_delta_fused(x, a, b, 1.0, slots=slots)
+    assert cudaex.LAUNCHES["lora_delta_fused"] == 0          # CPU calls run the plain version
+
+
+def _refuse_gathers(monkeypatch):
+    """Makes a gather of whole factor stacks by slot raise."""
+    from thunder_tpu_torch.serving import lora as tlora
+
+    def refuse(arenas, slots):
+        raise AssertionError(f"gathered {sorted(arenas)}")
+
+    monkeypatch.setattr(tlora, "gather_adapter_slots", refuse)
+
+
+def _record_plain_calls(monkeypatch):
+    """Wraps the plain delta the paged forward gives the MLP targets;
+    records whether each call read the arenas by slot."""
+    calls = []
+    real = tpa._lora_delta
+
+    def recording(x, a, b, scaling, slots=None):
+        calls.append(slots is not None)
+        return real(x, a, b, scaling, slots=slots)
+
+    monkeypatch.setattr(tpa, "_lora_delta", recording)
+    return calls
+
+
+def _record_kernel_calls(monkeypatch):
+    """Wraps the kernel wrapper the paged forward calls; records whether
+    each call read the arenas by slot."""
+    calls = []
+    real = tpa.lora_delta_fused
+
+    def recording(x, a, b, scaling, slots=None):
+        calls.append(slots is not None)
+        return real(x, a, b, scaling, slots=slots)
+
+    monkeypatch.setattr(tpa, "lora_delta_fused", recording)
+    return calls
+
+
+def test_paged_engine_reads_attention_factors_by_slot(micro, regs, jax_tokens, monkeypatch):
+    """A paged engine with the default wq/wk/wv/wo targets copies no
+    factors: the gather is never called (it raises here), the prefill
+    pieces read their slot's views, and every decode step hands the kernel
+    the arenas and the slots.  The tokens are the JAX engine's."""
+    _, tcfg, _, tp = micro
+    _refuse_gathers(monkeypatch)
+    calls = _record_kernel_calls(monkeypatch)
+    eng = _port(tcfg, tp, attn="paged", lora=regs[1], **ENGINE)
+    assert _drive(eng, _prompts(), IDS) == jax_tokens["paged"]
+    assert eng.decode_steps > 0 and calls
+    assert calls.count(True) == 4 * tcfg.n_layer * eng.decode_steps
+
+
+def test_chunked_and_speculative_paged_engines_gather_nothing(micro, regs, monkeypatch):
+    """The paged chunk pieces (B = 1, views of the slot) and the verify
+    rounds (the arenas by slot) gather nothing either, with the JAX
+    engine's tokens."""
+    jcfg, tcfg, jp, tp = micro
+    jdcfg, dcfg, jdp, dp = _pair(seed=9)
+    prompts, ids = _prompts((13, 21, 9), seed=2), ["bob", None, "alice"]
+    sprompts, sids = _prompts((5, 9, 12), seed=3), ["carol", "alice", None]
+    want_chunked = _drive(_jax(jcfg, jp, attn="paged", lora=regs[0], **CHUNKED), prompts, ids)
+    want_spec = _drive(_jax(jcfg, jp, attn="paged", lora=regs[0],
+                            speculative=JSpecConfig(jdp, jdcfg, K=2), **SPEC), sprompts, sids,
+                       n=7)
+    _refuse_gathers(monkeypatch)
+    chunked = _port(tcfg, tp, attn="paged", lora=regs[1], **CHUNKED)
+    assert _drive(chunked, prompts, ids) == want_chunked and chunked.chunk_runs > 0
+    spec = _port(tcfg, tp, attn="paged", lora=regs[1], speculative=ttt.SpecConfig(dp, dcfg, K=2),
+                 **SPEC)
+    assert _drive(spec, sprompts, sids, n=7) == want_spec and spec.spec_rounds > 0
+
+
+def test_gather_engine_reads_factors_by_slot(micro, jax_tokens, regs, monkeypatch):
+    """The gather lane's decode steps pass the arenas and the slots too
+    (the plain delta takes each layer's factors by slot): no stack is
+    gathered, and the tokens are the JAX engine's."""
+    _, tcfg, _, tp = micro
+    _refuse_gathers(monkeypatch)
+    eng = _port(tcfg, tp, attn="gather", lora=regs[1], **ENGINE)
+    assert _drive(eng, _prompts(), IDS) == jax_tokens["gather"] and eng.decode_steps > 0
+
+
+def test_mlp_targets_read_by_slot(micro, monkeypatch):
+    """With MLP targets the paged steps gather nothing either: the kernel
+    reads the attention targets by slot, and the plain delta of
+    ``_block_tail`` takes the MLP targets' factors by slot layer by layer
+    (three calls per layer and step); the tokens are the JAX engine's."""
+    jcfg, tcfg, jp, tp = micro
+    jreg, treg = _registries(jcfg, tcfg, targets=FULL, names=("full",))
+    ids = ["full", None, "full", None]
+    want = _drive(_jax(jcfg, jp, attn="paged", lora=jreg, **ENGINE), _prompts(), ids)
+    _refuse_gathers(monkeypatch)
+    calls = _record_kernel_calls(monkeypatch)
+    plain = _record_plain_calls(monkeypatch)
+    eng = _port(tcfg, tp, attn="paged", lora=treg, **ENGINE)
+    assert _drive(eng, _prompts(), ids) == want
+    assert calls.count(True) == 4 * tcfg.n_layer * eng.decode_steps > 0
+    assert plain.count(True) == len(plain) == 3 * tcfg.n_layer * eng.decode_steps
+
+
+#
 # on the card
 #
 
@@ -661,6 +826,43 @@ def card():
     return torch.device("cuda")
 
 
+def _lowp_bound(x, a, b, scaling, want, slots=None):
+    """Per-element bound on |kernel - plain| for bf16/f16 x.  Both round
+    d = x·Aᵀ, d·Bᵀ and its product with the scaling to x's dtype, after
+    float32 sums in different orders.  The kernel's float32 d lies within
+    D·2⁻²⁴·Σ|x·a| of the exact one, D its summation depth (phase 1 and the
+    fold of the fin splits, from the launch plan; an mma.sync product
+    counted as four truncations per 16 columns).  Where that interval holds
+    no rounding midpoint and the plain version rounded d to the same value,
+    d is the same on both paths, and the outputs differ by the two later
+    roundings alone: 2 ulps of the output.  Each other d_j may differ by
+    its distance to the plain d_j, which adds |B_cj|·scaling times it."""
+    if slots is not None:
+        idx = slots.long()
+        a, b = a.index_select(0, idx), b.index_select(0, idx)
+    B, T, fin = x.shape
+    r = a.shape[1]
+    plan = cudaex.lora_plan(B, T, fin, r, x.dtype)
+    ks, splits = plan["ks"], plan["splits"]
+    depth = (ks // 4 + splits // 4 + 3) if plan["body"] == "mma" else (ks // 32 + 5 + splits)
+    ar, br = a.to(x.dtype), b.to(x.dtype)
+    x64, a64, b64 = x.double(), ar.double(), br.double()
+    d64 = torch.matmul(x64, a64.transpose(-1, -2))
+    err = depth * 2.0 ** -24 * torch.matmul(x64.abs(), a64.abs().transpose(-1, -2))
+    err = err + 2.0 ** -22 * d64.abs()           # the float64 -> float32 -> x dtype rounding
+    d_plain = torch.matmul(x.float(), ar.float().transpose(-1, -2)).to(x.dtype).double()
+    lo = (d64 - err).float().to(x.dtype).double()
+    hi = (d64 + err).float().to(x.dtype).double()
+    dd = torch.maximum((lo - d_plain).abs(), (hi - d_plain).abs())
+    sc = float(torch.tensor(scaling, dtype=x.dtype))
+    spread = sc * torch.matmul(dd, b64.abs().transpose(-1, -2))
+    spread = spread + sc * 2 * r * 2.0 ** -24 * torch.matmul(d_plain.abs(),
+                                                            b64.abs().transpose(-1, -2))
+    top = want.double().abs() + spread
+    ulp = torch.exp2(torch.floor(torch.log2(top.clamp(min=torch.finfo(x.dtype).tiny))))
+    return spread + 2 * ulp * torch.finfo(x.dtype).eps
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("f_dtype", [torch.float32, torch.bfloat16])
@@ -670,9 +872,11 @@ def card():
                                             (8, 1, 4096, 1024, 256)])
 def test_cuda_lora_delta_matches_plain(card, B, T, fin, fout, r, x_dtype, f_dtype):
     """float32 within 1e-5 of the output's largest magnitude (the same
-    products in another order); bf16 within 2 ulps of the plain version's
-    output (both round at the same three points, and a sum in another
-    order may round d one ulp the other way); base-slot rows exactly 0."""
+    products in another order); bf16 element by element within
+    ``_lowp_bound`` of the plain version: 2 ulps of the output where d
+    rounds the same way on both paths, plus what one ulp of each d_j that
+    a sum in another order may round the other way moves the output;
+    base-slot rows exactly 0."""
     gen = torch.Generator(card).manual_seed(B * T + r)
     x = torch.randn((B, T, fin), generator=gen, device=card).to(x_dtype)
     a = (torch.randn((B, r, fin), generator=gen, device=card) * 0.05).to(f_dtype)
@@ -684,12 +888,12 @@ def test_cuda_lora_delta_matches_plain(card, B, T, fin, fout, r, x_dtype, f_dtyp
     assert cudaex.LAUNCHES["lora_delta_fused"] == 1
     want = cudaex.lora_delta_fused_plain(x, a, b, 2.0)
     assert bool((got[0] == 0).all())
-    err = (got.float() - want.float()).abs()
     if x_dtype == torch.float32:
+        err = (got - want).abs()
         assert float(err.max()) <= 1e-5 * float(want.abs().max())
     else:
-        ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=1e-30))) - 7)
-        assert bool((err <= 2 * ulp).all()), float((err / ulp).max())
+        excess = (got.double() - want.double()).abs() - _lowp_bound(x, a, b, 2.0, want)
+        assert float(excess.max()) <= 0, float(excess.max())
 
 
 @pytest.mark.cuda
@@ -719,3 +923,115 @@ def test_cuda_lora_engine_launches_and_tokens(card):
     assert launches["lora_delta_fused"] == 4 * cfg.n_layer * steps > 0
     assert none["lora_delta_fused"] == 0
     assert paged == gather
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 16, 65, 128, 256])
+@pytest.mark.parametrize("T", [1, 5, 17, 512])
+@pytest.mark.parametrize("fin,fout", [(203, 301), (1024, 384)], ids=["ragged", "aligned"])
+def test_cuda_lora_delta_slots_match_plain(card, fin, fout, T, r, x_dtype):
+    """The kernel reading a 4-slot arena by slot (repeats, the base slot)
+    against its plain version: float32 within 1e-5 of the output's largest
+    magnitude, bf16 element by element within ``_lowp_bound`` of the plain
+    output; base rows exactly 0; two calls bitwise equal, and bitwise equal
+    to the call on the gathered factors; one counted launch per call."""
+    B = 2 if T == 512 else 6
+    x, a, b, slots = (t.to(card) for t in _arena_case(4, B, T, fin, fout, r, seed=T + r,
+                                                        x_dtype=x_dtype))
+    cudaex.reset_launches()
+    got = cudaex.lora_delta_fused(x, a, b, 2.0, slots=slots)
+    again = cudaex.lora_delta_fused(x, a, b, 2.0, slots=slots)
+    idx = slots.long()
+    gathered = cudaex.lora_delta_fused(x, a[idx].contiguous(), b[idx].contiguous(), 2.0)
+    torch.cuda.synchronize()
+    assert cudaex.LAUNCHES["lora_delta_fused"] == 3
+    want = cudaex.lora_delta_fused_plain(x, a, b, 2.0, slots)
+    assert torch.equal(got, again) and torch.equal(got, gathered)
+    assert bool((got[idx == 0] == 0).all())
+    if x_dtype == torch.float32:
+        err = (got - want).abs()
+        assert float(err.max()) <= 1e-5 * float(want.abs().max())
+    else:
+        excess = (got.double() - want.double()).abs() - _lowp_bound(x, a, b, 2.0, want, slots)
+        assert float(excess.max()) <= 0, float(excess.max())
+
+
+@pytest.mark.cuda
+def test_cuda_lora_delta_slot_out_of_range_gives_nan_rows(card):
+    """A slot outside the arena reads no factor: its rows come out NaN,
+    every other row as the plain version's."""
+    x, a, b, _ = (t.to(card) for t in _arena_case(4, 3, 5, 256, 128, 16, seed=3))
+    slots = torch.tensor([1, 7, 2], dtype=torch.int32, device=card)
+    got = cudaex.lora_delta_fused(x, a, b, 1.0, slots=slots)
+    torch.cuda.synchronize()
+    assert bool(got[1].isnan().all())
+    want = cudaex.lora_delta_fused_plain(x[[0, 2]], a, b, 1.0, slots[[0, 2]])
+    assert float((got[[0, 2]] - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,fin,r,x_dtype", [
+    (8, 1, 4096, 16, torch.bfloat16), (8, 5, 4096, 16, torch.bfloat16),
+    (1, 512, 4096, 16, torch.bfloat16), (8, 1, 4096, 128, torch.float32),
+    (1, 512, 4096, 256, torch.float32), (3, 17, 203, 65, torch.float16),
+    (2, 40, 14336, 8, torch.bfloat16), (1, 1, 5, 1, torch.float32),
+    (2, 12, 64, 8, torch.bfloat16)])
+def test_cuda_lora_plan_from_shapes(card, B, T, fin, r, x_dtype):
+    """The launch plan (``tt_lora_plan``, shapes and x's dtype alone): bf16/f16
+    at T >= 16 the mma.sync body (64 rows a block), the rest the FMA body
+    (one row at T = 1, 8 rows up to T = 8, else 16); fin cut into splits of
+    ks, a multiple of 16 up to 256 on mma.sync, else 512; a workspace for
+    the partials, and d after them on mma.sync.  At the Llama-3-8B decode
+    shape phase 1 holds 256 blocks (8 splits of 512, 4 rank groups, 8
+    requests)."""
+    plan = cudaex.lora_plan(B, T, fin, r, x_dtype)
+    body, splits, ks = plan["body"], plan["splits"], plan["ks"]
+    assert body == ("mma" if x_dtype != torch.float32 and T >= 16 else "fma")
+    assert plan["rows"] == (64 if body == "mma" else 1 if T == 1 else 8 if T <= 8 else 16)
+    assert ks % 16 == 0 and 16 <= ks <= (256 if body == "mma" else 512)
+    assert splits * ks >= fin > (splits - 1) * ks
+    assert plan["n_ws"] >= B * splits * T * r + (B * T * r // 2 if body == "mma" else 0)
+    assert plan["smem"] <= 232448
+    if (B, T, fin, r) == (8, 1, 4096, 16):
+        assert (splits, ks) == (8, 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,x_dtype,r_max", [(16, torch.bfloat16, 1664), (17, torch.float32, 3632),
+                                             (5, torch.bfloat16, 7264)])
+def test_cuda_lora_rank_limit(card, T, x_dtype, r_max):
+    """The largest rank whose phase 2 fits a block's shared memory serves
+    (within the bars of the plain version), and one more is refused by the
+    wrapper with its message and by the kernel's own entry point alike:
+    mma.sync holds 64 rows of d, FMA 16 (T = 17) or 8 (T = 5)."""
+    assert cudaex.lora_plan(1, T, 32, r_max, x_dtype)["smem"] <= 232448
+    assert cudaex.lora_plan(1, T, 32, r_max + 1, x_dtype)["smem"] > 232448
+    x, a, b, slots = (t.to(card) for t in _arena_case(2, 1, T, 32, 24, r_max, seed=r_max,
+                                                        x_dtype=x_dtype))
+    slots[0] = 1
+    got = cudaex.lora_delta_fused(x, a, b, 2.0, slots=slots)
+    want = cudaex.lora_delta_fused_plain(x, a, b, 2.0, slots)
+    if x_dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    else:
+        excess = (got.double() - want.double()).abs() - _lowp_bound(x, a, b, 2.0, want, slots)
+        assert float(excess.max()) <= 0
+    r = r_max + 1
+    x, a, b, slots = (t.to(card) for t in _arena_case(2, 1, T, 32, 24, r, seed=r,
+                                                        x_dtype=x_dtype))
+    with pytest.raises(ValueError, match="shared memory"):
+        cudaex.lora_delta_fused(x, a, b, 2.0, slots=slots)
+    import ctypes
+
+    from thunder_tpu_torch.executors import _build
+
+    lib = _build.load_library()
+    out = torch.empty((1, T, 24), dtype=x_dtype, device=card)
+    ws = torch.empty(cudaex.lora_plan(1, T, 32, r, x_dtype)["n_ws"], device=card)
+    code = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}[x_dtype]
+    shape = (ctypes.c_int64 * 10)(1, T, 32, 24, r, 2, r * 32, 24 * r, code, 0)
+    rc = lib.tt_lora_delta(x.data_ptr(), a.data_ptr(), b.data_ptr(), slots.data_ptr(),
+                           out.data_ptr(), ws.data_ptr(), shape, 1, 2.0,
+                           torch.cuda.current_stream().cuda_stream)
+    assert rc != 0

@@ -124,6 +124,26 @@ __device__ __forceinline__ float absmax_scale(float amax, float inv_qmax) {
   return amax == 0.f ? 1.f : __fmul_rn(amax, inv_qmax);
 }
 
+// D (16 x 8) += A (16 x 16) . B (16 x 8), mma.sync on T operands (bf16 or f16),
+// f32 accumulators
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+}
+
 // Host-side dispatch on the wrappers' dtype codes: f(tag) is called with a
 // value of the element type the code names (0 float32, 1 float16,
 // 2 bfloat16; storage codes add 3 int8 and 4 float8_e4m3fn).

@@ -80,6 +80,7 @@ using tt::fp8_e4m3;
 using tt::from_f;
 using tt::kMaskValue;
 using tt::load_kv;
+using tt::mma16816;
 using tt::quantized;
 using tt::round_to;
 using tt::to_f;
@@ -150,25 +151,6 @@ __device__ __forceinline__ bool keep_slot(const SplitArgs& a, int slot, int p) {
 
 __device__ __forceinline__ float* part_acc(const SplitArgs& a) {
   return a.part + static_cast<int64_t>(gridDim.z) * a.ng * a.splits * a.rows * 2;
-}
-
-// D (16 x 8) += A (16 x 16) . B (16 x 8), T operands, f32 accumulators
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  if constexpr (std::is_same<T, __half>::value) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
 }
 
 // Two arena elements as a T pair, *x0 in the low half: the stored bits, or

@@ -91,6 +91,7 @@ __all__ = [
     "flash_supported",
     "lora_delta_fused",
     "lora_delta_fused_plain",
+    "lora_plan",
     "paged_attn_decode",
     "paged_attn_decode_plain",
     "paged_attn_verify",
@@ -1469,81 +1470,172 @@ def flash_cross_entropy(logits, target):
 # lora_delta_fused: the per-request adapter delta of the serving paths
 #
 
-_LORA_ROWS, _LORA_COLS = 16, 128
-
-
 def _as_dtype_scalar(value: float, dtype) -> float:
     """``value`` rounded to ``dtype``: the reference multiplies by a weakly
     typed Python scalar, which takes the array's dtype first."""
     return float(torch.tensor(float(value), dtype=dtype))
 
 
-def lora_delta_fused_plain(x, a, b, scaling):
-    """Plain PyTorch version of :func:`lora_delta_fused`: the factors
+def lora_delta_fused_plain(x, a, b, scaling, slots=None):
+    """Plain PyTorch version of :func:`lora_delta_fused`: each request's
+    factors taken by slot (``index_select``) when ``slots`` is given, then
     rounded to x's dtype, ``d = x·Aᵀ`` accumulated in float32 and rounded to
     x's dtype, ``d·Bᵀ`` likewise, then times ``scaling`` (rounded to x's
     dtype) in float32 and rounded once more."""
+    if slots is not None:
+        idx = slots.long()
+        a, b = a.index_select(0, idx), b.index_select(0, idx)
     ft = _acc_dtype(x.dtype)
     d = torch.matmul(x.to(ft), a.to(x.dtype).to(ft).transpose(-1, -2)).to(x.dtype)
     o = torch.matmul(d.to(ft), b.to(x.dtype).to(ft).transpose(-1, -2)).to(x.dtype)
     return (o.to(ft) * _as_dtype_scalar(scaling, x.dtype)).to(x.dtype)
 
 
-_SM_COUNT: dict = {}
+def lora_plan(B: int, T: int, fin: int, r: int, x_dtype) -> dict:
+    """The launch plan of a :func:`lora_delta_fused` call on the card, as
+    ``csrc/lora_delta.cu`` computes it (``tt_lora_plan``) from shapes and
+    x's dtype alone, so a call never syncs: the body (``"mma"``, mma.sync
+    tiles for bf16/f16 x at T >= 16: phase 1, a fold kernel, phase 2; else
+    ``"fma"``: FMA phases 1 and 2), x rows per block, fin cut into
+    ``splits`` pieces of ``ks``, the float32 workspace's floats and phase
+    2's shared memory per block.  Builds the kernels on first use."""
+    lib = _build.load_library()
+    out = (ctypes.c_int64 * 6)()
+    _raise_on(lib, lib.tt_lora_plan(B, T, fin, r, _DTYPE_CODE[x_dtype], out), "lora_plan")
+    mma, rows, splits, ks, n_ws, smem = out
+    return dict(body="mma" if mma else "fma", rows=rows, splits=splits, ks=ks, n_ws=n_ws,
+                smem=smem)
 
 
-def _lora_split(dev, B: int, T: int, fout: int) -> int:
-    """Blocks along fout: enough for about two blocks per SM in all, at most
-    one per 128-column tile."""
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = -(-fout // _LORA_COLS)
-    rows = B * -(-T // _LORA_ROWS)
-    return max(1, min(tiles, -(-2 * _SM_COUNT[dev] // rows)))
+def _lora_key(x, a, b, slots) -> tuple:
+    """What the checks read of a call's tensors, flat: shape, dtype, device
+    (and whether x is contiguous, the factors' strides)."""
+    try:
+        return (x.shape, x.dtype, x.device, x.is_contiguous(), a.shape, a.stride(), a.dtype,
+                a.device, b.shape, b.stride(), b.dtype, b.device,
+                None if slots is None else (slots.shape, slots.dtype, slots.device))
+    except AttributeError:
+        raise ValueError("lora_delta_fused: x, a, b (and slots, if given) must be tensors") from None
 
 
-def lora_delta_fused(x, a, b, scaling):
+# checked calls by _lora_key: the launch on the card (the output's shape,
+# the workspace's floats, the kernel's shape array, whether every row start
+# is a multiple of 16 bytes from its tensor's, the card), "cpu", or "empty"
+# (no output element); a call that fails a check raises and is not kept
+_LORA_CHECKED: dict = {}
+
+
+def _lora_checked(key: tuple):
+    """Validates one :func:`lora_delta_fused` call from its ``_lora_key``
+    and returns what ``_LORA_CHECKED`` keeps for it."""
+    name = "lora_delta_fused"
+    (xs, xdt, dev, x_contiguous, as_, ast, adt, adev, bs, bst, bdt, bdev, s_meta) = key
+    for arg, shape, dt, d in (("x", xs, xdt, dev), ("a", as_, adt, adev), ("b", bs, bdt, bdev)):
+        _require(len(shape) == 3, lambda: f"{name}: {arg} must be a 3-D tensor")
+        _require(d == dev, lambda: f"{name}: {arg} is on {d}, x on {dev}")
+        _require(dt in _DTYPE_CODE,
+                 lambda: f"{name}: {arg} must be float32/float16/bfloat16, got {dt}")
+    _require(dev.type in ("cpu", "cuda"), lambda: f"{name}: unsupported device {dev}")
+    B, T, fin = xs
+    S, r = as_[0], as_[1]
+    fout = bs[1]
+    _require(tuple(as_) == (S, r, fin) and tuple(bs) == (S, fout, r),
+             lambda: f"{name}: want a (S, r, fin) and b (S, fout, r) for x {xs}, got {as_} and "
+             f"{bs}")
+    if s_meta is None:
+        _require(S == B, lambda: f"{name}: want a (B, r, fin) and b (B, fout, r) for x {xs} "
+                 f"without slots, got {as_} and {bs}")
+    else:
+        sshape, sdt, sdev = s_meta
+        _require(sdt == torch.int32 and tuple(sshape) == (B,),
+                 lambda: f"{name}: slots must be a ({B},) int32 tensor, got {sdt} {sshape}")
+        _require(sdev == dev, lambda: f"{name}: slots are on {sdev}, x on {dev}")
+    _require(adt == bdt, lambda: f"{name}: a and b must share one dtype")
+    _require(r >= 1, lambda: f"{name}: the rank must be at least 1, got {r}")
+    if dev.type == "cpu":
+        return "cpu"
+    _require(x_contiguous, lambda: f"{name}: x must be contiguous")
+    for arg, st, inner in (("a", ast, fin), ("b", bst, r)):
+        _require(st[2] == 1 and st[1] == inner,
+                 lambda: f"{name}: each slot's {arg} must be one contiguous slab")
+    if B * T * fout == 0:
+        return "empty"
+    _require(fin >= 1, lambda: f"{name}: fin must be at least 1")
+    plan = lora_plan(B, T, fin, r, xdt)
+    _require(plan["smem"] <= _MAX_SMEM_BYTES, lambda: f"{name}: rank {r} needs "
+             f"{plan['smem']} B of shared memory per block (limit {_MAX_SMEM_BYTES})")
+    ints = (B, T, fin, fout, r, S, ast[0], bst[0], _DTYPE_CODE[xdt], _DTYPE_CODE[adt])
+    rows16 = fin % 8 == 0 and r % 8 == 0 and ast[0] % 8 == 0 and bst[0] % 8 == 0
+    return ((B, T, fout), plan["n_ws"], (ctypes.c_int64 * len(ints))(*ints), rows16, dev.index)
+
+
+# the float32 workspaces of lora_delta_fused, one per (device, stream): the
+# stream orders every call's use after the last one's, and a workspace is
+# never freed (a captured CUDA graph may hold its address), only joined by
+# a larger one when a call needs more
+_LORA_WS: dict = {}       # (card, stream) -> (address, floats)
+_LORA_KEEP: list = []     # every workspace ever made, kept alive
+
+
+def _lora_workspace(dev, stream: int, n: int) -> int:
+    """The address of at least ``n`` floats of workspace for ``stream`` on
+    card ``dev``."""
+    held = _LORA_WS.get((dev, stream))
+    if held is None or held[1] < n:
+        ws = torch.empty(max(n, 1 << 16), dtype=torch.float32, device=dev)
+        _LORA_KEEP.append(ws)
+        held = _LORA_WS[dev, stream] = (ws.data_ptr(), ws.numel())
+    return held[0]
+
+
+def lora_delta_fused(x, a, b, scaling, slots=None):
     """Per-request LoRA delta ``scaling·(x·Aᵀ)·Bᵀ`` (``csrc/lora_delta.cu``).
 
-    ``x``: (B, T, fin) float32/float16/bfloat16, contiguous; ``a``:
-    (B, r, fin) and ``b``: (B, fout, r) at the registry's dtype, each
-    request's slab contiguous (a per-layer view ``stack[:, l]`` of a
-    (B, L, ...) stack is taken as it is), any rank ``r`` (the kernel walks
-    it in chunks of 64 with one f32 accumulator per output element).
-    Returns (B, T, fout) at x's dtype, with the reference's rounding points
-    (see :func:`lora_delta_fused_plain`)."""
-    name = "lora_delta_fused"
-    for arg, t in (("x", x), ("a", a), ("b", b)):
-        _require(isinstance(t, torch.Tensor) and t.ndim == 3,
-                 f"{name}: {arg} must be a 3-D tensor")
-        _require(t.device == x.device, f"{name}: {arg} is on {t.device}, x on {x.device}")
-        _require(t.dtype in _DTYPE_CODE,
-                 f"{name}: {arg} must be float32/float16/bfloat16, got {t.dtype}")
-    _require(x.device.type in ("cpu", "cuda"), f"{name}: unsupported device {x.device}")
-    B, T, fin = x.shape
-    r, fout = a.shape[1], b.shape[1]
-    _require(tuple(a.shape) == (B, r, fin) and tuple(b.shape) == (B, fout, r),
-             f"{name}: want a (B, r, fin) and b (B, fout, r) for x {tuple(x.shape)}, got "
-             f"{tuple(a.shape)} and {tuple(b.shape)}")
-    _require(a.dtype == b.dtype, f"{name}: a and b must share one dtype")
-    _require(r >= 1, f"{name}: the rank must be at least 1, got {r}")
-    if x.device.type == "cpu":
-        return lora_delta_fused_plain(x, a, b, scaling)
-    _require(x.is_contiguous(), f"{name}: x must be contiguous")
-    for arg, t, inner in (("a", a, fin), ("b", b, r)):
-        _require(t.stride(2) == 1 and t.stride(1) == inner,
-                 f"{name}: each request's {arg} must be one contiguous slab")
-    out = torch.empty((B, T, fout), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    _require(fin >= 1, f"{name}: fin must be at least 1")
+    ``x``: (B, T, fin) float32/float16/bfloat16, contiguous.  Without
+    ``slots``: ``a`` (B, r, fin) and ``b`` (B, fout, r), request i's factors
+    at index i (the reference's signature).  With ``slots`` ((B,) int32 on
+    x's device): ``a`` (S, r, fin) and ``b`` (S, fout, r) are the registry's
+    per-layer arena views, and request i reads its factors at slot
+    ``slots[i]`` inside the kernel, so nothing is gathered; a slot outside
+    [0, S) raises on the CPU and gives NaN rows on the card (no device
+    value is read on the host).  Factors at the registry's dtype, each
+    slot's slab contiguous (a per-layer view ``stack[:, l]`` is taken as it
+    is), any rank whose phase 2 fits a block's shared memory
+    (:func:`lora_plan`).  Returns (B, T, fout) at x's dtype, with the
+    reference's rounding points (see :func:`lora_delta_fused_plain`).  One
+    counted launch per call (the kernels of the body); the checks and the
+    plan are kept by the tensors' shapes, strides, dtypes and devices."""
+    key = _lora_key(x, a, b, slots)
+    launch = _LORA_CHECKED.get(key)
+    if launch is None:
+        launch = _lora_checked(key)
+        if len(_LORA_CHECKED) >= 256:
+            _LORA_CHECKED.clear()
+        _LORA_CHECKED[key] = launch
+    if launch == "cpu":
+        if slots is not None and slots.numel():
+            S = a.shape[0]
+            _require(int(slots.min()) >= 0 and int(slots.max()) < S,
+                     lambda: f"lora_delta_fused: slots {slots.tolist()} out of range for {S} "
+                     "arena slots")
+        return lora_delta_fused_plain(x, a, b, scaling, slots)
+    dev = key[2]
+    if launch == "empty":
+        return torch.empty((x.shape[0], x.shape[1], b.shape[1]), dtype=x.dtype, device=dev)
+    out_shape, n_ws, shape, rows16, index = launch
+    px, pa, pb = x.data_ptr(), a.data_ptr(), b.data_ptr()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    out = torch.empty(out_shape, dtype=key[1], device=dev)
+    args = (px, pa, pb, None if slots is None else slots.data_ptr(), out.data_ptr(),
+            _lora_workspace(dev, stream, n_ws), shape, rows16 and not (px | pa | pb) & 15,
+            scaling, stream)
     lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.tt_lora_delta(
-            _ptr(x), _ptr(a), _ptr(b), _ptr(out), B, T, fin, fout, r, a.stride(0), b.stride(0),
-            _lora_split(x.device, B, T, fout), ctypes.c_float(scaling), _DTYPE_CODE[x.dtype],
-            _DTYPE_CODE[a.dtype], ctypes.c_void_p(stream))
-    _raise_on(lib, rc, name)
+    if index == torch._C._cuda_getDevice():
+        rc = lib.tt_lora_delta(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.tt_lora_delta(*args)
+    if rc:
+        _raise_on(lib, rc, "lora_delta_fused")
     LAUNCHES["lora_delta_fused"] += 1
     return out

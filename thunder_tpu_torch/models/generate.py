@@ -14,8 +14,9 @@ query dtype — with plain matmul and softmax rather than a fused SDPA call,
 which would reorder the math and change greedy tokens.
 
 ``forward_with_cache(lora=...)`` takes per-request LoRA factors, one adapter
-per batch row, and adds each target's delta next to its matmul (the layout
-``serving.lora.gather_adapter_slots`` produces).
+per batch row (the layout ``serving.lora.gather_adapter_slots`` produces), or
+the registry's arenas with ``lora_slots=``, and adds each target's delta next
+to its matmul.
 
 Not ported in this slice (each raises ``NotImplementedError``): the ring
 cache of sliding-window models whose cache is exactly one window long,
@@ -23,6 +24,7 @@ LLaMAMoE MLPs and int8 weight matmuls.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -93,14 +95,16 @@ def _expand_groups(kk, vv, nh):
 
 
 def _attn_with_cache(ap, x, cos_t, sin_t, ck, cv, pos, cfg: Config, *, lora=None,
-                     lora_scaling=1.0):
+                     lora_scaling=1.0, delta_fn=_lora_delta):
     """x: (B, T, C) new tokens at global positions [pos, pos+T).  Writes
     their K/V into the per-layer cache (ck/cv: (B, ng, Tc, hs), in place)
     and attends against every slot the model may see (plain layout: slot =
-    position).  ``lora``: this layer's ``{target: (a, b)}`` factors."""
+    position).  ``lora``: this layer's ``{target: (a, b)}`` factors, whose
+    deltas ``delta_fn`` computes."""
     B, T, _ = x.shape
     hs, nh = cfg.head_size, cfg.n_head
-    q, k, v = _project_qkv(ap, x, cos_t, sin_t, cfg, lora=lora, lora_scaling=lora_scaling)
+    q, k, v = _project_qkv(ap, x, cos_t, sin_t, cfg, lora=lora, lora_scaling=lora_scaling,
+                           delta_fn=delta_fn)
     Tc = ck.shape[2]
     W = cfg.sliding_window
     if W is not None and Tc == W:
@@ -129,7 +133,7 @@ def _attn_with_cache(ap, x, cos_t, sin_t, ck, cv, pos, cfg: Config, *, lora=None
     y = y.transpose(1, 2).reshape(B, T, nh * hs)
     out = _linear(y, ap["wo"], ap.get("bo"))
     if lora is not None and "wo" in lora:
-        out = out + _lora_delta(y, *lora["wo"], lora_scaling)
+        out = out + delta_fn(y, *lora["wo"], lora_scaling)
     return out
 
 
@@ -158,9 +162,11 @@ def _head(params, x, cfg: Config):
     return _linear(x, head, params.get("lm_head_b")).float()
 
 
-def _block_tail(bp, x, n1, h, cfg: Config, *, lora=None, lora_scaling=1.0):
-    """Residual + MLP half of a block, given the attention output ``h``."""
-    kw = dict(lora=lora, lora_scaling=lora_scaling)
+def _block_tail(bp, x, n1, h, cfg: Config, *, lora=None, lora_scaling=1.0,
+                delta_fn=_lora_delta):
+    """Residual + MLP half of a block, given the attention output ``h``;
+    ``delta_fn`` computes the MLP targets' LoRA deltas."""
+    kw = dict(lora=lora, lora_scaling=lora_scaling, delta_fn=delta_fn)
     if cfg.parallel_residual:
         n2 = n1 if cfg.shared_attention_norm else _norm(x, bp["norm_2"], cfg, bp.get("norm_2_b"))
         return x + h + mlp(bp["mlp"], n2, cfg, **kw)
@@ -169,29 +175,35 @@ def _block_tail(bp, x, n1, h, cfg: Config, *, lora=None, lora_scaling=1.0):
 
 
 def _layer_lora(lora, l: int):
-    """Layer ``l``'s ``{target: (a, b)}`` views of the per-request stacks
-    ``{target: {"a": (B, L, r, fin), "b": (B, L, fout, r)}}``, or None."""
+    """Layer ``l``'s ``{target: (a, b)}`` views of the stacks ``{target:
+    {"a": (N, L, r, fin), "b": (N, L, fout, r)}}``, or None: N is the
+    batch's rows, or the registry's slots where the step passes
+    ``lora_slots``."""
     if not lora:
         return None
     return {t: (ab["a"][:, l], ab["b"][:, l]) for t, ab in lora.items()}
 
 
 def forward_with_cache(params, idx, pos, cache, cos_all, sin_all, cfg: Config, *, lora=None,
-                       lora_scaling=1.0):
+                       lora_scaling=1.0, lora_slots=None):
     """Forward of new tokens ``idx`` (B, T) at global positions [pos, pos+T)
     against/into ``cache`` (updated in place).  ``pos`` is a Python int or
     a (B,) integer tensor of per-row positions.  ``lora``: optional
     per-request factors ``{target: {"a": (B, L, r, fin), "b": (B, L, fout,
-    r)}}``, one adapter per batch row; the delta ``lora_scaling * B(A(x))``
-    lands next to each target's matmul.  Returns (logits (B, T, V)
-    float32, cache)."""
+    r)}}``, one adapter per batch row; with ``lora_slots`` ((B,) int32
+    adapter slots) the registry's (S, L, ...) arenas instead, each row's
+    factors taken by its slot layer by layer.  The delta ``lora_scaling *
+    B(A(x))`` lands next to each target's matmul.  Returns (logits (B, T,
+    V) float32, cache)."""
     x, cos_t, sin_t = _embed(params, idx, pos, cos_all, sin_all, cfg)
+    delta = functools.partial(_lora_delta, slots=lora_slots)
     for l, bp in enumerate(params["blocks"]):
         lora_l = _layer_lora(lora, l)
         n1 = _norm(x, bp["norm_1"], cfg, bp.get("norm_1_b"))
         h = _attn_with_cache(bp["attn"], n1, cos_t, sin_t, cache["k"][l], cache["v"][l], pos, cfg,
-                             lora=lora_l, lora_scaling=lora_scaling)
-        x = _block_tail(bp, x, n1, h, cfg, lora=lora_l, lora_scaling=lora_scaling)
+                             lora=lora_l, lora_scaling=lora_scaling, delta_fn=delta)
+        x = _block_tail(bp, x, n1, h, cfg, lora=lora_l, lora_scaling=lora_scaling,
+                        delta_fn=delta)
     return _head(params, x, cfg), cache
 
 

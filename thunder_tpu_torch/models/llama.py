@@ -354,26 +354,36 @@ def apply_rope(x, cos, sin):
     return (x * cos + rotated * sin).to(x.dtype)
 
 
-def _lora_delta(x, a, b, scaling):
+def _lora_delta(x, a, b, scaling, slots=None):
     """Per-request LoRA delta ``scaling * B(A(x))``, one adapter per batch
     row (``_lora_delta``, reference ``models/generate.py:123``): ``x``
-    (B, T, fin), ``a`` (B, r, fin), ``b`` (B, fout, r) → (B, T, fout).  The
-    factors are cast to x's dtype; ``scaling`` takes x's dtype too, as the
-    reference's weakly typed scalar does.  Row ``i``'s delta depends only on
-    row ``i``, so a request's math is the same whatever shares its batch."""
+    (B, T, fin), ``a`` (B, r, fin), ``b`` (B, fout, r) → (B, T, fout).  With
+    ``slots`` ((B,) integer adapter slots) ``a``/``b`` are the registry's
+    (S, r, fin)/(S, fout, r) arenas, and each row's factors are taken by its
+    slot first.  The factors are cast to x's dtype; ``scaling`` takes x's
+    dtype too, as the reference's weakly typed scalar does.  Row ``i``'s
+    delta depends only on row ``i``, so a request's math is the same
+    whatever shares its batch."""
+    if slots is not None:
+        idx = slots.long()
+        a, b = a.index_select(0, idx), b.index_select(0, idx)
     d = torch.matmul(x, a.to(x.dtype).transpose(-1, -2))
     o = torch.matmul(d, b.to(x.dtype).transpose(-1, -2))
     return o * _as_dtype_scalar(scaling, x.dtype)
 
 
-def mlp(mp, x, cfg: Config, *, lora=None, lora_scaling=1.0):
+def mlp(mp, x, cfg: Config, *, lora=None, lora_scaling=1.0, delta_fn=None):
     """The block's MLP.  ``lora``: optional ``{target: (a, b)}`` per-request
     factors of this layer; a targeted matmul adds the plain delta of its
-    own input (reference ``_mlp``, ``models/generate.py:82``)."""
+    own input (reference ``_mlp``, ``models/generate.py:82``), through
+    ``delta_fn(x, a, b, scaling)`` where given (the plain delta reading
+    arenas by slot)."""
+    delta_fn = _lora_delta if delta_fn is None else delta_fn
+
     def ll(name, inp, bias=None):
         o = _linear(inp, mp[name], mp.get(bias) if bias else None)
         if lora is not None and name in lora:
-            o = o + _lora_delta(inp, *lora[name], lora_scaling)
+            o = o + delta_fn(inp, *lora[name], lora_scaling)
         return o
 
     if cfg.mlp_class == "LLaMAMoE":
@@ -394,7 +404,7 @@ def _project_qkv(ap, x, cos_t, sin_t, cfg: Config, *, lora=None, lora_scaling=1.
     count.  ``lora``: optional ``{target: (a, b)}`` factors of this layer;
     ``delta_fn(x, a, b, scaling)`` computes a target's delta (default the
     plain :func:`_lora_delta`; the serving kernel path passes
-    ``cudaex.lora_delta_fused``)."""
+    ``cudaex.lora_delta_fused``; either may read arenas by slot)."""
     B, T, _ = x.shape
     hs, nh, ng = cfg.head_size, cfg.n_head, cfg.n_query_groups
     delta_fn = _lora_delta if delta_fn is None else delta_fn

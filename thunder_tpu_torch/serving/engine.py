@@ -50,11 +50,13 @@ the step they finish.
   eagerly and compiles nothing);
 - multi-tenant LoRA (``lora=AdapterRegistry(...)``, :mod:`serving.lora`):
   ``submit(..., adapter_id=...)`` routes a request through a registered
-  adapter.  Every lane gathers each row's factors by slot once per step:
-  the dense prefill, gather decode and gather chunk add the plain delta,
-  the paged decode, paged chunk and ``verify_paged`` the
-  ``lora_delta_fused`` kernel (wq, wk, wv, wo: four launches per layer).
-  Requests of different adapters never share a prompt prefix;
+  adapter.  A prefill piece reads its one request's factors as views of
+  the registry's arenas; every batched step passes the arenas and the
+  rows' slots, which the paged decode, paged chunk and ``verify_paged``
+  steps' ``lora_delta_fused`` kernel (wq, wk, wv, wo: four launches per
+  layer) reads inside, and the plain delta (the gather lanes, MLP targets)
+  by ``index_select`` layer by layer: no step copies a whole stack of
+  factors.  Requests of different adapters never share a prompt prefix;
 - greedy and temperature sampling; each request draws from its own
   ``torch.Generator`` — one draw at the prefill and one per decode step,
   like a solo ``generate()`` — so its tokens do not depend on what else
@@ -86,7 +88,7 @@ from thunder_tpu_torch.models.generate import forward_with_cache, sample_token
 from thunder_tpu_torch.models.llama import build_rope_cache
 from thunder_tpu_torch.serving import speculative as spec_lane
 from thunder_tpu_torch.observability.metrics import registry
-from thunder_tpu_torch.serving.lora import AdapterRegistry, gather_adapter_slots
+from thunder_tpu_torch.serving.lora import AdapterRegistry
 from thunder_tpu_torch.serving.kv_pool import (
     SINK_BLOCK,
     PagedKVPool,
@@ -769,7 +771,7 @@ class ServingEngine:
             kind = "prefill" if final else self._chunk_kind()
         prog, new = self._program(kind, Tb, nbb)
         req.prefill_compiled = req.prefill_compiled or new
-        slots = self._slots([req], 1)
+        slots = req.adapter_slot if self._registry is not None else None
         if final:
             tok, qerr = prog(toks, pos, n_real, table, dest, req.generator, slots)
             rec = {"kind": "prefill", "req": req, "tok": tok, "qerr": qerr}
@@ -1034,13 +1036,20 @@ class ServingEngine:
         return torch.as_tensor(slots, device=self.device)
 
     def _lora_kwargs(self, slots) -> dict:
-        """The forward kwargs of a step's rows: their factors gathered by
-        slot (one copy per step) and the registry's scaling; none without a
-        registry."""
-        if self._registry is None:
+        """The LoRA forward kwargs of a step's rows and the registry's
+        scaling; none without a registry.  ``slots``: one request's slot
+        (an int: a prefill piece), whose factors are then views of the
+        arenas; or a batch's (Bb,) device slots, passed with the arenas
+        (``lora_slots``), which every delta reads by slot.  Nothing is
+        copied here."""
+        reg = self._registry
+        if reg is None:
             return {}
-        return {"lora": gather_adapter_slots(self._registry.arenas, slots),
-                "lora_scaling": self._registry.scaling}
+        if isinstance(slots, int):
+            lora = {t: {k: v[slots:slots + 1] for k, v in ab.items()}
+                    for t, ab in reg.arenas.items()}
+            return {"lora": lora, "lora_scaling": reg.scaling}
+        return {"lora": reg.arenas, "lora_scaling": reg.scaling, "lora_slots": slots}
 
     def _sample_rows(self, logits, generators) -> torch.Tensor:
         """One token per batch row; each live row draws from its own

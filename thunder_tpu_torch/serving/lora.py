@@ -2,10 +2,11 @@
 
 Counterpart of ``thunder_tpu/serving/lora.py``.  The engine holds a bounded
 registry of LoRA adapters: stacked A/B factor arenas on the engine's device,
-one slot per adapter.  Every step gathers each request's factors by its slot
-index and applies the low-rank delta ``scaling * B(A(x))`` next to each
-target weight's matmul, so a batch mixes tenants freely and the bucket
-geometries never grow with adapter ids.
+one slot per adapter.  Every step reads each request's factors by its slot
+index (the ``lora_delta_fused`` kernel inside, the plain delta by
+``index_select`` layer by layer) and applies the low-rank delta ``scaling *
+B(A(x))`` next to each target weight's matmul, so a batch mixes tenants
+freely and the bucket geometries never grow with adapter ids.
 
 - **Slot 0 is the reserved base slot** (all-zero factors): requests without
   an ``adapter_id`` ride the same steps with an exact-zero delta.

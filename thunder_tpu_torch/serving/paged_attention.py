@@ -29,7 +29,8 @@ equal the gather path's.
 Per-request LoRA factors (``lora=``) add each target's delta next to its
 matmul: the qkv and wo deltas go through the ``lora_delta_fused`` kernel
 (four launches per layer), while the MLP targets keep the plain delta, as
-the reference's ``_mlp`` does.
+the reference's ``_mlp`` does; both read the registry's arenas by slot when
+the step passes ``lora_slots``.
 
 Parity contract: the kernels score the arena's committed slots and fold
 the fresh K/V — cast to the cache dtype, exactly what the dense path would
@@ -37,6 +38,8 @@ have just written — as the final online-softmax term, so greedy tokens
 match the gather path and solo ``generate()``.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -56,6 +59,7 @@ from thunder_tpu_torch.models.generate import (
     _embed,
     _head,
     _layer_lora,
+    _lora_delta,
     _linear,
     _norm,
     _project_qkv,
@@ -81,7 +85,7 @@ def paged_supported(cfg, *, block_size: int, device) -> tuple[bool, str]:
 
 
 def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cdtype,
-                  head: bool = True, lora=None, lora_scaling=1.0):
+                  head: bool = True, lora=None, lora_scaling=1.0, lora_slots=None):
     """Decode/verify/chunk forward straight off the KV block arenas.
 
     ``idx``: (B, T) tokens at positions ``[pos, pos+T)`` — T = 1 is the
@@ -97,7 +101,9 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
     T > 1, at ``cdtype``, which the caller persists with one of the
     ``write_fresh_kv*`` functions.  ``lora``/``lora_scaling``: per-request
     factors as ``forward_with_cache`` takes them; the wq/wk/wv/wo deltas
-    go through ``cudaex.lora_delta_fused``."""
+    go through ``cudaex.lora_delta_fused``, the MLP targets' through the
+    plain delta.  ``lora_slots``: (B,) int32 adapter slots; ``lora`` is
+    then the registry's (S, L, ...) arenas, which both read by slot."""
     B, T = idx.shape
     if T > 1 and cfg.sliding_window is not None:
         raise ValueError("forward_paged: multi-token queries have no sliding-window keep-mask; "
@@ -105,12 +111,14 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
     hs, nh = cfg.head_size, cfg.n_head
     scales = {"k_scale": arenas.get("k_scale"), "v_scale": arenas.get("v_scale")}
     x, cos_t, sin_t = _embed(params, idx, pos, cos_all, sin_all, cfg)
+    delta = functools.partial(lora_delta_fused, slots=lora_slots)
+    plain = functools.partial(_lora_delta, slots=lora_slots)
     fresh_k, fresh_v = [], []
     for l, bp in enumerate(params["blocks"]):
         lora_l = _layer_lora(lora, l)
         n1 = _norm(x, bp["norm_1"], cfg, bp.get("norm_1_b"))
         q, k, v = _project_qkv(bp["attn"], n1, cos_t, sin_t, cfg, lora=lora_l,
-                               lora_scaling=lora_scaling, delta_fn=lora_delta_fused)
+                               lora_scaling=lora_scaling, delta_fn=delta)
         if T == 1:
             fk = k[:, :, 0].to(cdtype).contiguous()        # (B, ng, hs)
             fv = v[:, :, 0].to(cdtype).contiguous()
@@ -125,10 +133,11 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
         y = y.reshape(B, T, nh * hs)
         h = _linear(y, bp["attn"]["wo"], bp["attn"].get("bo"))
         if lora_l is not None and "wo" in lora_l:
-            h = h + lora_delta_fused(y, *lora_l["wo"], lora_scaling)
+            h = h + delta(y, *lora_l["wo"], lora_scaling)
         fresh_k.append(fk)
         fresh_v.append(fv)
-        x = _block_tail(bp, x, n1, h, cfg, lora=lora_l, lora_scaling=lora_scaling)
+        x = _block_tail(bp, x, n1, h, cfg, lora=lora_l, lora_scaling=lora_scaling,
+                        delta_fn=plain)
     logits = _head(params, x, cfg) if head else None
     return logits, {"k": torch.stack(fresh_k, dim=1), "v": torch.stack(fresh_v, dim=1)}
 
