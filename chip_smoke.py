@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # needs one NVIDIA H100 (sm_90a) and nvcc
     python3 -P chip_smoke.py --paged-times LABEL   # paged attention device ms only
+    python3 -P chip_smoke.py --write-times LABEL   # the engine's KV writers' ms only
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -24,14 +25,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the spec shape, the warpgroup body for the chunk shape), the profiler
    must see that body's kernels by name, and two calls must agree
    bitwise; the chunk and masked writes bitwise outside sink
-   block 0, every offset of the masked write.  Then CUDA-event and profiler times of kernel, plain
+   block 0, every offset of the masked write; the engine's pair writes
+   (``paged_token_write_pair``: K and V of a decode step, B=8, and of every
+   offset of a K=4 round, T=5, n_emit [1, 5, 0, 3, 2, 4, 0, 5], in one
+   launch) in bf16 and f32, rank 5 and the rank-4 scale form, both arenas
+   bitwise outside sink block 0, two calls bitwise equal, device ms at most
+   0.0030 (step) and 0.0063 (round), the step's CUDA-event time (the median
+   of five rounds of 200 calls, taken right after the build) at most 0.030
+   ms.  Then CUDA-event and profiler times of kernel, plain
    version and one library call computing the same function, beside the
    bound.  On int8 and fp8 arenas (quantized KV): ``paged_attn_decode``
    (B=8) and ``paged_attn_verify`` (both shapes; the same body checks) in
    float32 within 1e-5 and
    in bf16 by the ratio bar; ``paged_token_write_fused`` (B=8, the plain
    write and every offset 0..4 of the masked one) and
-   ``paged_chunk_write_fused`` (32 blocks) with stored bytes and scales
+   ``paged_chunk_write_fused`` (32 blocks; one arena, and the engine's
+   ``paged_chunk_write_fused_pair``: K and V in one pass off the forward's
+   (1, L, ng, T, hs) values, two calls bitwise equal, device ms at most
+   0.0607, every launch summed) with stored bytes and scales
    bitwise equal to the plain versions' and error sums within 1e-5
    relative; their times beside the bounds (no single PyTorch call
    computes these functions, so no library time).  The decode and verify
@@ -62,14 +73,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. serve: Llama-3-8B at full width (random weights from a seed) through
    ``serve(None, params, cfg, attn="paged")``: 8 greedy requests with
    prompts of 128-1024 tokens and 32 new tokens each; the kernels' launch
-   counts must equal the decode steps times n_layer and times 2; then one
+   counts must equal the decode steps times n_layer (attention) and times 1
+   (the pair write of K and V); then one
    decode step's logits through the kernels against the dense path over
    the same gathered cache; then four decode steps profiled by kernel
    group: the ``paged_attn_decode`` group (the split-K body's two kernels)
    at most 2.0 ms per step, and the step's device busy time fallen from
    the 35.6 ms it read on the previous decode kernel by at least 0.9 of
-   the group's saving on that kernel's 27.2 ms (a profile that records no
-   CUDA activity is taken again, up to three times, and then fails);
+   the group's saving on that kernel's 27.2 ms, and the ``kv_write`` group
+   (every KV write kernel) at most 0.004 ms per step (a profile that
+   records no CUDA activity is taken again, up to three times, and then
+   fails);
 5. chunked serve: the same model with ``prefill_chunk=512``, block-aligned
    prefill buckets (16..512), 8 greedy requests with prompts of 1024-3072
    tokens, 32 new tokens each; the chunk kind must resolve "paged", and
@@ -79,17 +93,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    matmul / the rest);
 6. speculative serve: the same target with a layer-skip draft (its own
    embedding, first two blocks, final norm and head), K=4, 8 greedy
-   requests; ``paged_attn_verify`` launches n_layer and
-   ``paged_token_write_masked`` 2(K+1) times per round, the decode kernels
-   never; one verify round profiled by kernel group; then once more with
-   draft = target, which must accept K drafts in some round;
+   requests; ``paged_attn_verify`` launches n_layer times and
+   ``paged_token_write_masked`` once per round, the decode kernels never;
+   one verify round profiled by kernel group, its ``kv_write`` group at
+   most 0.010 ms; then once more with draft = target, which must accept K
+   drafts in some round;
 6b. quantized serves: the chunked serve with ``kv_dtype="int8"`` on a pool
    of the bf16 chunked pool's bytes (1.94x the blocks), then the
    speculative serve with ``kv_dtype="fp8"`` (the draft arena inherits
    fp8); exact launch counts (the fused writes only, never an unquantized
-   write), the ``serving.kv_quant.rel_err`` gauge in (0, 0.05), and one
+   write: ``paged_chunk_write_fused`` once per chunk piece,
+   ``paged_token_write_fused`` per arena and offset), the
+   ``serving.kv_quant.rel_err`` gauge in (0, 0.05), and one
    decode step's logits off the int8 arenas through the kernels against
-   ``gather_dense_q`` and ``forward_with_cache`` (phase 4's bars);
+   ``gather_dense_q`` and ``forward_with_cache`` (phase 4's bars); then one
+   int8 chunk piece profiled by kernel group, its ``kv_write`` group at
+   most 0.065 ms;
 6c. LoRA serves: a registry of rank 16, alpha 32 (scaling 2), targets
    wq/wk/wv/wo, three adapters of std 0.05 from a seeded generator; the
    chunked serve of phase 5 and the speculative serve of phase 6 with two
@@ -472,6 +491,9 @@ def device_names(name, x) -> dict:
 
 
 def check_write():
+    """The single-arena ``paged_token_write`` (the reference's signature):
+    bitwise outside sink block 0, rank 5 in bf16 and f32 and the rank-4
+    scale form; then its bf16 times beside ``index_put_``."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     result = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -787,6 +809,124 @@ def check_masked_write(K=4):
 
 
 #
+# phase 3, continued: the engine's pair writes, K and V of a decode step or
+# of every offset of a verify round in one launch of the token-write kernel
+#
+
+# device ms per call at most: the decode step's pair (a 0.63 us bound), the
+# K=4 round's (3.14 us: at least half of it), the 512-token int8/fp8 chunk
+# piece's fused pair, every launch summed (30.36 us: at least half of it);
+# and the step pair's CUDA-event time, the median of PAIR_EVENT_ROUNDS rounds
+# of 200 calls taken after the build, before the process's first profile
+PAIR_DEVICE_MAX_MS = {"step": 0.0030, "round": 0.0063, "chunk": 0.0607}
+PAIR_STEP_EVENT_MAX_MS = 0.030
+PAIR_EVENT_ROUNDS = 5
+N_EMIT_ROUND = [1, 5, 0, 3, 2, 4, 0, 5]        # accepted counts of a K=4 round, 0 to K+1
+
+
+def pair_inputs(dtype, gen, T, rank=5):
+    """K and V arenas (rank 5 of the decode shape, or the rank-4 scale
+    form), the values of T offsets ((B, L, ng, hs) at T = 1, as a decode
+    step's forward returns them, else (B, L, ng, T, hs)), tables and
+    positions: the decode inputs at T = 1, the spec shape's (tables covering
+    pos + T, padding rows) at T = 5."""
+    x, _ = (decode_inputs(dtype, gen) if T == 1
+            else verify_inputs(dtype, gen, **VERIFY_SHAPES["spec"]))
+    tables, pos = x["tables"], x["pos"]
+    if rank == 5:
+        arenas = [x.pop("k_arena"), x.pop("v_arena")]
+        vshape = (B, L, NG, T, HS)
+    else:
+        arenas = [torch.randn((NUM_BLOCKS, L, NG, BS), generator=gen, device=DEVICE)
+                  for _ in range(2)]
+        vshape = (B, L, NG, T)
+    del x
+    vals = [torch.randn(vshape, generator=gen, device=DEVICE).to(dtype) for _ in range(2)]
+    if T == 1:
+        vals = [v[:, :, :, 0] for v in vals]
+    return arenas, vals, tables, pos
+
+
+def pair_bound(vals, tables, masked: bool):
+    """Each value read once and written once, in both arenas; tables,
+    positions (and n_emit)."""
+    n = sum(v.numel() * v.element_size() for v in vals)
+    return bound(2 * n + 4 * tables.numel() + 4 * B * (2 if masked else 1), 0, torch.bfloat16)
+
+
+def pair_event_rounds() -> list:
+    """The decode step pair's CUDA-event ms (bf16, B=8) in PAIR_EVENT_ROUNDS
+    rounds of 200 calls, before the process's first profiler session (as
+    ``lora_event_rounds``)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    arenas, vals, tables, pos = pair_inputs(torch.bfloat16, gen, 1)
+    rounds = [time_ms(lambda: cudaex.paged_token_write_pair(*arenas, *vals, tables, pos,
+                                                            block_size=BS), iters=200)
+              for _ in range(PAIR_EVENT_ROUNDS)]
+    del arenas, vals
+    return rounds
+
+
+def check_pair_writes(event_rounds: list) -> dict:
+    """``paged_token_write_pair`` at the decode step (B=8, T=1) and at a K=4
+    verify round (B=8, T=5, n_emit N_EMIT_ROUND, padding rows), rank 5 in
+    bf16 and f32 and the rank-4 scale form: both arenas bitwise equal to
+    the plain version outside sink block 0 (every offset), two calls
+    bitwise equal there too; then the bf16 times, the device bars
+    PAIR_DEVICE_MAX_MS and the step's CUDA-event bar (rounds taken before
+    the first profile).  Returns the step and round records."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    n_emit = torch.tensor(N_EMIT_ROUND, dtype=torch.int32, device=DEVICE)
+    result = {}
+    for kind, T in (("step", 1), ("round", 5)):
+        kw = {} if kind == "step" else {"n_emit": n_emit}
+        for rank, dtype in ((5, torch.bfloat16), (5, torch.float32), (4, torch.float32)):
+            arenas, vals, tables, pos = pair_inputs(dtype, gen, T, rank)
+            want = cudaex.paged_token_write_pair_plain(*(a.clone() for a in arenas), *vals,
+                                                       tables, pos, block_size=BS, **kw)
+            got = cudaex.paged_token_write_pair(*(a.clone() for a in arenas), *vals, tables,
+                                                pos, block_size=BS, **kw)
+            again = cudaex.paged_token_write_pair(*(a.clone() for a in arenas), *vals, tables,
+                                                  pos, block_size=BS, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g[1:], w[1:]) for g, w in zip(got, want))
+            # outside the sink too: padding rows race on its slot 0
+            twice = all(torch.equal(g[1:], a[1:]) for g, a in zip(got, again))
+            say(f"paged_token_write_pair {kind} (T={T}) rank {rank} {str(dtype)[6:]}: K and V "
+                f"bitwise equal to the plain version outside block 0: {same}; two calls "
+                f"bitwise equal: {twice} {'ok' if same and twice else 'FAIL'}")
+            if not (same and twice):
+                raise AssertionError(f"paged_token_write_pair {kind} rank {rank} {dtype} "
+                                     "disagrees with its plain version or with itself")
+            del want, got, again
+            if rank == 5 and dtype == torch.bfloat16:
+                rec = timed(
+                    "paged_token_write_kernel", f" pair: K+V, B={B}, T={T}"
+                    + (f", n_emit {N_EMIT_ROUND}" if kw else ""),
+                    lambda: cudaex.paged_token_write_pair(*arenas, *vals, tables, pos,
+                                                          block_size=BS, **kw),
+                    lambda: cudaex.paged_token_write_pair_plain(*arenas, *vals, tables, pos,
+                                                                block_size=BS, **kw),
+                    None, None, pair_bound(vals, tables, bool(kw)), iters=500, plain_iters=50)
+                rec["max_abs_err"] = 0.0
+                result[kind] = rec
+            del arenas, vals
+    result["step"]["event_rounds_ms"] = event_rounds
+    event_ms = statistics.median(event_rounds)
+    ok = event_ms <= PAIR_STEP_EVENT_MAX_MS and all(
+        result[k]["device_ms"] is not None and result[k]["device_ms"] <= PAIR_DEVICE_MAX_MS[k]
+        for k in ("step", "round"))
+    say(f"paged_token_write_pair times: device ms step {result['step']['device_ms']}, round "
+        f"{result['round']['device_ms']} (at most {PAIR_DEVICE_MAX_MS['step']} / "
+        f"{PAIR_DEVICE_MAX_MS['round']}); step CUDA-event {event_ms:.4f} ms, the median of "
+        f"rounds {[round(t, 4) for t in event_rounds]} taken before the first profile (at most "
+        f"{PAIR_STEP_EVENT_MAX_MS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("paged_token_write_pair missed a time bar")
+    return result
+
+
+#
 # phase 3, continued: quantized KV (kv_dtype int8 / fp8) — the dequantizing
 # attention kernels and the fused quantizing writes
 #
@@ -941,10 +1081,16 @@ def check_token_write_fused(K=4):
 
 
 def check_chunk_write_fused():
-    """``paged_chunk_write_fused`` of one chunk of the chunk shape (32
-    blocks at pos 2560) through its 192-entry scatter table into int8 and
-    fp8 arenas: bytes and scales bitwise equal to the plain version's
-    outside sink block 0, the error sums within ERR_SUMS_REL; then times."""
+    """One chunk piece of the chunk shape (T=512 at pos 2560, 32 blocks)
+    through its 192-entry scatter table into int8 and fp8 arenas: the
+    single-arena ``paged_chunk_write_fused`` (the reference's signature, the
+    values folded into block granules) and the engine's
+    ``paged_chunk_write_fused_pair`` (K and V in one pass, reading the
+    forward's (1, L, ng, T, hs) values in place): bytes and scales bitwise
+    equal to the plain versions' outside sink block 0, the error sums
+    within ERR_SUMS_REL, rel_err in (0, 0.05), the pair's two calls bitwise
+    equal (bytes outside the sink, sums whole); then times, every launch of
+    a call summed, the pair's device time within PAIR_DEVICE_MAX_MS["chunk"]."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
     nc, nbb = VERIFY_SHAPES["chunk"]["T"] // BS, VERIFY_SHAPES["chunk"]["nbb"]
     rng = np.random.default_rng(SEED + 3)
@@ -953,40 +1099,86 @@ def check_chunk_write_fused():
     dest_d = torch.as_tensor(dest, device=DEVICE)
     pos_d = torch.tensor([CHUNK_POS], dtype=torch.int32, device=DEVICE)
     result = {}
-    for kind, storage in QUANT.items():
-        arena, scale = quantize_kv(
-            torch.randn((NUM_BLOCKS, L, NG, BS, HS), generator=gen, device=DEVICE), storage)
-        vals = (3 * torch.randn((nc, L, NG, BS, HS), generator=gen, device=DEVICE)).to(
-            torch.bfloat16)
-        wa, ws, werr = cudaex.paged_chunk_write_fused_plain(arena.clone(), scale.clone(), vals,
-                                                            dest_d, pos_d, block_size=BS)
-        ga, gs, gerr = cudaex.paged_chunk_write_fused(arena, scale, vals, dest_d, pos_d,
-                                                      block_size=BS)
-        torch.cuda.synchronize()
-        same = (torch.equal(ga.view(torch.uint8)[1:], wa.view(torch.uint8)[1:])
-                and torch.equal(gs[1:], ws[1:]))
+
+    def held(label, got, want, twice=True):
+        """Bytes and scales (outside block 0) bitwise, sums within
+        ERR_SUMS_REL, rel_err of each arena in (0, 0.05)."""
+        *ga, gerr = got
+        *wa, werr = want
+        same = all(torch.equal(g.view(torch.uint8)[1:], w.view(torch.uint8)[1:])
+                   for g, w in zip(ga, wa))
         sums_rel = ((gerr - werr).abs() / werr.abs().clamp_min(1e-30)).max().item()
-        rel = (gerr[:, 0].sum() / (gerr[:, 1].sum() + 1e-30)).item()
-        ok = same and sums_rel <= ERR_SUMS_REL and 0.0 < rel < 0.05
-        say(f"paged_chunk_write_fused {kind}: bytes and scales bitwise equal outside block 0: "
-            f"{same}; error sums max relative difference {sums_rel:.2e} (bar {ERR_SUMS_REL}); "
-            f"rel_err {rel:.5f} {'ok' if ok else 'FAIL'}")
+        e = gerr.reshape(-1, nc, 2)
+        rels = [(x[:, 0].sum() / (x[:, 1].sum() + 1e-30)).item() for x in e]
+        ok = same and twice and sums_rel <= ERR_SUMS_REL and all(0.0 < r < 0.05 for r in rels)
+        say(f"{label}: bytes and scales bitwise equal outside block 0: {same}; two calls "
+            f"bitwise equal: {twice}; error sums max relative difference {sums_rel:.2e} (bar "
+            f"{ERR_SUMS_REL}); rel_err {[round(r, 5) for r in rels]} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"paged_chunk_write_fused {kind} disagrees with its plain "
-                                 "version")
-        del wa, ws
+            raise AssertionError(f"{label} disagrees with its plain version or with itself")
+        return sums_rel
+
+    for kind, storage in QUANT.items():
+        base = [quantize_kv(torch.randn((NUM_BLOCKS, L, NG, BS, HS), generator=gen,
+                                        device=DEVICE), storage) for _ in range(2)]
+        fresh = [(3 * torch.randn((1, L, NG, nc * BS, HS), generator=gen, device=DEVICE)).to(
+            torch.bfloat16) for _ in range(2)]
+        # the single-arena entry on K, the values folded into block granules
+        arena, scale = base[0][0].clone(), base[0][1].clone()
+        vals = cudaex.chunk_blocks(fresh[0], BS)
+        want = cudaex.paged_chunk_write_fused_plain(arena.clone(), scale.clone(), vals, dest_d,
+                                                    pos_d, block_size=BS)
+        got = cudaex.paged_chunk_write_fused(arena, scale, vals, dest_d, pos_d, block_size=BS)
+        torch.cuda.synchronize()
+        single_err = held(f"paged_chunk_write_fused {kind}", got, want)
+        del want, got
         n = vals.numel()
         nbytes = 2 * n + n + (n // HS) * 4 + 4 * nbb + 4 + nc * 2 * 4
-        rec = timed(
-            "paged_chunk_write_fused", f" {kind} ({nc} blocks)",
+        single = timed(
+            "paged_chunk_write_fused", f" {kind} ({nc} blocks, one arena)",
             lambda: cudaex.paged_chunk_write_fused(arena, scale, vals, dest_d, pos_d,
                                                    block_size=BS),
             lambda: cudaex.paged_chunk_write_fused_plain(arena, scale, vals, dest_d, pos_d,
                                                          block_size=BS),
-            None, None, bound(nbytes, 0, torch.bfloat16), iters=100, plain_iters=20)
-        rec["max_abs_err"] = sums_rel
-        result[kind] = rec
+            None, None, bound(nbytes, 0, torch.bfloat16), iters=100, plain_iters=20,
+            device_also=("chunk_err_reduce",), device_whole=True)
+        single["max_abs_err"] = single_err
         del arena, scale, vals
+
+        # the engine's pair: K and V in one pass off the (1, L, ng, T, hs) values
+
+        def pair_args():
+            return (base[0][0].clone(), base[1][0].clone(), base[0][1].clone(),
+                    base[1][1].clone(), *fresh, dest_d, pos_d)
+
+        want = cudaex.paged_chunk_write_fused_pair_plain(*pair_args(), block_size=BS)
+        got = cudaex.paged_chunk_write_fused_pair(*pair_args(), block_size=BS)
+        again = cudaex.paged_chunk_write_fused_pair(*pair_args(), block_size=BS)
+        torch.cuda.synchronize()
+        # bytes and scales outside the sink (chunk blocks past the table race
+        # there), the error sums whole
+        twice = (all(torch.equal(g.view(torch.uint8)[1:], a.view(torch.uint8)[1:])
+                     for g, a in zip(got[:4], again[:4]))
+                 and torch.equal(got[4], again[4]))
+        sums_rel = held(f"paged_chunk_write_fused_pair {kind}", got, want, twice)
+        del want, got, again
+        args = pair_args()
+        rec = timed(
+            "paged_chunk_write_fused", f" {kind} pair: K+V, {nc} blocks",
+            lambda: cudaex.paged_chunk_write_fused_pair(*args, block_size=BS),
+            lambda: cudaex.paged_chunk_write_fused_pair_plain(*args, block_size=BS),
+            None, None, bound(2 * (nbytes - 4 * nbb - 4) + 4 * nbb + 4, 0, torch.bfloat16),
+            iters=100, plain_iters=10,
+            device_also=("chunk_err_reduce",), device_whole=True)
+        rec.update(max_abs_err=sums_rel, single=single)
+        ok = rec["device_ms"] is not None and rec["device_ms"] <= PAIR_DEVICE_MAX_MS["chunk"]
+        say(f"paged_chunk_write_fused_pair {kind}: device {rec['device_ms']} ms, every launch "
+            f"summed (at most {PAIR_DEVICE_MAX_MS['chunk']}; bound "
+            f"{1e3 * rec['bound_ms']:.3f} us) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"paged_chunk_write_fused_pair {kind} missed its time bar")
+        result[kind] = rec
+        del args, base, fresh
     return result
 
 
@@ -1378,9 +1570,9 @@ def serve_full_width(params, cfg, n_requests=8, new_tokens=32):
         f"{1e3 * tpot:.2f} ms; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; decode steps {steps}")
     say(f"launches during serve: {launches} (expected paged_attn_decode "
-        f"{steps * cfg.n_layer}, paged_token_write {steps * 2})")
+        f"{steps * cfg.n_layer}, paged_token_write {steps}: K and V in one launch)")
     if launches != no_launches_but(paged_attn_decode=steps * cfg.n_layer,
-                                   paged_token_write=steps * 2):
+                                   paged_token_write=steps):
         raise AssertionError(f"launch counts {launches} do not match {steps} decode steps")
     compare_logits(eng, params, cfg, prompts, results, tables)
     return launches, profile_decode(eng, prompts)
@@ -1394,16 +1586,36 @@ DECODE_GROUP_MAX_MS = 2.0        # the paged_attn_decode group per step, at most
 DECODE_FALL_SHARE = 0.9          # the step's busy time falls by this share of its saving
 
 
+KV_WRITE_KERNELS = ("paged_token_write", "paged_chunk_write", "chunk_err_reduce")
+# the kv_write group per profiled step, ms at most: the decode step's pair
+# write (phase 4), the verify round's masked pair (phase 6), the int8 chunk
+# piece's fused pair with its error sums (phase 6b)
+KV_WRITE_GROUP_MAX_MS = {"decode step": 0.004, "verify round": 0.010, "int8 chunk piece": 0.065}
+
+
 def _group(name: str, attn: str) -> str:
     """Kernel group of a serving profile: the paged attention call ``attn``
-    (its split and combine kernels included), the token writes, the LoRA
-    delta (both phases' kernels), cuBLAS, or the rest."""
+    (its split and combine kernels included), every KV write kernel (token,
+    masked, fused and chunk writes: ``kv_write``), the LoRA delta (both
+    phases' kernels), cuBLAS, or the rest."""
     low = name.lower()
     return ("lora_delta" if "lora_delta" in low
             else attn if attn in low or "paged_attn_split" in low
-            else "paged_token_write" if "paged_token_write" in low
+            else "kv_write" if any(k in low for k in KV_WRITE_KERNELS)
             else "matmul" if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet"))
             else "other")
+
+
+def check_kv_write_group(rec: dict, step: str) -> float:
+    """The ``kv_write`` group of a profiled ``step``: nonzero (the write
+    ran) and within KV_WRITE_GROUP_MAX_MS."""
+    group = rec["groups_ms"].get("kv_write", 0.0)
+    lim = KV_WRITE_GROUP_MAX_MS[step]
+    ok = 0.0 < group <= lim
+    say(f"{step}: kv_write group {group:.4f} ms (at most {lim}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {step}'s kv_write group {group} ms missed its bar {lim}")
+    return group
 
 
 def profile_spans(prof, steps, attn, label) -> dict | None:
@@ -1696,11 +1908,13 @@ def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_b
     tag = f", LoRA rank {lora.rank} ids {LORA_IDS}" if lora is not None else ""
     rec = serve_stats(f"chunked serve {cfg.name} bf16, kv_dtype {kv_dtype}{tag} (prompts "
                       f"{sorted(len(p) for p in prompts)}, prefill_chunk {CHUNK})", results, wall)
-    q = "_fused" if kv_dtype is not None else ""
+    # the engine's pair writes: K and V of a step (bf16) or of a quantized
+    # chunk piece in one launch; the bf16 chunk write and the fused token
+    # write still launch once per arena
+    writes = ({"paged_chunk_write": pieces * 2, "paged_token_write": steps} if kv_dtype is None
+              else {"paged_chunk_write_fused": pieces, "paged_token_write_fused": steps * 2})
     want = no_launches_but(paged_attn_verify=pieces * cfg.n_layer,
-                           paged_attn_decode=steps * cfg.n_layer,
-                           **{f"paged_chunk_write{q}": pieces * 2,
-                              f"paged_token_write{q}": steps * 2},
+                           paged_attn_decode=steps * cfg.n_layer, **writes,
                            **lora_launches(cfg, lora, pieces + steps))
     say(f"launches during chunked serve: {launches} ({pieces} intermediate pieces, "
         f"{steps} decode steps; expected {want})")
@@ -1818,9 +2032,12 @@ def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, sel
     say(f"speculative serve: {rounds} rounds, acceptance rate {st['acceptance_rate']:.4f}, "
         f"tokens per round {st['tokens_per_round']:.3f}, accept_len histogram "
         f"{st['accept_len_hist']} (warm-up included)")
-    write = "paged_token_write_fused" if kv_dtype is not None else "paged_token_write_masked"
-    want = no_launches_but(paged_attn_verify=rounds * cfg.n_layer,
-                           **{write: rounds * 2 * (K + 1)}, **lora_launches(cfg, lora, rounds))
+    # the masked pair write: K and V of every offset of a round in one launch;
+    # into a quantized pool the fused write per arena and offset
+    writes = ({"paged_token_write_masked": rounds} if kv_dtype is None
+              else {"paged_token_write_fused": rounds * 2 * (K + 1)})
+    want = no_launches_but(paged_attn_verify=rounds * cfg.n_layer, **writes,
+                           **lora_launches(cfg, lora, rounds))
     say(f"launches during speculative serve: {launches} (expected {want}); pool "
         f"{eng.pool.num_blocks} blocks, arena {eng.pool.arena_bytes()} B")
     if launches != want or not rounds:
@@ -2607,11 +2824,17 @@ def main() -> int:
         for line in src["log"].splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
                 say(f"ptxas: {line.strip()}")
-    lora_events = lora_event_rounds()       # before any profile (phase 3 reads it)
+    lora_events = lora_event_rounds()       # before any profile (phase 3 reads both)
+    pair_events = pair_event_rounds()
 
     recs = {"paged_attn_decode": check_decode(), "paged_token_write": check_write(),
             "paged_attn_verify": check_verify(), "paged_chunk_write": check_chunk_write(),
             "paged_token_write_masked": check_masked_write(), **check_flash()}
+    # the token-write kernel's entries are the engine's pair writes (K and V
+    # of a decode step; of a K=4 round, masked), the single-arena calls beside
+    pair = check_pair_writes(pair_events)
+    for name, kind in (("paged_token_write", "step"), ("paged_token_write_masked", "round")):
+        recs[name] = {**pair[kind], "single": recs[name]}
     # quantized arenas: the dequantizing attention bodies (extra rows of
     # their kernels' entries) and the two fused writes (the token write's
     # entry is its int8 form, which the chunked int8 serve's decode steps
@@ -2630,6 +2853,7 @@ def main() -> int:
     params, cfg = make_params()
     served = {}
     served["decode serve"], decode_profile = serve_full_width(params, cfg)
+    kv_write = {"decode step": check_kv_write_group(decode_profile, "decode step")}
     crec, eng, prompts, tables, _ = chunked_serve(params, cfg, profile=True)
     served["chunked serve"] = crec["launches"]
     chunk_case = (_compact(eng.pool.arenas, [tables[0]]), prompts[0])
@@ -2638,6 +2862,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     srec, eng, prompts, results, tables = spec_serve(params, cfg, profile=True)
     served["speculative serve"] = srec["launches"]
+    kv_write["verify round"] = check_kv_write_group(srec["verify_round_profile"], "verify round")
     spec_case = (_compact(eng.pool.arenas, tables), prompts, results)
     del eng
     gc.collect()
@@ -2652,6 +2877,10 @@ def main() -> int:
                                                         num_blocks=nb_int8)
     served["chunked int8 serve"] = qrec["launches"]
     qrec["decode_logits"] = compare_logits(eng, params, cfg, prompts, results, tables)
+    # profiled after the logits, whose rows' blocks the served run wrote
+    qrec["chunk_piece_profile"] = profile_chunk_piece(eng, cfg, "chunked int8 serve")
+    kv_write["int8 chunk piece"] = check_kv_write_group(qrec["chunk_piece_profile"],
+                                                        "int8 chunk piece")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2740,13 +2969,15 @@ def main() -> int:
             device_ms=rec["device_ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_us=1e3 * rec["bound_ms"], bound_by=rec["bound_by"],
             library_ms=rec["library_ms"], card=CARD,
-            **{k: rec[k] for k in ("shapes", "quantized", "dtypes", "library", "body")
+            **{k: rec[k] for k in ("shapes", "quantized", "dtypes", "library", "body", "single")
                if k in rec}))
     say("quantized serves: " + json.dumps({"chunked int8": qrec, "speculative fp8": frec}))
     say("LoRA serves: " + json.dumps({"chunked": lrec, "speculative": slrec}))
     say("serve profiles: " + json.dumps({
         "decode step": decode_profile, "chunk piece": crec["chunk_piece_profile"],
-        "verify round": srec["verify_round_profile"], "LoRA": lora_profiles}))
+        "verify round": srec["verify_round_profile"],
+        "int8 chunk piece": qrec["chunk_piece_profile"], "LoRA": lora_profiles,
+        "kv_write_ms": kv_write}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2788,7 +3019,103 @@ def paged_times(label: str) -> int:
     return 0
 
 
+def device_ms_all(fn, iters: int = 20, tries: int = 3):
+    """Device ms per call of every CUDA kernel ``fn`` launches (staging
+    copies included) and kernels per call, over ``iters`` profiled calls; a
+    profile that records nothing is taken again.  (None, None) when none
+    records anything."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / iters / 1e3, len(spans) / iters
+    return None, None
+
+
+def write_times(label: str) -> int:
+    """Device and CUDA-event ms per call of the engine's KV writers at phase
+    3's shapes (Llama-3-8B arenas): ``write_fresh_kv`` (a decode step, B=8;
+    bf16 and int8 arenas), ``write_fresh_kv_masked`` (a K=4 round, B=8,
+    T=5, n_emit N_EMIT_ROUND; bf16 and fp8) and ``write_fresh_kv_chunk``
+    (one 512-token piece at pos 2560 through the 192-entry table; bf16 and
+    int8).  Device: every kernel a call launches summed, staging copies
+    included, over 20 profiled calls; CUDA-event: the median of three
+    rounds of 100 calls, all taken before the first profile.  Prints one
+    line ``AB LABEL {...}``.  The writers' signatures have not changed
+    since the port gained quantized KV, so two checkouts compare in one
+    call, in turns (A, B, B, A), as ``--paged-times`` does:
+
+        PYTHONPATH=<checkout> python3 -P chip_smoke.py --write-times LABEL"""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    from thunder_tpu_torch.serving.paged_attention import (
+        write_fresh_kv,
+        write_fresh_kv_chunk,
+        write_fresh_kv_masked,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    x, _ = decode_inputs(torch.bfloat16, gen)
+    step_tables, step_pos = x["tables"], x["pos"]
+    pools = {"bf16": ({"k": x.pop("k_arena"), "v": x.pop("v_arena")}, None)}
+    del x
+    for kind, storage in QUANT.items():
+        arenas = {}
+        for name in ("k", "v"):
+            arenas[name], arenas[name + "_scale"] = quantize_kv(pools["bf16"][0][name], storage)
+        pools[kind] = (arenas, storage)
+    x, _ = verify_inputs(torch.bfloat16, gen, **VERIFY_SHAPES["spec"])
+    round_tables, round_pos = x["tables"], x["pos"]
+    del x
+    n_emit = torch.tensor(N_EMIT_ROUND, dtype=torch.int32, device=DEVICE)
+    nc, nbb = VERIFY_SHAPES["chunk"]["T"] // BS, VERIFY_SHAPES["chunk"]["nbb"]
+    rng = np.random.default_rng(SEED + 3)
+    leased = [int(b) for b in rng.permutation(np.arange(1, NUM_BLOCKS))[:nbb - 8]]
+    _, dest = chunk_tables(leased, CHUNK_POS, nc * BS, nbb, BS)
+    dest = torch.as_tensor(dest, device=DEVICE)
+    chunk_pos = torch.tensor([CHUNK_POS], dtype=torch.int32, device=DEVICE)
+
+    def fresh(shape):
+        return {n: torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+                for n in ("k", "v")}
+
+    step, rnd, chunk = fresh((B, L, NG, HS)), fresh((B, L, NG, 5, HS)), fresh((1, L, NG, nc * BS,
+                                                                                 HS))
+    cases = {}
+    for kind in ("bf16", "int8"):
+        arenas, storage = pools[kind]
+        cases[f"write_fresh_kv {kind}"] = functools.partial(
+            write_fresh_kv, arenas, step, step_tables, step_pos, block_size=BS, kv_dtype=storage)
+        cases[f"write_fresh_kv_chunk {kind}"] = functools.partial(
+            write_fresh_kv_chunk, arenas, chunk, dest, chunk_pos, block_size=BS,
+            kv_dtype=storage)
+    for kind in ("bf16", "fp8"):
+        arenas, storage = pools[kind]
+        cases[f"write_fresh_kv_masked {kind}"] = functools.partial(
+            write_fresh_kv_masked, arenas, rnd, round_tables, round_pos, n_emit, block_size=BS,
+            kv_dtype=storage)
+    times = {name: {"event_rounds_ms": [time_ms(fn, iters=100) for _ in range(3)]}
+             for name, fn in cases.items()}
+    for name, fn in cases.items():
+        rec = times[name]
+        rec["event_ms"] = statistics.median(rec["event_rounds_ms"])
+        rec["device_ms"], rec["kernels_per_call"] = device_ms_all(fn)
+    print(CARD or card_line(), flush=True)
+    print("AB", label, json.dumps(times), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--paged-times"]:
         sys.exit(paged_times(sys.argv[2] if len(sys.argv) > 2 else "tree"))
+    if sys.argv[1:2] == ["--write-times"]:
+        sys.exit(write_times(sys.argv[2] if len(sys.argv) > 2 else "tree"))
     sys.exit(main())

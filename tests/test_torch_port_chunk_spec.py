@@ -550,8 +550,9 @@ def card():
 def test_cuda_chunked_and_spec_engines_run_the_kernels(card, dtype):
     """On the card the chunked engine launches n_layer verify kernels and
     two chunk writes per intermediate piece, the speculative engine n_layer
-    verify kernels and 2(K+1) masked writes per round; in float32 both
-    serve the plain engine's tokens."""
+    verify kernels and one masked write per round (K and V of every
+    offset in one launch); in float32 both serve the plain engine's
+    tokens."""
     cfg = ttt.Config.from_name("tiny-llama-debug", n_embd=256)      # hs 64
     params = ttt.init_params(cfg, generator=torch.Generator(card).manual_seed(0),
                              dtype=dtype, device=card)
@@ -575,6 +576,6 @@ def test_cuda_chunked_and_spec_engines_run_the_kernels(card, dtype):
     rounds = spec_eng.spec_rounds
     assert cudaex.LAUNCHES == {**dict.fromkeys(cudaex.LAUNCHES, 0),
                                "paged_attn_verify": rounds * cfg.n_layer,
-                               "paged_token_write_masked": rounds * 2 * 4}
+                               "paged_token_write_masked": rounds}
     if dtype == torch.float32:
         assert chunked == plain and spec == plain

@@ -117,6 +117,44 @@ template <> __device__ __forceinline__ fp8_e4m3 quantize<fp8_e4m3>(float y) {
   return fp8_e4m3{static_cast<uint8_t>(__nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3))};
 }
 
+// Eight quotients y into storage at once, bit for bit as quantize<TS> stores
+// each: the stored bytes packed in w (the first value in the lowest byte)
+// and the stored values as float in q, for the error sums.  Built to spare
+// the card's conversion units (a quarter of the other pipes' rate), which
+// quantize<TS> and to_f<TS> per value would keep busy: int8 clamps y to
+// +-127 first (the clamp and rintf commute at integer bounds; a NaN clamps
+// to -127 either way) and rounds half to even by adding 1.5 * 2^23, whose
+// sum holds the integer in its low bits (exact for |y| < 2^22); fp8 converts
+// two values per instruction, and back.
+template <typename TS>
+__device__ __forceinline__ void quantize8(const float (&y)[8], float (&q)[8], uint32_t (&w)[2]);
+template <>
+__device__ __forceinline__ void quantize8<int8_t>(const float (&y)[8], float (&q)[8],
+                                                  uint32_t (&w)[2]) {
+  constexpr float kRound = 12582912.f;          // 1.5 * 2^23
+  w[0] = w[1] = 0u;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float r = __fadd_rn(fminf(fmaxf(y[e], -127.f), 127.f), kRound);
+    q[e] = __fsub_rn(r, kRound);
+    w[e >> 2] |= (__float_as_uint(r) & 0xffu) << (8 * (e & 3));
+  }
+}
+template <>
+__device__ __forceinline__ void quantize8<fp8_e4m3>(const float (&y)[8], float (&q)[8],
+                                                    uint32_t (&w)[2]) {
+  w[0] = w[1] = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_fp8x2_storage_t b = __nv_cvt_float2_to_fp8x2(make_float2(y[2 * k], y[2 * k + 1]),
+                                                           __NV_SATFINITE, __NV_E4M3);
+    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(b, __NV_E4M3)));
+    q[2 * k] = f.x;
+    q[2 * k + 1] = f.y;
+    w[k >> 1] |= static_cast<uint32_t>(b) << (16 * (k & 1));
+  }
+}
+
 // The absmax scale of one slot-head (serving/quant.py quantize_kv): 1 for
 // an all-zero row, else amax * f32(1/qmax), the multiply the reference's
 // programs compile its division by the constant qmax into.

@@ -14,8 +14,9 @@
 //     in-place write of each request's fresh K/V (or scale) into its slot.
 //   paged_token_write_masked (pallasex.py:1462): the same write of chunk
 //     offset k at pos + k iff k < n_emit[b], else into sink block 0, slot 0
-//     (the speculative commit).  One kernel serves both writes: the plain
-//     write passes no n_emit and offset 0.
+//     (the speculative commit).  One kernel serves both writes, and the pair
+//     write of a whole step, round or multi-step iteration: both arenas
+//     (K and V) and every offset of the round in one launch.
 //   paged_token_write_fused (pallasex.py:1672, body :1661, the quantize
 //     _absmax_quant :1579): the token write (plain or masked) into an int8
 //     or fp8-e4m3 arena, quantizing on the way: per (row, layer, group) the
@@ -27,9 +28,14 @@
 // groups, pos ~1000: ~33 MB per layer, ~10 us at 3.35 TB/s; half of it,
 // plus 3% of scales, from a 1-byte arena); the speculative verify (T=5)
 // reads the same bytes for 5x the rows, still far below the card's
-// 295 flops per byte.  A token write moves ~0.5 MB per call (~0.8 MB fused)
-// and is dominated by launch cost; its grid spans (request, row tile) so the
-// copy spreads over the SMs.  The fused write gives one warp to each (row,
+// 295 flops per byte.  A token write moves ~0.5 MB per arena and offset
+// (Llama-3-8B, B=8, bf16: a 0.31 us bound), below any kernel's time from
+// launch to finish, so what it can save is launches: the pair write moves
+// K and V of every offset of a round in one launch (1 MiB per decode step,
+// 5 MiB per K=4 round), each slot-head row as the widest vector that
+// divides it (16 lanes of 16 bytes at hs 128 in bf16), one load and one
+// store per thread, no index per element, no staging copy of a strided
+// offset.  The fused write (~0.8 MB per call) gives one warp to each (row,
 // layer, group): the absmax is a warp-shuffle max (order-free, so the scale
 // is bit-exact), the quotient an IEEE division (never a reciprocal
 // multiply), so the stored bytes equal serving.quant.quantize_kv's.
@@ -648,69 +654,63 @@ cudaError_t launch_split(const SplitArgs& a, int B, int products, int kind, cuda
   return cudaGetLastError();
 }
 
-// grid (B, row tiles), block 256.  arena: (num_blocks, rows, bs, hs) with
-// rows = L * ng (hs = 1 for a rank-4 scale arena); vals: (B, rows, hs).  Row
-// b lands at block tables[b, (pos[b] + offset) / bs] (the column clamped to
-// the table), slot (pos[b] + offset) % bs, when n_emit is null or offset <
-// n_emit[b]; else at block 0, slot 0, the sink.  Batch-padding rows carry
-// all-sink tables and write the sink too; several rows may write it at
-// once, and nothing reads it.
-template <typename E>
-__global__ void paged_token_write_kernel(E* __restrict__ arena, const E* __restrict__ vals,
-                                         const int* __restrict__ tables,
-                                         const int* __restrict__ pos,
-                                         const int* __restrict__ n_emit, int offset, int rows,
-                                         int bs, int hs, int nbb, int rows_per_tile) {
-  const int b = blockIdx.x;
-  const int r0 = blockIdx.y * rows_per_tile;
-  const int nr = min(rows_per_tile, rows - r0);
+// The token writes: paged_token_write, paged_token_write_masked and the
+// pair write of both arenas (K and V) of one decode step, verify round or
+// multi-step iteration, all one launch.  Arena z (0 = K, 1 = V) is
+// (num_blocks, rows, bs, hs) with rows = L * ng (hs = 1 for a rank-4 scale
+// arena); its values are read in place by their own strides, sb / sr / st
+// per request b, arena row r and offset t, the head's hs elements
+// contiguous.
+// Row b's offset t (t < T) lands at position p = pos[b] + offset + t: block
+// tables[b, p / bs] (the column clamped to the table), slot p % bs; when
+// n_emit is given and offset + t >= n_emit[b], at block 0, slot 0, the sink.
+// Batch-padding rows carry all-sink tables and write the sink too; several
+// writes may land there at once, and nothing reads it.  The live offsets of
+// one row land at distinct slots, so one launch leaves the arena that
+// T sequential single-offset writes leave.
+struct TokenWriteArgs {
+  void* arena[2];
+  const void* vals[2];
+  const int* tables;
+  const int* pos;
+  const int* n_emit;               // null: every offset is live
+  int offset, T, rows, bs, nbb;
+  int row_v;                       // vectors of V per slot-head row
+  int64_t sb[2], sr[2], st[2];     // each arena's vals strides in vectors of V
+};
+
+// grid (ceil(rows * row_v / threads), B * T, arenas).  Thread i of (b, t)
+// moves vector i % row_v of arena row i / row_v: one load, one store, the
+// value's load issued before the routing's.
+template <typename V>
+__global__ void __launch_bounds__(256) paged_token_write_kernel(const TokenWriteArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.rows * a.row_v) return;
+  const int z = blockIdx.z, bt = blockIdx.y;
+  const int b = bt / a.T, t = bt - b * a.T;
+  const int r = i / a.row_v, lane = i - r * a.row_v;
+  const V* src = static_cast<const V*>(z ? a.vals[1] : a.vals[0]);
+  const V v = z ? src[b * a.sb[1] + r * a.sr[1] + t * a.st[1] + lane]
+                : src[b * a.sb[0] + r * a.sr[0] + t * a.st[0] + lane];
   int64_t blk = 0;
   int slot = 0;
-  if (n_emit == nullptr || offset < n_emit[b]) {
-    const int p = pos[b] + offset;
-    blk = tables[static_cast<int64_t>(b) * nbb + min(p / bs, nbb - 1)];
-    slot = p % bs;
+  const int k = a.offset + t;
+  if (a.n_emit == nullptr || k < a.n_emit[b]) {
+    const int p = a.pos[b] + k;
+    blk = a.tables[static_cast<int64_t>(b) * a.nbb + min(p / a.bs, a.nbb - 1)];
+    slot = p % a.bs;
   }
-  E* dst = arena + ((blk * rows + r0) * bs + slot) * hs;
-  const E* src = vals + (static_cast<int64_t>(b) * rows + r0) * hs;
-  const int bs_hs = bs * hs;
-  for (int i = threadIdx.x; i < nr * hs; i += blockDim.x) {
-    const int r = i / hs, d = i - r * hs;
-    dst[static_cast<int64_t>(r) * bs_hs + d] = src[i];
-  }
+  V* dst = static_cast<V*>(z ? a.arena[1] : a.arena[0]);
+  dst[((blk * a.rows + r) * a.bs + slot) * a.row_v + lane] = v;
 }
 
-template <typename E>
-cudaError_t launch_token_write(void* arena, const void* vals, const int* tables, const int* pos,
-                               const int* n_emit, int offset, int B, int rows, int bs, int hs,
-                               int nbb, cudaStream_t s) {
-  const int threads = 256;
-  // about four elements per thread: 8 rows of hs = 128, or 1024 scale rows
-  const int rows_per_tile = hs >= 4 * threads ? 1 : (4 * threads) / hs;
-  const int tiles = (rows + rows_per_tile - 1) / rows_per_tile;
-  paged_token_write_kernel<E><<<dim3(B, tiles), threads, 0, s>>>(
-      static_cast<E*>(arena), static_cast<const E*>(vals), tables, pos, n_emit, offset, rows,
-      bs, hs, nbb, rows_per_tile);
+template <typename V>
+cudaError_t launch_token_write(const TokenWriteArgs& a, int B, int arenas, cudaStream_t s) {
+  const int n = a.rows * a.row_v;
+  const int threads = n >= 256 ? 256 : (n + 31) / 32 * 32;
+  paged_token_write_kernel<V><<<dim3((n + threads - 1) / threads, B * a.T, arenas), threads, 0,
+                                s>>>(a);
   return cudaGetLastError();
-}
-
-cudaError_t token_write(void* arena, const void* vals, const int* tables, const int* pos,
-                        const int* n_emit, int offset, int B, int rows, int bs, int hs, int nbb,
-                        int elem_bytes, cudaStream_t s) {
-  if (B == 0) return cudaSuccess;
-  switch (elem_bytes) {
-    case 1:
-      return launch_token_write<uint8_t>(arena, vals, tables, pos, n_emit, offset, B, rows, bs,
-                                         hs, nbb, s);
-    case 2:
-      return launch_token_write<uint16_t>(arena, vals, tables, pos, n_emit, offset, B, rows, bs,
-                                          hs, nbb, s);
-    case 4:
-      return launch_token_write<uint32_t>(arena, vals, tables, pos, n_emit, offset, B, rows, bs,
-                                          hs, nbb, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 // grid (B, ceil(rows / 8)), block 256: one warp per (request b, arena row r)
@@ -800,22 +800,44 @@ extern "C" int tt_paged_attn_split(const void* q, const void* k_arena, const voi
   });
 }
 
-// elem_bytes: 1, 2 or 4 (the writes move bits, whatever the dtype).
-extern "C" int tt_paged_token_write(void* arena, const void* vals, const int* tables,
-                                    const int* pos, int B, int rows, int bs, int hs, int nbb,
-                                    int elem_bytes, void* stream) {
-  return token_write(arena, vals, tables, pos, nullptr, 0, B, rows, bs, hs, nbb, elem_bytes,
-                     static_cast<cudaStream_t>(stream));
-}
-
-// The keep-masked write: chunk offset `offset` of each row, live iff
-// offset < n_emit[b].
-extern "C" int tt_paged_token_write_masked(void* arena, const void* vals, const int* tables,
-                                           const int* pos, const int* n_emit, int offset, int B,
-                                           int rows, int bs, int hs, int nbb, int elem_bytes,
-                                           void* stream) {
-  return token_write(arena, vals, tables, pos, n_emit, offset, B, rows, bs, hs, nbb, elem_bytes,
-                     static_cast<cudaStream_t>(stream));
+// The token writes of one or two arenas (arena1/vals1 null: one).  geom:
+// B, T, rows, bs, nbb, the bytes of a slot-head row, then vals0's strides
+// sb, sr, st and vals1's, in bytes; vec_bytes (16, 8, 4, 2 or 1) divides
+// the row, the strides and every base address (the wrapper picks the
+// widest); the copy
+// moves bits, whatever the dtype.  n_emit null is the plain write, else the
+// keep-masked one of offsets offset .. offset + T - 1.
+extern "C" int tt_paged_token_write(void* arena0, void* arena1, const void* vals0,
+                                    const void* vals1, const int* tables, const int* pos,
+                                    const int* n_emit, const int64_t* geom, int offset,
+                                    int vec_bytes, void* stream) {
+  const int B = static_cast<int>(geom[0]), arenas = arena1 == nullptr ? 1 : 2;
+  if (B == 0) return cudaSuccess;
+  const int64_t w = vec_bytes;
+  if (w != 16 && w != 8 && w != 4 && w != 2 && w != 1) return cudaErrorInvalidValue;
+  for (int k = 5; k < 12; ++k)
+    if (geom[k] % w) return cudaErrorInvalidValue;
+  const uintptr_t at =
+      reinterpret_cast<uintptr_t>(arena0) | reinterpret_cast<uintptr_t>(arena1) |
+      reinterpret_cast<uintptr_t>(vals0) | reinterpret_cast<uintptr_t>(vals1);
+  if (at % w) return cudaErrorInvalidValue;
+  TokenWriteArgs a{{arena0, arenas == 2 ? arena1 : arena0},
+                   {vals0, arenas == 2 ? vals1 : vals0},
+                   tables, pos, n_emit, offset,
+                   static_cast<int>(geom[1]), static_cast<int>(geom[2]),
+                   static_cast<int>(geom[3]), static_cast<int>(geom[4]),
+                   static_cast<int>(geom[5] / w),
+                   {geom[6] / w, geom[9] / w},
+                   {geom[7] / w, geom[10] / w},
+                   {geom[8] / w, geom[11] / w}};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vec_bytes) {
+    case 16: return launch_token_write<uint4>(a, B, arenas, s);
+    case 8: return launch_token_write<uint2>(a, B, arenas, s);
+    case 4: return launch_token_write<uint32_t>(a, B, arenas, s);
+    case 2: return launch_token_write<uint16_t>(a, B, arenas, s);
+    default: return launch_token_write<uint8_t>(a, B, arenas, s);
+  }
 }
 
 // The token write into a quantized arena (kv_dtype 3 = int8, 4 = fp8

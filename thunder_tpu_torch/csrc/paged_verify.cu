@@ -31,14 +31,20 @@
 //     4*nh*hs*(pos*T + T*T/2) flops per layer, tens of GFLOP against
 //     ~0.1 GB of K/V: operations (23.9 us at 989 TFLOP/s at pos 2560).
 //   * the chunk write moves bytes only (a 1 MiB slab per chunk block at
-//     Llama-3-8B in bf16): bytes-bound.  So does the fused one: it reads
-//     the compute-dtype slab and writes half as many bytes plus 3% of
-//     scales.  One block per (chunk block, layer-group) slab, one warp per
-//     slot; each block leaves its two partial sums in a scratch buffer and
-//     a second small kernel adds them per chunk block in a fixed order, so
-//     the sums repeat bit for bit (the TPU kernel adds them on one core in
+//     Llama-3-8B in bf16): bytes-bound.  So is the fused one: it reads
+//     the compute-dtype values once and writes half as many bytes plus 3%
+//     of scales (K and V of a 512-token piece: 101 MB, 30.4 us).  One pass
+//     writes both arenas and their scale arenas, reading each arena's
+//     fresh values in place from the engine's (1, L, ng, T, hs) layout (no
+//     staging copy into block granules): a group of hs / 8 lanes per
+//     slot-head, 8 values per lane from one 16-byte load, the absmax by xor
+//     shuffles within the group, the quantize from the same registers, 8
+//     bytes stored per lane and one scale per slot-head.  Each block leaves
+//     its two partial error sums in a scratch buffer and a second small
+//     kernel adds them per (arena, chunk block) in a fixed order, so the
+//     sums repeat bit for bit (the TPU kernel adds them on one core in
 //     grid order; here blocks finish in any order).
-//
+
 // Three verify bodies; the wrapper names one (cudaex.paged_body):
 //
 // The warpgroup body (bf16/f16 queries with the arena in that type or
@@ -265,72 +271,216 @@ __global__ void paged_chunk_write_kernel(V* __restrict__ arena, const V* __restr
     dst[i] = src[i];
 }
 
-// grid (rows, nc), block 128 (4 warps), rows = L * ng.  Block (r, c) owns
-// arena row r of chunk block c: bs slots of hs values, vals (nc, rows, bs,
-// hs) at the compute type TV.  Warp w quantizes slots w, w + 4, ... into
-// block dest[pos / bs + c] (sink block 0 past the table) of the quantized
-// arena (num_blocks, rows, bs, hs) and its scale arena (num_blocks, rows,
-// bs), and the block leaves sum|dq - x| and sum|x| over its slab in
-// partial[c, r, 0..1] (lanes by xor shuffles, then warps in order).
-template <typename TS, typename TV>
-__global__ void __launch_bounds__(128) paged_chunk_write_fused_kernel(
-    TS* __restrict__ arena, float* __restrict__ scale_arena, const TV* __restrict__ vals,
-    const int* __restrict__ dest, const int* __restrict__ pos, float* __restrict__ partial,
-    int rows, int bs, int hs, int nbb, float inv_qmax) {
-  const int r = blockIdx.x, c = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int idx = pos[0] / bs + c;
-  const int64_t blk = idx < nbb ? dest[idx] : 0;
-  const TV* src = vals + (static_cast<int64_t>(c) * rows + r) * bs * hs;
-  const int64_t row0 = (blk * rows + r) * bs;        // the slab's first slot
-  float e_err = 0.f, e_abs = 0.f;
-  for (int t = warp; t < bs; t += 4) {
-    const TV* x = src + static_cast<int64_t>(t) * hs;
-    float amax = 0.f;
-    for (int d = lane; d < hs; d += 32) amax = fmaxf(amax, fabsf(to_f<TV>(x[d])));
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float scale = tt::absmax_scale(amax, inv_qmax);
-    TS* dst = arena + (row0 + t) * hs;
-    for (int d = lane; d < hs; d += 32) {
-      const float xv = to_f<TV>(x[d]);
-      const TS qv = tt::quantize<TS>(__fdiv_rn(xv, scale));
-      dst[d] = qv;
-      e_err += fabsf(__fmul_rn(to_f<TS>(qv), scale) - xv);
-      e_abs += fabsf(xv);
+// The fused chunk write of one or two arenas (K and V) in one pass.  Arena
+// z is (num_blocks, rows, bs, hs) quantized storage TS with its scale arena
+// (num_blocks, rows, bs); its fresh values at the compute type TV are read
+// in place: slot t of arena row r of chunk block c at vals + c * stride_c +
+// r * stride_r + t * hs (the engine's (1, L, ng, T, hs): stride_c = bs * hs,
+// stride_r = T * hs; the single-arena entry's (nc, L, ng, bs, hs): rows * bs
+// * hs and bs * hs).  Chunk block c lands at block dest[pos / bs + c], or in
+// sink block 0 when that entry lies past the table.
+struct ChunkQArgs {
+  void* arena[2];
+  float* scale[2];
+  const void* vals[2];
+  const int* dest;
+  const int* pos;
+  float* partial;                  // (arenas, nc, tiles, 2)
+  int nc, rows, bs, hs, nbb;
+  int lanes_log2;                  // log2 of the lanes per slot-head, G <= 32
+  int pieces;                      // 8-value pieces per lane: ceil(hs / (8 G))
+  int spb;                         // slot-heads per block
+  int64_t stride_c, stride_r;      // vals strides in elements
+  float inv_qmax;
+};
+
+// 8 values from piece d0 of a slot-head as float: one 16-byte load (two for
+// float32) when VEC (hs % 8 == 0, the base 16-byte aligned), else element by
+// element; values at or past hs read 0.
+template <typename TV>
+struct Raw8 {                      // 8 values of TV as loaded: 16 bytes (32 for float32)
+  uint4 w[sizeof(TV) / 2];
+};
+
+template <typename TV>
+__device__ __forceinline__ Raw8<TV> load_raw8(const TV* x) {
+  Raw8<TV> r;
+#pragma unroll
+  for (int k = 0; k < static_cast<int>(sizeof(TV)) / 2; ++k)
+    r.w[k] = reinterpret_cast<const uint4*>(x)[k];
+  return r;
+}
+
+template <typename TV>
+__device__ __forceinline__ void unpack8(const Raw8<TV>& r, float (&v)[8]) {
+  const TV* e8 = reinterpret_cast<const TV*>(r.w);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = to_f<TV>(e8[e]);
+}
+
+template <typename TV, bool VEC>
+__device__ __forceinline__ void load8(const TV* x, int d0, int hs, float (&v)[8]) {
+  if constexpr (VEC) {
+    if (d0 >= hs) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+      return;
     }
-    if (lane == 0) scale_arena[row0 + t] = scale;
+    unpack8<TV>(load_raw8<TV>(x + d0), v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = d0 + e < hs ? to_f<TV>(x[d0 + e]) : 0.f;
+  }
+}
+
+// Quantizes the 8 values of piece d0 (x / scale, an IEEE quotient, into TS,
+// bit for bit as tt::quantize<TS> stores it) and stores them: one 8-byte
+// store when VEC (tt::quantize8, eight at once), else byte by byte; adds
+// |f32(q) * scale - x| and |x| of the values below hs to the sums.
+template <typename TS, bool VEC>
+__device__ __forceinline__ void quantize8(TS* dst, int d0, int hs, const float (&v)[8],
+                                          float scale, float& e_err, float& e_abs) {
+  if (d0 >= hs) return;
+  if constexpr (VEC) {
+    float y[8], q[8];
+    uint32_t w[2];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[e] = __fdiv_rn(v[e], scale);
+    tt::quantize8<TS>(y, q, w);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      e_err += fabsf(__fmul_rn(q[e], scale) - v[e]);
+      e_abs += fabsf(v[e]);
+    }
+    *reinterpret_cast<uint2*>(dst + d0) = make_uint2(w[0], w[1]);
+  } else {
+    for (int e = 0; e < 8 && d0 + e < hs; ++e) {
+      const TS q = tt::quantize<TS>(__fdiv_rn(v[e], scale));
+      e_err += fabsf(__fmul_rn(to_f<TS>(q), scale) - v[e]);
+      e_abs += fabsf(v[e]);
+      dst[d0 + e] = q;
+    }
+  }
+}
+
+// grid (tiles, nc, arenas), block 256.  A slot-head (a slot of one arena
+// row: hs values, one scale) belongs to a group of G lanes, each holding 8
+// of its values (pieces of 8 further apart when hs > 8 G) in registers: the
+// absmax is an xor-shuffle max within the group (order-free, so the scale
+// is bit-exact), the quantize runs from the same registers, so each value
+// is loaded once.  Block x of chunk block c owns slot-heads [x * spb, (x +
+// 1) * spb) of the chunk block (slot-head s = r * bs + t, which is also its
+// place in the destination block), and leaves its sums of |dq - x| and |x|
+// in partial[z, c, x] (lanes by xor shuffles, then warps in order).
+template <typename TS, typename TV, bool VEC>
+__global__ void __launch_bounds__(256) paged_chunk_write_fused_kernel(const ChunkQArgs a) {
+  const int z = blockIdx.z, c = blockIdx.y;
+  const int G = 1 << a.lanes_log2;
+  const int lane = threadIdx.x & (G - 1);
+  const int groups = blockDim.x >> a.lanes_log2;
+  const unsigned gmask = G == 32 ? 0xffffffffu
+                                 : ((1u << G) - 1) << ((threadIdx.x & 31) & ~(G - 1));
+  const int idx = a.pos[0] / a.bs + c;
+  const int64_t blk = idx < a.nbb ? a.dest[idx] : 0;
+  const int n = a.rows * a.bs;
+  const TV* src = static_cast<const TV*>(z ? a.vals[1] : a.vals[0]) + c * a.stride_c;
+  TS* dst = static_cast<TS*>(z ? a.arena[1] : a.arena[0]) + blk * n * a.hs;
+  float* sdst = (z ? a.scale[1] : a.scale[0]) + blk * n;
+  const int s0 = static_cast<int>(blockIdx.x) * a.spb;
+  const int s_end = min(n, s0 + a.spb);
+  const int first = s0 + static_cast<int>(threadIdx.x >> a.lanes_log2);
+  // the lambdas below read locals, never the parameter block itself
+  const int hs = a.hs, bs = a.bs, pieces = a.pieces;
+  const int64_t stride_r = a.stride_r;
+  const float inv_qmax = a.inv_qmax;
+  float e_err = 0.f, e_abs = 0.f;
+  // quantizes one slot-head from the 8 values of piece 0 in v (the further
+  // pieces, hs > 8 G, load again) and stores its bytes and scale
+  auto slot_head = [&](int s, const TV* x, const float (&v)[8]) {
+    float amax = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    for (int k = 1; k < pieces; ++k) {
+      float w[8];
+      load8<TV, VEC>(x, (k * G + lane) * 8, hs, w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(w[e]));
+    }
+    for (int o = G >> 1; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(gmask, amax, o));
+    const float scale = tt::absmax_scale(amax, inv_qmax);
+    TS* d = dst + static_cast<int64_t>(s) * hs;
+    quantize8<TS, VEC>(d, lane * 8, hs, v, scale, e_err, e_abs);
+    for (int k = 1; k < pieces; ++k) {
+      float w[8];
+      load8<TV, VEC>(x, (k * G + lane) * 8, hs, w);
+      quantize8<TS, VEC>(d, (k * G + lane) * 8, hs, w, scale, e_err, e_abs);
+    }
+    if (lane == 0) sdst[s] = scale;
+  };
+  auto head = [&](int s) {         // slot t of arena row r: slot-head s = r * bs + t
+    const int r = s / bs;
+    return src + r * stride_r + static_cast<int64_t>(s - r * bs) * hs;
+  };
+  if (VEC && pieces == 1) {
+    // one piece a lane: the next slot-head's 16 bytes load while this one
+    // quantizes (lanes past hs, when hs < 8 G, hold zeros and store nothing)
+    const bool on = lane * 8 < hs;
+    Raw8<TV> cur{};
+    if (first < s_end && on) cur = load_raw8<TV>(head(first) + lane * 8);
+    for (int s = first; s < s_end; s += groups) {
+      Raw8<TV> nxt{};
+      if (s + groups < s_end && on) nxt = load_raw8<TV>(head(s + groups) + lane * 8);
+      float v[8];
+      unpack8<TV>(cur, v);
+      slot_head(s, nullptr, v);
+      cur = nxt;
+    }
+  } else {
+    for (int s = first; s < s_end; s += groups) {
+      const TV* x = head(s);
+      float v[8];
+      load8<TV, VEC>(x, lane * 8, hs, v);
+      slot_head(s, x, v);
+    }
   }
   for (int o = 16; o > 0; o >>= 1) {
     e_err += __shfl_xor_sync(0xffffffffu, e_err, o);
     e_abs += __shfl_xor_sync(0xffffffffu, e_abs, o);
   }
-  __shared__ float red[2][4];
-  if (lane == 0) {
+  __shared__ float red[2][8];
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
     red[0][warp] = e_err;
     red[1][warp] = e_abs;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    const int64_t at = (static_cast<int64_t>(c) * rows + r) * 2;
-    partial[at] = red[0][0] + red[0][1] + red[0][2] + red[0][3];
-    partial[at + 1] = red[1][0] + red[1][1] + red[1][2] + red[1][3];
+    float se = 0.f, sa = 0.f;
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
+      se += red[0][w];
+      sa += red[1][w];
+    }
+    float* out = a.partial + ((static_cast<int64_t>(z) * a.nc + c) * gridDim.x + blockIdx.x) * 2;
+    out[0] = se;
+    out[1] = sa;
   }
 }
 
-// grid nc, block 256: err[c, 0..1] = the sums of partial[c, :, 0..1] over
-// the rows (each thread a strided run, then a tree: a fixed order), kept
-// only when chunk block c was written to a real block (dest entry within
-// the table and not the sink), as the Pallas kernel masks them.
+// grid (nc, arenas), block 256: err[z, c, 0..1] = the sums of partial[z, c,
+// :, 0..1] over the tiles (each thread a strided run, then a tree: a fixed
+// order, so two calls agree bit for bit), kept only when chunk block c was
+// written to a real block (dest entry within the table and not the sink),
+// as the Pallas kernel masks them.
 __global__ void __launch_bounds__(256) chunk_err_reduce_kernel(
     const float* __restrict__ partial, float* __restrict__ err, const int* __restrict__ dest,
-    const int* __restrict__ pos, int rows, int bs, int nbb) {
+    const int* __restrict__ pos, int tiles, int bs, int nbb) {
   const int c = blockIdx.x, tid = threadIdx.x;
+  const int64_t zc = static_cast<int64_t>(blockIdx.y) * gridDim.x + c;
   __shared__ float s[2][256];
   float a = 0.f, b = 0.f;
-  for (int r = tid; r < rows; r += 256) {
-    const int64_t at = (static_cast<int64_t>(c) * rows + r) * 2;
-    a += partial[at];
-    b += partial[at + 1];
+  for (int x = tid; x < tiles; x += 256) {
+    a += partial[(zc * tiles + x) * 2];
+    b += partial[(zc * tiles + x) * 2 + 1];
   }
   s[0][tid] = a;
   s[1][tid] = b;
@@ -345,8 +495,8 @@ __global__ void __launch_bounds__(256) chunk_err_reduce_kernel(
   if (tid == 0) {
     const int idx = pos[0] / bs + c;
     const bool live = idx < nbb && dest[min(idx, nbb - 1)] != 0;
-    err[2 * c] = live ? s[0][0] : 0.f;
-    err[2 * c + 1] = live ? s[1][0] : 0.f;
+    err[zc * 2] = live ? s[0][0] : 0.f;
+    err[zc * 2 + 1] = live ? s[1][0] : 0.f;
   }
 }
 
@@ -901,16 +1051,14 @@ cudaError_t launch_verify(const void* q, const void* ka, const void* va, const f
   return cudaGetLastError();
 }
 
-template <typename TS, typename TV>
-cudaError_t launch_chunk_fused(void* arena, float* scale_arena, const void* vals, const int* dest,
-                               const int* pos, float* err, float* partial, int nc, int rows,
-                               int bs, int hs, int nbb, float inv_qmax, cudaStream_t s) {
-  paged_chunk_write_fused_kernel<TS, TV><<<dim3(rows, nc), 128, 0, s>>>(
-      static_cast<TS*>(arena), scale_arena, static_cast<const TV*>(vals), dest, pos, partial,
-      rows, bs, hs, nbb, inv_qmax);
+template <typename TS, typename TV, bool VEC>
+cudaError_t launch_chunk_fused(const ChunkQArgs& a, int tiles, int arenas, float* err,
+                               cudaStream_t s) {
+  paged_chunk_write_fused_kernel<TS, TV, VEC><<<dim3(tiles, a.nc, arenas), 256, 0, s>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  chunk_err_reduce_kernel<<<nc, 256, 0, s>>>(partial, err, dest, pos, rows, bs, nbb);
+  chunk_err_reduce_kernel<<<dim3(a.nc, arenas), 256, 0, s>>>(a.partial, err, a.dest, a.pos,
+                                                             tiles, a.bs, a.nbb);
   return cudaGetLastError();
 }
 
@@ -1000,27 +1148,55 @@ extern "C" int tt_paged_attn_verify(const void* q, const void* k_arena, const vo
   });
 }
 
-// The chunk write into a quantized arena (kv_dtype 3 = int8, 4 = fp8
-// e4m3), quantizing vals (nc, rows, bs, hs) at v_dtype (0/1/2) on the way;
-// err: (nc, 2) float32, the masked sum|dq - x| and sum|x| of each chunk
-// block; partial: (nc, rows, 2) float32 scratch.  inv_qmax is f32(1/qmax).
-// Two launches: the write, then the fixed-order reduction of the sums.
-extern "C" int tt_paged_chunk_write_fused(void* arena, float* scale_arena, const void* vals,
+// The chunk write into one or two quantized arenas (arena1, scale1, vals1
+// null: one; kv_dtype 3 = int8, 4 = fp8 e4m3), quantizing the values at
+// v_dtype (0/1/2) on the way.  geom: nc, rows, bs, hs, nbb, stride_c,
+// stride_r (the vals strides of a chunk block and an arena row, elements),
+// lanes_log2, pieces, spb, tiles (the wrapper's plan, cudaex._chunk_q_plan).
+// err: (arenas, nc, 2) float32, the masked sum|dq - x| and sum|x| of each
+// chunk block; partial: (arenas, nc, tiles, 2) float32 scratch.  vec: 16-byte
+// loads and 8-byte stores (hs % 8 == 0 and the bases aligned; the kernel
+// checks) or element by element.  inv_qmax is f32(1/qmax).  Two launches:
+// the write of both arenas, then the fixed-order sum of the error partials.
+extern "C" int tt_paged_chunk_write_fused(void* arena0, float* scale0, const void* vals0,
+                                          void* arena1, float* scale1, const void* vals1,
                                           const int* dest, const int* pos, float* err,
-                                          float* partial, int nc, int rows, int bs, int hs,
-                                          int nbb, float inv_qmax, int kv_dtype, int v_dtype,
-                                          void* stream) {
+                                          float* partial, const int64_t* geom, float inv_qmax,
+                                          int kv_dtype, int v_dtype, int vec, void* stream) {
+  const int arenas = arena1 == nullptr ? 1 : 2;
+  const ChunkQArgs a{{arena0, arenas == 2 ? arena1 : arena0},
+                     {scale0, arenas == 2 ? scale1 : scale0},
+                     {vals0, arenas == 2 ? vals1 : vals0},
+                     dest, pos, partial,
+                     static_cast<int>(geom[0]), static_cast<int>(geom[1]),
+                     static_cast<int>(geom[2]), static_cast<int>(geom[3]),
+                     static_cast<int>(geom[4]), static_cast<int>(geom[7]),
+                     static_cast<int>(geom[8]), static_cast<int>(geom[9]),
+                     geom[5], geom[6], inv_qmax};
+  const int tiles = static_cast<int>(geom[10]);
+  if (a.nc == 0 || a.rows * a.bs == 0) return cudaSuccess;
+  if (a.lanes_log2 < 0 || a.lanes_log2 > 5 || a.pieces < 1 || a.spb < 1 ||
+      static_cast<int64_t>(tiles) * a.spb < static_cast<int64_t>(a.rows) * a.bs)
+    return cudaErrorInvalidValue;
+  if (vec) {
+    const uintptr_t in = reinterpret_cast<uintptr_t>(a.vals[0]) |
+                         reinterpret_cast<uintptr_t>(a.vals[1]);
+    const uintptr_t out = reinterpret_cast<uintptr_t>(a.arena[0]) |
+                          reinterpret_cast<uintptr_t>(a.arena[1]);
+    if (a.hs % 8 || a.stride_c % 8 || a.stride_r % 8 || in % 16 || out % 8)
+      return cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nc == 0) return cudaSuccess;
   return tt::by_float(v_dtype, [&](auto tv) {
     return tt::by_storage(kv_dtype, [&](auto ts) -> cudaError_t {
       using TV = decltype(tv);
       using TS = decltype(ts);
       if constexpr (!quantized<TS>::value) {
         return cudaErrorInvalidValue;
+      } else if (vec) {
+        return launch_chunk_fused<TS, TV, true>(a, tiles, arenas, err, s);
       } else {
-        return launch_chunk_fused<TS, TV>(arena, scale_arena, vals, dest, pos, err, partial, nc,
-                                          rows, bs, hs, nbb, inv_qmax, s);
+        return launch_chunk_fused<TS, TV, false>(a, tiles, arenas, err, s);
       }
     });
   });

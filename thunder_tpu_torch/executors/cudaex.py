@@ -26,6 +26,13 @@ of the serving paths:
   write into a quantized arena, with the per-block error sums behind the
   ``serving.kv_quant.rel_err`` gauge;
 
+the engine lands K and V together: :func:`paged_token_write_pair` writes
+both arenas of a decode step, a verify round (every offset) or a
+multi-step iteration in one launch of the token-write kernel, and
+:func:`paged_chunk_write_fused_pair` both quantized arenas of a chunk
+piece in one pass, reading the forward's (1, L, ng, T, hs) values in
+place;
+
 ``paged_attn_decode`` and ``paged_attn_verify`` read quantized arenas too
 (``k_scale``/``v_scale``): each tile is dequantized as it is loaded,
 ``f32(x) * scale`` rounded to the compute dtype and then to the query
@@ -80,6 +87,7 @@ __all__ = [
     "MASK_VALUE",
     "causal_keep",
     "ce_supported",
+    "chunk_blocks",
     "dkv_splits",
     "flash_body",
     "flash_cross_entropy",
@@ -100,6 +108,8 @@ __all__ = [
     "paged_body",
     "paged_chunk_write",
     "paged_chunk_write_fused",
+    "paged_chunk_write_fused_pair",
+    "paged_chunk_write_fused_pair_plain",
     "paged_chunk_write_fused_plain",
     "paged_chunk_write_plain",
     "paged_kernels_decline",
@@ -109,6 +119,8 @@ __all__ = [
     "paged_token_write_fused_plain",
     "paged_token_write_masked",
     "paged_token_write_masked_plain",
+    "paged_token_write_pair",
+    "paged_token_write_pair_plain",
     "paged_token_write_plain",
     "reset_launches",
 ]
@@ -556,43 +568,245 @@ def paged_token_write_plain(arena, vals, tables, pos, *, block_size: int):
     return arena
 
 
+def paged_token_write_masked_plain(arena, vals, tables, pos, n_emit, offset: int, *,
+                                   block_size: int):
+    """Plain PyTorch version of :func:`paged_token_write_masked` (in place)."""
+    live = offset < n_emit.long()
+    blk, slot = _dest(tables, pos + offset, block_size)
+    blk = torch.where(live, blk, 0)
+    slot = torch.where(live, slot, 0)
+    if arena.ndim == 5:
+        arena[blk, :, :, slot, :] = vals
+    else:
+        arena[blk, :, :, slot] = vals
+    return arena
+
+
+def paged_token_write_pair_plain(k_arena, v_arena, k_vals, v_vals, tables, pos, *,
+                                 block_size: int, n_emit=None, offset: int = 0):
+    """Plain PyTorch version of :func:`paged_token_write_pair` (in place):
+    per arena, the single-offset plain writes of offsets ``offset`` ..
+    ``offset + T - 1`` in order."""
+    for arena, vals in ((k_arena, k_vals), (v_arena, v_vals)):
+        if vals.ndim == arena.ndim - 1:
+            vals = vals.unsqueeze(3)
+        for t in range(vals.shape[3]):
+            if n_emit is None:
+                paged_token_write_plain(arena, vals[:, :, :, t], tables, pos + (offset + t),
+                                        block_size=block_size)
+            else:
+                paged_token_write_masked_plain(arena, vals[:, :, :, t], tables, pos, n_emit,
+                                               offset + t, block_size=block_size)
+    return k_arena, v_arena
+
+
+def _token_key(name: str, arenas: tuple, vals: tuple, tables, pos, n_emit, offset: int,
+               block_size: int) -> tuple:
+    """What the checks read of a token write's arguments, flat: the first
+    arena's device, every other tensor's card index (-1 off the card)."""
+    try:
+        a0, v0 = arenas[0], vals[0]
+        key = (name, offset, block_size, a0.device, a0.shape, a0.dtype, a0.is_contiguous(),
+               v0.shape, v0.stride(), v0.dtype, v0.get_device(),
+               tables.shape, tables.dtype, tables.get_device(), tables.is_contiguous(),
+               pos.shape, pos.dtype, pos.get_device(), pos.is_contiguous(),
+               None if n_emit is None else (n_emit.shape, n_emit.dtype, n_emit.get_device(),
+                                            n_emit.is_contiguous()))
+        if len(arenas) == 2:
+            a1, v1 = arenas[1], vals[1]
+            key += (a1.shape, a1.dtype, a1.get_device(), a1.is_contiguous(),
+                    v1.shape, v1.stride(), v1.dtype, v1.get_device())
+        return key
+    except AttributeError:
+        raise ValueError(f"{name}: arenas, vals, tables, pos (and n_emit, if given) must be "
+                         "tensors") from None
+
+
+def _card(index: int) -> str:
+    return "cpu" if index < 0 else f"cuda:{index}"
+
+
+def _token_checked(key: tuple):
+    """Validates one token write from its ``_token_key`` and returns what
+    ``_TOKEN_CHECKED`` keeps for it: "cpu", "empty" (B = 0), or the launch
+    on the card (the kernel's geometry array, the vector widths that divide
+    a row and the strides, the card)."""
+    (name, offset, block_size, dev, ashape, adtype, acontig, vshape, vstride, vdtype, vdev,
+     tshape, tdtype, tdev, tcontig, pshape, pdtype, pdev, pcontig, ne, *second) = key
+    pair = bool(second)
+    index = dev.index if dev.type == "cuda" else -1
+    anames, vnames = (("k_arena", "v_arena"), ("k_vals", "v_vals")) if pair else (("arena",),
+                                                                                  ("vals",))
+    strides = [vstride]
+    if pair:
+        a1shape, a1dtype, a1dev, a1contig, v1shape, v1stride, v1dtype, v1dev = second
+        _require((a1shape, a1dtype, a1dev) == (ashape, adtype, index),
+                 lambda: f"{name}: v_arena must match k_arena ({tuple(ashape)} {adtype} on "
+                 f"{dev}), got {tuple(a1shape)} {a1dtype} on {_card(a1dev)}")
+        _require((v1shape, v1dtype, v1dev) == (vshape, vdtype, vdev),
+                 lambda: f"{name}: v_vals must match k_vals ({tuple(vshape)} {vdtype} on "
+                 f"{_card(vdev)}), got {tuple(v1shape)} {v1dtype} on {_card(v1dev)}")
+        _require(a1contig, lambda: f"{name}: v_arena must be contiguous")
+        strides.append(v1stride)
+    rank = len(ashape)
+    _require(rank in (4, 5) and len(vshape) in ((rank - 1, rank) if pair else (rank - 1,)),
+             lambda: f"{name}: arena must be rank 4 or 5 and vals one rank lower"
+             f"{' (or of its rank, with T at dim 3)' if pair else ''}, got {tuple(ashape)} "
+             f"and {tuple(vshape)}")
+    B, bs = vshape[0], ashape[3]
+    T = vshape[3] if len(vshape) == rank else 1
+    want = (B, *ashape[1:3], *((T,) if len(vshape) == rank else ()), *ashape[4:])
+    _require(tuple(vshape) == want,
+             lambda: f"{name}: {vnames[0]} must be {want}, got {tuple(vshape)}")
+    _require(block_size == bs, lambda: f"{name}: block_size={block_size} but the arena holds {bs}")
+    _require(vdtype == adtype, lambda: f"{name}: vals dtype {vdtype} != arena dtype {adtype}")
+    esize = torch.empty((), dtype=adtype).element_size()
+    _require(esize in (1, 2, 4), lambda: f"{name}: unsupported dtype {adtype}")
+    if ne is not None:
+        nshape, ndtype, ndev, ncontig = ne
+        _require(ndtype == torch.int32 and tuple(nshape) == (B,),
+                 lambda: f"{name}: n_emit must be int32 ({B},), got {ndtype} {tuple(nshape)}")
+    _require(offset >= 0, lambda: f"{name}: offset must be >= 0, got {offset}")
+    for arg, d, contig in (("tables", tdev, tcontig), ("pos", pdev, pcontig),
+                           *((("n_emit", ne[2], ne[3]),) if ne is not None else ()),
+                           (vnames[0], vdev, True)):
+        _require(d == index, lambda: f"{name}: {arg} is on {_card(d)}, {anames[0]} on {dev}")
+        _require(contig, lambda: f"{name}: {arg} must be contiguous")
+    _require(acontig, lambda: f"{name}: {anames[0]} must be contiguous")
+    _require(tdtype == torch.int32 and len(tshape) == 2 and tshape[0] == B,
+             lambda: f"{name}: tables must be int32 (B={B}, nbb), got {tdtype} {tuple(tshape)}")
+    _require(pdtype == torch.int32 and tuple(pshape) == (B,),
+             lambda: f"{name}: pos must be int32 ({B},), got {pdtype} {tuple(pshape)}")
+    _require(tshape[1] >= 1, lambda: f"{name}: tables need at least one column")
+    _require(dev.type in ("cpu", "cuda"), lambda: f"{name}: unsupported device {dev}")
+    if dev.type == "cpu":
+        return "cpu"
+    if B == 0:
+        return "empty"
+    # each vals' strides, read in place: the head's elements contiguous,
+    # layer and group merged into one arena-row stride
+    L, ng = ashape[1], ashape[2]
+    hs = ashape[4] if rank == 5 else 1
+    flat = []
+    for arg, st in zip(vnames, strides):
+        sb, sl, sg = st[:3]
+        sr = sg if ng > 1 else sl
+        _require((hs == 1 or st[-1] == 1) and (L == 1 or sl == ng * sr),
+                 lambda: f"{name}: {arg} must hold each head's values contiguously and its "
+                 f"layers at ng times its groups' stride, got strides {tuple(st)}")
+        flat += [sb, sr, st[3] if len(vshape) == rank and T > 1 else 0]
+    flat *= 2 // len(strides)            # one arena: its strides stand in for the second's
+    geom = (B, T, L * ng, bs, tshape[1], hs * esize, *(x * esize for x in flat))
+    widths = tuple(w for w in (16, 8, 4, 2, 1) if all(g % w == 0 for g in geom[5:]))
+    return (ctypes.c_int64 * len(geom))(*geom), widths, index
+
+
+# checked token writes by _token_key (see _token_checked); a call that fails
+# a check raises and is not kept
+_TOKEN_CHECKED: dict = {}
+
+
+def _token_write(name: str, counter: str, arenas: tuple, vals: tuple, tables, pos, n_emit,
+                 offset: int, block_size: int):
+    """The token write of one arena or of both (``arenas``/``vals`` of one or
+    two): checks kept by key, the plain version for CPU tensors, else one
+    launch, counted under ``counter``.  Returns True when it launched or had
+    nothing to write, False for the CPU (the caller runs the plain
+    version)."""
+    key = _token_key(name, arenas, vals, tables, pos, n_emit, offset, block_size)
+    launch = _TOKEN_CHECKED.get(key)
+    if launch is None:
+        launch = _token_checked(key)
+        if len(_TOKEN_CHECKED) >= 256:
+            _TOKEN_CHECKED.clear()
+        _TOKEN_CHECKED[key] = launch
+    if launch == "cpu":
+        return False
+    if launch == "empty":
+        return True
+    geom, widths, index = launch
+    if len(arenas) == 2:
+        pa, pb, va, vb = (arenas[0].data_ptr(), arenas[1].data_ptr(), vals[0].data_ptr(),
+                          vals[1].data_ptr())
+        at = pa | pb | va | vb
+    else:
+        pa, pb, va, vb = arenas[0].data_ptr(), None, vals[0].data_ptr(), None
+        at = pa | va
+    vec = next(w for w in widths if at % w == 0)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    args = (pa, pb, va, vb, tables.data_ptr(), pos.data_ptr(),
+            None if n_emit is None else n_emit.data_ptr(), geom, offset, vec, stream)
+    lib = _build.load_library()
+    if index == torch._C._cuda_getDevice():
+        rc = lib.tt_paged_token_write(*args)
+    else:
+        with torch.cuda.device(index):
+            rc = lib.tt_paged_token_write(*args)
+    if rc:
+        _raise_on(lib, rc, name)
+    LAUNCHES[counter] += 1
+    return True
+
+
 def paged_token_write(arena, vals, tables, pos, *, block_size: int):
     """In-place single-token arena write; returns ``arena`` itself.
 
     ``arena``: (num_blocks, L, ng, bs, hs) K/V arena — or a (num_blocks, L,
     ng, bs) scale arena; ``vals``: (B, L, ng, hs) (or (B, L, ng)) at the
-    arena dtype.  Row ``i`` lands in block ``tables[i, pos[i] // bs]``, slot
+    arena dtype, each head's values contiguous (read in place by its
+    strides).  Row ``i`` lands in block ``tables[i, pos[i] // bs]``, slot
     ``pos[i] % bs``; batch-padding rows (all-sink tables, pos 0) land in
-    sink block 0, which is never read."""
-    name = "paged_token_write"
-    _require(arena.ndim in (4, 5) and vals.ndim == arena.ndim - 1,
-             f"{name}: arena must be rank 4 or 5 and vals one rank lower, got "
-             f"{tuple(arena.shape)} and {tuple(vals.shape)}")
-    B = vals.shape[0]
-    bs = arena.shape[3]
-    want = (B, *arena.shape[1:3], *arena.shape[4:])
-    _require(tuple(vals.shape) == want, f"{name}: vals must be {want}, got {tuple(vals.shape)}")
-    _require(block_size == bs, f"{name}: block_size={block_size} but the arena holds {bs}")
-    _require(vals.dtype == arena.dtype,
-             f"{name}: vals dtype {vals.dtype} != arena dtype {arena.dtype}")
-    _require(arena.element_size() in (1, 2, 4), f"{name}: unsupported dtype {arena.dtype}")
-    dev = _check_common(name, dict(arena=arena, vals=vals), tables, pos, B)
-    if dev.type == "cpu":
-        return paged_token_write_plain(arena, vals, tables, pos, block_size=block_size)
-    if B == 0:
-        return arena
-    hs = arena.shape[4] if arena.ndim == 5 else 1
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_paged_token_write(
-            _ptr(arena), _ptr(vals), _ptr(tables), _ptr(pos),
-            B, arena.shape[1] * arena.shape[2], bs, hs, tables.shape[1],
-            arena.element_size(), ctypes.c_void_p(stream))
-    _raise_on(lib, rc, name)
-    LAUNCHES[name] += 1
+    sink block 0, which is never read.  The engine writes K and V of a
+    step in one launch through :func:`paged_token_write_pair`."""
+    if not _token_write("paged_token_write", "paged_token_write", (arena,), (vals,), tables,
+                        pos, None, 0, block_size):
+        paged_token_write_plain(arena, vals, tables, pos, block_size=block_size)
     return arena
 
+
+def paged_token_write_masked(arena, vals, tables, pos, n_emit, offset: int, *, block_size: int):
+    """In-place keep-masked single-token arena write; returns ``arena``.
+
+    One chunk offset of the speculative commit and, at ``offset=0`` with
+    ``n_emit`` the per-row liveness, the multi-step decode write.  Row ``i``
+    lands ``vals[i]`` — the K/V (or scale) of chunk offset ``offset`` — at
+    slot ``pos[i] + offset`` (block ``tables[i, (pos[i] + offset) // bs]``)
+    iff ``offset < n_emit[i]``; otherwise it lands in sink block 0, slot 0,
+    which is never read.  ``arena``/``vals`` as :func:`paged_token_write`;
+    ``n_emit``: (B,) int32.  The engine commits K and V of every offset of
+    a round in one launch through :func:`paged_token_write_pair`."""
+    if not _token_write("paged_token_write_masked", "paged_token_write_masked", (arena,),
+                        (vals,), tables, pos, n_emit, offset, block_size):
+        paged_token_write_masked_plain(arena, vals, tables, pos, n_emit, offset,
+                                       block_size=block_size)
+    return arena
+
+
+def paged_token_write_pair(k_arena, v_arena, k_vals, v_vals, tables, pos, *, block_size: int,
+                           n_emit=None, offset: int = 0):
+    """K and V of a whole decode step, verify round or multi-step iteration
+    landed in one launch, in place; returns ``(k_arena, v_arena)``.
+
+    ``k_arena``/``v_arena``: two arenas of one shape and dtype, as
+    :func:`paged_token_write` takes them; ``k_vals``/``v_vals``: (B, L, ng,
+    T, hs) (or (B, L, ng, T) for rank-4 arenas), or without the T dim for
+    T = 1, at the arena dtype, read in place by their strides (each head's
+    values contiguous, layers at ng times the groups' stride: a slice of the
+    forward's (B, L, ng, T, hs) is taken as it is).  Offset ``t`` of row
+    ``i`` is the write of chunk offset ``offset + t``: without ``n_emit``
+    :func:`paged_token_write` at ``pos[i] + offset + t``, with ``n_emit``
+    (B,) int32 :func:`paged_token_write_masked` (live iff ``offset + t <
+    n_emit[i]``, else sink block 0, slot 0).  The live offsets of one row
+    land at distinct slots, so the arenas equal those of the 2T sequential
+    single-offset writes (:func:`paged_token_write_pair_plain`).  One
+    launch, counted as ``paged_token_write`` (plain) or
+    ``paged_token_write_masked`` (with ``n_emit``)."""
+    counter = "paged_token_write" if n_emit is None else "paged_token_write_masked"
+    if not _token_write("paged_token_write_pair", counter, (k_arena, v_arena), (k_vals, v_vals),
+                        tables, pos, n_emit, offset, block_size):
+        paged_token_write_pair_plain(k_arena, v_arena, k_vals, v_vals, tables, pos,
+                                     block_size=block_size, n_emit=n_emit, offset=offset)
+    return k_arena, v_arena
 
 
 #
@@ -778,84 +992,20 @@ def paged_chunk_write(arena, vals, dest, pos, *, block_size: int):
 
 
 #
-# paged_token_write_masked
-#
-
-
-def paged_token_write_masked_plain(arena, vals, tables, pos, n_emit, offset: int, *,
-                                   block_size: int):
-    """Plain PyTorch version of :func:`paged_token_write_masked` (in place)."""
-    live = offset < n_emit.long()
-    blk, slot = _dest(tables, pos + offset, block_size)
-    blk = torch.where(live, blk, 0)
-    slot = torch.where(live, slot, 0)
-    if arena.ndim == 5:
-        arena[blk, :, :, slot, :] = vals
-    else:
-        arena[blk, :, :, slot] = vals
-    return arena
-
-
-def paged_token_write_masked(arena, vals, tables, pos, n_emit, offset: int, *, block_size: int):
-    """In-place keep-masked single-token arena write; returns ``arena``.
-
-    The speculative verify commit (one call per chunk offset) and, at
-    ``offset=0`` with ``n_emit`` the per-row liveness, the multi-step
-    decode write.  Row ``i`` lands ``vals[i]`` — the K/V (or scale) of
-    chunk offset ``offset`` — at slot ``pos[i] + offset`` (block
-    ``tables[i, (pos[i] + offset) // bs]``) iff ``offset < n_emit[i]``;
-    otherwise it lands in sink block 0, slot 0, which is never read.
-    ``arena``/``vals`` as :func:`paged_token_write`; ``n_emit``: (B,)
-    int32."""
-    name = "paged_token_write_masked"
-    _require(arena.ndim in (4, 5) and vals.ndim == arena.ndim - 1,
-             f"{name}: arena must be rank 4 or 5 and vals one rank lower, got "
-             f"{tuple(arena.shape)} and {tuple(vals.shape)}")
-    B = vals.shape[0]
-    bs = arena.shape[3]
-    want = (B, *arena.shape[1:3], *arena.shape[4:])
-    _require(tuple(vals.shape) == want, f"{name}: vals must be {want}, got {tuple(vals.shape)}")
-    _require(block_size == bs, f"{name}: block_size={block_size} but the arena holds {bs}")
-    _require(vals.dtype == arena.dtype,
-             f"{name}: vals dtype {vals.dtype} != arena dtype {arena.dtype}")
-    _require(arena.element_size() in (1, 2, 4), f"{name}: unsupported dtype {arena.dtype}")
-    _require(n_emit.dtype == torch.int32 and tuple(n_emit.shape) == (B,),
-             f"{name}: n_emit must be int32 ({B},), got {n_emit.dtype} {tuple(n_emit.shape)}")
-    _require(offset >= 0, f"{name}: offset must be >= 0, got {offset}")
-    dev = _check_common(name, dict(arena=arena, vals=vals, n_emit=n_emit), tables, pos, B)
-    if dev.type == "cpu":
-        return paged_token_write_masked_plain(arena, vals, tables, pos, n_emit, offset,
-                                              block_size=block_size)
-    if B == 0:
-        return arena
-    hs = arena.shape[4] if arena.ndim == 5 else 1
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_paged_token_write_masked(
-            _ptr(arena), _ptr(vals), _ptr(tables), _ptr(pos), _ptr(n_emit), int(offset),
-            B, arena.shape[1] * arena.shape[2], bs, hs, tables.shape[1],
-            arena.element_size(), ctypes.c_void_p(stream))
-    _raise_on(lib, rc, name)
-    LAUNCHES[name] += 1
-    return arena
-
-
-#
 # paged_token_write_fused, paged_chunk_write_fused: quantize on write
 #
 
 
 def _check_quant_arena(name: str, arena, scale_arena, vals) -> None:
     _require(arena.dtype in _QUANT_CODE,
-             f"{name}: the arena must be int8 or float8_e4m3fn, got {arena.dtype}")
+             lambda: f"{name}: the arena must be int8 or float8_e4m3fn, got {arena.dtype}")
     _require(scale_arena.dtype == torch.float32
              and tuple(scale_arena.shape) == tuple(arena.shape[:-1]),
-             f"{name}: scale_arena must be float32 {tuple(arena.shape[:-1])}, got "
+             lambda: f"{name}: scale_arena must be float32 {tuple(arena.shape[:-1])}, got "
              f"{scale_arena.dtype} {tuple(scale_arena.shape)}")
     _require(vals.dtype in _DTYPE_CODE,
-             f"{name}: vals must be at the compute dtype (float32/float16/bfloat16), got "
-             f"{vals.dtype}")
+             lambda: f"{name}: vals must be at the compute dtype (float32/float16/bfloat16), "
+             f"got {vals.dtype}")
 
 
 def paged_token_write_fused_plain(arena, scale_arena, vals, tables, pos, *, block_size: int,
@@ -953,6 +1103,93 @@ def paged_chunk_write_fused_plain(arena, scale_arena, vals, dest, pos, *, block_
     return arena, scale_arena, sums * _chunk_live(dest, pos, nc, block_size).float()[:, None]
 
 
+def chunk_blocks(x, block_size: int):
+    """(1, L, ng, T, hs) chunk-fresh layout (what ``forward_paged`` returns
+    for one chunk) → (T // bs, L, ng, bs, hs) block granules: chunk block
+    ``c``, slot ``t`` is token ``c·bs + t`` (a transpose, made
+    contiguous)."""
+    _, L, ng, T, hs = x.shape
+    return x[0].reshape(L, ng, T // block_size, block_size, hs).permute(2, 0, 1, 3, 4).contiguous()
+
+
+def paged_chunk_write_fused_pair_plain(k_arena, v_arena, k_scale, v_scale, k_vals, v_vals, dest,
+                                       pos, *, block_size: int):
+    """Plain PyTorch version of :func:`paged_chunk_write_fused_pair`: the
+    values folded into block granules (:func:`chunk_blocks`), then
+    :func:`paged_chunk_write_fused_plain` per arena."""
+    errs = [paged_chunk_write_fused_plain(a, s, chunk_blocks(v, block_size), dest, pos,
+                                          block_size=block_size)[2]
+            for a, s, v in ((k_arena, k_scale, k_vals), (v_arena, v_scale, v_vals))]
+    return k_arena, v_arena, k_scale, v_scale, torch.stack(errs)
+
+
+# the fused chunk kernel's plan: a group of G lanes per slot-head (8 values
+# a lane, G a power of two up to a warp), blocks of _CHUNK_Q_THREADS lanes
+# walking _CHUNK_Q_ROUNDS slot-heads per group
+_CHUNK_Q_THREADS = 256
+_CHUNK_Q_ROUNDS = 8
+
+
+def _chunk_q_plan(rows: int, bs: int, hs: int) -> tuple[int, int, int, int]:
+    """(log2 G, 8-value pieces per lane, slot-heads per block, blocks per
+    chunk block) of the fused chunk kernel, from shapes alone."""
+    log2 = 0
+    while log2 < 5 and 8 << log2 < hs:
+        log2 += 1
+    pieces = -(-hs // (8 << log2))
+    spb = (_CHUNK_Q_THREADS >> log2) * _CHUNK_Q_ROUNDS
+    return log2, pieces, spb, max(1, -(-rows * bs // spb))
+
+
+def _chunk_q(name: str, arenas: tuple, scales: tuple, vals: tuple, dest, pos, nc: int,
+             strides: tuple):
+    """One launch of the fused chunk kernel over ``arenas`` (one or two, with
+    their scale arenas and values); returns err (arenas, nc, 2)."""
+    arena = arenas[0]
+    _, L, ng, bs, hs = arena.shape
+    dev = arena.device
+    err_n = len(arenas) * nc * 2
+    log2, pieces, spb, tiles = _chunk_q_plan(L * ng, bs, hs)
+    buf = torch.empty(err_n + err_n * tiles, dtype=torch.float32, device=dev)
+    err = buf[:err_n].view(len(arenas), nc, 2)
+    if nc == 0:
+        return err
+    geom = (ctypes.c_int64 * 11)(nc, L * ng, bs, hs, dest.shape[0], *strides, log2, pieces, spb,
+                                 tiles)
+    ptrs = [(a.data_ptr(), s.data_ptr(), v.data_ptr()) for a, s, v in zip(arenas, scales, vals)]
+    vec = hs % 8 == 0 and all(pv % 16 == 0 and pa % 8 == 0 for pa, _, pv in ptrs)
+    if len(ptrs) == 1:
+        ptrs.append((None, None, None))
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tt_paged_chunk_write_fused(
+            *ptrs[0], *ptrs[1], dest.data_ptr(), pos.data_ptr(), err.data_ptr(),
+            buf[err_n:].data_ptr(), geom, ctypes.c_float(_quant().inv_qmax(arena.dtype)),
+            _QUANT_CODE[arena.dtype], _DTYPE_CODE[vals[0].dtype], int(vec), stream)
+    _raise_on(lib, rc, name)
+    LAUNCHES["paged_chunk_write_fused"] += 1
+    return err
+
+
+def _check_chunk_route(name: str, dest, pos) -> None:
+    _require(dest.dtype == torch.int32 and dest.ndim == 1 and dest.shape[0] >= 1,
+             lambda: f"{name}: dest must be int32 (nbb,), got {dest.dtype} {tuple(dest.shape)}")
+    _require(pos.dtype == torch.int32 and tuple(pos.shape) == (1,),
+             lambda: f"{name}: pos must be int32 (1,), got {pos.dtype} {tuple(pos.shape)}")
+
+
+def _check_devices(name: str, tensors: dict) -> torch.device:
+    """Every tensor on the first one's device and contiguous; returns it."""
+    first = next(iter(tensors))
+    dev = tensors[first].device
+    for arg, t in tensors.items():
+        _require(t.device == dev, lambda: f"{name}: {arg} is on {t.device}, {first} on {dev}")
+        _require(t.is_contiguous(), lambda: f"{name}: {arg} must be contiguous")
+    _require(dev.type in ("cpu", "cuda"), lambda: f"{name}: unsupported device {dev}")
+    return dev
+
+
 def paged_chunk_write_fused(arena, scale_arena, vals, dest, pos, *, block_size: int):
     """In-place block-granule chunk write into a quantized arena,
     quantizing on the way; returns ``(arena, scale_arena, err)``.
@@ -966,43 +1203,72 @@ def paged_chunk_write_fused(arena, scale_arena, vals, dest, pos, *, block_size: 
     Pallas kernel's ``[c, 0, 0]`` and ``[c, 0, 1]``; ``err[:, 0].sum() /
     (err[:, 1].sum() + 1e-30)`` is the ``rel_err`` ``scatter_blocks_q``
     reports.  Values and scales are bit-equal to the plain version's, the
-    sums equal up to the order of f32 additions."""
+    sums equal up to the order of f32 additions (and repeat bit for bit
+    from call to call).  The engine writes K and V of a chunk piece in one
+    launch through :func:`paged_chunk_write_fused_pair`."""
     name = "paged_chunk_write_fused"
     _require(arena.ndim == 5 and vals.ndim == 5 and tuple(vals.shape[1:]) == tuple(arena.shape[1:]),
-             f"{name}: arena must be (num_blocks, L, ng, bs, hs) and vals (nc, L, ng, bs, hs), "
-             f"got {tuple(arena.shape)} and {tuple(vals.shape)}")
+             lambda: f"{name}: arena must be (num_blocks, L, ng, bs, hs) and vals (nc, L, ng, bs, "
+             f"hs), got {tuple(arena.shape)} and {tuple(vals.shape)}")
     _require(block_size == arena.shape[3],
-             f"{name}: block_size={block_size} but the arena holds {arena.shape[3]}")
+             lambda: f"{name}: block_size={block_size} but the arena holds {arena.shape[3]}")
     _check_quant_arena(name, arena, scale_arena, vals)
-    _require(dest.dtype == torch.int32 and dest.ndim == 1 and dest.shape[0] >= 1,
-             f"{name}: dest must be int32 (nbb,), got {dest.dtype} {tuple(dest.shape)}")
-    _require(pos.dtype == torch.int32 and tuple(pos.shape) == (1,),
-             f"{name}: pos must be int32 (1,), got {pos.dtype} {tuple(pos.shape)}")
-    dev = arena.device
-    for arg, t in dict(arena=arena, scale_arena=scale_arena, vals=vals, dest=dest,
-                       pos=pos).items():
-        _require(t.device == dev, f"{name}: {arg} is on {t.device}, arena on {dev}")
-        _require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
-    _require(dev.type in ("cpu", "cuda"), f"{name}: unsupported device {dev}")
+    _check_chunk_route(name, dest, pos)
+    dev = _check_devices(name, dict(arena=arena, scale_arena=scale_arena, vals=vals, dest=dest,
+                                    pos=pos))
     if dev.type == "cpu":
         return paged_chunk_write_fused_plain(arena, scale_arena, vals, dest, pos,
                                              block_size=block_size)
     nc, L, ng, bs, hs = vals.shape
-    err = torch.empty((nc, 2), dtype=torch.float32, device=dev)
-    if nc == 0:
-        return arena, scale_arena, err
-    partial = torch.empty((nc, L * ng, 2), dtype=torch.float32, device=dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_paged_chunk_write_fused(
-            _ptr(arena), _ptr(scale_arena), _ptr(vals), _ptr(dest), _ptr(pos), _ptr(err),
-            _ptr(partial), nc, L * ng, bs, hs, dest.shape[0],
-            ctypes.c_float(_quant().inv_qmax(arena.dtype)), _QUANT_CODE[arena.dtype],
-            _DTYPE_CODE[vals.dtype], ctypes.c_void_p(stream))
-    _raise_on(lib, rc, name)
-    LAUNCHES[name] += 1
-    return arena, scale_arena, err
+    err = _chunk_q(name, (arena,), (scale_arena,), (vals,), dest, pos, nc,
+                   (L * ng * bs * hs, bs * hs))
+    return arena, scale_arena, err[0]
+
+
+def paged_chunk_write_fused_pair(k_arena, v_arena, k_scale, v_scale, k_vals, v_vals, dest, pos, *,
+                                 block_size: int):
+    """K and V of one chunked-prefill piece landed in their quantized arenas
+    in one launch, in place; returns ``(k_arena, v_arena, k_scale, v_scale,
+    err)``.
+
+    ``k_arena``/``v_arena``: two arenas of one shape and dtype (int8 or
+    float8_e4m3fn) with their scale arenas, as
+    :func:`paged_chunk_write_fused` takes one; ``k_vals``/``v_vals``: (1, L,
+    ng, T, hs) at one compute dtype, the layout ``forward_paged`` returns,
+    read in place (chunk block ``c``, slot ``t`` is token ``c·bs + t``; T a
+    multiple of the block size).  Each arena ends as
+    :func:`paged_chunk_write_fused` over the values folded into block
+    granules leaves it (:func:`paged_chunk_write_fused_pair_plain`); ``err``
+    (2, nc, 2) holds its sums, K's then V's.  One launch, counted as
+    ``paged_chunk_write_fused``."""
+    name = "paged_chunk_write_fused_pair"
+    _require(k_arena.ndim == 5, lambda: f"{name}: k_arena must be (num_blocks, L, ng, bs, hs), "
+             f"got {tuple(k_arena.shape)}")
+    _require(v_arena.shape == k_arena.shape and v_arena.dtype == k_arena.dtype,
+             lambda: f"{name}: v_arena must match k_arena ({tuple(k_arena.shape)} "
+             f"{k_arena.dtype}), got {tuple(v_arena.shape)} {v_arena.dtype}")
+    _, L, ng, bs, hs = k_arena.shape
+    _require(k_vals.ndim == 5 and k_vals.shape[:3] == (1, L, ng) and k_vals.shape[4] == hs,
+             lambda: f"{name}: k_vals must be (1, {L}, {ng}, T, {hs}), got {tuple(k_vals.shape)}")
+    _require(v_vals.shape == k_vals.shape and v_vals.dtype == k_vals.dtype,
+             lambda: f"{name}: v_vals must match k_vals ({tuple(k_vals.shape)} {k_vals.dtype}), "
+             f"got {tuple(v_vals.shape)} {v_vals.dtype}")
+    T = k_vals.shape[3]
+    _require(T % block_size == 0,
+             lambda: f"{name}: T={T} of k_vals/v_vals is not a multiple of block_size={block_size}")
+    _require(block_size == bs, lambda: f"{name}: block_size={block_size} but the arena holds {bs}")
+    for arena, scale, vals in ((k_arena, k_scale, k_vals), (v_arena, v_scale, v_vals)):
+        _check_quant_arena(name, arena, scale, vals)
+    _check_chunk_route(name, dest, pos)
+    dev = _check_devices(name, dict(k_arena=k_arena, v_arena=v_arena, k_scale=k_scale,
+                                    v_scale=v_scale, k_vals=k_vals, v_vals=v_vals, dest=dest,
+                                    pos=pos))
+    if dev.type == "cpu":
+        return paged_chunk_write_fused_pair_plain(k_arena, v_arena, k_scale, v_scale, k_vals,
+                                                  v_vals, dest, pos, block_size=block_size)
+    err = _chunk_q(name, (k_arena, v_arena), (k_scale, v_scale), (k_vals, v_vals), dest, pos,
+                   T // bs, (bs * hs, T * hs))
+    return k_arena, v_arena, k_scale, v_scale, err
 
 
 #

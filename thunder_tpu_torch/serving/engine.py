@@ -10,8 +10,8 @@ the step they finish.
   the gather decode path;
 - the paged decode path (``attn="paged"``, what ``"auto"`` resolves to)
   runs ``serving.paged_attention.forward_paged``: per layer one launch of
-  the ``paged_attn_decode`` kernel straight off the block arena, then two
-  ``paged_token_write`` launches land the fresh K/V.  On the CPU the same
+  the ``paged_attn_decode`` kernel straight off the block arena, then one
+  ``paged_token_write`` launch lands the fresh K and V.  On the CPU the same
   path runs the kernels' plain PyTorch versions;
 - the prefill lane (``prefill_chunk=N``, async engines only) splits a
   prompt longer than N into block-aligned pieces, one per engine step, so

@@ -10,16 +10,19 @@ the paged chunked-prefill piece, T = the chunk width).  Quantized arenas
 (``k_scale``/``v_scale`` beside int8/fp8 K/V) are dequantized inside those
 kernels as each tile loads.  The fresh K/V land in place afterwards:
 
-- :func:`write_fresh_kv` — one decode step, through ``paged_token_write``
-  (``paged_token_write_fused`` into a quantized arena);
-- :func:`write_fresh_kv_masked` — a verify step's accepted prefix, one
-  ``paged_token_write_masked`` (masked ``paged_token_write_fused``) call
-  per chunk offset;
+- :func:`write_fresh_kv` — one decode step, K and V in one launch of
+  ``paged_token_write_pair`` (``paged_token_write_fused`` per arena into a
+  quantized arena);
+- :func:`write_fresh_kv_masked` — a verify step's accepted prefix, K and V
+  of every chunk offset in one masked ``paged_token_write_pair`` launch
+  (the masked ``paged_token_write_fused`` per arena and offset into a
+  quantized arena);
 - :func:`write_fresh_kv_live` — one multi-step decode iteration, the masked
-  write at offset 0 with the per-row liveness as ``n_emit``;
+  pair write at offset 0 with the per-row liveness as ``n_emit``;
 - :func:`write_fresh_kv_chunk` — a prefill chunk, block by block, through
-  ``paged_chunk_write`` (``paged_chunk_write_fused``, which also returns
-  the quantization error sums).
+  ``paged_chunk_write`` per arena, or into a quantized pool K and V in one
+  pass of ``paged_chunk_write_fused_pair``, which reads the forward's
+  values in place and also returns the quantization error sums.
 
 The ``kv_dtype`` argument of the writers is the pool's storage dtype when
 it is quantized and None otherwise, as in the reference; the fused writers
@@ -44,15 +47,15 @@ import functools
 import torch
 
 from thunder_tpu_torch.executors.cudaex import (
+    chunk_blocks,
     lora_delta_fused,
     paged_attn_decode,
     paged_attn_verify,
     paged_chunk_write,
-    paged_chunk_write_fused,
+    paged_chunk_write_fused_pair,
     paged_kernels_decline,
-    paged_token_write,
     paged_token_write_fused,
-    paged_token_write_masked,
+    paged_token_write_pair,
 )
 from thunder_tpu_torch.models.generate import (
     _block_tail,
@@ -144,27 +147,18 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
 
 def write_fresh_kv(arenas, fresh, tables, pos, *, block_size: int, kv_dtype=None):
     """Lands one decode step's fresh K/V (``{"k"/"v": (B, L, ng, hs)}`` at
-    the compute dtype) in the arenas, in place; padding rows land in sink
-    block 0.  ``kv_dtype``: the storage dtype of a quantized pool (the
-    fused writer quantizes on the way), None otherwise."""
+    the compute dtype) in the arenas, in place, K and V in one launch;
+    padding rows land in sink block 0.  ``kv_dtype``: the storage dtype of
+    a quantized pool (the fused writer quantizes on the way, per arena),
+    None otherwise."""
+    if kv_dtype is None:
+        paged_token_write_pair(arenas["k"], arenas["v"], fresh["k"], fresh["v"], tables, pos,
+                               block_size=block_size)
+        return arenas
     for name in ("k", "v"):
-        if kv_dtype is None:
-            paged_token_write(arenas[name], fresh[name], tables, pos, block_size=block_size)
-        else:
-            paged_token_write_fused(arenas[name], arenas[name + "_scale"], fresh[name], tables,
-                                    pos, block_size=block_size)
+        paged_token_write_fused(arenas[name], arenas[name + "_scale"], fresh[name], tables, pos,
+                                block_size=block_size)
     return arenas
-
-
-def _write_masked(arenas, vals: dict, tables, pos, n_emit, offset: int, *, block_size: int,
-                  kv_dtype) -> None:
-    for name in ("k", "v"):
-        if kv_dtype is None:
-            paged_token_write_masked(arenas[name], vals[name], tables, pos, n_emit, offset,
-                                     block_size=block_size)
-        else:
-            paged_token_write_fused(arenas[name], arenas[name + "_scale"], vals[name], tables,
-                                    pos, block_size=block_size, n_emit=n_emit, offset=offset)
 
 
 def write_fresh_kv_masked(arenas, fresh, tables, pos, n_emit, *, block_size: int,
@@ -175,11 +169,18 @@ def write_fresh_kv_masked(arenas, fresh, tables, pos, n_emit, *, block_size: int
     :func:`forward_paged` call; ``n_emit``: (B,) int32 accepted counts.
     Offset ``k`` of row ``i`` lands at ``pos[i] + k`` iff ``k < n_emit[i]``;
     the rest go to the sink, so rejected drafts leave no trace and the next
-    round derives them again.  Quantized pools (``kv_dtype``) take the
-    masked fused write per offset."""
+    round derives them again.  K and V of every offset in one launch, read
+    in place; quantized pools (``kv_dtype``) take the masked fused write
+    per arena and offset."""
+    if kv_dtype is None:
+        paged_token_write_pair(arenas["k"], arenas["v"], fresh["k"], fresh["v"], tables, pos,
+                               block_size=block_size, n_emit=n_emit)
+        return arenas
     for k in range(fresh["k"].shape[3]):
-        _write_masked(arenas, {n: fresh[n][:, :, :, k].contiguous() for n in ("k", "v")},
-                      tables, pos, n_emit, k, block_size=block_size, kv_dtype=kv_dtype)
+        for name in ("k", "v"):
+            paged_token_write_fused(arenas[name], arenas[name + "_scale"],
+                                    fresh[name][:, :, :, k].contiguous(), tables, pos,
+                                    block_size=block_size, n_emit=n_emit, offset=k)
     return arenas
 
 
@@ -188,17 +189,17 @@ def write_fresh_kv_live(arenas, fresh, tables, pos, live, *, block_size: int, kv
     (``{"k"/"v": (B, L, ng, hs)}``), keep-masked by the per-row liveness
     ``live`` (B,) bool: a live row commits at ``pos`` exactly like
     :func:`write_fresh_kv`, a dead row (finished earlier, or batch padding)
-    lands in the sink.  An offset-0 masked write with ``n_emit = live``."""
-    _write_masked(arenas, fresh, tables, pos, live.to(torch.int32), 0, block_size=block_size,
-                  kv_dtype=kv_dtype)
+    lands in the sink.  An offset-0 masked write with ``n_emit = live``:
+    one launch for K and V, or the masked fused write per arena."""
+    n_emit = live.to(torch.int32)
+    if kv_dtype is None:
+        paged_token_write_pair(arenas["k"], arenas["v"], fresh["k"], fresh["v"], tables, pos,
+                               block_size=block_size, n_emit=n_emit)
+        return arenas
+    for name in ("k", "v"):
+        paged_token_write_fused(arenas[name], arenas[name + "_scale"], fresh[name], tables, pos,
+                                block_size=block_size, n_emit=n_emit, offset=0)
     return arenas
-
-
-def _chunk_blocks(x, bs: int):
-    """(1, L, ng, T, hs) chunk-fresh layout → (T // bs, L, ng, bs, hs)
-    block granules for the chunk writer (a transpose, made contiguous)."""
-    _, L, ng, T, hs = x.shape
-    return x[0].reshape(L, ng, T // bs, bs, hs).permute(2, 0, 1, 3, 4).contiguous()
 
 
 def write_fresh_kv_chunk(arenas, fresh, dest, pos, *, block_size: int, kv_dtype=None):
@@ -210,21 +211,21 @@ def write_fresh_kv_chunk(arenas, fresh, dest, pos, *, block_size: int, kv_dtype=
     (nbb,) int32 scatter table from ``kv_pool.chunk_tables`` (sink outside
     the chunk's own blocks); ``pos``: (1,) int32 block-aligned chunk start.
     Chunk block ``c`` lands as one (L, ng, bs, hs) slab at
-    ``dest[pos // bs + c]``; quantized pools (``kv_dtype``) take the fused
-    writer.  Returns ``(arenas, qerr)``: ``qerr`` is ``0.5 * (k_rel +
-    v_rel)``, each ``rel = sum|dq - x| / (sum|x| + 1e-30)`` over the blocks
-    actually written (a float32 scalar tensor on the arenas' device), the
-    figure the gather chunk step reports; the float 0.0 unquantized."""
-    rels = []
-    for name in ("k", "v"):
-        vals = _chunk_blocks(fresh[name], block_size)
-        if kv_dtype is None:
-            paged_chunk_write(arenas[name], vals.to(arenas[name].dtype), dest, pos,
-                              block_size=block_size)
-            continue
-        _, _, err = paged_chunk_write_fused(arenas[name], arenas[name + "_scale"], vals, dest,
-                                            pos, block_size=block_size)
-        rels.append(err[:, 0].sum() / (err[:, 1].sum() + 1e-30))
-    if not rels:
+    ``dest[pos // bs + c]``: unquantized through ``paged_chunk_write`` per
+    arena, from the values folded into block granules
+    (``cudaex.chunk_blocks``); quantized pools (``kv_dtype``) K and V in one
+    pass of the fused writer, which reads ``fresh`` in place.  Returns
+    ``(arenas, qerr)``: ``qerr`` is ``0.5 * (k_rel + v_rel)``, each ``rel =
+    sum|dq - x| / (sum|x| + 1e-30)`` over the blocks actually written (a
+    float32 scalar tensor on the arenas' device), the figure the gather
+    chunk step reports; the float 0.0 unquantized."""
+    if kv_dtype is None:
+        for name in ("k", "v"):
+            paged_chunk_write(arenas[name], chunk_blocks(fresh[name], block_size).to(
+                arenas[name].dtype), dest, pos, block_size=block_size)
         return arenas, 0.0
-    return arenas, 0.5 * (rels[0] + rels[1])
+    *_, err = paged_chunk_write_fused_pair(arenas["k"], arenas["v"], arenas["k_scale"],
+                                           arenas["v_scale"], fresh["k"], fresh["v"], dest, pos,
+                                           block_size=block_size)
+    k_rel, v_rel = (e[:, 0].sum() / (e[:, 1].sum() + 1e-30) for e in err)
+    return arenas, 0.5 * (k_rel + v_rel)
