@@ -32,13 +32,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bitwise outside sink block 0, two calls bitwise equal, device ms at most
    0.0030 (step) and 0.0063 (round), the step's CUDA-event time (the median
    of five rounds of 200 calls, taken right after the build) at most 0.030
-   ms.  Then CUDA-event and profiler times of kernel, plain
-   version and one library call computing the same function, beside the
-   bound.  On int8 and fp8 arenas (quantized KV): ``paged_attn_decode``
+   ms; ``paged_chunk_write_pair`` (K and V of a bf16 or f32 512-token piece
+   read in place from the forward's (1, L, ng, T, hs) values, at pos 2560
+   through the 192-entry table and at pos 2816, 16 blocks past it, into
+   the sink) both arenas bitwise outside sink block 0, two calls bitwise
+   equal, device ms at most 0.050.  Then CUDA-event and profiler times of
+   kernel, plain version and one library call computing the same function,
+   beside the bound.  On int8 and fp8 arenas (quantized KV): ``paged_attn_decode``
    (B=8) and ``paged_attn_verify`` (both shapes; the same body checks) in
    float32 within 1e-5 and
    in bf16 by the ratio bar; ``paged_token_write_fused`` (B=8, the plain
-   write and every offset 0..4 of the masked one) and
+   write and every offset 0..4 of the masked one; and the engine's
+   ``paged_token_write_fused_pair``: K and V of a decode step, of a
+   multi-step iteration masked by its liveness and of a K=4 round read in
+   place, n_emit 0 to K+1, from bf16 and float32 values, two calls bitwise
+   equal, device ms at most 0.0035 (step) and 0.008 (round), the int8
+   step's CUDA-event median, taken before the first profile, at most
+   0.030 ms) and
    ``paged_chunk_write_fused`` (32 blocks; one arena, and the engine's
    ``paged_chunk_write_fused_pair``: K and V in one pass off the forward's
    (1, L, ng, T, hs) values, two calls bitwise equal, device ms at most
@@ -87,10 +97,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. chunked serve: the same model with ``prefill_chunk=512``, block-aligned
    prefill buckets (16..512), 8 greedy requests with prompts of 1024-3072
    tokens, 32 new tokens each; the chunk kind must resolve "paged", and
-   ``paged_attn_verify`` must launch n_layer and ``paged_chunk_write`` 2
-   times per intermediate piece, the decode kernels as in phase 4; then one
-   steady chunk piece profiled by kernel group (``paged_attn_verify`` /
-   matmul / the rest);
+   ``paged_attn_verify`` must launch n_layer times and ``paged_chunk_write``
+   once (K and V) per intermediate piece, the decode kernels as in phase 4;
+   then one steady chunk piece profiled by kernel group (``paged_attn_verify``
+   / matmul / the rest), its ``kv_write`` group at most 0.055 ms;
 6. speculative serve: the same target with a layer-skip draft (its own
    embedding, first two blocks, final norm and head), K=4, 8 greedy
    requests; ``paged_attn_verify`` launches n_layer times and
@@ -103,12 +113,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    speculative serve with ``kv_dtype="fp8"`` (the draft arena inherits
    fp8); exact launch counts (the fused writes only, never an unquantized
    write: ``paged_chunk_write_fused`` once per chunk piece,
-   ``paged_token_write_fused`` per arena and offset), the
+   ``paged_token_write_fused`` once per decode step and per round), the
    ``serving.kv_quant.rel_err`` gauge in (0, 0.05), and one
    decode step's logits off the int8 arenas through the kernels against
    ``gather_dense_q`` and ``forward_with_cache`` (phase 4's bars); then one
-   int8 chunk piece profiled by kernel group, its ``kv_write`` group at
-   most 0.065 ms;
+   int8 chunk piece, four int8 decode steps and one fp8 verify round
+   profiled by kernel group, their ``kv_write`` groups at most 0.065 /
+   0.005 / 0.012 ms;
 6c. LoRA serves: a registry of rank 16, alpha 32 (scaling 2), targets
    wq/wk/wv/wo, three adapters of std 0.05 from a seeded generator; the
    chunked serve of phase 5 and the speculative serve of phase 6 with two
@@ -822,6 +833,16 @@ PAIR_DEVICE_MAX_MS = {"step": 0.0030, "round": 0.0063, "chunk": 0.0607}
 PAIR_STEP_EVENT_MAX_MS = 0.030
 PAIR_EVENT_ROUNDS = 5
 N_EMIT_ROUND = [1, 5, 0, 3, 2, 4, 0, 5]        # accepted counts of a K=4 round, 0 to K+1
+# the quantized pairs (int8/fp8, every launch summed): the decode step's (a
+# 0.49 us bound from bf16 values) and the K=4 round's (2.46 us), device ms
+# at most, and the int8 step's CUDA-event median (bf16 values), the bf16
+# pair's bar; the bf16 chunk pair's device ms at most (a 40.07 us bound)
+Q_PAIR_DEVICE_MAX_MS = {"step": 0.0035, "round": 0.008}
+Q_PAIR_STEP_EVENT_MAX_MS = 0.030
+CHUNK_PAIR_DEVICE_MAX_MS = 0.050
+# a multi-step iteration's per-row liveness: the padding rows 2 and 6 and a
+# finished row 4 dead
+LIVE_STEP = [1, 1, 0, 1, 0, 1, 0, 1]
 
 
 def pair_inputs(dtype, gen, T, rank=5):
@@ -923,6 +944,68 @@ def check_pair_writes(event_rounds: list) -> dict:
         f"{PAIR_STEP_EVENT_MAX_MS}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("paged_token_write_pair missed a time bar")
+    return result
+
+
+def check_chunk_pair() -> dict:
+    """``paged_chunk_write_pair``, the engine's bf16 chunk write: K and V of
+    a 512-token piece read in place from the forward's (1, L, ng, T, hs)
+    values, at CHUNK_POS through the 192-entry table (its last 8 entries
+    sink) and at CHUNK_POS + 256 (16 chunk blocks past the table, into the
+    sink), bf16 and f32: both arenas bitwise equal to the plain version
+    outside sink block 0, two calls bitwise equal there too; then the bf16
+    times at CHUNK_POS, the device bar CHUNK_PAIR_DEVICE_MAX_MS."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    nc, nbb = VERIFY_SHAPES["chunk"]["T"] // BS, VERIFY_SHAPES["chunk"]["nbb"]
+    rng = np.random.default_rng(SEED + 3)
+    leased = [int(b) for b in rng.permutation(np.arange(1, NUM_BLOCKS))[:nbb - 8]]
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        base = [torch.randn((NUM_BLOCKS, L, NG, BS, HS), generator=gen, device=DEVICE).to(dtype)
+                for _ in range(2)]
+        fresh = [torch.randn((1, L, NG, nc * BS, HS), generator=gen, device=DEVICE).to(dtype)
+                 for _ in range(2)]
+        for p in (CHUNK_POS, CHUNK_POS + 256):
+            _, dest = chunk_tables(leased, p, nc * BS, nbb, BS)
+            dest_d = torch.as_tensor(dest, device=DEVICE)
+            pos_d = torch.tensor([p], dtype=torch.int32, device=DEVICE)
+
+            def run(fn):
+                return fn(*(a.clone() for a in base), *fresh, dest_d, pos_d, block_size=BS)
+
+            want = run(cudaex.paged_chunk_write_pair_plain)
+            got = run(cudaex.paged_chunk_write_pair)
+            again = run(cudaex.paged_chunk_write_pair)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g[1:], w[1:]) for g, w in zip(got, want))
+            twice = all(torch.equal(g[1:], a[1:]) for g, a in zip(got, again))
+            say(f"paged_chunk_write_pair {str(dtype)[6:]} at pos {p} ({nc} blocks, table of "
+                f"{nbb}): K and V bitwise equal to the plain version outside block 0: {same}; "
+                f"two calls bitwise equal: {twice} {'ok' if same and twice else 'FAIL'}")
+            if not (same and twice):
+                raise AssertionError(f"paged_chunk_write_pair {dtype} at pos {p} disagrees with "
+                                     "its plain version or with itself")
+            del want, got, again
+        if dtype == torch.bfloat16:
+            _, dest = chunk_tables(leased, CHUNK_POS, nc * BS, nbb, BS)
+            dest_d = torch.as_tensor(dest, device=DEVICE)
+            pos_d = torch.tensor([CHUNK_POS], dtype=torch.int32, device=DEVICE)
+            n = fresh[0].numel() * fresh[0].element_size()
+            result = timed(
+                "paged_chunk_write", f" pair: K+V, {nc} blocks read in place",
+                lambda: cudaex.paged_chunk_write_pair(*base, *fresh, dest_d, pos_d,
+                                                      block_size=BS),
+                lambda: cudaex.paged_chunk_write_pair_plain(*base, *fresh, dest_d, pos_d,
+                                                            block_size=BS),
+                None, None, bound(2 * 2 * n + 4 * nbb + 4, 0, dtype), iters=100, plain_iters=10)
+            result["max_abs_err"] = 0.0
+            ok = result["device_ms"] is not None and result["device_ms"] <= CHUNK_PAIR_DEVICE_MAX_MS
+            say(f"paged_chunk_write_pair bf16: device {result['device_ms']} ms (at most "
+                f"{CHUNK_PAIR_DEVICE_MAX_MS}; bound {1e3 * result['bound_ms']:.3f} us) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("paged_chunk_write_pair missed its time bar")
+        del base, fresh
     return result
 
 
@@ -1033,6 +1116,131 @@ def check_verify_quant(layer=L - 3):
     return result
 
 
+def q_pair_case(kind: str, label: str, gen):
+    """Quantized K and V arenas of the decode shape with their scales, and
+    the tables, positions and n_emit of a decode step (``"step"``, the decode
+    inputs), a multi-step iteration (``"live"``: the same, n_emit LIVE_STEP)
+    or a K=4 round (``"round"``: the spec shape's, n_emit N_EMIT_ROUND);
+    returns ``(arenas, scales, tables, pos, n_emit, T)``."""
+    T = 5 if label == "round" else 1
+    x, _ = (decode_inputs(torch.bfloat16, gen) if T == 1
+            else verify_inputs(torch.bfloat16, gen, **VERIFY_SHAPES["spec"]))
+    tables, pos = x["tables"], x["pos"]
+    q = [quantize_kv(x.pop(name), QUANT[kind]) for name in ("k_arena", "v_arena")]
+    del x
+    n_emit = {"step": None, "live": LIVE_STEP, "round": N_EMIT_ROUND}[label]
+    if n_emit is not None:
+        n_emit = torch.tensor(n_emit, dtype=torch.int32, device=DEVICE)
+    return [a for a, _ in q], [s for _, s in q], tables, pos, n_emit, T
+
+
+def q_pair_vals(gen, T: int, dtype, zero_head: bool = True) -> list:
+    """K and V values of T offsets as the forward returns them: (B, L, ng,
+    hs) at T = 1, else (B, L, ng, T, hs); with ``zero_head`` one all-zero
+    slot-head (the checks' edge case; the times are taken without it, on
+    values like the engine's fresh K/V, which hold no exact zeros)."""
+    shape = (B, L, NG, HS) if T == 1 else (B, L, NG, T, HS)
+    vals = [(3 * torch.randn(shape, generator=gen, device=DEVICE)).to(dtype) for _ in range(2)]
+    if zero_head:
+        vals[0][1, 0, 0] = 0.0
+    return vals
+
+
+def q_pair_bound(vals, tables, masked: bool):
+    """Each value read once, its byte and its slot-head's scale written
+    once, in both arenas; tables, positions (and n_emit)."""
+    n = vals[0].numel()
+    nbytes = 2 * (n * vals[0].element_size() + n + n // HS * 4)
+    return bound(nbytes + 4 * tables.numel() + 4 * B * (2 if masked else 1), 0, torch.bfloat16)
+
+
+def q_pair_event_rounds() -> list:
+    """The int8 decode step pair's CUDA-event ms (bf16 values, B=8) in
+    PAIR_EVENT_ROUNDS rounds of 200 calls, before the process's first
+    profiler session (as ``pair_event_rounds``)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    arenas, scales, tables, pos, _, _ = q_pair_case("int8", "step", gen)
+    vals = q_pair_vals(gen, 1, torch.bfloat16, zero_head=False)
+    rounds = [time_ms(lambda: cudaex.paged_token_write_fused_pair(*arenas, *scales, *vals, tables,
+                                                                  pos, block_size=BS), iters=200)
+              for _ in range(PAIR_EVENT_ROUNDS)]
+    del arenas, scales, vals
+    return rounds
+
+
+def check_q_pair_writes(event_rounds: list) -> dict:
+    """``paged_token_write_fused_pair`` into int8 and fp8 arenas, from bf16
+    and float32 values: a decode step (B=8, T=1), a multi-step iteration
+    (T=1, n_emit LIVE_STEP) and a K=4 round read in place (B=8, T=5, n_emit
+    N_EMIT_ROUND: 0 to K+1, padding rows); both arenas' stored bytes and
+    scales bitwise equal to the plain version outside sink block 0, two
+    calls bitwise equal there too.  Then the bf16-value times of the step
+    and the round (on values without the zero slot-head), the device bars Q_PAIR_DEVICE_MAX_MS and the int8 step's
+    CUDA-event bar (rounds taken before the first profile).  Returns the
+    records by kind and label."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    result = {}
+    for kind, storage in QUANT.items():
+        result[kind] = {}
+        for label in ("step", "live", "round"):
+            arenas, scales, tables, pos, n_emit, T = q_pair_case(kind, label, gen)
+            kw = {} if n_emit is None else {"n_emit": n_emit}
+            for dtype in (torch.bfloat16, torch.float32):
+                vals = q_pair_vals(gen, T, dtype)
+
+                def run(fn):
+                    return fn(*(a.clone() for a in arenas), *(s.clone() for s in scales), *vals,
+                              tables, pos, block_size=BS, **kw)
+
+                def raw(t):
+                    return t.view(torch.uint8) if t.dtype == storage else t
+
+                want = run(cudaex.paged_token_write_fused_pair_plain)
+                got = run(cudaex.paged_token_write_fused_pair)
+                again = run(cudaex.paged_token_write_fused_pair)
+                torch.cuda.synchronize()
+                same = all(torch.equal(raw(g)[1:], raw(w)[1:]) for g, w in zip(got, want))
+                # outside the sink too: padding rows and rejected offsets race there
+                twice = all(torch.equal(raw(g)[1:], raw(a)[1:]) for g, a in zip(got, again))
+                say(f"paged_token_write_fused_pair {kind} {label} (T={T}) from "
+                    f"{str(dtype)[6:]}: stored bytes and scales of K and V bitwise equal to the "
+                    f"plain version outside block 0: {same}; two calls bitwise equal: {twice} "
+                    f"{'ok' if same and twice else 'FAIL'}")
+                if not (same and twice):
+                    raise AssertionError(f"paged_token_write_fused_pair {kind} {label} {dtype} "
+                                         "disagrees with its plain version or with itself")
+                del want, got, again
+                if dtype == torch.bfloat16 and label != "live":
+                    vals = q_pair_vals(gen, T, dtype, zero_head=False)
+                    rec = timed(
+                        "paged_token_write_q", f" {kind} pair: K+V, B={B}, T={T}"
+                        + (f", n_emit {N_EMIT_ROUND}" if kw else ""),
+                        lambda: cudaex.paged_token_write_fused_pair(*arenas, *scales, *vals,
+                                                                    tables, pos, block_size=BS,
+                                                                    **kw),
+                        lambda: cudaex.paged_token_write_fused_pair_plain(
+                            *arenas, *scales, *vals, tables, pos, block_size=BS, **kw),
+                        None, None, q_pair_bound(vals, tables, bool(kw)), iters=500,
+                        plain_iters=20)
+                    rec["max_abs_err"] = 0.0
+                    result[kind][label] = rec
+                del vals
+            del arenas, scales
+    result["int8"]["step"]["event_rounds_ms"] = event_rounds
+    event_ms = statistics.median(event_rounds)
+    device = {f"{kind} {label}": result[kind][label]["device_ms"]
+              for kind in QUANT for label in ("step", "round")}
+    ok = event_ms <= Q_PAIR_STEP_EVENT_MAX_MS and all(
+        ms is not None and ms <= Q_PAIR_DEVICE_MAX_MS[key.split()[1]] for key, ms in device.items())
+    say(f"paged_token_write_fused_pair times: device ms {device} (at most "
+        f"{Q_PAIR_DEVICE_MAX_MS}); int8 step CUDA-event {event_ms:.4f} ms, the median of rounds "
+        f"{[round(t, 4) for t in event_rounds]} taken before the first profile (at most "
+        f"{Q_PAIR_STEP_EVENT_MAX_MS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("paged_token_write_fused_pair missed a time bar")
+    return result
+
+
 def check_token_write_fused(K=4):
     """``paged_token_write_fused`` at B=8 into int8 and fp8 arenas of the
     decode shape: the plain write and the masked one at every offset 0..K
@@ -1073,7 +1281,8 @@ def check_token_write_fused(K=4):
                                                    block_size=BS),
             lambda: cudaex.paged_token_write_fused_plain(arena, scale, vals, tables, posd,
                                                          block_size=BS),
-            None, None, bound(nbytes, 0, torch.bfloat16), iters=500, plain_iters=100)
+            None, None, bound(nbytes, 0, torch.bfloat16), iters=500, plain_iters=100,
+            device_kernel="paged_token_write_q")   # the pair's kernel, one arena
         rec["max_abs_err"] = 0.0
         result[kind] = rec
         del arena, scale
@@ -1588,9 +1797,13 @@ DECODE_FALL_SHARE = 0.9          # the step's busy time falls by this share of i
 
 KV_WRITE_KERNELS = ("paged_token_write", "paged_chunk_write", "chunk_err_reduce")
 # the kv_write group per profiled step, ms at most: the decode step's pair
-# write (phase 4), the verify round's masked pair (phase 6), the int8 chunk
-# piece's fused pair with its error sums (phase 6b)
-KV_WRITE_GROUP_MAX_MS = {"decode step": 0.004, "verify round": 0.010, "int8 chunk piece": 0.065}
+# write (phase 4), the bf16 chunk piece's pair (phase 5), the verify round's
+# masked pair (phase 6), the int8 chunk piece's fused pair with its error
+# sums, the int8 decode step's and the fp8 verify round's quantizing pairs
+# (phase 6b)
+KV_WRITE_GROUP_MAX_MS = {"decode step": 0.004, "chunk piece": 0.055, "verify round": 0.010,
+                         "int8 chunk piece": 0.065, "int8 decode step": 0.005,
+                         "fp8 verify round": 0.012}
 
 
 def _group(name: str, attn: str) -> str:
@@ -1908,11 +2121,10 @@ def chunked_serve(params, cfg, n_requests=8, new_tokens=32, kv_dtype=None, num_b
     tag = f", LoRA rank {lora.rank} ids {LORA_IDS}" if lora is not None else ""
     rec = serve_stats(f"chunked serve {cfg.name} bf16, kv_dtype {kv_dtype}{tag} (prompts "
                       f"{sorted(len(p) for p in prompts)}, prefill_chunk {CHUNK})", results, wall)
-    # the engine's pair writes: K and V of a step (bf16) or of a quantized
-    # chunk piece in one launch; the bf16 chunk write and the fused token
-    # write still launch once per arena
-    writes = ({"paged_chunk_write": pieces * 2, "paged_token_write": steps} if kv_dtype is None
-              else {"paged_chunk_write_fused": pieces, "paged_token_write_fused": steps * 2})
+    # the engine's pair writes: K and V of a decode step or of a chunk piece
+    # in one launch, bf16 or quantized
+    writes = ({"paged_chunk_write": pieces, "paged_token_write": steps} if kv_dtype is None
+              else {"paged_chunk_write_fused": pieces, "paged_token_write_fused": steps})
     want = no_launches_but(paged_attn_verify=pieces * cfg.n_layer,
                            paged_attn_decode=steps * cfg.n_layer, **writes,
                            **lora_launches(cfg, lora, pieces + steps))
@@ -2032,10 +2244,10 @@ def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, sel
     say(f"speculative serve: {rounds} rounds, acceptance rate {st['acceptance_rate']:.4f}, "
         f"tokens per round {st['tokens_per_round']:.3f}, accept_len histogram "
         f"{st['accept_len_hist']} (warm-up included)")
-    # the masked pair write: K and V of every offset of a round in one launch;
-    # into a quantized pool the fused write per arena and offset
+    # the masked pair write: K and V of every offset of a round in one
+    # launch, bf16 or quantized
     writes = ({"paged_token_write_masked": rounds} if kv_dtype is None
-              else {"paged_token_write_fused": rounds * 2 * (K + 1)})
+              else {"paged_token_write_fused": rounds})
     want = no_launches_but(paged_attn_verify=rounds * cfg.n_layer, **writes,
                            **lora_launches(cfg, lora, rounds))
     say(f"launches during speculative serve: {launches} (expected {want}); pool "
@@ -2054,7 +2266,8 @@ def spec_serve(params, cfg, K=4, n_requests=8, new_tokens=32, kv_dtype=None, sel
         eng.step()                                          # admits, prefills
         rec["verify_round_profile"] = profile_one_step(
             eng, "spec_rounds", "paged_attn_verify",
-            f"speculative{' LoRA' if lora is not None else ''} serve, one verify round (K={K})")
+            f"speculative{' LoRA' if lora is not None else ''}"
+            f"{f' {kv_dtype}' if kv_dtype is not None else ''} serve, one verify round (K={K})")
         eng.drain()
     if not self_draft:
         return rec, eng, prompts, results, tables
@@ -2824,26 +3037,31 @@ def main() -> int:
         for line in src["log"].splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
                 say(f"ptxas: {line.strip()}")
-    lora_events = lora_event_rounds()       # before any profile (phase 3 reads both)
+    lora_events = lora_event_rounds()       # before any profile (phase 3 reads them all)
     pair_events = pair_event_rounds()
+    q_pair_events = q_pair_event_rounds()
 
     recs = {"paged_attn_decode": check_decode(), "paged_token_write": check_write(),
             "paged_attn_verify": check_verify(), "paged_chunk_write": check_chunk_write(),
             "paged_token_write_masked": check_masked_write(), **check_flash()}
-    # the token-write kernel's entries are the engine's pair writes (K and V
-    # of a decode step; of a K=4 round, masked), the single-arena calls beside
+    # the write kernels' entries are the engine's pair writes (K and V of a
+    # decode step; of a K=4 round, masked; of a bf16 chunk piece), the
+    # single-arena calls beside
     pair = check_pair_writes(pair_events)
     for name, kind in (("paged_token_write", "step"), ("paged_token_write_masked", "round")):
         recs[name] = {**pair[kind], "single": recs[name]}
+    recs["paged_chunk_write"] = {**check_chunk_pair(), "single": recs["paged_chunk_write"]}
     # quantized arenas: the dequantizing attention bodies (extra rows of
-    # their kernels' entries) and the two fused writes (the token write's
-    # entry is its int8 form, which the chunked int8 serve's decode steps
-    # run; fp8 rides beside it)
+    # their kernels' entries) and the two fused writes
     check_head_sizes()
     recs["paged_attn_decode"]["quantized"] = check_decode_quant()
     recs["paged_attn_verify"]["quantized"] = check_verify_quant()
-    tw = check_token_write_fused()
-    recs["paged_token_write_fused"] = {**tw["int8"], "quantized": tw}
+    # the fused token write's entry is the int8 decode step's pair, which the
+    # chunked int8 serve's decode steps run; fp8, the round and the
+    # single-arena calls ride beside it
+    qp = check_q_pair_writes(q_pair_events)
+    recs["paged_token_write_fused"] = {**qp["int8"]["step"], "quantized": qp,
+                                       "single": check_token_write_fused()}
     cw = check_chunk_write_fused()
     recs["paged_chunk_write_fused"] = {**cw["int8"], "quantized": cw}
     recs["flash_ce"] = check_ce()
@@ -2856,6 +3074,10 @@ def main() -> int:
     kv_write = {"decode step": check_kv_write_group(decode_profile, "decode step")}
     crec, eng, prompts, tables, _ = chunked_serve(params, cfg, profile=True)
     served["chunked serve"] = crec["launches"]
+    kv_write["chunk piece"] = check_kv_write_group(crec["chunk_piece_profile"], "chunk piece")
+    say(f"chunk piece: the eager rest {crec['chunk_piece_profile']['groups_ms'].get('other')} ms "
+        f"(6.762 / 6.862 ms on NVIDIA H100 80GB HBM3, 700.00 W while the engine staged each "
+        f"arena's values in a 32 MiB copy)")
     chunk_case = (_compact(eng.pool.arenas, [tables[0]]), prompts[0])
     bf16_pool_bytes = eng.pool.arena_bytes()
     del eng
@@ -2881,11 +3103,17 @@ def main() -> int:
     qrec["chunk_piece_profile"] = profile_chunk_piece(eng, cfg, "chunked int8 serve")
     kv_write["int8 chunk piece"] = check_kv_write_group(qrec["chunk_piece_profile"],
                                                         "int8 chunk piece")
+    qrec["decode_step_profile"] = profile_decode_steps(
+        eng, [p[:CHUNK - 12] for p in prompts], "chunked int8 serve, decode step (8 rows)")
+    kv_write["int8 decode step"] = check_kv_write_group(qrec["decode_step_profile"],
+                                                        "int8 decode step")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    frec, eng, *_ = spec_serve(params, cfg, kv_dtype="fp8", self_draft=False)
+    frec, eng, *_ = spec_serve(params, cfg, kv_dtype="fp8", self_draft=False, profile=True)
     served["speculative fp8 serve"] = frec["launches"]
+    kv_write["fp8 verify round"] = check_kv_write_group(frec["verify_round_profile"],
+                                                        "fp8 verify round")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2976,7 +3204,9 @@ def main() -> int:
     say("serve profiles: " + json.dumps({
         "decode step": decode_profile, "chunk piece": crec["chunk_piece_profile"],
         "verify round": srec["verify_round_profile"],
-        "int8 chunk piece": qrec["chunk_piece_profile"], "LoRA": lora_profiles,
+        "int8 chunk piece": qrec["chunk_piece_profile"],
+        "int8 decode step": qrec["decode_step_profile"],
+        "fp8 verify round": frec["verify_round_profile"], "LoRA": lora_profiles,
         "kv_write_ms": kv_write}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,12 +14,25 @@ interpreted off-TPU, as ``tests/test_torch_port_kernels.py`` runs it):
   ``pallasex.paged_chunk_write_fused`` over the values folded into block
   granules, the error sums within 1e-5 relative (f32 sums in another
   order) and the ``rel_err`` they give within 1e-6;
-- both pair wrappers refuse mismatched K/V arenas or values, and the chunk
-  pair a T that is not a multiple of the block size, naming the argument.
+- ``cudaex.paged_token_write_fused_pair`` on int8 and fp8 arenas, from
+  float32 and bf16 values read as strided views: T = 1 plain, a multi-step
+  iteration's liveness mask and T = 5 masked (n_emit 0 to K+1, a padding
+  row), stored bytes and scales of both arenas bitwise equal outside sink
+  block 0 to the sequential single-offset calls of
+  ``pallasex.paged_token_write_fused``;
+- ``cudaex.paged_chunk_write_pair``, reading the forward's (1, L, ng, T,
+  hs) values as a strided view, bitwise equal outside sink block 0 to
+  ``pallasex.paged_chunk_write`` over the values folded into block
+  granules (a first chunk, one past the leased blocks, one spilling past
+  the table);
+- the pair wrappers refuse mismatched K/V arenas, scale arenas or values,
+  and the chunk pairs a T that is not a multiple of the block size, naming
+  the argument.
 
 Tests marked ``cuda`` hold the kernels against their plain versions on the
-card, bitwise, two calls bitwise equal, one counted launch per call; they
-skip without one.
+card, bitwise, two calls bitwise equal, one counted launch per call (the
+single-arena entries launch the pairs' kernels with one arena); they skip
+without one.
 """
 from __future__ import annotations
 
@@ -246,6 +259,148 @@ def test_chunk_pair_plain_matches_pallas(pallas_chunk_writes, case):
     assert all(err[:, c].abs().sum() == 0 for c in range(nc) if c not in live)
 
 
+# (kind, vals dtype, T, masked): T = 1 plain (a decode step) and masked (a
+# multi-step iteration's offset-0 write, n_emit the 0/1 liveness), T = 5
+# masked (a K=4 round, n_emit 0 to K+1)
+FUSED_CASES = {
+    "int8-f32-T5-masked": ("int8", "float32", 5, True),
+    "fp8-bf16-T5-masked": ("fp8", "bfloat16", 5, True),
+    "int8-bf16-T1": ("int8", "bfloat16", 1, False),
+    "fp8-f32-T1": ("fp8", "float32", 1, False),
+    "int8-f32-T1-live": ("int8", "float32", 1, True),
+}
+LIVE = np.array([0, 1, 1, 0, 1, 1], np.int32)          # row 0 padding, row 3 finished
+
+
+def _fused_inputs(case: str):
+    """Arenas to quantize, values one offset wider on each side than T (the
+    torch side reads offsets 1 .. T as a strided view), tables, n_emit."""
+    kind, dtype, T, masked = FUSED_CASES[case]
+    rng = np.random.default_rng(5)
+    B = len(POS)
+    base = [(rng.standard_normal((NUM_BLOCKS, L, NG, BS, HS)) * 2).astype(np.float32)
+            for _ in range(2)]
+    wide = [(rng.standard_normal((B, L, NG, T + 2, HS)) * 3).astype(np.float32)
+            for _ in range(2)]
+    wide[0][1, 0, 0] = 0.0                               # all-zero slot-heads
+    n_emit = (N_EMIT if T > 1 else LIVE) if masked else None
+    return kind, dtype, T, base, wide, _tables(B, POS, T), n_emit
+
+
+@pytest.fixture(scope="module")
+def pallas_fused_token_writes():
+    """Each case's quantized arenas per arena (bytes and scales) before and
+    after the sequential single-offset Pallas writes, computed once per
+    module."""
+    import jax
+    from thunder_tpu.serving import quant as jq
+
+    done = {}
+
+    def get(case):
+        if case not in done:
+            kind, dtype, T, base, wide, tables, n_emit = _fused_inputs(case)
+            quantize = jax.jit(lambda a: jq.quantize_kv(a, storage=STORAGE[kind][0]))
+            out = []
+            for x, w in zip(base, wide):
+                q, s = quantize(jnp.asarray(x))
+                before = (_bytes(q), _bytes(s))
+                jv = _as(np.ascontiguousarray(w[:, :, :, 1:T + 1]), dtype)[0]
+                for t in range(T):
+                    if n_emit is None:
+                        q, s = pallasex.paged_token_write_fused(
+                            q, s, jv[:, :, :, t], jnp.asarray(tables), jnp.asarray(POS + t),
+                            block_size=BS)
+                    else:
+                        q, s = pallasex.paged_token_write_fused(
+                            q, s, jv[:, :, :, t], jnp.asarray(tables), jnp.asarray(POS),
+                            block_size=BS, n_emit=jnp.asarray(n_emit), offset=t)
+                out.append((*before, _bytes(q), _bytes(s)))
+            done[case] = out
+        return done[case]
+
+    return get
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_token_pair_plain_matches_sequential_pallas_writes(pallas_fused_token_writes,
+                                                                  case):
+    kind, dtype, T, _, wide, tables, n_emit = _fused_inputs(case)
+    ref = pallas_fused_token_writes(case)
+    tst = STORAGE[kind][1]
+    arenas = [torch.as_tensor(r[0].copy()).view(tst) for r in ref]
+    scales = [torch.as_tensor(r[1].copy()).view(torch.float32) for r in ref]
+    tw = [_as(w, dtype)[1] for w in wide]
+    vals = [w[:, :, :, 1:T + 1] if T > 1 else w[:, :, :, 1] for w in tw]
+    assert not vals[0].is_contiguous()
+    got = cudaex.paged_token_write_fused_pair(
+        *arenas, *scales, *vals, torch.as_tensor(tables), torch.as_tensor(POS), block_size=BS,
+        n_emit=None if n_emit is None else torch.as_tensor(n_emit))
+    assert all(g is t for g, t in zip(got, (*arenas, *scales)))        # in place
+    for i, (q0, s0, wa, ws) in enumerate(ref):
+        np.testing.assert_array_equal(_bytes(arenas[i])[1:], wa[1:], err_msg=f"{case} arena {i}")
+        np.testing.assert_array_equal(_bytes(scales[i])[1:], ws[1:], err_msg=f"{case} scale {i}")
+        assert (_bytes(arenas[i])[1:] != q0[1:]).any() and (_bytes(scales[i])[1:] != s0[1:]).any()
+
+
+# (vals dtype, pos, chunk blocks, leased blocks): a first chunk, one past the
+# leased blocks, one running past the table (its last block goes to the sink)
+CHUNK_PAIR_CASES = {
+    "f32-first": ("float32", 0, 2, 4),
+    "bf16-past-leased": ("bfloat16", 12, 3, 4),
+    "f32-past-table": ("float32", 16, 3, 6),
+}
+
+
+def _chunk_pair_inputs(case: str):
+    """Arenas, the values as a (1, L, ng, T + 2 bs, hs) tensor whose
+    offsets bs .. bs + T the torch side reads as a strided view, dest."""
+    dtype, pos, nc, leased = CHUNK_PAIR_CASES[case]
+    rng = np.random.default_rng(13)
+    blocks = [int(b) for b in rng.permutation(np.arange(1, CHUNK_NUM_BLOCKS))[:leased]]
+    _, dest = chunk_tables(blocks, pos, nc * BS, CHUNK_NBB, BS)
+    x = [rng.standard_normal((CHUNK_NUM_BLOCKS, L, NG, BS, HS)).astype(np.float32)
+         for _ in range(2)]
+    wide = [rng.standard_normal((1, L, NG, (nc + 2) * BS, HS)).astype(np.float32)
+            for _ in range(2)]
+    return dtype, pos, nc, dest, x, wide
+
+
+@pytest.fixture(scope="module")
+def pallas_chunk_pair_writes():
+    """Each case's arenas after ``pallasex.paged_chunk_write`` of the folded
+    values, per arena, computed once per module."""
+    done = {}
+
+    def get(case):
+        if case not in done:
+            dtype, pos, nc, dest, x, wide = _chunk_pair_inputs(case)
+            out = []
+            for xa, w in zip(x, wide):
+                v = np.ascontiguousarray(_fold(w[:, :, :, BS:(nc + 1) * BS], nc))
+                out.append(_bytes(pallasex.paged_chunk_write(
+                    _as(xa, dtype)[0], _as(v, dtype)[0], jnp.asarray(dest),
+                    jnp.asarray(np.array([pos], np.int32)), block_size=BS)))
+            done[case] = out
+        return done[case]
+
+    return get
+
+
+@pytest.mark.parametrize("case", list(CHUNK_PAIR_CASES))
+def test_bf16_chunk_pair_plain_matches_pallas(pallas_chunk_pair_writes, case):
+    dtype, pos, nc, dest, x, wide = _chunk_pair_inputs(case)
+    arenas = [_as(a, dtype)[1] for a in x]
+    vals = [_as(w, dtype)[1][:, :, :, BS:(nc + 1) * BS] for w in wide]
+    assert not vals[0].is_contiguous()
+    got = cudaex.paged_chunk_write_pair(*arenas, *vals, torch.as_tensor(dest),
+                                        torch.as_tensor(np.array([pos], np.int32)), block_size=BS)
+    assert got[0] is arenas[0] and got[1] is arenas[1]
+    for i, want in enumerate(pallas_chunk_pair_writes(case)):
+        np.testing.assert_array_equal(_bytes(arenas[i])[1:], want[1:], err_msg=f"{case} {i}")
+        assert (_bytes(arenas[i])[1:] != _bytes(_as(x[i], dtype)[1])[1:]).any()
+
+
 def _token_pair_args():
     arenas, vals, tables, _ = _token_inputs("r5-f32-T5-masked")
     return ([torch.as_tensor(a) for a in arenas], [torch.as_tensor(v) for v in vals],
@@ -288,6 +443,46 @@ def test_chunk_pair_refuses_mismatched_arenas_and_ragged_T(mutate, match):
                                             torch.tensor([0], dtype=torch.int32), block_size=BS)
 
 
+def _fused_pair_args(T=5):
+    arenas, vals, tables, pos = _token_pair_args()
+    q = [tq.quantize_kv(a, torch.int8) for a in arenas]
+    return [a for a, _ in q], [s for _, s in q], vals, tables, pos
+
+
+@pytest.mark.parametrize("mutate,match", [
+    (lambda a, s, v: a.__setitem__(1, a[1].view(torch.float8_e4m3fn)),
+     "v_arena must match k_arena"),
+    (lambda a, s, v: s.__setitem__(1, s[1][:, :1].contiguous()), "v_scale must be float32"),
+    (lambda a, s, v: v.__setitem__(1, v[1].to(torch.bfloat16)), "v_vals must match k_vals"),
+    (lambda a, s, v: v.__setitem__(slice(None), [x.to(torch.int8) for x in v]),
+     "compute dtype"),
+], ids=["arena", "scale", "vals", "vals-dtype"])
+def test_fused_token_pair_refuses_mismatched_arguments(mutate, match):
+    arenas, scales, vals, tables, pos = _fused_pair_args()
+    mutate(arenas, scales, vals)
+    with pytest.raises(ValueError, match=match):
+        cudaex.paged_token_write_fused_pair(*arenas, *scales, *vals, tables, pos, block_size=BS,
+                                            n_emit=torch.as_tensor(N_EMIT))
+
+
+@pytest.mark.parametrize("mutate,match", [
+    (lambda a, v: a.__setitem__(1, a[1][:4].clone()), "v_arena must match k_arena"),
+    (lambda a, v: v.__setitem__(1, v[1].to(torch.bfloat16)), "v_vals must match k_vals"),
+    (lambda a, v: (v.__setitem__(0, torch.zeros(1, L, NG, 6, HS)),
+                   v.__setitem__(1, torch.zeros(1, L, NG, 6, HS))),
+     r"T=6 of k_vals/v_vals is not a multiple of block_size=4"),
+    (lambda a, v: (v.__setitem__(0, v[0].transpose(3, 4).contiguous().transpose(3, 4)),),
+     "k_vals must hold each head's tokens contiguously"),
+], ids=["arena", "vals", "T", "strides"])
+def test_bf16_chunk_pair_refuses_mismatched_arenas_and_ragged_T(mutate, match):
+    arenas = [torch.zeros(8, L, NG, BS, HS) for _ in range(2)]
+    vals = [torch.zeros(1, L, NG, 8, HS) for _ in range(2)]
+    mutate(arenas, vals)
+    with pytest.raises(ValueError, match=match):
+        cudaex.paged_chunk_write_pair(*arenas, *vals, torch.tensor([1, 2, 3], dtype=torch.int32),
+                                      torch.tensor([0], dtype=torch.int32), block_size=BS)
+
+
 def test_pair_writes_count_no_launches_on_cpu():
     cudaex.reset_launches()
     arenas, vals, tables, pos = _token_pair_args()
@@ -296,6 +491,11 @@ def test_pair_writes_count_no_launches_on_cpu():
     cudaex.paged_chunk_write_fused_pair(*arenas, *scales, *vals,
                                         torch.tensor([1, 2, 3], dtype=torch.int32),
                                         torch.tensor([0], dtype=torch.int32), block_size=BS)
+    cudaex.paged_chunk_write_pair(*arenas[:2], *(v.to(torch.int8) for v in vals),
+                                  torch.tensor([1, 2, 3], dtype=torch.int32),
+                                  torch.tensor([0], dtype=torch.int32), block_size=BS)
+    arenas, scales, vals, tables, pos = _fused_pair_args()
+    cudaex.paged_token_write_fused_pair(*arenas, *scales, *vals, tables, pos, block_size=BS)
     assert set(cudaex.LAUNCHES.values()) == {0}
 
 
@@ -428,3 +628,105 @@ def test_cuda_single_arena_writes_take_the_pair_kernels(card):
     wantm = cudaex.paged_token_write_masked_plain(arenas[0].clone(), v, tables, pos, n_emit, 1,
                                                   block_size=16)
     assert torch.equal(got[1:], want[1:]) and torch.equal(gotm[1:], wantm[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hs", [64, 20, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("T,masked", [(1, False), (1, True), (5, True), (5, False)])
+@pytest.mark.parametrize("kind", list(STORAGE))
+def test_cuda_fused_token_pair_matches_plain(card, kind, T, masked, dtype, hs):
+    """Stored bytes and scales of both arenas bitwise equal to the plain
+    version outside sink block 0: a decode step, a multi-step iteration's
+    liveness mask, every offset of a round (masked: n_emit 0 to K+1) from
+    values read as strided views (K's and V's strides differ); hs 64 takes
+    16-byte loads, hs 20 the element-wise path, hs 320 two 8-value pieces
+    per lane; two calls bitwise equal outside the sink; one launch each."""
+    tst = STORAGE[kind][1]
+    arenas, vals, tables, pos = _card_token_case(card, dtype, 5, T, hs=hs)
+    base = [tq.quantize_kv(a, tst) for a in arenas]
+    if T == 1:
+        vals = [v[:, :, :, 0] for v in vals]
+    n_emit = None
+    if masked:
+        n_emit = torch.tensor([0, 5, 1, 3, 2, 4] if T > 1 else [0, 1, 0, 1, 1, 1],
+                              dtype=torch.int32, device=card)
+
+    def run(fn):
+        return fn(*(q.clone() for q, _ in base), *(s.clone() for _, s in base), *vals, tables,
+                  pos, block_size=16, n_emit=n_emit)
+
+    want = run(cudaex.paged_token_write_fused_pair_plain)
+    cudaex.reset_launches()
+    got, again = run(cudaex.paged_token_write_fused_pair), run(cudaex.paged_token_write_fused_pair)
+    torch.cuda.synchronize()
+    assert cudaex.LAUNCHES["paged_token_write_fused"] == 2 and sum(cudaex.LAUNCHES.values()) == 2
+    for g, a, w in zip(got, again, want):                # block 0 is the sink: rows race there
+        if g.dtype == tst:
+            g, a, w = g.view(torch.uint8), a.view(torch.uint8), w.view(torch.uint8)
+        assert torch.equal(g[1:], w[1:]) and torch.equal(g[1:], a[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hs", [64, 20, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_cuda_chunk_pair_reads_values_in_place(card, dtype, hs):
+    """``paged_chunk_write_pair`` off strided (1, L, ng, T, hs) views: both
+    arenas bitwise equal to the plain version outside sink block 0 and two
+    calls bitwise equal there, one launch per call; a first piece, one past
+    the leased blocks, one past the table (into the sink); the views start
+    one token in, so hs 64 bf16 moves 16-byte vectors, hs 20 bf16 8-byte
+    ones and hs 3 float32 4-byte ones."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    base = [torch.randn((64, 3, 2, 16, hs), generator=gen, device=card).to(dtype)
+            for _ in range(2)]
+    rng = np.random.default_rng(4)
+    blocks = [int(b) for b in rng.permutation(np.arange(1, 64))[:7]]
+    for p0, nc in ((0, 2), (32, 4), (96, 3)):
+        _, dest = chunk_tables(blocks, p0, nc * 16, 8, 16)
+        dest, pos = (torch.as_tensor(dest, device=card),
+                     torch.tensor([p0], dtype=torch.int32, device=card))
+        wide = [torch.randn((1, 3, 2, nc * 16 + 2, hs), generator=gen, device=card).to(dtype)
+                for _ in range(2)]
+        vals = [w[:, :, :, 1:nc * 16 + 1] for w in wide]
+
+        def run(fn):
+            return fn(*(a.clone() for a in base), *vals, dest, pos, block_size=16)
+
+        want = run(cudaex.paged_chunk_write_pair_plain)
+        cudaex.reset_launches()
+        got, again = run(cudaex.paged_chunk_write_pair), run(cudaex.paged_chunk_write_pair)
+        torch.cuda.synchronize()
+        assert cudaex.LAUNCHES["paged_chunk_write"] == 2 and sum(cudaex.LAUNCHES.values()) == 2
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g[1:], w[1:]) and torch.equal(g[1:], a[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_single_arena_fused_and_chunk_writes_take_the_pair_kernels(card):
+    """``paged_token_write_fused`` (plain and masked) and
+    ``paged_chunk_write`` (the reference's signatures) launch the pairs'
+    kernels with one arena: equal to their plain versions, one launch each."""
+    arenas, vals, tables, pos = _card_token_case(card, torch.bfloat16, 5, 1)
+    v = vals[0][:, :, :, 0].contiguous()
+    q, s = tq.quantize_kv(arenas[0], torch.int8)
+    n_emit = torch.tensor([0, 5, 1, 3, 2, 4], dtype=torch.int32, device=card)
+    cv = torch.randn((3, 3, 2, 16, 64), generator=torch.Generator(device=card).manual_seed(5),
+                     device=card).to(torch.bfloat16)
+    dest, p = tables[3], torch.tensor([16], dtype=torch.int32, device=card)
+    cudaex.reset_launches()
+    got = cudaex.paged_token_write_fused(q.clone(), s.clone(), v, tables, pos, block_size=16)
+    gotm = cudaex.paged_token_write_fused(q.clone(), s.clone(), v, tables, pos, block_size=16,
+                                          n_emit=n_emit, offset=1)
+    gotc = cudaex.paged_chunk_write(arenas[1].clone(), cv, dest, p, block_size=16)
+    torch.cuda.synchronize()
+    assert cudaex.LAUNCHES["paged_token_write_fused"] == 2
+    assert cudaex.LAUNCHES["paged_chunk_write"] == 1 and sum(cudaex.LAUNCHES.values()) == 3
+    want = cudaex.paged_token_write_fused_plain(q.clone(), s.clone(), v, tables, pos,
+                                                block_size=16)
+    wantm = cudaex.paged_token_write_fused_plain(q.clone(), s.clone(), v, tables, pos,
+                                                 block_size=16, n_emit=n_emit, offset=1)
+    wantc = cudaex.paged_chunk_write_plain(arenas[1].clone(), cv, dest, p, block_size=16)
+    for g, w in zip((*got, *gotm), (*want, *wantm)):
+        assert torch.equal(g.view(torch.uint8)[1:], w.view(torch.uint8)[1:])
+    assert torch.equal(gotc[1:], wantc[1:])

@@ -162,6 +162,78 @@ __device__ __forceinline__ float absmax_scale(float amax, float inv_qmax) {
   return amax == 0.f ? 1.f : __fmul_rn(amax, inv_qmax);
 }
 
+// The quantizing writes' loads and stores, 8 values of a slot-head at a
+// time (the fused chunk and token writes share them).
+template <typename TV>
+struct Raw8 {                      // 8 values of TV as loaded: 16 bytes (32 for float32)
+  uint4 w[sizeof(TV) / 2];
+};
+
+template <typename TV>
+__device__ __forceinline__ Raw8<TV> load_raw8(const TV* x) {
+  Raw8<TV> r;
+#pragma unroll
+  for (int k = 0; k < static_cast<int>(sizeof(TV)) / 2; ++k)
+    r.w[k] = reinterpret_cast<const uint4*>(x)[k];
+  return r;
+}
+
+template <typename TV>
+__device__ __forceinline__ void unpack8(const Raw8<TV>& r, float (&v)[8]) {
+  const TV* e8 = reinterpret_cast<const TV*>(r.w);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = to_f<TV>(e8[e]);
+}
+
+// 8 values from piece d0 of a slot-head as float: one 16-byte load (two for
+// float32) when VEC (hs % 8 == 0, the base 16-byte aligned), else element by
+// element; values at or past hs read 0.
+template <typename TV, bool VEC>
+__device__ __forceinline__ void load8(const TV* x, int d0, int hs, float (&v)[8]) {
+  if constexpr (VEC) {
+    if (d0 >= hs) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = 0.f;
+      return;
+    }
+    unpack8<TV>(load_raw8<TV>(x + d0), v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = d0 + e < hs ? to_f<TV>(x[d0 + e]) : 0.f;
+  }
+}
+
+// Quantizes the 8 values of piece d0 (x / scale, an IEEE quotient, into TS,
+// bit for bit as quantize<TS> stores it) and stores them: one 8-byte store
+// when VEC (quantize8, eight at once; dst 8-byte aligned), else byte by
+// byte; adds |f32(q) * scale - x| and |x| of the values below hs to the sums
+// (a caller that keeps no sums passes locals it never reads).
+template <typename TS, bool VEC>
+__device__ __forceinline__ void store_q8(TS* dst, int d0, int hs, const float (&v)[8],
+                                         float scale, float& e_err, float& e_abs) {
+  if (d0 >= hs) return;
+  if constexpr (VEC) {
+    float y[8], q[8];
+    uint32_t w[2];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[e] = __fdiv_rn(v[e], scale);
+    quantize8<TS>(y, q, w);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      e_err += fabsf(__fmul_rn(q[e], scale) - v[e]);
+      e_abs += fabsf(v[e]);
+    }
+    *reinterpret_cast<uint2*>(dst + d0) = make_uint2(w[0], w[1]);
+  } else {
+    for (int e = 0; e < 8 && d0 + e < hs; ++e) {
+      const TS q = quantize<TS>(__fdiv_rn(v[e], scale));
+      e_err += fabsf(__fmul_rn(to_f<TS>(q), scale) - v[e]);
+      e_abs += fabsf(v[e]);
+      dst[d0 + e] = q;
+    }
+  }
+}
+
 // D (16 x 8) += A (16 x 16) . B (16 x 8), mma.sync on T operands (bf16 or f16),
 // f32 accumulators
 template <typename T>

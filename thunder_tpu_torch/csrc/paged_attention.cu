@@ -21,7 +21,9 @@
 //     _absmax_quant :1579): the token write (plain or masked) into an int8
 //     or fp8-e4m3 arena, quantizing on the way: per (row, layer, group) the
 //     f32 absmax over hs, scale = amax == 0 ? 1 : amax * f32(1/qmax), the
-//     values x / scale rounded into storage, value and scale stored.
+//     values x / scale rounded into storage, value and scale stored.  Its
+//     kernel also takes both arenas (K and V, with their scale arenas) and
+//     every offset of a round in one launch, as the token write does.
 //
 // What bounds them on an H100: bytes.  Decode reads each live K/V byte once
 // and does ~2 flops per byte per query row (Llama-3-8B, B=8, 32 heads over 8
@@ -35,10 +37,15 @@
 // 5 MiB per K=4 round), each slot-head row as the widest vector that
 // divides it (16 lanes of 16 bytes at hs 128 in bf16), one load and one
 // store per thread, no index per element, no staging copy of a strided
-// offset.  The fused write (~0.8 MB per call) gives one warp to each (row,
-// layer, group): the absmax is a warp-shuffle max (order-free, so the scale
-// is bit-exact), the quotient an IEEE division (never a reciprocal
-// multiply), so the stored bytes equal serving.quant.quantize_kv's.
+// offset.  The fused write (~0.8 MB per arena and offset) is launch-bound
+// the same way (a 0.24 us bound per arena and offset) and takes the same
+// cure: K and V of a whole step or round in one launch, the values read in
+// place by their strides (no per-offset staging copy), a group of hs / 8
+// lanes per slot-head with 8 values per lane from one 16-byte load, the
+// absmax a shuffle max within the group (order-free, so the scale is
+// bit-exact), the quotient an IEEE division (never a reciprocal multiply),
+// so the stored bytes equal serving.quant.quantize_kv's, 8 bytes stored per
+// lane.
 //
 // The split-K body (flash-decoding):
 //   * Grid (splits, ng * row tiles, B).  A block owns one (request, group),
@@ -713,48 +720,91 @@ cudaError_t launch_token_write(const TokenWriteArgs& a, int B, int arenas, cudaS
   return cudaGetLastError();
 }
 
-// grid (B, ceil(rows / 8)), block 256: one warp per (request b, arena row r)
-// with rows = L * ng.  vals: (B, rows, hs) at the compute type TV; arena:
-// (num_blocks, rows, bs, hs) quantized storage TS; scale_arena: (num_blocks,
-// rows, bs).  Routing as paged_token_write_kernel (sink block 0, slot 0 for
-// a row whose offset is not below n_emit[b]).
-template <typename TS, typename TV>
-__global__ void __launch_bounds__(256) paged_token_write_fused_kernel(
-    TS* __restrict__ arena, float* __restrict__ scale_arena, const TV* __restrict__ vals,
-    const int* __restrict__ tables, const int* __restrict__ pos, const int* __restrict__ n_emit,
-    int offset, int rows, int bs, int hs, int nbb, float inv_qmax) {
-  const int b = blockIdx.x;
-  const int r = blockIdx.y * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (r >= rows) return;               // the whole warp leaves together
+// The quantizing token write of one or two arenas (K and V) of a decode
+// step, verify round or multi-step iteration, one launch.  Arena z is
+// (num_blocks, rows, bs, hs) quantized storage TS with its scale arena
+// (num_blocks, rows, bs); its values at the compute type TV are read in
+// place by their strides (sb / sr / st per request, arena row and offset,
+// in elements, the head's hs elements contiguous).  Routing as
+// paged_token_write_kernel: offset t of row b at position pos[b] + offset +
+// t, or sink block 0, slot 0 when n_emit is given and offset + t >=
+// n_emit[b].
+struct TokenQArgs {
+  void* arena[2];
+  float* scale[2];
+  const void* vals[2];
+  const int* tables;
+  const int* pos;
+  const int* n_emit;               // null: every offset is live
+  int offset, T, rows, bs, hs, nbb;
+  int lanes_log2;                  // log2 of the lanes per slot-head, G <= 32
+  int pieces;                      // 8-value pieces per lane: ceil(hs / (8 G))
+  int64_t sb[2], sr[2], st[2];     // each arena's vals strides in elements
+  float inv_qmax;
+};
+
+// grid (ceil(rows / groups), B * T, arenas), block groups * G.  A slot-head
+// (arena row r of request b at offset t: hs values, one scale) belongs to a
+// group of G lanes, each holding 8 of its values (pieces of 8 further apart
+// when hs > 8 G) in registers from one 16-byte load: the absmax is an
+// xor-shuffle max within the group (order-free, so the scale is bit-exact),
+// the quantize runs from the same registers (store_q8: the IEEE quotient,
+// then quantize8, bit for bit quantize), 8 bytes stored per lane and the
+// scale by the group's first lane.  The value loads are issued before the
+// routing's, and both before either is used.
+template <typename TS, typename TV, bool VEC>
+__global__ void __launch_bounds__(256) paged_token_write_q_kernel(const TokenQArgs a) {
+  const int G = 1 << a.lanes_log2;
+  const int r = blockIdx.x * (blockDim.x >> a.lanes_log2) + (threadIdx.x >> a.lanes_log2);
+  if (r >= a.rows) return;             // the whole group leaves together
+  const int z = blockIdx.z, bt = blockIdx.y;
+  const int b = bt / a.T, t = bt - b * a.T;
+  const int lane = threadIdx.x & (G - 1);
+  const unsigned gmask = G == 32 ? 0xffffffffu
+                                 : ((1u << G) - 1) << ((threadIdx.x & 31) & ~(G - 1));
+  const int hs = a.hs, pieces = a.pieces;
+  const TV* x = static_cast<const TV*>(z ? a.vals[1] : a.vals[0]) +
+                (z ? b * a.sb[1] + r * a.sr[1] + t * a.st[1]
+                   : b * a.sb[0] + r * a.sr[0] + t * a.st[0]);
+  // the first piece's load, then the routing's (pos, n_emit, the table),
+  // all in flight before either is used
+  tt::Raw8<TV> raw{};
+  if (VEC && lane * 8 < hs) raw = tt::load_raw8<TV>(x + lane * 8);
   int64_t blk = 0;
   int slot = 0;
-  if (n_emit == nullptr || offset < n_emit[b]) {
-    const int p = pos[b] + offset;
-    blk = tables[static_cast<int64_t>(b) * nbb + min(p / bs, nbb - 1)];
-    slot = p % bs;
+  const int k = a.offset + t;
+  if (a.n_emit == nullptr || k < a.n_emit[b]) {
+    const int p = a.pos[b] + k;
+    blk = a.tables[static_cast<int64_t>(b) * a.nbb + min(p / a.bs, a.nbb - 1)];
+    slot = p % a.bs;
   }
-  const TV* src = vals + (static_cast<int64_t>(b) * rows + r) * hs;
+  float v[8];
+  if constexpr (VEC) {
+    tt::unpack8<TV>(raw, v);         // zeros past hs
+  } else {
+    tt::load8<TV, false>(x, lane * 8, hs, v);
+  }
   float amax = 0.f;
-  for (int d = lane; d < hs; d += 32) amax = fmaxf(amax, fabsf(to_f<TV>(src[d])));
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float scale = tt::absmax_scale(amax, inv_qmax);
-  const int64_t row = (blk * rows + r) * bs + slot;
-  TS* dst = arena + row * hs;
-  for (int d = lane; d < hs; d += 32)
-    dst[d] = tt::quantize<TS>(__fdiv_rn(to_f<TV>(src[d]), scale));
-  if (lane == 0) scale_arena[row] = scale;
-}
-
-template <typename TS, typename TV>
-cudaError_t launch_token_write_fused(void* arena, float* scale_arena, const void* vals,
-                                     const int* tables, const int* pos, const int* n_emit,
-                                     int offset, int B, int rows, int bs, int hs, int nbb,
-                                     float inv_qmax, cudaStream_t s) {
-  paged_token_write_fused_kernel<TS, TV><<<dim3(B, (rows + 7) / 8), 256, 0, s>>>(
-      static_cast<TS*>(arena), scale_arena, static_cast<const TV*>(vals), tables, pos, n_emit,
-      offset, rows, bs, hs, nbb, inv_qmax);
-  return cudaGetLastError();
+#pragma unroll
+  for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  for (int k2 = 1; k2 < pieces; ++k2) {
+    float w[8];
+    tt::load8<TV, VEC>(x, (k2 * G + lane) * 8, hs, w);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(w[e]));
+  }
+  for (int o = G >> 1; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(gmask, amax, o));
+  const float scale = tt::absmax_scale(amax, a.inv_qmax);
+  const int64_t row = (blk * a.rows + r) * a.bs + slot;
+  TS* d = static_cast<TS*>(z ? a.arena[1] : a.arena[0]) + row * hs;
+  float e_err = 0.f, e_abs = 0.f;      // no sums kept
+  tt::store_q8<TS, VEC>(d, lane * 8, hs, v, scale, e_err, e_abs);
+  for (int k2 = 1; k2 < pieces; ++k2) {
+    float w[8];
+    tt::load8<TV, VEC>(x, (k2 * G + lane) * 8, hs, w);
+    tt::store_q8<TS, VEC>(d, (k2 * G + lane) * 8, hs, w, scale, e_err, e_abs);
+  }
+  if (lane == 0) (z ? a.scale[1] : a.scale[0])[row] = scale;
 }
 
 }  // namespace
@@ -840,17 +890,49 @@ extern "C" int tt_paged_token_write(void* arena0, void* arena1, const void* vals
   }
 }
 
-// The token write into a quantized arena (kv_dtype 3 = int8, 4 = fp8
-// e4m3), quantizing vals (v_dtype 0/1/2, the compute dtype) on the way;
-// n_emit null is the plain write (offset 0), else the keep-masked one.
-// inv_qmax is f32(1/qmax) (1/127 or 1/448).
-extern "C" int tt_paged_token_write_fused(void* arena, float* scale_arena, const void* vals,
+// The quantizing token write of one or two arenas (arena1, scale1, vals1
+// null: one; kv_dtype 3 = int8, 4 = fp8 e4m3), quantizing the values at
+// v_dtype (0/1/2, the compute dtype) on the way.  geom: B, T, rows, bs, hs,
+// nbb, lanes_log2, pieces, threads (the wrapper's plan, cudaex._token_q_plan),
+// then vals0's strides sb, sr, st and vals1's, in elements.  vec: 16-byte
+// loads and 8-byte stores (hs and the strides multiples of 8, the bases
+// aligned; checked here) or element by element.  n_emit null is the plain
+// write of offsets offset .. offset + T - 1, else the keep-masked one.
+// inv_qmax is f32(1/qmax) (1/127 or 1/448).  One launch.
+extern "C" int tt_paged_token_write_fused(void* arena0, void* arena1, float* scale0,
+                                          float* scale1, const void* vals0, const void* vals1,
                                           const int* tables, const int* pos, const int* n_emit,
-                                          int offset, int B, int rows, int bs, int hs, int nbb,
-                                          float inv_qmax, int kv_dtype, int v_dtype,
-                                          void* stream) {
+                                          const int64_t* geom, int offset, float inv_qmax,
+                                          int kv_dtype, int v_dtype, int vec, void* stream) {
+  const int B = static_cast<int>(geom[0]), arenas = arena1 == nullptr ? 1 : 2;
+  const TokenQArgs a{{arena0, arenas == 2 ? arena1 : arena0},
+                     {scale0, arenas == 2 ? scale1 : scale0},
+                     {vals0, arenas == 2 ? vals1 : vals0},
+                     tables, pos, n_emit, offset,
+                     static_cast<int>(geom[1]), static_cast<int>(geom[2]),
+                     static_cast<int>(geom[3]), static_cast<int>(geom[4]),
+                     static_cast<int>(geom[5]), static_cast<int>(geom[6]),
+                     static_cast<int>(geom[7]),
+                     {geom[9], geom[12]}, {geom[10], geom[13]}, {geom[11], geom[14]},
+                     inv_qmax};
+  const int threads = static_cast<int>(geom[8]);
+  if (B == 0 || a.T == 0 || a.rows == 0) return cudaSuccess;
+  if (a.lanes_log2 < 0 || a.lanes_log2 > 5 || a.pieces < 1 ||
+      a.pieces * (8 << a.lanes_log2) < a.hs || threads > 256 || threads % 32 ||
+      threads < (1 << a.lanes_log2))
+    return cudaErrorInvalidValue;
+  if (vec) {
+    const uintptr_t in = reinterpret_cast<uintptr_t>(a.vals[0]) |
+                         reinterpret_cast<uintptr_t>(a.vals[1]);
+    const uintptr_t out = reinterpret_cast<uintptr_t>(a.arena[0]) |
+                          reinterpret_cast<uintptr_t>(a.arena[1]);
+    bool strided = a.hs % 8 == 0;
+    for (int k = 9; k < 15; ++k) strided = strided && geom[k] % 8 == 0;
+    if (!strided || in % 16 || out % 8) return cudaErrorInvalidValue;
+  }
+  const int groups = threads >> a.lanes_log2;
+  const dim3 grid((a.rows + groups - 1) / groups, B * a.T, arenas);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0) return cudaSuccess;
   return tt::by_float(v_dtype, [&](auto tv) {
     return tt::by_storage(kv_dtype, [&](auto ts) -> cudaError_t {
       using TV = decltype(tv);
@@ -858,8 +940,12 @@ extern "C" int tt_paged_token_write_fused(void* arena, float* scale_arena, const
       if constexpr (!quantized<TS>::value) {
         return cudaErrorInvalidValue;
       } else {
-        return launch_token_write_fused<TS, TV>(arena, scale_arena, vals, tables, pos, n_emit,
-                                                offset, B, rows, bs, hs, nbb, inv_qmax, s);
+        if (vec) {
+          paged_token_write_q_kernel<TS, TV, true><<<grid, threads, 0, s>>>(a);
+        } else {
+          paged_token_write_q_kernel<TS, TV, false><<<grid, threads, 0, s>>>(a);
+        }
+        return cudaGetLastError();
       }
     });
   });

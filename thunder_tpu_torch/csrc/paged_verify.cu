@@ -14,7 +14,8 @@
 //     pieces) take paged_attention.cu's split-K body instead
 //     (cudaex.paged_body names the body of every call).
 //   paged_chunk_write (pallasex.py:1535, routing _chunk_dest :1520): chunk
-//     block c lands as one (L, ng, bs, hs) slab at dest[pos / bs + c].
+//     block c lands as one (L, ng, bs, hs) slab at dest[pos / bs + c]; the
+//     pair write lands K and V of a chunk piece in one launch.
 //   paged_chunk_write_fused (pallasex.py:1616, body :1595, the quantize
 //     _absmax_quant :1579): the chunk write into an int8 or fp8-e4m3 arena,
 //     quantizing each slot-head on the way (as paged_attention.cu's fused
@@ -31,9 +32,16 @@
 //     4*nh*hs*(pos*T + T*T/2) flops per layer, tens of GFLOP against
 //     ~0.1 GB of K/V: operations (23.9 us at 989 TFLOP/s at pos 2560).
 //   * the chunk write moves bytes only (a 1 MiB slab per chunk block at
-//     Llama-3-8B in bf16): bytes-bound.  So is the fused one: it reads
-//     the compute-dtype values once and writes half as many bytes plus 3%
-//     of scales (K and V of a 512-token piece: 101 MB, 30.4 us).  One pass
+//     Llama-3-8B in bf16; K and V of a 512-token piece: 134 MB, 40.1 us):
+//     bytes-bound.  The pair write reads both arenas' values in place from
+//     the engine's (1, L, ng, T, hs) layout, where each (chunk block, arena
+//     row) is one contiguous run of bs * hs elements (4 KiB at bs 16, hs
+//     128 in bf16) as it is in the arena, so no staging copy folds them
+//     into block granules: one launch moves whole runs as the widest
+//     vectors dividing runs, strides and bases, four runs per block with
+//     every load in flight before the first store.  The fused write is
+//     bytes-bound too: it reads the compute-dtype values once and writes
+//     half as many bytes plus 3% of scales (K and V of a 512-token piece: 101 MB, 30.4 us).  One pass
 //     writes both arenas and their scale arenas, reading each arena's
 //     fresh values in place from the engine's (1, L, ng, T, hs) layout (no
 //     staging copy into block granules): a group of hs / 8 lanes per
@@ -111,10 +119,15 @@ namespace {
 using tt::fp8_e4m3;
 using tt::from_f;
 using tt::kMaskValue;
+using tt::load8;
 using tt::load_kv;
+using tt::load_raw8;
 using tt::quantized;
+using tt::Raw8;
 using tt::round_to;
+using tt::store_q8;
 using tt::to_f;
+using tt::unpack8;
 
 constexpr int kThreads = 256;
 
@@ -251,24 +264,50 @@ __global__ void __launch_bounds__(kThreads) paged_attn_verify_kernel(
   }
 }
 
-// grid (x tiles, nc), block 256.  Chunk block c (a slab of n vectors V)
-// lands at block dest[pos / bs + c] of the arena, or at sink block 0 when
-// that entry lies past the table.  Several chunk blocks may land in the sink
-// at once; its bytes are never read.
+// The chunk write of one or two arenas (K and V) in one pass, bits moved as
+// they are (an unquantized arena holds the compute dtype itself).  Arena z
+// is (num_blocks, rows, bs, hs); the bs * hs elements of arena row r of
+// chunk block c are one contiguous run in the values too, read in place at
+// vals + c * sc + r * sr (the engine's (1, L, ng, T, hs): sc = bs * hs, sr =
+// T * hs; the single-arena entry's (nc, L, ng, bs, hs): rows * bs * hs and
+// bs * hs), and land as one run at block dest[pos / bs + c], or in sink
+// block 0 when that entry lies past the table.  Several chunk blocks may
+// land in the sink at once; its bytes are never read.
+struct ChunkArgs {
+  void* arena[2];
+  const void* vals[2];
+  const int* dest;
+  const int* pos;
+  int rows, bs, nbb;
+  int run;                         // vectors V per run (bs * hs elements)
+  int64_t sc[2], sr[2];            // each arena's vals strides in vectors V
+};
+
+constexpr int kChunkRows = 4;      // arena rows (runs) per block
+
+// grid (ceil(rows / kChunkRows), nc, arenas).  Thread j of a block moves
+// vector j (and j + blockDim.x, ...) of each of the block's kChunkRows runs:
+// every load issued before the first store, no index per element.
 template <typename V>
-__global__ void paged_chunk_write_kernel(V* __restrict__ arena, const V* __restrict__ vals,
-                                         const int* __restrict__ dest,
-                                         const int* __restrict__ pos, int64_t n, int bs,
-                                         int nbb) {
-  const int c = blockIdx.y;
-  const int idx = pos[0] / bs + c;
-  const int64_t blk = idx < nbb ? dest[idx] : 0;
-  V* dst = arena + blk * n;
-  const V* src = vals + static_cast<int64_t>(c) * n;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    dst[i] = src[i];
+__global__ void __launch_bounds__(256) paged_chunk_write_kernel(const ChunkArgs a) {
+  const int z = blockIdx.z, c = blockIdx.y;
+  const int r0 = blockIdx.x * kChunkRows;
+  const int n = min(kChunkRows, a.rows - r0);
+  const int64_t sr = z ? a.sr[1] : a.sr[0];
+  const V* src = static_cast<const V*>(z ? a.vals[1] : a.vals[0]) +
+                 c * (z ? a.sc[1] : a.sc[0]) + r0 * sr;
+  const int idx = a.pos[0] / a.bs + c;
+  const int64_t blk = idx < a.nbb ? a.dest[idx] : 0;
+  V* dst = static_cast<V*>(z ? a.arena[1] : a.arena[0]) + (blk * a.rows + r0) * a.run;
+  for (int j = threadIdx.x; j < a.run; j += blockDim.x) {
+    V v[kChunkRows];
+#pragma unroll
+    for (int k = 0; k < kChunkRows; ++k)
+      if (k < n) v[k] = src[k * sr + j];
+#pragma unroll
+    for (int k = 0; k < kChunkRows; ++k)
+      if (k < n) dst[static_cast<int64_t>(k) * a.run + j] = v[k];
+  }
 }
 
 // The fused chunk write of one or two arenas (K and V) in one pass.  Arena
@@ -293,75 +332,6 @@ struct ChunkQArgs {
   int64_t stride_c, stride_r;      // vals strides in elements
   float inv_qmax;
 };
-
-// 8 values from piece d0 of a slot-head as float: one 16-byte load (two for
-// float32) when VEC (hs % 8 == 0, the base 16-byte aligned), else element by
-// element; values at or past hs read 0.
-template <typename TV>
-struct Raw8 {                      // 8 values of TV as loaded: 16 bytes (32 for float32)
-  uint4 w[sizeof(TV) / 2];
-};
-
-template <typename TV>
-__device__ __forceinline__ Raw8<TV> load_raw8(const TV* x) {
-  Raw8<TV> r;
-#pragma unroll
-  for (int k = 0; k < static_cast<int>(sizeof(TV)) / 2; ++k)
-    r.w[k] = reinterpret_cast<const uint4*>(x)[k];
-  return r;
-}
-
-template <typename TV>
-__device__ __forceinline__ void unpack8(const Raw8<TV>& r, float (&v)[8]) {
-  const TV* e8 = reinterpret_cast<const TV*>(r.w);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) v[e] = to_f<TV>(e8[e]);
-}
-
-template <typename TV, bool VEC>
-__device__ __forceinline__ void load8(const TV* x, int d0, int hs, float (&v)[8]) {
-  if constexpr (VEC) {
-    if (d0 >= hs) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = 0.f;
-      return;
-    }
-    unpack8<TV>(load_raw8<TV>(x + d0), v);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = d0 + e < hs ? to_f<TV>(x[d0 + e]) : 0.f;
-  }
-}
-
-// Quantizes the 8 values of piece d0 (x / scale, an IEEE quotient, into TS,
-// bit for bit as tt::quantize<TS> stores it) and stores them: one 8-byte
-// store when VEC (tt::quantize8, eight at once), else byte by byte; adds
-// |f32(q) * scale - x| and |x| of the values below hs to the sums.
-template <typename TS, bool VEC>
-__device__ __forceinline__ void quantize8(TS* dst, int d0, int hs, const float (&v)[8],
-                                          float scale, float& e_err, float& e_abs) {
-  if (d0 >= hs) return;
-  if constexpr (VEC) {
-    float y[8], q[8];
-    uint32_t w[2];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) y[e] = __fdiv_rn(v[e], scale);
-    tt::quantize8<TS>(y, q, w);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      e_err += fabsf(__fmul_rn(q[e], scale) - v[e]);
-      e_abs += fabsf(v[e]);
-    }
-    *reinterpret_cast<uint2*>(dst + d0) = make_uint2(w[0], w[1]);
-  } else {
-    for (int e = 0; e < 8 && d0 + e < hs; ++e) {
-      const TS q = tt::quantize<TS>(__fdiv_rn(v[e], scale));
-      e_err += fabsf(__fmul_rn(to_f<TS>(q), scale) - v[e]);
-      e_abs += fabsf(v[e]);
-      dst[d0 + e] = q;
-    }
-  }
-}
 
 // grid (tiles, nc, arenas), block 256.  A slot-head (a slot of one arena
 // row: hs values, one scale) belongs to a group of G lanes, each holding 8
@@ -409,11 +379,11 @@ __global__ void __launch_bounds__(256) paged_chunk_write_fused_kernel(const Chun
     for (int o = G >> 1; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(gmask, amax, o));
     const float scale = tt::absmax_scale(amax, inv_qmax);
     TS* d = dst + static_cast<int64_t>(s) * hs;
-    quantize8<TS, VEC>(d, lane * 8, hs, v, scale, e_err, e_abs);
+    store_q8<TS, VEC>(d, lane * 8, hs, v, scale, e_err, e_abs);
     for (int k = 1; k < pieces; ++k) {
       float w[8];
       load8<TV, VEC>(x, (k * G + lane) * 8, hs, w);
-      quantize8<TS, VEC>(d, (k * G + lane) * 8, hs, w, scale, e_err, e_abs);
+      store_q8<TS, VEC>(d, (k * G + lane) * 8, hs, w, scale, e_err, e_abs);
     }
     if (lane == 0) sdst[s] = scale;
   };
@@ -1063,15 +1033,10 @@ cudaError_t launch_chunk_fused(const ChunkQArgs& a, int tiles, int arenas, float
 }
 
 template <typename V>
-cudaError_t launch_chunk(void* arena, const void* vals, const int* dest, const int* pos, int nc,
-                         int64_t slab_bytes, int bs, int nbb, cudaStream_t s) {
-  const int64_t n = slab_bytes / static_cast<int64_t>(sizeof(V));
-  const int threads = 256;
-  const int64_t per_block = threads * 4;   // about four vectors per thread
-  const int64_t tiles = (n + per_block - 1) / per_block;
-  const int gx = static_cast<int>(tiles < 1024 ? (tiles > 0 ? tiles : 1) : 1024);
-  paged_chunk_write_kernel<V><<<dim3(gx, nc), threads, 0, s>>>(
-      static_cast<V*>(arena), static_cast<const V*>(vals), dest, pos, n, bs, nbb);
+cudaError_t launch_chunk(const ChunkArgs& a, int nc, int arenas, cudaStream_t s) {
+  const int threads = a.run >= 256 ? 256 : (a.run + 31) / 32 * 32;
+  paged_chunk_write_kernel<V><<<dim3((a.rows + kChunkRows - 1) / kChunkRows, nc, arenas),
+                                threads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -1202,19 +1167,37 @@ extern "C" int tt_paged_chunk_write_fused(void* arena0, float* scale0, const voi
   });
 }
 
-// vec_bytes: 16, 8, 4, 2 or 1 — the widest that divides the slab and both
-// base addresses (the wrapper picks it); the copy moves bits.
-extern "C" int tt_paged_chunk_write(void* arena, const void* vals, const int* dest,
-                                    const int* pos, int nc, int64_t slab_bytes, int bs, int nbb,
-                                    int vec_bytes, void* stream) {
+// The chunk write of one or two arenas (arena1/vals1 null: one).  geom: nc,
+// rows, bs, nbb, the bytes of a run (bs * hs elements), then vals0's
+// strides sc, sr and vals1's, in bytes; vec_bytes (16, 8, 4, 2 or 1)
+// divides the run, the strides and every base address (the wrapper picks
+// the widest); the copy moves bits, whatever the dtype.  One launch.
+extern "C" int tt_paged_chunk_write(void* arena0, void* arena1, const void* vals0,
+                                    const void* vals1, const int* dest, const int* pos,
+                                    const int64_t* geom, int vec_bytes, void* stream) {
+  const int nc = static_cast<int>(geom[0]), arenas = arena1 == nullptr ? 1 : 2;
+  if (nc == 0 || geom[1] == 0) return cudaSuccess;
+  const int64_t w = vec_bytes;
+  if (w != 16 && w != 8 && w != 4 && w != 2 && w != 1) return cudaErrorInvalidValue;
+  for (int k = 4; k < 9; ++k)
+    if (geom[k] % w) return cudaErrorInvalidValue;
+  const uintptr_t at =
+      reinterpret_cast<uintptr_t>(arena0) | reinterpret_cast<uintptr_t>(arena1) |
+      reinterpret_cast<uintptr_t>(vals0) | reinterpret_cast<uintptr_t>(vals1);
+  if (at % w) return cudaErrorInvalidValue;
+  const ChunkArgs a{{arena0, arenas == 2 ? arena1 : arena0},
+                    {vals0, arenas == 2 ? vals1 : vals0},
+                    dest, pos,
+                    static_cast<int>(geom[1]), static_cast<int>(geom[2]),
+                    static_cast<int>(geom[3]), static_cast<int>(geom[4] / w),
+                    {geom[5] / w, geom[7] / w},
+                    {geom[6] / w, geom[8] / w}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nc == 0) return cudaSuccess;
   switch (vec_bytes) {
-    case 16: return launch_chunk<uint4>(arena, vals, dest, pos, nc, slab_bytes, bs, nbb, s);
-    case 8: return launch_chunk<uint2>(arena, vals, dest, pos, nc, slab_bytes, bs, nbb, s);
-    case 4: return launch_chunk<uint32_t>(arena, vals, dest, pos, nc, slab_bytes, bs, nbb, s);
-    case 2: return launch_chunk<uint16_t>(arena, vals, dest, pos, nc, slab_bytes, bs, nbb, s);
-    case 1: return launch_chunk<uint8_t>(arena, vals, dest, pos, nc, slab_bytes, bs, nbb, s);
-    default: return cudaErrorInvalidValue;
+    case 16: return launch_chunk<uint4>(a, nc, arenas, s);
+    case 8: return launch_chunk<uint2>(a, nc, arenas, s);
+    case 4: return launch_chunk<uint32_t>(a, nc, arenas, s);
+    case 2: return launch_chunk<uint16_t>(a, nc, arenas, s);
+    default: return launch_chunk<uint8_t>(a, nc, arenas, s);
   }
 }

@@ -35,8 +35,8 @@ _SIGNATURES = {
     "tt_paged_token_write": ([_P] * 8 + [_I, _I, _P], _I),
     "tt_error_string": ([_I], ctypes.c_char_p),
     "tt_paged_attn_verify": ([_P] * 10 + [_I] * 10 + [ctypes.c_float, _I, _I, _I, _I, _P], _I),
-    "tt_paged_chunk_write": ([_P] * 4 + [_I, ctypes.c_int64, _I, _I, _I, _P], _I),
-    "tt_paged_token_write_fused": ([_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _I, _P], _I),
+    "tt_paged_chunk_write": ([_P] * 7 + [_I, _P], _I),
+    "tt_paged_token_write_fused": ([_P] * 10 + [_I, ctypes.c_float, _I, _I, _I, _P], _I),
     "tt_paged_chunk_write_fused": ([_P] * 11 + [ctypes.c_float, _I, _I, _I, _P], _I),
     "tt_flash_fwd": ([_P] * 6 + [_I] * 13 + [ctypes.c_float, _I, _P], _I),
     "tt_flash_bwd_dq": ([_P] * 8 + [_I] * 13 + [ctypes.c_float, _I, _P], _I),

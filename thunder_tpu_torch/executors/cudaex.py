@@ -26,12 +26,14 @@ of the serving paths:
   write into a quantized arena, with the per-block error sums behind the
   ``serving.kv_quant.rel_err`` gauge;
 
-the engine lands K and V together: :func:`paged_token_write_pair` writes
-both arenas of a decode step, a verify round (every offset) or a
-multi-step iteration in one launch of the token-write kernel, and
-:func:`paged_chunk_write_fused_pair` both quantized arenas of a chunk
-piece in one pass, reading the forward's (1, L, ng, T, hs) values in
-place;
+the engine lands K and V together, reading the forward's values in place
+(no staging copy): :func:`paged_token_write_pair` writes both arenas of a
+decode step, a verify round (every offset) or a multi-step iteration in
+one launch of the token-write kernel, :func:`paged_token_write_fused_pair`
+the same into quantized arenas, :func:`paged_chunk_write_pair` both arenas
+of a chunk piece off the forward's (1, L, ng, T, hs) values in one launch,
+and :func:`paged_chunk_write_fused_pair` both quantized arenas of a chunk
+piece in one pass;
 
 ``paged_attn_decode`` and ``paged_attn_verify`` read quantized arenas too
 (``k_scale``/``v_scale``): each tile is dequantized as it is loaded,
@@ -111,11 +113,15 @@ __all__ = [
     "paged_chunk_write_fused_pair",
     "paged_chunk_write_fused_pair_plain",
     "paged_chunk_write_fused_plain",
+    "paged_chunk_write_pair",
+    "paged_chunk_write_pair_plain",
     "paged_chunk_write_plain",
     "paged_kernels_decline",
     "paged_splits",
     "paged_token_write",
     "paged_token_write_fused",
+    "paged_token_write_fused_pair",
+    "paged_token_write_fused_pair_plain",
     "paged_token_write_fused_plain",
     "paged_token_write_masked",
     "paged_token_write_masked_plain",
@@ -600,10 +606,11 @@ def paged_token_write_pair_plain(k_arena, v_arena, k_vals, v_vals, tables, pos, 
     return k_arena, v_arena
 
 
-def _token_key(name: str, arenas: tuple, vals: tuple, tables, pos, n_emit, offset: int,
-               block_size: int) -> tuple:
+def _token_key(name: str, arenas: tuple, vals: tuple, scales: tuple, tables, pos, n_emit,
+               offset: int, block_size: int) -> tuple:
     """What the checks read of a token write's arguments, flat: the first
-    arena's device, every other tensor's card index (-1 off the card)."""
+    arena's device, every other tensor's card index (-1 off the card);
+    ``scales`` holds the scale arenas of a quantized write, else nothing."""
     try:
         a0, v0 = arenas[0], vals[0]
         key = (name, offset, block_size, a0.device, a0.shape, a0.dtype, a0.is_contiguous(),
@@ -611,32 +618,46 @@ def _token_key(name: str, arenas: tuple, vals: tuple, tables, pos, n_emit, offse
                tables.shape, tables.dtype, tables.get_device(), tables.is_contiguous(),
                pos.shape, pos.dtype, pos.get_device(), pos.is_contiguous(),
                None if n_emit is None else (n_emit.shape, n_emit.dtype, n_emit.get_device(),
-                                            n_emit.is_contiguous()))
+                                            n_emit.is_contiguous()),
+               tuple((s.shape, s.dtype, s.get_device(), s.is_contiguous()) for s in scales))
         if len(arenas) == 2:
             a1, v1 = arenas[1], vals[1]
             key += (a1.shape, a1.dtype, a1.get_device(), a1.is_contiguous(),
                     v1.shape, v1.stride(), v1.dtype, v1.get_device())
         return key
     except AttributeError:
-        raise ValueError(f"{name}: arenas, vals, tables, pos (and n_emit, if given) must be "
-                         "tensors") from None
+        raise ValueError(f"{name}: arenas, {'scale arenas, ' if scales else ''}vals, tables, pos "
+                         "(and n_emit, if given) must be tensors") from None
 
 
 def _card(index: int) -> str:
     return "cpu" if index < 0 else f"cuda:{index}"
 
 
+def _q_lanes(hs: int) -> tuple[int, int]:
+    """(log2 G, 8-value pieces per lane) of the quantizing writes: a group
+    of G lanes per slot-head (8 values a lane, G a power of two up to a
+    warp)."""
+    log2 = 0
+    while log2 < 5 and 8 << log2 < hs:
+        log2 += 1
+    return log2, -(-hs // (8 << log2))
+
+
 def _token_checked(key: tuple):
     """Validates one token write from its ``_token_key`` and returns what
-    ``_TOKEN_CHECKED`` keeps for it: "cpu", "empty" (B = 0), or the launch
-    on the card (the kernel's geometry array, the vector widths that divide
-    a row and the strides, the card)."""
+    ``_TOKEN_CHECKED`` keeps for it: "cpu", "empty" (nothing to write), or
+    the launch on the card: the kernel's geometry array, the vector widths
+    that divide a row and the strides, the card; for a quantized write the
+    geometry, whether the 16-byte path may take the shapes, the card, the
+    storage and value dtype codes and f32(1/qmax)."""
     (name, offset, block_size, dev, ashape, adtype, acontig, vshape, vstride, vdtype, vdev,
-     tshape, tdtype, tdev, tcontig, pshape, pdtype, pdev, pcontig, ne, *second) = key
-    pair = bool(second)
+     tshape, tdtype, tdev, tcontig, pshape, pdtype, pdev, pcontig, ne, scales, *second) = key
+    pair, quant = bool(second), bool(scales)
     index = dev.index if dev.type == "cuda" else -1
     anames, vnames = (("k_arena", "v_arena"), ("k_vals", "v_vals")) if pair else (("arena",),
                                                                                   ("vals",))
+    snames = ("k_scale", "v_scale") if pair else ("scale_arena",)
     strides = [vstride]
     if pair:
         a1shape, a1dtype, a1dev, a1contig, v1shape, v1stride, v1dtype, v1dev = second
@@ -649,17 +670,32 @@ def _token_checked(key: tuple):
         _require(a1contig, lambda: f"{name}: v_arena must be contiguous")
         strides.append(v1stride)
     rank = len(ashape)
-    _require(rank in (4, 5) and len(vshape) in ((rank - 1, rank) if pair else (rank - 1,)),
-             lambda: f"{name}: arena must be rank 4 or 5 and vals one rank lower"
-             f"{' (or of its rank, with T at dim 3)' if pair else ''}, got {tuple(ashape)} "
-             f"and {tuple(vshape)}")
+    _require(rank in ((5,) if quant else (4, 5))
+             and len(vshape) in ((rank - 1, rank) if pair else (rank - 1,)),
+             lambda: f"{name}: arena must be rank {'5' if quant else '4 or 5'} and vals one rank "
+             f"lower{' (or of its rank, with T at dim 3)' if pair else ''}, got "
+             f"{tuple(ashape)} and {tuple(vshape)}")
     B, bs = vshape[0], ashape[3]
     T = vshape[3] if len(vshape) == rank else 1
     want = (B, *ashape[1:3], *((T,) if len(vshape) == rank else ()), *ashape[4:])
     _require(tuple(vshape) == want,
              lambda: f"{name}: {vnames[0]} must be {want}, got {tuple(vshape)}")
     _require(block_size == bs, lambda: f"{name}: block_size={block_size} but the arena holds {bs}")
-    _require(vdtype == adtype, lambda: f"{name}: vals dtype {vdtype} != arena dtype {adtype}")
+    if quant:
+        _require(adtype in _QUANT_CODE,
+                 lambda: f"{name}: the arena must be int8 or float8_e4m3fn, got {adtype}")
+        _require(vdtype in _DTYPE_CODE,
+                 lambda: f"{name}: vals must be at the compute dtype (float32/float16/bfloat16), "
+                 f"got {vdtype}")
+        for arg, (sshape, sdtype, sdev, scontig) in zip(snames, scales):
+            _require(sdtype == torch.float32 and tuple(sshape) == tuple(ashape[:-1]),
+                     lambda: f"{name}: {arg} must be float32 {tuple(ashape[:-1])}, got {sdtype} "
+                     f"{tuple(sshape)}")
+            _require(sdev == index, lambda: f"{name}: {arg} is on {_card(sdev)}, {anames[0]} on "
+                     f"{dev}")
+            _require(scontig, lambda: f"{name}: {arg} must be contiguous")
+    else:
+        _require(vdtype == adtype, lambda: f"{name}: vals dtype {vdtype} != arena dtype {adtype}")
     esize = torch.empty((), dtype=adtype).element_size()
     _require(esize in (1, 2, 4), lambda: f"{name}: unsupported dtype {adtype}")
     if ne is not None:
@@ -681,10 +717,10 @@ def _token_checked(key: tuple):
     _require(dev.type in ("cpu", "cuda"), lambda: f"{name}: unsupported device {dev}")
     if dev.type == "cpu":
         return "cpu"
-    if B == 0:
+    if B == 0 or T == 0:
         return "empty"
-    # each vals' strides, read in place: the head's elements contiguous,
-    # layer and group merged into one arena-row stride
+    # each vals' strides in elements, read in place: the head's elements
+    # contiguous, layer and group merged into one arena-row stride
     L, ng = ashape[1], ashape[2]
     hs = ashape[4] if rank == 5 else 1
     flat = []
@@ -696,6 +732,12 @@ def _token_checked(key: tuple):
                  f"layers at ng times its groups' stride, got strides {tuple(st)}")
         flat += [sb, sr, st[3] if len(vshape) == rank and T > 1 else 0]
     flat *= 2 // len(strides)            # one arena: its strides stand in for the second's
+    if quant:
+        log2, pieces = _q_lanes(hs)
+        threads = min(256, -(-(L * ng << log2) // 32) * 32)
+        geom = (B, T, L * ng, bs, hs, tshape[1], log2, pieces, threads, *flat)
+        return ((ctypes.c_int64 * len(geom))(*geom), hs % 8 == 0 and all(x % 8 == 0 for x in flat),
+                index, _QUANT_CODE[adtype], _DTYPE_CODE[vdtype], _quant().inv_qmax(adtype))
     geom = (B, T, L * ng, bs, tshape[1], hs * esize, *(x * esize for x in flat))
     widths = tuple(w for w in (16, 8, 4, 2, 1) if all(g % w == 0 for g in geom[5:]))
     return (ctypes.c_int64 * len(geom))(*geom), widths, index
@@ -707,13 +749,13 @@ _TOKEN_CHECKED: dict = {}
 
 
 def _token_write(name: str, counter: str, arenas: tuple, vals: tuple, tables, pos, n_emit,
-                 offset: int, block_size: int):
+                 offset: int, block_size: int, scales: tuple = ()):
     """The token write of one arena or of both (``arenas``/``vals`` of one or
-    two): checks kept by key, the plain version for CPU tensors, else one
-    launch, counted under ``counter``.  Returns True when it launched or had
-    nothing to write, False for the CPU (the caller runs the plain
-    version)."""
-    key = _token_key(name, arenas, vals, tables, pos, n_emit, offset, block_size)
+    two; quantizing when ``scales`` holds their scale arenas): checks kept
+    by key, the plain version for CPU tensors, else one launch, counted
+    under ``counter``.  Returns True when it launched or had nothing to
+    write, False for the CPU (the caller runs the plain version)."""
+    key = _token_key(name, arenas, vals, scales, tables, pos, n_emit, offset, block_size)
     launch = _TOKEN_CHECKED.get(key)
     if launch is None:
         launch = _token_checked(key)
@@ -724,24 +766,31 @@ def _token_write(name: str, counter: str, arenas: tuple, vals: tuple, tables, po
         return False
     if launch == "empty":
         return True
-    geom, widths, index = launch
-    if len(arenas) == 2:
-        pa, pb, va, vb = (arenas[0].data_ptr(), arenas[1].data_ptr(), vals[0].data_ptr(),
-                          vals[1].data_ptr())
-        at = pa | pb | va | vb
-    else:
-        pa, pb, va, vb = arenas[0].data_ptr(), None, vals[0].data_ptr(), None
-        at = pa | va
-    vec = next(w for w in widths if at % w == 0)
+    pa, va = arenas[0].data_ptr(), vals[0].data_ptr()
+    pb, vb = (arenas[1].data_ptr(), vals[1].data_ptr()) if len(arenas) == 2 else (None, None)
+    ne = None if n_emit is None else n_emit.data_ptr()
+    index = launch[2]
     stream = torch._C._cuda_getCurrentRawStream(index)
-    args = (pa, pb, va, vb, tables.data_ptr(), pos.data_ptr(),
-            None if n_emit is None else n_emit.data_ptr(), geom, offset, vec, stream)
     lib = _build.load_library()
+    if scales:
+        geom, vec_ok, _, kv_code, v_code, inv_qmax = launch
+        sa, sb = (s.data_ptr() for s in scales) if len(scales) == 2 else (scales[0].data_ptr(),
+                                                                           None)
+        vec = int(vec_ok and (va | (vb or 0)) % 16 == 0 and (pa | (pb or 0)) % 8 == 0)
+        fn = lib.tt_paged_token_write_fused
+        args = (pa, pb, sa, sb, va, vb, tables.data_ptr(), pos.data_ptr(), ne, geom, offset,
+                inv_qmax, kv_code, v_code, vec, stream)
+    else:
+        geom, widths, _ = launch
+        at = pa | va | (pb or 0) | (vb or 0)
+        vec = next(w for w in widths if at % w == 0)
+        fn = lib.tt_paged_token_write
+        args = (pa, pb, va, vb, tables.data_ptr(), pos.data_ptr(), ne, geom, offset, vec, stream)
     if index == torch._C._cuda_getDevice():
-        rc = lib.tt_paged_token_write(*args)
+        rc = fn(*args)
     else:
         with torch.cuda.device(index):
-            rc = lib.tt_paged_token_write(*args)
+            rc = fn(*args)
     if rc:
         _raise_on(lib, rc, name)
     LAUNCHES[counter] += 1
@@ -948,6 +997,43 @@ def paged_chunk_write_plain(arena, vals, dest, pos, *, block_size: int):
     return arena
 
 
+def paged_chunk_write_pair_plain(k_arena, v_arena, k_vals, v_vals, dest, pos, *,
+                                 block_size: int):
+    """Plain PyTorch version of :func:`paged_chunk_write_pair`: the values
+    folded into block granules (:func:`chunk_blocks`), then
+    :func:`paged_chunk_write_plain` per arena."""
+    for arena, vals in ((k_arena, k_vals), (v_arena, v_vals)):
+        paged_chunk_write_plain(arena, chunk_blocks(vals, block_size), dest, pos,
+                                block_size=block_size)
+    return k_arena, v_arena
+
+
+def _chunk_copy(name: str, arenas: tuple, vals: tuple, dest, pos, nc: int, strides: tuple):
+    """One launch of the chunk-write kernel over ``arenas`` (one or two) and
+    their values, read at ``strides`` (each arena's chunk-block and
+    arena-row strides, in elements)."""
+    arena = arenas[0]
+    _, L, ng, bs, hs = arena.shape
+    if nc == 0 or arena[0].numel() == 0:
+        return
+    esize = arena.element_size()
+    strides = strides * (2 // len(arenas))
+    geom = (nc, L * ng, bs, dest.shape[0], bs * hs * esize, *(x * esize for x in strides))
+    at = 0
+    for t in (*arenas, *vals):
+        at |= t.data_ptr()
+    vec = next(w for w in (16, 8, 4, 2, 1) if at % w == 0 and all(g % w == 0 for g in geom[4:]))
+    ptrs = [t.data_ptr() for t in arenas] + [None] * (2 - len(arenas))
+    vptrs = [t.data_ptr() for t in vals] + [None] * (2 - len(vals))
+    lib = _build.load_library()
+    with torch.cuda.device(arena.device):
+        stream = torch.cuda.current_stream(arena.device).cuda_stream
+        rc = lib.tt_paged_chunk_write(*ptrs, *vptrs, dest.data_ptr(), pos.data_ptr(),
+                                      (ctypes.c_int64 * len(geom))(*geom), vec, stream)
+    _raise_on(lib, rc, name)
+    LAUNCHES["paged_chunk_write"] += 1
+
+
 def paged_chunk_write(arena, vals, dest, pos, *, block_size: int):
     """In-place block-granule write of one prefill chunk's K (or V);
     returns ``arena`` itself.
@@ -957,38 +1043,75 @@ def paged_chunk_write(arena, vals, dest, pos, *, block_size: int):
     ``dest``: (nbb,) int32 scatter table (``kv_pool.chunk_tables``: sink
     outside the chunk's own blocks); ``pos``: (1,) int32 block-aligned chunk
     start.  Chunk block ``c`` lands as one slab at ``dest[pos // bs + c]``,
-    or in sink block 0 when that entry lies past the table."""
+    or in sink block 0 when that entry lies past the table.  The engine
+    writes K and V of a piece in one launch through
+    :func:`paged_chunk_write_pair`."""
     name = "paged_chunk_write"
     _require(arena.ndim == 5 and vals.ndim == 5 and tuple(vals.shape[1:]) == tuple(arena.shape[1:]),
-             f"{name}: arena must be (num_blocks, L, ng, bs, hs) and vals (nc, L, ng, bs, hs), "
-             f"got {tuple(arena.shape)} and {tuple(vals.shape)}")
+             lambda: f"{name}: arena must be (num_blocks, L, ng, bs, hs) and vals (nc, L, ng, bs, "
+             f"hs), got {tuple(arena.shape)} and {tuple(vals.shape)}")
     _require(block_size == arena.shape[3],
-             f"{name}: block_size={block_size} but the arena holds {arena.shape[3]}")
+             lambda: f"{name}: block_size={block_size} but the arena holds {arena.shape[3]}")
     _require(vals.dtype == arena.dtype,
-             f"{name}: vals dtype {vals.dtype} != arena dtype {arena.dtype}")
-    _require(dest.dtype == torch.int32 and dest.ndim == 1 and dest.shape[0] >= 1,
-             f"{name}: dest must be int32 (nbb,), got {dest.dtype} {tuple(dest.shape)}")
-    _require(pos.dtype == torch.int32 and tuple(pos.shape) == (1,),
-             f"{name}: pos must be int32 (1,), got {pos.dtype} {tuple(pos.shape)}")
-    dev = arena.device
-    for arg, t in dict(arena=arena, vals=vals, dest=dest, pos=pos).items():
-        _require(t.device == dev, f"{name}: {arg} is on {t.device}, arena on {dev}")
-        _require(t.is_contiguous(), f"{name}: {arg} must be contiguous")
-    _require(dev.type in ("cpu", "cuda"), f"{name}: unsupported device {dev}")
+             lambda: f"{name}: vals dtype {vals.dtype} != arena dtype {arena.dtype}")
+    _check_chunk_route(name, dest, pos)
+    dev = _check_devices(name, dict(arena=arena, vals=vals, dest=dest, pos=pos))
     if dev.type == "cpu":
         return paged_chunk_write_plain(arena, vals, dest, pos, block_size=block_size)
-    slab = vals[0].numel() * vals.element_size() if vals.shape[0] else 0
-    vec = next(w for w in (16, 8, 4, 2, 1)
-               if slab % w == 0 and arena.data_ptr() % w == 0 and vals.data_ptr() % w == 0)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_paged_chunk_write(
-            _ptr(arena), _ptr(vals), _ptr(dest), _ptr(pos), vals.shape[0], slab,
-            block_size, dest.shape[0], vec, ctypes.c_void_p(stream))
-    _raise_on(lib, rc, name)
-    LAUNCHES[name] += 1
+    nc, L, ng, bs, hs = vals.shape
+    _chunk_copy(name, (arena,), (vals,), dest, pos, nc, (L * ng * bs * hs, bs * hs))
     return arena
+
+
+def paged_chunk_write_pair(k_arena, v_arena, k_vals, v_vals, dest, pos, *, block_size: int):
+    """K and V of one chunked-prefill piece landed in their arenas in one
+    launch, in place; returns ``(k_arena, v_arena)``.
+
+    ``k_arena``/``v_arena``: two (num_blocks, L, ng, bs, hs) arenas of one
+    shape and dtype; ``k_vals``/``v_vals``: (1, L, ng, T, hs) at the arena
+    dtype, the layout ``forward_paged`` returns, read in place by their
+    strides (chunk block ``c``, slot ``t`` is token ``c·bs + t``; T a
+    multiple of the block size; each head's tokens contiguous, so the bs
+    tokens of a chunk block and arena row are one contiguous run, as they
+    are in the arena).  Each arena ends as :func:`paged_chunk_write` over
+    the values folded into block granules leaves it
+    (:func:`paged_chunk_write_pair_plain`); bits are moved as they are.  One
+    launch, counted as ``paged_chunk_write``."""
+    name = "paged_chunk_write_pair"
+    _require(k_arena.ndim == 5, lambda: f"{name}: k_arena must be (num_blocks, L, ng, bs, hs), "
+             f"got {tuple(k_arena.shape)}")
+    _require(v_arena.shape == k_arena.shape and v_arena.dtype == k_arena.dtype,
+             lambda: f"{name}: v_arena must match k_arena ({tuple(k_arena.shape)} "
+             f"{k_arena.dtype}), got {tuple(v_arena.shape)} {v_arena.dtype}")
+    _, L, ng, bs, hs = k_arena.shape
+    _require(k_vals.ndim == 5 and k_vals.shape[:3] == (1, L, ng) and k_vals.shape[4] == hs,
+             lambda: f"{name}: k_vals must be (1, {L}, {ng}, T, {hs}), got {tuple(k_vals.shape)}")
+    _require(v_vals.shape == k_vals.shape and v_vals.dtype == k_vals.dtype,
+             lambda: f"{name}: v_vals must match k_vals ({tuple(k_vals.shape)} {k_vals.dtype}), "
+             f"got {tuple(v_vals.shape)} {v_vals.dtype}")
+    T = k_vals.shape[3]
+    _require(T % block_size == 0,
+             lambda: f"{name}: T={T} of k_vals/v_vals is not a multiple of block_size={block_size}")
+    _require(block_size == bs, lambda: f"{name}: block_size={block_size} but the arena holds {bs}")
+    _require(k_vals.dtype == k_arena.dtype,
+             lambda: f"{name}: vals dtype {k_vals.dtype} != arena dtype {k_arena.dtype}")
+    _check_chunk_route(name, dest, pos)
+    dev = _check_devices(name, dict(k_arena=k_arena, v_arena=v_arena, dest=dest, pos=pos))
+    strides = ()
+    for arg, v in (("k_vals", k_vals), ("v_vals", v_vals)):
+        _require(v.device == dev, lambda: f"{name}: {arg} is on {v.device}, k_arena on {dev}")
+        st = v.stride()
+        sr = st[2] if ng > 1 else st[1]
+        _require((hs == 1 or st[4] == 1) and (T == 1 or st[3] == hs)
+                 and (L == 1 or st[1] == ng * sr),
+                 lambda: f"{name}: {arg} must hold each head's tokens contiguously and its "
+                 f"layers at ng times its groups' stride, got strides {tuple(st)}")
+        strides += (bs * hs, sr)
+    if dev.type == "cpu":
+        return paged_chunk_write_pair_plain(k_arena, v_arena, k_vals, v_vals, dest, pos,
+                                            block_size=block_size)
+    _chunk_copy(name, (k_arena, v_arena), (k_vals, v_vals), dest, pos, T // bs, strides)
+    return k_arena, v_arena
 
 
 #
@@ -1031,51 +1154,70 @@ def paged_token_write_fused(arena, scale_arena, vals, tables, pos, *, block_size
 
     ``arena``: (num_blocks, L, ng, bs, hs) int8 or float8_e4m3fn;
     ``scale_arena``: (num_blocks, L, ng, bs) float32; ``vals``: (B, L, ng,
-    hs) at the compute dtype.  Each (row, layer, group) vector is quantized
-    exactly as ``serving.quant.quantize_kv`` does (the kernel's stored bytes
+    hs) at the compute dtype, read in place by its strides as
+    :func:`paged_token_write` reads them.  Each (row, layer, group) vector
+    is quantized exactly as ``serving.quant.quantize_kv`` does (the
+    kernel's stored bytes
     and scales equal the plain version's, bit for bit) and lands with its
     scale at block ``tables[i, pos[i] // bs]``, slot ``pos[i] % bs``.  With
     ``n_emit`` (B,) int32 it is the keep-masked write of chunk offset
     ``offset`` (:func:`paged_token_write_masked`): row ``i`` lands at
     ``pos[i] + offset`` iff ``offset < n_emit[i]``, else in sink block 0,
-    slot 0."""
+    slot 0.  It launches the pair's kernel with one arena; the engine
+    writes K and V of a step or round in one launch through
+    :func:`paged_token_write_fused_pair`."""
     name = "paged_token_write_fused"
-    _require(arena.ndim == 5 and vals.ndim == 4,
-             f"{name}: arena must be (num_blocks, L, ng, bs, hs) and vals (B, L, ng, hs), got "
-             f"{tuple(arena.shape)} and {tuple(vals.shape)}")
-    B = vals.shape[0]
-    _, L, ng, bs, hs = arena.shape
-    _require(tuple(vals.shape) == (B, L, ng, hs),
-             f"{name}: vals must be {(B, L, ng, hs)}, got {tuple(vals.shape)}")
-    _require(block_size == bs, f"{name}: block_size={block_size} but the arena holds {bs}")
-    _check_quant_arena(name, arena, scale_arena, vals)
-    tensors = dict(arena=arena, scale_arena=scale_arena, vals=vals)
-    if n_emit is None:
-        _require(offset == 0, f"{name}: offset={offset} needs n_emit (the masked write)")
-    else:
-        _require(n_emit.dtype == torch.int32 and tuple(n_emit.shape) == (B,),
-                 f"{name}: n_emit must be int32 ({B},), got {n_emit.dtype} "
-                 f"{tuple(n_emit.shape)}")
-        _require(offset >= 0, f"{name}: offset must be >= 0, got {offset}")
-        tensors["n_emit"] = n_emit
-    dev = _check_common(name, tensors, tables, pos, B)
-    if dev.type == "cpu":
-        return paged_token_write_fused_plain(arena, scale_arena, vals, tables, pos,
-                                             block_size=block_size, n_emit=n_emit,
-                                             offset=offset)
-    if B == 0:
-        return arena, scale_arena
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_paged_token_write_fused(
-            _ptr(arena), _ptr(scale_arena), _ptr(vals), _ptr(tables), _ptr(pos),
-            _ptr(n_emit) if n_emit is not None else ctypes.c_void_p(0), int(offset),
-            B, L * ng, bs, hs, tables.shape[1], ctypes.c_float(_quant().inv_qmax(arena.dtype)),
-            _QUANT_CODE[arena.dtype], _DTYPE_CODE[vals.dtype], ctypes.c_void_p(stream))
-    _raise_on(lib, rc, name)
-    LAUNCHES[name] += 1
+    _require(n_emit is not None or offset == 0,
+             lambda: f"{name}: offset={offset} needs n_emit (the masked write)")
+    if not _token_write(name, name, (arena,), (vals,), tables, pos, n_emit, offset, block_size,
+                        scales=(scale_arena,)):
+        paged_token_write_fused_plain(arena, scale_arena, vals, tables, pos,
+                                      block_size=block_size, n_emit=n_emit, offset=offset)
     return arena, scale_arena
+
+
+def paged_token_write_fused_pair_plain(k_arena, v_arena, k_scale, v_scale, k_vals, v_vals,
+                                       tables, pos, *, block_size: int, n_emit=None,
+                                       offset: int = 0):
+    """Plain PyTorch version of :func:`paged_token_write_fused_pair` (in
+    place): per arena, :func:`paged_token_write_fused_plain` of offsets
+    ``offset`` .. ``offset + T - 1`` in order."""
+    for arena, scale, vals in ((k_arena, k_scale, k_vals), (v_arena, v_scale, v_vals)):
+        if vals.ndim == arena.ndim - 1:
+            vals = vals.unsqueeze(3)
+        for t in range(vals.shape[3]):
+            paged_token_write_fused_plain(arena, scale, vals[:, :, :, t], tables, pos,
+                                          block_size=block_size, n_emit=n_emit, offset=offset + t)
+    return k_arena, v_arena, k_scale, v_scale
+
+
+def paged_token_write_fused_pair(k_arena, v_arena, k_scale, v_scale, k_vals, v_vals, tables, pos,
+                                 *, block_size: int, n_emit=None, offset: int = 0):
+    """K and V of a whole decode step, verify round or multi-step iteration
+    landed in their quantized arenas in one launch, quantizing on the way,
+    in place; returns ``(k_arena, v_arena, k_scale, v_scale)``.
+
+    ``k_arena``/``v_arena``: two (num_blocks, L, ng, bs, hs) arenas of one
+    shape and dtype (int8 or float8_e4m3fn) with their (num_blocks, L, ng,
+    bs) float32 scale arenas; ``k_vals``/``v_vals``: (B, L, ng, T, hs), or
+    (B, L, ng, hs) for T = 1, at one compute dtype, read in place by their
+    strides (each head's values contiguous, layers at ng times the groups'
+    stride: the forward's (B, L, ng, T, hs) is taken as it is).  Offset
+    ``t`` of row ``i`` is quantized as ``serving.quant.quantize_kv`` does
+    and lands as chunk offset ``offset + t``: without ``n_emit`` at
+    ``pos[i] + offset + t``, with ``n_emit`` (B,) int32 there iff ``offset
+    + t < n_emit[i]``, else in sink block 0, slot 0.  The live offsets of
+    one row land at distinct slots, so the arenas equal those of the 2T
+    sequential single-offset writes
+    (:func:`paged_token_write_fused_pair_plain`).  One launch, counted as
+    ``paged_token_write_fused``."""
+    if not _token_write("paged_token_write_fused_pair", "paged_token_write_fused",
+                        (k_arena, v_arena), (k_vals, v_vals), tables, pos, n_emit, offset,
+                        block_size, scales=(k_scale, v_scale)):
+        paged_token_write_fused_pair_plain(k_arena, v_arena, k_scale, v_scale, k_vals, v_vals,
+                                           tables, pos, block_size=block_size, n_emit=n_emit,
+                                           offset=offset)
+    return k_arena, v_arena, k_scale, v_scale
 
 
 def _chunk_live(dest, pos, nc: int, block_size: int):
@@ -1123,9 +1265,9 @@ def paged_chunk_write_fused_pair_plain(k_arena, v_arena, k_scale, v_scale, k_val
     return k_arena, v_arena, k_scale, v_scale, torch.stack(errs)
 
 
-# the fused chunk kernel's plan: a group of G lanes per slot-head (8 values
-# a lane, G a power of two up to a warp), blocks of _CHUNK_Q_THREADS lanes
-# walking _CHUNK_Q_ROUNDS slot-heads per group
+# the fused chunk kernel's plan: a group of G lanes per slot-head
+# (_q_lanes), blocks of _CHUNK_Q_THREADS lanes walking _CHUNK_Q_ROUNDS
+# slot-heads per group
 _CHUNK_Q_THREADS = 256
 _CHUNK_Q_ROUNDS = 8
 
@@ -1133,10 +1275,7 @@ _CHUNK_Q_ROUNDS = 8
 def _chunk_q_plan(rows: int, bs: int, hs: int) -> tuple[int, int, int, int]:
     """(log2 G, 8-value pieces per lane, slot-heads per block, blocks per
     chunk block) of the fused chunk kernel, from shapes alone."""
-    log2 = 0
-    while log2 < 5 and 8 << log2 < hs:
-        log2 += 1
-    pieces = -(-hs // (8 << log2))
+    log2, pieces = _q_lanes(hs)
     spb = (_CHUNK_Q_THREADS >> log2) * _CHUNK_Q_ROUNDS
     return log2, pieces, spb, max(1, -(-rows * bs // spb))
 

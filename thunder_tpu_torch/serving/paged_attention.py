@@ -11,18 +11,18 @@ the paged chunked-prefill piece, T = the chunk width).  Quantized arenas
 kernels as each tile loads.  The fresh K/V land in place afterwards:
 
 - :func:`write_fresh_kv` — one decode step, K and V in one launch of
-  ``paged_token_write_pair`` (``paged_token_write_fused`` per arena into a
-  quantized arena);
+  ``paged_token_write_pair`` (``paged_token_write_fused_pair`` into a
+  quantized pool);
 - :func:`write_fresh_kv_masked` — a verify step's accepted prefix, K and V
-  of every chunk offset in one masked ``paged_token_write_pair`` launch
-  (the masked ``paged_token_write_fused`` per arena and offset into a
-  quantized arena);
+  of every chunk offset in one masked launch of the same pair writes;
 - :func:`write_fresh_kv_live` — one multi-step decode iteration, the masked
   pair write at offset 0 with the per-row liveness as ``n_emit``;
-- :func:`write_fresh_kv_chunk` — a prefill chunk, block by block, through
-  ``paged_chunk_write`` per arena, or into a quantized pool K and V in one
-  pass of ``paged_chunk_write_fused_pair``, which reads the forward's
-  values in place and also returns the quantization error sums.
+- :func:`write_fresh_kv_chunk` — a prefill chunk, block by block, K and V
+  in one launch of ``paged_chunk_write_pair``, or into a quantized pool in
+  one pass of ``paged_chunk_write_fused_pair``, which also returns the
+  quantization error sums.
+
+Every writer reads the forward's values in place (no staging copy).
 
 The ``kv_dtype`` argument of the writers is the pool's storage dtype when
 it is quantized and None otherwise, as in the reference; the fused writers
@@ -47,14 +47,13 @@ import functools
 import torch
 
 from thunder_tpu_torch.executors.cudaex import (
-    chunk_blocks,
     lora_delta_fused,
     paged_attn_decode,
     paged_attn_verify,
-    paged_chunk_write,
     paged_chunk_write_fused_pair,
+    paged_chunk_write_pair,
     paged_kernels_decline,
-    paged_token_write_fused,
+    paged_token_write_fused_pair,
     paged_token_write_pair,
 )
 from thunder_tpu_torch.models.generate import (
@@ -145,20 +144,26 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
     return logits, {"k": torch.stack(fresh_k, dim=1), "v": torch.stack(fresh_v, dim=1)}
 
 
+def _token_pair(arenas, fresh, tables, pos, *, block_size: int, kv_dtype, n_emit=None):
+    """K and V of a step or round in one launch: the pair write, or its
+    quantizing twin into a quantized pool (``kv_dtype``)."""
+    if kv_dtype is None:
+        paged_token_write_pair(arenas["k"], arenas["v"], fresh["k"], fresh["v"], tables, pos,
+                               block_size=block_size, n_emit=n_emit)
+    else:
+        paged_token_write_fused_pair(arenas["k"], arenas["v"], arenas["k_scale"],
+                                     arenas["v_scale"], fresh["k"], fresh["v"], tables, pos,
+                                     block_size=block_size, n_emit=n_emit)
+    return arenas
+
+
 def write_fresh_kv(arenas, fresh, tables, pos, *, block_size: int, kv_dtype=None):
     """Lands one decode step's fresh K/V (``{"k"/"v": (B, L, ng, hs)}`` at
     the compute dtype) in the arenas, in place, K and V in one launch;
     padding rows land in sink block 0.  ``kv_dtype``: the storage dtype of
-    a quantized pool (the fused writer quantizes on the way, per arena),
-    None otherwise."""
-    if kv_dtype is None:
-        paged_token_write_pair(arenas["k"], arenas["v"], fresh["k"], fresh["v"], tables, pos,
-                               block_size=block_size)
-        return arenas
-    for name in ("k", "v"):
-        paged_token_write_fused(arenas[name], arenas[name + "_scale"], fresh[name], tables, pos,
-                                block_size=block_size)
-    return arenas
+    a quantized pool (the fused writer quantizes on the way), None
+    otherwise."""
+    return _token_pair(arenas, fresh, tables, pos, block_size=block_size, kv_dtype=kv_dtype)
 
 
 def write_fresh_kv_masked(arenas, fresh, tables, pos, n_emit, *, block_size: int,
@@ -170,18 +175,9 @@ def write_fresh_kv_masked(arenas, fresh, tables, pos, n_emit, *, block_size: int
     Offset ``k`` of row ``i`` lands at ``pos[i] + k`` iff ``k < n_emit[i]``;
     the rest go to the sink, so rejected drafts leave no trace and the next
     round derives them again.  K and V of every offset in one launch, read
-    in place; quantized pools (``kv_dtype``) take the masked fused write
-    per arena and offset."""
-    if kv_dtype is None:
-        paged_token_write_pair(arenas["k"], arenas["v"], fresh["k"], fresh["v"], tables, pos,
-                               block_size=block_size, n_emit=n_emit)
-        return arenas
-    for k in range(fresh["k"].shape[3]):
-        for name in ("k", "v"):
-            paged_token_write_fused(arenas[name], arenas[name + "_scale"],
-                                    fresh[name][:, :, :, k].contiguous(), tables, pos,
-                                    block_size=block_size, n_emit=n_emit, offset=k)
-    return arenas
+    in place, quantized on the way into a quantized pool (``kv_dtype``)."""
+    return _token_pair(arenas, fresh, tables, pos, block_size=block_size, kv_dtype=kv_dtype,
+                       n_emit=n_emit)
 
 
 def write_fresh_kv_live(arenas, fresh, tables, pos, live, *, block_size: int, kv_dtype=None):
@@ -190,16 +186,9 @@ def write_fresh_kv_live(arenas, fresh, tables, pos, live, *, block_size: int, kv
     ``live`` (B,) bool: a live row commits at ``pos`` exactly like
     :func:`write_fresh_kv`, a dead row (finished earlier, or batch padding)
     lands in the sink.  An offset-0 masked write with ``n_emit = live``:
-    one launch for K and V, or the masked fused write per arena."""
-    n_emit = live.to(torch.int32)
-    if kv_dtype is None:
-        paged_token_write_pair(arenas["k"], arenas["v"], fresh["k"], fresh["v"], tables, pos,
-                               block_size=block_size, n_emit=n_emit)
-        return arenas
-    for name in ("k", "v"):
-        paged_token_write_fused(arenas[name], arenas[name + "_scale"], fresh[name], tables, pos,
-                                block_size=block_size, n_emit=n_emit, offset=0)
-    return arenas
+    one launch for K and V."""
+    return _token_pair(arenas, fresh, tables, pos, block_size=block_size, kv_dtype=kv_dtype,
+                       n_emit=live.to(torch.int32))
 
 
 def write_fresh_kv_chunk(arenas, fresh, dest, pos, *, block_size: int, kv_dtype=None):
@@ -211,18 +200,17 @@ def write_fresh_kv_chunk(arenas, fresh, dest, pos, *, block_size: int, kv_dtype=
     (nbb,) int32 scatter table from ``kv_pool.chunk_tables`` (sink outside
     the chunk's own blocks); ``pos``: (1,) int32 block-aligned chunk start.
     Chunk block ``c`` lands as one (L, ng, bs, hs) slab at
-    ``dest[pos // bs + c]``: unquantized through ``paged_chunk_write`` per
-    arena, from the values folded into block granules
-    (``cudaex.chunk_blocks``); quantized pools (``kv_dtype``) K and V in one
-    pass of the fused writer, which reads ``fresh`` in place.  Returns
+    ``dest[pos // bs + c]``, K and V in one launch that reads ``fresh`` in
+    place: ``paged_chunk_write_pair`` (an unquantized arena holds the
+    compute dtype, so bits are moved), or into a quantized pool
+    (``kv_dtype``) the fused ``paged_chunk_write_fused_pair``.  Returns
     ``(arenas, qerr)``: ``qerr`` is ``0.5 * (k_rel + v_rel)``, each ``rel =
     sum|dq - x| / (sum|x| + 1e-30)`` over the blocks actually written (a
     float32 scalar tensor on the arenas' device), the figure the gather
     chunk step reports; the float 0.0 unquantized."""
     if kv_dtype is None:
-        for name in ("k", "v"):
-            paged_chunk_write(arenas[name], chunk_blocks(fresh[name], block_size).to(
-                arenas[name].dtype), dest, pos, block_size=block_size)
+        paged_chunk_write_pair(arenas["k"], arenas["v"], fresh["k"], fresh["v"], dest, pos,
+                               block_size=block_size)
         return arenas, 0.0
     *_, err = paged_chunk_write_fused_pair(arenas["k"], arenas["v"], arenas["k_scale"],
                                            arenas["v_scale"], fresh["k"], fresh["v"], dest, pos,
