@@ -91,7 +91,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at most 2.0 ms per step, and the step's device busy time fallen from
    the 35.6 ms it read on the previous decode kernel by at least 0.9 of
    the group's saving on that kernel's 27.2 ms, and the ``kv_write`` group
-   (every KV write kernel) at most 0.004 ms per step (a profile that
+   (every KV write kernel) at most 0.0034 ms per step (a profile that
    records no CUDA activity is taken again, up to three times, and then
    fails);
 5. chunked serve: the same model with ``prefill_chunk=512``, block-aligned
@@ -106,7 +106,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    requests; ``paged_attn_verify`` launches n_layer times and
    ``paged_token_write_masked`` once per round, the decode kernels never;
    one verify round profiled by kernel group, its ``kv_write`` group at
-   most 0.010 ms; then once more with draft = target, which must accept K
+   most 0.0056 ms; then once more with draft = target, which must accept K
    drafts in some round;
 6b. quantized serves: the chunked serve with ``kv_dtype="int8"`` on a pool
    of the bf16 chunked pool's bytes (1.94x the blocks), then the
@@ -119,7 +119,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``gather_dense_q`` and ``forward_with_cache`` (phase 4's bars); then one
    int8 chunk piece, four int8 decode steps and one fp8 verify round
    profiled by kernel group, their ``kv_write`` groups at most 0.065 /
-   0.005 / 0.012 ms;
+   0.0042 / 0.0078 ms;
 6c. LoRA serves: a registry of rank 16, alpha 32 (scaling 2), targets
    wq/wk/wv/wo, three adapters of std 0.05 from a seeded generator; the
    chunked serve of phase 5 and the speculative serve of phase 6 with two
@@ -168,7 +168,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     flash bodies the wrappers pick (the warpgroup kernels, by name) and one
     on the WMMA body (the earlier tensor-core body): the step's device
     time must fall by at least 0.9 of the flash groups' saving;
-11. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+11. the trace IR: ``ir_layer_loss`` (one Llama-3-8B layer at full width, its
+    final norm, head and cross-entropy, weights from seed 0, B=1, T=2048)
+    acquired by ``functional.trace_from_fn`` (``language=`` clang), claimed
+    by the default executors (cuda ≻ torch) and run as the generated
+    prologue and computation, float32 and bf16: the final trace runs
+    ``cuda_sdpa`` and ``torch_*`` symbols only, each call launches exactly
+    one ``flash_fwd`` and one ``flash_ce`` (the torch executor's fast
+    path), two calls agree bitwise, float32 within 1e-5 (loss, relative)
+    and 1e-4 (block output, of its max) of the eager layer, bf16 against
+    the float32 eager layer within twice the eager bf16 layer's error; the
+    prologue rejects a CPU tensor, a wrong dtype and a wrong shape; the SDPA
+    backward prim alone at the same shape runs ``cuda_sdpa_backward`` (one
+    ``flash_bwd_dq`` and one ``flash_bwd_dkv``), bitwise equal to the
+    kernel called directly; the bf16 layer and the backward claimed by the
+    torch executor alone launch the same kernels and agree bitwise; no
+    decline is counted, on the IR path or the eager one; host ms of
+    acquisition, claiming and codegen
+    and the program's CUDA-event and device ms beside the eager layer's
+    are printed, with no bar;
+12. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -187,13 +206,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from thunder_tpu_torch import clang as ir_clang
 from thunder_tpu_torch import ltorch
 from thunder_tpu_torch._tree import tree_leaves
+from thunder_tpu_torch.core import prims as ir_prims
+from thunder_tpu_torch.core.langctxs import Languages
 from thunder_tpu_torch.distributed.api import make_train_step
-from thunder_tpu_torch.executors import _build, cudaex
+from thunder_tpu_torch.executors import _build, cudaex, torchex
+from thunder_tpu_torch.executors.passes import transform_for_execution
+from thunder_tpu_torch.extend import resolve_executors
+from thunder_tpu_torch.functional import trace_from_fn
 from thunder_tpu_torch.models.generate import forward_with_cache
 from thunder_tpu_torch.models.llama import (
     Config,
+    _norm,
+    block_forward,
     build_rope_cache,
     gpt_loss,
     init_params,
@@ -1800,10 +1827,11 @@ KV_WRITE_KERNELS = ("paged_token_write", "paged_chunk_write", "chunk_err_reduce"
 # write (phase 4), the bf16 chunk piece's pair (phase 5), the verify round's
 # masked pair (phase 6), the int8 chunk piece's fused pair with its error
 # sums, the int8 decode step's and the fp8 verify round's quantizing pairs
-# (phase 6b)
-KV_WRITE_GROUP_MAX_MS = {"decode step": 0.004, "chunk piece": 0.055, "verify round": 0.010,
-                         "int8 chunk piece": 0.065, "int8 decode step": 0.005,
-                         "fp8 verify round": 0.012}
+# (phase 6b); the four token-write bars sit at about 1.3x what they read on
+# NVIDIA H100 80GB HBM3, 700.00 W (0.0026 / 0.0043 / 0.0032 / 0.0060 ms)
+KV_WRITE_GROUP_MAX_MS = {"decode step": 0.0034, "chunk piece": 0.055, "verify round": 0.0056,
+                         "int8 chunk piece": 0.065, "int8 decode step": 0.0042,
+                         "fp8 verify round": 0.0078}
 
 
 def _group(name: str, attn: str) -> str:
@@ -3013,6 +3041,283 @@ def compare_train_profiles(step, params, opt_state, batch):
     return dict(redesigned=new, wmma=old, flash_saving_ms=saving, step_fall_ms=fall)
 
 
+#
+# phase 11: a Llama-3-8B layer and its loss through the trace IR
+#
+
+IR_T = 2048                 # B=1, the training step's sequence
+RMS_EPS = 1e-5              # Llama-3's norm_eps
+IR_LOSS_REL = 1e-5          # float32: the traced loss against the eager layer's
+IR_OUT_REL = 1e-4           # float32: the block output, of its largest magnitude
+IR_REJECTS = {"a CPU tensor": "device changed", "a wrong dtype": "dtype changed",
+              "a wrong shape": "shape changed"}
+
+
+def ir_layer_loss(clang, prims, x, cos, sin, params, targets):
+    """One Llama-3 block and the loss over its output, written in the IR's
+    language, so that one source runs through either stack: ``clang`` and
+    ``prims`` are ``thunder_tpu_torch.clang`` and ``thunder_tpu_torch.core.prims``
+    here, the JAX package's own in the CPU tests.
+
+    ``x`` (B, T, C) hidden states; ``cos``/``sin`` (T, hs) float32 from
+    ``build_rope_cache``; ``params`` ``{"block": one block's params, "ln_f":
+    ..., "lm_head": ...}`` in ``init_params``' layout; ``targets`` (B·T,)
+    class ids.  It computes what ``models/llama.py``'s ``block_forward``
+    computes for a Llama-3 block (RMSNorm, q/k/v projections, RoPE, causal
+    GQA attention through ``prims.sdpa``, ``wo``, the residual, RMSNorm and
+    the SwiGLU MLP), then the final norm, the head,
+    ``prims.cross_entropy_fwd`` over float32 logits and the mean.  Returns
+    ``(loss, block output)``."""
+    f32 = cos.dtype
+    bp, ap, mp = params["block"], params["block"]["attn"], params["block"]["mlp"]
+    B, T, _ = x.shape
+    hs = cos.shape[-1]
+    nh, ng = ap["wq"].shape[0] // hs, ap["wk"].shape[0] // hs
+
+    def rms_norm(t, w):
+        tf = clang.maybe_convert_to_dtype(t, f32)
+        ms = clang.mean(clang.mul(tf, tf), -1, True)
+        tf = clang.mul(tf, clang.rsqrt(clang.add(ms, RMS_EPS)))
+        return clang.maybe_convert_to_dtype(clang.mul(tf, clang.maybe_convert_to_dtype(w, f32)),
+                                            t.dtype)
+
+    def heads(t, n):                    # (B, T, n·hs) → (B, n, T, hs)
+        return clang.transpose(clang.reshape(t, (B, T, n, hs)), 1, 2)
+
+    def rope(t):
+        half = hs // 2
+        rotated = clang.cat([clang.neg(clang.slice_in_dim(t, half, hs, dim=3)),
+                             clang.slice_in_dim(t, 0, half, dim=3)], 3)
+        return clang.maybe_convert_to_dtype(
+            clang.add(clang.mul(t, cos), clang.mul(rotated, sin)), t.dtype)
+
+    n1 = rms_norm(x, bp["norm_1"])
+    q = rope(heads(clang.linear(n1, ap["wq"]), nh))
+    k = rope(heads(clang.linear(n1, ap["wk"]), ng))
+    v = heads(clang.linear(n1, ap["wv"]), ng)
+    y, _ = prims.sdpa(q, k, v, None, True, 1.0 / math.sqrt(hs), None)
+    y = clang.reshape(clang.transpose(y, 1, 2), (B, T, nh * hs))
+    x = clang.add(x, clang.linear(y, ap["wo"]))
+    n2 = rms_norm(x, bp["norm_2"])
+    gate = clang.linear(n2, mp["fc_1"])
+    g = clang.maybe_convert_to_dtype(gate, f32)       # silu in float32, as F.silu
+    silu = clang.maybe_convert_to_dtype(
+        clang.true_divide(g, clang.add(clang.exp(clang.neg(g)), 1.0)), gate.dtype)
+    out = clang.add(x, clang.linear(clang.mul(silu, clang.linear(n2, mp["fc_2"])), mp["proj"]))
+    logits = clang.linear(rms_norm(out, params["ln_f"]), params["lm_head"])
+    logits = clang.maybe_convert_to_dtype(clang.reshape(logits, (B * T, logits.shape[-1])), f32)
+    losses, _ = prims.cross_entropy_fwd(logits, targets)
+    return clang.mean(losses), out
+
+
+def eager_layer_loss(x, cos, sin, params, targets, cfg):
+    """``ir_layer_loss`` on the port's eager path: ``block_forward``, the
+    final norm, the head and ``ltorch.cross_entropy`` over float32 logits."""
+    out = block_forward(params["block"], x, cos, sin, cfg)
+    logits = F.linear(_norm(out, params["ln_f"], cfg), params["lm_head"])
+    return ltorch.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(), targets), out
+
+
+def ir_sdpa_backward(prims, g, q, k, v, out, lse):
+    """The causal SDPA backward prim alone, for the backward claim."""
+    return prims.sdpa_backward(g, q, k, v, out, lse, None, True, 1.0 / math.sqrt(q.shape[-1]),
+                               None)
+
+
+def ir_bad_inputs(x):
+    """Inputs the prologue must reject in place of ``x``, by label."""
+    return [("a CPU tensor", x.cpu()), ("a wrong dtype", x.float()),
+            ("a wrong shape", x[:, : x.shape[1] // 2])]
+
+
+def ir_program(fn, args, executors=None):
+    """Acquires ``fn`` over ``args`` (``language=`` clang), claims it with
+    ``executors`` (None: the defaults, cuda ≻ torch) and compiles both
+    programs.  Returns ``(call, final
+    trace, host ms of acquisition, claiming and codegen)``; ``call(*args)``
+    runs the prologue, then the computation."""
+    t0 = time.perf_counter()
+    traces = trace_from_fn(fn, args, {}, language=Languages.CLANG)
+    t1 = time.perf_counter()
+    final = transform_for_execution(traces.computation_trace, resolve_executors(executors))
+    t2 = time.perf_counter()
+    prologue, computation = traces.prologue_trace.python_callable(), final.python_callable()
+    t3 = time.perf_counter()
+
+    def call(*a):
+        return computation(*prologue(*a))
+
+    call.prologue = prologue
+    return call, final, dict(acquire_ms=1e3 * (t1 - t0), claim_ms=1e3 * (t2 - t1),
+                             codegen_ms=1e3 * (t3 - t2))
+
+
+def check_claims(final, label: str, cuda_ops: set) -> list[str]:
+    """Every executed bound symbol of ``final`` is a cuda operator named in
+    ``cuda_ops`` or a ``torch_`` one, and each of ``cuda_ops`` is there."""
+    names = [b.sym.name for b in final.bound_symbols
+             if b.sym.id not in (ir_prims.PrimIDs.RETURN, ir_prims.PrimIDs.DEL)]
+    stray = [n for n in names if n not in cuda_ops and not n.startswith("torch_")]
+    missing = cuda_ops - set(names)
+    say(f"IR {label}: the final trace runs {len(names)} bound symbols, "
+        f"{sorted(set(n for n in names if not n.startswith('torch_')))} on the cuda executor, "
+        f"the rest torch_*")
+    if stray or missing:
+        raise AssertionError(f"IR {label}: unclaimed {stray}, cuda claims missing {missing}\n"
+                             f"{final.python()}")
+    return names
+
+
+def ir_counted(call, args, want: dict) -> tuple:
+    """One call of an IR program with the launch counts read around it."""
+    cudaex.reset_launches()
+    res = call(*args)
+    torch.cuda.synchronize()
+    got = dict(cudaex.LAUNCHES)
+    if got != no_launches_but(**want):
+        raise AssertionError(f"IR program launched {got}, expected {want} per call")
+    return res, got
+
+
+def ir_layer(cfg):
+    """Phase 11: ``ir_layer_loss`` at Llama-3-8B widths (one layer, B=1,
+    T=2048, weights from seed 0) acquired by ``functional.trace_from_fn``,
+    claimed by the default executors (cuda ≻ torch) and run as the
+    generated prologue and computation on the card, float32 and bf16,
+    against the eager layer; then the SDPA backward prim alone at the same
+    shape.  The bf16 layer and the backward also run claimed by the torch
+    executor alone, whose SDPA fast paths must launch the same kernels.
+    Every decline, on the eager or the IR path, fails the phase.  Returns
+    the phase's launch counts, summed."""
+    cfg1 = Config.from_name(cfg.name, n_layer=1)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    full = init_params(cfg1, generator=gen, dtype=torch.bfloat16, device=DEVICE)
+    p16 = {"block": full["blocks"][0], "ln_f": full["ln_f"], "lm_head": full["lm_head"]}
+    del full
+    x16 = torch.randn((1, IR_T, cfg.n_embd), generator=gen, device=DEVICE).to(torch.bfloat16)
+    targets = torch.randint(0, cfg.vocab_size, (IR_T,), generator=gen, device=DEVICE,
+                            dtype=torch.int32)
+    cos, sin = build_rope_cache(cfg, IR_T, device=DEVICE)
+    fn = functools.partial(ir_layer_loss, ir_clang, ir_prims)
+    for key in ltorch.DECLINES:
+        ltorch.DECLINES[key] = 0
+    total = dict.fromkeys(cudaex.LAUNCHES, 0)
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        p = _cast(p16, dt) if dt == torch.float32 else p16
+        args = (x16.to(dt), cos, sin, p, targets)
+        call, final, host = ir_program(fn, args)
+        check_claims(final, f"layer {dt}", {"cuda_sdpa"})
+        if dt == torch.bfloat16:
+            say("IR layer bf16, the final trace:\n" + final.python())
+        (loss, out), got = ir_counted(call, args, dict(flash_fwd=1, flash_ce=1))
+        (loss2, out2), _ = ir_counted(call, args, dict(flash_fwd=1, flash_ce=1))
+        for k2 in total:
+            total[k2] += 2 * got[k2]
+        if not (torch.equal(loss, loss2) and torch.equal(out, out2)):
+            raise AssertionError(f"IR layer {dt}: two calls differ")
+        e_loss, e_out = eager_layer_loss(*args, cfg1)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: call(*args), iters=5, warmup=1)
+        eager_ms = time_ms(lambda: eager_layer_loss(*args, cfg1), iters=5, warmup=1)
+        dev, nk = device_ms_all(lambda: call(*args), iters=3)
+        edev, enk = device_ms_all(lambda: eager_layer_loss(*args, cfg1), iters=3)
+        res[dt] = dict(loss=loss, out=out, e_loss=e_loss, e_out=e_out)
+        say(f"IR layer {dt} ({cfg.name} widths, 1 layer, B=1, T={IR_T}): acquisition "
+            f"{host['acquire_ms']:.1f} ms, claiming {host['claim_ms']:.1f} ms, codegen "
+            f"{host['codegen_ms']:.1f} ms (host); per call: generated program {ms:.3f} ms, "
+            f"eager layer {eager_ms:.3f} ms (CUDA events); device {dev} ms over {nk} kernels, "
+            f"eager {edev} ms over {enk} kernels; loss {loss.item():.6f}, eager "
+            f"{e_loss.item():.6f}; launches per call {got}")
+        if dt == torch.bfloat16:
+            for label, bad in ir_bad_inputs(x16):
+                try:
+                    call.prologue(bad, cos, sin, p, targets)
+                except RuntimeError as e:
+                    if IR_REJECTS[label] not in str(e):
+                        raise
+                    say(f"IR prologue rejects {label}: {e}")
+                else:
+                    raise AssertionError(f"IR prologue accepted {label}")
+            # the torch executor alone: its SDPA fast path launches the same
+            # kernel the cuda executor's claim does
+            tcall, tfinal, _ = ir_program(fn, args, executors=[torchex.torch_ex])
+            check_claims(tfinal, "layer bf16, the torch executor alone", set())
+            (tloss, tout), tgot = ir_counted(tcall, args, dict(flash_fwd=1, flash_ce=1))
+            for k2 in total:
+                total[k2] += tgot[k2]
+            if not (torch.equal(tloss, loss) and torch.equal(tout, out)):
+                raise AssertionError("IR layer bf16: the torch executor alone differs from "
+                                     "cuda ≻ torch")
+            say(f"IR layer bf16, the torch executor alone: launches {tgot}, bitwise equal to "
+                f"cuda ≻ torch")
+            del tcall, tfinal, tloss, tout
+        del call, final
+    r32, r16 = res[torch.float32], res[torch.bfloat16]
+    loss_rel = abs(r32["loss"].item() - r32["e_loss"].item()) / abs(r32["e_loss"].item())
+    out_rel = ((r32["out"] - r32["e_out"]).abs().max().item()
+               / r32["e_out"].abs().max().item())
+    ok = loss_rel <= IR_LOSS_REL and out_rel <= IR_OUT_REL
+    say(f"IR layer float32 against the eager layer: loss rel {loss_rel:.2e} (bar "
+        f"{IR_LOSS_REL:.0e}), block output {out_rel:.2e} of its max (bar {IR_OUT_REL:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the IR layer disagrees with the eager layer in float32")
+    ref_loss, ref_out = r32["e_loss"].item(), r32["e_out"]
+    lk = abs(r16["loss"].item() - ref_loss)
+    le = abs(r16["e_loss"].item() - ref_loss)
+    ok_ = (r16["out"].float() - ref_out).abs().max().item()
+    oe = (r16["e_out"].float() - ref_out).abs().max().item()
+    ok = lk <= LOWP_ERR_RATIO * le and ok_ <= LOWP_ERR_RATIO * oe
+    say(f"IR layer bf16 against the float32 eager layer: loss error traced {lk:.3e} eager "
+        f"{le:.3e} (ratio limit {LOWP_ERR_RATIO}); block output max error traced "
+        f"{ok_:.3e} eager {oe:.3e} (ratio limit {LOWP_ERR_RATIO}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the bf16 IR layer strays further from float32 than the eager layer")
+    del res, r32, r16
+    # the backward claim: the SDPA backward prim alone at the training shape
+    H, G, hs = cfg.n_head, cfg.n_query_groups, cfg.head_size
+    q = torch.randn((1, H, IR_T, hs), generator=gen, device=DEVICE).to(torch.bfloat16)
+    k = torch.randn((1, G, IR_T, hs), generator=gen, device=DEVICE).to(torch.bfloat16)
+    v = torch.randn((1, G, IR_T, hs), generator=gen, device=DEVICE).to(torch.bfloat16)
+    g = torch.randn((1, H, IR_T, hs), generator=gen, device=DEVICE).to(torch.bfloat16)
+    out, lse = cudaex.flash_sdpa(q, k, v, causal=True, scale=1.0 / math.sqrt(hs))
+    args = (g, q, k, v, out, lse)
+    call, final, host = ir_program(functools.partial(ir_sdpa_backward, ir_prims), args)
+    check_claims(final, "sdpa backward", {"cuda_sdpa_backward"})
+    grads, got = ir_counted(call, args, dict(flash_bwd_dq=1, flash_bwd_dkv=1))
+    grads2, _ = ir_counted(call, args, dict(flash_bwd_dq=1, flash_bwd_dkv=1))
+    for k2 in total:
+        total[k2] += 2 * got[k2]
+    direct = cudaex.flash_sdpa_backward(g, q, k, v, out, lse, causal=True,
+                                        scale=1.0 / math.sqrt(hs))
+    if not all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(grads, grads2, direct)):
+        raise AssertionError("IR sdpa backward: not bitwise equal to the direct kernel call, "
+                             "or two calls differ")
+    tcall, tfinal, _ = ir_program(functools.partial(ir_sdpa_backward, ir_prims), args,
+                                  executors=[torchex.torch_ex])
+    check_claims(tfinal, "sdpa backward, the torch executor alone", set())
+    tgrads, tgot = ir_counted(tcall, args, dict(flash_bwd_dq=1, flash_bwd_dkv=1))
+    for k2 in total:
+        total[k2] += tgot[k2]
+    if not all(torch.equal(a, b) for a, b in zip(tgrads, direct)):
+        raise AssertionError("IR sdpa backward: the torch executor alone differs from the "
+                             "direct kernel call")
+    say(f"IR sdpa backward, the torch executor alone: launches {tgot}, bitwise equal to "
+        f"cudaex.flash_sdpa_backward")
+    del tcall, tfinal, tgrads
+    ms = time_ms(lambda: call(*args), iters=10)
+    dev, nk = device_ms_all(lambda: call(*args), iters=5)
+    say(f"IR sdpa backward bf16 (B=1, {H}/{G} heads, T={IR_T}, hs {hs}): acquisition "
+        f"{host['acquire_ms']:.1f} ms, claiming {host['claim_ms']:.1f} ms, codegen "
+        f"{host['codegen_ms']:.1f} ms (host); {ms:.3f} ms per call (CUDA events), device {dev} "
+        f"ms over {nk} kernels; bitwise equal to cudaex.flash_sdpa_backward; launches {got}")
+    if any(ltorch.DECLINES.values()):
+        raise AssertionError(f"declines during the IR phase: {ltorch.DECLINES}")
+    return total
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -3163,6 +3468,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the serving params become the trained ones: updated in place from here
     served["train step"] = train_full_width(params, cfg)["launches"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    served["IR layer"] = ir_layer(cfg)
 
     sources = {"paged_attn_decode": "paged_attention.cu", "paged_token_write": "paged_attention.cu",
                "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",

@@ -375,3 +375,42 @@ def test_auto_serves_gather_where_paged_declines(micro, monkeypatch):
     assert _drive(eng, _prompts()) == micro[2]                # the reference's tokens
     with pytest.raises(ValueError, match="too wide"):
         _port(tcfg, tp, attn="paged")
+
+
+# The model-family guard: greedy tokens of the other tiny configs against the
+# JAX engine, paged and gather.  tiny-mistral-debug's prompts (up to 45
+# tokens, 12 new) cross its sliding window of 32.
+FAMILY = {"tiny-mistral-debug": ((7, 33, 45), 12), "tiny-falcon-debug": ((3, 9, 14), 6),
+          "tiny-pythia-debug": ((3, 9, 14), 6), "tiny-gemma-debug": ((3, 9, 14), 6)}
+FAMILY_ENGINE = dict(block_size=4, num_blocks=96, max_batch=4, batch_buckets=(4,),
+                     block_buckets=(16,), prefill_buckets=(16, 48))
+
+
+@pytest.fixture(scope="module")
+def family_tokens():
+    """The JAX engine's tokens, per config, served once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            jcfg = jllama.Config.from_name(name)
+            jp = jllama.init_params(jcfg, jax.random.PRNGKey(0), dtype=jnp.float32)
+            tp = ttt.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+            lens, n = FAMILY[name]
+            prompts = [p % jcfg.vocab_size for p in _prompts(lens=lens, seed=1)]
+            ref = tt.serve(None, jp, jcfg, attn="paged", cache_dtype=jnp.float32,
+                           **FAMILY_ENGINE)
+            cache[name] = (tp, prompts, n, _drive(ref, prompts, n=n))
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("attn", ["paged", "gather"])
+@pytest.mark.parametrize("name", sorted(FAMILY))
+def test_model_family_tokens_equal_jax_engine(family_tokens, name, attn):
+    tp, prompts, n, want = family_tokens(name)
+    eng = ttt.serve(None, tp, ttt.Config.from_name(name), device="cpu", attn=attn,
+                    **FAMILY_ENGINE)
+    assert _drive(eng, prompts, n=n) == want
+    assert eng.stats()["attn"]["mode"] == attn

@@ -5,8 +5,11 @@ JAX nor the reference package.  Its layout mirrors ``thunder_tpu/`` module
 for module.  This slice carries the serving path: the Llama model family
 (``models``, with speculative decoding), the serving engine (``serving``:
 paged decode, chunked prefill, speculative serving, quantized KV,
-multi-tenant LoRA), the single-device train step, and the hand-written
-Hopper kernels of those paths (``executors.cudaex`` over ``csrc/``).  Entry points run on the card unless the
+multi-tenant LoRA), the single-device train step, the hand-written
+Hopper kernels of those paths (``executors.cudaex`` over ``csrc/``), and
+the trace IR: ``core`` (proxies, symbols, traces, prims), ``clang``,
+executor claiming (``extend``, ``executors.passes``, the ``torch`` and
+``cuda`` executors) and trace acquisition (``functional.trace_from_fn``).  Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
 from thunder_tpu_torch.distributed.api import TrainStep, make_train_step

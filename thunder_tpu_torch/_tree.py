@@ -1,59 +1,144 @@
-"""Flatten and rebuild nested dict/list/tuple trees of tensors.
+"""Flatten and rebuild nested containers of tensors.
 
-The port's counterpart of the ``jax.tree_util`` calls the training modules
-make (params dicts, optimizer states, checkpoint states): dict keys in
-sorted order, as ``jax.tree_util`` orders them; ``None`` is an empty
-subtree; anything else is a leaf.
+The port's counterpart of ``jax.tree_util``, with its rules: dict keys in
+sorted order (an ``OrderedDict`` keeps its own order), ``None`` is an empty
+subtree, a namedtuple is a node that rebuilds its own type, lists and tuples
+are nodes, and anything else (tensors, numbers, proxies, subclasses of
+list, tuple or dict) is a leaf.  ``is_leaf`` stops the walk at the subtrees
+it accepts.  The training modules (params dicts, optimizer and checkpoint
+states) and the IR's ``core/pytree.py`` share it.
 """
 from __future__ import annotations
 
+from collections import OrderedDict, defaultdict
+from dataclasses import dataclass
 from typing import Any, Callable
 
-__all__ = ["tree_flatten", "tree_leaves", "tree_map", "tree_unflatten"]
+__all__ = ["PyTreeDef", "tree_flatten", "tree_flatten_with_path", "tree_leaves", "tree_map",
+           "tree_structure", "tree_unflatten"]
 
 
-def tree_flatten(tree) -> tuple[list, Any]:
-    """``(leaves, spec)``; :func:`tree_unflatten` inverts it."""
-    leaves: list = []
+@dataclass(frozen=True)
+class PyTreeDef:
+    """One node of a flattened tree: its kind, its keys (dict keys, a
+    namedtuple's type, a defaultdict's factory) and its children's specs."""
 
-    def walk(node):
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, None, [walk(x) for x in node])
+    kind: str
+    meta: Any
+    children: tuple
+
+
+_LEAF = PyTreeDef("leaf", None, ())
+_NONE = PyTreeDef("none", None, ())
+
+
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(type(node), "_fields")
+
+
+def _children(node):
+    """``(kind, meta, [(path key, child), ...])`` of a node, None for a leaf."""
+    t = type(node)
+    if t is dict:
+        keys = sorted(node)
+        return "dict", tuple(keys), [(k, node[k]) for k in keys]
+    if t is OrderedDict:
+        keys = tuple(node)
+        return "odict", keys, [(k, node[k]) for k in keys]
+    if t is defaultdict:
+        keys = sorted(node)
+        return "ddict", (node.default_factory, tuple(keys)), [(k, node[k]) for k in keys]
+    if t is list or t is tuple:
+        return t.__name__, None, list(enumerate(node))
+    if _is_namedtuple(node):
+        return "namedtuple", t, [(f, getattr(node, f)) for f in t._fields]
+    return None
+
+
+def tree_flatten_with_path(tree, is_leaf: Callable[[Any], bool] | None = None
+                           ) -> tuple[list[tuple[tuple, Any]], PyTreeDef]:
+    """``([(path, leaf), ...], spec)``; a path holds the list or tuple
+    indices, dict keys and namedtuple field names down to its leaf."""
+    out: list = []
+
+    def walk(node, path):
+        if is_leaf is not None and is_leaf(node):
+            out.append((path, node))
+            return _LEAF
         if node is None:
-            return ("none", None, [])
-        leaves.append(node)
-        return ("leaf", None, [])
+            return _NONE
+        split = _children(node)
+        if split is None:
+            out.append((path, node))
+            return _LEAF
+        kind, meta, items = split
+        return PyTreeDef(kind, meta, tuple(walk(c, path + (k,)) for k, c in items))
 
-    return leaves, walk(tree)
+    spec = walk(tree, ())
+    return out, spec
 
 
-def tree_unflatten(spec, leaves) -> Any:
+def tree_flatten(tree, is_leaf: Callable[[Any], bool] | None = None) -> tuple[list, PyTreeDef]:
+    """``(leaves, spec)``; :func:`tree_unflatten` inverts it."""
+    pairs, spec = tree_flatten_with_path(tree, is_leaf)
+    return [leaf for _, leaf in pairs], spec
+
+
+def tree_unflatten(spec: PyTreeDef, leaves) -> Any:
     it = iter(leaves)
 
-    def build(node):
-        kind, keys, children = node
+    def build(node: PyTreeDef):
+        kind = node.kind
         if kind == "leaf":
             return next(it)
         if kind == "none":
             return None
-        built = [build(c) for c in children]
+        built = [build(c) for c in node.children]
         if kind == "dict":
-            return dict(zip(keys, built))
+            return dict(zip(node.meta, built))
+        if kind == "odict":
+            return OrderedDict(zip(node.meta, built))
+        if kind == "ddict":
+            factory, keys = node.meta
+            return defaultdict(factory, zip(keys, built))
+        if kind == "namedtuple":
+            return node.meta(*built)
         return built if kind == "list" else tuple(built)
 
     return build(spec)
 
 
-def tree_leaves(tree) -> list:
-    return tree_flatten(tree)[0]
+def tree_structure(tree, is_leaf: Callable[[Any], bool] | None = None) -> PyTreeDef:
+    return tree_flatten(tree, is_leaf)[1]
 
 
-def tree_map(fn: Callable, tree, *rest) -> Any:
-    """``fn`` over the leaves of ``tree`` (and the matching leaves of each
+def tree_leaves(tree, is_leaf: Callable[[Any], bool] | None = None) -> list:
+    return tree_flatten(tree, is_leaf)[0]
+
+
+def tree_map(fn: Callable, tree, *rest, is_leaf: Callable[[Any], bool] | None = None) -> Any:
+    """``fn`` over the leaves of ``tree`` (and the matching subtrees of each
     tree in ``rest``), rebuilt in ``tree``'s structure."""
-    leaves, spec = tree_flatten(tree)
-    others = [tree_leaves(r) for r in rest]
+    leaves, spec = tree_flatten(tree, is_leaf)
+    others = [_flatten_up_to(spec, r) for r in rest]
     return tree_unflatten(spec, [fn(x, *xs) for x, *xs in zip(leaves, *others)])
+
+
+def _flatten_up_to(spec: PyTreeDef, tree) -> list:
+    """``tree``'s subtrees at the leaves of ``spec`` (``jax.tree_util``'s
+    ``flatten_up_to``): ``tree_map`` hands a leaf of the first tree the
+    matching whole subtree of the others."""
+    if spec.kind == "leaf":
+        return [tree]
+    if spec.kind == "none":
+        if tree is not None:
+            raise ValueError(f"tree structures differ: expected None, got {type(tree).__name__}")
+        return []
+    split = _children(tree) if tree is not None else None
+    if split is None or split[0] != spec.kind or split[1] != spec.meta \
+            or len(split[2]) != len(spec.children):
+        raise ValueError(f"tree structures differ at a {spec.kind} node")
+    out: list = []
+    for c, (_, sub) in zip(spec.children, split[2]):
+        out.extend(_flatten_up_to(c, sub))
+    return out

@@ -1,1 +1,16 @@
-"""Kernel executors of the port (counterpart of ``thunder_tpu/executors``)."""
+"""Executors of the port (counterpart of ``thunder_tpu/executors``).
+
+Importing the package registers the built-in executors in priority order:
+``cuda`` (``cudaex``: the hand-written kernels' claims of SDPA and its
+backward) ≻ ``torch`` (``torchex``: every prim as a torch call, also the
+always-executor).
+"""
+from thunder_tpu_torch.executors import torchex  # noqa: F401  (registers "torch", default+always)
+from thunder_tpu_torch.executors import cudaex  # noqa: F401  (registers "cuda")
+from thunder_tpu_torch.executors.cudaex import cuda_ex
+from thunder_tpu_torch.extend import add_default_executor
+from thunder_tpu_torch.executors.torchex import torch_ex
+
+add_default_executor(cuda_ex)  # ahead of torch, so the claiming pass prefers the kernels
+
+__all__ = ["cuda_ex", "torch_ex"]

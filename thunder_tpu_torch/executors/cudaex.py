@@ -2044,3 +2044,53 @@ def lora_delta_fused(x, a, b, scaling, slots=None):
         _raise_on(lib, rc, "lora_delta_fused")
     LAUNCHES["lora_delta_fused"] += 1
     return out
+
+
+#
+# The cuda operator executor: the IR's claims of the flash attention kernels
+# (the counterpart of the Pallas executor's registrations, pallasex.py:795-816).
+# It claims a bound symbol when its proxies lie on a CUDA device and the
+# kernels take their shapes.  It registers no cross-entropy operator: the
+# reference claims CE only under a tuning file's ``ce.claim`` (pallasex.py
+# :1013-1034), which the repo has none of, so the loss reaches ``flash_ce``
+# through torchex's CROSS_ENTROPY_FWD fast path.
+#
+
+def _register_operator_executor():
+    from thunder_tpu_torch.core import dtypes as _dtypes
+    from thunder_tpu_torch.core.prims import PrimIDs, prim_lookup
+    from thunder_tpu_torch.extend import OperatorExecutor, register_executor
+
+    def sdpa(q, k, v, mask, causal, scale, window=None):
+        return flash_sdpa(q, k, v, mask, causal=causal, scale=scale, window=window)
+
+    def sdpa_backward(g, q, k, v, out, lse, mask, causal, scale, window=None):
+        return flash_sdpa_backward(g, q, k, v, out, lse, mask, causal=causal, scale=scale,
+                                   window=window)
+
+    def takes(q, k, v, mask, causal, window) -> bool:
+        try:
+            dtype = _dtypes.to_torch_dtype(q.dtype)
+        except KeyError:
+            return False
+        return q.device.type == "cuda" and flash_supported(
+            tuple(q.shape), tuple(k.shape), tuple(v.shape), dtype, causal,
+            None if mask is None else tuple(mask.shape), window)
+
+    def sdpa_checker(q, k, v, mask, causal, scale, window=None):
+        return takes(q, k, v, mask, causal, window)
+
+    def sdpa_backward_checker(g, q, k, v, out, lse, mask, causal, scale, window=None):
+        return takes(q, k, v, mask, causal, window)
+
+    ex = OperatorExecutor("cuda", version=torch.version.cuda)
+    register_executor(ex)
+    for pid, name, fn, checker in (
+            (PrimIDs.SDPA, "cuda_sdpa", sdpa, sdpa_checker),
+            (PrimIDs.SDPA_BACKWARD, "cuda_sdpa_backward", sdpa_backward, sdpa_backward_checker)):
+        op = ex.register_operator(name, like=prim_lookup[pid], fn=fn)
+        ex.register_implementation(pid, op, checker=checker)
+    return ex
+
+
+cuda_ex = _register_operator_executor()
