@@ -187,7 +187,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     acquisition, claiming and codegen
     and the program's CUDA-event and device ms beside the eager layer's
     are printed, with no bar;
-12. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+12. ``thunder_tpu_torch.jit(gpt_loss)`` of Llama-3-8B at full width and
+    depth (32 layers, weights from seed 0, B=1, T=2048, the default
+    executors cuda ≻ torch): the model's own torch-written loss, traced
+    through the torch language, claimed and run as the generated program.
+    The final trace runs ``cuda_sdpa`` and ``torch_*`` symbols only; each
+    call launches exactly 32 ``flash_fwd`` and one ``flash_ce``; the
+    prologue guards every parameter; no decline, on the jit path or the
+    eager one.  The bf16 loss against the float32 eager ``gpt_loss`` (under
+    ``torch.no_grad()``) within twice the eager bf16 loss's error, and
+    whether it equals the eager bf16 loss bitwise; the float32 loss within
+    1e-5 relative of eager.  The cache: a second call is a key hit, one
+    prologue run, bitwise equal; T=1024 misses into a second entry and
+    T=2048 then hits again; the prologue rejects a CPU tensor, a wrong dtype
+    and a wrong shape; a hit's key and prologue run under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Printed with no bar: host
+    ms of acquisition, the passes, claiming and codegen, the guards, the
+    cache-hit dispatch median over 20 calls, CUDA-event and device ms per
+    call and kernels per call beside eager ``gpt_loss``;
+13. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -206,9 +224,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import thunder_tpu_torch as ttt
 from thunder_tpu_torch import clang as ir_clang
 from thunder_tpu_torch import ltorch
 from thunder_tpu_torch._tree import tree_leaves
+from thunder_tpu_torch.core import cache_key as jit_cache_key
 from thunder_tpu_torch.core import prims as ir_prims
 from thunder_tpu_torch.core.langctxs import Languages
 from thunder_tpu_torch.distributed.api import make_train_step
@@ -227,6 +247,7 @@ from thunder_tpu_torch.models.llama import (
     param_count,
 )
 from thunder_tpu_torch.observability import registry
+from thunder_tpu_torch.observability.events import clear_events, events
 from thunder_tpu_torch.train.optim import adamw
 from thunder_tpu_torch.serving import AdapterRegistry, SpecConfig, make_lora_factors, serve
 from thunder_tpu_torch.serving.lora import gather_adapter_slots, valid_targets
@@ -3318,6 +3339,211 @@ def ir_layer(cfg):
     return total
 
 
+#
+# phase 12: thunder_tpu_torch.jit(gpt_loss) of Llama-3-8B
+#
+
+JIT_T = 2048                # B=1, the training step's sequence
+JIT_T_SHORT = 1024          # a second specialization of the same function
+JIT_LOSS_REL_F32 = 1e-5     # float32: the jitted loss against eager gpt_loss
+JIT_DISPATCH_CALLS = 20     # cache-hit calls whose dispatch times give the median
+# host phases of a compile, by the spans the pipeline records: acquisition,
+# the passes before claiming, claiming, and codegen (prologue and computation)
+JIT_SPANS = {"acquisition": ("interpret",),
+             "dce_cse": ("transform:dce", "transform:cse",
+                         "transform:absorb_ce_widening_converts"),
+             "claiming": ("lower", "lower:del_last_used"), "codegen": ("codegen",)}
+
+
+def span_ms() -> dict:
+    """Host ms of the recorded compile spans, summed by ``JIT_SPANS`` group."""
+    open_at, total = {}, dict.fromkeys(JIT_SPANS, 0.0)
+    for ev in events():
+        if ev["ph"] == "B":
+            open_at.setdefault(ev["name"], []).append(ev["ts"])
+        elif ev["ph"] == "E" and open_at.get(ev["name"]):
+            dur = (ev["ts"] - open_at[ev["name"]].pop()) / 1e3
+            for group, names in JIT_SPANS.items():
+                if ev["name"] in names:
+                    total[group] += dur
+    return total
+
+
+def jit_batch(cfg, T, gen):
+    idx = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=DEVICE)
+    tgt = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=DEVICE)
+    cos, sin = build_rope_cache(cfg, T, device=DEVICE)
+    return idx, tgt, cos, sin
+
+
+def jit_bad_inputs(idx):
+    """Token ids the prologue must reject, by label."""
+    return [("a CPU tensor", idx.cpu()), ("a wrong dtype", idx.int()),
+            ("a wrong shape", idx[:, : idx.shape[1] // 2])]
+
+
+def jit_counted(jfn, args, cfg) -> tuple:
+    """One call of the jitted loss with the launch counts read around it:
+    n_layer ``flash_fwd`` and one ``flash_ce``, nothing else."""
+    cudaex.reset_launches()
+    loss = jfn(*args)
+    torch.cuda.synchronize()
+    got = dict(cudaex.LAUNCHES)
+    want = dict(flash_fwd=cfg.n_layer, flash_ce=1)
+    if got != no_launches_but(**want):
+        raise AssertionError(f"jit gpt_loss launched {got}, expected {want} per call")
+    return loss, got
+
+
+def eager_loss(params, batch, cfg):
+    with torch.no_grad():
+        return gpt_loss(params, *batch, cfg)
+
+
+def jit_gpt_loss(cfg):
+    """Phase 12: ``thunder_tpu_torch.jit(gpt_loss)`` of Llama-3-8B at full
+    width and depth (weights from seed 0, B=1, T=2048, default executors
+    cuda ≻ torch), bf16 and float32, against the eager ``gpt_loss`` of the
+    same weights under ``torch.no_grad()``; the dispatch cache (hit, miss at
+    T=1024, hit again, the prologue's rejections, no device sync in the key
+    and the prologue).  Returns the phase's launch counts, summed."""
+    params, _ = make_params(cfg.name)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    batch = jit_batch(cfg, JIT_T, gen)
+    short = jit_batch(cfg, JIT_T_SHORT, gen)
+    loss_fn = lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg)     # noqa: E731
+    for key in ltorch.DECLINES:
+        ltorch.DECLINES[key] = 0
+    total = dict.fromkeys(cudaex.LAUNCHES, 0)
+
+    def add(got):
+        for k in total:
+            total[k] += got[k]
+
+    # bf16: compile, claims, launches, a cache hit bitwise equal
+    jfn = ttt.jit(loss_fn)
+    args = (params, *batch)
+    clear_events()
+    loss, got = jit_counted(jfn, args, cfg)
+    add(got)
+    host = span_ms()
+    final = ttt.last_traces(jfn)[-1]
+    names = check_claims(final, "jit gpt_loss bf16", {"cuda_sdpa"})
+    if names.count("cuda_sdpa") != cfg.n_layer:
+        raise AssertionError(f"jit gpt_loss: {names.count('cuda_sdpa')} cuda_sdpa, "
+                             f"expected {cfg.n_layer}")
+    ce_dtype = [b.args[0].dtype for b in final.bound_symbols
+                if b.sym.name == "torch_cross_entropy_fwd"]
+    prologue = ttt.last_prologue_traces(jfn)[-1].python()
+    guards = prologue.count("check_tensor_metadata(")
+    n_leaves = len(tree_leaves(params)) + len(batch)
+    if guards != n_leaves:
+        raise AssertionError(f"jit gpt_loss: the prologue guards {guards} tensors, expected "
+                             f"{n_leaves} (every parameter an input)")
+    loss2, got = jit_counted(jfn, args, cfg)
+    add(got)
+    stats = ttt.dispatch_stats(jfn)
+    if (ttt.cache_hits(jfn), ttt.cache_misses(jfn), stats["prologue_runs"]) != (1, 1, 2):
+        raise AssertionError(f"jit gpt_loss: hits {ttt.cache_hits(jfn)}, misses "
+                             f"{ttt.cache_misses(jfn)}, {stats}; expected one hit, one miss and "
+                             f"one prologue run per call")
+    if not torch.equal(loss, loss2):
+        raise AssertionError("jit gpt_loss: the cache hit differs from the first call")
+    # a cache hit's key and prologue read metadata only: no device sync
+    entry = ttt.compile_stats(jfn).interpreter_cache[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        key = jit_cache_key.compute_cache_key(args, {})
+        entry.prologue_fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if key != entry.cache_key:
+        raise AssertionError("jit gpt_loss: the recomputed key differs from the entry's")
+    for label, bad in jit_bad_inputs(batch[0]):
+        try:
+            entry.prologue_fn(params, bad, *batch[1:])
+        except RuntimeError as e:
+            if IR_REJECTS[label] not in str(e):
+                raise
+            say(f"jit prologue rejects {label}: {e}")
+        else:
+            raise AssertionError(f"jit prologue accepted {label}")
+    # cache-hit dispatch time (key, lookup, prologue), then device time
+    cs = ttt.compile_stats(jfn)
+    dispatch_ns = []
+    for _ in range(JIT_DISPATCH_CALLS):
+        jfn(*args)
+        dispatch_ns.append(cs.last_dispatch_ns)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: jfn(*args), iters=5, warmup=1)
+    eager_ms = time_ms(lambda: eager_loss(params, batch, cfg), iters=5, warmup=1)
+    dev, nk = device_ms_all(lambda: jfn(*args), iters=3)
+    edev, enk = device_ms_all(lambda: eager_loss(params, batch, cfg), iters=3)
+    # T=1024 is a new key: a second entry; T=2048 then hits again
+    sloss, got = jit_counted(jfn, (params, *short), cfg)
+    add(got)
+    misses = ttt.cache_misses(jfn)
+    hits = ttt.cache_hits(jfn)
+    _, got = jit_counted(jfn, args, cfg)
+    add(got)
+    if (misses, ttt.cache_misses(jfn), ttt.cache_hits(jfn) - hits,
+            ttt.dispatch_stats(jfn)["cached_specializations"]) != (2, 2, 1, 2):
+        raise AssertionError(f"jit gpt_loss: T={JIT_T_SHORT} then T={JIT_T}: misses {misses} "
+                             f"-> {ttt.cache_misses(jfn)}, {ttt.dispatch_stats(jfn)}")
+    e16 = eager_loss(params, batch, cfg)
+    say(f"jit gpt_loss bf16 ({cfg.name}, {cfg.n_layer} layers, B=1, T={JIT_T}; {CARD}): "
+        f"acquisition {host['acquisition']:.1f} ms, dce/cse {host['dce_cse']:.1f} ms, claiming "
+        f"{host['claiming']:.1f} ms, codegen {host['codegen']:.1f} ms (host); "
+        f"{len(final.bound_symbols)} bound symbols, {guards} guards; cache-hit dispatch "
+        f"median {statistics.median(dispatch_ns) / 1e6:.3f} ms (min "
+        f"{min(dispatch_ns) / 1e6:.3f}, max {max(dispatch_ns) / 1e6:.3f}, "
+        f"{JIT_DISPATCH_CALLS} calls); per call: jitted {ms:.3f} ms, eager (no_grad) "
+        f"{eager_ms:.3f} ms (CUDA events); device {dev} ms over {nk} kernels, eager {edev} ms "
+        f"over {enk} kernels; CE takes {ce_dtype} logits; loss {loss.item():.6f}, eager "
+        f"{e16.item():.6f}, T={JIT_T_SHORT} {sloss.item():.6f}; launches per call {got}")
+    rec = dict(acquire_ms=host["acquisition"], passes_ms=host["dce_cse"],
+               claim_ms=host["claiming"], codegen_ms=host["codegen"], guards=guards,
+               dispatch_ms_median=statistics.median(dispatch_ns) / 1e6, ms=ms,
+               eager_ms=eager_ms, device_ms=dev, kernels=nk, eager_device_ms=edev,
+               eager_kernels=enk, card=CARD)
+    del jfn, entry, cs, final
+    # float32: the same weights, the same depth
+    l16 = loss.item()
+    params32 = _cast(params, torch.float32)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    jfn32 = ttt.jit(loss_fn)
+    args32 = (params32, *batch)
+    loss32, got = jit_counted(jfn32, args32, cfg)
+    add(got)
+    check_claims(ttt.last_traces(jfn32)[-1], "jit gpt_loss float32", {"cuda_sdpa"})
+    e32 = eager_loss(params32, batch, cfg).item()
+    rel = abs(loss32.item() - e32) / abs(e32)
+    ok32 = rel <= JIT_LOSS_REL_F32
+    lk, le = abs(l16 - e32), abs(e16.item() - e32)
+    ok16 = lk <= LOWP_ERR_RATIO * le
+    say(f"jit gpt_loss float32 against eager: loss {loss32.item():.8f} eager {e32:.8f}, rel "
+        f"{rel:.2e} (bar {JIT_LOSS_REL_F32:.0e}) {'ok' if ok32 else 'FAIL'}; bf16 against the "
+        f"float32 eager loss: jitted error {lk:.3e}, eager bf16 error {le:.3e} (ratio limit "
+        f"{LOWP_ERR_RATIO}) {'ok' if ok16 else 'FAIL'}; jitted bf16 loss bitwise equal to "
+        f"eager bf16: {l16 == e16.item()} ({CARD})")
+    if not ok32:
+        raise AssertionError("jit gpt_loss disagrees with eager gpt_loss in float32")
+    if not ok16:
+        raise AssertionError("the jitted bf16 loss strays further from float32 than eager's")
+    if any(ltorch.DECLINES.values()):
+        raise AssertionError(f"declines during the jit phase: {ltorch.DECLINES}")
+    rec.update(loss_bf16=l16, eager_bf16=e16.item(), loss_f32=loss32.item(), eager_f32=e32,
+               f32_rel=rel, bf16_err=lk, eager_bf16_err=le)
+    say("jit gpt_loss: " + json.dumps(rec))
+    del params32, jfn32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -3472,6 +3698,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     served["IR layer"] = ir_layer(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    served["jit gpt_loss"] = jit_gpt_loss(cfg)
 
     sources = {"paged_attn_decode": "paged_attention.cu", "paged_token_write": "paged_attention.cu",
                "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",

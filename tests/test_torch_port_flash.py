@@ -318,7 +318,8 @@ def test_sdpa_decomposition_path_matches_torch():
 def test_cross_entropy_matches_the_jax_prim(reduction):
     """Row losses and lse against ``jaxex._cross_entropy_fwd_reference``;
     the reduction with ignore_index=-100 rows left out exactly; dlogits
-    against autograd of the decomposition (float64)."""
+    against autograd of the decomposition (float64); label smoothing
+    against torch's."""
     rng = np.random.default_rng(6)
     logits = rng.standard_normal((12, 40)).astype(np.float32)
     target = rng.integers(0, 40, 12)
@@ -336,8 +337,16 @@ def test_cross_entropy_matches_the_jax_prim(reduction):
     (g1,) = torch.autograd.grad(got.sum(), lg)
     (g2,) = torch.autograd.grad(want.sum(), lg)
     torch.testing.assert_close(g1, g2)
-    with pytest.raises(NotImplementedError, match="label_smoothing"):
-        ltorch.cross_entropy(lg, torch.as_tensor(target), label_smoothing=0.1)
+    # label smoothing takes the reference's decomposition (it raised before
+    # the decomposed cases were ported): torch's values and grads
+    got = ltorch.cross_entropy(lg, torch.as_tensor(target), reduction=reduction,
+                               label_smoothing=0.1)
+    want = torch.nn.functional.cross_entropy(lg, torch.as_tensor(target), reduction=reduction,
+                                             label_smoothing=0.1)
+    torch.testing.assert_close(got, want)
+    (g1,) = torch.autograd.grad(got.sum(), lg)
+    (g2,) = torch.autograd.grad(want.sum(), lg)
+    torch.testing.assert_close(g1, g2)
 
 
 #

@@ -34,6 +34,9 @@ def test_scan_covers_the_port():
     for must in ("thunder_tpu_torch/serving/engine.py", "thunder_tpu_torch/executors/cudaex.py",
                  "thunder_tpu_torch/models/generate.py", "thunder_tpu_torch/core/prims.py",
                  "thunder_tpu_torch/functional.py", "thunder_tpu_torch/executors/torchex.py",
+                 "thunder_tpu_torch/torch/__init__.py", "thunder_tpu_torch/__init__.py",
+                 "thunder_tpu_torch/common.py", "thunder_tpu_torch/core/cache_key.py",
+                 "thunder_tpu_torch/core/rng.py", "thunder_tpu_torch/core/sharp_edges.py",
                  "chip_smoke.py"):
         assert must in names
 

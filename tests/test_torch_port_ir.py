@@ -209,14 +209,26 @@ def test_deferred_seams_raise():
     with pytest.raises(NotImplementedError, match="item 13"):
         ptrace_from_fn(functools.partial(fn, pclang), pargs, {}, interpretation="bytecode",
                        language=PLanguages.CLANG)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        ptrace_from_fn(functools.partial(fn, pclang), pargs, {})     # no language given
+    # the torch language is the default: with no language given the clang
+    # function records the same program
+    default = ptrace_from_fn(functools.partial(fn, pclang), pargs, {})
+    clang_tr = ptrace_from_fn(functools.partial(fn, pclang), pargs, {}, language=PLanguages.CLANG)
+    assert default.computation_trace.python() == clang_tr.computation_trace.python()
 
+    # a torch call on proxies diverts into the torch language; an unmapped
+    # one raises, naming itself
     def torch_call(c, x, y, s):
         return torch.exp(x)
 
-    with pytest.raises(NotImplementedError, match="item 2"):
-        ptrace_from_fn(functools.partial(torch_call, pclang), pargs, {},
+    traced = ptrace_from_fn(functools.partial(torch_call, pclang), pargs, {},
+                            language=PLanguages.CLANG)
+    assert "ltorch.exp(" in traced.computation_trace.python()
+
+    def unmapped(c, x, y, s):
+        return torch.bucketize(x, y)
+
+    with pytest.raises(NotImplementedError, match="bucketize"):
+        ptrace_from_fn(functools.partial(unmapped, pclang), pargs, {},
                        language=PLanguages.CLANG)
 
     def constant(c, x, y, s):

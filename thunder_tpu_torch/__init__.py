@@ -2,20 +2,61 @@
 
 A package beside the JAX reference (``thunder_tpu/``) that imports neither
 JAX nor the reference package.  Its layout mirrors ``thunder_tpu/`` module
-for module.  This slice carries the serving path: the Llama model family
+for module.  It carries the serving path: the Llama model family
 (``models``, with speculative decoding), the serving engine (``serving``:
 paged decode, chunked prefill, speculative serving, quantized KV,
 multi-tenant LoRA), the single-device train step, the hand-written
 Hopper kernels of those paths (``executors.cudaex`` over ``csrc/``), and
-the trace IR: ``core`` (proxies, symbols, traces, prims), ``clang``,
-executor claiming (``extend``, ``executors.passes``, the ``torch`` and
-``cuda`` executors) and trace acquisition (``functional.trace_from_fn``).  Entry points run on the card unless the
-caller passes ``device="cpu"``.
+the trace IR: ``core`` (proxies, symbols, traces, prims), ``clang``, the
+torch language (``thunder_tpu_torch.torch``, the ``ltorch`` surface that
+``__torch_function__`` diverts torch calls into), executor claiming
+(``extend``, ``executors.passes``, the ``torch`` and ``cuda`` executors),
+trace acquisition (``functional.trace_from_fn``) and ``jit`` with its
+two-tier dispatch cache.  Entry points run on the card unless the caller
+passes ``device="cpu"``.
+
+``jit`` and its introspection are the counterpart of
+``thunder_tpu/__init__.py:128-703, 725-940``: ``jit``, ``compile``,
+``last_traces``, ``last_prologue_traces``, ``compile_data``,
+``compile_stats``, ``cache_option``, ``cache_hits``, ``cache_misses``,
+``dispatch_stats``, ``last_compile_options`` and ``metrics_snapshot``.
+The options that wait for later ``ROADMAP.md`` Queue 1 items raise
+``NotImplementedError`` naming the item: ``grad``, ``value_and_grad``,
+``vjp`` and ``autocast=`` (item 4, the transforms), ``donate=`` (item 7),
+``profile=``, ``detect_anomalies=`` and ``debug_hooks=`` (item 10), and a
+``torch.nn.Module`` or ``interpretation="bytecode"`` (item 13).  The
+reference's persistent XLA cache (``core/compile_cache.py``) has no
+counterpart yet (item 7); ``jit`` calls nothing in its place.
 """
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Sequence
+
+import torch as _real_torch
+
+from thunder_tpu_torch import clang  # noqa: F401
+from thunder_tpu_torch import observability
+from thunder_tpu_torch import torch as _torch_language  # noqa: F401  (registers the torch langctx)
+from thunder_tpu_torch.common import CacheEntry, CompileData, CompileStats
+from thunder_tpu_torch.core import cache_key as _cache_key
+from thunder_tpu_torch.core.baseutils import check
+from thunder_tpu_torch.core.compile_data import compile_data_and_stats
+from thunder_tpu_torch.core.options import (
+    CACHE_OPTIONS,
+    SHARP_EDGES_OPTIONS,
+    resolve_cache_option,
+    resolve_sharp_edges_option,
+)
+from thunder_tpu_torch.core.trace import TraceCtx, TraceResults
+from thunder_tpu_torch.core.transform_common import absorb_ce_widening_converts, cse, dce
 from thunder_tpu_torch.distributed.api import TrainStep, make_train_step
+from thunder_tpu_torch.extend import resolve_executors
+from thunder_tpu_torch.functional import trace_from_fn
 from thunder_tpu_torch.models.generate import generate
 from thunder_tpu_torch.models.llama import Config, gpt_loss, init_params
 from thunder_tpu_torch.models.weights import params_from_numpy
+from thunder_tpu_torch.observability.events import span as _phase_span
 from thunder_tpu_torch.serving.engine import ServingEngine, serve
 from thunder_tpu_torch.serving.lora import (
     AdapterRegistry,
@@ -28,6 +69,395 @@ from thunder_tpu_torch.train.loop import TrainLoopResult, train_loop
 from thunder_tpu_torch.train.optim import adamw
 
 __all__ = ["AdapterRegistry", "Config", "RegistryFullError", "ServingEngine", "SpecConfig",
-           "TrainLoopResult", "TrainStep", "adamw", "generate", "gpt_loss", "init_params",
-           "make_lora_factors", "make_train_step", "params_from_numpy", "serve", "train_loop",
-           "valid_targets"]
+           "TrainLoopResult", "TrainStep", "adamw", "cache_hits", "cache_misses",
+           "cache_option", "compile", "compile_data", "compile_stats", "dispatch_stats",
+           "generate", "gpt_loss", "grad", "init_params", "jit", "last_compile_options",
+           "last_prologue_traces", "last_traces", "make_lora_factors", "make_train_step",
+           "metrics_snapshot", "params_from_numpy", "serve", "train_loop", "valid_targets",
+           "value_and_grad", "vjp"]
+
+_TRANSFORMS_ITEM = "the transforms, which are not ported yet (ROADMAP.md Queue 1 item 4)"
+
+# jit options whose machinery is not ported yet: the option, then the item
+# that brings it.  Each raises when given a value other than its "off"
+_DEFERRED_OPTIONS = {
+    "autocast": _TRANSFORMS_ITEM,
+    "_grad_argnums": _TRANSFORMS_ITEM,
+    "_vjp_mode": _TRANSFORMS_ITEM,
+    "donate": "buffer donation (executors/donation.py), which is not ported yet "
+              "(ROADMAP.md Queue 1 item 7)",
+    "profile": "the runtime profiler (observability/profiler.py), which is not ported yet "
+               "(ROADMAP.md Queue 1 item 10)",
+    "detect_anomalies": "the debug hooks and anomaly scan (observability/debug.py), which are "
+                        "not ported yet (ROADMAP.md Queue 1 item 10)",
+    "debug_hooks": "the debug hooks and anomaly scan (observability/debug.py), which are not "
+                   "ported yet (ROADMAP.md Queue 1 item 10)",
+}
+
+
+def _check_deferred(fn, compile_options: dict) -> None:
+    for option, what in _DEFERRED_OPTIONS.items():
+        value = compile_options.get(option)
+        if value is not None and value is not False:
+            raise NotImplementedError(f"jit(..., {option}=) needs {what}")
+    if compile_options.get("interpretation") == "bytecode":
+        raise NotImplementedError(
+            "jit(..., interpretation='bytecode') needs the bytecode interpreter "
+            "(core/interpreter.py, core/jit_ext.py), which is not ported yet "
+            "(ROADMAP.md Queue 1 item 13)")
+    if isinstance(fn, _real_torch.nn.Module):
+        raise NotImplementedError(
+            "jit of a torch.nn.Module needs torch_interop (ThunderModule), which is not ported "
+            "yet (ROADMAP.md Queue 1 item 13); jit a function of the module's parameters instead")
+
+
+def jit(
+    fn: Callable,
+    *,
+    langctx: Any | None = None,
+    executors: Sequence | None = None,
+    cache: str | CACHE_OPTIONS | None = None,
+    sharp_edges: str | SHARP_EDGES_OPTIONS | None = None,
+    transforms: Sequence | None = None,
+    max_cached_specializations: int | None = 512,
+    **compile_options,
+) -> Callable:
+    """Compiles ``fn``: traces it into a program (torch calls on its inputs
+    divert into the torch language), applies ``transforms``, claims it with
+    the executor stack (cuda ≻ torch by default) and generates its Python.
+
+    The returned callable caches compilations by a structural key of its
+    inputs (tier 1), and runs the matched entry's prologue once to validate
+    them (tier 2); a guard failure after a key match shadows the entry, and
+    ``max_cached_specializations`` bounds the cache by least recent use
+    (reference ``thunder_tpu.jit``, ``thunder_tpu/__init__.py:128``)."""
+    _check_deferred(fn, compile_options)
+
+    if langctx is not None:
+        # resolve eagerly so a typo fails at jit() time, not first call
+        from thunder_tpu_torch.core.langctxs import resolve_language
+
+        compile_options["langctx"] = resolve_language(langctx)
+
+    cd = CompileData(
+        fn=fn,
+        executors_list=resolve_executors(executors),
+        cache_option=resolve_cache_option(cache),
+        sharp_edges=resolve_sharp_edges_option(sharp_edges),
+        transforms=transforms,
+        compile_options=compile_options,
+        max_cached_specializations=max_cached_specializations,
+    )
+    cs = CompileStats()
+
+    from itertools import chain
+
+    from thunder_tpu_torch.core.proxies import Proxy
+    from thunder_tpu_torch.core.pytree import tree_flatten
+    from thunder_tpu_torch.core.trace import get_tracectx
+
+    _fn_label = getattr(fn, "__name__", "fn")
+
+    def fn_(*args, **kwargs):
+        if get_tracectx() is not None and any(
+            isinstance(a, Proxy)
+            for a in chain(tree_flatten(args)[0], tree_flatten(kwargs)[0])
+        ):
+            # a compiled callable invoked on proxies inside another trace
+            # would run its prologue on symbolic values
+            raise NotImplementedError(
+                "a thunder_tpu_torch-compiled function was called inside another "
+                "trace (nested jit composition is unsupported) — compose at the "
+                "trace level instead: pass the original Python function"
+            )
+        cs.calls += 1
+        dispatch_start = time.perf_counter_ns()
+        cs.last_trace_host_start = dispatch_start
+
+        # Two-tier dispatch.  Tier 1: one structural key computation + one
+        # hash-map lookup selects the candidate bucket.  Tier 2: the
+        # candidate's prologue runs ONCE for exact guard validation.  A
+        # prologue failure after a key match shadows the entry (demoted
+        # behind fresher same-key entries) instead of a full rescan.
+        cache_entry = None
+        key = None
+        inps = None
+        if cd.cache_option is not CACHE_OPTIONS.NO_CACHING:
+            key = _cache_key.compute_cache_key(
+                args, kwargs, symbolic=cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES)
+            cs.key_computations += 1
+            if key is not None:
+                bucket = cs.dispatch_cache.get(key)
+                if bucket:
+                    for idx, entry in enumerate(tuple(bucket)):
+                        cs.prologue_runs += 1
+                        try:
+                            inps = entry.prologue_fn(*args, **kwargs)
+                        except Exception:
+                            # guard failure after a key match: shadow the
+                            # entry (the recompile lands in front; a later
+                            # call whose guards hold re-finds it by scan)
+                            cs.guard_evictions += 1
+                            bucket.remove(entry)
+                            bucket.append(entry)
+                            continue
+                        cache_entry = entry
+                        if idx == 0:
+                            cs.key_hits += 1
+                        else:
+                            cs.scan_hits += 1
+                            bucket.remove(entry)
+                            bucket.insert(0, entry)
+                        break
+            else:
+                # unkeyable inputs (unhashable pytree aux, exotic leaves):
+                # the legacy linear prologue scan, correct but O(entries)
+                for entry in cs.interpreter_cache:
+                    cs.prologue_runs += 1
+                    try:
+                        inps = entry.prologue_fn(*args, **kwargs)
+                    except Exception:
+                        continue
+                    cache_entry = entry
+                    cs.scan_hits += 1
+                    break
+            if cache_entry is not None:
+                cs.cache_hits += 1
+                cache_entry.last_used = cs.calls
+
+        was_hit = cache_entry is not None
+        if cache_entry is None:
+            cs.cache_misses += 1
+            observability.compile_begin(_fn_label)
+            compile_start = time.perf_counter_ns()
+            with _phase_span("compile", fn=_fn_label), compile_data_and_stats(cd, cs):
+                cache_entry = _compile(cd, cs, args, kwargs)
+            observability.compile_end(_fn_label, time.perf_counter_ns() - compile_start)
+            if cd.cache_option is not CACHE_OPTIONS.NO_CACHING:
+                cache_entry.cache_key = key
+                cache_entry.last_used = cs.calls
+                cs.interpreter_cache.append(cache_entry)
+                if key is not None:
+                    cs.dispatch_cache.setdefault(key, []).insert(0, cache_entry)
+                _evict_lru(cd, cs)
+            cs.prologue_runs += 1
+            inps = cache_entry.prologue_fn(*args, **kwargs)
+        cs.last_dispatch_ns = time.perf_counter_ns() - dispatch_start
+        cs.dispatch_ns += cs.last_dispatch_ns
+        observability.dispatch_event(_fn_label, ns=cs.last_dispatch_ns, hit=was_hit)
+
+        if cache_entry.uses_rng:
+            from thunder_tpu_torch.core import rng
+
+            inps = tuple(inps) + (rng.next_key(),)
+
+        cs.last_trace_host_execution_start = time.perf_counter_ns()
+        result = cache_entry.computation_fn(*inps)
+        if cache_entry.epilogue_fn is not None:
+            # the computation returns (user_result, mutated_leaves); the
+            # epilogue writes the mutated leaves back into the caller's
+            # containers (reference epilogue execution)
+            result, mutated = result
+            cache_entry.epilogue_fn(args, kwargs, *mutated)
+        cs.last_trace_host_execution_stop = time.perf_counter_ns()
+        cs.last_trace_host_stop = cs.last_trace_host_execution_stop
+        return result
+
+    fn_._lc_cd = cd
+    fn_._lc_cs = cs
+    fn_.__wrapped__ = fn
+    fn_.__name__ = getattr(fn, "__name__", "fn") + "_compiled"
+    return fn_
+
+
+def _evict_lru(cd: CompileData, cs: CompileStats) -> None:
+    """Enforces the specialization bound: least-recently-validated entries are
+    dropped from both cache views.  Runs at insert time only (compile cost
+    already dominates), so the hot dispatch path never pays for it."""
+    bound = cd.max_cached_specializations
+    if not bound:
+        return
+    while len(cs.interpreter_cache) > bound:
+        victim = min(cs.interpreter_cache, key=lambda e: e.last_used)
+        cs.interpreter_cache.remove(victim)
+        bucket = cs.dispatch_cache.get(victim.cache_key)
+        if bucket is not None and victim in bucket:
+            bucket.remove(victim)
+            if not bucket:
+                del cs.dispatch_cache[victim.cache_key]
+        cs.lru_evictions += 1
+
+
+def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> CacheEntry:
+    """Trace → dce, cse, absorb_ce_widening_converts → user transforms →
+    executor claiming → del_last_used → codegen (one cache entry): the
+    reference's forward path."""
+    from thunder_tpu_torch.core.sharp_edges import sharp_edges_guard
+    from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
+
+    cs.last_trace_tracing_start = time.perf_counter_ns()
+    with sharp_edges_guard(cd.sharp_edges):
+        trace_results: TraceResults = trace_from_fn(
+            cd.fn,
+            args,
+            kwargs,
+            symbolic_numbers=cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES,
+            language=cd.compile_options.get("langctx"),
+        )
+    cs.last_trace_tracing_stop = time.perf_counter_ns()
+
+    prologue_trace = trace_results.prologue_trace
+    computation_trace = trace_results.computation_trace
+    computation_trace.set_provenance("Trace acquisition (functional frontend)")
+
+    cs.last_traces = [computation_trace]
+    cs.last_prologue_traces = [prologue_trace]
+
+    with _phase_span("transform:dce"):
+        computation_trace = dce(computation_trace)
+    cs.last_traces.append(computation_trace)
+    with _phase_span("transform:cse"):
+        computation_trace = cse(computation_trace)
+    cs.last_traces.append(computation_trace)
+    with _phase_span("transform:absorb_ce_widening_converts"):
+        absorbed = absorb_ce_widening_converts(computation_trace)
+    if absorbed is not computation_trace:  # no-op returns the input unchanged
+        computation_trace = absorbed
+        cs.last_traces.append(computation_trace)
+
+    # user transforms (trace -> trace)
+    for transform in cd.transforms:
+        tname = getattr(transform, "__name__", type(transform).__name__)
+        with _phase_span(f"transform:{tname}"):
+            computation_trace = transform(computation_trace)
+        cs.last_traces.append(computation_trace)
+
+    extrace = transform_for_execution(computation_trace, cd.executors_list)
+    cs.last_traces.append(extrace)
+    extrace = del_last_used(extrace)
+    cs.last_traces.append(extrace)
+
+    comp_fn = extrace.python_callable()
+    pro_fn = prologue_trace.python_callable()
+
+    uses_rng = getattr(trace_results.computation_trace, "_rng_key_proxy", None) is not None
+
+    entry = CacheEntry(
+        prologue_fn=pro_fn,
+        computation_fn=comp_fn,
+        prologue_trace=prologue_trace,
+        computation_trace=extrace,
+        epilogue_trace=trace_results.epilogue_trace,
+        uses_rng=uses_rng,
+        epilogue_fn=(
+            trace_results.epilogue_trace.python_callable()
+            if trace_results.epilogue_trace is not None
+            else None
+        ),
+    )
+    # trace-time key emission (functional.py builds it next to the prologue):
+    # the key function + metadata ride on the entry for introspection; the
+    # dispatcher files the entry under the key it computed for this call
+    key_meta = trace_results.cache_key_meta or {}
+    entry.cache_key_fn = key_meta.get("cache_key_fn")
+    entry.key_meta = key_meta
+    entry.has_state_guards = key_meta.get("state") is not None
+    return entry
+
+
+def compile(fn: Callable, **kwargs) -> Callable:
+    """Legacy alias for ``jit`` (reference thunder.compile)."""
+    return jit(fn, **kwargs)
+
+
+#
+# grad APIs: the transforms are not ported yet
+#
+
+
+def grad(fn: Callable, **jit_kwargs) -> Callable:
+    raise NotImplementedError(f"grad needs {_TRANSFORMS_ITEM}")
+
+
+def value_and_grad(fn: Callable, **jit_kwargs) -> Callable:
+    raise NotImplementedError(f"value_and_grad needs {_TRANSFORMS_ITEM}")
+
+
+def vjp(fn: Callable, argnums: Sequence[int] | None = None, **jit_kwargs) -> Callable:
+    raise NotImplementedError(f"vjp needs {_TRANSFORMS_ITEM}")
+
+
+#
+# Introspection (reference thunder_tpu/__init__.py:768-943)
+#
+
+
+def _get_cs(cfn) -> CompileStats:
+    cs = getattr(cfn, "_lc_cs", None)
+    check(cs is not None, lambda: f"{cfn} is not a thunder_tpu_torch-compiled function")
+    return cs
+
+
+def compile_data(cfn) -> CompileData:
+    cd = getattr(cfn, "_lc_cd", None)
+    check(cd is not None, lambda: f"{cfn} is not a thunder_tpu_torch-compiled function")
+    return cd
+
+
+def compile_stats(cfn) -> CompileStats:
+    return _get_cs(cfn)
+
+
+def last_traces(cfn) -> list[TraceCtx]:
+    return _get_cs(cfn).last_traces
+
+
+def last_prologue_traces(cfn) -> list[TraceCtx]:
+    return _get_cs(cfn).last_prologue_traces
+
+
+def cache_option(cfn) -> CACHE_OPTIONS:
+    return compile_data(cfn).cache_option
+
+
+def cache_hits(cfn) -> int:
+    return _get_cs(cfn).cache_hits
+
+
+def cache_misses(cfn) -> int:
+    return _get_cs(cfn).cache_misses
+
+
+def dispatch_stats(cfn) -> dict:
+    """Two-tier dispatch counters: ``key_hits`` (O(1) hash-map hit, first
+    bucket entry validated), ``scan_hits`` (shadowed-bucket or legacy linear
+    scan), ``guard_evictions`` (prologue failed after a key match),
+    ``lru_evictions``, plus per-call dispatch timing.  The dispatch path also
+    publishes process-wide aggregates into the metrics registry
+    (``dispatch.calls`` / ``dispatch.cache_hits`` / ``dispatch.cache_misses``
+    / ``dispatch.ns``)."""
+    cs = _get_cs(cfn)
+    return {
+        "key_hits": cs.key_hits,
+        "scan_hits": cs.scan_hits,
+        "guard_evictions": cs.guard_evictions,
+        "lru_evictions": cs.lru_evictions,
+        "key_computations": cs.key_computations,
+        "prologue_runs": cs.prologue_runs,
+        "cached_specializations": len(cs.interpreter_cache),
+        "last_dispatch_ns": cs.last_dispatch_ns,
+        "dispatch_ns": cs.dispatch_ns,
+    }
+
+
+def metrics_snapshot() -> dict:
+    """One plain dict of every registered metric, ``dispatch.*`` and
+    ``compile.*`` included (alias of ``observability.snapshot()``)."""
+    return observability.snapshot()
+
+
+def last_compile_options(cfn) -> dict:
+    """Which compile options the last compilation consulted (self-documented
+    via get_compile_option)."""
+    cs = _get_cs(cfn)
+    return dict(cs.last_compile_reasons)

@@ -57,14 +57,6 @@ class LanguageContext:
 
 _langctx_registry: dict[Any, LanguageContext] = {}
 
-# The reference's default language is its torch-like surface (ltorch), which
-# the port has not yet.
-_NO_TORCH_LANGUAGE = (
-    "the torch language (the ltorch surface) is not ported yet (ROADMAP.md Queue 1 item 2); "
-    "pass language= the clang context, e.g. trace_from_fn(fn, args, kwargs, "
-    "language=Languages.CLANG)"
-)
-
 
 def register_langctx(id: Any, ctx: LanguageContext) -> LanguageContext:
     _langctx_registry[id] = ctx
@@ -92,7 +84,10 @@ def resolve_language(id: Any) -> LanguageContext:
         id = lang
     ctx = _langctx_registry.get(id)
     if ctx is None and id is Languages.TORCH:
-        raise NotImplementedError(_NO_TORCH_LANGUAGE)
+        # the torch language registers itself on import
+        import thunder_tpu_torch.torch  # noqa: F401
+
+        ctx = _langctx_registry.get(id)
     if ctx is None:
         raise LookupError(f"Unknown language context {id}")
     return ctx
@@ -104,10 +99,7 @@ _langctx_var: ContextVar[LanguageContext | None] = ContextVar("langctx", default
 def get_langctx() -> LanguageContext:
     ctx = _langctx_var.get()
     if ctx is None:
-        # The reference falls back to its torch-like surface here; the port
-        # has no ``ltorch`` language yet, so callers pass ``language=`` the
-        # clang context (``thunder_tpu_torch.clang``).
-        raise NotImplementedError(_NO_TORCH_LANGUAGE)
+        return resolve_language(Languages.TORCH)
     return ctx
 
 
@@ -143,6 +135,6 @@ def resolve_method(id: str, *args, **kwargs) -> Callable | None:
     if ctx.name != "torch":
         try:
             return resolve_language(Languages.TORCH).get_method(id, *args, **kwargs)
-        except (AttributeError, LookupError, NotImplementedError):
+        except (AttributeError, LookupError):
             return None
     return None

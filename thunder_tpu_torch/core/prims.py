@@ -5,6 +5,12 @@ member under the same name and signature, the metas copied.  Two seams
 change: the einsum meta reads shapes from torch's ``meta`` device (the
 reference calls ``jax.eval_shape``), and the prologue's unpack and check
 implementations take torch tensors as they come, on ``cpu`` or ``cuda:N``.
+Where the reference's backend rejects an input only when its program runs
+and torch would compute something else or raise another type, the meta
+checks it at trace time with the reference's exception type: float indices
+(``take_along_axis``, ``gather``: TypeError), shapes that do not broadcast
+(``take_along_axis``, ``scatter_add``: ValueError), einsum's parser errors
+and convolution channels (ValueError).
 
 As in the reference, prims are strict (broadcast and type promotion happen
 in ``thunder_tpu_torch.clang``), random prims take an explicit PRNG ``key``
@@ -860,11 +866,28 @@ def _take_meta(a: TensorProxy, indices: TensorProxy, dim: int) -> TensorProxy:
 take = make_prim(PrimIDs.TAKE, "take", meta=_take_meta, tags=(OpTags.INDEXING_OP,))
 
 
+def _check_integer_indices(name: str, indices: TensorProxy) -> None:
+    # the reference's backend raises TypeError for float indices when its
+    # program runs; torch would index by the truncated floats, so check here
+    check(dtypes.is_exact_dtype(indices.dtype) and not dtypes.is_boolean_dtype(indices.dtype),
+          lambda: f"{name}: indices must be of integer type, got {indices.dtype}",
+          exception_type=TypeError)
+
+
 def _take_along_axis_meta(a: TensorProxy, indices: TensorProxy, dim: int) -> TensorProxy:
     _check_tensor(a)
     _check_tensor(indices)
+    _check_integer_indices("take_along_axis", indices)
     dim = utils.canonicalize_dim(a.ndim, int(dim))
     check(indices.ndim == a.ndim, lambda: "take_along_axis: rank mismatch")
+    # off the axis, the indices' size is the output's: ``a`` may broadcast
+    # (size 1) up to it, nothing else (the reference's backend raises
+    # ValueError for incompatible shapes when its program runs)
+    for d in range(a.ndim):
+        check(d == dim or indices.shape[d] == a.shape[d] or a.shape[d] == 1,
+              lambda: f"take_along_axis: Incompatible shapes for broadcasting: {tuple(a.shape)} "
+                      f"and indices {tuple(indices.shape)} off axis {dim}",
+              exception_type=ValueError)
     return _out_like(a, shape=indices.shape)
 
 
@@ -876,6 +899,7 @@ take_along_axis = make_prim(
 def _gather_meta(a: TensorProxy, indices: TensorProxy, dim: int) -> TensorProxy:
     _check_tensor(a)
     _check_tensor(indices)
+    _check_integer_indices("gather", indices)
     check(indices.ndim == a.ndim, lambda: "gather: rank mismatch")
     return _out_like(a, shape=indices.shape)
 
@@ -908,6 +932,12 @@ def _scatter_add_meta(a: TensorProxy, indices: TensorProxy, value: TensorProxy, 
     _check_tensor(indices)
     _check_tensor(value)
     utils.canonicalize_dim(a.ndim, int(dim))
+    # the values broadcast to the indices' shape (the reference's backend
+    # raises ValueError for incompatible shapes when its program runs)
+    vs, ix = tuple(value.shape), tuple(indices.shape)
+    check(len(vs) <= len(ix) and all(v in (1, i) for v, i in zip(vs[::-1], ix[::-1])),
+          lambda: f"scatter_add: Incompatible shapes for broadcasting: values {vs} and "
+                  f"requested shape {ix}", exception_type=ValueError)
     return _out_like(a)
 
 
@@ -1026,6 +1056,11 @@ def _convolution_meta(
     check(not transposed, lambda: "transposed convolution is not supported yet")
     ndim = a.ndim - 2  # spatial dims
     check(weight.ndim == a.ndim, lambda: "convolution: weight rank mismatch")
+    # the reference's backend raises ValueError here when its program runs
+    check(a.shape[1] % groups == 0 and a.shape[1] // groups == weight.shape[1],
+          lambda: f"convolution: lhs feature dimension size divided by feature_group_count must "
+                  f"equal the rhs input feature dimension size, but {a.shape[1]} // {groups} != "
+                  f"{weight.shape[1]}", exception_type=ValueError)
     out_channels = weight.shape[0]
     spatial = []
     for i in range(ndim):
@@ -1244,7 +1279,11 @@ def _einsum_meta(spec: str, *operands: TensorProxy) -> TensorProxy:
         out_dtype = utils._promote_dtypes(out_dtype, o.dtype)
     metas = [torch.empty(tuple(o.shape), dtype=dtypes.to_torch_dtype(out_dtype), device="meta")
              for o in operands]
-    out = torch.einsum(spec, *metas)
+    try:
+        out = torch.einsum(spec, *metas)
+    except RuntimeError as e:
+        # the reference's shape function (opt_einsum's parser) raises ValueError
+        raise ValueError(str(e)) from None
     rg = any(o.requires_grad for o in operands) and dtypes.is_inexact_dtype(operands[0].dtype)
     return TensorProxy(
         shape=tuple(out.shape),

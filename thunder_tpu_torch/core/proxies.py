@@ -6,10 +6,11 @@ DistParallelType, ``variableify``/``pyval``), copied with two seams changed:
 
 - ``tensorproxy``/``is_proxyable`` read ``torch.Tensor`` and ``np.ndarray``;
   a CUDA tensor's proxy lives on ``cuda:N``.
-- ``__torch_function__`` (the reference's diversion into its ltorch surface)
-  and ``FutureTensorProxy.wait`` (the distributed prims) raise
-  ``NotImplementedError`` naming their ``ROADMAP.md`` Queue 1 items.  The
-  ``sharding`` field is kept and stays ``None``.
+- ``__torch_function__`` diverts torch calls on proxies into the torch
+  language (``thunder_tpu_torch/torch``); ``FutureTensorProxy.wait`` (the
+  distributed prims) raises ``NotImplementedError`` naming its
+  ``ROADMAP.md`` Queue 1 item.  The ``sharding`` field is kept and stays
+  ``None``.
 """
 from __future__ import annotations
 
@@ -658,13 +659,27 @@ class TensorProxy(Proxy, TensorProxyInterface):
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
-        # The reference diverts torch.* calls on proxies into its ltorch
-        # surface (thunder_tpu/core/proxies.py:658-685), which the port has
-        # not yet.
+        # torch.* / torch.nn.functional.* / torch.Tensor calls on proxies
+        # divert into the torch language (reference
+        # thunder_tpu/core/proxies.py:658-685)
+        kwargs = kwargs or {}
+        from thunder_tpu_torch.torch import _torch_to_thunder_function_map
+
+        mapped = _torch_to_thunder_function_map.get(func)
+        if mapped is not None:
+            return mapped(*args, **kwargs)
+
+        # a torch.Tensor method the map lacks: resolve it by name on the
+        # receiver through the proxy's method protocol (the language)
+        name = getattr(func, "__name__", "")
+        if args and isinstance(args[0], TensorProxy) and name:
+            recv_method = getattr(args[0], name, None)
+            if callable(recv_method):
+                return recv_method(*args[1:], **kwargs)
+
         raise NotImplementedError(
-            f"torch function {getattr(func, '__name__', func)} called on a TensorProxy: "
-            "the ltorch surface that maps torch calls into the trace is not ported yet "
-            "(ROADMAP.md Queue 1 item 2); write the function with thunder_tpu_torch.clang"
+            f"torch function {getattr(func, '__qualname__', None) or func} is not mapped into "
+            "thunder_tpu_torch; register it in thunder_tpu_torch/torch/__init__.py"
         )
 
     # numpy interop: the reference diverts np.* calls on proxies into its

@@ -1876,8 +1876,13 @@ def flash_cross_entropy(logits, target):
 #
 
 def _as_dtype_scalar(value: float, dtype) -> float:
-    """``value`` rounded to ``dtype``: the reference multiplies by a weakly
-    typed Python scalar, which takes the array's dtype first."""
+    """``value`` rounded to ``dtype`` (a torch dtype, or the port's own, as
+    a proxy's ``.dtype`` under ``jit``): the reference multiplies by a
+    weakly typed Python scalar, which takes the array's dtype first."""
+    if not isinstance(dtype, torch.dtype):
+        from thunder_tpu_torch.core import dtypes
+
+        dtype = dtypes.to_torch_dtype(dtype)
     return float(torch.tensor(float(value), dtype=dtype))
 
 

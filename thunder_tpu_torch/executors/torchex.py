@@ -429,7 +429,11 @@ def _take_impl(a, indices, dim):
 
 @impl(PrimIDs.TAKE_ALONG_AXIS)
 def _take_along_axis_impl(a, indices, dim):
-    return a.gather(int(dim), _wrap(indices, a.shape[int(dim)]))
+    dim = int(dim)
+    # off the axis a size-1 ``a`` broadcasts to the indices' size (the meta
+    # admits nothing else); torch's gather does not broadcast
+    shape = [s if d == dim or s != 1 else i for d, (s, i) in enumerate(zip(a.shape, indices.shape))]
+    return a.expand(shape).gather(dim, _wrap(indices, a.shape[dim]))
 
 
 @impl(PrimIDs.GATHER)
@@ -453,7 +457,8 @@ def _index_put_impl(a, indices, values, accumulate):
 
 @impl(PrimIDs.SCATTER_ADD)
 def _scatter_add_impl(a, indices, value, dim):
-    return a.scatter_add(int(dim), indices.long(), value)
+    # the values broadcast to the indices' shape, as the meta admits
+    return a.scatter_add(int(dim), indices.long(), value.expand(indices.shape))
 
 
 # Linear algebra / NN

@@ -1,12 +1,12 @@
 """The functional frontend: eager unpack + trace acquisition.
 
 Counterpart of ``thunder_tpu/functional.py``: ``trace_from_fn`` (acquisition,
-the prologue of unpack and check prims, mutation detection) is copied over
-torch tensors and numpy arrays.  The bytecode frontend
-(``interpretation="bytecode"``) and the dispatch-cache key that the
-reference emits next to the prologue wait for their ``ROADMAP.md`` Queue 1
-items (13 and 3); callers pass ``language=`` the clang context until the
-torch language is ported (item 2).
+the prologue of unpack and check prims, mutation detection, and the
+dispatch-cache key emitted next to the prologue) is copied over torch
+tensors and numpy arrays.  The traced function runs in the torch language
+(``thunder_tpu_torch/torch``) unless ``language=`` names another.  The
+bytecode frontend (``interpretation="bytecode"``) waits for its
+``ROADMAP.md`` Queue 1 item (13).
 
 The reference is the analog of ``thunder/functional.py`` (eager-unpacking frontend,
 ``_eager_unpack*``/``_eager_validate*``): inputs are flattened and proxied up
@@ -95,8 +95,8 @@ def trace_from_fn(
     with ``requires_grad=True`` so the fw/bw split differentiates them.
 
     ``interpretation="bytecode"`` (the reference's bytecode interpreter)
-    raises: the interpreter is not ported yet.  ``language`` must be given
-    (the clang context) until the torch language is ported.
+    raises: the interpreter is not ported yet.  ``language`` defaults to the
+    torch language.
     """
     if interpretation == "bytecode":
         raise NotImplementedError(
@@ -333,9 +333,23 @@ def trace_from_fn(
         epilogue_trace.args = (e_args, e_kwargs) + tuple(mutated_values)
         epilogue_trace.set_provenance("Epilogue (input-container mutations)")
 
-    # The reference emits its dispatch-cache key here (core/cache_key.py);
-    # ``jit`` and its caches are not ported yet (ROADMAP.md Queue 1 item 3).
-    return TraceResults(prologue_trace, computation_trace, epilogue_trace, [], None)
+    #
+    # Key emission (next to the prologue): the structural dispatch key for
+    # these inputs plus the key function that recomputes it — tier 1 of the
+    # two-tier cache.  The functional frontend observes no external state,
+    # so ``state`` is None and the prologue's tier-2 run is re-validation.
+    #
+    from thunder_tpu_torch.core.cache_key import compute_cache_key, make_cache_key_fn
+
+    cache_key_meta = {
+        "cache_key": compute_cache_key(args, kwargs, symbolic=symbolic_numbers),
+        "cache_key_fn": make_cache_key_fn(symbolic_numbers),
+        "state": None,
+    }
+
+    return TraceResults(
+        prologue_trace, computation_trace, epilogue_trace, [], cache_key_meta
+    )
 
 
 def _detect_mutations(orig_proxies, spec, proxy_args, proxy_kwargs):

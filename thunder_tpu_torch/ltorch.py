@@ -1,4 +1,4 @@
-"""The ``ltorch`` ops of the training slice: attention and cross-entropy.
+"""The eager ``ltorch`` ops of the training slice: attention and cross-entropy.
 
 Counterpart of the two ``thunder_tpu.torch`` symbols a Llama training step
 runs (``thunder_tpu/torch/__init__.py``: ``scaled_dot_product_attention``
@@ -28,6 +28,17 @@ eager PyTorch autograd, so each prim with a backward rule is a
   bfloat16 logits of any shape) runs ``flash_cross_entropy`` (one launch
   per call), other dtypes run the plain version and count a decline.  The backward is the prim's rule
   in PyTorch, as the JAX package has no CE backward kernel.
+
+This module is the eager half of the split with the torch language
+(``thunder_tpu_torch/torch/__init__.py``, the traced ``ltorch`` surface):
+the train step, the serving forward and ``chip_smoke.py`` call these
+functions on tensors, and handed proxies (``models/llama.py`` under
+``jit``) :func:`scaled_dot_product_attention` and :func:`cross_entropy`
+bind the torch language's symbols instead, which reach the ``SDPA`` and
+``CROSS_ENTROPY_FWD`` prims.  ``cross_entropy``'s decomposed cases (class
+weights, label smoothing, ``(N, C, d1, ...)`` logits) follow the
+reference's formulas (``thunder_tpu/torch/__init__.py:1133-1221``) under
+autograd; only the fast path goes through :class:`_CrossEntropy`.
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from thunder_tpu_torch.core.proxies import TensorProxy
 from thunder_tpu_torch.executors import cudaex
 
 __all__ = ["CE", "DECLINES", "FLASH", "cross_entropy", "scaled_dot_product_attention",
@@ -165,7 +177,14 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
     heads than q heads), ``sliding_window`` (causal), boolean masks turned
     into an additive ``-0.7·f32max`` bias, causal top-left when Tq ≠ Tk.
     Without dropout and with a mask that needs no grad this is the SDPA prim
-    (:class:`_SDPA`); otherwise the explicit decomposition."""
+    (:class:`_SDPA`); otherwise the explicit decomposition.  Handed proxies
+    (under ``jit``) it binds the torch language's symbol."""
+    if isinstance(query, TensorProxy):
+        from thunder_tpu_torch import torch as torch_lang
+
+        return torch_lang.scaled_dot_product_attention(
+            query, key, value, attn_mask, dropout_p, is_causal, scale, enable_gqa,
+            sliding_window=sliding_window)
     d = query.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if is_causal and attn_mask is not None:
@@ -234,30 +253,102 @@ class _CrossEntropy(torch.autograd.Function):
         return dlogits.to(logits.dtype), None
 
 
-def cross_entropy(logits, target, weight=None, ignore_index=-100, reduction="mean",
-                  label_smoothing=0.0):
-    """``torch.nn.functional.cross_entropy``'s fast path as the JAX package
-    runs it: (N, C) logits and (N,) class targets, float32 row losses,
-    ``ignore_index`` rows zeroed and left out of the mean exactly, the
-    reduction taken in float32 and only the result cast to the logits'
-    dtype.  Class weights, label smoothing and other layouts are not ported
-    and raise ``NotImplementedError``."""
-    if weight is not None or label_smoothing != 0.0:
-        raise NotImplementedError("cross_entropy: weight= and label_smoothing= are not ported")
-    if logits.ndim != 2 or target.ndim != 1 or target.is_floating_point():
-        raise NotImplementedError("cross_entropy: only (N, C) logits with (N,) class targets "
-                                  "are ported")
-    if reduction not in ("mean", "sum", "none"):
-        raise ValueError(f"cross_entropy: unknown reduction {reduction!r}")
-    safe_t = torch.where(target == ignore_index, 0, target).long()
-    losses, _lse = _CrossEntropy.apply(logits, safe_t)
-    valid = target != ignore_index
+def _log_softmax(a, dim):
+    """The reference's ``log_softmax`` decomposition: computed in float32
+    for low-precision input, ``a - max - log(sum(exp(a - max)))``, cast
+    back."""
+    ct = torch.float32 if a.dtype in (torch.bfloat16, torch.float16) else a.dtype
+    af = a.to(ct)
+    shifted = af - af.amax(dim=dim, keepdim=True)
+    lse = torch.log(torch.exp(shifted).sum(dim=dim, keepdim=True))
+    return (shifted - lse).to(a.dtype)
+
+
+def _nll_loss(log_probs, target, weight=None, ignore_index=-100, reduction="mean"):
+    """``torch.nn.functional.nll_loss`` as the reference decomposes it
+    (``thunder_tpu/torch/__init__.py:1134``): class dim last, per-sample
+    loss scaled by ``weight[target]``, ``ignore_index`` samples zeroed, the
+    mean divided by the summed weights of the samples kept."""
+    C = log_probs.shape[-1]
+    flat_logp = log_probs.reshape(-1, C)
+    flat_t = target.reshape(-1)
+    safe_t = torch.where(flat_t == ignore_index, 0, flat_t).long()
+    losses = -flat_logp.gather(1, safe_t[:, None])[:, 0]
+    valid = flat_t != ignore_index
+    if weight is not None:
+        w = weight.index_select(0, safe_t)
+        losses = losses * w
+        norm = torch.where(valid, w, 0.0)
+    else:
+        norm = valid.to(losses.dtype)
     losses = torch.where(valid, losses, 0.0)
-    out_dtype = logits.dtype if logits.is_floating_point() else torch.float32
     if reduction == "none":
-        return losses.to(out_dtype)
+        return losses.reshape(target.shape)
     total = losses.sum()
     if reduction == "sum":
-        return total.to(out_dtype)
-    n_valid = valid.to(losses.dtype).sum()
-    return (total / torch.clamp(n_valid, min=1.0)).to(out_dtype)
+        return total
+    return total / torch.clamp(norm.sum(), min=1e-12)
+
+
+def cross_entropy(logits, target, weight=None, ignore_index=-100, reduction="mean",
+                  label_smoothing=0.0):
+    """``torch.nn.functional.cross_entropy`` as the JAX package computes it
+    (``thunder_tpu/torch/__init__.py:1164``).  The fast path, (N, C) logits
+    and (N,) class targets with no weight and no smoothing, runs the
+    CROSS_ENTROPY_FWD prim (:class:`_CrossEntropy`, the ``flash_ce``
+    kernel): float32 row losses, ``ignore_index`` rows zeroed and left out
+    of the mean exactly, the reduction taken in float32 and only the result
+    cast to the logits' dtype.  Class ``weight``, ``label_smoothing`` and
+    ``(N, C, d1, ...)`` or ``(C,)`` logits take the reference's
+    decomposition (``log_softmax`` over the class dim, moved last, then
+    ``nll_loss`` and the smoothing term) under autograd.  Handed proxies
+    (under ``jit``) it binds the torch language's symbol."""
+    if isinstance(logits, TensorProxy):
+        from thunder_tpu_torch import torch as torch_lang
+
+        return torch_lang.cross_entropy(logits, target, weight, ignore_index=ignore_index,
+                                        reduction=reduction, label_smoothing=label_smoothing)
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"cross_entropy: unknown reduction {reduction!r}")
+    if (weight is None and label_smoothing == 0.0 and logits.ndim == 2 and target.ndim == 1
+            and not target.is_floating_point() and not target.is_complex()):
+        safe_t = torch.where(target == ignore_index, 0, target).long()
+        losses, _lse = _CrossEntropy.apply(logits, safe_t)
+        valid = target != ignore_index
+        losses = torch.where(valid, losses, 0.0)
+        out_dtype = logits.dtype if logits.is_floating_point() else torch.float32
+        if reduction == "none":
+            return losses.to(out_dtype)
+        total = losses.sum()
+        if reduction == "sum":
+            return total.to(out_dtype)
+        n_valid = valid.to(losses.dtype).sum()
+        return (total / torch.clamp(n_valid, min=1.0)).to(out_dtype)
+    if logits.ndim > 2:
+        # torch layout (N, C, d1, ...): log_softmax over C, then C moved last
+        logp = _log_softmax(logits, 1).permute(0, *range(2, logits.ndim), 1)
+    else:
+        logp = _log_softmax(logits, -1 if logits.ndim != 1 else 0)
+    nll = _nll_loss(logp, target, weight, ignore_index=ignore_index, reduction=reduction)
+    if label_smoothing == 0.0:
+        return nll
+    # label smoothing (torch aten cross_entropy_loss_label_smoothing):
+    # smooth_i = -sum_c w_c * logp[i, c]; final = (1-ls)*nll + ls/C * smooth
+    C = logp.shape[-1]
+    wl = logp * weight.reshape((1,) * (logp.ndim - 1) + (C,)) if weight is not None else logp
+    smooth = -wl.sum(dim=-1)
+    flat_t = target.reshape(-1)
+    valid = flat_t != ignore_index
+    smooth = torch.where(valid.reshape(smooth.shape), smooth, 0.0)
+    if reduction == "sum":
+        smooth_ret = smooth.sum()
+    elif reduction == "mean":
+        if weight is not None:
+            safe_t = torch.where(valid, flat_t, 0).long()
+            norm = torch.where(valid, weight.index_select(0, safe_t), 0.0)
+        else:
+            norm = valid.to(smooth.dtype)
+        smooth_ret = smooth.sum() / torch.clamp(norm.sum(), min=1e-12)
+    else:
+        smooth_ret = smooth
+    return nll * (1.0 - label_smoothing) + smooth_ret * (label_smoothing / C)

@@ -12,10 +12,14 @@ seed, so tests that compare the two packages build weights once (with JAX
 or numpy) and carry them over.
 
 The training forward (``gpt_hidden``/``gpt_forward``/``gpt_loss``) runs
-eagerly under autograd where the JAX package traces it: attention and
-cross-entropy go through :mod:`thunder_tpu_torch.ltorch` (the flash kernels
-and their backward), and each block runs under the remat policy of the
-enclosing train step (:func:`thunder_tpu_torch.train.remat.run_block`).
+eagerly under autograd in the train step, where the JAX package traces it:
+attention and cross-entropy go through :mod:`thunder_tpu_torch.ltorch` (the
+flash kernels and their backward), and each block runs under the remat
+policy of the enclosing train step
+(:func:`thunder_tpu_torch.train.remat.run_block`).  The same functions trace
+as they are under ``thunder_tpu_torch.jit``: their torch calls on proxies
+divert into the torch language, and ``ltorch``'s attention and
+cross-entropy bind its symbols.
 MoE MLPs and ``fused_head_ce`` are not ported and raise
 ``NotImplementedError``.  The serving forward lives in
 :mod:`thunder_tpu_torch.models.generate`; both share the block helpers here,

@@ -6,13 +6,17 @@ serving engine touches: one process-wide get-or-create registry,
 metric objects stay registered (so handles held by an engine keep working).
 Histograms keep exact count/sum/min/max over the whole stream and
 nearest-rank p50/p95/p99 over a bounded window of recent observations.
+The user hooks that ``jit``'s dispatch and compile events call
+(``register_hook``, ``has_hooks``, ``emit``) are the reference's.
 """
 from __future__ import annotations
 
 import threading
-from typing import Any
+import warnings
+from typing import Any, Callable
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "HOOK_EVENTS", "MetricsRegistry", "clear_hooks",
+           "emit", "has_hooks", "register_hook", "registry", "unregister_hook"]
 
 
 class Counter:
@@ -150,3 +154,72 @@ _REGISTRY = MetricsRegistry()
 def registry() -> MetricsRegistry:
     """The process-wide registry every subsystem publishes into."""
     return _REGISTRY
+
+
+#
+# Hooks (reference thunder_tpu/observability/metrics.py)
+#
+
+HOOK_EVENTS = (
+    "on_compile_start",
+    "on_compile_end",
+    "on_cache_hit",
+    "on_cache_miss",
+    "on_dispatch",
+)
+
+_hooks: dict[str, list[Callable]] = {e: [] for e in HOOK_EVENTS}
+
+
+def _check_event(event: str) -> None:
+    if event not in _hooks:
+        raise ValueError(f"unknown hook event {event!r}; known: {HOOK_EVENTS}")
+
+
+def register_hook(event: str, fn: Callable) -> Callable:
+    """Registers ``fn(payload: dict)`` for ``event``; returns ``fn`` so it
+    can be used as a decorator."""
+    _check_event(event)
+    _hooks[event].append(fn)
+    return fn
+
+
+def unregister_hook(event: str, fn: Callable) -> None:
+    _check_event(event)
+    try:
+        _hooks[event].remove(fn)
+    except ValueError:
+        pass
+
+
+def clear_hooks(event: str | None = None) -> None:
+    if event is None:
+        for hs in _hooks.values():
+            hs.clear()
+        return
+    _check_event(event)
+    _hooks[event].clear()
+
+
+def has_hooks(event: str) -> bool:
+    """Cheap pre-check so hot-path callers can skip building the payload
+    dict when nobody is listening."""
+    return bool(_hooks.get(event))
+
+
+def emit(event: str, payload: dict) -> None:
+    hs = _hooks.get(event)
+    if not hs:
+        _check_event(event)
+        return
+    for h in tuple(hs):
+        try:
+            h(payload)
+        except Exception as e:  # a broken hook must not break dispatch —
+            # but a silently swallowed failure must still be measurable
+            registry().counter("hooks.errors").inc()
+            warnings.warn(
+                f"observability hook {getattr(h, '__name__', h)!r} for "
+                f"{event} raised {e!r}; ignoring",
+                stacklevel=2,
+            )

@@ -76,6 +76,12 @@ def resolve_remat(remat, *, zero3: bool = False,
     return _BY_POLICY[remat]
 
 
+def _traced(args) -> bool:
+    from thunder_tpu_torch.core.proxies import TensorProxy
+
+    return any(isinstance(x, TensorProxy) for x in args)
+
+
 _ACTIVE = contextvars.ContextVar("thunder_tpu_torch_remat_policy", default="none")
 
 # ATen ops whose outputs the selective policy keeps: the matmuls
@@ -101,9 +107,11 @@ def policy_scope(policy: str):
 
 def run_block(fn: Callable, *args):
     """``fn(*args)`` under the active policy (``"none"`` outside a train
-    step, or when no grad is recorded)."""
+    step, or when no grad is recorded).  Under ``jit`` the block runs on
+    proxies and is recorded into the trace as it is: a trace holds no
+    autograd state to checkpoint."""
     policy = _ACTIVE.get()
-    if policy == "none" or not torch.is_grad_enabled():
+    if policy == "none" or not torch.is_grad_enabled() or _traced(args):
         return fn(*args)
     if policy == "full_block":
         return checkpoint(fn, *args, use_reentrant=False)
