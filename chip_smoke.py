@@ -156,17 +156,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    times beside the plain versions, ``F.scaled_dot_product_attention`` and
    the bounds;
 9. train correctness: one step's loss and grads at Llama-3-8B widths and 4
-   layers, through the kernels (flash attention and the fused
-   cross-entropy, one launch) against their plain versions, float32 and
-   bf16;
-10. train at full width and depth: 4 AdamW steps of Llama-3-8B (bf16,
-    B=1, T=2048, remat full_block, lr 1e-4) on one fixed batch, with
-    exact flash and ``flash_ce`` (one per step) launch counts, no declines
-    (attention or cross-entropy), finite losses and the last below
-    the first; step time, tokens/s, model FLOPs and their share of peak,
-    peak memory; then two more steps profiled by kernel group, one on the
-    flash bodies the wrappers pick (the warpgroup kernels, by name) and one
-    on the WMMA body (the earlier tensor-core body): the step's device
+   layers.  The eager twin (``make_eager_train_step``) through the kernels
+   (flash attention and the fused cross-entropy, one launch) against their
+   plain versions, float32 and bf16; the traced step (the main path)
+   against the eager twin: float32 loss within 1e-5 relative and each grad
+   within 1e-4 of its largest magnitude, bf16 against the float32 eager
+   step within twice the eager bf16 step's error;
+10. train at full width and depth through the trace: 4 AdamW steps of
+    Llama-3-8B (bf16, B=1, T=2048, remat full_block, lr 1e-4) on one fixed
+    batch with the traced ``TrainStep``: its forward and backward programs
+    run ``cuda_*`` and ``torch_*`` symbols only, with two ``cuda_sdpa`` per
+    layer (the backward recomputes the forward's); the flash and
+    ``flash_ce`` launch counts equal those programs' symbols per step
+    exactly; no declines (attention or cross-entropy), finite losses and
+    the last below the first; step time, tokens/s, model FLOPs and their
+    share of peak, peak memory, ``saved_bytes`` before and after remat and
+    the host ms of the build; then 3 steps of the eager twin on the same
+    params, printed beside (step time, tokens/s, share of peak, peak
+    memory); then two more traced steps profiled by kernel group, one on
+    the flash bodies the wrappers pick (the warpgroup kernels, by name) and
+    one on the WMMA body (the earlier tensor-core body): the step's device
     time must fall by at least 0.9 of the flash groups' saving;
 11. the trace IR: ``ir_layer_loss`` (one Llama-3-8B layer at full width, its
     final norm, head and cross-entropy, weights from seed 0, B=1, T=2048)
@@ -205,7 +214,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     ms of acquisition, the passes, claiming and codegen, the guards, the
     cache-hit dispatch median over 20 calls, CUDA-event and device ms per
     call and kernels per call beside eager ``gpt_loss``;
-13. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+13. the transforms under ``jit`` at Llama-3-8B widths and 4 layers (B=1,
+    T=2048): ``value_and_grad(gpt_loss)`` of bf16 params runs ``cuda_*``
+    and ``torch_*`` symbols only in its forward and backward programs,
+    launches exactly the flash and ``flash_ce`` kernels their symbols name
+    (four ``flash_bwd_dq``/``flash_bwd_dkv``), and a second call is a cache
+    hit bitwise equal to the first; ``jit(gpt_loss, autocast="bf16")`` of
+    float32 params runs its SDPA at bf16 (four ``flash_fwd``, one
+    ``flash_ce``) and returns a bf16 loss within twice the eager bf16 loss's
+    error, plus half a bf16 ulp of the loss, of the float32 eager loss; no
+    declines;
+14. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -231,9 +250,10 @@ from thunder_tpu_torch._tree import tree_leaves
 from thunder_tpu_torch.core import cache_key as jit_cache_key
 from thunder_tpu_torch.core import prims as ir_prims
 from thunder_tpu_torch.core.langctxs import Languages
-from thunder_tpu_torch.distributed.api import make_train_step
+from thunder_tpu_torch.distributed.api import make_eager_train_step, make_train_step
 from thunder_tpu_torch.executors import _build, cudaex, torchex
-from thunder_tpu_torch.executors.passes import transform_for_execution
+from thunder_tpu_torch.core.rematerialization import peak_live_bytes
+from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
 from thunder_tpu_torch.extend import resolve_executors
 from thunder_tpu_torch.functional import trace_from_fn
 from thunder_tpu_torch.models.generate import forward_with_cache
@@ -2815,8 +2835,15 @@ def train_batch(cfg, seed):
 
 
 def make_step(cfg, remat="full_block"):
+    """The train step over the trace (the main path)."""
     return make_train_step(lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg),
                            adamw(TRAIN_LR), remat=remat)
+
+
+def make_eager_step(cfg, remat="full_block"):
+    """The step's plain twin: eager autograd through ``ltorch``."""
+    return make_eager_train_step(lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg),
+                                 adamw(TRAIN_LR), remat=remat)
 
 
 @contextlib.contextmanager
@@ -2834,32 +2861,41 @@ def plain_kernels():
         ltorch.CE.update(saved_ce)
 
 
+def _worst_grad_rel(got, want) -> tuple[float, str]:
+    worst, worst_name = -1.0, None
+    for name, a, b in zip(_names(want), tree_leaves(got), tree_leaves(want)):
+        rel = (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
 def train_correctness(params, cfg):
-    """One step's loss and grads at Llama-3-8B widths and 4 layers, through
-    the kernels (flash attention and the fused cross-entropy) and through
-    their plain versions: float32 (TF32 off) within
+    """One step's loss and grads at Llama-3-8B widths and 4 layers.  The
+    eager twin through the kernels (flash attention and the fused
+    cross-entropy) against their plain versions: float32 (TF32 off) within
     TRAIN_LOSS_REL / TRAIN_GRAD_REL; bf16 held against the float32 kernel
     step, the kernel path's error at most LOWP_ERR_RATIO times the plain
-    path's own (loss, and the relative L2 error of all grads)."""
+    path's own (loss, and the relative L2 error of all grads).  Then the
+    traced step (the main path) against the eager twin: float32 within the
+    same bars, bf16 against the float32 eager step within LOWP_ERR_RATIO
+    times the eager bf16 step's own error."""
     cfg4 = Config.from_name(cfg.name, n_layer=4)
     batch = train_batch(cfg4, SEED + 9)
-    step = make_step(cfg4)
+    eager = make_eager_step(cfg4)
+    traced = make_step(cfg4)
     p16 = {**params, "blocks": params["blocks"][:4]}
     p32 = _cast(p16, torch.float32)
     cudaex.reset_launches()
-    loss_k, g_k = step.grads(p32, None, *batch)
+    loss_k, g_k = eager.grads(p32, None, *batch)
     if cudaex.LAUNCHES["flash_ce"] != 1:
         raise AssertionError(f"the float32 step launched flash_ce {cudaex.LAUNCHES['flash_ce']} "
                              "times, not once")
     with plain_kernels():
-        loss_p, g_p = step.grads(p32, None, *batch)
+        loss_p, g_p = eager.grads(p32, None, *batch)
     torch.cuda.synchronize()
     loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-    worst, worst_name = -1.0, None
-    for name, a, b in zip(_names(g_p), tree_leaves(g_k), tree_leaves(g_p)):
-        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-        if rel > worst:
-            worst, worst_name = rel, name
+    worst, worst_name = _worst_grad_rel(g_k, g_p)
     ok = loss_err <= TRAIN_LOSS_REL and worst <= TRAIN_GRAD_REL and math.isfinite(loss_k.item())
     say(f"train step float32, {cfg4.n_layer} layers at full width (B={TRAIN_B}, T={TRAIN_T}): "
         f"loss kernels {loss_k.item():.6f} plain {loss_p.item():.6f} (rel {loss_err:.2e}, bar "
@@ -2868,10 +2904,23 @@ def train_correctness(params, cfg):
     if not ok:
         raise AssertionError("the float32 train step through the kernels disagrees with the "
                              "plain versions")
-    del p32, g_p
-    loss16_k, g16_k = step.grads(p16, None, *batch)
+    del g_p
+    loss_t, g_t = traced.grads(p32, None, *batch)
+    torch.cuda.synchronize()
+    t_err = abs(loss_t.item() - loss_k.item()) / abs(loss_k.item())
+    t_worst, t_name = _worst_grad_rel(g_t, g_k)
+    ok = t_err <= TRAIN_LOSS_REL and t_worst <= TRAIN_GRAD_REL and math.isfinite(loss_t.item())
+    say(f"traced train step float32 against the eager twin ({cfg4.n_layer} layers, remat "
+        f"{traced.last_remat_policy}): loss {loss_t.item():.6f} eager {loss_k.item():.6f} (rel "
+        f"{t_err:.2e}, bar {TRAIN_LOSS_REL:.0e}); worst grad rel max-abs diff {t_worst:.2e} "
+        f"({t_name}, bar {TRAIN_GRAD_REL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the float32 traced train step disagrees with the eager twin")
+    del p32, g_t
+    loss16_k, g16_k = eager.grads(p16, None, *batch)
     with plain_kernels():
-        loss16_p, g16_p = step.grads(p16, None, *batch)
+        loss16_p, g16_p = eager.grads(p16, None, *batch)
+    loss16_t, g16_t = traced.grads(p16, None, *batch)
     torch.cuda.synchronize()
 
     def l2_err(gs):
@@ -2890,8 +2939,17 @@ def train_correctness(params, cfg):
     if not ok:
         raise AssertionError("the bf16 train step through the kernels strays further from float32 "
                              "than the plain versions")
+    lt, gt = abs(loss16_t.item() - loss_k.item()), l2_err(g16_t)
+    ok = lt <= LOWP_ERR_RATIO * lk + floor and gt <= LOWP_ERR_RATIO * gk
+    say(f"traced train step bf16 against the float32 eager step: loss error traced {lt:.3e} "
+        f"eager {lk:.3e} (limit {LOWP_ERR_RATIO}× eager + {floor:.2e}); grads relative L2 error "
+        f"traced {gt:.3e} eager {gk:.3e} (ratio limit {LOWP_ERR_RATIO}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the bf16 traced train step strays further from float32 than the "
+                             "eager twin")
     return dict(loss_rel_f32=loss_err, grad_rel_f32=worst, bf16_loss_err=(lk, lp),
-                bf16_grad_l2=(gk, gp))
+                bf16_grad_l2=(gk, gp), traced_loss_rel_f32=t_err, traced_grad_rel_f32=t_worst,
+                traced_bf16_loss_err=lt, traced_bf16_grad_l2=gt)
 
 
 def _names(tree, prefix=""):
@@ -2913,11 +2971,45 @@ def model_flops(cfg, n_params):
     return 6 * n_params * TRAIN_B * TRAIN_T + 3 * cfg.n_layer * attn
 
 
+# SDPA symbols per layer in the traced step's forward and backward programs
+# under full_block: the forward's, and its recompute in the backward (the
+# CPU tests fix this count against the reference's traces); the loss's CE
+# is recomputed there too
+TRAIN_SDPA_PER_LAYER = 2
+TRAIN_EAGER_STEPS = 3       # the eager twin's steps beside the traced ones
+
+
+def _symbols(step) -> dict:
+    """Bound-symbol names of the traced step's claimed programs, counted."""
+    names = [b.sym.name for tr in (step.fw_trace, step.bw_trace) for b in tr.bound_symbols]
+    return {n: names.count(n) for n in sorted(set(names))}
+
+
+def _run_steps(step, params, opt_state, batch, n):
+    """``n`` steps: losses, wall times (each waits for its loss), peak
+    memory, launches and declines counted over them."""
+    torch.cuda.reset_peak_memory_stats()
+    cudaex.reset_launches()
+    for key in ltorch.DECLINES:
+        ltorch.DECLINES[key] = 0
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, *batch)
+        losses.append(loss.item())                     # waits for the step
+        times.append(time.perf_counter() - t0)
+    return (params, opt_state, losses, times, torch.cuda.max_memory_allocated(),
+            dict(cudaex.LAUNCHES), dict(ltorch.DECLINES))
+
+
 def train_full_width(params, cfg):
     """TRAIN_STEPS AdamW steps of Llama-3-8B at full width and depth on one
-    fixed batch, remat full_block, bf16: exact flash launch counts, no
-    declines, finite losses, the last below the first; then two more steps
-    under the profiler (``compare_train_profiles``)."""
+    fixed batch, remat full_block, bf16, through the traced step: its
+    programs run ``cuda_*`` and ``torch_*`` symbols only, exact launch
+    counts read from them, no declines, finite losses, the last below the
+    first; then TRAIN_EAGER_STEPS steps of the eager twin, printed beside;
+    then two more traced steps under the profiler
+    (``compare_train_profiles``)."""
     batch = train_batch(cfg, SEED + 10)
     step = make_step(cfg)
     t0 = time.perf_counter()
@@ -2926,40 +3018,63 @@ def train_full_width(params, cfg):
     say(f"AdamW state for {param_count(params) / 1e9:.3f} B params in "
         f"{time.perf_counter() - t0:.1f} s; memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    torch.cuda.reset_peak_memory_stats()
-    cudaex.reset_launches()
-    for key in ltorch.DECLINES:
-        ltorch.DECLINES[key] = 0
-    losses, times = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        params, opt_state, loss = step(params, opt_state, *batch)
-        losses.append(loss.item())                     # waits for the step
-        times.append(time.perf_counter() - t0)
-    launches = dict(cudaex.LAUNCHES)
-    declines = dict(ltorch.DECLINES)
-    peak = torch.cuda.max_memory_allocated()
+    params, opt_state, losses, times, peak, launches, declines = _run_steps(
+        step, params, opt_state, batch, TRAIN_STEPS)
     L = cfg.n_layer
-    want = no_launches_but(flash_fwd=2 * L * TRAIN_STEPS, flash_bwd_dq=L * TRAIN_STEPS,
-                           flash_bwd_dkv=L * TRAIN_STEPS, flash_ce=TRAIN_STEPS)
+    syms = _symbols(step)
+    stray = [n for n in syms if not n.startswith(("cuda_", "torch_")) and n != "python_return"]
+    n_sdpa = syms.get("cuda_sdpa", 0)
+    n_ce = syms.get("torch_cross_entropy_fwd", 0)
+    n_bwd = syms.get("cuda_sdpa_backward", 0)
+    say(f"traced step programs: {len(step.fw_trace.bound_symbols)} forward and "
+        f"{len(step.bw_trace.bound_symbols)} backward bound symbols; cuda_sdpa {n_sdpa} "
+        f"(expected {TRAIN_SDPA_PER_LAYER} x {L}), cuda_sdpa_backward {n_bwd}, "
+        f"torch_cross_entropy_fwd {n_ce}; other than cuda_/torch_: {stray}")
+    if stray or n_sdpa != TRAIN_SDPA_PER_LAYER * L or n_bwd != L or not n_ce:
+        raise AssertionError(f"the traced step's programs: {syms}")
+    want = no_launches_but(flash_fwd=n_sdpa * TRAIN_STEPS, flash_bwd_dq=n_bwd * TRAIN_STEPS,
+                           flash_bwd_dkv=n_bwd * TRAIN_STEPS, flash_ce=n_ce * TRAIN_STEPS)
     step_s = float(np.mean(times[1:]))
     flops = model_flops(cfg, param_count(params))
-    say(f"train {cfg.name} bf16, {L} layers, B={TRAIN_B} T={TRAIN_T}, remat "
+    bw_peak = peak_live_bytes(del_last_used(step.bw_trace))
+    say(f"train {cfg.name} bf16 through the trace, {L} layers, B={TRAIN_B} T={TRAIN_T}, remat "
         f"{step.last_remat_policy}, AdamW lr {TRAIN_LR}: losses {losses}; step times "
-        f"{[round(t, 4) for t in times]} s (first includes warm-up); step time (steps 2-"
-        f"{TRAIN_STEPS}) {1e3 * step_s:.1f} ms = {TRAIN_B * TRAIN_T / step_s:.1f} tokens/s; "
-        f"model FLOPs per step {flops:.4e} (6·N·B·T + 3·n_layer·4·B·nh·hs·T²/2, N = "
-        f"{param_count(params)}) = {flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{[round(t, 4) for t in times]} s (first includes the build, {step.build_ms:.0f} ms of "
+        f"host for both programs); step time (steps 2-{TRAIN_STEPS}) {1e3 * step_s:.1f} ms = "
+        f"{TRAIN_B * TRAIN_T / step_s:.1f} tokens/s; model FLOPs per step {flops:.4e} (6·N·B·T + "
+        f"3·n_layer·4·B·nh·hs·T²/2, N = {param_count(params)}) = "
+        f"{flops / step_s / 1e12:.1f} TFLOP/s, "
         f"{flops / step_s / PEAK_OPS_PER_S[torch.bfloat16]:.4f} of 989 TFLOP/s; "
-        f"max_memory_allocated {peak / 2**30:.2f} GiB")
-    say(f"launches during {TRAIN_STEPS} train steps: {launches} (expected {want}); declines "
-        f"{declines}")
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; saved_bytes {step.residual_bytes_no_remat} "
+        f"before remat, {step.residual_bytes} after (parameters included); the backward "
+        f"program's live-bytes peak by trace {bw_peak / 2**30:.2f} GiB ({CARD})")
+    say(f"launches during {TRAIN_STEPS} traced train steps: {launches} (expected {want}); "
+        f"declines {declines}")
     if launches != want or any(declines.values()):
         raise AssertionError(f"train launch counts {launches} != {want} or declines {declines}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train losses {losses}: not finite or not falling")
+    # the eager twin, on the same params and optimizer state from here
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = make_eager_step(cfg)
+    params, opt_state, e_losses, e_times, e_peak, e_launches, e_declines = _run_steps(
+        eager, params, opt_state, batch, TRAIN_EAGER_STEPS)
+    e_step_s = float(np.mean(e_times[1:]))
+    say(f"train step, traced against the eager twin ({cfg.name} bf16, {L} layers, B={TRAIN_B} "
+        f"T={TRAIN_T}, full_block, the same run; {CARD}): step time {1e3 * step_s:.1f} ms "
+        f"against {1e3 * e_step_s:.1f} ms; tokens/s {TRAIN_B * TRAIN_T / step_s:.1f} against "
+        f"{TRAIN_B * TRAIN_T / e_step_s:.1f}; share of 989 TFLOP/s "
+        f"{flops / step_s / PEAK_OPS_PER_S[torch.bfloat16]:.4f} against "
+        f"{flops / e_step_s / PEAK_OPS_PER_S[torch.bfloat16]:.4f}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB against {e_peak / 2**30:.2f} GiB; eager losses {e_losses}, "
+        f"step times {[round(t, 4) for t in e_times]} s; eager launches {e_launches}, declines "
+        f"{e_declines}")
     profiles = compare_train_profiles(step, params, opt_state, batch)
     return dict(launches=launches, losses=losses, step_ms=1e3 * step_s, peak_gib=peak / 2**30,
+                build_ms=step.build_ms, residual_bytes=(step.residual_bytes_no_remat,
+                                                        step.residual_bytes),
+                eager=dict(step_ms=1e3 * e_step_s, peak_gib=e_peak / 2**30, losses=e_losses),
                 profiles=profiles)
 
 
@@ -3701,6 +3816,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     served["jit gpt_loss"] = jit_gpt_loss(cfg)
+    served["jit grad and autocast"] = jit_grad_and_autocast(cfg)
 
     sources = {"paged_attn_decode": "paged_attention.cu", "paged_token_write": "paged_attention.cu",
                "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",
@@ -3751,6 +3867,103 @@ def main() -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+JIT_GRAD_LAYERS = 4         # value_and_grad and autocast at Llama-3-8B widths
+
+
+def _count(trace, name: str) -> int:
+    return sum(b.sym.name == name for b in trace.bound_symbols)
+
+
+def jit_grad_and_autocast(cfg):
+    """Phase 13: the transforms under ``jit`` at Llama-3-8B widths and
+    JIT_GRAD_LAYERS layers (weights from seed 0, B=1, T=2048).
+    ``value_and_grad(gpt_loss)`` of bf16 params: the forward and backward
+    programs run ``cuda_*`` and ``torch_*`` symbols only, each call launches
+    the flash and CE kernels their SDPA, SDPA-backward and CE symbols name,
+    the second call is a cache hit bitwise equal to the first.
+    ``jit(gpt_loss, autocast="bf16")`` of float32 params: its SDPA takes
+    bf16 (``flash_fwd`` at bf16, one per layer, one ``flash_ce``), and its
+    loss, a bf16 number, against the float32 eager loss within
+    LOWP_ERR_RATIO times the eager bf16 loss's error (phase 12's bar) plus
+    half a bf16 ulp of the loss.  No declines.  Returns the
+    phase's launch counts, summed."""
+    cfg4 = Config.from_name(cfg.name, n_layer=JIT_GRAD_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = init_params(cfg4, generator=gen, dtype=torch.bfloat16, device=DEVICE)
+    batch = jit_batch(cfg4, JIT_T, torch.Generator(device=DEVICE).manual_seed(SEED + 13))
+    loss_fn = lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg4)     # noqa: E731
+    for key in ltorch.DECLINES:
+        ltorch.DECLINES[key] = 0
+    total = dict.fromkeys(cudaex.LAUNCHES, 0)
+    vg = ttt.value_and_grad(loss_fn)
+    args = (params, *batch)
+    runs = []
+    for _ in range(2):
+        cudaex.reset_launches()
+        loss, grads = vg(*args)
+        torch.cuda.synchronize()
+        runs.append((loss, grads, dict(cudaex.LAUNCHES)))
+    fw, bw = ttt.last_traces(vg)[-1], ttt.last_backward_traces(vg)[-2]
+    check_claims(fw, "value_and_grad forward", {"cuda_sdpa"})
+    check_claims(bw, "value_and_grad backward", {"cuda_sdpa_backward"} | (
+        {"cuda_sdpa"} if _count(bw, "cuda_sdpa") else set()))
+    n_sdpa = _count(fw, "cuda_sdpa") + _count(bw, "cuda_sdpa")
+    n_bwd = _count(bw, "cuda_sdpa_backward")
+    n_ce = _count(fw, "torch_cross_entropy_fwd") + _count(bw, "torch_cross_entropy_fwd")
+    want = no_launches_but(flash_fwd=n_sdpa, flash_bwd_dq=n_bwd, flash_bwd_dkv=n_bwd,
+                           flash_ce=n_ce)
+    (loss, grads, got), (loss2, grads2, got2) = runs
+    same = torch.equal(loss, loss2) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(grads2)))
+    hits = (ttt.cache_hits(vg), ttt.cache_misses(vg))
+    finite = math.isfinite(loss.item()) and all(torch.isfinite(g).all().item()
+                                                for g in tree_leaves(grads))
+    ok = got == want and got2 == want and same and hits == (1, 1) and finite and n_bwd == \
+        JIT_GRAD_LAYERS
+    say(f"jit value_and_grad(gpt_loss) bf16, {JIT_GRAD_LAYERS} layers at full width, B=1, "
+        f"T={JIT_T}: loss {loss.item():.6f}; SDPA symbols {n_sdpa}, SDPA backward {n_bwd}, CE "
+        f"{n_ce}; launches per call {got} then {got2} (expected {want}); hits/misses {hits}; "
+        f"second call bitwise equal: {same}; finite: {finite} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("jit value_and_grad(gpt_loss) failed its checks")
+    for k in total:
+        total[k] += got[k] + got2[k]
+    del vg, grads, grads2, runs
+    params32 = _cast(params, torch.float32)
+    jac = ttt.jit(loss_fn, autocast="bf16")
+    cudaex.reset_launches()
+    lac = jac(params32, *batch)
+    torch.cuda.synchronize()
+    got = dict(cudaex.LAUNCHES)
+    final = ttt.last_traces(jac)[-1]
+    check_claims(final, "autocast bf16", {"cuda_sdpa"})
+    sdpa_dtypes = {str(b.args[0].dtype) for b in final.bound_symbols if b.sym.name == "cuda_sdpa"}
+    e32 = eager_loss(params32, batch, cfg4).item()
+    e16 = eager_loss(params, batch, cfg4).item()
+    la, le = abs(lac.item() - e32), abs(e16 - e32)
+    # the autocast loss is itself a bf16 number (the cross-entropy takes the
+    # head's bf16 logits, as in the reference): half its ulp rides on the bar
+    half_ulp = 0.5 * 2.0 ** (math.floor(math.log2(abs(e32))) - 7)
+    want = no_launches_but(flash_fwd=JIT_GRAD_LAYERS, flash_ce=1)
+    ok = (got == want and sdpa_dtypes == {"bfloat16"} and lac.dtype == torch.bfloat16
+          and la <= LOWP_ERR_RATIO * le + half_ulp)
+    say(f"jit gpt_loss autocast bf16 on float32 params ({JIT_GRAD_LAYERS} layers): loss "
+        f"{lac.item():.6f} ({lac.dtype}), float32 eager {e32:.6f}, bf16 eager {e16:.6f}: error "
+        f"{la:.3e} against eager bf16's {le:.3e} (limit {LOWP_ERR_RATIO}× + half a bf16 ulp of "
+        f"the loss, {half_ulp:.3e}); SDPA dtypes {sorted(sdpa_dtypes)}; "
+        f"launches {got} (expected {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("jit(gpt_loss, autocast='bf16') failed its checks")
+    if any(ltorch.DECLINES.values()):
+        raise AssertionError(f"declines during the transforms phase: {ltorch.DECLINES}")
+    for k in total:
+        total[k] += got[k]
+    del params, params32, jac
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 def paged_times(label: str) -> int:

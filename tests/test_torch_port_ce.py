@@ -11,8 +11,10 @@ which ``pallasex`` sets to ``flash_cross_entropy``), whenever
 - ``flash_cross_entropy_plain`` against ``pallasex._flash_ce`` run
   interpreted, float32 and bf16 logits: loss and lse within 1e-5 relative
   (a float32 sum of exp over the vocabulary in another order);
-- the port's ``TrainStep`` routes the loss through the wrapper once per
-  micro-batch and declines nothing at the tiny config's shape; a declined
+- the port's ``TrainStep`` (the traced step: the CROSS_ENTROPY_FWD prim
+  through the torch executor, the plain version on the CPU) and its eager
+  twin (``ltorch``'s wrapper) each reach the cross-entropy once per
+  micro-batch and decline nothing at the tiny config's shape; a declined
   dtype runs the plain version and counts a decline.
 
 Tests marked ``cuda`` hold the kernel against its plain version on the card.
@@ -27,6 +29,7 @@ import torch
 import thunder_tpu_torch as ttt
 from thunder_tpu.executors import pallasex
 from thunder_tpu_torch import ltorch
+from thunder_tpu_torch._tree import tree_map
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.models import llama as tllama
 
@@ -102,8 +105,10 @@ def counting_ce(monkeypatch):
 
 
 @pytest.mark.parametrize("accum_steps", [1, 2])
-def test_train_step_routes_the_loss_through_the_wrapper(counting_ce, accum_steps):
-    """One wrapper call per micro-batch at the (B·T, padded vocab) shape,
+def test_train_step_routes_the_loss_through_the_wrapper(counting_ce, accum_steps, monkeypatch):
+    """One cross-entropy call per micro-batch at the (B·T, padded vocab)
+    shape, on the traced step (the prim's implementation, which on the CPU
+    calls the plain version) and on the eager twin (``ltorch``'s wrapper);
     no declines; the loss equals the plain CE's."""
     cfg = ttt.Config.from_name("tiny-llama-debug")
     params = ttt.init_params(cfg, device="cpu", dtype=torch.float32)
@@ -116,16 +121,27 @@ def test_train_step_routes_the_loss_through_the_wrapper(counting_ce, accum_steps
         logits = tllama.gpt_forward(params, idx, cos, sin, cfg)
     want, _ = cudaex.flash_cross_entropy_plain(logits.reshape(-1, cfg.padded_vocab_size),
                                                tgt.reshape(-1))
-    step = ttt.make_train_step(lambda p, i, t, c, s: ttt.gpt_loss(p, i, t, c, s, cfg),
-                               ttt.adamw(1e-3), accum_steps=accum_steps)
-    for key in ltorch.DECLINES:
-        ltorch.DECLINES[key] = 0
-    _, _, loss = step(params, step.init_optimizer_state(params), idx, tgt, cos, sin)
+    traced_calls = []
+    plain = cudaex.flash_cross_entropy_plain
+
+    def counting_plain(logits, target):
+        traced_calls.append(tuple(logits.shape))
+        return plain(logits, target)
+
+    monkeypatch.setattr(cudaex, "flash_cross_entropy_plain", counting_plain)
     rows = B * T // accum_steps
-    assert counting_ce == [(rows, cfg.padded_vocab_size)] * accum_steps
-    assert ltorch.DECLINES == {"flash_sdpa": 0, "flash_sdpa_backward": 0,
-                               "flash_cross_entropy": 0}
-    torch.testing.assert_close(loss.detach(), want.mean(), rtol=1e-5, atol=0)
+    loss_fn = lambda p, i, t, c, s: ttt.gpt_loss(p, i, t, c, s, cfg)      # noqa: E731
+    for make, calls in ((ttt.make_train_step, traced_calls), (ttt.make_eager_train_step,
+                                                              counting_ce)):
+        step = make(loss_fn, ttt.adamw(1e-3), accum_steps=accum_steps)
+        for key in ltorch.DECLINES:
+            ltorch.DECLINES[key] = 0
+        fresh = tree_map(torch.clone, params)          # the step updates them in place
+        _, _, loss = step(fresh, step.init_optimizer_state(fresh), idx, tgt, cos, sin)
+        assert calls == [(rows, cfg.padded_vocab_size)] * accum_steps, make.__name__
+        assert ltorch.DECLINES == {"flash_sdpa": 0, "flash_sdpa_backward": 0,
+                                   "flash_cross_entropy": 0}
+        torch.testing.assert_close(loss.detach(), want.mean(), rtol=1e-5, atol=0)
 
 
 def test_declined_shape_runs_the_plain_version(counting_ce):

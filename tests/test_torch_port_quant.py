@@ -473,8 +473,10 @@ def test_forward_paged_on_quantized_arenas_matches_jax(target, kind, T, pos):
     idx = np.random.default_rng(12).integers(0, 64, (4, T)).astype(np.int32)
     cap = 7 * 4
     jcos, jsin = jllama.build_rope_cache(jcfg, cap)
-    want, wfresh = jpa.forward_paged(jp, jnp.asarray(idx), jx["pos"], ja, jx["tables"], jcos,
-                                     jsin, jcfg, cdtype=jnp.float32)
+    # jitted, as the reference's engine runs it (one compile, not an XLA
+    # compile per eager op)
+    want, wfresh = jax.jit(partial(jpa.forward_paged, cfg=jcfg, cdtype=jnp.float32))(
+        jp, jnp.asarray(idx), jx["pos"], ja, jx["tables"], jcos, jsin)
     tcos, tsin = ttt.models.llama.build_rope_cache(tcfg, cap, device="cpu")
     got, fresh = tpa.forward_paged(tp, torch.as_tensor(idx), tx["pos"], ta, tx["tables"], tcos,
                                    tsin, tcfg, cdtype=torch.float32)

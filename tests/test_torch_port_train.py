@@ -9,13 +9,22 @@ the CPU) and the port:
   plain versions: loss within 1e-5 relative, each grad within 1e-4 of its
   own largest magnitude (the same math in other summation orders, and the
   JAX side's reference attention against the port's blockwise one);
-- three ``TrainStep`` steps against the JAX ``make_train_step(...,
-  optax.adamw(lr), make_mesh({"dp": 1}))`` (built as
-  ``tests/test_train_loop.py`` builds it), plain and ``accum_steps=2``:
+- three steps of the port's ``TrainStep``, which runs the traced loss
+  (split, rematerialized, claimed and generated), against the JAX
+  ``make_train_step(..., optax.adamw(lr), make_mesh({"dp": 1}))`` (built
+  as ``tests/test_train_loop.py`` builds it), plain and ``accum_steps=2``:
   per-step losses within 1e-5 relative, final params within a hundredth
   of lr per step (AdamW divides each grad by its own running rms, so a
   weight whose grad is near rounding noise moves by up to lr either way;
   measured 5.8e-6 after 3 steps at lr 1e-3);
+- the eager twin (``make_eager_train_step``) against the traced step: the
+  same losses and grads within 1e-6, per policy;
+- the traced step's claimed ``fw_trace``/``bw_trace`` printed against the
+  JAX ``TrainStep``'s (the reference's ``gpt_loss`` source on both
+  languages; the torch executor against the reference's eager JAX one,
+  names normalized), per policy, and ``executors=`` accepted;
+- a ``fused_head_ce`` config's loss and grads against the reference, on
+  the traced step and the eager twin;
 - the remat policies give bitwise-equal losses and grads (the CPU is
   deterministic);
 - the loop's recovery grammar (``tests/test_train_loop.py``'s
@@ -66,6 +75,7 @@ from thunder_tpu_torch.train.checkpoint import (
     save_checkpoint_atomic,
 )
 from thunder_tpu_torch.train.loop import train_loop
+from test_torch_port_transforms import _PORT_REF_MODEL, _normalize
 
 ROOT = Path(__file__).resolve().parents[1]
 B, T = 2, 128
@@ -165,6 +175,80 @@ def test_train_steps_match_jax(jax_runs, accum_steps):
         assert np.abs(a.numpy() - b).max() <= 1e-2 * LR * 3
 
 
+def _twins(cfg, policy, **kw):
+    loss_fn = lambda p, i, t, c, s: tllama.gpt_loss(p, i, t, c, s, cfg)      # noqa: E731
+    return (ttt.make_train_step(loss_fn, ttt.adamw(LR), remat=policy, **kw),
+            ttt.make_eager_train_step(loss_fn, ttt.adamw(LR), remat=policy))
+
+
+@pytest.mark.parametrize("policy", tremat.REMAT_POLICIES)
+def test_eager_twin_matches_the_traced_step(policy):
+    _, jparams, idx, tgt = _setup(seed=5)
+    cfg = tllama.Config.from_name("tiny-llama-debug")
+    params = _port_params(jparams)
+    batch = _port_batch(cfg, idx, tgt)
+    traced, eager = _twins(cfg, policy)
+    lt, gt = traced.grads(params, None, *batch)
+    le, ge = eager.grads(params, None, *batch)
+    assert traced.last_remat_policy == eager.last_remat_policy == policy
+    _rel_close(lt.item(), le.item(), 1e-6)
+    for a, b in zip(tree_leaves(gt), tree_leaves(ge)):
+        _rel_close(a.numpy(), b.numpy(), 1e-6)
+    knobs = tremat.resolve_remat(policy)
+    assert traced.last_remat_applied is knobs.apply
+    assert traced.residual_bytes <= traced.residual_bytes_no_remat
+    assert (traced.residual_bytes < traced.residual_bytes_no_remat) is knobs.apply
+    with pytest.raises(NotImplementedError, match="executors="):
+        ttt.make_eager_train_step(len, ttt.adamw(LR), executors=["torch"])
+
+
+@pytest.mark.parametrize("policy", tremat.REMAT_POLICIES)
+def test_step_traces_print_the_reference_step_traces(policy):
+    from thunder_tpu.executors import jaxex
+
+    jcfg, jparams, idx, tgt = _setup()
+    cos, sin = jllama.build_rope_cache(jcfg, T)
+    mesh = dist.make_mesh({"dp": 1}, devices=jax.devices()[:1])
+    ref = dist.make_train_step(lambda p, i, t, c, s: jllama.gpt_loss(p, i, t, c, s, jcfg),
+                               optax.adamw(LR), mesh, remat=policy, executors=[jaxex.ex])
+    rp = dist.ddp(jparams, mesh)
+    ref._build(rp, ref.init_optimizer_state(rp), (jnp.asarray(idx), jnp.asarray(tgt), cos, sin))
+    model = _PORT_REF_MODEL           # the reference's gpt_loss over the port's language
+    step = ttt.make_train_step(lambda p, i, t, c, s: model.gpt_loss(p, i, t, c, s, jcfg),
+                               ttt.adamw(LR), remat=policy, executors=["torch"])
+    params = _port_params(jparams)
+    loss, _ = step.grads(params, None, torch.as_tensor(idx), torch.as_tensor(tgt),
+                         torch.from_numpy(np.array(cos)), torch.from_numpy(np.array(sin)))
+    assert np.isfinite(loss.item())
+    assert step.last_remat_applied is (policy != "none")
+    assert _normalize(step.fw_trace.python()) == _normalize(ref.fw_trace.python())
+    # the port places each recomputed op at its first use: the same lines,
+    # and in the reference's order where nothing is recomputed
+    port_bw, ref_bw = _normalize(step.bw_trace.python()), _normalize(ref.bw_trace.python())
+    assert sorted(port_bw.splitlines()) == sorted(ref_bw.splitlines())
+    assert (port_bw == ref_bw) is (policy == "none")
+
+
+def test_fused_head_ce_matches_the_reference():
+    jcfg, jparams, idx, tgt = _setup()
+    jcfg = jllama.Config.from_name("tiny-llama-debug", fused_head_ce=True)
+    cos, sin = jllama.build_rope_cache(jcfg, T)
+    jl, jg = tt.value_and_grad(
+        lambda p, i, t, c, s: jllama.gpt_loss(p, i, t, c, s, jcfg))(
+            jparams, jnp.asarray(idx), jnp.asarray(tgt), cos, sin)
+    cfg = tllama.Config.from_name("tiny-llama-debug", fused_head_ce=True)
+    params = _port_params(jparams)
+    batch = _port_batch(cfg, idx, tgt)
+    traced, eager = _twins(cfg, "attention")
+    for step in (traced, eager):
+        loss, grads = step.grads(params, None, *batch)
+        _rel_close(loss.item(), float(jl), 1e-5)
+        for a, b in zip(tree_leaves(grads), jax.tree_util.tree_leaves(jg)):
+            _rel_close(a.numpy(), np.asarray(b), 1e-4)
+    names = {b.sym.name for b in traced.fw_trace.bound_symbols + traced.bw_trace.bound_symbols}
+    assert {"torch_fused_linear_ce", "torch_fused_linear_ce_backward"} <= names
+
+
 def test_remat_policies_give_equal_losses_and_grads():
     _, jparams, idx, tgt = _setup(seed=3)
     cfg = tllama.Config.from_name("tiny-llama-debug")
@@ -207,9 +291,11 @@ def test_remat_vocabulary_and_unported_options():
     with pytest.raises(NotImplementedError, match="MoE"):
         tllama.gpt_hidden({"wte": torch.zeros(4, 4), "blocks": []}, torch.zeros(1, 2), None, None,
                           cfg_moe)
-    with pytest.raises(NotImplementedError, match="fused_head_ce"):
-        tllama.gpt_loss({}, None, None, None, None,
-                        tllama.Config.from_name("tiny-llama-debug", fused_head_ce=True))
+    # executors= is the claiming order of the traced step's programs
+    step = _port_step(cfg, executors=["torch"])
+    step.grads(params, None, *_port_batch(cfg, *np.zeros((2, B, T), np.int32)))
+    assert {b.sym.executor.name for b in step.fw_trace.bound_symbols
+            if b.sym.executor is not None} == {"torch"}
 
 
 def test_donate_false_keeps_the_callers_params():

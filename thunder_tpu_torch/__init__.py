@@ -11,18 +11,22 @@ the trace IR: ``core`` (proxies, symbols, traces, prims), ``clang``, the
 torch language (``thunder_tpu_torch.torch``, the ``ltorch`` surface that
 ``__torch_function__`` diverts torch calls into), executor claiming
 (``extend``, ``executors.passes``, the ``torch`` and ``cuda`` executors),
-trace acquisition (``functional.trace_from_fn``) and ``jit`` with its
-two-tier dispatch cache.  Entry points run on the card unless the caller
-passes ``device="cpu"``.
+trace acquisition (``functional.trace_from_fn``), ``jit`` with its
+two-tier dispatch cache, and the transforms (``core/transforms.py``: the
+VJP table, the forward/backward split, ``grad``, ``value_and_grad`` and
+``vjp``; ``core/rematerialization.py``; ``core/autocast.py``).  The train
+step (``distributed.api.TrainStep``) runs the traced loss: split,
+rematerialized, claimed and generated, as the reference's does.  Entry
+points run on the card unless the caller passes ``device="cpu"``.
 
 ``jit`` and its introspection are the counterpart of
-``thunder_tpu/__init__.py:128-703, 725-940``: ``jit``, ``compile``,
-``last_traces``, ``last_prologue_traces``, ``compile_data``,
-``compile_stats``, ``cache_option``, ``cache_hits``, ``cache_misses``,
-``dispatch_stats``, ``last_compile_options`` and ``metrics_snapshot``.
-The options that wait for later ``ROADMAP.md`` Queue 1 items raise
-``NotImplementedError`` naming the item: ``grad``, ``value_and_grad``,
-``vjp`` and ``autocast=`` (item 4, the transforms), ``donate=`` (item 7),
+``thunder_tpu/__init__.py:128-760, 768-940``: ``jit`` (with its grad path
+and ``autocast=``), ``compile``, ``grad``, ``value_and_grad``, ``vjp``,
+``last_traces``, ``last_backward_traces``, ``last_prologue_traces``,
+``compile_data``, ``compile_stats``, ``cache_option``, ``cache_hits``,
+``cache_misses``, ``dispatch_stats``, ``last_compile_options`` and
+``metrics_snapshot``.  The options that wait for later ``ROADMAP.md``
+Queue 1 items raise ``NotImplementedError`` naming the item: ``donate=`` (item 7),
 ``profile=``, ``detect_anomalies=`` and ``debug_hooks=`` (item 10), and a
 ``torch.nn.Module`` or ``interpretation="bytecode"`` (item 13).  The
 reference's persistent XLA cache (``core/compile_cache.py``) has no
@@ -40,6 +44,7 @@ from thunder_tpu_torch import observability
 from thunder_tpu_torch import torch as _torch_language  # noqa: F401  (registers the torch langctx)
 from thunder_tpu_torch.common import CacheEntry, CompileData, CompileStats
 from thunder_tpu_torch.core import cache_key as _cache_key
+from thunder_tpu_torch.core.autocast import autocast
 from thunder_tpu_torch.core.baseutils import check
 from thunder_tpu_torch.core.compile_data import compile_data_and_stats
 from thunder_tpu_torch.core.options import (
@@ -50,7 +55,7 @@ from thunder_tpu_torch.core.options import (
 )
 from thunder_tpu_torch.core.trace import TraceCtx, TraceResults
 from thunder_tpu_torch.core.transform_common import absorb_ce_widening_converts, cse, dce
-from thunder_tpu_torch.distributed.api import TrainStep, make_train_step
+from thunder_tpu_torch.distributed.api import TrainStep, make_eager_train_step, make_train_step
 from thunder_tpu_torch.extend import resolve_executors
 from thunder_tpu_torch.functional import trace_from_fn
 from thunder_tpu_torch.models.generate import generate
@@ -71,19 +76,15 @@ from thunder_tpu_torch.train.optim import adamw
 __all__ = ["AdapterRegistry", "Config", "RegistryFullError", "ServingEngine", "SpecConfig",
            "TrainLoopResult", "TrainStep", "adamw", "cache_hits", "cache_misses",
            "cache_option", "compile", "compile_data", "compile_stats", "dispatch_stats",
-           "generate", "gpt_loss", "grad", "init_params", "jit", "last_compile_options",
-           "last_prologue_traces", "last_traces", "make_lora_factors", "make_train_step",
+           "generate", "gpt_loss", "grad", "init_params", "jit", "last_backward_traces",
+           "last_compile_options", "last_prologue_traces", "last_traces", "make_eager_train_step",
+           "make_lora_factors", "make_train_step",
            "metrics_snapshot", "params_from_numpy", "serve", "train_loop", "valid_targets",
            "value_and_grad", "vjp"]
-
-_TRANSFORMS_ITEM = "the transforms, which are not ported yet (ROADMAP.md Queue 1 item 4)"
 
 # jit options whose machinery is not ported yet: the option, then the item
 # that brings it.  Each raises when given a value other than its "off"
 _DEFERRED_OPTIONS = {
-    "autocast": _TRANSFORMS_ITEM,
-    "_grad_argnums": _TRANSFORMS_ITEM,
-    "_vjp_mode": _TRANSFORMS_ITEM,
     "donate": "buffer donation (executors/donation.py), which is not ported yet "
               "(ROADMAP.md Queue 1 item 7)",
     "profile": "the runtime profiler (observability/profiler.py), which is not ported yet "
@@ -130,8 +131,18 @@ def jit(
     inputs (tier 1), and runs the matched entry's prologue once to validate
     them (tier 2); a guard failure after a key match shadows the entry, and
     ``max_cached_specializations`` bounds the cache by least recent use
-    (reference ``thunder_tpu.jit``, ``thunder_tpu/__init__.py:128``)."""
+    (reference ``thunder_tpu.jit``, ``thunder_tpu/__init__.py:128``).
+
+    ``autocast="bf16"|"fp16"|dtype`` appends the autocast transform.  With
+    ``_grad_argnums`` (set by ``grad``/``value_and_grad``/``vjp``) the
+    program is split into forward and backward, rematerialized unless
+    ``remat=False`` is passed, and each half claimed and generated."""
     _check_deferred(fn, compile_options)
+    # sugar: jit(fn, autocast="bf16"|"fp16") appends the autocast transform
+    # (reference thunder_tpu/__init__.py:152-173)
+    ac = compile_options.pop("autocast", None)
+    if ac is not None:
+        transforms = list(transforms or []) + [autocast(_autocast_dtype(ac))]
 
     if langctx is not None:
         # resolve eagerly so a typo fails at jit() time, not first call
@@ -252,13 +263,26 @@ def jit(
             inps = tuple(inps) + (rng.next_key(),)
 
         cs.last_trace_host_execution_start = time.perf_counter_ns()
-        result = cache_entry.computation_fn(*inps)
-        if cache_entry.epilogue_fn is not None:
-            # the computation returns (user_result, mutated_leaves); the
-            # epilogue writes the mutated leaves back into the caller's
-            # containers (reference epilogue execution)
-            result, mutated = result
-            cache_entry.epilogue_fn(args, kwargs, *mutated)
+        if cache_entry.backward_fn is not None and cache_entry.vjp_mode:
+            # the backward entry point: the caller supplies cotangents
+            output, saved = cache_entry.computation_fn(*inps)
+            result = (output, _pullback(cache_entry, list(saved)))
+        elif cache_entry.backward_fn is not None:
+            # scalar-loss sugar: the cotangent is ones (grad / value_and_grad).
+            # The list is the residuals' only holder: the backward empties it
+            output, saved = cache_entry.computation_fn(*inps)
+            saved = list(saved)
+            ct = _real_torch.ones(output.shape, dtype=output.dtype, device=output.device)
+            flat_grads = cache_entry.backward_fn(saved, ct)
+            result = (output, cache_entry.return_spec(flat_grads))
+        else:
+            result = cache_entry.computation_fn(*inps)
+            if cache_entry.epilogue_fn is not None:
+                # the computation returns (user_result, mutated_leaves); the
+                # epilogue writes the mutated leaves back into the caller's
+                # containers (reference epilogue execution)
+                result, mutated = result
+                cache_entry.epilogue_fn(args, kwargs, *mutated)
         cs.last_trace_host_execution_stop = time.perf_counter_ns()
         cs.last_trace_host_stop = cs.last_trace_host_execution_stop
         return result
@@ -268,6 +292,55 @@ def jit(
     fn_.__wrapped__ = fn
     fn_.__name__ = getattr(fn, "__name__", "fn") + "_compiled"
     return fn_
+
+
+def _pullback(entry: CacheEntry, saved: list) -> Callable:
+    """The ``vjp`` pullback over one forward's residuals: it hands them to
+    the backward program, which empties the list, so it runs once."""
+    from thunder_tpu_torch.core.pytree import tree_flatten
+
+    def pullback(cotangents):
+        """cotangents: same structure as the function's output; pass None
+        for non-differentiable output leaves (None flattens away, so exactly
+        the differentiable leaves remain, in output order)."""
+        flat_cts, _ = tree_flatten(cotangents)
+        check(
+            len(flat_cts) == len(entry.ct_positions),
+            lambda: f"pullback expected cotangents for {len(entry.ct_positions)} "
+            f"differentiable output leaves, got {len(flat_cts)} (pass None "
+            f"for non-differentiable outputs)",
+        )
+        check(pullback.fresh, lambda: "the pullback runs once: its backward program took "
+                                      "the forward's residuals; call the vjp again")
+        pullback.fresh = False
+        return entry.return_spec(entry.backward_fn(saved, *flat_cts))
+
+    pullback.fresh = True
+    return pullback
+
+
+def _autocast_dtype(ac):
+    """``autocast=``'s target: "bf16"/"fp16" (or their long names) or a
+    float dtype (reference thunder_tpu/__init__.py:152-173)."""
+    from thunder_tpu_torch.core import dtypes as _dt
+
+    _ac_map = {"bf16": _dt.bfloat16, "bfloat16": _dt.bfloat16,
+               "fp16": _dt.float16, "float16": _dt.float16}
+    if isinstance(ac, str):
+        dtype = _ac_map.get(ac)
+    elif isinstance(ac, (bool, int, float, complex)) or hasattr(ac, "shape"):
+        # numbers and arrays are typos, not dtype requests: fail fast
+        dtype = None
+    else:  # torch/numpy/thunder dtype objects all convert
+        try:
+            dtype = _dt.to_dtype(ac)
+        except Exception:
+            dtype = None
+        if dtype is not None and not _dt.is_float_dtype(dtype):
+            dtype = None
+    check(dtype is not None,
+          lambda: f"unknown autocast target {ac!r} (use 'bf16'/'fp16' or a float dtype)")
+    return dtype
 
 
 def _evict_lru(cd: CompileData, cs: CompileStats) -> None:
@@ -290,10 +363,20 @@ def _evict_lru(cd: CompileData, cs: CompileStats) -> None:
 
 def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> CacheEntry:
     """Trace → dce, cse, absorb_ce_widening_converts → user transforms →
-    executor claiming → del_last_used → codegen (one cache entry): the
-    reference's forward path."""
+    [forward/backward split → rematerialization → the backward's claiming,
+    del_last_used, take_saved and codegen] → executor claiming →
+    del_last_used → codegen (one cache entry): the reference's path."""
     from thunder_tpu_torch.core.sharp_edges import sharp_edges_guard
-    from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
+    from thunder_tpu_torch.executors.passes import (
+        del_last_used,
+        take_saved,
+        transform_for_execution,
+    )
+
+    grad_argnums = cd.compile_options.get("_grad_argnums")
+    vjp_mode = bool(cd.compile_options.get("_vjp_mode"))
+    if vjp_mode and grad_argnums is None:
+        grad_argnums = tuple(range(len(args)))
 
     cs.last_trace_tracing_start = time.perf_counter_ns()
     with sharp_edges_guard(cd.sharp_edges):
@@ -301,6 +384,7 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
             cd.fn,
             args,
             kwargs,
+            grad_argnums=grad_argnums,
             symbolic_numbers=cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES,
             language=cd.compile_options.get("langctx"),
         )
@@ -311,6 +395,7 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
     computation_trace.set_provenance("Trace acquisition (functional frontend)")
 
     cs.last_traces = [computation_trace]
+    cs.last_backward_traces = []
     cs.last_prologue_traces = [prologue_trace]
 
     with _phase_span("transform:dce"):
@@ -331,6 +416,66 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
         with _phase_span(f"transform:{tname}"):
             computation_trace = transform(computation_trace)
         cs.last_traces.append(computation_trace)
+
+    bw_fn = None
+    bw_extrace = None
+    grad_postprocess = None
+    ct_positions = ()
+    if grad_argnums is not None:
+        from thunder_tpu_torch.core import dtypes, prims
+        from thunder_tpu_torch.core.proxies import TensorProxy as _TP
+        from thunder_tpu_torch.core.pytree import tree_flatten as _tf
+        from thunder_tpu_torch.core.transforms import forward_and_backward_from_trace
+
+        # grad contract (jax.grad-style): a single scalar differentiable
+        # output — unless vjp mode, where the caller supplies cotangents for
+        # every differentiable output leaf
+        for bsym in computation_trace.bound_symbols:
+            if bsym.sym.id is prims.PrimIDs.RETURN:
+                flat_outs = _tf(bsym.args)[0]
+                outs = [o for o in flat_outs if isinstance(o, _TP)]
+                if vjp_mode:
+                    ct_positions = tuple(
+                        i
+                        for i, o in enumerate(flat_outs)
+                        if isinstance(o, _TP) and dtypes.is_inexact_dtype(o.dtype)
+                    )
+                    check(
+                        len(ct_positions) > 0,
+                        lambda: "vjp requires at least one differentiable output",
+                    )
+                else:
+                    check(
+                        len(outs) == 1 and outs[0].shape == () and dtypes.is_inexact_dtype(outs[0].dtype),
+                        lambda: f"grad/value_and_grad require the function to return a single scalar float "
+                        f"(got {[(tuple(o.shape), str(o.dtype)) for o in outs]})",
+                    )
+
+        with _phase_span("transform:forward_backward_split"):
+            fw_trace, bw_trace = forward_and_backward_from_trace(computation_trace)
+        cs.last_traces.append(fw_trace)
+        cs.last_backward_traces = [bw_trace]
+        from thunder_tpu_torch.core.rematerialization import (
+            rematerialize_forward_and_backward,
+            saved_for_backward,
+        )
+
+        if cd.compile_options.get("remat", True):
+            with _phase_span("transform:rematerialization"):
+                fw_trace, bw_trace = rematerialize_forward_and_backward(fw_trace, bw_trace)
+            cs.last_traces.append(fw_trace)
+            cs.last_backward_traces.append(bw_trace)
+        computation_trace = fw_trace
+        n_saved = len(saved_for_backward(fw_trace))
+
+        bw_extrace = transform_for_execution(bw_trace, cd.executors_list)
+        cs.last_backward_traces.append(bw_extrace)
+        bw_extrace = del_last_used(bw_extrace)
+        cs.last_backward_traces.append(bw_extrace)
+        bw_extrace = take_saved(bw_extrace, n_saved)
+        cs.last_backward_traces.append(bw_extrace)
+        bw_fn = bw_extrace.python_callable()
+        grad_postprocess = _make_grad_postprocess(trace_results.computation_trace, grad_argnums)
 
     extrace = transform_for_execution(computation_trace, cd.executors_list)
     cs.last_traces.append(extrace)
@@ -354,6 +499,11 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
             if trace_results.epilogue_trace is not None
             else None
         ),
+        backward_fn=bw_fn,
+        backward_trace=bw_extrace,
+        return_spec=grad_postprocess,
+        vjp_mode=vjp_mode,
+        ct_positions=ct_positions,
     )
     # trace-time key emission (functional.py builds it next to the prologue):
     # the key function + metadata ride on the entry for introspection; the
@@ -365,26 +515,59 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
     return entry
 
 
+def _make_grad_postprocess(computation_trace, grad_argnums):
+    """Builds grads-restructuring: flat grads (input order) → per-argnum pytrees."""
+    from thunder_tpu_torch.core.pytree import tree_unflatten
+
+    grad_meta = getattr(computation_trace, "_grad_meta", [])
+
+    def postprocess(flat_grads):
+        flat_grads = list(flat_grads)
+        it = iter(flat_grads)
+        by_argnum = {}
+        for argnum, spec_i, leaf_proxies in grad_meta:
+            leaves = [next(it) if p is not None else None for p in leaf_proxies]
+            by_argnum[argnum] = tree_unflatten(leaves, spec_i)
+        ordered = tuple(by_argnum[a] for a in grad_argnums)
+        return ordered[0] if len(ordered) == 1 else ordered
+
+    return postprocess
+
+
 def compile(fn: Callable, **kwargs) -> Callable:
     """Legacy alias for ``jit`` (reference thunder.compile)."""
     return jit(fn, **kwargs)
 
 
 #
-# grad APIs: the transforms are not ported yet
+# grad APIs (populated by thunder_tpu_torch.core.transforms; re-exported here)
 #
 
 
 def grad(fn: Callable, **jit_kwargs) -> Callable:
-    raise NotImplementedError(f"grad needs {_TRANSFORMS_ITEM}")
+    from thunder_tpu_torch.core.transforms import grad as _grad
+
+    return _grad(fn, **jit_kwargs)
 
 
 def value_and_grad(fn: Callable, **jit_kwargs) -> Callable:
-    raise NotImplementedError(f"value_and_grad needs {_TRANSFORMS_ITEM}")
+    from thunder_tpu_torch.core.transforms import value_and_grad as _value_and_grad
+
+    return _value_and_grad(fn, **jit_kwargs)
 
 
 def vjp(fn: Callable, argnums: Sequence[int] | None = None, **jit_kwargs) -> Callable:
-    raise NotImplementedError(f"vjp needs {_TRANSFORMS_ITEM}")
+    """jax.vjp-style backward entry point with user-supplied cotangents.
+
+    ``vjp(fn)(*args)`` returns ``(out, pullback)`` where ``pullback(ct)``
+    takes a cotangent matching ``out``'s structure and returns gradients for
+    ``argnums`` (default: every positional arg).  Unlike ``grad``/
+    ``value_and_grad``, the function may return non-scalar (and multiple)
+    outputs.  The pullback runs once: its backward program takes the
+    forward's residuals (reference ``thunder_tpu.vjp``)."""
+    if argnums is not None:
+        argnums = (argnums,) if isinstance(argnums, int) else tuple(argnums)
+    return jit(fn, _vjp_mode=True, _grad_argnums=argnums, **jit_kwargs)
 
 
 #
@@ -410,6 +593,10 @@ def compile_stats(cfn) -> CompileStats:
 
 def last_traces(cfn) -> list[TraceCtx]:
     return _get_cs(cfn).last_traces
+
+
+def last_backward_traces(cfn) -> list[TraceCtx]:
+    return _get_cs(cfn).last_backward_traces
 
 
 def last_prologue_traces(cfn) -> list[TraceCtx]:

@@ -5,10 +5,11 @@ Counterpart of ``thunder_tpu/common.py`` (``CompileData``, ``CompileStats``,
 and the CacheEntry machinery in ``thunder/__init__.py``.  The reference's
 ``CompileStats.persistent_cache`` reads JAX's persistent XLA cache
 (``core/compile_cache.py``), which the port has no counterpart of yet
-(``ROADMAP.md`` Queue 1 item 7).  The fields of the reference's backward
-(transforms), bytecode interpreter, profiler and donation, and
-``CompileData``'s module and process-group fields, come with their
-``ROADMAP.md`` items.
+(``ROADMAP.md`` Queue 1 item 7).  ``CacheEntry`` carries the grad path's
+backward program (``backward_fn``, ``backward_trace``, ``return_spec``,
+``vjp_mode``, ``ct_positions``).  The fields of the reference's bytecode
+interpreter, profiler and donation, and ``CompileData``'s module and
+process-group fields, come with their ``ROADMAP.md`` items.
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ class CompileStats:
 
         # all intermediate traces from the last compilation, in pass order
         self.last_traces: list[TraceCtx] = []
+        self.last_backward_traces: list[TraceCtx] = []
         self.last_prologue_traces: list[TraceCtx] = []
 
         self.last_compile_reasons: dict[str, str] = {}
@@ -94,8 +96,12 @@ class CompileData:
 
 @dataclass(eq=False)  # identity semantics: entries live in lists/buckets
 class CacheEntry:
-    """A (prologue, computation) pair; the prologue doubles as the cache guard — if it raises, the entry does not apply (reference
-    __init__.py:418-491).
+    """A (prologue, computation[, backward]) triple; the prologue doubles as
+    the cache guard — if it raises, the entry does not apply (reference
+    __init__.py:418-491).  A grad entry's computation is the augmented
+    forward, returning ``(output, saved)``; its ``backward_fn`` takes the
+    saved residuals as one list, which it empties once it has unpacked it
+    (``executors.passes.take_saved``), and the cotangents.
 
     Tier-1 dispatch metadata: ``cache_key`` is the structural key the entry is
     filed under in ``CompileStats.dispatch_cache`` (None = unkeyable inputs,
@@ -111,6 +117,11 @@ class CacheEntry:
     epilogue_trace: TraceCtx | None
     uses_rng: bool
     epilogue_fn: Callable | None = None
+    backward_fn: Callable | None = None
+    backward_trace: TraceCtx | None = None
+    return_spec: Any = None
+    vjp_mode: bool = False
+    ct_positions: tuple = ()
     cache_key: Any = None
     cache_key_fn: Callable | None = None
     key_meta: Any = None

@@ -1,45 +1,61 @@
 """The train step: forward, backward and optimizer update on one device.
 
 Counterpart of ``thunder_tpu/distributed/api.py`` (``TrainStep`` :183,
-``make_train_step`` :821) for a single device.  The JAX package traces
-``loss_fn``, splits forward from backward, rematerializes on the trace and
-compiles one program; the port runs eager PyTorch autograd:
+``_build`` :322, ``make_train_step`` :821) for a single device.  As in the
+reference, the step runs the traced loss: per batch signature it builds
+once ``trace_from_fn(loss_fn, (params, *batch), grad_argnums=(0,))`` →
+``dce``, ``cse``, ``absorb_ce_widening_converts`` → the forward/backward
+split → ``rematerialize_forward_and_backward`` with the policy's knobs →
+executor claiming of both traces → ``del_last_used`` and codegen, then
+each call runs the forward program, the backward program with a ones
+cotangent, and the optimizer:
 
 - ``step(params, opt_state, *batch) -> (params, opt_state, loss)``, the
   same call contract, so the training loop carries over unchanged.  **The
   params and the optimizer state are updated in place** (the port's form of
   the reference's buffer donation) and returned; ``donate=False`` copies
   them first and leaves the caller's tensors as they were.
-- ``remat=`` takes the reference's vocabulary (:mod:`..train.remat`); the
-  policy applies to each transformer block the model runs through
-  :func:`~thunder_tpu_torch.train.remat.run_block`.  ``"auto"`` resolves
-  once per batch shape by device memory, as ``_auto_remat`` does.
-- ``accum_steps=k`` splits the batch into k microbatches, sums their grads
-  into a float32 accumulator in a fixed order (microstep 0 first), divides
-  by k and takes the loss as the mean of the microbatch means.
+- ``remat=`` takes the reference's vocabulary (:mod:`..train.remat`):
+  ``max_cone`` and ``aggressive`` of the resolved policy drive the trace's
+  rematerialization; ``"auto"`` compares ``saved_bytes`` of the forward
+  with the device memory, as ``_auto_remat`` does.
+- ``executors=`` is the claiming order of both traces (default: cuda ≻
+  torch).  ``fw_trace``/``bw_trace`` keep the last build's claimed traces,
+  ``residual_bytes_no_remat``/``residual_bytes`` its saved residuals before
+  and after remat, ``build_ms`` the host time of the build.
+- ``accum_steps=k`` splits the batch into k microbatches (traced at
+  microbatch shapes), sums their grads into a float32 accumulator in a
+  fixed order (microstep 0 first), divides by k and takes the loss as the
+  mean of the microbatch means.
 - ``grads``, ``apply_gradients`` and ``accumulate`` are the reference's
   accumulation pieces (optimizer-free micro steps, then one update).
+
+:func:`make_eager_train_step` builds the step's plain twin, which computes
+the same loss and grads with eager PyTorch autograd (the remat policies as
+``torch.utils.checkpoint`` scopes); it is used only where called by name.
 
 The optimizer is any object with ``init(params)`` and ``update(params,
 grads, state)`` in place — :func:`thunder_tpu_torch.train.optim.adamw` is
 the port's ``optax.adamw``.  A multi-device mesh, ``zero3``, ``quant``,
-``overlap``, ``comm_combine_threshold_mb``, ``bucketer``, ``batch_specs``,
-``donate_batch`` and ``executors`` are not ported and raise
-``NotImplementedError``.
+``overlap``, ``comm_combine_threshold_mb``, ``bucketer``, ``batch_specs``
+and ``donate_batch`` are not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import math
 import os
+import time
+from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import torch
 
 from thunder_tpu_torch._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from thunder_tpu_torch.functional import _is_tensor_like
 from thunder_tpu_torch.train import remat as _remat
 from thunder_tpu_torch.train.accum import split_for_accum
 
-__all__ = ["TrainStep", "make_train_step"]
+__all__ = ["EagerTrainStep", "TrainStep", "make_eager_train_step", "make_train_step"]
 
 
 def _nbytes(tree) -> int:
@@ -58,8 +74,36 @@ def _check_single_device(mesh) -> None:
                                   "the port trains on one device")
 
 
+def _budget(params) -> int | None:
+    """Device memory for ``remat="auto"``: ``THUNDER_TPU_HBM_BYTES``, else
+    the card's total memory; None on the CPU."""
+    env = os.environ.get("THUNDER_TPU_HBM_BYTES")
+    if env:
+        return int(env)
+    dev = next((x.device for x in tree_leaves(params) if isinstance(x, torch.Tensor)), None)
+    if dev is not None and dev.type == "cuda":
+        return torch.cuda.mem_get_info(dev)[1]
+    return None
+
+
+@dataclass(frozen=True)
+class _Program:
+    """One build of the step: the forward and backward programs of one
+    input signature, and what the build measured."""
+
+    fw_fn: Callable
+    bw_fn: Callable
+    fw_trace: object
+    bw_trace: object
+    decision: _remat.RematDecision
+    residual_bytes_no_remat: int
+    residual_bytes: int
+    build_ms: float
+
+
 class TrainStep:
-    """One training step over ``loss_fn(params, *batch) -> scalar``."""
+    """One training step over ``loss_fn(params, *batch) -> scalar``, run
+    through the trace."""
 
     def __init__(self, loss_fn: Callable, optimizer, mesh=None, *, batch_specs=None,
                  donate: bool = True, donate_batch: bool = False, remat: bool | str = True,
@@ -72,10 +116,10 @@ class TrainStep:
                 ("zero3", zero3, False), ("quant", quant, None), ("overlap", overlap, False),
                 ("comm_combine_threshold_mb", comm_combine_threshold_mb, None),
                 ("bucketer", bucketer, None), ("batch_specs", batch_specs, None),
-                ("donate_batch", donate_batch, False), ("executors", executors, None)):
+                ("donate_batch", donate_batch, False)):
             if value != default:
                 raise NotImplementedError(f"TrainStep: {name}= is not ported (the port's step "
-                                          "is single-device eager autograd)")
+                                          "runs on one device)")
         _remat.validate_remat(remat)
         if not isinstance(accum_steps, int) or accum_steps < 1:
             raise ValueError(f"accum_steps must be an int >= 1, got {accum_steps!r}")
@@ -84,88 +128,130 @@ class TrainStep:
         self.donate = donate
         self.remat = remat
         self.accum_steps = accum_steps
+        self._init_executors(executors)
         #: the resolved policy of the last call (train.remat.REMAT_POLICIES)
         self.last_remat_policy: str | None = None
         self.last_remat_applied: bool | None = None
-        self._policies: dict = {}        # batch signature -> resolved policy
+        #: the last build's claimed forward and backward traces
+        self.fw_trace = None
+        self.bw_trace = None
+        self.residual_bytes_no_remat: int | None = None
+        self.residual_bytes: int | None = None
+        self.build_ms: float | None = None
+        # input signature -> what its first call built (a _Program; the
+        # eager twin keeps its remat decision)
+        self._built: dict = {}
+
+    def _init_executors(self, executors) -> None:
+        from thunder_tpu_torch.extend import resolve_executors
+
+        self.executors = resolve_executors(executors)
 
     def init_optimizer_state(self, params):
         return self.optimizer.init(params)
 
     @staticmethod
-    def _batch_key(batch) -> tuple:
-        return tuple((tuple(b.shape), str(b.dtype)) if isinstance(b, torch.Tensor)
-                     else (type(b).__name__,) for b in batch)
+    def _signature(params, batch) -> tuple:
+        return tuple((tuple(x.shape), x.dtype, x.device) if isinstance(x, torch.Tensor)
+                     else (type(x).__name__, x if isinstance(x, (int, float, str, bool)) else None)
+                     for x in (*tree_leaves(params), *batch))
 
-    def _policy(self, params, opt_state, batch) -> str:
-        key = self._batch_key(batch)
-        if key not in self._policies:
-            decision = _remat.resolve_remat(
-                self.remat, auto=lambda: self._auto_remat(params, opt_state, batch))
-            self._policies[key] = decision
-        decision = self._policies[key]
-        self.last_remat_policy, self.last_remat_applied = decision.policy, decision.apply
-        return decision.policy
+    def _program(self, params, opt_state, batch) -> _Program:
+        key = self._signature(params, batch)
+        prog = self._built.get(key)
+        if prog is None:
+            prog = self._built[key] = self._build(params, opt_state, batch)
+        self.fw_trace, self.bw_trace = prog.fw_trace, prog.bw_trace
+        self.residual_bytes_no_remat = prog.residual_bytes_no_remat
+        self.residual_bytes = prog.residual_bytes
+        self.build_ms = prog.build_ms
+        self.last_remat_policy = prog.decision.policy
+        self.last_remat_applied = prog.decision.apply
+        return prog
 
-    def _auto_remat(self, params, opt_state, batch) -> bool:
+    def _build(self, params, opt_state, batch) -> _Program:
+        """The reference's ``_build`` (``thunder_tpu/distributed/api.py:322``)
+        for one device: trace, split, rematerialize, claim, generate."""
+        from thunder_tpu_torch.core.rematerialization import (
+            rematerialize_forward_and_backward,
+            saved_bytes,
+            saved_for_backward,
+        )
+        from thunder_tpu_torch.core.transform_common import absorb_ce_widening_converts, cse, dce
+        from thunder_tpu_torch.core.transforms import forward_and_backward_from_trace
+        from thunder_tpu_torch.executors.passes import (
+            del_last_used,
+            take_saved,
+            transform_for_execution,
+        )
+        from thunder_tpu_torch.functional import trace_from_fn
+
+        t0 = time.perf_counter()
+        trace_results = trace_from_fn(self.loss_fn, (params, *batch), {}, grad_argnums=(0,))
+        comp = dce(trace_results.computation_trace)
+        comp = cse(comp)
+        # before the split, so the backward rule sees the half-precision
+        # logits directly (its dlogits cast back to logits.dtype covers it)
+        comp = absorb_ce_widening_converts(comp)
+        comp.args = trace_results.computation_trace.args
+        fw_trace, bw_trace = forward_and_backward_from_trace(comp)
+        residual_bytes_no_remat = saved_bytes(fw_trace)
+        decision = _remat.resolve_remat(
+            self.remat, auto=lambda: self._auto_remat(fw_trace, params, opt_state, batch))
+        if decision.apply:
+            fw_trace, bw_trace = rematerialize_forward_and_backward(
+                fw_trace, bw_trace, max_cone=decision.max_cone, aggressive=decision.aggressive)
+        residual_bytes = saved_bytes(fw_trace)
+        n_saved = len(saved_for_backward(fw_trace))
+        fw_trace = transform_for_execution(fw_trace, self.executors)
+        bw_trace = transform_for_execution(bw_trace, self.executors)
+        fw_fn = del_last_used(fw_trace).python_callable()
+        bw_fn = take_saved(del_last_used(bw_trace), n_saved).python_callable()
+        return _Program(fw_fn, bw_fn, fw_trace, bw_trace, decision, residual_bytes_no_remat,
+                        residual_bytes, 1e3 * (time.perf_counter() - t0))
+
+    def _auto_remat(self, fw_trace, params, opt_state, batch) -> bool:
         """``remat="auto"``: recompute only when the un-rematerialized step
-        would not fit device memory with headroom (1.5×).  The budget is
-        ``THUNDER_TPU_HBM_BYTES``, else the card's total memory; unknown
-        (the CPU) means remat.  The residuals are measured by one forward
-        whose saved tensors are counted and not kept."""
-        env = os.environ.get("THUNDER_TPU_HBM_BYTES")
-        budget = int(env) if env else None
-        dev = next((x.device for x in tree_leaves(params) if isinstance(x, torch.Tensor)), None)
-        if budget is None and dev is not None and dev.type == "cuda":
-            budget = torch.cuda.mem_get_info(dev)[1]
+        would not fit device memory with headroom (1.5×): params, optimizer
+        state, batch and ``saved_bytes`` of the forward.  Unknown budget
+        (the CPU) means remat."""
+        from thunder_tpu_torch.core.rematerialization import saved_bytes
+
+        budget = _budget(params)
         if not budget:
             return True
-        saved = 0
-
-        def pack(t):
-            nonlocal saved
-            if not (t.requires_grad and t.grad_fn is None):   # params are counted below
-                saved += t.numel() * t.element_size()
-
-        def unpack(_):
-            raise RuntimeError("the residual probe's graph is never differentiated")
-
-        leaves, spec = tree_flatten(params)
-        inputs = [x.detach().requires_grad_() if _differentiable(x) else x for x in leaves]
-        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, unpack):
-            self.loss_fn(tree_unflatten(spec, inputs), *batch)
-        per_device = _nbytes(params) + _nbytes(opt_state) + _nbytes(batch) + saved
+        per_device = _nbytes(params) + _nbytes(opt_state) + _nbytes(batch) + saved_bytes(fw_trace)
         return per_device * 1.5 > budget
 
-    def _value_and_grad(self, params, batch, policy: str):
+    def _value_and_grad(self, params, opt_state, batch):
         """``(loss, grads)``: grads a list in the params' leaf order, zeros
-        for leaves the loss does not reach."""
-        leaves, spec = tree_flatten(params)
-        inputs = [x.detach().requires_grad_() if _differentiable(x) else x for x in leaves]
-        with torch.enable_grad(), _remat.policy_scope(policy):
-            loss = self.loss_fn(tree_unflatten(spec, inputs), *batch)
-        wrt = [x for x in inputs if isinstance(x, torch.Tensor) and x.requires_grad]
-        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
-        grads = []
-        for x in inputs:
-            g = next(got) if isinstance(x, torch.Tensor) and x.requires_grad else None
-            grads.append(torch.zeros_like(x) if g is None else g)
-        return loss.detach(), grads
+        for leaves that are not floating point."""
+        prog = self._program(params, opt_state, batch)
+        leaves = tree_leaves(params)
+        inputs = [x for x in (*leaves, *tree_leaves(list(batch))) if _is_tensor_like(x)]
+        loss, saved = prog.fw_fn(*inputs)
+        # the list is the residuals' only holder: the backward program empties
+        # it once unpacked, so each residual dies at its last use
+        saved = list(saved)
+        ct = torch.ones((), dtype=loss.dtype, device=loss.device)
+        flat = prog.bw_fn(saved, ct)
+        flat = iter(flat if isinstance(flat, (tuple, list)) else (flat,))
+        grads = [next(flat) if _differentiable(x) else torch.zeros_like(x) for x in leaves]
+        return loss, grads
 
     def __call__(self, params, opt_state, *batch):
-        policy = self._policy(params, opt_state, batch)
         if not self.donate:
             params, opt_state = _copy(params), _copy(opt_state)
         k = self.accum_steps
         if k == 1:
-            loss, grads = self._value_and_grad(params, batch, policy)
+            loss, grads = self._value_and_grad(params, opt_state, batch)
         else:
             split, mask = split_for_accum(batch, k)
             acc = None
             loss_sum = None
             for i in range(k):
                 micro = tuple(b[i] if m else b for b, m in zip(split, mask))
-                loss_i, g_i = self._value_and_grad(params, micro, policy)
+                loss_i, g_i = self._value_and_grad(params, opt_state, micro)
                 if acc is None:
                     acc = [g.to(torch.float32, copy=True) for g in g_i]
                     loss_sum = loss_i.to(torch.float32, copy=True)
@@ -173,6 +259,7 @@ class TrainStep:
                     for a, g in zip(acc, g_i):
                         a.add_(g.to(torch.float32))
                     loss_sum = loss_sum + loss_i.to(torch.float32)
+                del g_i
             grads = [(a / k).to(p.dtype) for a, p in zip(acc, tree_leaves(params))]
             loss = loss_sum / k        # mean of microbatch means == batch mean
         self.optimizer.update(params, grads, opt_state)
@@ -181,7 +268,7 @@ class TrainStep:
     def grads(self, params, opt_state, *batch):
         """One micro step: ``(loss, grads)`` with no optimizer update; grads
         in the params' tree structure."""
-        loss, grads = self._value_and_grad(params, batch, self._policy(params, opt_state, batch))
+        loss, grads = self._value_and_grad(params, opt_state, batch)
         return loss, tree_unflatten(tree_flatten(params)[1], grads)
 
     def apply_gradients(self, params, opt_state, grads, *, batch_template=None):
@@ -212,6 +299,64 @@ class TrainStep:
         return params, opt_state, total / n
 
 
+class EagerTrainStep(TrainStep):
+    """The step's plain twin: the same loss and grads by eager PyTorch
+    autograd, each transformer block under the remat policy's
+    ``torch.utils.checkpoint`` scope (:func:`~thunder_tpu_torch.train.remat.run_block`).
+    ``"auto"`` measures the residuals by one forward whose saved tensors are
+    counted and not kept."""
+
+    def _init_executors(self, executors) -> None:
+        if executors is not None:
+            raise NotImplementedError("EagerTrainStep: executors= claims a trace; the eager "
+                                      "twin runs none")
+        self.executors = None
+
+    def _policy(self, params, opt_state, batch) -> str:
+        key = self._signature(params, batch)
+        decision = self._built.get(key)
+        if decision is None:
+            decision = self._built[key] = _remat.resolve_remat(
+                self.remat, auto=lambda: self._auto_remat(None, params, opt_state, batch))
+        self.last_remat_policy, self.last_remat_applied = decision.policy, decision.apply
+        return decision.policy
+
+    def _auto_remat(self, fw_trace, params, opt_state, batch) -> bool:
+        budget = _budget(params)
+        if not budget:
+            return True
+        saved = 0
+
+        def pack(t):
+            nonlocal saved
+            if not (t.requires_grad and t.grad_fn is None):   # params are counted below
+                saved += t.numel() * t.element_size()
+
+        def unpack(_):
+            raise RuntimeError("the residual probe's graph is never differentiated")
+
+        leaves, spec = tree_flatten(params)
+        inputs = [x.detach().requires_grad_() if _differentiable(x) else x for x in leaves]
+        with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            self.loss_fn(tree_unflatten(spec, inputs), *batch)
+        per_device = _nbytes(params) + _nbytes(opt_state) + _nbytes(batch) + saved
+        return per_device * 1.5 > budget
+
+    def _value_and_grad(self, params, opt_state, batch):
+        policy = self._policy(params, opt_state, batch)
+        leaves, spec = tree_flatten(params)
+        inputs = [x.detach().requires_grad_() if _differentiable(x) else x for x in leaves]
+        with torch.enable_grad(), _remat.policy_scope(policy):
+            loss = self.loss_fn(tree_unflatten(spec, inputs), *batch)
+        wrt = [x for x in inputs if isinstance(x, torch.Tensor) and x.requires_grad]
+        got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+        grads = []
+        for x in inputs:
+            g = next(got) if isinstance(x, torch.Tensor) and x.requires_grad else None
+            grads.append(torch.zeros_like(x) if g is None else g)
+        return loss.detach(), grads
+
+
 def _differentiable(x) -> bool:
     return isinstance(x, torch.Tensor) and x.is_floating_point()
 
@@ -221,5 +366,11 @@ def _copy(tree):
 
 
 def make_train_step(loss_fn: Callable, optimizer, mesh=None, **kwargs) -> TrainStep:
-    """``TrainStep(loss_fn, optimizer, mesh, **kwargs)``."""
+    """``TrainStep(loss_fn, optimizer, mesh, **kwargs)``: the traced step."""
     return TrainStep(loss_fn, optimizer, mesh, **kwargs)
+
+
+def make_eager_train_step(loss_fn: Callable, optimizer, mesh=None, **kwargs) -> EagerTrainStep:
+    """``EagerTrainStep(loss_fn, optimizer, mesh, **kwargs)``: the traced
+    step's plain twin, eager PyTorch autograd."""
+    return EagerTrainStep(loss_fn, optimizer, mesh, **kwargs)

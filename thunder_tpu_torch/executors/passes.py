@@ -1,7 +1,10 @@
 """Executor claiming and lifetime passes.
 
 Counterpart of ``thunder_tpu/executors/passes.py``, copied; the donation
-pass raises until ``executors/donation.py`` is ported.  The reference is the
+pass raises until ``executors/donation.py`` is ported.  ``take_saved`` is
+the port's own: the backward program takes the saved residuals as one list
+and empties it, so that no frame outside the program keeps a residual alive
+past its ``del`` (in the reference XLA owns the buffers).  The reference is the
 analog of the reference's ``thunder/executors/passes.py``:
 ``transform_for_execution`` (dce → operator claiming in priority order →
 fusion passes → always-executor sweep) and ``del_last_used``.
@@ -13,14 +16,14 @@ from typing import Any, Sequence
 
 from thunder_tpu_torch.core.prims import OpTags, PrimIDs
 from thunder_tpu_torch.core.proxies import Proxy, variableify
-from thunder_tpu_torch.core.symbol import BoundSymbol, provenance_inherited
+from thunder_tpu_torch.core.symbol import BoundSymbol, Symbol, provenance_inherited
 from thunder_tpu_torch.core.trace import TraceCtx, TraceProvenance, from_trace, tracectx
 from thunder_tpu_torch.core.transform_common import dce
 from thunder_tpu_torch.extend import Executor, FusionExecutor, OperatorExecutor
 from thunder_tpu_torch.core.pytree import tree_flatten
 from thunder_tpu_torch.observability.events import span as _phase_span
 
-__all__ = ["transform_for_execution", "del_last_used", "annotate_donations"]
+__all__ = ["transform_for_execution", "del_last_used", "take_saved", "annotate_donations"]
 
 _PASSTHROUGH_IDS = {
     PrimIDs.RETURN,
@@ -247,6 +250,38 @@ def del_last_used(trace: TraceCtx, *, clear_collections: bool = False) -> TraceC
     ntrace.bound_symbols = list(reversed(new_reversed))
     elapsed = (time.perf_counter_ns() - start) // 1000000
     ntrace.set_provenance(TraceProvenance(f"Delete Last Used (took {elapsed} milliseconds)"))
+    return ntrace
+
+
+def _unpack_saved(saved_for_backward: list) -> tuple:
+    values = tuple(saved_for_backward)
+    saved_for_backward.clear()
+    return values
+
+
+_UNPACK_SAVED = Symbol(name="unpack_saved", meta=lambda coll: None, id="unpack_saved",
+                       is_prim=True, python_impl=_unpack_saved)
+
+
+def take_saved(trace: TraceCtx, n_saved: int) -> TraceCtx:
+    """Rewrites a backward execution trace ``backward(*saved, *cotangents)``
+    into ``backward(saved_for_backward, *cotangents)``, whose first line
+    unpacks the list and empties it (the upstream Lightning Thunder's
+    ``clear_mutable_collection``).  The caller hands over its only
+    reference to the list's residuals; each then dies at its ``del``."""
+    from thunder_tpu_torch.core.codeutils import SigInfo
+    from thunder_tpu_torch.core.proxies import CollectionProxy
+
+    saved, cotangents = trace.args[:n_saved], trace.args[n_saved:]
+    ntrace = from_trace(trace)
+    with tracectx(ntrace):
+        coll = CollectionProxy(None, name="saved_for_backward")
+    unpack = _UNPACK_SAVED.bind(coll, output=tuple(saved))
+    ntrace.bound_symbols = [unpack, *trace.bound_symbols]
+    ntrace.args = (coll, *cotangents)
+    ntrace.set_siginfo(SigInfo(name=trace.siginfo().name,
+                               args=[(p.name, None) for p in ntrace.args]))
+    ntrace.set_provenance(TraceProvenance("Take saved for backward"))
     return ntrace
 
 

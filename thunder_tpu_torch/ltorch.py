@@ -6,11 +6,13 @@ runs (``thunder_tpu/torch/__init__.py``: ``scaled_dot_product_attention``
 (``thunder_tpu/executors/jaxex.py`` :518-607: ``_sdpa_impl``,
 ``_sdpa_reference``, ``_sdpa_backward_reference``,
 ``_cross_entropy_fwd_reference``) and of those prims' backward rules
-(``thunder_tpu/core/transforms.py`` :652 SDPA, :699 CROSS_ENTROPY_FWD).
+(``thunder_tpu/core/transforms.py`` :652 SDPA, :699 CROSS_ENTROPY_FWD,
+:720 FUSED_LINEAR_CE).
 
-The JAX package traces these ops and differentiates the trace; the port runs
-eager PyTorch autograd, so each prim with a backward rule is a
-``torch.autograd.Function``:
+The traced path (``jit``, the train step) differentiates the trace with the
+port's own rule table (``core/transforms.py``); this module serves eager
+PyTorch autograd (the train step's eager twin, the serving forward), so
+each prim with a backward rule is a ``torch.autograd.Function``:
 
 - :class:`_SDPA` saves ``(q, k, v, out, lse)`` — never the (Tq, Tk)
   probabilities.  Its dispatch mirrors ``_sdpa_impl``: a shape
@@ -31,11 +33,12 @@ eager PyTorch autograd, so each prim with a backward rule is a
 
 This module is the eager half of the split with the torch language
 (``thunder_tpu_torch/torch/__init__.py``, the traced ``ltorch`` surface):
-the train step, the serving forward and ``chip_smoke.py`` call these
-functions on tensors, and handed proxies (``models/llama.py`` under
-``jit``) :func:`scaled_dot_product_attention` and :func:`cross_entropy`
-bind the torch language's symbols instead, which reach the ``SDPA`` and
-``CROSS_ENTROPY_FWD`` prims.  ``cross_entropy``'s decomposed cases (class
+the train step's eager twin, the serving forward and ``chip_smoke.py`` call
+these functions on tensors, and handed proxies (``models/llama.py`` under
+``jit`` and the train step) :func:`scaled_dot_product_attention`,
+:func:`cross_entropy` and :func:`fused_linear_cross_entropy` bind the torch
+language's symbols instead, which reach the ``SDPA``, ``CROSS_ENTROPY_FWD``
+and ``FUSED_LINEAR_CE`` prims.  ``cross_entropy``'s decomposed cases (class
 weights, label smoothing, ``(N, C, d1, ...)`` logits) follow the
 reference's formulas (``thunder_tpu/torch/__init__.py:1133-1221``) under
 autograd; only the fast path goes through :class:`_CrossEntropy`.
@@ -50,8 +53,8 @@ import torch.nn.functional as F
 from thunder_tpu_torch.core.proxies import TensorProxy
 from thunder_tpu_torch.executors import cudaex
 
-__all__ = ["CE", "DECLINES", "FLASH", "cross_entropy", "scaled_dot_product_attention",
-           "sdpa_backward_reference", "sdpa_reference"]
+__all__ = ["CE", "DECLINES", "FLASH", "cross_entropy", "fused_linear_cross_entropy",
+           "scaled_dot_product_attention", "sdpa_backward_reference", "sdpa_reference"]
 
 # shapes the kernels declined (the reference decomposition ran instead)
 DECLINES = {"flash_sdpa": 0, "flash_sdpa_backward": 0, "flash_cross_entropy": 0}
@@ -251,6 +254,56 @@ class _CrossEntropy(torch.autograd.Function):
         dlogits = torch.exp(logits.float() - lse[:, None]) * g_tot[:, None]
         dlogits.scatter_add_(1, target[:, None], -g_losses[:, None])
         return dlogits.to(logits.dtype), None
+
+
+class _FusedLinearCE(torch.autograd.Function):
+    """The FUSED_LINEAR_CE prim with its backward rule, through the torch
+    executor's chunked implementations: f32 row losses of ``h @ w.T``
+    without the (N, V) logits; saves ``(h, w, target, lse)``."""
+
+    @staticmethod
+    def forward(ctx, h, w, target, ignore_index):
+        from thunder_tpu_torch.executors import torchex
+
+        losses, lse = torchex._fused_linear_ce_impl(h, w, target, ignore_index)
+        ctx.save_for_backward(h, w, target, lse)
+        ctx.ignore_index = ignore_index
+        return losses
+
+    @staticmethod
+    def backward(ctx, g):
+        from thunder_tpu_torch.executors import torchex
+
+        h, w, target, lse = ctx.saved_tensors
+        dh, dw = torchex._fused_linear_ce_backward_impl(g, h, w, target, lse,
+                                                        ctx.ignore_index)
+        return dh, dw, None, None
+
+
+def fused_linear_cross_entropy(h, weight, target, ignore_index=-100, reduction="mean"):
+    """``cross_entropy(h @ weight.T, target)`` without the (N, V) logits,
+    as the torch language's ``fused_linear_cross_entropy`` computes it
+    (``thunder_tpu/torch/__init__.py``): float32 row losses, ``ignore_index``
+    rows zeroed and left out of the mean.  Handed proxies it binds the
+    language's symbol (the FUSED_LINEAR_CE prim)."""
+    if isinstance(h, TensorProxy):
+        from thunder_tpu_torch import torch as torch_lang
+
+        return torch_lang.fused_linear_cross_entropy(h, weight, target,
+                                                     ignore_index=ignore_index,
+                                                     reduction=reduction)
+    if h.ndim != 2:
+        raise ValueError(f"fused_linear_cross_entropy: h must be 2D, got {h.ndim}D")
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"fused_linear_cross_entropy: unsupported reduction {reduction!r}")
+    losses = _FusedLinearCE.apply(h, weight, target.to(torch.int32), int(ignore_index))
+    if reduction == "none":
+        return losses
+    total = losses.sum()
+    if reduction == "sum":
+        return total
+    n_valid = (target != ignore_index).to(losses.dtype).sum()
+    return total / torch.clamp(n_valid, min=1.0)
 
 
 def _log_softmax(a, dim):

@@ -11,17 +11,16 @@ Parameters are drawn on the target device from an explicit
 seed, so tests that compare the two packages build weights once (with JAX
 or numpy) and carry them over.
 
-The training forward (``gpt_hidden``/``gpt_forward``/``gpt_loss``) runs
-eagerly under autograd in the train step, where the JAX package traces it:
-attention and cross-entropy go through :mod:`thunder_tpu_torch.ltorch` (the
-flash kernels and their backward), and each block runs under the remat
-policy of the enclosing train step
-(:func:`thunder_tpu_torch.train.remat.run_block`).  The same functions trace
-as they are under ``thunder_tpu_torch.jit``: their torch calls on proxies
-divert into the torch language, and ``ltorch``'s attention and
-cross-entropy bind its symbols.
-MoE MLPs and ``fused_head_ce`` are not ported and raise
-``NotImplementedError``.  The serving forward lives in
+The training forward (``gpt_hidden``/``gpt_forward``/``gpt_loss``) traces
+as it is under ``thunder_tpu_torch.jit`` and the train step: its torch
+calls on proxies divert into the torch language, and ``ltorch``'s
+attention and cross-entropy (fused with the head under ``fused_head_ce``)
+bind its symbols.  On tensors (the train step's eager twin) it runs under
+autograd: attention and cross-entropy go through
+:mod:`thunder_tpu_torch.ltorch` (the flash kernels and their backward), and
+each block runs under the remat policy of the enclosing step
+(:func:`thunder_tpu_torch.train.remat.run_block`).
+MoE MLPs are not ported and raise ``NotImplementedError``.  The serving forward lives in
 :mod:`thunder_tpu_torch.models.generate`; both share the block helpers here,
 which take per-request LoRA factors (``lora=``, the serving engine's
 adapters) beside the training forward's single-adapter hook
@@ -496,10 +495,14 @@ def gpt_forward(params, idx, cos, sin, config: Config):
 
 def gpt_loss(params, idx, targets, cos, sin, config: Config):
     """Next-token cross-entropy over the padded vocab, float32 accumulation;
-    targets of ``-100`` are ignored with exact mean normalization."""
+    targets of ``-100`` are ignored with exact mean normalization.
+    ``fused_head_ce`` configs take the lm head and the loss in one op that
+    never holds the (B·T, V) logits (``ltorch.fused_linear_cross_entropy``)."""
     if config.fused_head_ce:
-        raise NotImplementedError("gpt_loss: fused_head_ce (the fused lm-head + cross-entropy) "
-                                  "is not ported")
+        x = gpt_hidden(params, idx, cos, sin, config)
+        head = params["wte"] if config.tie_embeddings else params["lm_head"]
+        C = x.shape[-1]
+        return ltorch.fused_linear_cross_entropy(x.reshape(-1, C), head, targets.reshape(-1))
     logits = gpt_forward(params, idx, cos, sin, config)
     V = logits.shape[-1]
     return ltorch.cross_entropy(logits.reshape(-1, V).to(torch.float32), targets.reshape(-1))

@@ -28,9 +28,11 @@ Factories given no ``device=`` take the port's default device (the card;
 the CPU unasked.
 
 This module is the traced language.  ``thunder_tpu_torch/ltorch.py`` stays
-the eager autograd module of the training step (``_SDPA``,
-``_CrossEntropy``, ``DECLINES``); its ``scaled_dot_product_attention`` and
-``cross_entropy`` bind this module's symbols when they are handed proxies.
+the eager autograd module of the train step's eager twin and the serving
+forward (``_SDPA``, ``_CrossEntropy``, ``DECLINES``); its
+``scaled_dot_product_attention``, ``cross_entropy`` and
+``fused_linear_cross_entropy`` bind this module's symbols when they are
+handed proxies.
 """
 from __future__ import annotations
 

@@ -1,25 +1,32 @@
 """Selectable rematerialization policies for the train step.
 
-Counterpart of ``thunder_tpu/train/remat.py``, with its vocabulary:
+Counterpart of ``thunder_tpu/train/remat.py``, with its vocabulary and its
+table of knobs for the trace's rematerialization
+(:func:`thunder_tpu_torch.core.rematerialization.rematerialize_forward_and_backward`):
 
 - ``"none"``       — save every residual; nothing is recomputed.
-- ``"attention"``  — the selective policy ``remat=True`` means: the matmul
-  outputs are saved and the cheap ops between them (elementwise, norms,
-  rope, softmax pieces) are recomputed in the backward.
-- ``"full_block"`` — each transformer block is checkpointed whole: only its
-  input is saved, and the backward reruns the block's forward.
+- ``"attention"``  — the selective policy ``remat=True`` means: cheap-op
+  producer cones (elementwise, norm, rope chains) behind the anchor ops
+  (matmul, reduction, RNG, embedding stay saved) are recomputed in the
+  backward, ``max_cone=64``.
+- ``"full_block"`` — aggressive: anchors (matmuls included) are recomputed
+  too and the residuals shrink toward the layer inputs (``max_cone=256``,
+  ``aggressive=True``).
 
 Booleans and ``"auto"`` stay accepted (``True`` ≡ ``"attention"``,
 ``False`` ≡ ``"none"``; ``"auto"`` resolves by a device-memory probe), and
 ``zero3=True`` forces ``"full_block"`` as in the reference.
 
-The JAX package rematerializes on the traced program; the port runs eager
-autograd, so the policies are realised with ``torch.utils.checkpoint``
-(non-reentrant) around each block: the train step opens
-:func:`policy_scope` and the model calls :func:`run_block` for each block.
-The flash-attention forward is a ``ctypes`` call inside an autograd
-function, opaque to the selective policy, so under ``"attention"`` it reruns
-in the recompute just as under ``"full_block"``.
+The traced step (:class:`~thunder_tpu_torch.distributed.api.TrainStep`)
+reads the decision's ``apply``, ``max_cone`` and ``aggressive``.  The eager
+twin (:class:`~thunder_tpu_torch.distributed.api.EagerTrainStep`) realises
+the same policy names with ``torch.utils.checkpoint`` (non-reentrant)
+around each block: it opens :func:`policy_scope` and the model calls
+:func:`run_block` for each block, which under ``jit`` (proxies) calls the
+block as it is.  The eager flash-attention forward is a ``ctypes`` call
+inside an autograd function, opaque to the selective policy, so under
+``"attention"`` it reruns in the eager recompute just as under
+``"full_block"``.
 """
 from __future__ import annotations
 
@@ -42,13 +49,19 @@ REMAT_POLICIES = ("none", "attention", "full_block")
 
 
 class RematDecision(NamedTuple):
-    """Resolved policy: its name and whether anything is recomputed."""
+    """Resolved policy: whether the pass runs and with which knobs."""
 
     policy: str          # one of REMAT_POLICIES
-    apply: bool
+    apply: bool          # run rematerialize_forward_and_backward at all
+    max_cone: int        # recompute-cone size cap
+    aggressive: bool     # recompute anchor ops (matmuls) too
 
 
-_BY_POLICY = {name: RematDecision(name, name != "none") for name in REMAT_POLICIES}
+_BY_POLICY = {
+    "none": RematDecision("none", False, 0, False),
+    "attention": RematDecision("attention", True, 64, False),
+    "full_block": RematDecision("full_block", True, 256, True),
+}
 
 
 def validate_remat(remat) -> None:
