@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # needs one NVIDIA H100 (sm_90a) and nvcc
     python3 -P chip_smoke.py --paged-times LABEL   # paged attention device ms only
     python3 -P chip_smoke.py --write-times LABEL   # the engine's KV writers' ms only
+    python3 chip_smoke.py --moe-depth               # int8 vs bf16 vs f32 MoE forward by depth
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -224,7 +225,43 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     ``flash_ce``) and returns a bf16 loss within twice the eager bf16 loss's
     error, plus half a bf16 ulp of the loss, of the float32 eager loss; no
     declines;
-14. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+14. the Mixtral path at Mixtral-8x7B's widths (n_embd 4096, 32 heads over
+    8 KV groups, hs 128, 8 experts of intermediate 14336 with 2 per token,
+    vocab 32000, rope base 1e6; random bf16 weights from a seed, depth cut):
+    (a) the quantization executor's four products (``quantex.int8_linear``,
+    ``int8_matmul``, ``fp8_linear``, ``fp8_matmul``) at M = 8, 512 and 2048
+    rows and (K, N) = (4096, 14336) and (14336, 4096) against their plain
+    versions (int8 bitwise, fp8 within one ulp of the output's dtype at its
+    largest magnitude, or 1e-4 of it: the library's float32 sum in its own
+    order), two calls bitwise equal, one library call each
+    (``torch._int_mm`` / ``torch._scaled_mm``), their CUDA-event ms beside
+    bf16 ``F.linear``, and for the linears the device ms of the call, of
+    the product alone and of ``F.linear``; (b) 3 steps of the traced
+    ``TrainStep`` at 4 layers (2 where 4 do not fit, printed), B=1,
+    T=2048, full_block, AdamW: programs of ``cuda_*``/``torch_*`` symbols
+    only, 2·L ``flash_fwd``, L ``flash_bwd_dq`` and ``flash_bwd_dkv`` and
+    the programs' CE symbols' ``flash_ce`` per step, exactly, no declines, losses finite and falling,
+    step time, tokens/s, peak memory and the build's host ms; one more
+    step profiled by kernel group with its top kernels; 2 steps of the
+    eager twin; before those steps, one traced step with ``quant="int8"``
+    on the fresh params and the same batch: ``int8_linear`` in the forward
+    program, no ``int8_`` symbol in the backward, one ``_int_mm`` per
+    ``int8_linear``, its loss within 1e-2 relative of the bf16 step's; the
+    reference's ``test_quantized_moe_inference`` on the card
+    (``jit(gpt_forward)`` of mixtral-like with the int8 executor first,
+    B=2, T=32: mean |Δ| / mean |ref| < 0.1); (c) serving at 8 layers, 8
+    greedy requests of 128-1024 prompt tokens and 32 new tokens, paged
+    decode, with bf16 weights and with ``quantized=True``: exactly n_layer
+    ``paged_attn_decode`` and one ``paged_token_write`` per decode step
+    each, tokens/s, TTFT and TPOT p50 and memory, and the quantized serve's
+    last decode step replayed (every served token re-derived), its logits
+    against bf16 weights on the same tokens and K/V printed (random weights
+    at these widths amplify any perturbation with depth, so the reference's
+    bar holds on its own config above and not here); (d) float32
+    tokens, exact, at 2 layers: paged = gather, ``prefill_chunk=512`` =
+    unchunked, speculative with a 1-layer MoE layer-skip draft = plain, and
+    ``quantized=True`` paged = ``quantized=True`` gather;
+15. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -262,6 +299,7 @@ from thunder_tpu_torch.models.llama import (
     _norm,
     block_forward,
     build_rope_cache,
+    gpt_forward,
     gpt_loss,
     init_params,
     param_count,
@@ -3817,6 +3855,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     served["jit gpt_loss"] = jit_gpt_loss(cfg)
     served["jit grad and autocast"] = jit_grad_and_autocast(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mix = mixtral()
+    served["mixtral train"] = mix.pop("train_launches")
+    served["mixtral serve"] = mix.pop("serve_launches")
+    served["mixtral float32 lanes"] = mix.pop("exact_launches")
 
     sources = {"paged_attn_decode": "paged_attention.cu", "paged_token_write": "paged_attention.cu",
                "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",
@@ -3854,6 +3898,7 @@ def main() -> int:
             **{k: rec[k] for k in ("shapes", "quantized", "dtypes", "library", "body", "single")
                if k in rec}))
     say("quantized serves: " + json.dumps({"chunked int8": qrec, "speculative fp8": frec}))
+    say("mixtral: " + json.dumps(mix))
     say("LoRA serves: " + json.dumps({"chunked": lrec, "speculative": slrec}))
     say("serve profiles: " + json.dumps({
         "decode step": decode_profile, "chunk piece": crec["chunk_piece_profile"],
@@ -3964,6 +4009,551 @@ def jit_grad_and_autocast(cfg):
     gc.collect()
     torch.cuda.empty_cache()
     return total
+
+
+#
+# phase 14: the Mixtral path at Mixtral-8x7B's widths
+#
+
+MIXTRAL = "Mixtral-8x7B-like"
+MIX_M = (8, 512, 2048)                     # decode (B=8), a chunk piece, a training row block
+MIX_KN = ((4096, 14336), (14336, 4096))    # the experts' fc_1/fc_2 and proj
+# fp8 products against the plain version's exact sum (float64, rounded
+# once), of the output's largest magnitude: the card's e4m3 product keeps
+# fewer accumulator bits than a float32 sum (1.4e-4-1.8e-4 read in float32 at
+# K = 256-4096), and the result is then rounded to the input's dtype, so a
+# bf16 output may land one ulp away (at most eps of the largest magnitude;
+# 3.2e-3-5.3e-3 read at every shape; NVIDIA H100 80GB HBM3, 700.00 W).  Both
+# are far below e4m3's own quantization error (~5e-2); a layout or scale
+# fault leaves errors of order 1
+FP8_ACC_REL = 1e-3
+
+
+def fp8_bar(dtype) -> float:
+    return max(FP8_ACC_REL, torch.finfo(dtype).eps)
+MIX_TRAIN_LAYERS, MIX_TRAIN_LAYERS_FALLBACK = 4, 2
+MIX_TRAIN_STEPS, MIX_EAGER_STEPS = 3, 2
+# the int8 step's loss against the bf16 step's on the same params and batch
+MIX_QUANT_LOSS_REL = 1e-2
+MIX_SERVE_LAYERS = 8
+# the reference's bar for the quantized MoE forward (tests/test_moe_quant.py
+# test_quantized_moe_inference): mean |Δ| / mean |ref| of the logits, held
+# on the reference's config and shapes (mixtral-like, float32, B=2, T=32).
+# At Mixtral's widths with random weights it is no bar of the port: any
+# perturbation grows with depth there, bf16 weights against float32 read
+# 0.028 / 0.074 / 0.171 at 1 / 2 / 4 layers and int8 against bf16 0.090 /
+# 0.178 / 0.342 / 0.609 at 1 / 2 / 4 / 8 (a 256-token prefill; routing
+# decisions flip for 5.1-31.3% of tokens and layers; ``--moe-depth`` on
+# NVIDIA H100 80GB HBM3, 700.00 W), so the full-width serve's figure is
+# printed beside it
+QUANT_LOGITS_REL = 0.1
+MIX_EXACT_LAYERS = 2
+
+
+def mix_params(n_layer: int, dtype=torch.bfloat16, seed=SEED + 14):
+    cfg = Config.from_name(MIXTRAL, n_layer=n_layer)
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator=torch.Generator(device=DEVICE).manual_seed(seed),
+                         dtype=dtype, device=DEVICE)
+    torch.cuda.synchronize()
+    say(f"{MIXTRAL} params at {n_layer} layers: {param_count(params) / 1e9:.3f} B in "
+        f"{str(dtype)[6:]}, init {time.perf_counter() - t0:.1f} s")
+    return params, cfg
+
+
+def mix_quantex() -> dict:
+    """(a) The four quantized products at Mixtral's shapes against their
+    plain versions on the card: int8 bitwise (the plain version's float64
+    product is exact), fp8 within ``fp8_bar`` of the output's largest
+    magnitude, two calls bitwise equal; each call's CUDA-event ms, the
+    device ms of every kernel it launches, and of its library product
+    alone, beside bf16 ``F.linear`` and the bound of the product."""
+    from thunder_tpu_torch.executors import quantex
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 141)
+    rows = []
+    for K, N in MIX_KN:
+        w = (torch.randn((N, K), generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        wt = w.T.contiguous()                              # (K, N): matmul's b
+        qw8, _ = quantex.quantize_lastdim(w)
+        qwf, _ = quantex.quantize_fp8_lastdim(w)
+        for M in MIX_M:
+            a = torch.randn((M, K), generator=gen, device=DEVICE).to(torch.bfloat16)
+            for name, args in (("int8_linear", (a, w)), ("int8_matmul", (a, wt)),
+                               ("fp8_linear", (a, w)), ("fp8_matmul", (a, wt))):
+                fn = getattr(quantex, name)
+                quantex.reset_calls()
+                got = fn(*args)
+                calls = dict(quantex.CALLS)
+                again = fn(*args)
+                want = getattr(quantex, f"{name}_plain")(*args)
+                torch.cuda.synchronize()
+                same = torch.equal(got, again)
+                err = (got.float() - want.float()).abs().max().item()
+                rel = err / max(want.float().abs().max().item(), 1e-30)
+                exact = name.startswith("int8")
+                ok = (same and tuple(got.shape) == (M, N) and sum(calls.values()) == 1
+                      and (err == 0.0 if exact else rel <= fp8_bar(got.dtype)))
+                ms = time_ms(lambda: fn(*args), iters=10)
+                lin_ms = time_ms(lambda: F.linear(a, w), iters=10)
+                row = dict(name=name, M=M, K=K, N=N, max_abs_err=err, rel_err=rel,
+                           bitwise_twice=same, calls=calls, ms=ms, bf16_linear_ms=lin_ms)
+                rows.append(row)
+                msg = (f"quantex {name} M={M} K={K} N={N}: max_abs_err {err:.3e} against the "
+                       f"plain version (rel {rel:.3e}; {'bitwise' if exact else f'bar {fp8_bar(got.dtype):.4g}'}"
+                       f"), two calls bitwise equal {same}, library calls {calls}; {ms:.4f} ms "
+                       f"per call, bf16 F.linear {lin_ms:.4f} ms")
+                if not ok:
+                    say(msg + " FAIL")
+                    raise AssertionError(f"quantex {name} at M={M} K={K} N={N} failed its checks")
+                if name.endswith("matmul"):       # the linears' device times cover the product
+                    say(msg + " ok")
+                    continue
+                dev, n_kernels = device_ms_all(lambda: fn(*args), iters=5)
+                if name.startswith("int8"):
+                    qa = quantex.quantize_lastdim(a)[0]
+                    prod = lambda: torch._int_mm(quantex._pad_rows(qa, 8, 32), qw8.T)  # noqa: E731
+                else:
+                    qa = quantex.quantize_fp8_lastdim(a)[0]
+                    one = torch.ones((), device=DEVICE)
+                    prod = lambda: torch._scaled_mm(  # noqa: E731
+                        quantex._pad_rows(qa, 16, 16), qwf.T, scale_a=one, scale_b=one,
+                        out_dtype=torch.float32, use_fast_accum=False)
+                prod_ms, _ = device_ms_all(prod, iters=10)
+                lin_dev, _ = device_ms_all(lambda: F.linear(a, w), iters=10)
+                ops = 2.0 * M * K * N
+                nbytes = M * K + N * K + 4 * M * N        # the product's 1-byte operands, f32 out
+                rate = 1979e12                            # int8 TOP/s and fp8 TFLOP/s, dense
+                bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / rate)
+                row.update(device_ms=dev, kernels_per_call=n_kernels, product_device_ms=prod_ms,
+                           bf16_linear_device_ms=lin_dev, product_bound_ms=bound_ms)
+                say(msg + f" (device: the call {dev} ms over {n_kernels} kernels, the product "
+                    f"alone {prod_ms} ms, its bound {bound_ms:.4f} ms; F.linear {lin_dev} ms) ok")
+                del got, again, want
+        del w, wt, qw8, qwf
+    torch.cuda.empty_cache()
+    return {f"{r['name']} M={r['M']} K={r['K']} N={r['N']}": r for r in rows}
+
+
+def _top_kernels(prof, n=6) -> list:
+    tot: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            tot[e.name] = tot.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return [(k[:80], round(v, 3)) for k, v in sorted(tot.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def _mix_quant_step(step, params, opt_state, batch, cfg) -> dict:
+    """The bf16 step's loss (no update) and one traced ``quant="int8"`` step
+    on the same params and batch: ``int8_linear`` in the forward program,
+    no ``int8_`` symbol in the backward, one ``_int_mm`` per
+    ``int8_linear``, the flash launches of a bf16 step, and the loss within
+    MIX_QUANT_LOSS_REL of the bf16 step's.  The params are updated."""
+    from thunder_tpu_torch.executors import quantex
+
+    loss16, grads = step.grads(params, opt_state, *batch)
+    loss16 = loss16.item()
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    qstep = make_train_step(lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg),
+                            adamw(TRAIN_LR), remat="full_block", quant="int8")
+    torch.cuda.reset_peak_memory_stats()
+    quantex.reset_calls()
+    cudaex.reset_launches()
+    t0 = time.perf_counter()
+    params, opt_state, qloss = qstep(params, opt_state, *batch)
+    qloss = qloss.item()
+    q_s = time.perf_counter() - t0
+    q_launches, q_calls = dict(cudaex.LAUNCHES), dict(quantex.CALLS)
+    syms = _symbols(step)
+    want = no_launches_but(flash_fwd=syms.get("cuda_sdpa", 0),
+                           flash_bwd_dq=syms.get("cuda_sdpa_backward", 0),
+                           flash_bwd_dkv=syms.get("cuda_sdpa_backward", 0),
+                           flash_ce=syms.get("torch_cross_entropy_fwd", 0))
+    n_fw = _count(qstep.fw_trace, "int8_linear")
+    n_bw = sum(b.sym.name.startswith("int8_") for b in qstep.bw_trace.bound_symbols)
+    rel = abs(qloss - loss16) / abs(loss16)
+    ok = (n_fw > 0 and n_bw == 0 and math.isfinite(qloss) and rel <= MIX_QUANT_LOSS_REL
+          and q_launches == want and q_calls["int_mm"] == n_fw)
+    say(f"mixtral traced step quant='int8' on the fresh params and the batch: loss {qloss:.6f} "
+        f"against the bf16 step's {loss16:.6f} (rel {rel:.3e}, bar {MIX_QUANT_LOSS_REL}); "
+        f"int8_linear symbols forward {n_fw}, int8_ symbols backward {n_bw}; library calls "
+        f"{q_calls}; launches {q_launches} (expected {want}); {1e3 * q_s:.0f} ms with the "
+        f"build ({qstep.build_ms:.0f} ms of host), max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the quantized mixtral step failed its checks")
+    return dict(params=params, opt_state=opt_state,
+                rec=dict(loss=qloss, bf16_loss=loss16, rel=rel, int8_linear=n_fw,
+                         launches=q_launches, ms_with_build=1e3 * q_s,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+
+
+def _mix_train_run(n_layer: int) -> dict:
+    params, cfg = mix_params(n_layer)
+    batch = train_batch(cfg, SEED + 142)
+    step = make_step(cfg)
+    opt_state = step.init_optimizer_state(params)
+    torch.cuda.synchronize()
+    say(f"{MIXTRAL} {n_layer} layers: params and AdamW state "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    quant = _mix_quant_step(step, params, opt_state, batch, cfg)
+    params, opt_state = quant["params"], quant["opt_state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, opt_state, losses, times, peak, launches, declines = _run_steps(
+        step, params, opt_state, batch, MIX_TRAIN_STEPS)
+    return dict(params=params, cfg=cfg, batch=batch, step=step, opt_state=opt_state,
+                losses=losses, times=times, peak=peak, launches=launches, declines=declines,
+                quant=quant["rec"])
+
+
+def mix_train() -> dict:
+    """(b) Mixtral-8x7B-like at full width through the traced TrainStep
+    (bf16, B=1, T=2048, full_block, AdamW): MIX_TRAIN_LAYERS layers, or
+    MIX_TRAIN_LAYERS_FALLBACK where those do not fit (printed).  First the
+    bf16 program's build and loss and one ``quant="int8"`` step on the
+    fresh params (``_mix_quant_step``: the loss of a model that has not yet
+    memorized the batch); then MIX_TRAIN_STEPS bf16 steps: programs of
+    ``cuda_*``/``torch_*`` symbols only, exact flash and ``flash_ce``
+    launches read from them, no declines, losses finite and falling; one
+    more step profiled by kernel group (the backward's per-expert pads and
+    their sums are in "the rest"); then MIX_EAGER_STEPS steps of the eager
+    twin on the same params."""
+    try:
+        run = _mix_train_run(MIX_TRAIN_LAYERS)
+    except torch.cuda.OutOfMemoryError as e:
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"{MIXTRAL} at {MIX_TRAIN_LAYERS} layers does not fit the card ({e}); training "
+            f"{MIX_TRAIN_LAYERS_FALLBACK} layers")
+        run = _mix_train_run(MIX_TRAIN_LAYERS_FALLBACK)
+    step, cfg, batch = run["step"], run["cfg"], run["batch"]
+    params, opt_state, losses = run["params"], run["opt_state"], run["losses"]
+    L = cfg.n_layer
+    syms = _symbols(step)
+    stray = [n for n in syms if not n.startswith(("cuda_", "torch_")) and n != "python_return"]
+    n_sdpa, n_bwd = syms.get("cuda_sdpa", 0), syms.get("cuda_sdpa_backward", 0)
+    n_ce = syms.get("torch_cross_entropy_fwd", 0)
+    want = no_launches_but(flash_fwd=n_sdpa * MIX_TRAIN_STEPS,
+                           flash_bwd_dq=n_bwd * MIX_TRAIN_STEPS,
+                           flash_bwd_dkv=n_bwd * MIX_TRAIN_STEPS,
+                           flash_ce=n_ce * MIX_TRAIN_STEPS)
+    step_s = float(np.mean(run["times"]))
+    bw_peak = peak_live_bytes(del_last_used(step.bw_trace))
+    say(f"mixtral train programs: {len(step.fw_trace.bound_symbols)} forward and "
+        f"{len(step.bw_trace.bound_symbols)} backward bound symbols; cuda_sdpa {n_sdpa} "
+        f"(expected {TRAIN_SDPA_PER_LAYER} x {L}), cuda_sdpa_backward {n_bwd}, "
+        f"torch_cross_entropy_fwd {n_ce}, torch_topk {syms.get('torch_topk', 0)}, "
+        f"torch_pad {syms.get('torch_pad', 0)}; other than cuda_/torch_: {stray}")
+    say(f"train {MIXTRAL} bf16 through the trace, {L} layers, B={TRAIN_B} T={TRAIN_T}, remat "
+        f"{step.last_remat_policy}, AdamW lr {TRAIN_LR}: losses {losses}; step times "
+        f"{[round(t, 4) for t in run['times']]} s (the programs built before, "
+        f"{step.build_ms:.0f} ms of host for both); step time {1e3 * step_s:.1f} ms = "
+        f"{TRAIN_B * TRAIN_T / step_s:.1f} tokens/s; max_memory_allocated "
+        f"{run['peak'] / 2**30:.2f} GiB; saved_bytes {step.residual_bytes_no_remat} before "
+        f"remat, {step.residual_bytes} after; the backward program's live-bytes peak by trace "
+        f"{bw_peak / 2**30:.2f} GiB ({CARD})")
+    say(f"launches during {MIX_TRAIN_STEPS} mixtral train steps: {run['launches']} (expected "
+        f"{want}); declines {run['declines']}")
+    ok = (not stray and n_sdpa == TRAIN_SDPA_PER_LAYER * L and n_bwd == L and n_ce >= 1
+          and run["launches"] == want and not any(run["declines"].values())
+          and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0])
+    if not ok:
+        raise AssertionError(f"the mixtral train step failed its checks: {syms}")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, *batch)
+        loss.item()
+        prof_s = time.perf_counter() - t0
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups: dict[str, float] = {}
+    for name, s, e in spans:
+        groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + (e - s) / 1e3
+    busy = sum(groups.values())
+    top = _top_kernels(prof)
+    say(f"mixtral train step profile: wall {1e3 * prof_s:.1f} ms (profiled), device busy "
+        f"{busy:.3f} ms; device ms by group "
+        f"{ {k: round(v, 3) for k, v in sorted(groups.items(), key=lambda kv: -kv[1])} }; "
+        f"top kernels {top}")
+    build_ms = step.build_ms
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = make_eager_step(cfg)
+    params, opt_state, e_losses, e_times, e_peak, e_launches, e_declines = _run_steps(
+        eager, params, opt_state, batch, MIX_EAGER_STEPS)
+    say(f"mixtral eager twin, {MIX_EAGER_STEPS} steps on the same params: losses {e_losses}, step "
+        f"times {[round(t, 4) for t in e_times]} s, max_memory_allocated "
+        f"{e_peak / 2**30:.2f} GiB, launches {e_launches}, declines {e_declines}")
+    if not all(math.isfinite(x) for x in e_losses) or any(e_declines.values()):
+        raise AssertionError("the mixtral eager twin failed")
+    rec = dict(launches=run["launches"], layers=L, losses=losses, step_ms=1e3 * step_s,
+               tokens_per_s=TRAIN_B * TRAIN_T / step_s, peak_gib=run["peak"] / 2**30,
+               build_ms=build_ms, bw_peak_gib=bw_peak / 2**30,
+               profile=dict(busy_ms=busy, groups=groups, top=top),
+               eager=dict(losses=e_losses, times=e_times, peak_gib=e_peak / 2**30),
+               quant=run["quant"])
+    del params, opt_state, eager, batch, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mix_reference_bar() -> dict:
+    """The reference's ``test_quantized_moe_inference`` on the card:
+    ``jit(gpt_forward)`` of mixtral-like (float32 weights from a seed, B=2,
+    T=32) with the int8 executor first against the plain ``jit``: the
+    forward program runs ``int8_linear`` (one ``_int_mm`` each), and mean
+    |Δ| / mean |ref| of the logits stays below QUANT_LOGITS_REL."""
+    from thunder_tpu_torch.executors import quantex
+
+    cfg = Config.from_name("mixtral-like")
+    params = init_params(cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED + 145),
+                         dtype=torch.float32, device=DEVICE)
+    idx = torch.randint(0, cfg.vocab_size, (2, 32), device=DEVICE,
+                        generator=torch.Generator(device=DEVICE).manual_seed(SEED + 146))
+    cos, sin = build_rope_cache(cfg, 32, device=DEVICE)
+    fwd = lambda p, i, c, s: gpt_forward(p, i, c, s, cfg)        # noqa: E731
+    ref = ttt.jit(fwd)(params, idx, cos, sin)
+    jq = ttt.jit(fwd, executors=[quantex.ex, *ttt.extend.get_default_executors()])
+    quantex.reset_calls()
+    got = jq(params, idx, cos, sin)
+    torch.cuda.synchronize()
+    n = _count(ttt.last_traces(jq)[-1], "int8_linear")
+    rel = ((got - ref).abs().mean() / ref.abs().mean()).item()
+    ok = (n > 0 and quantex.CALLS["int_mm"] == n and bool(torch.isfinite(got).all())
+          and rel < QUANT_LOGITS_REL)
+    say(f"the reference's quantized MoE bar on the card (mixtral-like, float32, B=2, T=32, "
+        f"jit with the int8 executor first): {n} int8_linear symbols, {quantex.CALLS} library "
+        f"calls; mean |Δ| / mean |ref| {rel:.4e} (bar {QUANT_LOGITS_REL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the quantized mixtral-like forward misses the reference's bar")
+    return dict(rel=rel, int8_linear=n)
+
+
+def _quant_decode_logits(eng, params, cfg, prompts, results, tables) -> dict:
+    """One decode step at the served rows' last positions over the
+    quantized serve's arenas, with int8 weight matmuls (what the serve
+    computed) and with the bf16 weights, on the same tokens and K/V: the
+    int8 step must re-derive every served last token (the kernels and the
+    library calls are deterministic), and mean |Δ| / mean |bf16| of the
+    logits is printed (no bar at these widths: QUANT_LOGITS_REL's note)."""
+    Bb = len(results)
+    nbb = eng._nbb(max(len(t) for t in tables))
+    tab = np.full((Bb, nbb), SINK_BLOCK, dtype=np.int32)
+    for i, t in enumerate(tables):
+        tab[i, :len(t)] = t
+    pos = torch.as_tensor([len(p) + len(r.new_tokens) - 2 for p, r in zip(prompts, results)],
+                          dtype=torch.int32, device=DEVICE)
+    toks = torch.as_tensor([r.new_tokens[-2] for r in results], dtype=torch.int32,
+                           device=DEVICE)[:, None]
+    tab_d = torch.as_tensor(tab, device=DEVICE)
+    cos, sin = build_rope_cache(cfg, nbb * eng.pool.block_size, device=DEVICE)
+    with torch.no_grad():
+        lq, _ = forward_paged(params, toks, pos, eng.pool.arenas, tab_d, cos, sin, cfg,
+                              cdtype=eng.pool.dtype, quantized=True)
+        lb, _ = forward_paged(params, toks, pos, eng.pool.arenas, tab_d, cos, sin, cfg,
+                              cdtype=eng.pool.dtype)
+    rel = ((lq - lb).abs().mean() / lb.abs().mean()).item()
+    served = torch.as_tensor([r.new_tokens[-1] for r in results], device=DEVICE)
+    replay = int((lq.argmax(-1)[:, 0] == served).sum())
+    ok = bool(torch.isfinite(lq).all()) and replay == Bb
+    say(f"quantized serve's decode logits against bf16 weights on the same tokens and K/V "
+        f"({Bb} rows, {cfg.n_layer} layers): mean |Δ| / mean |bf16| {rel:.4e} (reported); the "
+        f"int8 path re-derives the served last token {replay}/{Bb} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the quantized serve's decode step does not replay")
+    return dict(rel=rel, replay=replay)
+
+
+def mix_serve() -> dict:
+    """(c) Mixtral-8x7B-like at MIX_SERVE_LAYERS layers through ``serve``
+    (paged decode): 8 greedy requests of 128-1024 prompt tokens and 32 new
+    tokens each, once with bf16 weights and once with ``quantized=True``
+    (int8 weight matmuls per call); each serve launches exactly n_layer
+    ``paged_attn_decode`` and one ``paged_token_write`` per decode step,
+    the quantized one also ``_int_mm``; tokens/s, TTFT, TPOT and memory
+    printed; the quantized serve's decode step replayed, its logits against
+    bf16 weights printed.  Returns both serves' records, launches summed."""
+    from thunder_tpu_torch.executors import quantex
+
+    params, cfg = mix_params(MIX_SERVE_LAYERS)
+    rng = np.random.default_rng(SEED + 143)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(128, 1025, 8)]
+    recs = {}
+    total = dict.fromkeys(cudaex.LAUNCHES, 0)
+    for quantized in (False, True):
+        name = "quantized (int8 weights)" if quantized else "bf16"
+        eng = serve(None, params, cfg, attn="paged", block_size=16, num_blocks=1024,
+                    max_batch=8, quantized=quantized, device=DEVICE)
+        eng.run([prompts[0][:64]], max_new_tokens=2)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps0 = eng.decode_steps
+        cudaex.reset_launches()
+        quantex.reset_calls()
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_new_tokens=32) for p in prompts]
+        eng.step()
+        tables = [list(h._req.block_table) for h in handles]
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, calls = dict(cudaex.LAUNCHES), dict(quantex.CALLS)
+        steps = eng.decode_steps - steps0
+        results = [h.result(drive=False) for h in handles]
+        check_results(results, 32, cfg.padded_vocab_size)
+        rec = serve_stats(f"serve {MIXTRAL} {name}, {cfg.n_layer} layers (prompts "
+                          f"{sorted(len(p) for p in prompts)})", results, wall)
+        want = no_launches_but(paged_attn_decode=steps * cfg.n_layer, paged_token_write=steps)
+        say(f"launches during the {name} mixtral serve: {launches} (expected {want}, {steps} "
+            f"decode steps); library calls {calls}")
+        if launches != want or not steps or (calls["int_mm"] > 0) is not quantized:
+            raise AssertionError(f"mixtral {name} serve launch counts {launches} != {want}")
+        rec.update(launches=launches, steps=steps, calls=calls,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   tokens=[list(r.new_tokens) for r in results])
+        if quantized:
+            rec["logits"] = _quant_decode_logits(eng, params, cfg, prompts, results, tables)
+        for k in total:
+            total[k] += launches[k]
+        recs[name] = rec
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(recs["bf16"]["tokens"],
+                                      recs["quantized (int8 weights)"]["tokens"]))
+    say(f"mixtral serves: quantized TPOT p50 {recs['quantized (int8 weights)']['tpot_p50_ms']:.2f} "
+        f"ms against bf16 {recs['bf16']['tpot_p50_ms']:.2f} ms; requests with equal tokens "
+        f"{same}/8 (reported)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=total, serves={k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                                        for k, v in recs.items()})
+
+
+def mix_exact_tokens(n_new=8) -> dict:
+    """(d) Tokens, exact, in float32 at Mixtral's widths and
+    MIX_EXACT_LAYERS layers: paged = gather, ``prefill_chunk=512`` =
+    unchunked, speculative with a 1-layer MoE layer-skip draft = plain,
+    and ``quantized=True`` paged = ``quantized=True`` gather.  Returns the
+    equalities and the kernels' launches over these serves."""
+    params, cfg = mix_params(MIX_EXACT_LAYERS, dtype=torch.float32)
+    cudaex.reset_launches()
+    rng = np.random.default_rng(SEED + 144)
+    short = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (90, 200, 333, 411)]
+    long = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (1100, 1600)]
+    common = dict(block_size=16, num_blocks=512, max_batch=4, device=DEVICE)
+
+    def tokens(prompts, **kw):
+        return [r.new_tokens for r in serve(None, params, cfg, **common, **kw).run(
+            prompts, max_new_tokens=n_new)]
+
+    dparams, dcfg = layer_skip_draft(params, cfg, n_layer=1)
+    cases = {
+        "paged = gather": (tokens(short, attn="paged"), tokens(short, attn="gather")),
+        "prefill_chunk=512 = unchunked": (
+            tokens(long, attn="paged", prefill_chunk=CHUNK, prefill_buckets=CHUNK_BUCKETS),
+            tokens(long, attn="paged", prefill_buckets=tuple(16 * 2 ** i for i in range(8)))),
+        "speculative (1-layer MoE draft) = plain": (
+            tokens(short, attn="paged", speculative=SpecConfig(dparams, dcfg, K=4)),
+            tokens(short, attn="paged")),
+        "quantized paged = quantized gather": (tokens(short, attn="paged", quantized=True),
+                                               tokens(short, attn="gather", quantized=True)),
+    }
+    launches = dict(cudaex.LAUNCHES)
+    out = {name: a == b for name, (a, b) in cases.items()}
+    say(f"float32, {MIXTRAL} at {cfg.n_layer} layers: {out}; tokens "
+        f"{ {name: a for name, (a, _) in cases.items()} }")
+    if not all(out.values()):
+        raise AssertionError(f"mixtral float32 token equalities failed: {out}")
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def mixtral() -> dict:
+    """Phase 14: the Mixtral path (the MoE MLP, the int8/fp8 quantization
+    executor) at Mixtral-8x7B's widths.  Returns the launch counts of the
+    train, serve and float32 lanes' paths and the phase's records."""
+    t0 = time.perf_counter()
+    quant = mix_quantex()
+    reference_bar = mix_reference_bar()
+    train = mix_train()
+    served = mix_serve()
+    exact, exact_launches = mix_exact_tokens()
+    say(f"phase 14 (mixtral) took {time.perf_counter() - t0:.1f} s")
+    return dict(train_launches=train["launches"], serve_launches=served["launches"],
+                exact_launches=exact_launches,
+                quantex=quant, reference_bar=reference_bar, train=train,
+                serve=served["serves"], exact=exact)
+
+
+def moe_depth() -> int:
+    """How far int8 weight matmuls move the Mixtral-8x7B-like forward with
+    random weights, by depth: a 256-token prefill (``forward_with_cache``,
+    no kernel of the port) at 1, 2, 4 and 8 layers with bf16 weights, with
+    ``quantized=True`` and (to 4 layers, which fit beside the bf16 copy)
+    with float32 weights; mean |Δ| / mean |ref| of the logits for each pair
+    and the share of (token, layer) routing decisions that differ.  Prints
+    one line per depth."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: --moe-depth needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    global CARD
+    CARD = card_line()
+    print(CARD, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from thunder_tpu_torch.models import llama as llama_mod
+    from thunder_tpu_torch.models.generate import init_cache
+
+    picks = []
+    route = llama_mod._route
+
+    def recording_route(router, k, E):
+        w = route(router, k, E)
+        picks.append(torch.stack(w, -1) > 0)
+        return w
+
+    llama_mod._route = recording_route
+    rng = np.random.default_rng(SEED + 143)
+    idx = torch.as_tensor(rng.integers(0, 32000, 256).astype(np.int32)[None], device=DEVICE)
+    try:
+        for n_layer in (1, 2, 4, 8):
+            params, cfg = mix_params(n_layer)
+            cos, sin = build_rope_cache(cfg, 256, device=DEVICE)
+            runs = {"bf16": (params, False), "int8": (params, True)}
+            if n_layer <= 4:
+                runs["f32"] = (_cast(params, torch.float32), False)
+            logits, routes = {}, {}
+            with torch.no_grad():
+                for name, (p, quantized) in runs.items():
+                    picks.clear()
+                    cache = init_cache(cfg, 1, 256, dtype=p["wte"].dtype, device=DEVICE)
+                    logits[name] = forward_with_cache(p, idx, 0, cache, cos, sin, cfg,
+                                                      quantized=quantized)[0].float()
+                    routes[name] = torch.stack(picks)
+            pairs = [("int8", "bf16")] + ([("bf16", "f32"), ("int8", "f32")] if "f32" in runs
+                                          else [])
+            out = {f"{a} vs {b}": dict(
+                rel=((logits[a] - logits[b]).abs().mean() / logits[b].abs().mean()).item(),
+                routing_flips=(routes[a] != routes[b]).any(-1).float().mean().item())
+                for a, b in pairs}
+            say(f"moe depth {n_layer}: {json.dumps(out)}")
+            del params, runs, logits, routes
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        llama_mod._route = route
+    return 0
 
 
 def paged_times(label: str) -> int:
@@ -4099,4 +4689,6 @@ if __name__ == "__main__":
         sys.exit(paged_times(sys.argv[2] if len(sys.argv) > 2 else "tree"))
     if sys.argv[1:2] == ["--write-times"]:
         sys.exit(write_times(sys.argv[2] if len(sys.argv) > 2 else "tree"))
+    if sys.argv[1:2] == ["--moe-depth"]:
+        sys.exit(moe_depth())
     sys.exit(main())

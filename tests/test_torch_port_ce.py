@@ -32,6 +32,7 @@ from thunder_tpu_torch import ltorch
 from thunder_tpu_torch._tree import tree_map
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.models import llama as tllama
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16),
           "float16": (jnp.float16, torch.float16)}

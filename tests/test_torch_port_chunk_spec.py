@@ -42,6 +42,7 @@ from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.models import generate as tgen
 from thunder_tpu_torch.models import speculative as tspec
 from thunder_tpu_torch.serving import paged_attention as tpa
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 MICRO = dict(
     n_layer=2, n_head=4, n_query_groups=2, n_embd=32,

@@ -23,6 +23,7 @@ import torch
 from thunder_tpu.executors import jaxex, pallasex
 from thunder_tpu_torch import ltorch
 from thunder_tpu_torch.executors import cudaex
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 NEG = -0.7 * float(np.finfo(np.float32).max)
 

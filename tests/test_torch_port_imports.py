@@ -14,6 +14,8 @@ from pathlib import Path
 
 import pytest
 
+from torch_port_threads import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "thunder_tpu"}
 SOURCES = sorted((ROOT / "thunder_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

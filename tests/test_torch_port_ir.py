@@ -57,6 +57,7 @@ from thunder_tpu_torch.executors import torchex
 from thunder_tpu_torch.executors.passes import transform_for_execution as ptransform
 from thunder_tpu_torch.extend import resolve_executors as presolve
 from thunder_tpu_torch.functional import trace_from_fn as ptrace_from_fn
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 SEED = 0
 Pair = collections.namedtuple("Pair", ["first", "second"])

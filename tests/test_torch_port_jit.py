@@ -42,6 +42,7 @@ from thunder_tpu.core import cache_key as rcache_key
 from thunder_tpu.models import llama as jllama
 from thunder_tpu_torch.core import cache_key as pcache_key
 from thunder_tpu_torch.models import llama as tllama
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 SEED = 0
 

@@ -21,6 +21,7 @@ import torch
 
 from thunder_tpu.executors import pallasex
 from thunder_tpu_torch.executors import cudaex
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 NUM_BLOCKS = 16
 

@@ -45,6 +45,7 @@ from thunder_tpu.executors import pallasex
 from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.serving import quant as tq
 from thunder_tpu_torch.serving.kv_pool import chunk_tables
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 L, NG, HS, BS, NBB, NUM_BLOCKS = 2, 2, 16, 4, 5, 32
 POS = np.array([0, 5, 13, 9, 2, 11], np.int32)        # row 0: batch padding

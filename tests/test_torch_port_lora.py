@@ -52,6 +52,7 @@ from thunder_tpu_torch.models import speculative as tspec
 from thunder_tpu_torch.observability import registry as metrics
 from thunder_tpu_torch.serving import paged_attention as tpa
 from thunder_tpu_torch.serving.lora import _target_features, gather_adapter_slots
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 MICRO = dict(n_layer=1, n_head=2, n_embd=16, intermediate_size=32, vocab_size=32, block_size=64)
 BUCKETS = dict(batch_buckets=(4,), block_buckets=(4,), prefill_buckets=(16,))

@@ -44,6 +44,7 @@ from opinfos import opinfos
 from thunder_tpu.core.symbol import Symbol as RSymbol
 from thunder_tpu_torch import ltorch as peager
 from thunder_tpu_torch.core import langctxs as plangctxs
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 SEED = 0
 _BY_NAME = {o.name: o for o in opinfos}

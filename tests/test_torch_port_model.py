@@ -20,6 +20,7 @@ from thunder_tpu.models import llama as jllama
 from thunder_tpu_torch.models import generate as tgen
 from thunder_tpu_torch.models import llama as tllama
 from thunder_tpu_torch.models.weights import params_from_numpy
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 CONFIGS = ["tiny-llama-debug", "tiny-pythia-debug", "tiny-gemma-debug"]
 LLAMA31_SCALING = {"factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
@@ -177,9 +178,12 @@ def test_cache_geometry_matches_jax():
 
 
 def test_out_of_slice_paths_raise():
+    # MoE params are built now, in the reference's stacked layout
     cfg = tllama.Config.from_name("tiny-moe-debug")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllama.init_params(cfg, device="cpu")
+    mp = tllama.init_params(cfg, device="cpu")["blocks"][0]["mlp"]
+    E, C, I = cfg.n_expert, cfg.n_embd, cfg.intermediate_size
+    assert {k: tuple(v.shape) for k, v in mp.items()} == {
+        "gate": (E, C), "fc_1": (E, I, C), "fc_2": (E, I, C), "proj": (E, C, I)}
     mcfg = tllama.Config.from_name("tiny-mistral-debug")
     mp = tllama.init_params(mcfg, device="cpu", dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="ring"):

@@ -24,6 +24,7 @@ import torch
 from thunder_tpu.executors import pallasex
 from thunder_tpu.serving import quant as jq
 from thunder_tpu_torch.executors import cudaex
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ATOL_F32 = 1e-5
 LOWP_ERR_RATIO = 2.0

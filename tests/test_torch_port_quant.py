@@ -52,6 +52,7 @@ from thunder_tpu_torch.executors import cudaex
 from thunder_tpu_torch.serving import paged_attention as tpa
 from thunder_tpu_torch.serving import quant as tq
 from thunder_tpu_torch.serving.kv_pool import ArenaMismatchError, PagedKVPool, chunk_tables
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 STORAGE = {"int8": (jnp.int8, torch.int8), "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
 QMAX = {"int8": 127.0, "fp8": 448.0}

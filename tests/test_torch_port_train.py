@@ -76,6 +76,7 @@ from thunder_tpu_torch.train.checkpoint import (
 )
 from thunder_tpu_torch.train.loop import train_loop
 from test_torch_port_transforms import _PORT_REF_MODEL, _normalize
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 B, T = 2, 128
@@ -278,7 +279,7 @@ def test_remat_vocabulary_and_unported_options():
     params = ttt.init_params(cfg, device="cpu", dtype=torch.float32)
     step.grads(params, None, *_port_batch(cfg, *np.zeros((2, B, T), np.int32)))
     assert step.last_remat_policy == "attention"         # no device budget on the CPU
-    for kw in ({"zero3": True}, {"quant": "int8"}, {"overlap": True}, {"bucketer": len},
+    for kw in ({"zero3": True}, {"overlap": True}, {"bucketer": len},
                {"comm_combine_threshold_mb": 4.0}):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             _port_step(cfg, **kw)
@@ -287,10 +288,14 @@ def test_remat_vocabulary_and_unported_options():
     with pytest.raises(ValueError, match="must divide"):
         split_for_accum((torch.zeros(3, 4, dtype=torch.int32),), 2)
     assert accum_buffer_bytes(params) == 4 * tllama.param_count(params)
+    with pytest.raises(ValueError, match="quant must be"):
+        _port_step(cfg, quant="int4")
+    # a MoE config runs (tests/test_torch_port_moe_quant.py holds it against the reference)
     cfg_moe = tllama.Config.from_name("tiny-moe-debug")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllama.gpt_hidden({"wte": torch.zeros(4, 4), "blocks": []}, torch.zeros(1, 2), None, None,
-                          cfg_moe)
+    h = tllama.gpt_hidden(ttt.init_params(cfg_moe, device="cpu", dtype=torch.float32),
+                          torch.zeros(1, 2, dtype=torch.int32),
+                          *tllama.build_rope_cache(cfg_moe, 2), cfg_moe)
+    assert h.shape == (1, 2, cfg_moe.n_embd) and bool(torch.isfinite(h).all())
     # executors= is the claiming order of the traced step's programs
     step = _port_step(cfg, executors=["torch"])
     step.grads(params, None, *_port_batch(cfg, *np.zeros((2, B, T), np.int32)))
@@ -483,7 +488,7 @@ def test_cli_trains_two_steps_on_the_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mode", "fsdp"], "--mode fsdp"), (["--fused-ce"], "--fused-ce"),
-    (["--quant", "int8"], "--quant"), (["--devices", "2"], "--devices"),
+    (["--sp-impl", "ring"], "--sp-impl"), (["--devices", "2"], "--devices"),
     (["--overlap"], "--overlap"), (["--telemetry", "t.jsonl"], "--telemetry")])
 def test_cli_refuses_unported_options(argv, match):
     with pytest.raises(NotImplementedError, match=match):

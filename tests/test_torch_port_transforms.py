@@ -76,6 +76,7 @@ from thunder_tpu_torch.core.transform_common import dce as pdce
 from thunder_tpu_torch.executors.passes import del_last_used
 from thunder_tpu_torch.functional import trace_from_fn as ptrace
 from thunder_tpu_torch.models import llama as tllama
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 SEED = 0
 

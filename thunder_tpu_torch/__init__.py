@@ -16,8 +16,11 @@ two-tier dispatch cache, and the transforms (``core/transforms.py``: the
 VJP table, the forward/backward split, ``grad``, ``value_and_grad`` and
 ``vjp``; ``core/rematerialization.py``; ``core/autocast.py``).  The train
 step (``distributed.api.TrainStep``) runs the traced loss: split,
-rematerialized, claimed and generated, as the reference's does.  Entry
-points run on the card unless the caller passes ``device="cpu"``.
+rematerialized, claimed and generated, as the reference's does.  MoE
+configs train and serve; ``executors.quantex`` (exported as ``quantex``)
+is the opt-in int8/fp8 quantization executor behind ``TrainStep(quant=)``
+and the serving forwards' ``quantized=``.  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 
 ``jit`` and its introspection are the counterpart of
 ``thunder_tpu/__init__.py:128-760, 768-940``: ``jit`` (with its grad path
@@ -56,6 +59,7 @@ from thunder_tpu_torch.core.options import (
 from thunder_tpu_torch.core.trace import TraceCtx, TraceResults
 from thunder_tpu_torch.core.transform_common import absorb_ce_widening_converts, cse, dce
 from thunder_tpu_torch.distributed.api import TrainStep, make_eager_train_step, make_train_step
+from thunder_tpu_torch.executors import quantex
 from thunder_tpu_torch.extend import resolve_executors
 from thunder_tpu_torch.functional import trace_from_fn
 from thunder_tpu_torch.models.generate import generate
@@ -79,8 +83,8 @@ __all__ = ["AdapterRegistry", "Config", "RegistryFullError", "ServingEngine", "S
            "generate", "gpt_loss", "grad", "init_params", "jit", "last_backward_traces",
            "last_compile_options", "last_prologue_traces", "last_traces", "make_eager_train_step",
            "make_lora_factors", "make_train_step",
-           "metrics_snapshot", "params_from_numpy", "serve", "train_loop", "valid_targets",
-           "value_and_grad", "vjp"]
+           "metrics_snapshot", "params_from_numpy", "quantex", "serve", "train_loop",
+           "valid_targets", "value_and_grad", "vjp"]
 
 # jit options whose machinery is not ported yet: the option, then the item
 # that brings it.  Each raises when given a value other than its "off"

@@ -20,7 +20,11 @@ cotangent, and the optimizer:
   rematerialization; ``"auto"`` compares ``saved_bytes`` of the forward
   with the device memory, as ``_auto_remat`` does.
 - ``executors=`` is the claiming order of both traces (default: cuda ≻
-  torch).  ``fw_trace``/``bw_trace`` keep the last build's claimed traces,
+  torch).  ``quant="int8"|"fp8"`` (reference :407-419) claims the forward
+  trace with ``[quantex.ex or quantex.fp8_ex, *executors]`` and the
+  backward with ``executors`` alone: the forward's linears and matmuls run
+  quantized, the grads stay full precision.  ``fw_trace``/``bw_trace``
+  keep the last build's claimed traces,
   ``residual_bytes_no_remat``/``residual_bytes`` its saved residuals before
   and after remat, ``build_ms`` the host time of the build.
 - ``accum_steps=k`` splits the batch into k microbatches (traced at
@@ -36,7 +40,7 @@ the same loss and grads with eager PyTorch autograd (the remat policies as
 
 The optimizer is any object with ``init(params)`` and ``update(params,
 grads, state)`` in place — :func:`thunder_tpu_torch.train.optim.adamw` is
-the port's ``optax.adamw``.  A multi-device mesh, ``zero3``, ``quant``,
+the port's ``optax.adamw``.  A multi-device mesh, ``zero3``,
 ``overlap``, ``comm_combine_threshold_mb``, ``bucketer``, ``batch_specs``
 and ``donate_batch`` are not ported and raise ``NotImplementedError``.
 """
@@ -113,13 +117,15 @@ class TrainStep:
                  bucketer: Callable | None = None):
         _check_single_device(mesh)
         for name, value, default in (
-                ("zero3", zero3, False), ("quant", quant, None), ("overlap", overlap, False),
+                ("zero3", zero3, False), ("overlap", overlap, False),
                 ("comm_combine_threshold_mb", comm_combine_threshold_mb, None),
                 ("bucketer", bucketer, None), ("batch_specs", batch_specs, None),
                 ("donate_batch", donate_batch, False)):
             if value != default:
                 raise NotImplementedError(f"TrainStep: {name}= is not ported (the port's step "
                                           "runs on one device)")
+        if quant not in (None, "int8", "fp8"):
+            raise ValueError(f"quant must be None, 'int8', or 'fp8', got {quant!r}")
         _remat.validate_remat(remat)
         if not isinstance(accum_steps, int) or accum_steps < 1:
             raise ValueError(f"accum_steps must be an int >= 1, got {accum_steps!r}")
@@ -128,6 +134,7 @@ class TrainStep:
         self.donate = donate
         self.remat = remat
         self.accum_steps = accum_steps
+        self.quant = quant
         self._init_executors(executors)
         #: the resolved policy of the last call (train.remat.REMAT_POLICIES)
         self.last_remat_policy: str | None = None
@@ -203,7 +210,13 @@ class TrainStep:
                 fw_trace, bw_trace, max_cone=decision.max_cone, aggressive=decision.aggressive)
         residual_bytes = saved_bytes(fw_trace)
         n_saved = len(saved_for_backward(fw_trace))
-        fw_trace = transform_for_execution(fw_trace, self.executors)
+        fw_executors = self.executors
+        if self.quant is not None:
+            from thunder_tpu_torch.executors import quantex
+
+            fw_executors = (quantex.ex if self.quant == "int8" else quantex.fp8_ex,
+                            *self.executors)
+        fw_trace = transform_for_execution(fw_trace, fw_executors)
         bw_trace = transform_for_execution(bw_trace, self.executors)
         fw_fn = del_last_used(fw_trace).python_callable()
         bw_fn = take_saved(del_last_used(bw_trace), n_saved).python_callable()
@@ -307,9 +320,9 @@ class EagerTrainStep(TrainStep):
     counted and not kept."""
 
     def _init_executors(self, executors) -> None:
-        if executors is not None:
-            raise NotImplementedError("EagerTrainStep: executors= claims a trace; the eager "
-                                      "twin runs none")
+        if executors is not None or self.quant is not None:
+            raise NotImplementedError("EagerTrainStep: executors= and quant= claim a trace; "
+                                      "the eager twin runs none")
         self.executors = None
 
     def _policy(self, params, opt_state, batch) -> str:

@@ -42,6 +42,8 @@ and ``FUSED_LINEAR_CE`` prims.  ``cross_entropy``'s decomposed cases (class
 weights, label smoothing, ``(N, C, d1, ...)`` logits) follow the
 reference's formulas (``thunder_tpu/torch/__init__.py:1133-1221``) under
 autograd; only the fast path goes through :class:`_CrossEntropy`.
+:func:`topk` is the MoE router's selection with ``lax.top_k``'s order of
+ties, on tensors and proxies alike.
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ from thunder_tpu_torch.core.proxies import TensorProxy
 from thunder_tpu_torch.executors import cudaex
 
 __all__ = ["CE", "DECLINES", "FLASH", "cross_entropy", "fused_linear_cross_entropy",
-           "scaled_dot_product_attention", "sdpa_backward_reference", "sdpa_reference"]
+           "scaled_dot_product_attention", "sdpa_backward_reference", "sdpa_reference", "topk"]
 
 # shapes the kernels declined (the reference decomposition ran instead)
 DECLINES = {"flash_sdpa": 0, "flash_sdpa_backward": 0, "flash_cross_entropy": 0}
@@ -226,6 +228,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.
     if dropout_p > 0.0:
         probs = F.dropout(probs, dropout_p, training=True)
     return torch.matmul(probs, value)
+
+
+def topk(a, k: int, dim: int = -1):
+    """The ``k`` largest of ``a`` along ``dim`` and their indices, ties in
+    index order (``jax.lax.top_k``'s order, which ``torch.topk`` on the card
+    does not promise): a stable descending sort, differentiable through its
+    gather.  Handed proxies it binds the torch language's ``topk``, whose
+    torch executor sorts stably too."""
+    if isinstance(a, TensorProxy):
+        return torch.topk(a, k, dim)
+    idx = torch.sort(a, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, k)
+    return a.gather(dim, idx), idx
 
 
 class _CrossEntropy(torch.autograd.Function):

@@ -2,7 +2,7 @@
 
 Counterpart of ``thunder_tpu/models/generate.py``: the same per-layer math
 (norms, QKV projection with partial rotary, GQA attention, LLaMAMLP /
-GemmaMLP / GptNeoxMLP, head) over the same params dict and the same dense
+GemmaMLP / GptNeoxMLP / LLaMAMoE, head) over the same params dict and the same dense
 cache layout ``(L, B, ng, Tc, hs)``, so the paged serving pool's gathered
 block views feed it unchanged.  Written eagerly: ``generate()`` is a Python
 loop where the JAX package runs ``lax.scan``, and caches update in place
@@ -18,9 +18,13 @@ per batch row (the layout ``serving.lora.gather_adapter_slots`` produces), or
 the registry's arenas with ``lora_slots=``, and adds each target's delta next
 to its matmul.
 
-Not ported in this slice (each raises ``NotImplementedError``): the ring
-cache of sliding-window models whose cache is exactly one window long,
-LLaMAMoE MLPs and int8 weight matmuls.
+``quantized=True`` runs every weight matmul (projections, MLP, experts,
+head) through ``executors.quantex.int8_linear``, per-call absmax scales on
+activations and weights, as the reference's ``quantized=`` does; the MoE
+router and the LoRA deltas stay in full precision.
+
+Not ported in this slice (it raises ``NotImplementedError``): the ring
+cache of sliding-window models whose cache is exactly one window long.
 """
 from __future__ import annotations
 
@@ -95,16 +99,16 @@ def _expand_groups(kk, vv, nh):
 
 
 def _attn_with_cache(ap, x, cos_t, sin_t, ck, cv, pos, cfg: Config, *, lora=None,
-                     lora_scaling=1.0, delta_fn=_lora_delta):
+                     lora_scaling=1.0, delta_fn=_lora_delta, quantized=False):
     """x: (B, T, C) new tokens at global positions [pos, pos+T).  Writes
     their K/V into the per-layer cache (ck/cv: (B, ng, Tc, hs), in place)
     and attends against every slot the model may see (plain layout: slot =
     position).  ``lora``: this layer's ``{target: (a, b)}`` factors, whose
-    deltas ``delta_fn`` computes."""
+    deltas ``delta_fn`` computes; ``quantized``: int8 weight matmuls."""
     B, T, _ = x.shape
     hs, nh = cfg.head_size, cfg.n_head
     q, k, v = _project_qkv(ap, x, cos_t, sin_t, cfg, lora=lora, lora_scaling=lora_scaling,
-                           delta_fn=delta_fn)
+                           delta_fn=delta_fn, quantized=quantized)
     Tc = ck.shape[2]
     W = cfg.sliding_window
     if W is not None and Tc == W:
@@ -131,7 +135,7 @@ def _attn_with_cache(ap, x, cos_t, sin_t, ck, cv, pos, cfg: Config, *, lora=None
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     y = torch.matmul(w, vv.to(q.dtype))
     y = y.transpose(1, 2).reshape(B, T, nh * hs)
-    out = _linear(y, ap["wo"], ap.get("bo"))
+    out = _linear(y, ap["wo"], ap.get("bo"), quantized=quantized)
     if lora is not None and "wo" in lora:
         out = out + delta_fn(y, *lora["wo"], lora_scaling)
     return out
@@ -156,17 +160,17 @@ def _embed(params, idx, pos, cos_all, sin_all, cfg: Config):
     return x, cos_t, sin_t
 
 
-def _head(params, x, cfg: Config):
+def _head(params, x, cfg: Config, *, quantized=False):
     x = _norm(x, params["ln_f"], cfg, params.get("ln_f_b"))
     head = params["wte"] if cfg.tie_embeddings else params["lm_head"]
-    return _linear(x, head, params.get("lm_head_b")).float()
+    return _linear(x, head, params.get("lm_head_b"), quantized=quantized).float()
 
 
 def _block_tail(bp, x, n1, h, cfg: Config, *, lora=None, lora_scaling=1.0,
-                delta_fn=_lora_delta):
+                delta_fn=_lora_delta, quantized=False):
     """Residual + MLP half of a block, given the attention output ``h``;
     ``delta_fn`` computes the MLP targets' LoRA deltas."""
-    kw = dict(lora=lora, lora_scaling=lora_scaling, delta_fn=delta_fn)
+    kw = dict(lora=lora, lora_scaling=lora_scaling, delta_fn=delta_fn, quantized=quantized)
     if cfg.parallel_residual:
         n2 = n1 if cfg.shared_attention_norm else _norm(x, bp["norm_2"], cfg, bp.get("norm_2_b"))
         return x + h + mlp(bp["mlp"], n2, cfg, **kw)
@@ -185,7 +189,7 @@ def _layer_lora(lora, l: int):
 
 
 def forward_with_cache(params, idx, pos, cache, cos_all, sin_all, cfg: Config, *, lora=None,
-                       lora_scaling=1.0, lora_slots=None):
+                       lora_scaling=1.0, lora_slots=None, quantized=False):
     """Forward of new tokens ``idx`` (B, T) at global positions [pos, pos+T)
     against/into ``cache`` (updated in place).  ``pos`` is a Python int or
     a (B,) integer tensor of per-row positions.  ``lora``: optional
@@ -193,18 +197,20 @@ def forward_with_cache(params, idx, pos, cache, cos_all, sin_all, cfg: Config, *
     r)}}``, one adapter per batch row; with ``lora_slots`` ((B,) int32
     adapter slots) the registry's (S, L, ...) arenas instead, each row's
     factors taken by its slot layer by layer.  The delta ``lora_scaling *
-    B(A(x))`` lands next to each target's matmul.  Returns (logits (B, T,
-    V) float32, cache)."""
+    B(A(x))`` lands next to each target's matmul.  ``quantized``: every
+    weight matmul through ``int8_linear``.  Returns (logits (B, T, V)
+    float32, cache)."""
     x, cos_t, sin_t = _embed(params, idx, pos, cos_all, sin_all, cfg)
     delta = functools.partial(_lora_delta, slots=lora_slots)
     for l, bp in enumerate(params["blocks"]):
         lora_l = _layer_lora(lora, l)
         n1 = _norm(x, bp["norm_1"], cfg, bp.get("norm_1_b"))
         h = _attn_with_cache(bp["attn"], n1, cos_t, sin_t, cache["k"][l], cache["v"][l], pos, cfg,
-                             lora=lora_l, lora_scaling=lora_scaling, delta_fn=delta)
+                             lora=lora_l, lora_scaling=lora_scaling, delta_fn=delta,
+                             quantized=quantized)
         x = _block_tail(bp, x, n1, h, cfg, lora=lora_l, lora_scaling=lora_scaling,
-                        delta_fn=delta)
-    return _head(params, x, cfg), cache
+                        delta_fn=delta, quantized=quantized)
+    return _head(params, x, cfg, quantized=quantized), cache
 
 
 def sample_token(logits, temperature: float, generator: torch.Generator | None = None):
@@ -222,12 +228,13 @@ def sample_token(logits, temperature: float, generator: torch.Generator | None =
 def generate(params, prompt, cfg: Config, max_new_tokens: int, *,
              T_max: int | None = None, temperature: float = 0.0,
              generator: torch.Generator | None = None, cache_dtype=None,
-             device="cuda") -> torch.Tensor:
+             quantized: bool = False, device="cuda") -> torch.Tensor:
     """Greedy/temperature sampling.  ``prompt``: (B, T_prompt) int tokens.
     Returns (B, T_prompt + max_new_tokens) int32 on ``device`` (default:
     the card; raises without one unless ``device="cpu"``).  ``params`` must
     already live on ``device``.  ``generator`` (default: seed 0) supplies
-    one draw at the prefill and one per decode step."""
+    one draw at the prefill and one per decode step.  ``quantized``: int8
+    weight matmuls (:func:`forward_with_cache`)."""
     dev = resolve_device(device)
     if params["wte"].device.type != dev.type:
         raise ValueError(f"params live on {params['wte'].device}, generate(device={dev})")
@@ -249,12 +256,14 @@ def generate(params, prompt, cfg: Config, max_new_tokens: int, *,
     dtype = cache_dtype if cache_dtype is not None else params["wte"].dtype
     cos_all, sin_all = build_rope_cache(cfg, T_max, device=dev)
     cache = init_cache(cfg, B, T_max, dtype, device=dev)
-    logits, cache = forward_with_cache(params, prompt, 0, cache, cos_all, sin_all, cfg)
+    logits, cache = forward_with_cache(params, prompt, 0, cache, cos_all, sin_all, cfg,
+                                       quantized=quantized)
     tok = sample_token(logits[:, -1], temperature, generator)
     toks = [tok]
     for i in range(max_new_tokens - 1):
         logits, cache = forward_with_cache(
-            params, tok[:, None], T_prompt + i, cache, cos_all, sin_all, cfg)
+            params, tok[:, None], T_prompt + i, cache, cos_all, sin_all, cfg,
+            quantized=quantized)
         tok = sample_token(logits[:, -1], temperature, generator)
         toks.append(tok)
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)

@@ -20,11 +20,20 @@ autograd: attention and cross-entropy go through
 :mod:`thunder_tpu_torch.ltorch` (the flash kernels and their backward), and
 each block runs under the remat policy of the enclosing step
 (:func:`thunder_tpu_torch.train.remat.run_block`).
-MoE MLPs are not ported and raise ``NotImplementedError``.  The serving forward lives in
-:mod:`thunder_tpu_torch.models.generate`; both share the block helpers here,
-which take per-request LoRA factors (``lora=``, the serving engine's
-adapters) beside the training forward's single-adapter hook
-(``ap["lora"]``).
+
+MoE configs (``LLaMAMoE``) keep the reference's stacked expert weights and
+its dense formulation: every expert runs on every token and the router's
+top-k weight masks its output.  The training MLP (:func:`moe_mlp`) routes
+in the activations' dtype, the serving one (:func:`mlp`) in float32, each
+as its reference does; both select with ``ltorch.topk``, whose ties keep
+index order as ``jax.lax.top_k``'s do.
+
+The serving forward lives in :mod:`thunder_tpu_torch.models.generate`;
+both share the block helpers here, which take per-request LoRA factors
+(``lora=``, the serving engine's adapters) beside the training forward's
+single-adapter hook (``ap["lora"]``), and ``quantized=`` (serving only):
+every weight matmul through ``executors.quantex.int8_linear``, the router
+and the LoRA deltas excepted, as in the reference.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from thunder_tpu_torch import ltorch
 from thunder_tpu_torch._device import resolve_device
 from thunder_tpu_torch._tree import tree_leaves
 from thunder_tpu_torch.executors.cudaex import _as_dtype_scalar
+from thunder_tpu_torch.executors.quantex import int8_linear
 from thunder_tpu_torch.train import remat
 
 __all__ = [
@@ -51,6 +61,7 @@ __all__ = [
     "apply_rope",
     "attention",
     "mlp",
+    "moe_mlp",
     "block_forward",
     "gpt_hidden",
     "gpt_forward",
@@ -227,11 +238,10 @@ def init_params(config: Config, *, generator: torch.Generator | None = None,
     """Builds the params dict on ``device`` (default: the card; raises
     without one unless ``device="cpu"``).  Same layout and init scheme as
     the JAX package: linear weights ``(fan_out, fan_in)`` drawn N(0, 0.02)
-    in float32 then cast to ``dtype``, norm weights one, biases zero.
-    ``generator`` (default: seed 0) must live on ``device``.  MoE configs
-    belong to a later slice and raise."""
-    if config.mlp_class == "LLaMAMoE":
-        raise NotImplementedError("init_params: MoE configs (LLaMAMoE) are not ported yet")
+    in float32 then cast to ``dtype``, norm weights one, biases zero.  A MoE
+    block's MLP holds the router ``gate`` (E, C) and the experts stacked on
+    a leading E dim: ``fc_1``/``fc_2`` (E, I, C), ``proj`` (E, C, I).
+    ``generator`` (default: seed 0) must live on ``device``."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -272,7 +282,11 @@ def init_params(config: Config, *, generator: torch.Generator | None = None,
             block["norm_2"] = ones(C)
             if config.bias:
                 block["norm_2_b"] = zeros(C)
-        if config.mlp_class in ("LLaMAMLP", "GemmaMLP"):
+        if config.mlp_class == "LLaMAMoE":
+            E = config.n_expert
+            block["mlp"] = {"gate": normal(E, C), "fc_1": normal(E, I, C),
+                            "fc_2": normal(E, I, C), "proj": normal(E, C, I)}
+        elif config.mlp_class in ("LLaMAMLP", "GemmaMLP"):
             block["mlp"] = {"fc_1": normal(I, C), "fc_2": normal(I, C), "proj": normal(C, I)}
             if config.bias:
                 block["mlp"].update(fc_1_b=zeros(I), fc_2_b=zeros(I), proj_b=zeros(C))
@@ -330,8 +344,10 @@ def build_rope_cache(config: Config, seq_len: int, dtype=torch.float32,
 #
 
 
-def _linear(x, w, b=None):
-    out = F.linear(x, w)
+def _linear(x, w, b=None, *, quantized=False):
+    """``x @ w.T (+ b)``; ``quantized``: the product by
+    ``quantex.int8_linear`` (the bias added after, in x's dtype)."""
+    out = int8_linear(x, w) if quantized else F.linear(x, w)
     return out if b is None else out + b
 
 
@@ -375,22 +391,58 @@ def _lora_delta(x, a, b, scaling, slots=None):
     return o * _as_dtype_scalar(scaling, x.dtype)
 
 
-def mlp(mp, x, cfg: Config, *, lora=None, lora_scaling=1.0, delta_fn=None):
-    """The block's MLP.  ``lora``: optional ``{target: (a, b)}`` per-request
-    factors of this layer; a targeted matmul adds the plain delta of its
-    own input (reference ``_mlp``, ``models/generate.py:82``), through
+def _experts(mp, x, w, lin):
+    """The dense expert sum ``sum_e w[..., e] * proj_e(silu(fc_1e x) *
+    fc_2e x)`` in expert order, each routing weight cast to x's dtype."""
+    y = None
+    for e in range(mp["gate"].shape[0]):
+        xe = lin(F.silu(lin(x, mp["fc_1"][e])) * lin(x, mp["fc_2"][e]), mp["proj"][e])
+        contrib = xe * w[e].unsqueeze(-1).to(x.dtype)
+        y = contrib if y is None else y + contrib
+    return y
+
+
+def _route(router, k: int, E: int):
+    """Per-expert routing weights from the router logits: top-k (ties to
+    the lower index), softmax over the k in float32, and for each expert
+    the sum of its probabilities over the k slots (0 where unselected)."""
+    top_logits, top_idx = ltorch.topk(router, k, -1)
+    probs = torch.softmax(top_logits.to(torch.float32), dim=-1)
+    return [torch.sum(probs * (top_idx == e).to(torch.float32), dim=-1) for e in range(E)]
+
+
+def moe_mlp(mp, x, config: Config):
+    """The training MoE MLP (reference ``models/llama.py:438 moe_mlp``):
+    router logits ``linear(x, gate)`` in x's dtype, top-k, softmax over
+    the selected k in float32, the dense expert sum.  Written in torch
+    calls, so it traces into the torch language under ``jit`` and the
+    train step."""
+    w = _route(F.linear(x, mp["gate"]), config.n_expert_per_token, config.n_expert)
+    return _experts(mp, x, w, _linear)
+
+
+def mlp(mp, x, cfg: Config, *, lora=None, lora_scaling=1.0, delta_fn=None, quantized=False):
+    """The serving block's MLP (reference ``_mlp``, ``models/generate.py:82``).
+    ``lora``: optional ``{target: (a, b)}`` per-request factors of this
+    layer; a targeted matmul adds the plain delta of its own input, through
     ``delta_fn(x, a, b, scaling)`` where given (the plain delta reading
-    arenas by slot)."""
+    arenas by slot).  A MoE MLP routes in float32 (``x.float() @
+    gate.float().T``) and takes no LoRA targets.  ``quantized``: every
+    weight matmul through ``int8_linear``, the router excepted."""
     delta_fn = _lora_delta if delta_fn is None else delta_fn
 
+    def lin(inp, w, b=None):
+        return _linear(inp, w, b, quantized=quantized)
+
     def ll(name, inp, bias=None):
-        o = _linear(inp, mp[name], mp.get(bias) if bias else None)
+        o = lin(inp, mp[name], mp.get(bias) if bias else None)
         if lora is not None and name in lora:
             o = o + delta_fn(inp, *lora[name], lora_scaling)
         return o
 
     if cfg.mlp_class == "LLaMAMoE":
-        raise NotImplementedError("the LLaMAMoE MLP is not ported yet")
+        router = torch.matmul(x.float(), mp["gate"].float().T)
+        return _experts(mp, x, _route(router, cfg.n_expert_per_token, cfg.n_expert), lin)
     if cfg.mlp_class == "LLaMAMLP":
         return ll("proj", F.silu(ll("fc_1", x, "fc_1_b")) * ll("fc_2", x, "fc_2_b"), "proj_b")
     approx = "tanh" if cfg.gelu_approximate == "tanh" else "none"
@@ -401,19 +453,20 @@ def mlp(mp, x, cfg: Config, *, lora=None, lora_scaling=1.0, delta_fn=None):
 
 
 def _project_qkv(ap, x, cos_t, sin_t, cfg: Config, *, lora=None, lora_scaling=1.0,
-                 delta_fn=None):
+                 delta_fn=None, quantized=False):
     """QKV projections + partial rotary for new tokens: x (B, T, C) →
     q (B, nh, T, hs), k/v (B, ng, T, hs) — K/V stay at the grouped head
     count.  ``lora``: optional ``{target: (a, b)}`` factors of this layer;
     ``delta_fn(x, a, b, scaling)`` computes a target's delta (default the
     plain :func:`_lora_delta`; the serving kernel path passes
-    ``cudaex.lora_delta_fused``; either may read arenas by slot)."""
+    ``cudaex.lora_delta_fused``; either may read arenas by slot).
+    ``quantized``: the projections through ``int8_linear``."""
     B, T, _ = x.shape
     hs, nh, ng = cfg.head_size, cfg.n_head, cfg.n_query_groups
     delta_fn = _lora_delta if delta_fn is None else delta_fn
 
     def proj(name, bias):
-        o = _linear(x, ap[name], ap.get(bias))
+        o = _linear(x, ap[name], ap.get(bias), quantized=quantized)
         if lora is not None and name in lora:
             o = o + delta_fn(x, *lora[name], lora_scaling)
         return o
@@ -462,20 +515,19 @@ def attention(ap, x, cos, sin, config: Config):
 
 
 def block_forward(bp, x, cos, sin, config: Config):
+    ff = moe_mlp if config.mlp_class == "LLaMAMoE" else mlp
     n1 = _norm(x, bp["norm_1"], config, bp.get("norm_1_b"))
     h = attention(bp["attn"], n1, cos, sin, config)
     if config.parallel_residual:
         n2 = n1 if config.shared_attention_norm else _norm(x, bp["norm_2"], config,
                                                             bp.get("norm_2_b"))
-        return x + h + mlp(bp["mlp"], n2, config)
+        return x + h + ff(bp["mlp"], n2, config)
     x = x + h
-    return x + mlp(bp["mlp"], _norm(x, bp["norm_2"], config, bp.get("norm_2_b")), config)
+    return x + ff(bp["mlp"], _norm(x, bp["norm_2"], config, bp.get("norm_2_b")), config)
 
 
 def gpt_hidden(params, idx, cos, sin, config: Config):
     """Token ids (B, T) → final hidden states (B, T, C) (pre-head)."""
-    if config.mlp_class == "LLaMAMoE":
-        raise NotImplementedError("gpt_hidden: MoE configs (LLaMAMoE) are not ported")
     x = F.embedding(idx.long(), params["wte"])
     if config.scale_embedding:
         x = x * (config.n_embd ** 0.5)

@@ -100,7 +100,7 @@ def speculative_generate(params, draft_params, prompt, cfg: Config, draft_cfg: C
                          max_new_tokens: int, *, K: int = 4, T_max: int | None = None,
                          temperature: float = 0.0, generator: torch.Generator | None = None,
                          cache_dtype=None, lora=None, lora_scaling: float = 1.0,
-                         device="cuda") -> torch.Tensor:
+                         quantized: bool = False, device="cuda") -> torch.Tensor:
     """Speculative decoding over dense caches; returns (B, T_prompt +
     max_new_tokens) int32 tokens on ``device`` (default: the card; raises
     without one unless ``device="cpu"``).
@@ -115,7 +115,9 @@ def speculative_generate(params, draft_params, prompt, cfg: Config, draft_cfg: C
     ``lora``/``lora_scaling``: optional per-request LoRA factors
     (``forward_with_cache``'s layout, one adapter per row) applied to the
     target's forwards only; the draft stays the base model and the
-    acceptance rule corrects the mismatch."""
+    acceptance rule corrects the mismatch.  ``quantized``: int8 weight
+    matmuls in the target's and the draft's forwards (reference
+    ``models/speculative.py:75-119``)."""
     dev = resolve_device(device)
     if params["wte"].device.type != dev.type or draft_params["wte"].device.type != dev.type:
         raise ValueError(f"params must live on {dev}")
@@ -146,9 +148,10 @@ def speculative_generate(params, draft_params, prompt, cfg: Config, draft_cfg: C
     tcache = init_cache(cfg, B, T_max, dtype, device=dev)
     dcache = init_cache(draft_cfg, B, T_max, dtype, device=dev)
     with torch.no_grad():
-        tlora = dict(lora=lora, lora_scaling=lora_scaling)
+        tlora = dict(lora=lora, lora_scaling=lora_scaling, quantized=quantized)
         tlogits, tcache = forward_with_cache(params, prompt, 0, tcache, cos, sin, cfg, **tlora)
-        forward_with_cache(draft_params, prompt, 0, dcache, cos_d, sin_d, draft_cfg)
+        forward_with_cache(draft_params, prompt, 0, dcache, cos_d, sin_d, draft_cfg,
+                           quantized=quantized)
         first = sample_token(tlogits[:, -1], temperature, generator)
         buf = torch.zeros((B, max_new_tokens + K + 1), dtype=torch.int32, device=dev)
         buf[:, 0] = first
@@ -163,7 +166,7 @@ def speculative_generate(params, draft_params, prompt, cfg: Config, draft_cfg: C
             tok, dpos, drafts, q_rows = cur, pos_in, [], []
             for _ in range(K + 1):
                 dl, dcache = forward_with_cache(draft_params, tok[:, None], dpos, dcache,
-                                                cos_d, sin_d, draft_cfg)
+                                                cos_d, sin_d, draft_cfg, quantized=quantized)
                 row = dl[:, -1]
                 tok = sample_token(row, temperature, generator)
                 drafts.append(tok)

@@ -48,6 +48,12 @@ the step they finish.
   in the JAX package, so each step runs at one of a bounded set of bucket
   geometries; ``compile_counts`` counts the geometries seen (PyTorch runs
   eagerly and compiles nothing);
+- weight quantization (``quantized=True``): every forward of every lane
+  (prefill, chunk pieces, gather and paged decode, the speculative target
+  and draft) runs its weight matmuls through ``quantex.int8_linear``, per
+  call, as the reference's ``_fwd_kwargs`` passes ``quantized=`` to each;
+- MoE configs (``LLaMAMoE``) serve on every lane through the dense expert
+  MLP with its float32 router;
 - multi-tenant LoRA (``lora=AdapterRegistry(...)``, :mod:`serving.lora`):
   ``submit(..., adapter_id=...)`` routes a request through a registered
   adapter.  A prefill piece reads its one request's factors as views of
@@ -123,7 +129,7 @@ __all__ = [
 
 # engine options of the JAX package not ported yet, with their "off" values
 _DEFERRED_ENGINE = {
-    "model_fn": None, "quantized": False,
+    "model_fn": None,
     "telemetry": None, "trace": None, "slo": None, "flight_recorder": None,
     "mesh": None, "shardings": None, "fault_plan": None,
     "retry": None, "watchdog_timeout_s": None, "replica_id": None,
@@ -242,6 +248,7 @@ class ServingEngine:
         speculative: spec_lane.SpecConfig | None = None,
         kv_dtype=None,
         lora: AdapterRegistry | None = None,
+        quantized: bool = False,
         device="cuda",
         **deferred,
     ):
@@ -252,8 +259,6 @@ class ServingEngine:
                 raise ValueError(
                     f"decode_steps={steps} with speculative= is unsupported: {why}")
         _reject_deferred("ServingEngine", deferred, _DEFERRED_ENGINE)
-        if cfg.mlp_class == "LLaMAMoE":
-            raise NotImplementedError("ServingEngine: MoE configs are not ported yet")
         if cfg.learned_pos_embedding:
             raise NotImplementedError(
                 "ServingEngine: learned_pos_embedding configs are not ported yet")
@@ -263,6 +268,7 @@ class ServingEngine:
                              f"the engine on {self.device}")
         self.params = params
         self.cfg = cfg
+        self.quantized = bool(quantized)
         # multi-tenant LoRA: the registry's arenas are step arguments, read
         # anew every step, so register/evict land without touching the steps
         self._registry = lora
@@ -578,6 +584,7 @@ class ServingEngine:
             "pool_utilization": self.pool.utilization(),
             "arena_bytes": self.pool.arena_bytes(),
             "kv_dtype": str(self.pool.kv_dtype),
+            "quantized": self.quantized,
             "async_step": self.async_step,
             "prefill_chunk": sch.prefill_chunk,
             "decode_steps": self.decode_steps,
@@ -1051,6 +1058,12 @@ class ServingEngine:
             return {"lora": lora, "lora_scaling": reg.scaling}
         return {"lora": reg.arenas, "lora_scaling": reg.scaling, "lora_slots": slots}
 
+    def _fwd_kwargs(self, slots) -> dict:
+        """The forward kwargs a step adds to the base call (reference
+        ``engine.py:2648 _fwd_kwargs``): weight quantization and the rows'
+        LoRA factors."""
+        return {"quantized": self.quantized, **self._lora_kwargs(slots)}
+
     def _sample_rows(self, logits, generators) -> torch.Tensor:
         """One token per batch row; each live row draws from its own
         generator exactly as a solo B=1 call would; padding rows get 0."""
@@ -1073,7 +1086,7 @@ class ServingEngine:
             t = torch.as_tensor(table, device=dev)[None]
             logits, cache = forward_with_cache(
                 self.params, torch.as_tensor(toks, device=dev)[None], pos,
-                pool.gather(t), cos_all, sin_all, cfg, **self._lora_kwargs(slots))
+                pool.gather(t), cos_all, sin_all, cfg, **self._fwd_kwargs(slots))
             tok = sample_token(logits[:, n_real - 1], self.temperature, generator)  # (1,)
             return tok, pool.scatter_dense(cache, torch.as_tensor(dest, device=dev))
 
@@ -1090,7 +1103,7 @@ class ServingEngine:
             t = torch.as_tensor(table, device=dev)[None]
             _, cache = forward_with_cache(
                 self.params, torch.as_tensor(toks, device=dev)[None], pos,
-                pool.gather(t), cos_all, sin_all, cfg, **self._lora_kwargs(slots))
+                pool.gather(t), cos_all, sin_all, cfg, **self._fwd_kwargs(slots))
             return pool.scatter_dense(cache, torch.as_tensor(dest, device=dev))
 
         return prefill_chunk
@@ -1111,7 +1124,7 @@ class ServingEngine:
             _, fresh = forward_paged(
                 self.params, torch.as_tensor(toks, device=dev)[None], pv, pool.arenas,
                 torch.as_tensor(table, device=dev)[None], cos_all, sin_all, cfg,
-                cdtype=pool.dtype, head=False, **self._lora_kwargs(slots))
+                cdtype=pool.dtype, head=False, **self._fwd_kwargs(slots))
             _, qerr = write_fresh_kv_chunk(pool.arenas, fresh, torch.as_tensor(dest, device=dev),
                                            pv, block_size=pool.block_size,
                                            kv_dtype=pool.quantized_storage)
@@ -1132,7 +1145,7 @@ class ServingEngine:
             dest_block = tables.long().gather(1, col[:, None])[:, 0]
             logits, cache = forward_with_cache(
                 self.params, toks[:, None], pos, pool.gather(tables), cos_all, sin_all,
-                cfg, **self._lora_kwargs(slots))
+                cfg, **self._fwd_kwargs(slots))
             nxt = self._sample_rows(logits[:, 0], generators)
             pool.scatter_rows(cache, p, rows, dest_block, p % bs)
             return nxt
@@ -1150,7 +1163,7 @@ class ServingEngine:
         def decode_paged(toks, pos, tables, generators, slots):
             logits, fresh = forward_paged(self.params, toks[:, None], pos, pool.arenas, tables,
                                           cos_all, sin_all, cfg, cdtype=pool.dtype,
-                                          **self._lora_kwargs(slots))
+                                          **self._fwd_kwargs(slots))
             nxt = self._sample_rows(logits[:, 0], generators)
             write_fresh_kv(pool.arenas, fresh, tables, pos, block_size=pool.block_size,
                            kv_dtype=pool.quantized_storage)

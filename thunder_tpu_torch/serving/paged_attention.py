@@ -33,7 +33,9 @@ Per-request LoRA factors (``lora=``) add each target's delta next to its
 matmul: the qkv and wo deltas go through the ``lora_delta_fused`` kernel
 (four launches per layer), while the MLP targets keep the plain delta, as
 the reference's ``_mlp`` does; both read the registry's arenas by slot when
-the step passes ``lora_slots``.
+the step passes ``lora_slots``.  ``quantized=True`` runs the weight matmuls
+(projections, MLP or experts, head) through ``quantex.int8_linear``, as the
+reference's ``forward_paged`` does; the MoE router stays float32.
 
 Parity contract: the kernels score the arena's committed slots and fold
 the fresh K/V — cast to the cache dtype, exactly what the dense path would
@@ -73,12 +75,10 @@ __all__ = ["forward_paged", "write_fresh_kv", "write_fresh_kv_live", "write_fres
 
 def paged_supported(cfg, *, block_size: int, device) -> tuple[bool, str]:
     """Support check for the paged path of a pool of ``block_size`` on
-    ``device``: ``(ok, why)``.  Structural on any device; on a CUDA device
-    also whether the paged attention kernels hold the config's query heads
-    per group, block size and head size (``cudaex.paged_kernels_decline``)
-    — the CPU runs the kernels' plain versions, which take any."""
-    if cfg.mlp_class == "LLaMAMoE":
-        return False, "the LLaMAMoE MLP is not ported yet"
+    ``device``: ``(ok, why)``.  On a CUDA device, whether the paged
+    attention kernels hold the config's query heads per group, block size
+    and head size (``cudaex.paged_kernels_decline``); the CPU runs the
+    kernels' plain versions, which take any."""
     if torch.device(device).type == "cuda":
         why = paged_kernels_decline(cfg.n_head // cfg.n_query_groups, block_size, cfg.head_size)
         if why:
@@ -87,7 +87,8 @@ def paged_supported(cfg, *, block_size: int, device) -> tuple[bool, str]:
 
 
 def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cdtype,
-                  head: bool = True, lora=None, lora_scaling=1.0, lora_slots=None):
+                  head: bool = True, lora=None, lora_scaling=1.0, lora_slots=None,
+                  quantized: bool = False):
     """Decode/verify/chunk forward straight off the KV block arenas.
 
     ``idx``: (B, T) tokens at positions ``[pos, pos+T)`` — T = 1 is the
@@ -105,7 +106,8 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
     factors as ``forward_with_cache`` takes them; the wq/wk/wv/wo deltas
     go through ``cudaex.lora_delta_fused``, the MLP targets' through the
     plain delta.  ``lora_slots``: (B,) int32 adapter slots; ``lora`` is
-    then the registry's (S, L, ...) arenas, which both read by slot."""
+    then the registry's (S, L, ...) arenas, which both read by slot.
+    ``quantized``: every weight matmul through ``int8_linear``."""
     B, T = idx.shape
     if T > 1 and cfg.sliding_window is not None:
         raise ValueError("forward_paged: multi-token queries have no sliding-window keep-mask; "
@@ -120,7 +122,7 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
         lora_l = _layer_lora(lora, l)
         n1 = _norm(x, bp["norm_1"], cfg, bp.get("norm_1_b"))
         q, k, v = _project_qkv(bp["attn"], n1, cos_t, sin_t, cfg, lora=lora_l,
-                               lora_scaling=lora_scaling, delta_fn=delta)
+                               lora_scaling=lora_scaling, delta_fn=delta, quantized=quantized)
         if T == 1:
             fk = k[:, :, 0].to(cdtype).contiguous()        # (B, ng, hs)
             fv = v[:, :, 0].to(cdtype).contiguous()
@@ -133,14 +135,14 @@ def forward_paged(params, idx, pos, arenas, tables, cos_all, sin_all, cfg, *, cd
                                   tables, pos, layer=l, **scales)    # (B, nh, T, hs)
             y = y.transpose(1, 2)
         y = y.reshape(B, T, nh * hs)
-        h = _linear(y, bp["attn"]["wo"], bp["attn"].get("bo"))
+        h = _linear(y, bp["attn"]["wo"], bp["attn"].get("bo"), quantized=quantized)
         if lora_l is not None and "wo" in lora_l:
             h = h + delta(y, *lora_l["wo"], lora_scaling)
         fresh_k.append(fk)
         fresh_v.append(fv)
         x = _block_tail(bp, x, n1, h, cfg, lora=lora_l, lora_scaling=lora_scaling,
-                        delta_fn=plain)
-    logits = _head(params, x, cfg) if head else None
+                        delta_fn=plain, quantized=quantized)
+    logits = _head(params, x, cfg, quantized=quantized) if head else None
     return logits, {"k": torch.stack(fresh_k, dim=1), "v": torch.stack(fresh_v, dim=1)}
 
 

@@ -42,7 +42,10 @@ LoRA rides the target only (reference ``serving/speculative.py:268-270``):
 the target's prefill, chunk and verify steps take each row's adapter
 factors (``verify_paged`` through the ``lora_delta_fused`` kernel), the
 draft proposes with the base model, and the rejection rule corrects the
-mismatch, so greedy tokens equal the LoRA engine's plain decode.  The fault points of the JAX module wait for ``serving/faults.py``.
+mismatch, so greedy tokens equal the LoRA engine's plain decode.  Weight
+quantization (the engine's ``quantized=``) rides both models' forwards, as
+in the reference (``serving/speculative.py:251-295``).  The fault points
+of the JAX module wait for ``serving/faults.py``.
 """
 from __future__ import annotations
 
@@ -98,9 +101,8 @@ def validate_spec(spec: SpecConfig, cfg, *, device: torch.device) -> None:
             "speculative serving does not support sliding-window engines: window expiry "
             "would invalidate the K-token draft/verify arena math (solo "
             "speculative_generate has the same restriction)")
-    if dcfg.mlp_class == "LLaMAMoE" or dcfg.learned_pos_embedding:
-        raise NotImplementedError("SpecConfig: MoE and learned_pos_embedding drafts are not "
-                                  "ported yet")
+    if dcfg.learned_pos_embedding:
+        raise NotImplementedError("SpecConfig: learned_pos_embedding drafts are not ported yet")
     if spec.draft_params["wte"].device.type != device.type:
         raise ValueError(f"draft params live on {spec.draft_params['wte'].device}, "
                          f"the engine on {device}")
@@ -140,7 +142,8 @@ def _prefill_both(eng, nbb: int):
         d = torch.as_tensor(dest, device=dev)
         out = None
         for pool, params, c, co, si in pools:
-            kw = eng._lora_kwargs(slots) if out is None else {}   # the target only
+            # LoRA on the target only; quantized on both
+            kw = eng._fwd_kwargs(slots) if out is None else {"quantized": eng.quantized}
             lg, cache = forward_with_cache(params, idx, pos, pool.gather(t), co, si, c, **kw)
             qerr = pool.scatter_dense(cache, d)
             out = (lg, qerr) if out is None else out
@@ -188,7 +191,7 @@ def build_draft_decode(eng, Bb: int, nbb: int):
         tok, dpos, outs, qs = toks, pos, [], []
         for _ in range(K + 1):
             dl, dc = forward_with_cache(eng.spec.draft_params, tok[:, None], dpos, dc,
-                                        cos_d, sin_d, dcfg)
+                                        cos_d, sin_d, dcfg, quantized=eng.quantized)
             row = dl[:, -1]
             tok = eng._sample_rows(row, generators)
             outs.append(tok)
@@ -233,7 +236,7 @@ def build_verify(eng, Bb: int, nbb: int):
     def verify(toks, pos, tables, drafts, q_rows, generators, slots):
         chunk = torch.cat([toks[:, None], drafts], dim=1)
         tlogits, cache = forward_with_cache(eng.params, chunk, pos, pool.gather(tables),
-                                            cos, sin, cfg, **eng._lora_kwargs(slots))
+                                            cos, sin, cfg, **eng._fwd_kwargs(slots))
         emitted, n_emit, y = _accept(eng, tlogits, drafts, q_rows, generators)
         for k in range(K + 1):
             p_k = (pos + k).long()
@@ -259,7 +262,7 @@ def build_verify_paged(eng, Bb: int, nbb: int):
     def verify_paged(toks, pos, tables, drafts, q_rows, generators, slots):
         chunk = torch.cat([toks[:, None], drafts], dim=1)
         tlogits, fresh = forward_paged(eng.params, chunk, pos, pool.arenas, tables, cos, sin,
-                                       cfg, cdtype=pool.dtype, **eng._lora_kwargs(slots))
+                                       cfg, cdtype=pool.dtype, **eng._fwd_kwargs(slots))
         emitted, n_emit, y = _accept(eng, tlogits, drafts, q_rows, generators)
         write_fresh_kv_masked(pool.arenas, fresh, tables, pos, n_emit,
                               block_size=pool.block_size, kv_dtype=pool.quantized_storage)

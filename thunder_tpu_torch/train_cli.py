@@ -12,9 +12,12 @@ elastic loop with async atomic checkpoints.  Examples::
         --dtype bfloat16 --remat full_block --steps 4          # one H100
 
 ``--device`` defaults to ``cuda`` and raises without a card unless
-``cpu`` is passed.  Every other mode (``ddp``, ``fsdp``, ``zero3``,
-``tp_fsdp``, ``sp``, ``pp``, ``ep``) and the options that need them or the
-trace IR (``--fused-ce``, ``--quant``, ``--comm-combine-mb``, ``--sp-impl``,
+``cpu`` is passed.  Every config of the zoo trains, MoE ones
+(``tiny-moe-debug``, ``mixtral-like``) included.  ``--quant int8|fp8``
+runs the forward's linears and matmuls quantized with full-precision grads
+(``TrainStep(quant=...)``).  Every other mode (``ddp``, ``fsdp``, ``zero3``,
+``tp_fsdp``, ``sp``, ``pp``, ``ep``) and the options that need them or a
+later slice (``--fused-ce``, ``--comm-combine-mb``, ``--sp-impl``,
 ``--bucket``, ``--devices``, ``--virtual-cpu``, ``--overlap``,
 ``--overlap-bucket-mb``, ``--telemetry``, ``--telemetry-grad-norm``) are not
 ported and raise ``NotImplementedError`` naming themselves.
@@ -57,7 +60,7 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(f"--mode {args.mode} is not ported (the port trains on one "
                                   "device: --mode none)")
     for flag, value, default in (
-            ("--fused-ce", args.fused_ce, False), ("--quant", args.quant, None),
+            ("--fused-ce", args.fused_ce, False),
             ("--comm-combine-mb", args.comm_combine_mb, None), ("--sp-impl", args.sp_impl, None),
             ("--bucket", args.bucket, False), ("--devices", args.devices, 1),
             ("--virtual-cpu", args.virtual_cpu, False), ("--overlap", args.overlap, False),
@@ -90,9 +93,10 @@ def main(argv=None):
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--quant", default=None, choices=["int8", "fp8"],
+                    help="quantized training: int8/fp8(e4m3) forward GEMMs, full-precision grads")
     # the reference's other options: accepted so that they raise by name
     ap.add_argument("--fused-ce", action="store_true")
-    ap.add_argument("--quant", default=None, choices=["int8", "fp8"])
     ap.add_argument("--comm-combine-mb", type=float, default=None)
     ap.add_argument("--sp-impl", default=None, choices=["ring", "ulysses"])
     ap.add_argument("--bucket", action="store_true")
@@ -126,7 +130,7 @@ def main(argv=None):
     remat_arg = ({"on": True, "off": False, "auto": "auto"}.get(args.remat, args.remat)
                  if args.remat else not args.no_remat)
     step = make_train_step(loss_fn, adamw(args.lr), remat=remat_arg,
-                           accum_steps=args.accum_steps)
+                           accum_steps=args.accum_steps, quant=args.quant)
     opt_state = step.init_optimizer_state(params)
 
     elastic = args.checkpoint_every > 0 or args.resume
@@ -194,7 +198,7 @@ def main(argv=None):
 
     print(json.dumps({
         "config": cfg.name, "mode": args.mode, "devices": args.devices, "device": str(dev),
-        "accum_steps": args.accum_steps,
+        "quant": args.quant, "accum_steps": args.accum_steps,
         "remat": args.remat or ("off" if args.no_remat else "on"),
         "checkpoint_every": args.checkpoint_every,
         "resumed_from": resumed_from, "restarts": restarts,
