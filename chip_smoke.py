@@ -261,7 +261,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     tokens, exact, at 2 layers: paged = gather, ``prefill_chunk=512`` =
     unchunked, speculative with a 1-layer MoE layer-skip draft = plain, and
     ``quantized=True`` paged = ``quantized=True`` gather;
-15. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+15. graphs, multi-step, recovery (every serve above already ran its
+    decode, chunk-piece and speculative steps as CUDA graphs, one replay a
+    step after each bucket's first; their bars hold as written): (a) phase
+    4's serve on an engine run eagerly (the engine's private ``_graphs=False``)
+    and on the default graphed one, a first pass each that meets (and
+    captures) every bucket and a measured second that captures nothing:
+    equal tokens, exactly n_layer ``paged_attn_decode`` and one pair write
+    per decode step, the captures by kind, four decode steps profiled each
+    way with the graphed idle share below the eager one, TPOT p50,
+    tokens/s, peak memory and the memory each engine holds; (b) the same
+    serve at ``decode_steps=4``: equal tokens, at most one host visit per 4
+    decode steps plus the partial visit, n_layer ``paged_attn_decode`` and
+    one masked pair write (the liveness keep-mask) per iteration; (c) phase 5's chunked and phase 6's
+    speculative serves at 8 layers, graphed against eager: equal tokens and
+    launches; (d) an ``oom`` injected at the 12th ``decode.dispatch`` of a
+    graphed serve, in float32 at 4 layers: one recovery, the unfaulted
+    tokens, the arenas at their addresses (the bf16 serve at full width
+    recovers too; how many of its requests keep their tokens is printed,
+    with no bar: the replay's chunk pieces round apart from the steps that
+    wrote the lost cache);
+16. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -307,7 +327,14 @@ from thunder_tpu_torch.models.llama import (
 from thunder_tpu_torch.observability import registry
 from thunder_tpu_torch.observability.events import clear_events, events
 from thunder_tpu_torch.train.optim import adamw
-from thunder_tpu_torch.serving import AdapterRegistry, SpecConfig, make_lora_factors, serve
+from thunder_tpu_torch.serving import (
+    AdapterRegistry,
+    ServingEngine,
+    SpecConfig,
+    make_lora_factors,
+    serve,
+)
+from thunder_tpu_torch.serving.faults import FaultPlan, FaultSpec
 from thunder_tpu_torch.serving.lora import gather_adapter_slots, valid_targets
 from thunder_tpu_torch.serving.kv_pool import SINK_BLOCK, chunk_tables, gather_dense
 from thunder_tpu_torch.serving.paged_attention import forward_paged
@@ -1956,22 +1983,53 @@ def profile_spans(prof, steps, attn, label) -> dict | None:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     per_step = {k: round(v / steps / 1e3, 4) for k, v in sorted(groups.items())}
     say(f"{label} profile ({steps} step(s)): device busy {busy / steps / 1e3:.3f} ms per step "
-        f"over a {window / steps / 1e3:.3f} ms kernel span (idle share {1 - busy / window:.3f}); "
-        f"device ms per step by kernel group: {per_step}")
+        f"over a {window / steps / 1e3:.3f} ms kernel span (idle share {1 - busy / window:.3f}), "
+        f"{len(spans) / steps:.0f} kernels per step; device ms per step by kernel group: "
+        f"{per_step}")
     for name, total in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         say(f"  {total / steps / 1e3:.4f} ms per step: {name[:110]}")
     return dict(busy_ms=busy / steps / 1e3, span_ms=window / steps / 1e3,
-                idle_share=1 - busy / window, groups_ms=per_step)
+                idle_share=1 - busy / window, kernels_per_step=len(spans) / steps,
+                groups_ms=per_step)
 
 
-def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3) -> dict:
+# the kernels of a decode step as the profiler names them, each run once
+# per launch of the cudaex.LAUNCHES counters beside it: a paged_attn_decode
+# launch is its split kernel and its combine kernel, a pair write (plain or
+# keep-masked) one token-write kernel
+DECODE_SPAN_COUNTERS = (("paged_attn_split", ("paged_attn_decode",)),
+                        ("paged_attn_decode_combine", ("paged_attn_decode",)),
+                        ("paged_token_write_kernel", ("paged_token_write",
+                                                      "paged_token_write_masked")))
+
+
+def check_span_counts(prof, delta: dict, label: str) -> dict:
+    """The decode kernels a profiled window ran, counted by name, against
+    the ``cudaex.LAUNCHES`` the window added (under graphs, what the
+    replays added from their captures' counts): equal, and nonzero."""
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    got = {k: sum(k in n for n in names) for k, _ in DECODE_SPAN_COUNTERS}
+    want = {k: sum(delta.get(c, 0) for c in cs) for k, cs in DECODE_SPAN_COUNTERS}
+    ok = got == want and all(want.values())
+    say(f"{label}: kernels the profiler saw {got} against the launches counted {want} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the profiled kernels {got} differ from the counted "
+                             f"launches {want}")
+    return got
+
+
+def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3,
+                         count_spans=False) -> dict:
     """Device time of a few steady decode steps of the same batch, by
     kernel group, from the profiler's CUDA activity: where the decode
     step's time goes, and how much of the span between the first and the
     last kernel the card sits idle.  The prompts (with adapters ``ids``)
     are prefilled first; a profiled window must hold decode steps alone.
     A profile that records no CUDA activity is taken again, ``tries``
-    times, and then fails."""
+    times, and then fails.  ``count_spans``: the window's decode kernels,
+    counted by name, must equal the launches it counted
+    (:func:`check_span_counts`)."""
     ids = ids or [None] * len(prompts)
     handles = [eng.submit(p, max_new_tokens=tries * steps + 3, adapter_id=a)
                for p, a in zip(prompts, ids)]
@@ -1983,6 +2041,7 @@ def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3) -> dic
     rec = None
     for _ in range(tries):     # a profile now and then records no kernel at all
         before = (eng.decode_steps, eng.chunk_runs, eng.prefill_runs)
+        launched = dict(cudaex.LAUNCHES)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
@@ -1995,6 +2054,9 @@ def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3) -> dic
                                  f"{after})")
         rec = profile_spans(prof, steps, "paged_attn_decode", label)
         if rec is not None:
+            if count_spans:
+                delta = {k: n - launched.get(k, 0) for k, n in cudaex.LAUNCHES.items()}
+                rec["span_counts"] = check_span_counts(prof, delta, label)
             break
     eng.drain()
     if not all(h.done() for h in handles):
@@ -3861,6 +3923,9 @@ def main() -> int:
     served["mixtral train"] = mix.pop("train_launches")
     served["mixtral serve"] = mix.pop("serve_launches")
     served["mixtral float32 lanes"] = mix.pop("exact_launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+    graphs_rec, served["graphs phase"] = graphs_phase()
 
     sources = {"paged_attn_decode": "paged_attention.cu", "paged_token_write": "paged_attention.cu",
                "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",
@@ -3899,6 +3964,7 @@ def main() -> int:
                if k in rec}))
     say("quantized serves: " + json.dumps({"chunked int8": qrec, "speculative fp8": frec}))
     say("mixtral: " + json.dumps(mix))
+    say("graphs phase: " + json.dumps(graphs_rec))
     say("LoRA serves: " + json.dumps({"chunked": lrec, "speculative": slrec}))
     say("serve profiles: " + json.dumps({
         "decode step": decode_profile, "chunk piece": crec["chunk_piece_profile"],
@@ -4495,6 +4561,339 @@ def mixtral() -> dict:
                 exact_launches=exact_launches,
                 quantex=quant, reference_bar=reference_bar, train=train,
                 serve=served["serves"], exact=exact)
+
+
+#
+# phase 15: the bucket steps as CUDA graphs, multi-step decode, recovery
+#
+
+
+GRAPH_LANE_LAYERS = 8      # (c): the chunked and speculative serves, graphed against eager
+MULTI_STEPS = 4            # (b): decode_steps
+OOM_AT = 12                # (d): the decode dispatch an OOM is injected at
+
+
+def phase4_prompts(cfg, n_requests=8):
+    """Phase 4's prompts: 8 of 128-1024 tokens from the seed."""
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+            for n in rng.integers(128, 1025, n_requests)]
+
+
+def held_bytes() -> int:
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def graph_serve(params, cfg, label, *, graphs=True, new_tokens=32, profile=True, **kw) -> dict:
+    """Phase 4's serve on one engine whose bucket steps run as CUDA graphs
+    (``graphs``) or eagerly (the engine's private switch): a first pass
+    meets every bucket (on a graphed engine it captures them), the second
+    is measured and must capture nothing.  Exact launches: n_layer
+    ``paged_attn_decode`` and one pair write per decode iteration (N per
+    dispatch at ``decode_steps=N``); then four decode steps profiled.
+    Returns the tokens, the serve's figures, the memory the engine holds
+    (its arenas and, graphed, its graph pool) and the profile."""
+    r0 = held_bytes()
+    eng = ServingEngine(params, cfg, attn="paged", block_size=16, num_blocks=1024, max_batch=8,
+                        device=DEVICE, _graphs=graphs, **kw)
+    prompts = phase4_prompts(cfg)
+    eng.run(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    held = held_bytes() - r0
+    torch.cuda.reset_peak_memory_stats()
+    st0 = eng.stats()
+    cudaex.reset_launches()
+    t0 = time.perf_counter()
+    results = eng.run(prompts, max_new_tokens=new_tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cudaex.LAUNCHES)
+    st = eng.stats()
+    check_results(results, new_tokens, cfg.padded_vocab_size)
+    rec = serve_stats(f"phase 15 {label}", results, wall)
+    dispatches = st["decode_steps"] - st0["decode_steps"]
+    iters = dispatches * eng.n_decode_steps
+    # a multi-step iteration lands K and V through the masked pair write
+    # (its liveness as n_emit)
+    write = "paged_token_write" if eng.n_decode_steps == 1 else "paged_token_write_masked"
+    want = no_launches_but(paged_attn_decode=iters * cfg.n_layer, **{write: iters})
+    graphs_st = st["graphs"]
+    replays = graphs_st["replays"] - st0["graphs"]["replays"]
+    rec.update(tokens=[list(r.new_tokens) for r in results], launches=launches,
+               capture_s=graphs_st["capture_s"],
+               decode_dispatches=dispatches, decode_iterations=iters,
+               host_visits=st["host_visits"] - st0["host_visits"], captures=graphs_st["captures"],
+               replays=replays, held_gib=held / 2**30,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    say(f"phase 15 {label}: {dispatches} decode dispatches, {iters} iterations, "
+        f"{rec['host_visits']} host visits; captures by kind {graphs_st['captures']} (all in the "
+        f"first pass, {graphs_st['capture_s']:.3f} s of host), {replays} replays in the measured pass; launches {launches}; the engine "
+        f"holds {rec['held_gib']:.3f} GiB, peak {rec['peak_gib']:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"phase 15 {label}: launches {launches} != {want}")
+    if graphs and (graphs_st["captures"] != st0["graphs"]["captures"] or replays != iters):
+        raise AssertionError(f"phase 15 {label}: the measured pass captured "
+                             f"({st0['graphs']['captures']} -> {graphs_st['captures']}) or did "
+                             f"not replay every decode iteration ({replays} of {iters})")
+    if not graphs and (graphs_st["captures"] or replays):
+        raise AssertionError(f"phase 15 {label}: the eager engine captured {graphs_st}")
+    if profile:
+        rec["profile"] = profile_decode_steps(eng, prompts,
+                                              f"phase 15 {label}, decode step (8 rows)",
+                                              count_spans=True)
+    del eng
+    return rec
+
+
+def graph_lanes(params, cfg) -> dict:
+    """Phase 5's chunked serve and phase 6's speculative serve at
+    GRAPH_LANE_LAYERS layers, each on a graphed and an eager engine: the
+    same tokens and the same launches; the graphed engine captured its
+    chunk piece, draft and verify steps."""
+    cfgL = Config.from_name(cfg.name, n_layer=GRAPH_LANE_LAYERS)
+    pL = {**params, "blocks": params["blocks"][:GRAPH_LANE_LAYERS]}
+    rng5, rng6 = np.random.default_rng(SEED + 5), np.random.default_rng(SEED + 6)
+    lanes = {
+        "chunked": (dict(prefill_chunk=CHUNK, prefill_buckets=CHUNK_BUCKETS, num_blocks=2048),
+                    [rng5.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+                     for n in rng5.integers(1024, 3073, 8)]),
+        "speculative": (dict(speculative=SpecConfig(*layer_skip_draft(pL, cfgL)),
+                             num_blocks=1024),
+                        [rng6.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+                         for n in rng6.integers(128, 1025, 8)]),
+    }
+    out = {}
+    for lane, (kw, prompts) in lanes.items():
+        got = {}
+        for graphs in (False, True):
+            eng = ServingEngine(pL, cfgL, attn="paged", block_size=16, max_batch=8,
+                                device=DEVICE, _graphs=graphs, **kw)
+            cudaex.reset_launches()
+            t0 = time.perf_counter()
+            res = eng.run(prompts, max_new_tokens=32)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check_results(res, 32, cfg.padded_vocab_size)
+            st = eng.stats()
+            got[graphs] = dict(tokens=[list(r.new_tokens) for r in res],
+                               launches=dict(cudaex.LAUNCHES), wall_s=wall,
+                               captures=st["graphs"]["captures"], replays=st["graphs"]["replays"],
+                               capture_s=st["graphs"]["capture_s"])
+            del eng
+        ok = (got[True]["tokens"] == got[False]["tokens"]
+              and got[True]["launches"] == got[False]["launches"]
+              and got[True]["replays"] > 0)
+        say(f"phase 15 {lane} serve at {GRAPH_LANE_LAYERS} layers: graphed {got[True]['wall_s']:.3f} "
+            f"s ({got[True]['capture_s']:.3f} s of it capturing) against eager "
+            f"{got[False]['wall_s']:.3f} s, captures {got[True]['captures']}, "
+            f"{got[True]['replays']} replays, launches {got[True]['launches']}; tokens and "
+            f"launches equal: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"phase 15 {lane}: the graphed engine's tokens or launches "
+                                 f"differ from the eager engine's")
+        out[lane] = {k: v for k, v in got[True].items() if k != "tokens"}
+        out[lane]["eager_wall_s"] = got[False]["wall_s"]
+    return out
+
+
+RECOVERY_LAYERS = 4        # (d): the float32 serve whose recovery must give the unfaulted tokens
+# (d), bf16 at full width: layer 0's replayed K/V within this many units of
+# 2^-8 of their row's largest magnitude from the lost cache's.  One bf16
+# rounding moves an element by at most 2 units (an ulp is at most 2^-7 of
+# its magnitude); layer 0's K and V are one projection of the same
+# embeddings, rounded, then rope's two products and their sum, each
+# rounded: a few roundings, well under 16.  A replay that fed a wrong token
+# or position moves a row by about its magnitude, 256 units.
+KV_WITNESS_LAYER0_UNITS = 16
+
+
+def kv_witness(eng, out: dict) -> None:
+    """Wraps ``eng``'s recovery: the K/V of every request it replays,
+    gathered through the request's block table before the arenas are
+    zeroed and again after the replay, compared over the replayed
+    positions (the prompt and all but the last emitted token).  ``out``
+    gets, per layer, the largest difference in units of 2^-8 of the row's
+    largest magnitude (over the head size), and the share of elements
+    bitwise equal over the prompts' positions and over the positions the
+    decode steps wrote."""
+    inner = eng._recover_once
+
+    def recover_once():
+        reqs = [r for r in eng.scheduler.running if r.generated]
+        spans = torch.tensor([r.prompt_len + len(r.generated) - 1 for r in reqs], device=DEVICE)
+        prompts = torch.tensor([r.prompt_len for r in reqs], device=DEVICE)
+        nbb = max(len(r.block_table) for r in reqs)
+        tables = torch.full((len(reqs), nbb), SINK_BLOCK, dtype=torch.int32)
+        for i, r in enumerate(reqs):
+            tables[i, :len(r.block_table)] = torch.as_tensor(r.block_table, dtype=torch.int32)
+        tables = tables.to(DEVICE)
+        lost = eng.pool.gather(tables)                     # (L, B, ng, nbb*bs, hs) each
+        inner()
+        rebuilt = eng.pool.gather(tables)
+        units, equal, n = [], [0, 0], [0, 0]
+        for name in ("k", "v"):
+            for layer in range(lost[name].shape[0]):
+                a, b = lost[name][layer].float(), rebuilt[name][layer].float()
+                at = torch.arange(a.shape[2], device=DEVICE)[None, :]
+                keep = (at < spans[:, None])[:, None, :, None].expand_as(a)
+                row = torch.maximum(a.abs(), b.abs()).amax(-1, keepdim=True) * 2.0 ** -8
+                d = torch.where(keep, (a - b).abs() / row.clamp_min(1e-30), 0.0)
+                if name == "k":
+                    units.append(d.amax().item())
+                else:
+                    units[layer] = max(units[layer], d.amax().item())
+                in_prompt = (at < prompts[:, None])[:, None, :, None].expand_as(a)
+                for i, part in enumerate((keep & in_prompt, keep & ~in_prompt)):
+                    equal[i] += int(((a == b) & part).sum().item())
+                    n[i] += int(part.sum().item())
+        del lost, rebuilt
+        out.update(layer_units=units, equal_share=sum(equal) / sum(n),
+                   prompt_equal_share=equal[0] / max(n[0], 1),
+                   decode_equal_share=equal[1] / max(n[1], 1), requests=len(reqs),
+                   positions=int(spans.sum().item()),
+                   decode_positions=int((spans - prompts).sum().item()))
+
+    eng._recover_once = recover_once
+
+
+def faulted_serve(params, cfg, plan, witness=False) -> dict:
+    """Phase 4's requests on a graphed engine with fault plan ``plan``:
+    tokens, stats, whether the arenas kept their addresses, and with
+    ``witness`` the recovery's K/V against the lost cache's
+    (:func:`kv_witness`)."""
+    eng = ServingEngine(params, cfg, attn="paged", block_size=16, num_blocks=1024, max_batch=8,
+                        device=DEVICE, fault_plan=plan)
+    ptrs = {k: t.data_ptr() for k, t in eng.pool.arenas.items()}
+    kv = {}
+    if witness:
+        kv_witness(eng, kv)
+    t0 = time.perf_counter()
+    res = eng.run(phase4_prompts(cfg), max_new_tokens=32)
+    torch.cuda.synchronize()
+    out = dict(tokens=[list(r.new_tokens) for r in res], wall_s=time.perf_counter() - t0,
+               stats=eng.stats(), kv=kv,
+               same_ptrs={k: t.data_ptr() for k, t in eng.pool.arenas.items()} == ptrs)
+    eng.__dict__.pop("_recover_once", None)                # the witness's closure holds eng
+    del eng
+    return out
+
+
+def graph_recovery(params, cfg, bf16_tokens) -> dict:
+    """An ``oom`` injected at the OOM_AT-th ``decode.dispatch`` of phase
+    4's serve on a graphed engine.  In float32 at RECOVERY_LAYERS layers
+    (phase 7's setting for chunked = unchunked): one recovery, the
+    unfaulted run's tokens, the arenas at the addresses the graphs hold.
+    The recovery replays prompts and emitted tokens through 512-row chunk
+    pieces, whose products round apart from those of the prefill and the
+    decode steps that wrote the lost cache.  In bf16 at full width the
+    witness is the cache itself: one recovery, the arenas at their
+    addresses, and layer 0's replayed K/V within KV_WITNESS_LAYER0_UNITS of
+    the lost cache's (:func:`kv_witness`); the deeper layers' differences
+    and the served tokens, which those roundings move through 32 layers of
+    random weights, are printed with no bar."""
+    plan = lambda: FaultPlan(specs=[FaultSpec(point="decode.dispatch", kind="oom",  # noqa
+                                              at=OOM_AT)])
+    cfgR = Config.from_name(cfg.name, n_layer=RECOVERY_LAYERS)
+    p32 = _cast({**params, "blocks": params["blocks"][:RECOVERY_LAYERS]}, torch.float32)
+    clean = faulted_serve(p32, cfgR, None)
+    hit = faulted_serve(p32, cfgR, plan(), witness=True)
+    del p32
+    st = hit["stats"]
+    ok = (st["recoveries"] == 1 and st["faults"]["injected"] == 1 and hit["same_ptrs"]
+          and hit["tokens"] == clean["tokens"])
+    wide = faulted_serve(params, cfg, plan(), witness=True)
+    same = sum(a == b for a, b in zip(wide["tokens"], bf16_tokens))
+    kv32, kv16 = hit["kv"], wide["kv"]
+    u16 = kv16["layer_units"]
+    ok16 = (wide["stats"]["recoveries"] == 1 and wide["same_ptrs"]
+            and u16[0] <= KV_WITNESS_LAYER0_UNITS)
+    say(f"phase 15 recovery: oom at decode dispatch {OOM_AT}, float32 at {RECOVERY_LAYERS} "
+        f"layers: {st['recoveries']} recovery, {st['chunk_runs']} replay pieces, captures "
+        f"{st['graphs']['captures']}, serve {hit['wall_s']:.3f} s against {clean['wall_s']:.3f} "
+        f"s unfaulted; replayed K/V against the lost cache: largest {max(kv32['layer_units']):.3g} "
+        f"units of 2^-8 of the row, {kv32['equal_share']:.4f} bitwise equal; unfaulted tokens "
+        f"and arena addresses kept: {'ok' if ok else 'FAIL'}")
+    say(f"phase 15 recovery, bf16 at full width: {wide['stats']['recoveries']} recovery, arena "
+        f"addresses kept {wide['same_ptrs']}; replayed K/V of {kv16['requests']} requests over "
+        f"{kv16['positions']} positions against the lost cache, largest difference in units of "
+        f"2^-8 of the row by layer {[round(u, 2) for u in u16]} (layer 0 at most "
+        f"{KV_WITNESS_LAYER0_UNITS}), {kv16['equal_share']:.4f} of the elements bitwise equal: "
+        f"{kv16['prompt_equal_share']:.4f} over the prompts' positions, "
+        f"{kv16['decode_equal_share']:.4f} over the {kv16['decode_positions']} the decode steps "
+        f"wrote {'ok' if ok16 else 'FAIL'}; served tokens (no bar): {same} of "
+        f"{len(bf16_tokens)} requests equal the unfaulted serve's")
+    if not ok:
+        raise AssertionError(f"phase 15 recovery: recoveries {st['recoveries']}, arena "
+                             f"addresses kept {hit['same_ptrs']}, tokens equal "
+                             f"{hit['tokens'] == clean['tokens']}")
+    if not ok16:
+        raise AssertionError(f"phase 15 recovery in bf16: recoveries "
+                             f"{wide['stats']['recoveries']}, arena addresses kept "
+                             f"{wide['same_ptrs']}, layer 0's K/V {u16[0]} units from the lost "
+                             f"cache's (at most {KV_WITNESS_LAYER0_UNITS})")
+    return dict(recoveries=st["recoveries"], replay_pieces=st["chunk_runs"],
+                wall_s=hit["wall_s"], unfaulted_wall_s=clean["wall_s"],
+                captures=st["graphs"]["captures"], kv_units_f32=max(kv32["layer_units"]),
+                kv_equal_share_f32=kv32["equal_share"], bf16_kv_layer_units=u16,
+                bf16_kv_equal_share=kv16["equal_share"],
+                bf16_kv_prompt_equal_share=kv16["prompt_equal_share"],
+                bf16_kv_decode_equal_share=kv16["decode_equal_share"], bf16_equal_requests=same,
+                bf16_wall_s=wide["wall_s"])
+
+
+def graphs_phase() -> dict:
+    """Phase 15: (a) phase 4's Llama-3-8B serve eager and graphed (same
+    tokens, exact launches, the graphed decode step's idle share below the
+    eager one's); (b) the same serve at ``decode_steps=4`` (same tokens,
+    at most one host visit per MULTI_STEPS decode steps plus the partial
+    visits); (c) the chunked and speculative serves graphed against eager
+    at GRAPH_LANE_LAYERS layers; (d) a recovered serve.  Returns the
+    phase's records and its launches, summed."""
+    t0 = time.perf_counter()
+    params, cfg = make_params()
+    eager = graph_serve(params, cfg, "decode serve, eager", graphs=False)
+    graphed = graph_serve(params, cfg, "decode serve, graphed")
+    multi = graph_serve(params, cfg, f"decode serve, graphed, decode_steps={MULTI_STEPS}",
+                        decode_steps=MULTI_STEPS, profile=False)
+    decode_tokens = 32 - 1
+    max_visits = -(-decode_tokens // MULTI_STEPS) + 1
+    ok = (graphed["tokens"] == eager["tokens"] and multi["tokens"] == graphed["tokens"]
+          and graphed["profile"]["idle_share"] < eager["profile"]["idle_share"]
+          and multi["host_visits"] <= max_visits)
+    extra = graphed["held_gib"] - eager["held_gib"]
+    say(f"phase 15 decode serve: tokens equal eager = graphed = decode_steps={MULTI_STEPS}: "
+        f"{graphed['tokens'] == eager['tokens'] and multi['tokens'] == graphed['tokens']}; idle "
+        f"share graphed {graphed['profile']['idle_share']:.4f} against eager "
+        f"{eager['profile']['idle_share']:.4f}; TPOT p50 {graphed['tpot_p50_ms']:.2f} against "
+        f"{eager['tpot_p50_ms']:.2f} ms; tokens/s {graphed['tokens_per_s']:.1f} against "
+        f"{eager['tokens_per_s']:.1f}; the graphs hold {extra:.3f} GiB more; decode_steps="
+        f"{MULTI_STEPS}: {multi['host_visits']} host visits for {decode_tokens} decode tokens "
+        f"(at most {max_visits}), TPOT p50 {multi['tpot_p50_ms']:.2f} ms "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 15: the graphed or multi-step serve's tokens, idle share or "
+                             "host visits missed their bars")
+    lanes = graph_lanes(params, cfg)
+    recovery = graph_recovery(params, cfg, graphed["tokens"])
+    t_gc = time.perf_counter()
+    gc.collect()
+    gc_s = time.perf_counter() - t_gc
+    say(f"phase 15: one gc.collect() at this point takes {gc_s:.4f} s (a capture no longer "
+        f"runs one)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: eager["launches"][k] + graphed["launches"][k] + multi["launches"][k]
+                for k in cudaex.LAUNCHES}
+    strip = lambda r: {k: v for k, v in r.items() if k not in ("tokens", "launches")}  # noqa
+    rec = dict(eager=strip(eager), graphed=strip(graphed), multi_step=strip(multi),
+               graphs_extra_gib=extra, lanes=lanes, recovery=recovery, gc_collect_s=gc_s,
+               card=CARD,
+               seconds=time.perf_counter() - t0)
+    say(f"phase 15 (graphs, multi-step, recovery) took {rec['seconds']:.1f} s")
+    return rec, launches
 
 
 def moe_depth() -> int:

@@ -515,8 +515,11 @@ def test_spec_options_are_validated(target, draft):
         _port(tcfg, tp, speculative=ttt.SpecConfig(dp, dcfg, K=2, draft_kv_dtype="int4"), **SPEC)
     with pytest.raises(ValueError, match="decode_steps=2 with speculative"):
         _port(tcfg, tp, speculative=ttt.SpecConfig(dp, dcfg, K=2), decode_steps=2, **SPEC)
-    with pytest.raises(NotImplementedError, match="decode_steps"):
-        _port(tcfg, tp, decode_steps=2, **SPEC)
+    # decode_steps=N serves without speculative= (multi-step decode); a
+    # horizon below 1 is refused
+    assert _port(tcfg, tp, decode_steps=2, **SPEC).stats()["decode_steps_per_visit"] == 2
+    with pytest.raises(ValueError, match="decode_steps= must be >= 1"):
+        _port(tcfg, tp, decode_steps=0, **SPEC)
     import thunder_tpu_torch.serving as serving
 
     assert "SpecConfig" in serving.__all__ and serving.SpecConfig is ttt.SpecConfig

@@ -217,12 +217,13 @@ def test_admission_rejects_requests_that_never_fit(micro):
         eng.submit(np.zeros(17, np.int32), max_new_tokens=2)   # past the prefill bucket
 
 
+# decode_steps, fault_plan, retry, watchdog_timeout_s, trace, slo,
+# flight_recorder, goodput and telemetry serve
+# (tests/test_torch_port_multistep.py, _faults.py, _obs.py)
 DEFERRED = [
-    ("retry", object()),
     ("mesh", object()), ("shardings", object()),
-    ("decode_steps", 2), ("sessions", True), ("priorities", True),
-    ("constraints", True), ("fault_plan", object()), ("trace", True), ("slo", {"ttft_s": 1}),
-    ("flight_recorder", True), ("goodput", True), ("telemetry", "run.jsonl"),
+    ("sessions", True), ("priorities", True),
+    ("constraints", True),
     ("replicas", 2), ("model_fn", lambda *a: None),
 ]
 

@@ -3,15 +3,20 @@
 paged KV pool, decoding through the hand-written paged-attention kernels,
 with chunked prefill (``prefill_chunk=``), speculative serving
 (``speculative=SpecConfig(...)``), int8/fp8 KV storage (``kv_dtype=``) and
-multi-tenant LoRA adapters (``lora=AdapterRegistry(...)``)."""
+multi-tenant LoRA adapters (``lora=AdapterRegistry(...)``), multi-step
+decode (``decode_steps=N``) and fault recovery (``fault_plan=FaultPlan(...)``,
+``retry=RetryPolicy(...)``); on the card the bucket steps run as CUDA
+graphs (:mod:`serving.graphs`)."""
 from thunder_tpu_torch.serving.engine import (
     AdmissionError,
     EngineStalledError,
+    RecoveryError,
     RequestHandle,
     RequestResult,
     ServingEngine,
     serve,
 )
+from thunder_tpu_torch.serving.faults import FaultPlan, FaultSpec, RetryPolicy
 from thunder_tpu_torch.serving.kv_pool import PagedKVPool, PoolExhaustedError
 from thunder_tpu_torch.serving.lora import (
     AdapterRegistry,
@@ -25,11 +30,15 @@ __all__ = [
     "AdapterRegistry",
     "AdmissionError",
     "EngineStalledError",
+    "FaultPlan",
+    "FaultSpec",
     "PagedKVPool",
     "PoolExhaustedError",
+    "RecoveryError",
     "RegistryFullError",
     "RequestHandle",
     "RequestResult",
+    "RetryPolicy",
     "ServingEngine",
     "SpecConfig",
     "make_lora_factors",

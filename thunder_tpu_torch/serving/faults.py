@@ -1,9 +1,12 @@
 """Deterministic fault injection + retry/recovery policy.
 
 Counterpart of ``thunder_tpu/serving/faults.py``, copied whole so the port
-imports nothing of the JAX package.  The training loop passes the
-``train.step`` point and the checkpointer ``checkpoint.save``; the serving
-points wait for the engine's recovery layer, which is not ported yet.
+imports nothing of the JAX package.  The serving engine passes the
+``prefill.dispatch``, ``decode.dispatch``, ``draft.dispatch``,
+``verify.dispatch``, ``harvest`` and ``scatter`` points (a step's kernels
+write the arenas in place, so a fault at ``scatter`` or ``harvest`` is past
+the point of no return and recovers); the training loop passes
+``train.step`` and the checkpointer ``checkpoint.save``.
 
 - **Fault kinds** map to exception classes classified by blast radius:
   ``"fail"`` → :class:`TransientDispatchFault` (retryable), ``"nan"`` →
@@ -21,6 +24,8 @@ points wait for the engine's recovery layer, which is not ported yet.
 """
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Sequence
@@ -52,6 +57,7 @@ __all__ = [
     "RetryPolicy",
     "classify_fault",
     "fault_cause",
+    "resolve_fault_plan",
 ]
 
 # named fault points — where the event loop touches the device.  The
@@ -315,7 +321,10 @@ class FaultPlan:
         exc = _KIND_EXC[kind](point, rids)
         self.fired.append(exc.cause())
         registry().counter("serving.faults.injected").inc()
-        raise exc
+        try:
+            raise exc
+        finally:
+            del exc            # no frame-exception cycle keeps the engine's frames alive
 
     def snapshot(self) -> dict:
         """Plan state for ``engine.stats()`` / the flight recorder."""
@@ -353,3 +362,29 @@ class RetryPolicy:
 
     def backoff(self, attempt: int) -> float:
         return self.backoff_s * self.multiplier ** (max(int(attempt), 1) - 1)
+
+
+def resolve_fault_plan(plan) -> FaultPlan | None:
+    """Engine-facing constructor: ``None`` → the ``THUNDER_TPU_FAULT_PLAN``
+    env JSON (or no plan), ``False`` → force-off, a :class:`FaultPlan` /
+    :class:`FaultSpec` / dict of plan kwargs / list of specs → armed."""
+    if plan is None:
+        raw = os.getenv("THUNDER_TPU_FAULT_PLAN", "").strip()
+        if not raw:
+            return None
+        plan = json.loads(raw)
+    if plan is False:
+        return None
+    if isinstance(plan, FaultPlan):
+        return plan
+    if isinstance(plan, FaultSpec):
+        return FaultPlan(specs=(plan,))
+    if isinstance(plan, dict):
+        if "specs" in plan or "seed" in plan or "rate" in plan:
+            return FaultPlan(**plan)
+        return FaultPlan(specs=(FaultSpec(**plan),))
+    if isinstance(plan, (list, tuple)):
+        return FaultPlan(specs=tuple(s if isinstance(s, FaultSpec) else FaultSpec(**s)
+                                     for s in plan))
+    raise TypeError(f"fault_plan= expects None/False/FaultPlan/FaultSpec/dict/list, "
+                    f"got {type(plan).__name__}")

@@ -111,6 +111,9 @@ class PagedKVPool:
         self._refcount[SINK_BLOCK] = 1
         self._free: list[int] = list(range(self.num_blocks - 1, SINK_BLOCK, -1))  # pop() -> lowest id
         self._free_low_water = len(self._free)
+        # bumped when set_arenas installs new tensors: captured CUDA graphs
+        # hold the arenas' addresses and are dropped when it moves
+        self.arena_version = 0
         # occupancy timeline: bounded ring of (free, shared, leased) triples
         self._occ_ring: deque = deque(maxlen=OCCUPANCY_WINDOW)
 
@@ -304,7 +307,8 @@ class PagedKVPool:
 
     def set_arenas(self, arenas: dict) -> None:
         """Installs replacement arena tensors (the steps update the pool's
-        own tensors in place; this is for callers that build new ones).
+        own tensors in place; this is for callers that build new ones) and
+        bumps ``arena_version``, which drops an engine's captured graphs.
         Validates the keys, geometry, dtype and device first, so a
         mismatched arena raises :class:`ArenaMismatchError` naming it
         instead of surfacing steps later as garbage KV."""
@@ -320,6 +324,16 @@ class PagedKVPool:
         self.k_arena, self.v_arena = arenas["k"], arenas["v"]
         if self.quantized_kv:
             self.k_scale, self.v_scale = arenas["k_scale"], arenas["v_scale"]
+        self.arena_version += 1
+
+    def rebuild_arenas(self) -> None:
+        """Zeroes every arena in place (re-prefill recovery: the KV content
+        is soft state the engine rebuilds by replaying known tokens).  The
+        tensors keep their addresses, so captured CUDA graphs stay valid;
+        allocator state — block tables, refcounts, prefix sharing, the free
+        list — is host-side and survives untouched."""
+        for t in self.arenas.values():
+            t.zero_()
 
 
 class PrefixIndex:

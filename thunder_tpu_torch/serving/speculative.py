@@ -44,13 +44,20 @@ factors (``verify_paged`` through the ``lora_delta_fused`` kernel), the
 draft proposes with the base model, and the rejection rule corrects the
 mismatch, so greedy tokens equal the LoRA engine's plain decode.  Weight
 quantization (the engine's ``quantized=``) rides both models' forwards, as
-in the reference (``serving/speculative.py:251-295``).  The fault points
-of the JAX module wait for ``serving/faults.py``.
+in the reference (``serving/speculative.py:251-295``).
+
+On the card ``draft_decode`` and ``verify``/``verify_paged`` are CUDA
+graphs (:mod:`serving.graphs`): greedy rounds draw and accept inside the
+graphs; at temperature > 0 the draws and the rejection rule run eagerly
+from each row's generator between the graphs' segments.  A round passes
+the ``draft.dispatch``, ``verify.dispatch``, ``scatter`` and ``harvest``
+fault points of :mod:`serving.faults`.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import partial
 from typing import Any
 
 import numpy as np
@@ -62,6 +69,8 @@ from thunder_tpu_torch.models.speculative import (
     emitted_tokens,
     greedy_acceptance,
 )
+from thunder_tpu_torch.serving.faults import FP_DRAFT, FP_HARVEST, FP_SCATTER, FP_VERIFY
+from thunder_tpu_torch.serving.graphs import StepGraph
 from thunder_tpu_torch.serving.kv_pool import SINK_BLOCK
 from thunder_tpu_torch.serving.paged_attention import forward_paged, write_fresh_kv_masked
 
@@ -179,65 +188,84 @@ def build_draft_decode(eng, Bb: int, nbb: int):
     """K+1 chained single-token draft forwards over the gathered draft
     arena, then every one of the K+1 fresh draft K/V scattered back.  The
     (K+1)-th forward consumes d_K and writes its K/V at pos+K, so a fully
-    accepted round leaves no unwritten slot in the draft cache.  Returns
-    ``(drafts (Bb, K), q_rows (Bb, K, V) or None when greedy)``."""
+    accepted round leaves no unwritten slot in the draft cache.  A step of
+    :mod:`serving.graphs`: inputs ``toks``/``pos`` (Bb,) and ``tables``
+    (Bb, nbb); outputs ``drafts`` (Bb, K) and, at temperature > 0,
+    ``q_rows`` (Bb, K, V), whose draws are the step's ``sample`` host
+    points."""
     dcfg, dpool = eng.spec.draft_cfg, eng.draft_pool
     K, temp, bs = eng.spec.K, eng.temperature, dpool.block_size
     cos_d, sin_d = eng._rope_cache(nbb, draft=True)
     rows = torch.arange(Bb, device=eng.device)
 
-    def draft_decode(toks, pos, tables, generators):
+    def draft_decode(x, host):
+        toks, pos, tables = x["toks"], x["pos"], x["tables"]
         dc = dpool.gather(tables)
         tok, dpos, outs, qs = toks, pos, [], []
         for _ in range(K + 1):
             dl, dc = forward_with_cache(eng.spec.draft_params, tok[:, None], dpos, dc,
                                         cos_d, sin_d, dcfg, quantized=eng.quantized)
             row = dl[:, -1]
-            tok = eng._sample_rows(row, generators)
-            outs.append(tok)
             if temp != 0.0:
                 qs.append(torch.softmax(row / temp, dim=-1))
+            tok = eng._pick(row, host)
+            outs.append(tok)
             dpos = dpos + 1
         for k in range(K + 1):
             p_k = (pos + k).long()
             col = torch.clamp(p_k // bs, max=nbb - 1)
             blk = tables.long().gather(1, col[:, None])[:, 0]
             dpool.scatter_rows(dc, p_k, rows, blk, p_k % bs)
-        drafts = torch.stack(outs[:K], dim=1)
-        return drafts, (torch.stack(qs[:K], dim=1) if qs else None)
+        out = {"drafts": torch.stack(outs[:K], dim=1)}
+        if qs:
+            out["q_rows"] = torch.stack(qs[:K], dim=1)
+        return out, {}
 
     return draft_decode
 
 
-def _accept(eng, tlogits, drafts, q_rows, generators):
-    """The rejection rule per row: greedy over the whole batch, or speculative
-    sampling from each live row's own generator (padding rows emit 0).
-    Returns ``(emitted (Bb, K+1), n_emit (Bb,) int32, y (Bb,))``."""
+def _accept_rows(eng, running, tlogits, drafts, q_rows):
+    """The speculative-sampling rule per live row from its own generator
+    (padding rows emit 0): the verify step's ``accept`` host point.
+    Returns ``(emitted (Bb, K+1), n_emit (Bb,) int32, y (Bb,) int32)``."""
+    p_all = torch.softmax(tlogits / eng.temperature, dim=-1)
+    Bb = drafts.shape[0]
+    m = torch.zeros(Bb, dtype=torch.int64, device=drafts.device)
+    y = torch.zeros(Bb, dtype=torch.int32, device=drafts.device)
+    for i, r in enumerate(running):
+        m[i], y[i] = accept_tokens(r.generator, drafts[i], p_all[i], q_rows[i])
+    return emitted_tokens(drafts, m, y), (m + 1).to(torch.int32), y
+
+
+def _accept(eng, tlogits, drafts, q_rows, host):
+    """The rejection rule: greedy over the whole batch inside the step,
+    else the ``accept`` host point.  Returns ``(emitted, n_emit, y)``."""
     if eng.temperature == 0.0:
         m, y = greedy_acceptance(tlogits, drafts)
-    else:
-        p_all = torch.softmax(tlogits / eng.temperature, dim=-1)
-        Bb = drafts.shape[0]
-        m = torch.zeros(Bb, dtype=torch.int64, device=drafts.device)
-        y = torch.zeros(Bb, dtype=torch.int32, device=drafts.device)
-        for i, g in enumerate(generators):
-            m[i], y[i] = accept_tokens(g, drafts[i], p_all[i], q_rows[i])
-    return emitted_tokens(drafts, m, y), (m + 1).to(torch.int32), y.to(torch.int32)
+        return emitted_tokens(drafts, m, y), (m + 1).to(torch.int32), y.to(torch.int32)
+    Bb, K = drafts.shape
+    i32 = torch.int32
+    return host("accept", tlogits, drafts, q_rows,
+                like=[((Bb, K + 1), i32), ((Bb,), i32), ((Bb,), i32)])
 
 
 def build_verify(eng, Bb: int, nbb: int):
     """One target forward over the K+1 chunk on the gathered arena, the
     rejection rule, and a keep-masked scatter: offset k lands at pos + k
-    iff k < n_emit, else in the sink."""
+    iff k < n_emit, else in the sink.  Inputs ``toks``, ``pos``,
+    ``tables``, ``drafts``, ``q_rows`` (None when greedy) and ``slots``;
+    outputs ``emitted`` and ``n_emit``; the next round's ``toks`` (= y)
+    and ``pos`` (+ n_emit) carry."""
     cfg, pool, K, bs = eng.cfg, eng.pool, eng.spec.K, eng.pool.block_size
     cos, sin = eng._rope_cache(nbb)
     rows = torch.arange(Bb, device=eng.device)
 
-    def verify(toks, pos, tables, drafts, q_rows, generators, slots):
+    def verify(x, host):
+        toks, pos, tables, drafts = x["toks"], x["pos"], x["tables"], x["drafts"]
         chunk = torch.cat([toks[:, None], drafts], dim=1)
         tlogits, cache = forward_with_cache(eng.params, chunk, pos, pool.gather(tables),
-                                            cos, sin, cfg, **eng._fwd_kwargs(slots))
-        emitted, n_emit, y = _accept(eng, tlogits, drafts, q_rows, generators)
+                                            cos, sin, cfg, **eng._fwd_kwargs(x["slots"]))
+        emitted, n_emit, y = _accept(eng, tlogits, drafts, x["q_rows"], host)
         for k in range(K + 1):
             p_k = (pos + k).long()
             live = k < n_emit
@@ -245,7 +273,7 @@ def build_verify(eng, Bb: int, nbb: int):
             blk = torch.where(live, tables.long().gather(1, col[:, None])[:, 0], SINK_BLOCK)
             slot = torch.where(live, p_k % bs, 0)
             pool.scatter_rows(cache, p_k, rows, blk, slot)
-        return emitted, n_emit, y
+        return {"emitted": emitted, "n_emit": n_emit}, {"toks": y, "pos": pos + n_emit}
 
     return verify
 
@@ -259,14 +287,15 @@ def build_verify_paged(eng, Bb: int, nbb: int):
     cfg, pool = eng.cfg, eng.pool
     cos, sin = eng._rope_cache(nbb)
 
-    def verify_paged(toks, pos, tables, drafts, q_rows, generators, slots):
+    def verify_paged(x, host):
+        toks, pos, tables, drafts = x["toks"], x["pos"], x["tables"], x["drafts"]
         chunk = torch.cat([toks[:, None], drafts], dim=1)
         tlogits, fresh = forward_paged(eng.params, chunk, pos, pool.arenas, tables, cos, sin,
-                                       cfg, cdtype=pool.dtype, **eng._fwd_kwargs(slots))
-        emitted, n_emit, y = _accept(eng, tlogits, drafts, q_rows, generators)
+                                       cfg, cdtype=pool.dtype, **eng._fwd_kwargs(x["slots"]))
+        emitted, n_emit, y = _accept(eng, tlogits, drafts, x["q_rows"], host)
         write_fresh_kv_masked(pool.arenas, fresh, tables, pos, n_emit,
                               block_size=pool.block_size, kv_dtype=pool.quantized_storage)
-        return emitted, n_emit, y
+        return {"emitted": emitted, "n_emit": n_emit}, {"toks": y, "pos": pos + n_emit}
 
     return verify_paged
 
@@ -280,15 +309,21 @@ def spec_decode_dispatch(eng) -> dict:
     """One speculative round for the decode-ready batch: draft step, then
     verify step.  While the batch and tables are unchanged, the round's
     inputs are the previous round's device outputs (``toks = y``, ``pos +
-    n_emit``); ``host_pos`` advances at harvest."""
-    sch, dev = eng.scheduler, eng.device
+    n_emit``, carried by the verify step); ``host_pos`` advances at
+    harvest.  Fault points: ``draft.dispatch`` before the draft step,
+    ``verify.dispatch`` between the two (a rerun of the draft rewrites the
+    same slots), ``scatter`` after the verify step."""
+    sch = eng.scheduler
     running = sch.decode_ready() if eng.async_step else list(sch.running)
+    rids = tuple(r.rid for r in running)
+    eng._fault_point(FP_DRAFT, rids)
     Bb, nbb_raw = sch.decode_bucket(running)
     nbb = eng._nbb(nbb_raw)
-    sig = (tuple(r.rid for r in running), Bb, nbb)
+    sig = (rids, Bb, nbb)
     st = eng._spec_state
     if st is not None and st["sig"] == sig:
-        toks_d, pos_d, tables_d, slots_d = st["toks"], st["pos"], st["tables"], st["slots"]
+        vx = st["verify"]
+        dx = {**st["draft"], "toks": vx["toks"], "pos": vx["pos"]}
         host_pos = st["host_pos"]
     else:
         toks = np.zeros(Bb, dtype=np.int32)
@@ -298,29 +333,42 @@ def spec_decode_dispatch(eng) -> dict:
             toks[i] = r.generated[-1]
             host_pos[i] = r.prompt_len + len(r.generated) - 1   # slot cur's K/V lands in
             tables[i, : len(r.block_table)] = r.block_table
-        toks_d = torch.as_tensor(toks, device=dev)
-        pos_d = torch.as_tensor(host_pos, device=dev)
-        tables_d = torch.as_tensor(tables, device=dev)
-        slots_d = eng._slots(running, Bb)
-    generators = [r.generator for r in running]
-    draft, _ = eng._program("draft_decode", Bb, nbb)
-    drafts, q_rows = draft(toks_d, pos_d, tables_d, generators)
+        dx = {"toks": toks, "pos": host_pos.copy(), "tables": tables}
+        vx = {**dx, "slots": eng._slots(running, Bb)}
+    host_fns = None
+    if eng.temperature != 0.0:
+        host_fns = {"sample": partial(eng._draw_rows, running, None, None),
+                    "accept": partial(_accept_rows, eng, running)}
+    draft, dcompiled = eng._program("draft_decode", Bb, nbb)
+    dout, dx = draft(dx, host_fns)
+    eng._fault_point(FP_VERIFY, rids)
     vkind = "verify_paged" if eng.attn == "paged" else "verify"
-    verify, _ = eng._program(vkind, Bb, nbb)
+    verify, vcompiled = eng._program(vkind, Bb, nbb)
     if eng.attn == "paged":
         eng.attn_kernel_steps += 1
         eng._m_attn_kernel.inc()
-    emitted, n_emit, y = verify(toks_d, pos_d, tables_d, drafts, q_rows, generators, slots_d)
-    eng._spec_state = {"sig": sig, "toks": y, "pos": pos_d + n_emit, "tables": tables_d,
-                       "slots": slots_d, "host_pos": host_pos}
+    tr = eng._tracer
+    if tr is not None:
+        for r in running:
+            tr.begin(r.rid, "decode", step=eng.decode_steps, compile=dcompiled or vcompiled,
+                     bucket=[Bb, nbb], lane="decode", attn=eng.attn, spec=True, K=eng.spec.K)
+    vout, vx = verify({**vx, "drafts": dout["drafts"], "q_rows": dout.get("q_rows")},
+                      host_fns)
+    eng._fault_point(FP_SCATTER, rids)
+    eng._spec_state = {"sig": sig, "draft": dx, "verify": vx, "host_pos": host_pos}
+    rec = {"spec": True, "running": running, "emitted": vout["emitted"],
+           "n_emit": vout["n_emit"], "pos": host_pos, "bucket": [Bb, nbb], "vkind": vkind,
+           "compiled": dcompiled or vcompiled, "step": eng.decode_steps,
+           "t_disp": time.perf_counter(), "t_clock": sch.clock()}
+    if isinstance(verify, StepGraph):
+        rec["guard"] = (verify, verify.replays)           # the outputs are its buffers
     eng.decode_steps += 1
     eng.spec_rounds += 1
     eng._occupancy_sum += len(running)
     eng._m_steps_decode.inc()
     eng._m_spec_rounds.inc()
     eng._m_occupancy.observe(len(running))
-    return {"spec": True, "running": running, "emitted": emitted, "n_emit": n_emit,
-            "pos": host_pos, "t_disp": time.perf_counter()}
+    return rec
 
 
 def spec_decode_harvest(eng, rec: dict) -> None:
@@ -329,15 +377,54 @@ def spec_decode_harvest(eng, rec: dict) -> None:
     token in order (an EOS or the length limit drops the rest).  Feeds the
     ``serving.spec.accept_len`` histogram and the accepted/drafted
     counters."""
+    running = rec["running"]
+    eng._fault_point(FP_HARVEST, tuple(r.rid for r in running))
     t0 = time.perf_counter()
+    eng._check_guard(rec)
     emitted = rec["emitted"].cpu().numpy()             # the host block
     n_emit = rec["n_emit"].cpu().numpy()
     eng._note_stall(t0, rec["t_disp"])
     K = eng.spec.K
+    gp, gtag = eng._goodput, None
+    if gp is not None:
+        # the round's slots, two dispatches: draft (Bb x K) committed by the
+        # verifier's acceptance, verify (Bb x (K+1)) committed by what streams
+        Bb = rec["bucket"][0]
+        d_comm = d_rej = d_dead = v_comm = v_rej = v_dead = 0
+        for i, r in enumerate(running):
+            if r.state != "running":
+                d_dead += K
+                v_dead += K + 1
+                continue
+            ne = int(n_emit[i])
+            d_comm += ne - 1
+            d_rej += K - (ne - 1)
+            streamed = min(ne, r.max_new_tokens - len(r.generated))
+            if eng.eos_id is not None:
+                for s in range(streamed):
+                    if int(emitted[i, s]) == eng.eos_id:
+                        streamed = s + 1
+                        break
+            v_comm += streamed
+            v_rej += (K + 1) - ne
+            v_dead += ne - streamed
+        npad = Bb - len(running)
+        gp.account("draft_decode", Bb, K, committed=d_comm,
+                   **{k: v for k, v in (("pad_row", npad * K), ("draft_rejected", d_rej),
+                                        ("dead_scan_row", d_dead)) if v})
+        gtag = gp.account(rec["vkind"], Bb, K + 1, committed=v_comm,
+                          **{k: v for k, v in (("pad_row", npad * (K + 1)),
+                                               ("draft_rejected", v_rej),
+                                               ("dead_scan_row", v_dead)) if v})
+        dt = time.perf_counter() - rec["t_disp"]
+        gp.note_device_s("draft_decode", dt * K / (2 * K + 1))
+        gp.note_device_s(rec["vkind"], dt * (K + 1) / (2 * K + 1))
+    eng._note_decode_visit(rec, gtag, spec=True,
+                           accept_len=[int(n_emit[i]) for i in range(len(running))])
     pos = rec["pos"]
     count = 0
     invalidate = False
-    for i, r in enumerate(rec["running"]):
+    for i, r in enumerate(running):
         if r.state != "running":
             invalidate = True                          # finished mid-flight
             continue
@@ -349,17 +436,14 @@ def spec_decode_harvest(eng, rec: dict) -> None:
         eng._m_spec_accept_len.observe(ne)
         if ne > 1:
             eng._m_spec_accepted.inc(ne - 1)
+        eng._save_generator(r)
         for k in range(ne):
             count += 1
             eng._emit_token(r, int(emitted[i, k]))
             if r.state != "running":
                 invalidate = True                      # EOS/length mid-round
                 break
-    eng.tokens_generated += count
-    eng.host_visits += 1
-    eng._m_host_visits.inc()
-    if count:
-        eng._m_tokens.inc(count)
+    eng._count_visit(count)
     if invalidate:
         eng._spec_state = None
     elif eng._spec_state is not None:
