@@ -166,7 +166,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 10. train at full width and depth through the trace: 4 AdamW steps of
     Llama-3-8B (bf16, B=1, T=2048, remat full_block, lr 1e-4) on one fixed
     batch with the traced ``TrainStep``: its forward and backward programs
-    run ``cuda_*`` and ``torch_*`` symbols only, with two ``cuda_sdpa`` per
+    run ``cuda_*``, ``torch_*`` and fusion symbols only (every fusion region
+    holding only torch-implementable, non-random prims:
+    ``inductorex.region_violations``), with two ``cuda_sdpa`` per
     layer (the backward recomputes the forward's); the flash and
     ``flash_ce`` launch counts equal those programs' symbols per step
     exactly; no declines (attention or cross-entropy), finite losses and
@@ -181,7 +183,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 11. the trace IR: ``ir_layer_loss`` (one Llama-3-8B layer at full width, its
     final norm, head and cross-entropy, weights from seed 0, B=1, T=2048)
     acquired by ``functional.trace_from_fn`` (``language=`` clang), claimed
-    by the default executors (cuda ≻ torch) and run as the generated
+    by cuda ≻ torch (the unfused stack: phase 16 holds the fusion) and run
+    as the generated
     prologue and computation, float32 and bf16: the final trace runs
     ``cuda_sdpa`` and ``torch_*`` symbols only, each call launches exactly
     one ``flash_fwd`` and one ``flash_ce`` (the torch executor's fast
@@ -199,9 +202,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     are printed, with no bar;
 12. ``thunder_tpu_torch.jit(gpt_loss)`` of Llama-3-8B at full width and
     depth (32 layers, weights from seed 0, B=1, T=2048, the default
-    executors cuda ≻ torch): the model's own torch-written loss, traced
-    through the torch language, claimed and run as the generated program.
-    The final trace runs ``cuda_sdpa`` and ``torch_*`` symbols only; each
+    executors cuda ≻ inductor ≻ torch): the model's own torch-written loss,
+    traced through the torch language, claimed and run as the generated
+    program.  The final trace runs ``cuda_sdpa``, ``torch_*`` and fusion
+    symbols only (phase 10's region check); each
     call launches exactly 32 ``flash_fwd`` and one ``flash_ce``; the
     prologue guards every parameter; no decline, on the jit path or the
     eager one.  The bf16 loss against the float32 eager ``gpt_loss`` (under
@@ -216,8 +220,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     cache-hit dispatch median over 20 calls, CUDA-event and device ms per
     call and kernels per call beside eager ``gpt_loss``;
 13. the transforms under ``jit`` at Llama-3-8B widths and 4 layers (B=1,
-    T=2048): ``value_and_grad(gpt_loss)`` of bf16 params runs ``cuda_*``
-    and ``torch_*`` symbols only in its forward and backward programs,
+    T=2048): ``value_and_grad(gpt_loss)`` of bf16 params runs ``cuda_*``,
+    ``torch_*`` and fusion symbols only (phase 10's region check) in its
+    forward and backward programs,
     launches exactly the flash and ``flash_ce`` kernels their symbols name
     (four ``flash_bwd_dq``/``flash_bwd_dkv``), and a second call is a cache
     hit bitwise equal to the first; ``jit(gpt_loss, autocast="bf16")`` of
@@ -238,8 +243,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     bf16 ``F.linear``, and for the linears the device ms of the call, of
     the product alone and of ``F.linear``; (b) 3 steps of the traced
     ``TrainStep`` at 4 layers (2 where 4 do not fit, printed), B=1,
-    T=2048, full_block, AdamW: programs of ``cuda_*``/``torch_*`` symbols
-    only, 2·L ``flash_fwd``, L ``flash_bwd_dq`` and ``flash_bwd_dkv`` and
+    T=2048, full_block, AdamW: programs of ``cuda_*``/``torch_*`` and
+    fusion symbols only (phase 10's region check), 2·L ``flash_fwd``, L ``flash_bwd_dq`` and ``flash_bwd_dkv`` and
     the programs' CE symbols' ``flash_ce`` per step, exactly, no declines, losses finite and falling,
     step time, tokens/s, peak memory and the build's host ms; one more
     step profiled by kernel group with its top kernels; 2 steps of the
@@ -281,7 +286,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     recovers too; how many of its requests keep their tokens is printed,
     with no bar: the replay's chunk pieces round apart from the steps that
     wrote the lost cache);
-16. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+16. fusion (the fusion executor, ``executors/inductorex.py``; phases 9-14
+    ran on it, the default executors cuda ≻ inductor ≻ torch, each region
+    one ``torch.compile`` program): (a) phase 12's ``jit(gpt_loss)``
+    against the same loss on the unfused executors (cuda ≻ torch) in the
+    same run: kernels and device ms per call, regions, distinct compiled
+    structures, compile seconds, cache-hit dispatch ms; fused device ms at
+    most the unfused; (b) phase 10's traced step against the same step
+    unfused: step time, device busy by kernel group, peak memory beside the
+    trace's donated-aware estimate and ``examine.train_memory_report``;
+    fused busy at most the unfused; (c) ``jit(..., donate=True)`` on the
+    card: the caller's donated bytes are freed, reusing them raises
+    ``DonationError``, the results equal the undonated call's.  Each phase
+    prints the regions it compiled and their seconds;
+17. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -308,7 +326,8 @@ from thunder_tpu_torch.core import cache_key as jit_cache_key
 from thunder_tpu_torch.core import prims as ir_prims
 from thunder_tpu_torch.core.langctxs import Languages
 from thunder_tpu_torch.distributed.api import make_eager_train_step, make_train_step
-from thunder_tpu_torch.executors import _build, cudaex, torchex
+from thunder_tpu_torch import examine
+from thunder_tpu_torch.executors import _build, cudaex, inductorex, torchex
 from thunder_tpu_torch.core.rematerialization import peak_live_bytes
 from thunder_tpu_torch.executors.passes import del_last_used, transform_for_execution
 from thunder_tpu_torch.extend import resolve_executors
@@ -371,6 +390,10 @@ LOGITS_ATOL_F32 = 1e-3
 BF16_ERR_RATIO = 2.0
 
 CARD = ""
+
+
+# the executors before the fusion executor: phase 16's yardstick
+UNFUSED = (cudaex.cuda_ex, torchex.torch_ex)
 
 
 def say(msg: str) -> None:
@@ -1965,11 +1988,19 @@ def check_kv_write_group(rec: dict, step: str) -> float:
     return group
 
 
+def device_kernels(prof) -> list:
+    """A profile's device events less the ranges the profiler annotates on
+    the device timeline (a schedule's ``ProfilerStep#n``, any
+    ``record_function``), which span kernels rather than run."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("ProfilerStep")]
+
+
 def profile_spans(prof, steps, attn, label) -> dict | None:
     """Device busy time per step, the idle share of the kernel span and the
     time by kernel group of a profile of ``steps`` engine steps."""
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device_kernels(prof)]
     if not spans:
         say(f"{label} profile: not measured (the profiler saw no CUDA activity)")
         return None
@@ -2007,7 +2038,7 @@ def check_span_counts(prof, delta: dict, label: str) -> dict:
     """The decode kernels a profiled window ran, counted by name, against
     the ``cudaex.LAUNCHES`` the window added (under graphs, what the
     replays added from their captures' counts): equal, and nonzero."""
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in device_kernels(prof)]
     got = {k: sum(k in n for n in names) for k, _ in DECODE_SPAN_COUNTERS}
     want = {k: sum(delta.get(c, 0) for c in cs) for k, cs in DECODE_SPAN_COUNTERS}
     ok = got == want and all(want.values())
@@ -2026,12 +2057,14 @@ def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3,
     step's time goes, and how much of the span between the first and the
     last kernel the card sits idle.  The prompts (with adapters ``ids``)
     are prefilled first; a profiled window must hold decode steps alone.
-    A profile that records no CUDA activity is taken again, ``tries``
-    times, and then fails.  ``count_spans``: the window's decode kernels,
-    counted by name, must equal the launches it counted
-    (:func:`check_span_counts`)."""
+    The profiler traces one decode step first and drops it (its schedule's
+    warm-up), and the card is synchronized on both sides of the counted
+    window, so the window opens on a running trace.  A profile that records
+    no CUDA activity is taken again, ``tries`` times, and then fails.
+    ``count_spans``: the window's decode kernels, counted by name, must
+    equal the launches it counted (:func:`check_span_counts`)."""
     ids = ids or [None] * len(prompts)
-    handles = [eng.submit(p, max_new_tokens=tries * steps + 3, adapter_id=a)
+    handles = [eng.submit(p, max_new_tokens=tries * (steps + 1) + 3, adapter_id=a)
                for p, a in zip(prompts, ids)]
     eng.step()                                             # admit + prefill
     eng.step()                                             # token 0, first decode dispatch
@@ -2040,14 +2073,21 @@ def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3,
     torch.cuda.synchronize()
     rec = None
     for _ in range(tries):     # a profile now and then records no kernel at all
-        before = (eng.decode_steps, eng.chunk_runs, eng.prefill_runs)
-        launched = dict(cudaex.LAUNCHES)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            eng.step()                                     # traced, dropped
+            torch.cuda.synchronize()
+            prof.step()
+            before = (eng.decode_steps, eng.chunk_runs, eng.prefill_runs)
+            launched = dict(cudaex.LAUNCHES)
             for _ in range(steps):
                 eng.step()
             torch.cuda.synchronize()
-        after = (eng.decode_steps, eng.chunk_runs, eng.prefill_runs)
+            delta = {k: n - launched.get(k, 0) for k, n in cudaex.LAUNCHES.items()}
+            after = (eng.decode_steps, eng.chunk_runs, eng.prefill_runs)
+            prof.step()
         if after != (before[0] + steps, *before[1:]):
             raise AssertionError(f"{label}: the profiled window was not {steps} decode steps "
                                  f"alone (decode steps, chunk pieces, prefills {before} -> "
@@ -2055,7 +2095,6 @@ def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3,
         rec = profile_spans(prof, steps, "paged_attn_decode", label)
         if rec is not None:
             if count_spans:
-                delta = {k: n - launched.get(k, 0) for k, n in cudaex.LAUNCHES.items()}
                 rec["span_counts"] = check_span_counts(prof, delta, label)
             break
     eng.drain()
@@ -2934,10 +2973,11 @@ def train_batch(cfg, seed):
     return idx, tgt, cos, sin
 
 
-def make_step(cfg, remat="full_block"):
-    """The train step over the trace (the main path)."""
+def make_step(cfg, remat="full_block", executors=None):
+    """The train step over the trace (the main path; ``executors`` None:
+    the defaults, cuda ≻ inductor ≻ torch)."""
     return make_train_step(lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg),
-                           adamw(TRAIN_LR), remat=remat)
+                           adamw(TRAIN_LR), remat=remat, executors=executors)
 
 
 def make_eager_step(cfg, remat="full_block"):
@@ -3085,6 +3125,43 @@ def _symbols(step) -> dict:
     return {n: names.count(n) for n in sorted(set(names))}
 
 
+def _stray(step, syms) -> list[str]:
+    """Symbols of the step's programs other than ``cuda_*``, ``torch_*`` and
+    fusion regions, and what a region holds that it may not."""
+    fusions = {b.sym.name for tr in (step.fw_trace, step.bw_trace) for b in tr.bound_symbols
+               if b.sym.is_fusion}
+    return ([n for n in syms if not n.startswith(("cuda_", "torch_")) and n not in fusions
+             and n != "python_return"] + region_problems([step.fw_trace, step.bw_trace]))
+
+
+def _n_regions(step) -> tuple[int, int]:
+    return tuple(sum(b.sym.is_fusion for b in tr.bound_symbols)
+                 for tr in (step.fw_trace, step.bw_trace))
+
+
+def step_launches_want(step, n_steps: int, L: int, label: str) -> dict:
+    """The launches ``n_steps`` runs of the traced ``step`` must count, read
+    from its programs: ``TRAIN_SDPA_PER_LAYER`` x L ``cuda_sdpa`` (each a
+    ``flash_fwd``), L ``cuda_sdpa_backward`` (a ``flash_bwd_dq`` and a
+    ``flash_bwd_dkv`` each) and every ``torch_cross_entropy_fwd`` (a
+    ``flash_ce``) per step, nothing else.  Fails on a program symbol other
+    than ``cuda_*``, ``torch_*`` and fusion regions, on a region holding
+    what it may not, or on other kernel symbol counts."""
+    syms = _symbols(step)
+    stray = _stray(step, syms)
+    n_sdpa, n_bwd, n_ce = (syms.get(k, 0) for k in ("cuda_sdpa", "cuda_sdpa_backward",
+                                                     "torch_cross_entropy_fwd"))
+    say(f"{label} programs: {len(step.fw_trace.bound_symbols)} forward and "
+        f"{len(step.bw_trace.bound_symbols)} backward bound symbols; cuda_sdpa {n_sdpa} "
+        f"(expected {TRAIN_SDPA_PER_LAYER} x {L}), cuda_sdpa_backward {n_bwd}, "
+        f"torch_cross_entropy_fwd {n_ce}, fusion regions {_n_regions(step)}; other than "
+        f"cuda_/torch_/regions, or in a region what may not be there: {stray}")
+    if stray or n_sdpa != TRAIN_SDPA_PER_LAYER * L or n_bwd != L or not n_ce:
+        raise AssertionError(f"{label}: the traced step's programs: {syms}")
+    return no_launches_but(flash_fwd=n_sdpa * n_steps, flash_bwd_dq=n_bwd * n_steps,
+                           flash_bwd_dkv=n_bwd * n_steps, flash_ce=n_ce * n_steps)
+
+
 def _run_steps(step, params, opt_state, batch, n):
     """``n`` steps: losses, wall times (each waits for its loss), peak
     memory, launches and declines counted over them."""
@@ -3105,11 +3182,12 @@ def _run_steps(step, params, opt_state, batch, n):
 def train_full_width(params, cfg):
     """TRAIN_STEPS AdamW steps of Llama-3-8B at full width and depth on one
     fixed batch, remat full_block, bf16, through the traced step: its
-    programs run ``cuda_*`` and ``torch_*`` symbols only, exact launch
+    programs run ``cuda_*``, ``torch_*`` and fusion symbols only (each
+    region holding only torch-implementable, non-random prims), exact launch
     counts read from them, no declines, finite losses, the last below the
     first; then TRAIN_EAGER_STEPS steps of the eager twin, printed beside;
     then two more traced steps under the profiler
-    (``compare_train_profiles``)."""
+    (``compare_train_profiles``); then phase 16 (b) (``fusion_train``)."""
     batch = train_batch(cfg, SEED + 10)
     step = make_step(cfg)
     t0 = time.perf_counter()
@@ -3121,19 +3199,7 @@ def train_full_width(params, cfg):
     params, opt_state, losses, times, peak, launches, declines = _run_steps(
         step, params, opt_state, batch, TRAIN_STEPS)
     L = cfg.n_layer
-    syms = _symbols(step)
-    stray = [n for n in syms if not n.startswith(("cuda_", "torch_")) and n != "python_return"]
-    n_sdpa = syms.get("cuda_sdpa", 0)
-    n_ce = syms.get("torch_cross_entropy_fwd", 0)
-    n_bwd = syms.get("cuda_sdpa_backward", 0)
-    say(f"traced step programs: {len(step.fw_trace.bound_symbols)} forward and "
-        f"{len(step.bw_trace.bound_symbols)} backward bound symbols; cuda_sdpa {n_sdpa} "
-        f"(expected {TRAIN_SDPA_PER_LAYER} x {L}), cuda_sdpa_backward {n_bwd}, "
-        f"torch_cross_entropy_fwd {n_ce}; other than cuda_/torch_: {stray}")
-    if stray or n_sdpa != TRAIN_SDPA_PER_LAYER * L or n_bwd != L or not n_ce:
-        raise AssertionError(f"the traced step's programs: {syms}")
-    want = no_launches_but(flash_fwd=n_sdpa * TRAIN_STEPS, flash_bwd_dq=n_bwd * TRAIN_STEPS,
-                           flash_bwd_dkv=n_bwd * TRAIN_STEPS, flash_ce=n_ce * TRAIN_STEPS)
+    want = step_launches_want(step, TRAIN_STEPS, L, "traced step")
     step_s = float(np.mean(times[1:]))
     flops = model_flops(cfg, param_count(params))
     bw_peak = peak_live_bytes(del_last_used(step.bw_trace))
@@ -3171,11 +3237,70 @@ def train_full_width(params, cfg):
         f"step times {[round(t, 4) for t in e_times]} s; eager launches {e_launches}, declines "
         f"{e_declines}")
     profiles = compare_train_profiles(step, params, opt_state, batch)
+    # the comparison's launches are its own, checked there: the main
+    # path's counts are the TRAIN_STEPS steps above
+    fusion = fusion_train(step, cfg, params, opt_state, batch, dict(
+        step_ms=1e3 * step_s, peak=peak, profile=profiles and profiles["redesigned"]))
     return dict(launches=launches, losses=losses, step_ms=1e3 * step_s, peak_gib=peak / 2**30,
+                fusion=fusion,
                 build_ms=step.build_ms, residual_bytes=(step.residual_bytes_no_remat,
                                                         step.residual_bytes),
                 eager=dict(step_ms=1e3 * e_step_s, peak_gib=e_peak / 2**30, losses=e_losses),
                 profiles=profiles)
+
+
+def fusion_train(step, cfg, params, opt_state, batch, fused) -> dict:
+    """Phase 16 (b): the traced step of phase 10 (fused, the default
+    executors) against the same step on the unfused executors, on the same
+    params: step time, device busy by kernel group, peak memory; the fused
+    step's peak beside its programs' donated-aware estimate and
+    ``examine.train_memory_report``.  The fused busy must not exceed the
+    unfused.  The unfused step's launches are held exactly against its own
+    programs' kernel symbols (``step_launches_want``), apart from the main
+    path's counts."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    unfused = make_step(cfg, executors=UNFUSED)
+    params, opt_state, _, times, peak, launches, declines = _run_steps(
+        unfused, params, opt_state, batch, FUSION_TRAIN_STEPS)
+    want = step_launches_want(unfused, FUSION_TRAIN_STEPS, cfg.n_layer, "unfused traced step")
+    if _n_regions(unfused) != (0, 0):
+        raise AssertionError(f"the unfused traced step holds regions {_n_regions(unfused)}")
+    say(f"launches during {FUSION_TRAIN_STEPS} unfused traced train steps: {launches} "
+        f"(expected {want}); declines {declines}")
+    if launches != want or any(declines.values()):
+        raise AssertionError(f"unfused train launch counts {launches} != {want} or declines "
+                             f"{declines}")
+    prof = profile_train_step(unfused, params, opt_state, batch, "unfused executors")
+    report = examine.train_memory_report(step)
+    new = fused["profile"]
+    step_ms = 1e3 * float(np.mean(times[1:]))
+    ok = new is not None and prof is not None and new["busy_ms"] <= prof["busy_ms"]
+    say(f"phase 16 (b) traced train step, fused against unfused ({cfg.name} bf16, "
+        f"{cfg.n_layer} layers, B={TRAIN_B} T={TRAIN_T}, full_block; {CARD}): step "
+        f"{fused['step_ms']:.1f} ms against {step_ms:.1f} ms; device busy "
+        f"{new and round(new['busy_ms'], 3)} ms against {prof and round(prof['busy_ms'], 3)} ms "
+        f"{'ok' if ok else 'FAIL'} (the fused busy at most the unfused); by group fused "
+        f"{new and {k: round(v, 3) for k, v in new['groups'].items()}}, unfused "
+        f"{prof and {k: round(v, 3) for k, v in prof['groups'].items()}}; regions "
+        f"{_n_regions(step)} (forward, backward); max_memory_allocated "
+        f"{fused['peak'] / 2**30:.2f} GiB fused against {peak / 2**30:.2f} GiB unfused; the "
+        f"fused programs' donated-aware peak estimate "
+        f"{report.get('peak_bytes_estimate', 0) / 2**30:.2f} GiB; train_memory_report "
+        f"{json.dumps(report)}")
+    if not ok:
+        raise AssertionError("phase 16 (b): the fused traced step is busier than the unfused")
+    del unfused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_ms=fused["step_ms"], unfused_step_ms=step_ms,
+                busy_ms=new["busy_ms"], unfused_busy_ms=prof["busy_ms"],
+                groups=new["groups"], unfused_groups=prof["groups"],
+                peak_gib=fused["peak"] / 2**30, unfused_peak_gib=peak / 2**30,
+                memory_report=report, unfused_launches={k: n for k, n in launches.items() if n})
+
+
+FUSION_TRAIN_STEPS = 2      # the unfused step's: its build, then one timed
 
 
 FLASH_GROUPS = ("flash fwd", "flash dq", "flash dk/dv")
@@ -3366,9 +3491,9 @@ def ir_bad_inputs(x):
             ("a wrong shape", x[:, : x.shape[1] // 2])]
 
 
-def ir_program(fn, args, executors=None):
+def ir_program(fn, args, executors=UNFUSED):
     """Acquires ``fn`` over ``args`` (``language=`` clang), claims it with
-    ``executors`` (None: the defaults, cuda ≻ torch) and compiles both
+    ``executors`` (default: cuda ≻ torch, the unfused stack) and compiles both
     programs.  Returns ``(call, final
     trace, host ms of acquisition, claiming and codegen)``; ``call(*args)``
     runs the prologue, then the computation."""
@@ -3388,19 +3513,31 @@ def ir_program(fn, args, executors=None):
                              codegen_ms=1e3 * (t3 - t2))
 
 
+def region_problems(traces) -> list[str]:
+    """What a program's fusion regions may not hold (``cuda_*`` symbols, a
+    random prim, a kernel's prim, a ``quantex`` product, anything but
+    ``torch_*`` calls in its program), over every trace given."""
+    return [v for tr in traces for v in inductorex.region_violations(tr)]
+
+
 def check_claims(final, label: str, cuda_ops: set) -> list[str]:
     """Every executed bound symbol of ``final`` is a cuda operator named in
-    ``cuda_ops`` or a ``torch_`` one, and each of ``cuda_ops`` is there."""
+    ``cuda_ops``, a ``torch_`` one or a fusion region that holds only
+    torch-implementable, non-random prims, and each of ``cuda_ops`` is
+    there."""
     names = [b.sym.name for b in final.bound_symbols
              if b.sym.id not in (ir_prims.PrimIDs.RETURN, ir_prims.PrimIDs.DEL)]
-    stray = [n for n in names if n not in cuda_ops and not n.startswith("torch_")]
+    fusions = {b.sym.name for b in final.bound_symbols if b.sym.is_fusion}
+    stray = [n for n in names if n not in cuda_ops and not n.startswith("torch_")
+             and n not in fusions]
     missing = cuda_ops - set(names)
+    problems = region_problems([final])
     say(f"IR {label}: the final trace runs {len(names)} bound symbols, "
-        f"{sorted(set(n for n in names if not n.startswith('torch_')))} on the cuda executor, "
-        f"the rest torch_*")
-    if stray or missing:
-        raise AssertionError(f"IR {label}: unclaimed {stray}, cuda claims missing {missing}\n"
-                             f"{final.python()}")
+        f"{sorted(set(n for n in names if not n.startswith('torch_') and n not in fusions))} on "
+        f"the cuda executor, {len(fusions)} fusion regions, the rest torch_*")
+    if stray or missing or problems:
+        raise AssertionError(f"IR {label}: unclaimed {stray}, cuda claims missing {missing}, "
+                             f"regions holding {problems}\n{final.python()}")
     return names
 
 
@@ -3418,7 +3555,7 @@ def ir_counted(call, args, want: dict) -> tuple:
 def ir_layer(cfg):
     """Phase 11: ``ir_layer_loss`` at Llama-3-8B widths (one layer, B=1,
     T=2048, weights from seed 0) acquired by ``functional.trace_from_fn``,
-    claimed by the default executors (cuda ≻ torch) and run as the
+    claimed by cuda ≻ torch (the unfused stack) and run as the
     generated prologue and computation on the card, float32 and bf16,
     against the eager layer; then the SDPA backward prim alone at the same
     shape.  The bf16 layer and the backward also run claimed by the torch
@@ -3639,7 +3776,10 @@ def jit_gpt_loss(cfg):
     jfn = ttt.jit(loss_fn)
     args = (params, *batch)
     clear_events()
+    before = dict(inductorex.STATS)
     loss, got = jit_counted(jfn, args, cfg)
+    compiled = (inductorex.STATS["compiles"] - before["compiles"],
+                inductorex.STATS["compile_s"] - before["compile_s"])
     add(got)
     host = span_ms()
     final = ttt.last_traces(jfn)[-1]
@@ -3691,10 +3831,45 @@ def jit_gpt_loss(cfg):
         jfn(*args)
         dispatch_ns.append(cs.last_dispatch_ns)
     torch.cuda.synchronize()
+    # phase 16 (a): the same loss on the unfused executors, its host times
+    # read before any profile, as the fused ones are; its launches (held per
+    # call by jit_counted) stay out of the main path's counts
+    ujfn = ttt.jit(loss_fn, executors=UNFUSED)
+    uloss, ugot = jit_counted(ujfn, args, cfg)
+    ucs = ttt.compile_stats(ujfn)
+    udispatch_ns = []
+    for _ in range(JIT_DISPATCH_CALLS):
+        ujfn(*args)
+        udispatch_ns.append(ucs.last_dispatch_ns)
+    torch.cuda.synchronize()
     ms = time_ms(lambda: jfn(*args), iters=5, warmup=1)
+    ums = time_ms(lambda: ujfn(*args), iters=5, warmup=1)
     eager_ms = time_ms(lambda: eager_loss(params, batch, cfg), iters=5, warmup=1)
     dev, nk = device_ms_all(lambda: jfn(*args), iters=3)
+    udev, unk = device_ms_all(lambda: ujfn(*args), iters=3)
     edev, enk = device_ms_all(lambda: eager_loss(params, batch, cfg), iters=3)
+    regions = [b for b in final.bound_symbols if b.sym.is_fusion]
+    structures = len({b._call_ctx[b.sym.name].key for b in regions})
+    okf = dev is not None and udev is not None and dev <= udev
+    say(f"phase 16 (a) jit gpt_loss bf16, fused against unfused ({cfg.name}, {cfg.n_layer} "
+        f"layers, B=1, T={JIT_T}; {CARD}): device {dev} ms over {nk} kernels a call against "
+        f"{udev} ms over {unk} {'ok' if okf else 'FAIL'} (fused device ms at most the unfused); "
+        f"CUDA events {ms:.3f} against {ums:.3f} ms; {len(regions)} regions of {structures} "
+        f"structures, {compiled[0]} compiled in {compiled[1]:.1f} s; cache-hit dispatch median "
+        f"{statistics.median(dispatch_ns) / 1e6:.3f} ms against "
+        f"{statistics.median(udispatch_ns) / 1e6:.3f} ms (no bar); loss {loss.item():.6f} "
+        f"against {uloss.item():.6f}")
+    if not okf:
+        raise AssertionError("phase 16 (a): the fused jit(gpt_loss) takes more device time "
+                             "than the unfused")
+    fusion = dict(device_ms=dev, kernels=nk, unfused_device_ms=udev, unfused_kernels=unk,
+                  ms=ms, unfused_ms=ums, regions=len(regions), structures=structures,
+                  compiles=compiled[0], compile_s=compiled[1],
+                  dispatch_ms_median=statistics.median(dispatch_ns) / 1e6,
+                  unfused_dispatch_ms_median=statistics.median(udispatch_ns) / 1e6,
+                  loss=loss.item(), unfused_loss=uloss.item(),
+                  unfused_launches={k: n for k, n in ugot.items() if n})
+    del ujfn, ucs
     # T=1024 is a new key: a second entry; T=2048 then hits again
     sloss, got = jit_counted(jfn, (params, *short), cfg)
     add(got)
@@ -3721,7 +3896,7 @@ def jit_gpt_loss(cfg):
                claim_ms=host["claiming"], codegen_ms=host["codegen"], guards=guards,
                dispatch_ms_median=statistics.median(dispatch_ns) / 1e6, ms=ms,
                eager_ms=eager_ms, device_ms=dev, kernels=nk, eager_device_ms=edev,
-               eager_kernels=enk, card=CARD)
+               eager_kernels=enk, fusion=fusion, card=CARD)
     del jfn, entry, cs, final
     # float32: the same weights, the same depth
     l16 = loss.item()
@@ -3904,22 +4079,23 @@ def main() -> int:
     del chunk_case, spec_case
     gc.collect()                 # the serving engines' arenas, held in reference cycles
     torch.cuda.empty_cache()
-    train_correctness(params, cfg)
+    compiled_in("phase 9", train_correctness, params, cfg)
     gc.collect()
     torch.cuda.empty_cache()
     # the serving params become the trained ones: updated in place from here
-    served["train step"] = train_full_width(params, cfg)["launches"]
+    served["train step"] = compiled_in("phase 10", train_full_width, params, cfg)["launches"]
     del params
     gc.collect()
     torch.cuda.empty_cache()
     served["IR layer"] = ir_layer(cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    served["jit gpt_loss"] = jit_gpt_loss(cfg)
-    served["jit grad and autocast"] = jit_grad_and_autocast(cfg)
+    served["jit gpt_loss"] = compiled_in("phase 12", jit_gpt_loss, cfg)
+    served["jit grad and autocast"] = compiled_in("phase 13", jit_grad_and_autocast, cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    mix = mixtral()
+    donation = fusion_donation()
+    mix = compiled_in("phase 14", mixtral)
     served["mixtral train"] = mix.pop("train_launches")
     served["mixtral serve"] = mix.pop("serve_launches")
     served["mixtral float32 lanes"] = mix.pop("exact_launches")
@@ -3965,6 +4141,10 @@ def main() -> int:
     say("quantized serves: " + json.dumps({"chunked int8": qrec, "speculative fp8": frec}))
     say("mixtral: " + json.dumps(mix))
     say("graphs phase: " + json.dumps(graphs_rec))
+    say("fusion: " + json.dumps({"regions compiled": inductorex.STATS["compiles"],
+                                  "compile_s": inductorex.STATS["compile_s"],
+                                  "compiled calls": inductorex.STATS["calls"],
+                                  "donation": donation}))
     say("LoRA serves: " + json.dumps({"chunked": lrec, "speculative": slrec}))
     say("serve profiles: " + json.dumps({
         "decode step": decode_profile, "chunk piece": crec["chunk_piece_profile"],
@@ -3981,6 +4161,59 @@ def main() -> int:
 
 
 JIT_GRAD_LAYERS = 4         # value_and_grad and autocast at Llama-3-8B widths
+DONATE_N = 1 << 26          # phase 16 (c): float32 elements of each donated tensor
+
+
+def fusion_donation() -> dict:
+    """Phase 16 (c): ``jit(lambda p, g: p - lr * g, donate=True)`` on two
+    256 MiB float32 tensors on the card: the region releases both inputs'
+    storage (``memory_allocated`` rises by the output's bytes less the two
+    inputs'), passing them again raises ``DonationError`` naming the input,
+    and the result equals the undonated program's bitwise."""
+    sgd = lambda p, g: p - 0.01 * g        # noqa: E731
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    p = torch.randn(DONATE_N, generator=gen, device=DEVICE)
+    g = torch.randn(DONATE_N, generator=gen, device=DEVICE)
+    want = ttt.jit(sgd)(p, g)
+    jf = ttt.jit(sgd, donate=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = jf(p, g)
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - before
+    nbytes = DONATE_N * 4
+    freed = nbytes - grew                      # the output's bytes less the growth
+    try:
+        jf(p, g)
+    except ttt.DonationError as e:
+        raised = str(e)
+    else:
+        raised = None
+    equal = torch.equal(out, want)
+    report = ttt.donation_stats(jf)["forward"]
+    ok = freed == 2 * nbytes and raised is not None and equal
+    say(f"phase 16 (c) jit(sgd, donate=True) on the card: {report['buffers_donated']} buffers, "
+        f"{report['bytes_donated']} bytes donated; memory_allocated grew {grew} B for a "
+        f"{nbytes} B output: {freed} B of the caller's released (expected {2 * nbytes}); reuse "
+        f"raised: {raised!r}; result bitwise equal to the undonated program's: {equal} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 16 (c): jit donation on the card failed its checks")
+    del p, g, out, want
+    torch.cuda.empty_cache()
+    return dict(freed_bytes=freed, donated=report)
+
+
+def compiled_in(label: str, fn, *args):
+    """Runs one phase and prints the fusion regions it compiled and their
+    seconds (a structure met before compiles nothing)."""
+    before = dict(inductorex.STATS)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"{label}: {inductorex.STATS['compiles'] - before['compiles']} fusion regions compiled "
+        f"in {inductorex.STATS['compile_s'] - before['compile_s']:.1f} s of the phase's "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def _count(trace, name: str) -> int:
@@ -4299,7 +4532,7 @@ def mix_train() -> dict:
     params, opt_state, losses = run["params"], run["opt_state"], run["losses"]
     L = cfg.n_layer
     syms = _symbols(step)
-    stray = [n for n in syms if not n.startswith(("cuda_", "torch_")) and n != "python_return"]
+    stray = _stray(step, syms)
     n_sdpa, n_bwd = syms.get("cuda_sdpa", 0), syms.get("cuda_sdpa_backward", 0)
     n_ce = syms.get("torch_cross_entropy_fwd", 0)
     want = no_launches_but(flash_fwd=n_sdpa * MIX_TRAIN_STEPS,
@@ -4312,7 +4545,8 @@ def mix_train() -> dict:
         f"{len(step.bw_trace.bound_symbols)} backward bound symbols; cuda_sdpa {n_sdpa} "
         f"(expected {TRAIN_SDPA_PER_LAYER} x {L}), cuda_sdpa_backward {n_bwd}, "
         f"torch_cross_entropy_fwd {n_ce}, torch_topk {syms.get('torch_topk', 0)}, "
-        f"torch_pad {syms.get('torch_pad', 0)}; other than cuda_/torch_: {stray}")
+        f"torch_pad {syms.get('torch_pad', 0)}, fusion regions {_n_regions(step)}; other than "
+        f"cuda_/torch_/regions, or in a region what may not be there: {stray}")
     say(f"train {MIXTRAL} bf16 through the trace, {L} layers, B={TRAIN_B} T={TRAIN_T}, remat "
         f"{step.last_remat_policy}, AdamW lr {TRAIN_LR}: losses {losses}; step times "
         f"{[round(t, 4) for t in run['times']]} s (the programs built before, "

@@ -174,9 +174,10 @@ def test_frontend_prints_the_reference_programs(case):
     assert _normalize(port.computation_trace.python()) == _normalize(ref.computation_trace.python())
     assert _normalize(port.prologue_trace.python()) == _normalize(ref.prologue_trace.python())
 
-    # claimed by the eager executors of each side, the programs print alike too
+    # claimed by the eager executors of each side, the programs print alike
+    # too (the port's defaults fuse: cuda ≻ torch is its eager stack)
     rfinal = rtransform(ref.computation_trace, rresolve(["jax"]))
-    pfinal = ptransform(port.computation_trace, presolve(None))
+    pfinal = ptransform(port.computation_trace, presolve(["cuda", "torch"]))
     assert _normalize(pfinal.python()) == _normalize(rfinal.python())
 
     rout = rtransform(ref.computation_trace, rresolve(None)).python_callable()(
@@ -238,10 +239,14 @@ def test_deferred_seams_raise():
     with pytest.raises(NotImplementedError, match="item 13"):
         ptrace_from_fn(functools.partial(constant, pclang), pargs, {},
                        language=PLanguages.CLANG)
-    from thunder_tpu_torch.executors.passes import annotate_donations
+    # the donation pass runs since executors/donation.py was ported: on the
+    # fused program of the elementwise case it analyzes every region
+    from thunder_tpu_torch.executors.passes import annotate_donations, del_last_used
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        annotate_donations(None)
+    fused = del_last_used(ptransform(default.computation_trace, presolve(None)))
+    annotated, report = annotate_donations(fused)
+    assert len(report.regions) == sum(b.sym.is_fusion for b in fused.bound_symbols) >= 1
+    assert "# donation:" in annotated.python()
     with pytest.raises(NotImplementedError, match="item 12"):
         from thunder_tpu_torch.core.proxies import FutureTensorProxy
 

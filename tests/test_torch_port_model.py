@@ -184,11 +184,30 @@ def test_out_of_slice_paths_raise():
     E, C, I = cfg.n_expert, cfg.n_embd, cfg.intermediate_size
     assert {k: tuple(v.shape) for k, v in mp.items()} == {
         "gate": (E, C), "fc_1": (E, I, C), "fc_2": (E, I, C), "proj": (E, C, I)}
+    # the ring cache is ported; per-row positions with a ring cache stay
+    # refused, as in the reference
     mcfg = tllama.Config.from_name("tiny-mistral-debug")
     mp = tllama.init_params(mcfg, device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ring"):
-        tgen.generate(mp, np.zeros((1, 4), np.int32), mcfg, 2, T_max=mcfg.sliding_window,
-                      device="cpu")
+    W = mcfg.sliding_window
+    cache = tgen.init_cache(mcfg, 2, W, torch.float32, device="cpu")
+    cos, sin = tllama.build_rope_cache(mcfg, 2 * W)
+    with pytest.raises(ValueError, match="ring cache"):
+        tgen.forward_with_cache(mp, torch.zeros((2, 1), dtype=torch.int32),
+                                torch.tensor([3, 5]), cache, cos, sin, mcfg)
+
+
+@pytest.mark.parametrize("prompt_len,new_tokens", [(40, 12), (20, 30)],
+                         ids=["prompt_past_the_window", "crosses_it_decoding"])
+def test_generate_past_the_sliding_window_equals_jax(prompt_len, new_tokens):
+    """tiny-mistral-debug (window 32) keeps a ring cache one window long:
+    greedy tokens past the window equal the JAX package's."""
+    jcfg, tcfg, jp, tp = _pair("tiny-mistral-debug")
+    assert tgen.cache_len(tcfg, prompt_len + new_tokens) == tcfg.sliding_window == 32
+    prompt = np.random.default_rng(5).integers(0, jcfg.vocab_size,
+                                               (2, prompt_len)).astype(np.int32)
+    want = np.asarray(jgen.generate(jp, prompt, jcfg, new_tokens, cache_dtype=jnp.float32))
+    got = tgen.generate(tp, prompt, tcfg, new_tokens, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_entry_points_default_to_the_card():

@@ -28,12 +28,15 @@ and ``autocast=``), ``compile``, ``grad``, ``value_and_grad``, ``vjp``,
 ``last_traces``, ``last_backward_traces``, ``last_prologue_traces``,
 ``compile_data``, ``compile_stats``, ``cache_option``, ``cache_hits``,
 ``cache_misses``, ``dispatch_stats``, ``last_compile_options`` and
-``metrics_snapshot``.  The options that wait for later ``ROADMAP.md``
-Queue 1 items raise ``NotImplementedError`` naming the item: ``donate=`` (item 7),
-``profile=``, ``detect_anomalies=`` and ``debug_hooks=`` (item 10), and a
-``torch.nn.Module`` or ``interpretation="bytecode"`` (item 13).  The
-reference's persistent XLA cache (``core/compile_cache.py``) has no
-counterpart yet (item 7); ``jit`` calls nothing in its place.
+``metrics_snapshot``, with ``donate=`` (``executors/donation.py``),
+``donation_stats`` and ``DonationError``.  The default executors are
+cuda ≻ inductor ≻ torch: the fusion executor (``executors/inductorex.py``)
+compiles each maximal fusible region with ``torch.compile`` on the card,
+and ``jit`` and ``TrainStep`` enable its persistent cache
+(``core/compile_cache.py``) at construction.  The options that wait for
+later ``ROADMAP.md`` Queue 1 items raise ``NotImplementedError`` naming the
+item: ``profile=``, ``detect_anomalies=`` and ``debug_hooks=`` (item 10),
+and a ``torch.nn.Module`` or ``interpretation="bytecode"`` (item 13).
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ from thunder_tpu_torch.core.trace import TraceCtx, TraceResults
 from thunder_tpu_torch.core.transform_common import absorb_ce_widening_converts, cse, dce
 from thunder_tpu_torch.distributed.api import TrainStep, make_eager_train_step, make_train_step
 from thunder_tpu_torch.executors import quantex
+from thunder_tpu_torch.executors.donation import DonationError
 from thunder_tpu_torch.extend import resolve_executors
 from thunder_tpu_torch.functional import trace_from_fn
 from thunder_tpu_torch.models.generate import generate
@@ -77,9 +81,9 @@ from thunder_tpu_torch.serving.speculative import SpecConfig
 from thunder_tpu_torch.train.loop import TrainLoopResult, train_loop
 from thunder_tpu_torch.train.optim import adamw
 
-__all__ = ["AdapterRegistry", "Config", "RegistryFullError", "ServingEngine", "SpecConfig",
+__all__ = ["AdapterRegistry", "Config", "DonationError", "RegistryFullError", "ServingEngine", "SpecConfig",
            "TrainLoopResult", "TrainStep", "adamw", "cache_hits", "cache_misses",
-           "cache_option", "compile", "compile_data", "compile_stats", "dispatch_stats",
+           "cache_option", "compile", "compile_data", "compile_stats", "dispatch_stats", "donation_stats",
            "generate", "gpt_loss", "grad", "init_params", "jit", "last_backward_traces",
            "last_compile_options", "last_prologue_traces", "last_traces", "make_eager_train_step",
            "make_lora_factors", "make_train_step",
@@ -89,8 +93,6 @@ __all__ = ["AdapterRegistry", "Config", "RegistryFullError", "ServingEngine", "S
 # jit options whose machinery is not ported yet: the option, then the item
 # that brings it.  Each raises when given a value other than its "off"
 _DEFERRED_OPTIONS = {
-    "donate": "buffer donation (executors/donation.py), which is not ported yet "
-              "(ROADMAP.md Queue 1 item 7)",
     "profile": "the runtime profiler (observability/profiler.py), which is not ported yet "
                "(ROADMAP.md Queue 1 item 10)",
     "detect_anomalies": "the debug hooks and anomaly scan (observability/debug.py), which are "
@@ -114,6 +116,28 @@ def _check_deferred(fn, compile_options: dict) -> None:
         raise NotImplementedError(
             "jit of a torch.nn.Module needs torch_interop (ThunderModule), which is not ported "
             "yet (ROADMAP.md Queue 1 item 13); jit a function of the module's parameters instead")
+
+
+def _normalize_donate(donate):
+    """``donate=`` → a hashable canonical form: ``None`` (off), ``"auto"``
+    (True: every provably dead fusion input), or a sorted argnums tuple
+    (explicit: those positional args' tensors MUST be donatable, else
+    :class:`DonationError`).  Raises on anything else at jit() time
+    (reference ``thunder_tpu/__init__.py:107-124``)."""
+    if donate is None or donate is False:
+        return None
+    if donate is True:
+        return "auto"
+    if isinstance(donate, int) and not isinstance(donate, bool):
+        return (donate,)
+    if isinstance(donate, (tuple, list)) and all(
+        isinstance(i, int) and not isinstance(i, bool) for i in donate
+    ):
+        check(len(donate) > 0, lambda: "donate=() donates nothing; pass False or argnums")
+        return tuple(sorted(set(donate)))
+    check(False, lambda: (
+        f"donate must be True, False, or a tuple of positional argnums, got {donate!r}"
+    ))
 
 
 def jit(
@@ -140,7 +164,12 @@ def jit(
     ``autocast="bf16"|"fp16"|dtype`` appends the autocast transform.  With
     ``_grad_argnums`` (set by ``grad``/``value_and_grad``/``vjp``) the
     program is split into forward and backward, rematerialized unless
-    ``remat=False`` is passed, and each half claimed and generated."""
+    ``remat=False`` is passed, and each half claimed and generated.
+
+    ``donate=True`` releases every fusion-region input the lowered trace
+    proves dead right after its region (the caller's donated tensors are
+    consumed: passing one again raises :class:`DonationError`); a tuple of
+    positional argnums asserts those arguments' tensors must donate."""
     _check_deferred(fn, compile_options)
     # sugar: jit(fn, autocast="bf16"|"fp16") appends the autocast transform
     # (reference thunder_tpu/__init__.py:152-173)
@@ -148,11 +177,22 @@ def jit(
     if ac is not None:
         transforms = list(transforms or []) + [autocast(_autocast_dtype(ac))]
 
+    # the fusion regions' persistent compile cache (core/compile_cache.py):
+    # lazy, so a plain import changes no setting
+    from thunder_tpu_torch.core import compile_cache
+
+    compile_cache.ensure_enabled()
+
     if langctx is not None:
         # resolve eagerly so a typo fails at jit() time, not first call
         from thunder_tpu_torch.core.langctxs import resolve_language
 
         compile_options["langctx"] = resolve_language(langctx)
+
+    # normalized donation setting, validated here so a typo fails at jit()
+    # time and folded into the dispatch key as a salt: the donated and
+    # undonated programs differ and never share a specialization
+    _donation_salt = _normalize_donate(compile_options.get("donate", None))
 
     cd = CompileData(
         fn=fn,
@@ -199,7 +239,8 @@ def jit(
         inps = None
         if cd.cache_option is not CACHE_OPTIONS.NO_CACHING:
             key = _cache_key.compute_cache_key(
-                args, kwargs, symbolic=cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES)
+                args, kwargs, symbolic=cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES,
+                salt=("donate", _donation_salt) if _donation_salt is not None else None)
             cs.key_computations += 1
             if key is not None:
                 bucket = cs.dispatch_cache.get(key)
@@ -260,6 +301,15 @@ def jit(
         cs.last_dispatch_ns = time.perf_counter_ns() - dispatch_start
         cs.dispatch_ns += cs.last_dispatch_ns
         observability.dispatch_event(_fn_label, ns=cs.last_dispatch_ns, hit=was_hit)
+
+        for pos, name, region, where in cache_entry.donated_inputs:
+            # a tensor an earlier donated call consumed: raise before any
+            # kernel of the program reads it
+            v = inps[pos]
+            if v.numel() > 0 and v.untyped_storage().nbytes() == 0:
+                from thunder_tpu_torch.executors.donation import consumed_error
+
+                raise consumed_error(name, pos, region, where)
 
         if cache_entry.uses_rng:
             from thunder_tpu_torch.core import rng
@@ -377,8 +427,23 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
         transform_for_execution,
     )
 
+    from thunder_tpu_torch.core.compile_data import get_compile_option
+
     grad_argnums = cd.compile_options.get("_grad_argnums")
     vjp_mode = bool(cd.compile_options.get("_vjp_mode"))
+    # del-aware buffer donation (executors/donation.py): a post-lowering pass
+    # arming each fusion region with the inputs the trace proves dead.  Off
+    # (None) means the pass never runs and the program is the undonated one
+    donation = _normalize_donate(get_compile_option(
+        "donate",
+        "Buffer donation for fusion regions: True donates every input the lowered trace "
+        "proves dead (its DEL follows the region; it is not a trace output, an aliased view, "
+        "or consumed later); a tuple of positional argnums additionally asserts those args' "
+        "tensors MUST donate (DonationError names the proxy and the blocking use otherwise). "
+        "Donated caller tensors are CONSUMED — do not reuse them after the call.  Default "
+        "False: the undonated program.",
+        default=None,
+    ))
     if vjp_mode and grad_argnums is None:
         grad_argnums = tuple(range(len(args)))
 
@@ -423,6 +488,7 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
 
     bw_fn = None
     bw_extrace = None
+    bw_donation_report = None
     grad_postprocess = None
     ct_positions = ()
     if grad_argnums is not None:
@@ -476,6 +542,27 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
         cs.last_backward_traces.append(bw_extrace)
         bw_extrace = del_last_used(bw_extrace)
         cs.last_backward_traces.append(bw_extrace)
+        if donation is not None:
+            # backward donation is always automatic: its inputs are saved
+            # residuals and cotangents, which user argnums cannot name
+            from thunder_tpu_torch.executors.passes import annotate_donations
+
+            # the caller's tensors among the residuals keep their storage: the
+            # forward's returned outputs, and its inputs unless donate=True
+            # (explicit argnums donate those arguments' tensors alone)
+            kept = _forward_output_names(computation_trace)
+            arg_names = {p.name for p in computation_trace.args or ()
+                         if isinstance(p, _TP)}
+            if donation != "auto":
+                arg_map = getattr(trace_results.computation_trace, "_input_argnums", {})
+                kept |= {n for n in arg_names if arg_map.get(n) not in donation}
+            candidate = None
+            if kept:
+                candidate = {p.name for b in bw_extrace.bound_symbols if b.sym.is_fusion
+                             for p in b.flat_proxy_args} - kept
+            bw_extrace, bw_donation_report = annotate_donations(
+                bw_extrace, candidate_names=candidate, which="backward")
+            cs.last_backward_traces.append(bw_extrace)
         bw_extrace = take_saved(bw_extrace, n_saved)
         cs.last_backward_traces.append(bw_extrace)
         bw_fn = bw_extrace.python_callable()
@@ -485,6 +572,46 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
     cs.last_traces.append(extrace)
     extrace = del_last_used(extrace)
     cs.last_traces.append(extrace)
+    donated_inputs = []
+    if donation is not None:
+        from thunder_tpu_torch.executors.donation import donation_summary
+        from thunder_tpu_torch.executors.passes import annotate_donations
+
+        candidate = None
+        strict = False
+        if donation != "auto":
+            # explicit argnums: resolve the user's positional args to their
+            # tensor-leaf proxies (functional.py records the map at trace
+            # time) and assert donation of exactly those
+            arg_map = getattr(trace_results.computation_trace, "_input_argnums", {})
+            candidate = {n for n, a in arg_map.items() if a in donation}
+            check(
+                bool(candidate),
+                lambda: f"donate={donation!r} matched no tensor arguments of "
+                f"{getattr(cd.fn, '__name__', cd.fn)!r}",
+            )
+            strict = True
+        extrace, fw_donation_report = annotate_donations(
+            extrace, candidate_names=candidate, strict=strict
+        )
+        cs.last_traces.append(extrace)
+        cs.donation_reports = {
+            "forward": donation_summary(fw_donation_report),
+            "backward": (
+                donation_summary(bw_donation_report)
+                if bw_donation_report is not None
+                else None
+            ),
+        }
+        # the program's own inputs a region consumes: dispatch checks them
+        # before the program runs
+        positions = {p.name: i for i, p in enumerate(extrace.args or ())}
+        for region in fw_donation_report.regions:
+            fusion = (region.bsym._call_ctx or {}).get(region.name)
+            where = fusion.provenance() if fusion is not None else ""
+            for _, p in region.donated:
+                if p.name in positions:
+                    donated_inputs.append((positions[p.name], p.name, region.name, where))
 
     comp_fn = extrace.python_callable()
     pro_fn = prologue_trace.python_callable()
@@ -514,9 +641,33 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
     # dispatcher files the entry under the key it computed for this call
     key_meta = trace_results.cache_key_meta or {}
     entry.cache_key_fn = key_meta.get("cache_key_fn")
+    entry.donated_inputs = tuple(donated_inputs)
+    if donation is not None:
+        # the dispatcher salts this entry's key with the donation setting;
+        # the recomputing key fn (and the introspectable meta) must agree
+        entry.cache_key_fn = _cache_key.make_cache_key_fn(
+            cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES,
+            salt=("donate", donation),
+        )
+        key_meta = {**key_meta, "donate": donation}
     entry.key_meta = key_meta
     entry.has_state_guards = key_meta.get("state") is not None
     return entry
+
+
+def _forward_output_names(fw_trace) -> set:
+    """Names of the tensors an augmented forward returns to the caller (its
+    ``(output, saved)`` return's first part)."""
+    from thunder_tpu_torch.core.prims import PrimIDs
+    from thunder_tpu_torch.core.proxies import TensorProxy
+    from thunder_tpu_torch.core.pytree import tree_flatten
+
+    for bsym in fw_trace.bound_symbols:
+        if bsym.sym.id == PrimIDs.RETURN and bsym.args:
+            ret = bsym.args[0]
+            output = ret[0] if isinstance(ret, tuple) and len(ret) == 2 else ret
+            return {p.name for p in tree_flatten(output)[0] if isinstance(p, TensorProxy)}
+    return set()
 
 
 def _make_grad_postprocess(computation_trace, grad_argnums):
@@ -639,6 +790,23 @@ def dispatch_stats(cfn) -> dict:
         "last_dispatch_ns": cs.last_dispatch_ns,
         "dispatch_ns": cs.dispatch_ns,
     }
+
+
+def donation_stats(cfn) -> dict:
+    """The donation analysis of a function compiled with ``ttt.jit(fn,
+    donate=True|argnums)``: ``{"forward": summary, "backward": summary|None}``
+    where each summary lists, per fusion region, the donated buffers, the
+    input→output alias pairings, the donated byte count, and every rejection
+    by reason (``trace_output`` / ``later_use`` / ``aliased_view`` /
+    ``no_del``).  Process-wide aggregates land in the ``donation.*`` metrics
+    (reference ``thunder_tpu.donation_stats``)."""
+    cs = _get_cs(cfn)
+    check(
+        cs.donation_reports is not None,
+        lambda: "no donation data: compile with ttt.jit(fn, donate=True) (or "
+        "donate=(argnums,)) and call it once",
+    )
+    return cs.donation_reports
 
 
 def metrics_snapshot() -> dict:

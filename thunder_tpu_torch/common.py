@@ -2,14 +2,15 @@
 
 Counterpart of ``thunder_tpu/common.py`` (``CompileData``, ``CompileStats``,
 ``CacheEntry``), itself the analog of the reference's ``thunder/common.py``
-and the CacheEntry machinery in ``thunder/__init__.py``.  The reference's
-``CompileStats.persistent_cache`` reads JAX's persistent XLA cache
-(``core/compile_cache.py``), which the port has no counterpart of yet
-(``ROADMAP.md`` Queue 1 item 7).  ``CacheEntry`` carries the grad path's
+and the CacheEntry machinery in ``thunder/__init__.py``.
+``CompileStats.persistent_cache`` reads the fusion regions' persistent
+cache (``core/compile_cache.py``) and ``donation_reports`` the last
+compilation's donation analysis.  ``CacheEntry`` carries the grad path's
 backward program (``backward_fn``, ``backward_trace``, ``return_spec``,
-``vjp_mode``, ``ct_positions``).  The fields of the reference's bytecode
-interpreter, profiler and donation, and ``CompileData``'s module and
-process-group fields, come with their ``ROADMAP.md`` items.
+``vjp_mode``, ``ct_positions``) and the program inputs a donated region
+consumes (``donated_inputs``).  The fields of the reference's bytecode
+interpreter and profiler, and ``CompileData``'s module and process-group
+fields, come with their ``ROADMAP.md`` items.
 """
 from __future__ import annotations
 
@@ -66,6 +67,20 @@ class CompileStats:
         # validated first (shadowed entries with the same key sit behind)
         self.interpreter_cache: list[CacheEntry] = []
         self.dispatch_cache: dict[Any, list[CacheEntry]] = {}
+
+        # donation analysis of the last compilation: {"forward": summary,
+        # "backward": summary|None} plain dicts (executors/donation.py
+        # donation_summary); None unless compiled with donate=True/argnums
+        self.donation_reports = None
+
+    @property
+    def persistent_cache(self) -> dict:
+        """Process-wide persistent compile-cache counters (hits = region
+        graphs loaded from disk instead of compiled, incl. by previous
+        processes; see core/compile_cache.py)."""
+        from thunder_tpu_torch.core import compile_cache
+
+        return compile_cache.stats()
 
 
 class CompileData:
@@ -127,3 +142,6 @@ class CacheEntry:
     key_meta: Any = None
     has_state_guards: bool = False
     last_used: int = 0
+    # (program input position, name, region, provenance) of every program
+    # input a donated region consumes
+    donated_inputs: tuple = ()

@@ -165,7 +165,11 @@ def from_torch_device(td: torch.device) -> Device:
 
 
 def to_torch_device(d: Device | str) -> torch.device:
+    """The torch device; the CPU has no index (``torch.device("cpu")``, the
+    device a CPU tensor reports, which compiled regions compare against)."""
     d = to_device(d)
+    if d.devicetype is DeviceType.CPU:
+        return torch.device("cpu")
     return torch.device(d.type, d.index)
 
 

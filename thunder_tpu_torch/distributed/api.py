@@ -14,13 +14,19 @@ cotangent, and the optimizer:
   same call contract, so the training loop carries over unchanged.  **The
   params and the optimizer state are updated in place** (the port's form of
   the reference's buffer donation) and returned; ``donate=False`` copies
-  them first and leaves the caller's tensors as they were.
+  them first and leaves the caller's tensors as they were.  With
+  ``donate=True`` each build also runs the donation analysis over both
+  programs (the same pass ``jit`` uses): ``donation_report`` holds the
+  per-region summaries and the donated-aware fw/bw peak estimates, and
+  :meth:`profile_stats` the one-device keys of the reference's (the
+  construction enables the persistent compile cache, as ``jit``'s does).
 - ``remat=`` takes the reference's vocabulary (:mod:`..train.remat`):
   ``max_cone`` and ``aggressive`` of the resolved policy drive the trace's
   rematerialization; ``"auto"`` compares ``saved_bytes`` of the forward
   with the device memory, as ``_auto_remat`` does.
 - ``executors=`` is the claiming order of both traces (default: cuda ≻
-  torch).  ``quant="int8"|"fp8"`` (reference :407-419) claims the forward
+  inductor ≻ torch: the elementwise rest runs in ``torch.compile`` regions
+  on the card).  ``quant="int8"|"fp8"`` (reference :407-419) claims the forward
   trace with ``[quantex.ex or quantex.fp8_ex, *executors]`` and the
   backward with ``executors`` alone: the forward's linears and matmuls run
   quantized, the grads stay full precision.  ``fw_trace``/``bw_trace``
@@ -103,6 +109,7 @@ class _Program:
     residual_bytes_no_remat: int
     residual_bytes: int
     build_ms: float
+    donation_report: dict | None
 
 
 class TrainStep:
@@ -123,12 +130,15 @@ class TrainStep:
                 ("donate_batch", donate_batch, False)):
             if value != default:
                 raise NotImplementedError(f"TrainStep: {name}= is not ported (the port's step "
-                                          "runs on one device)")
+                                          "runs on one device; ROADMAP.md Queue 1 item 11)")
         if quant not in (None, "int8", "fp8"):
             raise ValueError(f"quant must be None, 'int8', or 'fp8', got {quant!r}")
         _remat.validate_remat(remat)
         if not isinstance(accum_steps, int) or accum_steps < 1:
             raise ValueError(f"accum_steps must be an int >= 1, got {accum_steps!r}")
+        from thunder_tpu_torch.core import compile_cache
+
+        compile_cache.ensure_enabled()  # warm-start repeat processes
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.donate = donate
@@ -145,6 +155,10 @@ class TrainStep:
         self.residual_bytes_no_remat: int | None = None
         self.residual_bytes: int | None = None
         self.build_ms: float | None = None
+        #: donation analysis of the last build ({"forward", "backward"}
+        #: summaries + donated-aware peak estimates); None until built or
+        #: when donate=False
+        self.donation_report: dict | None = None
         # input signature -> what its first call built (a _Program; the
         # eager twin keeps its remat decision)
         self._built: dict = {}
@@ -172,6 +186,7 @@ class TrainStep:
         self.residual_bytes_no_remat = prog.residual_bytes_no_remat
         self.residual_bytes = prog.residual_bytes
         self.build_ms = prog.build_ms
+        self.donation_report = prog.donation_report
         self.last_remat_policy = prog.decision.policy
         self.last_remat_applied = prog.decision.apply
         return prog
@@ -218,10 +233,72 @@ class TrainStep:
                             *self.executors)
         fw_trace = transform_for_execution(fw_trace, fw_executors)
         bw_trace = transform_for_execution(bw_trace, self.executors)
-        fw_fn = del_last_used(fw_trace).python_callable()
-        bw_fn = take_saved(del_last_used(bw_trace), n_saved).python_callable()
+        fw_deld, bw_deld = del_last_used(fw_trace), del_last_used(bw_trace)
+        fw_fn = fw_deld.python_callable()
+        bw_fn = take_saved(bw_deld, n_saved).python_callable()
+        report = None
+        if self.donate:
+            report = self._donation_report(fw_deld, bw_deld, params, decision,
+                                           residual_bytes_no_remat, residual_bytes)
         return _Program(fw_fn, bw_fn, fw_trace, bw_trace, decision, residual_bytes_no_remat,
-                        residual_bytes, 1e3 * (time.perf_counter() - t0))
+                        residual_bytes, 1e3 * (time.perf_counter() - t0), report)
+
+    def _donation_report(self, fw_deld, bw_deld, params, decision, residual_bytes_no_remat,
+                         residual_bytes) -> dict:
+        """The donation analysis of both programs (the pass ``jit`` uses,
+        reference ``_build``, ``thunder_tpu/distributed/api.py:424-467``): it
+        feeds the ``donation.*`` metrics and the donated-aware peak-bytes
+        estimates.  The programs run as generated: their residuals already
+        die at their ``del`` and the optimizer updates params in place."""
+        from thunder_tpu_torch.executors.donation import donation_summary
+        from thunder_tpu_torch.executors.passes import annotate_donations
+        from thunder_tpu_torch.observability.memory import memory_timeline
+        from thunder_tpu_torch.observability.metrics import registry
+        from thunder_tpu_torch.train.accum import accum_buffer_bytes
+
+        fw_annotated, fw_donation = annotate_donations(fw_deld, which="trainstep_forward",
+                                                       arm=False)
+        bw_annotated, bw_donation = annotate_donations(bw_deld, which="trainstep_backward",
+                                                       arm=False)
+        fw_peak = memory_timeline(fw_annotated)["peak_bytes_estimate"]
+        bw_peak = memory_timeline(bw_annotated)["peak_bytes_estimate"]
+        # accum_steps=k carries a float32 grad accumulator across the
+        # microbatches, real memory the estimate must include
+        acc_bytes = accum_buffer_bytes(params) if self.accum_steps > 1 else 0
+        report = {
+            "forward": donation_summary(fw_donation),
+            "backward": donation_summary(bw_donation),
+            "fw_peak_bytes_estimate": fw_peak,
+            "bw_peak_bytes_estimate": bw_peak,
+            "remat_policy": decision.policy,
+            "residual_bytes_no_remat": residual_bytes_no_remat,
+            "residual_bytes": residual_bytes,
+            "accum_steps": self.accum_steps,
+            "accum_buffer_bytes": acc_bytes,
+            "peak_bytes_estimate": max(fw_peak, bw_peak) + acc_bytes,
+        }
+        registry().gauge("train.step.peak_bytes_estimate").set(report["peak_bytes_estimate"])
+        registry().gauge("train.step.residual_bytes").set(residual_bytes)
+        return report
+
+    def profile_stats(self) -> dict:
+        """Peak-bytes / policy accounting of the last build (reference
+        ``TrainStep.profile_stats``, ``thunder_tpu/distributed/api.py:744``,
+        its one-device keys): the resolved remat policy with its
+        residual-bytes delta, the donated-aware fw/bw peak estimates and the
+        float32 accumulator bytes ``accum_steps=k`` adds.  Needs a built
+        step (call the TrainStep once)."""
+        if self.last_remat_policy is None:
+            raise RuntimeError("profile_stats() needs a built step — run the TrainStep once first")
+        out: dict = {"remat_policy": self.last_remat_policy, "accum_steps": self.accum_steps}
+        if self.donation_report is not None:
+            out.update({k: v for k, v in self.donation_report.items()
+                        if k not in ("forward", "backward")})
+            if self.donation_report["residual_bytes_no_remat"]:
+                out["remat_residual_reduction_frac"] = 1.0 - (
+                    self.donation_report["residual_bytes"]
+                    / self.donation_report["residual_bytes_no_remat"])
+        return out
 
     def _auto_remat(self, fw_trace, params, opt_state, batch) -> bool:
         """``remat="auto"``: recompute only when the un-rematerialized step

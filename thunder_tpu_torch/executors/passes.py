@@ -1,7 +1,7 @@
 """Executor claiming and lifetime passes.
 
-Counterpart of ``thunder_tpu/executors/passes.py``, copied; the donation
-pass raises until ``executors/donation.py`` is ported.  ``take_saved`` is
+Counterpart of ``thunder_tpu/executors/passes.py``, copied, the donation
+pass over ``executors/donation.py`` included.  ``take_saved`` is
 the port's own: the backward program takes the saved residuals as one list
 and empties it, so that no frame outside the program keeps a residual alive
 past its ``del`` (in the reference XLA owns the buffers).  The reference is the
@@ -291,9 +291,15 @@ def annotate_donations(
     candidate_names: set | None = None,
     strict: bool = False,
     which: str = "forward",
+    arm: bool = True,
 ):
-    """The reference's del-aware buffer donation pass (``executors/donation.py``)."""
-    raise NotImplementedError(
-        "annotate_donations needs the donation pass (executors/donation.py), which is not "
-        "ported yet (ROADMAP.md Queue 1 item 7)"
+    """Del-aware buffer donation pass: runs AFTER ``del_last_used`` (it needs
+    the explicit ``DEL`` placement as its liveness proof) and arms each
+    fusion region with the inputs that are provably safe to donate.  Returns
+    ``(annotated_trace, DonationReport)`` — see
+    ``thunder_tpu_torch.executors.donation`` for the safety contract."""
+    from thunder_tpu_torch.executors.donation import apply_donation
+
+    return apply_donation(
+        trace, candidate_names=candidate_names, strict=strict, which=which, arm=arm
     )

@@ -23,8 +23,11 @@ head) through ``executors.quantex.int8_linear``, per-call absmax scales on
 activations and weights, as the reference's ``quantized=`` does; the MoE
 router and the LoRA deltas stay in full precision.
 
-Not ported in this slice (it raises ``NotImplementedError``): the ring
-cache of sliding-window models whose cache is exactly one window long.
+Sliding-window models whose cache is exactly one window long keep the
+reference's **ring** layout (``ring_slot``, ``ring_gather_positions``):
+global position ``p`` lives in slot ``p % window``; a prefill attends
+within its own chunk and leaves each slot its latest prompt position.  As
+in the reference, per-row positions with a ring cache are refused.
 """
 from __future__ import annotations
 
@@ -53,6 +56,8 @@ __all__ = [
     "cache_shape",
     "kv_block_shape",
     "sample_token",
+    "ring_slot",
+    "ring_gather_positions",
 ]
 
 
@@ -73,6 +78,20 @@ def kv_block_shape(cfg: Config, block_size: int) -> tuple[int, int, int, int]:
     """Per-block geometry ``(L, n_query_groups, block_size, hs)`` of the
     paged serving pool's arena."""
     return (cfg.n_layer, cfg.n_query_groups, block_size, cfg.head_size)
+
+
+def ring_slot(pos, window: int):
+    """Ring-cache slot of global position ``pos``: ``pos % window``."""
+    return pos % window
+
+
+def ring_gather_positions(T: int, window: int) -> np.ndarray:
+    """Prefill→ring scatter map: for each ring slot ``j``, the latest prompt
+    position ``p < T`` with ``p ≡ j (mod window)`` (clamped to 0 for slots no
+    prompt position reaches; those stay garbage and are masked positionally
+    at decode)."""
+    src_pos = np.array([j + ((T - 1 - j) // window) * window for j in range(window)])
+    return np.maximum(src_pos, 0)
 
 
 def init_cache(cfg: Config, B: int, T_max: int, dtype=torch.bfloat16, *,
@@ -102,8 +121,9 @@ def _attn_with_cache(ap, x, cos_t, sin_t, ck, cv, pos, cfg: Config, *, lora=None
                      lora_scaling=1.0, delta_fn=_lora_delta, quantized=False):
     """x: (B, T, C) new tokens at global positions [pos, pos+T).  Writes
     their K/V into the per-layer cache (ck/cv: (B, ng, Tc, hs), in place)
-    and attends against every slot the model may see (plain layout: slot =
-    position).  ``lora``: this layer's ``{target: (a, b)}`` factors, whose
+    and attends against every slot the model may see: the plain layout
+    (slot = position) when the cache covers the sequence, the ring layout
+    (slot = position % window) when ``sliding_window`` bounds it.  ``lora``: this layer's ``{target: (a, b)}`` factors, whose
     deltas ``delta_fn`` computes; ``quantized``: int8 weight matmuls."""
     B, T, _ = x.shape
     hs, nh = cfg.head_size, cfg.n_head
@@ -111,25 +131,49 @@ def _attn_with_cache(ap, x, cos_t, sin_t, ck, cv, pos, cfg: Config, *, lora=None
                            delta_fn=delta_fn, quantized=quantized)
     Tc = ck.shape[2]
     W = cfg.sliding_window
-    if W is not None and Tc == W:
-        raise NotImplementedError(
-            "the ring KV cache (sliding_window == cache length) is not ported yet")
+    ring = W is not None and Tc == W
+    vec = _is_vec_pos(pos)
+    if ring and vec:
+        raise ValueError("per-row positions are not supported with a ring cache")
     t = torch.arange(T, device=x.device)
-    if _is_vec_pos(pos):
-        slots = pos.long()[:, None] + t                      # (B, T)
-        rows = torch.arange(B, device=x.device)[:, None]
-        ck[rows, :, slots] = k.transpose(1, 2).to(ck.dtype)  # (B, T, ng, hs)
-        cv[rows, :, slots] = v.transpose(1, 2).to(cv.dtype)
-        qpos = slots[:, None, :, None]                       # (B, 1, T, 1)
+    kk, vv = ck, cv
+    if not ring:
+        if vec:
+            slots = pos.long()[:, None] + t                      # (B, T)
+            rows = torch.arange(B, device=x.device)[:, None]
+            ck[rows, :, slots] = k.transpose(1, 2).to(ck.dtype)  # (B, T, ng, hs)
+            cv[rows, :, slots] = v.transpose(1, 2).to(cv.dtype)
+            qpos = slots[:, None, :, None]                       # (B, 1, T, 1)
+        else:
+            ck[:, :, pos:pos + T] = k.to(ck.dtype)
+            cv[:, :, pos:pos + T] = v.to(cv.dtype)
+            qpos = (pos + t)[None, None, :, None]
+        j = torch.arange(Tc, device=x.device)
+        keep = j <= qpos
+        if W is not None:
+            keep = keep & (j > qpos - W)
+    elif T > 1:
+        # ring prefill: the chunk attends within itself (banded); each ring
+        # slot keeps its latest prompt position.  It starts at position 0: a
+        # later chunk would need K/V the ring has already evicted
+        if not (isinstance(pos, int) and pos == 0):
+            raise ValueError("a ring-cache prefill must start at position 0")
+        kk, vv = k, v
+        row, col = t[:, None], t[None, :]
+        keep = (col <= row) & (col > row - W)
+        gather = torch.as_tensor(ring_gather_positions(T, W), device=x.device)
+        ck.copy_(k.index_select(2, gather).to(ck.dtype))
+        cv.copy_(v.index_select(2, gather).to(cv.dtype))
     else:
-        ck[:, :, pos:pos + T] = k.to(ck.dtype)
-        cv[:, :, pos:pos + T] = v.to(cv.dtype)
-        qpos = (pos + t)[None, None, :, None]
-    j = torch.arange(Tc, device=x.device)
-    keep = j <= qpos
-    if W is not None:
-        keep = keep & (j > qpos - W)
-    kk, vv = _expand_groups(ck, cv, nh)
+        # ring decode: one token at global position pos -> slot pos % W;
+        # slot j holds global position pos - ((pos - j) mod W), always in
+        # (pos - W, pos]: mask only the slots never written
+        slot = ring_slot(pos, W)
+        ck[:, :, slot:slot + 1] = k.to(ck.dtype)
+        cv[:, :, slot:slot + 1] = v.to(cv.dtype)
+        j = torch.arange(W, device=x.device)
+        keep = (pos - (pos - j) % W) >= 0
+    kk, vv = _expand_groups(kk, vv, nh)
     scores = torch.matmul(q.float(), kk.to(q.dtype).float().transpose(-1, -2)) / math.sqrt(hs)
     scores = scores.masked_fill(~keep, float("-inf"))
     w = torch.softmax(scores, dim=-1).to(q.dtype)

@@ -1,8 +1,8 @@
 """Training-step telemetry: structured per-step JSONL + registry mirror.
 
-Counterpart of ``thunder_tpu/observability/telemetry.py``, copied without
-``trace_peak_bytes`` (the port has no memory-timeline pass); the serving
-engine drives :meth:`StepLogger.log_request`.
+Counterpart of ``thunder_tpu/observability/telemetry.py``, copied, with
+``trace_peak_bytes`` over the memory timeline (``observability/memory.py``);
+the serving engine drives :meth:`StepLogger.log_request`.
 
 Production pretraining stacks (TorchTitan, the arXiv:2410.06511 playbook)
 treat step-level telemetry — loss, grad-norm, step time, tokens/sec, memory
@@ -28,7 +28,7 @@ from typing import Any, IO
 
 from thunder_tpu_torch.observability.metrics import registry
 
-__all__ = ["StepLogger", "REQUEST_SCHEMA_V", "REQUEST_FIELDS_V2"]
+__all__ = ["StepLogger", "trace_peak_bytes", "REQUEST_SCHEMA_V", "REQUEST_FIELDS_V2"]
 
 #: Version stamp every ``{"event": "request"}`` record carries.  Bumped
 #: when the field set changes so offline readers can dispatch on it.
@@ -163,3 +163,17 @@ class StepLogger:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def trace_peak_bytes(trace) -> int:
+    """Peak-bytes estimate for an execution trace, keyed to
+    ``del_last_used`` placement (the pass is applied here when the trace has
+    no ``del`` statements yet — e.g. TrainStep's fw/bw traces)."""
+    from thunder_tpu_torch.core.prims import PrimIDs
+    from thunder_tpu_torch.observability.memory import memory_timeline
+
+    if not any(b.sym.id == PrimIDs.DEL for b in trace.bound_symbols):
+        from thunder_tpu_torch.executors.passes import del_last_used
+
+        trace = del_last_used(trace)
+    return memory_timeline(trace)["peak_bytes_estimate"]
