@@ -299,7 +299,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     card: the caller's donated bytes are freed, reusing them raises
     ``DonationError``, the results equal the undonated call's.  Each phase
     prints the regions it compiled and their seconds;
-17. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+17. stateful and replicated serving (run before phase 9, on phase 4's
+    params; every serve graphed on the paged lane, a first pass meeting
+    every bucket and a measured pass that captures nothing, replays every
+    decode iteration and chunk piece and launches exactly their kernels):
+    (a) ``sessions=True``, 8 chats x 3 turns (turn-1 prompts of 400-900
+    tokens, later turns the history plus 40-120 tokens, 32 new tokens a
+    turn): 16 re-attaches, each later turn sharing the blocks its session
+    parked; TTFT p50 of turns 2-3 beside a cold engine on the same
+    full-history prompts and the table's resident blocks and bytes,
+    printed; (b) ``priorities=True`` on a pool 7 low requests fill, then a
+    high one: at least one preemption, every request finishes; the high
+    request's TTFT beside a ``priorities=None`` engine's and the victims'
+    recomputed positions, printed; (c) ``constraints=True``, 8 rows, 4
+    constrained (1000 allowed ids; a sequence automaton), at
+    ``decode_steps=1`` and 4: every constrained token allowed by its
+    automaton; TPOT p50 beside an unconstrained engine and the mask
+    upload's host ms a dispatch, printed; (d) ``replicas=2``, two families
+    of 16 requests each sharing a 512-token prefix: each family on one
+    replica, each replica's prefix hits > 0; tokens/s beside a solo engine
+    of the same total blocks, printed; (e) gpt2-124m (learned positions) at
+    full width and depth, bf16: 12 ``paged_attn_decode`` per decode step;
+    (f) float32 at 4 layers: session turns 2-3 equal a cold engine's
+    tokens, the preempted and the high request's tokens (greedy, and at
+    temperature 0.7 with seeded generators) equal undisturbed solo runs,
+    a constrained batch's unconstrained rows equal an unconstrained
+    engine's, routed tokens equal the solo engine's; gpt2-124m float32
+    paged equals gather.  The phase prints its seconds;
+18. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -350,7 +377,9 @@ from thunder_tpu_torch.serving import (
     AdapterRegistry,
     ServingEngine,
     SpecConfig,
+    TokenSetConstraint,
     make_lora_factors,
+    sequence_constraint,
     serve,
 )
 from thunder_tpu_torch.serving.faults import FaultPlan, FaultSpec
@@ -4079,6 +4108,10 @@ def main() -> int:
     del chunk_case, spec_case
     gc.collect()                 # the serving engines' arenas, held in reference cycles
     torch.cuda.empty_cache()
+    stateful_rec, stateful_launches = stateful_phase(params, cfg)
+    served.update(stateful_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
     compiled_in("phase 9", train_correctness, params, cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4141,6 +4174,7 @@ def main() -> int:
     say("quantized serves: " + json.dumps({"chunked int8": qrec, "speculative fp8": frec}))
     say("mixtral: " + json.dumps(mix))
     say("graphs phase: " + json.dumps(graphs_rec))
+    say("stateful phase: " + json.dumps(stateful_rec))
     say("fusion: " + json.dumps({"regions compiled": inductorex.STATS["compiles"],
                                   "compile_s": inductorex.STATS["compile_s"],
                                   "compiled calls": inductorex.STATS["calls"],
@@ -5127,6 +5161,504 @@ def graphs_phase() -> dict:
                card=CARD,
                seconds=time.perf_counter() - t0)
     say(f"phase 15 (graphs, multi-step, recovery) took {rec['seconds']:.1f} s")
+    return rec, launches
+
+
+#
+# phase 17: stateful and replicated serving
+#
+
+
+STATEFUL_LAYERS = 4        # (f): the float32 token equalities
+SESSION_CHATS, SESSION_TURNS, SESSION_NEW = 8, 3, 32
+PRIORITY_LOWS, PRIORITY_PROMPT, PRIORITY_NEW = 7, 496, 32
+PRIORITY_STEPS = 4         # (b): engine steps between the low requests and the high one
+CONSTRAINED_ROWS = {0: "token set", 2: "token set", 4: "sequence", 6: "sequence"}
+ROUTER_FAMILY, ROUTER_PREFIX = 16, 512
+# block-aligned prefill buckets: a replay's chunk pieces (preemption,
+# recovery) take the paged chunk kind, paged_attn_verify + paged_chunk_write
+STATEFUL_PREFILL = tuple(16 * 2 ** i for i in range(8))       # 16 .. 2048
+
+
+def stateful_engine(params, cfg, **kw):
+    """A graphed engine (or ``replicas=N`` router) on the paged lane."""
+    kw = {"attn": "paged", "block_size": 16, "num_blocks": 1024, "max_batch": 8,
+          "prefill_buckets": STATEFUL_PREFILL, **kw}
+    return serve(None, params, cfg, device=DEVICE, **kw)
+
+
+def _lanes(eng) -> list:
+    return list(eng.engines) if hasattr(eng, "engines") else [eng]
+
+
+def _step_totals(eng) -> dict:
+    """Decode iterations, chunk pieces, graph replays and captures summed
+    over an engine's lanes."""
+    lanes = _lanes(eng)
+    sts = [e.stats() for e in lanes]
+    captures = {}
+    for st in sts:
+        for k, v in st["graphs"]["captures"].items():
+            captures[k] = captures.get(k, 0) + v
+    return {"iters": sum(st["decode_steps"] * e.n_decode_steps for st, e in zip(sts, lanes)),
+            "pieces": sum(st["chunk_runs"] for st in sts),
+            "replays": sum(st["graphs"]["replays"] for st in sts), "captures": captures}
+
+
+def stateful_pass(label, eng, cfg, run, *, passes=2) -> tuple:
+    """``run(eng, i)`` ``passes`` times; the last pass is measured: it
+    captures nothing, replays one graph per decode iteration and per chunk
+    piece, and launches exactly ``n_layer`` ``paged_attn_decode`` and one
+    pair write per iteration and ``n_layer`` ``paged_attn_verify`` and one
+    ``paged_chunk_write`` per piece.  Returns ``(run's result, wall s,
+    launches, totals of the measured pass)``."""
+    for i in range(passes - 1):
+        run(eng, i)
+    torch.cuda.synchronize()
+    t0 = _step_totals(eng)
+    cudaex.reset_launches()
+    w0 = time.perf_counter()
+    out = run(eng, passes - 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    launches = dict(cudaex.LAUNCHES)
+    t1 = _step_totals(eng)
+    iters, pieces = t1["iters"] - t0["iters"], t1["pieces"] - t0["pieces"]
+    replays = t1["replays"] - t0["replays"]
+    multi = any(e.n_decode_steps > 1 for e in _lanes(eng))
+    write = "paged_token_write_masked" if multi else "paged_token_write"
+    want = no_launches_but(paged_attn_decode=iters * cfg.n_layer, **{write: iters},
+                           paged_attn_verify=pieces * cfg.n_layer, paged_chunk_write=pieces)
+    ok = launches == want and t1["captures"] == t0["captures"] and replays == iters + pieces
+    say(f"phase 17 {label}: measured pass {wall:.3f} s, {iters} decode iterations and {pieces} "
+        f"chunk pieces, {replays} graph replays, captures {t1['captures']} (none in the "
+        f"measured pass: {t1['captures'] == t0['captures']}); launches {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 17 {label}: launches {launches} != {want}, or the measured "
+                             f"pass captured ({t0['captures']} -> {t1['captures']}) or replayed "
+                             f"{replays} graphs for {iters} iterations and {pieces} pieces")
+    return out, wall, launches, {"iters": iters, "pieces": pieces, "replays": replays}
+
+
+def _p50_ms(xs) -> float:
+    return 1e3 * float(np.median(xs))
+
+
+def session_chats(cfg, seed):
+    """Turn-1 prompts of 400-900 tokens and the 40-120 token messages of
+    later turns, for SESSION_CHATS chats."""
+    rng = np.random.default_rng(seed)
+    first = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+             for n in rng.integers(400, 901, SESSION_CHATS)]
+    msgs = [[rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+             for n in rng.integers(40, 121, SESSION_CHATS)] for _ in range(SESSION_TURNS - 1)]
+    return first, msgs
+
+
+def serve_chats(eng, first, msgs, new_tokens, tag=""):
+    """SESSION_TURNS turns of every chat, each turn's requests served
+    together; a later turn's prompt is the history plus its message.
+    Returns per turn the results, the prompts and each session's parked
+    block count after the turn."""
+    prompts = list(first)
+    turns = []
+    for t in range(SESSION_TURNS):
+        hs = [eng.submit(p, max_new_tokens=new_tokens, session_id=f"{tag}chat{i}")
+              for i, p in enumerate(prompts)]
+        eng.drain()
+        res = [h.result(drive=False) for h in hs]
+        parked = {e.session_id: len(e.blocks) for e in eng._sessions.entries()}
+        turns.append({"results": res, "prompts": prompts, "parked": parked})
+        if t + 1 < SESSION_TURNS:
+            prompts = [np.concatenate([p, np.asarray(r.new_tokens, np.int32), m])
+                       for p, r, m in zip(prompts, res, msgs[t])]
+    return turns
+
+
+def sessions_serve(params, cfg) -> tuple[dict, dict]:
+    """(a): the session engine's measured pass of the chats (a first pass
+    with other session ids met every bucket; its sessions are closed), the
+    bars, and a cold engine serving turns 2-3's full-history prompts."""
+    first, msgs = session_chats(cfg, SEED + 17)
+    eng = stateful_engine(params, cfg, num_blocks=2048, sessions=True)
+
+    def run(e, i):
+        h0 = e.stats()["sessions"]["reattach_hits"]
+        turns = serve_chats(e, first, msgs, SESSION_NEW, tag=f"p{i}-")
+        if i == 0:
+            for j in range(SESSION_CHATS):
+                e.close_session(f"p0-chat{j}")
+        return turns, e.stats()["sessions"]["reattach_hits"] - h0
+
+    (turns, hits), wall, launches, steps = stateful_pass("(a) sessions, 8 chats x 3 turns", eng,
+                                                         cfg, run)
+    table = eng.stats()["sessions"]
+    shared_ok = all(
+        r.shared_prefix_blocks == turns[t - 1]["parked"][f"p1-chat{i}"]
+        for t in range(1, SESSION_TURNS) for i, r in enumerate(turns[t]["results"]))
+    later = [r for t in turns[1:] for r in t["results"]]
+    for t in turns:
+        check_results(t["results"], SESSION_NEW, cfg.padded_vocab_size)
+    del eng
+    gc.collect()
+    cold = stateful_engine(params, cfg, num_blocks=2048)
+    cold_prompts = [t["prompts"] for t in turns[1:]]
+
+    def cold_run(e, i):
+        out = []
+        for ps in cold_prompts:
+            out += e.run(ps, max_new_tokens=SESSION_NEW)
+        return out
+
+    # a comparison run: its launches stay out of the kernels line's paths
+    cold_res, cold_wall, _, _ = stateful_pass("(a) cold engine, turns 2-3", cold, cfg, cold_run)
+    del cold
+    same = sum(a.new_tokens == b.new_tokens for a, b in zip(later, cold_res))
+    first_same = sum(a.new_tokens[0] == b.new_tokens[0] for a, b in zip(later, cold_res))
+    rec = dict(reattach_hits=hits, shared_blocks=[r.shared_prefix_blocks for r in later],
+               ttft_p50_ms_turns23=_p50_ms([r.ttft_s for r in later]),
+               cold_ttft_p50_ms=_p50_ms([r.ttft_s for r in cold_res]),
+               resident_blocks=table["resident_blocks"], resident_bytes=table["resident_bytes"],
+               wall_s=wall, cold_wall_s=cold_wall, bf16_equal_cold=same,
+               bf16_first_token_equal_cold=first_same, **steps)
+    ok = hits == 2 * SESSION_CHATS and shared_ok
+    say(f"phase 17 (a) sessions on {CARD}: {hits} re-attaches (want {2 * SESSION_CHATS}), later "
+        f"turns' shared blocks {rec['shared_blocks']} equal the blocks their sessions parked: "
+        f"{shared_ok}; TTFT p50 turns 2-3 {rec['ttft_p50_ms_turns23']:.1f} ms against "
+        f"{rec['cold_ttft_p50_ms']:.1f} ms on a cold engine; resident {table['resident_blocks']} "
+        f"blocks, {table['resident_bytes']} B; bf16 tokens equal the cold engine's on {same} of "
+        f"{len(later)} requests, their first token on {first_same} (no bar: the tail's prefill "
+        f"rounds apart from the full prompt's) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 17 (a): re-attach count or shared blocks off their bars")
+    return rec, {"sessions serve": launches}
+
+
+def priority_prompts(cfg, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, PRIORITY_PROMPT).astype(np.int32)
+            for _ in range(PRIORITY_LOWS + 1)]
+
+
+def priority_run(prompts, prioritized):
+    """The 7 low requests, PRIORITY_STEPS steps, then the high one; returns
+    the results and the pass's preemptions."""
+    def run(e, i):
+        kw = (lambda p: {"priority": p}) if prioritized else (lambda p: {})
+        p0 = e.preempted
+        hs = [e.submit(p, max_new_tokens=PRIORITY_NEW, **kw("low")) for p in prompts[:-1]]
+        for _ in range(PRIORITY_STEPS):
+            e.step()
+        hs.append(e.submit(prompts[-1], max_new_tokens=PRIORITY_NEW, **kw("high")))
+        e.drain()
+        return [h.result(drive=False) for h in hs], e.preempted - p0
+    return run
+
+
+def priority_serve(params, cfg) -> tuple[dict, dict]:
+    """(b): a pool the 7 low requests fill (33 blocks each), then a high
+    request: the prioritized engine preempts, the plain one queues it."""
+    prompts = priority_prompts(cfg, SEED + 171)
+    blocks = -(-(PRIORITY_PROMPT + PRIORITY_NEW) // 16)
+    num_blocks = PRIORITY_LOWS * blocks + 1               # + the sink
+    out, launches = {}, {}
+    for prioritized in (True, False):
+        eng = stateful_engine(params, cfg, num_blocks=num_blocks,
+                              **({"priorities": True} if prioritized else {}))
+        label = "(b) priorities" if prioritized else "(b) priorities=None"
+        (res, preempted), wall, launches[prioritized], steps = stateful_pass(
+            label, eng, cfg, priority_run(prompts, prioritized))
+        check_results(res, PRIORITY_NEW, cfg.padded_vocab_size)
+        out[prioritized] = dict(res=res, preempted=preempted, wall_s=wall, **steps)
+        del eng
+        gc.collect()
+    pre, plain = out[True], out[False]
+    victims = [r.tokens_recomputed for r in pre["res"] if r.tokens_recomputed]
+    rec = dict(preempted=pre["preempted"], high_ttft_ms=1e3 * pre["res"][-1].ttft_s,
+               plain_high_ttft_ms=1e3 * plain["res"][-1].ttft_s,
+               victims_tokens_recomputed=victims, wall_s=pre["wall_s"],
+               plain_wall_s=plain["wall_s"], pieces=pre["pieces"],
+               bf16_equal_plain=sum(a.new_tokens == b.new_tokens
+                                    for a, b in zip(pre["res"], plain["res"])))
+    ok = pre["preempted"] >= 1
+    say(f"phase 17 (b) priorities on {CARD}: {pre['preempted']} preemptions, every request "
+        f"finished; the high request's TTFT {rec['high_ttft_ms']:.1f} ms against "
+        f"{rec['plain_high_ttft_ms']:.1f} ms on a priorities=None engine; victims' recomputed "
+        f"positions {victims} over {pre['pieces']} chunk pieces {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 17 (b): no preemption")
+    return rec, {"priority serve": launches[True]}
+
+
+def make_constraints(cfg):
+    """Fresh automata of the constrained rows: 1000 allowed ids, and a
+    cycle of three allow-lists of 8, 100 and 1 ids."""
+    rng = np.random.default_rng(SEED + 172)
+    V = cfg.padded_vocab_size
+    ids = rng.choice(cfg.vocab_size, min(1000, cfg.vocab_size // 2), replace=False)
+    steps = [rng.choice(cfg.vocab_size, n, replace=False) for n in (8, 100, 1)]
+    return {i: (TokenSetConstraint(V, ids) if kind == "token set"
+                else sequence_constraint(V, steps, cycle=True))
+            for i, kind in CONSTRAINED_ROWS.items()}
+
+
+def constraints_allowed(cfg, results) -> bool:
+    """Every constrained row's tokens walked through a fresh copy of its
+    automaton: each allowed by the mask of its draw."""
+    for i, c in make_constraints(cfg).items():
+        for tok in results[i].new_tokens:
+            if not c.mask()[tok]:
+                return False
+            c.advance(tok)
+    return True
+
+
+def constrained_serve(params, cfg) -> tuple[dict, dict]:
+    """(c): phase 4's prompts with 4 constrained rows at decode_steps=1 and
+    MULTI_STEPS, beside unconstrained engines; the mask upload timed."""
+    prompts = phase4_prompts(cfg)
+    rec, launches = {}, {}
+    for N in (1, MULTI_STEPS):
+        got = {}
+        for constrained in (True, False):
+            eng = stateful_engine(params, cfg, decode_steps=N,
+                                  **({"constraints": True} if constrained else {}))
+            upload = [0.0, 0]
+            if constrained:
+                inner = eng._decode_masks
+
+                def timed_masks(*a, _inner=inner):
+                    t = time.perf_counter()
+                    m = _inner(*a)
+                    upload[0] += time.perf_counter() - t
+                    upload[1] += 1
+                    return m
+
+                eng._decode_masks = timed_masks
+
+            def run(e, i, constrained=constrained):
+                upload[:] = [0.0, 0]                   # the pass's own mask uploads
+                cs = make_constraints(cfg) if constrained else {}
+                hs = [e.submit(p, max_new_tokens=32, **({"constraint": cs[j]} if j in cs else {}))
+                      for j, p in enumerate(prompts)]
+                e.drain()
+                return [h.result(drive=False) for h in hs]
+
+            label = f"(c) {'constrained' if constrained else 'unconstrained'}, decode_steps={N}"
+            res, wall, ln, steps = stateful_pass(label, eng, cfg, run)
+            eng.__dict__.pop("_decode_masks", None)
+            check_results(res, 32, cfg.padded_vocab_size)
+            got[constrained] = dict(res=res, wall_s=wall, tpot_p50_ms=_p50_ms(
+                [r.tpot_s for r in res]), upload_ms=(1e3 * upload[0] / upload[1]
+                                                     if upload[1] else None), **steps)
+            if constrained:
+                launches[f"constrained serve{'' if N == 1 else f', decode_steps={N}'}"] = ln
+            del eng
+            gc.collect()
+        con, plain = got[True], got[False]
+        allowed = constraints_allowed(cfg, con["res"])
+        free = [i for i in range(len(prompts)) if i not in CONSTRAINED_ROWS]
+        same = sum(con["res"][i].new_tokens == plain["res"][i].new_tokens for i in free)
+        rec[f"decode_steps={N}"] = dict(
+            allowed=allowed, tpot_p50_ms=con["tpot_p50_ms"], plain_tpot_p50_ms=plain["tpot_p50_ms"],
+            mask_upload_ms_per_dispatch=con["upload_ms"], unconstrained_rows_equal=same,
+            replays=con["replays"], iters=con["iters"])
+        say(f"phase 17 (c) constraints, decode_steps={N}, on {CARD}: every constrained token "
+            f"allowed by its automaton: {allowed}; TPOT p50 {con['tpot_p50_ms']:.2f} ms against "
+            f"{plain['tpot_p50_ms']:.2f} ms unconstrained; mask upload "
+            f"{con['upload_ms']:.4f} ms of host a dispatch; the unconstrained rows' bf16 tokens "
+            f"equal the unconstrained engine's on {same} of {len(free)} (no bar) "
+            f"{'ok' if allowed else 'FAIL'}")
+        if not allowed:
+            raise AssertionError(f"phase 17 (c): a constrained token at decode_steps={N} is not "
+                                 f"allowed by its automaton")
+    return rec, launches
+
+
+def router_families(cfg, seed):
+    """Two families of ROUTER_FAMILY prompts, each a shared ROUTER_PREFIX-
+    token prefix and a 16-64 token suffix, interleaved A, B, A, B, ..."""
+    rng = np.random.default_rng(seed)
+    fams = []
+    for _ in range(2):
+        prefix = rng.integers(0, cfg.vocab_size, ROUTER_PREFIX).astype(np.int32)
+        fams.append([np.concatenate([prefix, rng.integers(0, cfg.vocab_size, int(n)).astype(
+            np.int32)]) for n in rng.integers(16, 65, ROUTER_FAMILY)])
+    return [p for pair in zip(*fams) for p in pair]
+
+
+def router_serve(params, cfg) -> tuple[dict, dict]:
+    """(d): replicas=2 against a solo engine with the same total blocks and
+    batch rows."""
+    prompts = router_families(cfg, SEED + 173)
+
+    def run(e, i):
+        h0 = [x.stats()["prefix_hits"] for x in _lanes(e)]
+        hs = [e.submit(p, max_new_tokens=32) for p in prompts]
+        e.drain()
+        return hs, [x.stats()["prefix_hits"] - h for x, h in zip(_lanes(e), h0)]
+
+    fleet = stateful_engine(params, cfg, replicas=2)
+    (hs, hits), wall, launches, steps = stateful_pass("(d) replicas=2", fleet, cfg, run)
+    res = [h.result(drive=False) for h in hs]
+    check_results(res, 32, cfg.padded_vocab_size)
+    lanes = [{h.replica for h in hs[f::2]} for f in (0, 1)]
+    n_tok = sum(len(r.new_tokens) for r in res)
+    del fleet
+    gc.collect()
+    solo = stateful_engine(params, cfg, num_blocks=2048, max_batch=16)
+    (shs, _), swall, _, _ = stateful_pass("(d) solo engine", solo, cfg, run)
+    sres = [h.result(drive=False) for h in shs]
+    del solo
+    ok = all(len(s) == 1 for s in lanes) and all(h > 0 for h in hits)
+    rec = dict(family_lanes=[sorted(s) for s in lanes], prefix_hits=hits,
+               tokens_per_s=n_tok / wall, solo_tokens_per_s=n_tok / swall, wall_s=wall,
+               solo_wall_s=swall,
+               bf16_equal_solo=sum(a.new_tokens == b.new_tokens for a, b in zip(res, sres)),
+               bf16_first_token_equal_solo=sum(a.new_tokens[0] == b.new_tokens[0]
+                                               for a, b in zip(res, sres)), **steps)
+    say(f"phase 17 (d) replicas=2 on {CARD}: families on replicas {rec['family_lanes']}, prefix "
+        f"hits per replica {hits}; {rec['tokens_per_s']:.1f} tokens/s against "
+        f"{rec['solo_tokens_per_s']:.1f} on a solo engine of the same 2048 blocks and 16 rows; "
+        f"bf16 tokens equal the solo engine's on {rec['bf16_equal_solo']} of {len(res)}, their "
+        f"first token on {rec['bf16_first_token_equal_solo']} (no bar: 8-row and 16-row steps "
+        f"round apart) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("phase 17 (d): a family split across replicas or a replica without "
+                             "prefix hits")
+    return rec, {"routed serve": launches}
+
+
+def gpt2_serve() -> tuple[dict, dict]:
+    """(e): gpt2-124m (learned positions) at full width and depth in bf16,
+    random weights, on the paged lane."""
+    cfg = Config.from_name("gpt2-124m")
+    params = init_params(cfg, generator=torch.Generator(DEVICE).manual_seed(SEED + 174),
+                         dtype=torch.bfloat16, device=DEVICE)
+    rng = np.random.default_rng(SEED + 174)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(128, 961, 8)]
+    eng = stateful_engine(params, cfg, num_blocks=512)
+
+    def run(e, i):
+        return e.run(prompts, max_new_tokens=32)
+
+    res, wall, launches, steps = stateful_pass("(e) gpt2-124m", eng, cfg, run)
+    check_results(res, 32, cfg.padded_vocab_size)
+    sch = eng.scheduler
+    rec = dict(block_buckets=list(sch.block_buckets), prefill_buckets=list(sch.prefill_buckets),
+               prefix_sharing=eng.prefix_sharing, wall_s=wall,
+               **serve_stats("phase 17 (e) gpt2-124m bf16", res, wall), **steps)
+    say(f"phase 17 (e) gpt2-124m on {CARD}: {launches['paged_attn_decode']} paged_attn_decode for "
+        f"{steps['iters']} decode steps ({cfg.n_layer} a step); buckets capped at block_size "
+        f"{cfg.block_size}: block {rec['block_buckets']}, prefill {rec['prefill_buckets']}, "
+        f"prefix sharing {eng.prefix_sharing}")
+    del eng, params
+    return rec, {"gpt2 serve": launches}
+
+
+def stateful_exact(params, cfg, n_new=8) -> dict:
+    """(f): float32 at STATEFUL_LAYERS layers of Llama-3-8B, and gpt2-124m
+    float32 at full depth: the token equalities of the stateful options."""
+    cfg4 = Config.from_name(cfg.name, n_layer=STATEFUL_LAYERS)
+    p32 = _cast({**params, "blocks": params["blocks"][:STATEFUL_LAYERS]}, torch.float32)
+    common = dict(num_blocks=512)
+    out = {}
+    # sessions: turns 2-3 against a cold engine
+    first, msgs = session_chats(cfg4, SEED + 175)
+    first, msgs = first[:4], [m[:4] for m in msgs]
+    eng = stateful_engine(p32, cfg4, sessions=True, num_blocks=1024)
+    turns = serve_chats(eng, first, msgs, n_new)
+    cold = stateful_engine(p32, cfg4, num_blocks=1024)
+    want = [[r.new_tokens for r in cold.run(t["prompts"], max_new_tokens=n_new)]
+            for t in turns[1:]]
+    out["sessions"] = [[r.new_tokens for r in t["results"]] for t in turns[1:]] == want
+    out["session_reattach_hits"] = eng.stats()["sessions"]["reattach_hits"]
+    del eng, cold
+    # priorities: the preempted and the high request against solo runs
+    prompts = priority_prompts(cfg4, SEED + 176)[:3]
+    for temp in (0.0, 0.7):
+        def gens():
+            return [torch.Generator(DEVICE).manual_seed(SEED + i) for i in range(3)]
+
+        eng = stateful_engine(p32, cfg4, priorities=True, temperature=temp, max_batch=2,
+                              num_blocks=2 * (-(-(PRIORITY_PROMPT + 2 * n_new) // 16)) + 1)
+        g = gens()
+        hs = [eng.submit(prompts[i], max_new_tokens=2 * n_new, generator=g[i], priority="low")
+              for i in range(2)]
+        for _ in range(PRIORITY_STEPS):
+            eng.step()
+        hs.append(eng.submit(prompts[2], max_new_tokens=2 * n_new, generator=g[2],
+                             priority="high"))
+        eng.drain()
+        got = [h.result(drive=False).new_tokens for h in hs]
+        preempted = eng.preempted
+        g = gens()
+        solo = [stateful_engine(p32, cfg4, temperature=temp, **common).submit(
+            prompts[i], max_new_tokens=2 * n_new, generator=g[i]).result().new_tokens
+            for i in range(3)]
+        out[f"priority temperature {temp}"] = got == solo and preempted >= 1
+        del eng
+    # constraints: the unconstrained rows of a constrained batch
+    ps = phase4_prompts(cfg4)[:4]
+    cs = {1: make_constraints(cfg4)[0]}
+    con = stateful_engine(p32, cfg4, constraints=True, **common)
+    hs = [con.submit(p, max_new_tokens=n_new, **({"constraint": cs[i]} if i in cs else {}))
+          for i, p in enumerate(ps)]
+    con.drain()
+    plain = stateful_engine(p32, cfg4, **common).run(ps, max_new_tokens=n_new)
+    out["constraints"] = all(hs[i].result(drive=False).new_tokens == plain[i].new_tokens
+                             for i in range(len(ps)) if i not in cs)
+    del con
+    # the router against the solo engine
+    rp = router_families(cfg4, SEED + 177)[:8]
+    routed = stateful_engine(p32, cfg4, replicas=2, **common).run(rp, max_new_tokens=n_new)
+    solo = stateful_engine(p32, cfg4, num_blocks=1024, max_batch=16).run(rp, max_new_tokens=n_new)
+    out["router"] = [r.new_tokens for r in routed] == [r.new_tokens for r in solo]
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    # gpt2-124m float32: paged against gather
+    gcfg = Config.from_name("gpt2-124m")
+    gp = init_params(gcfg, generator=torch.Generator(DEVICE).manual_seed(SEED + 178),
+                     dtype=torch.float32, device=DEVICE)
+    rng = np.random.default_rng(SEED + 178)
+    gps = [rng.integers(0, gcfg.vocab_size, int(n)).astype(np.int32) for n in (90, 300, 700)]
+    paged = [r.new_tokens for r in stateful_engine(gp, gcfg, num_blocks=256).run(
+        gps, max_new_tokens=n_new)]
+    gather = [r.new_tokens for r in stateful_engine(gp, gcfg, num_blocks=256, attn="gather").run(
+        gps, max_new_tokens=n_new)]
+    out["gpt2 paged = gather"] = paged == gather
+    del gp
+    ok = all(v for k, v in out.items() if k != "session_reattach_hits")
+    say(f"phase 17 (f) float32 at {STATEFUL_LAYERS} layers (gpt2-124m at 12): {json.dumps(out)} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 17 (f): a float32 token equality failed: {out}")
+    return out
+
+
+def stateful_phase(params, cfg) -> tuple[dict, dict]:
+    """Phase 17: (a) sessions, (b) priorities, (c) constraints, (d) the
+    replica router, (e) learned positions, (f) float32 token equalities.
+    Returns the phase's records and its launches by path."""
+    t0 = time.perf_counter()
+    rec, launches = {}, {}
+    for key, fn, args in (("sessions", sessions_serve, (params, cfg)),
+                          ("priority", priority_serve, (params, cfg)),
+                          ("constraints", constrained_serve, (params, cfg)),
+                          ("router", router_serve, (params, cfg)),
+                          ("gpt2", gpt2_serve, ())):
+        rec[key], ln = fn(*args)
+        launches.update(ln)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["exact"] = stateful_exact(params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(card=CARD, seconds=time.perf_counter() - t0)
+    say(f"phase 17 (stateful and replicated serving) took {rec['seconds']:.1f} s")
     return rec, launches
 
 

@@ -411,3 +411,29 @@ def test_shutdown_discards_inflight_records(micro):
     eng.shutdown(drain=False)
     assert eng._inflight_decode is None and eng._inflight_prefill == []
     assert _pool_clean(eng)
+
+
+@pytest.mark.parametrize("name", ["tiny-mistral-debug", "tiny-falcon-debug", "tiny-pythia-debug",
+                                  "tiny-gemma-debug"])
+def test_family_recovery_equals_jax_engine(name):
+    """A decode OOM mid-serve on the paged lane for the Mistral (window
+    crossed before the fault), Falcon, Pythia and Gemma families: one
+    recovery, and the JAX engine's recovered tokens, which are its
+    unfaulted ones."""
+    from test_torch_port_multistep import FAMILY_ENGINE, family_models, family_prompts
+
+    jcfg, tcfg, jp, tp = family_models(name)
+    prompts = family_prompts()
+    plan = FaultPlan(specs=[FaultSpec(point=FP_DECODE, kind="oom", at=6)])
+    jplan = JFaultPlan(specs=[JFaultSpec(**vars(s)) for s in plan.specs])
+    retry = dict(retry=JRetryPolicy(sleep=lambda s: None))
+    jeng = tt.serve(None, jp, jcfg, cache_dtype=jnp.float32, attn="gather", fault_plan=jplan,
+                    **retry, **FAMILY_ENGINE)
+    want = _summary(jeng, _serve(jeng, prompts))
+    teng = ttt.serve(None, tp, tcfg, device="cpu", attn="paged", fault_plan=plan,
+                     retry=RetryPolicy(sleep=lambda s: None), **FAMILY_ENGINE)
+    got = _summary(teng, _serve(teng, prompts))
+    assert got == want and got["recoveries"] == 1
+    clean = ttt.serve(None, tp, tcfg, device="cpu", attn="paged", **FAMILY_ENGINE)
+    assert got["tokens"] == [tuple(r.new_tokens) for r in _serve(clean, prompts)]
+    assert _pool_clean(teng)

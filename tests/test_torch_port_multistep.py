@@ -292,7 +292,8 @@ def test_static_key_collapses_one_step_and_bucket_bound_holds(micro):
     default, one, four = _port(tcfg, tp), _port(tcfg, tp, decode_steps=1), \
         _port(tcfg, tp, decode_steps=4)
     assert default._static_key() == one._static_key()
-    assert four._static_key() != default._static_key() and four._static_key()[-1] == 4
+    # the horizon, then the constraint knob (None: unconstrained)
+    assert four._static_key() != default._static_key() and four._static_key()[-2:] == (4, None)
     _drive(four, _prompts())
     st = four.stats()
     decode = sum(st["compile_counts"][k] for k in ("decode", "decode_paged", "decode_multi",
@@ -505,3 +506,46 @@ def test_cuda_chunk_replay_between_decode_dispatch_and_harvest(card):
     graphed, seen = run(True)
     assert any(seen), "no chunk piece replayed while a decode step was in flight"
     assert graphed == eager
+
+
+#
+# the model families beside Llama, against the JAX engine
+#
+
+FAMILIES = ["tiny-mistral-debug", "tiny-falcon-debug", "tiny-pythia-debug", "tiny-gemma-debug"]
+FAMILY_ENGINE = dict(block_size=4, num_blocks=48, max_batch=4, batch_buckets=(4,),
+                     block_buckets=(16,), prefill_buckets=(32,))
+
+
+def family_models(name):
+    """One layer of ``name`` at its own widths, the same weights on both
+    sides."""
+    jcfg = jllama.Config.from_name(name, n_layer=1)
+    tcfg = ttt.Config.from_name(name, n_layer=1)
+    jp = jllama.init_params(jcfg, jax.random.PRNGKey(3), dtype=jnp.float32)
+    tp = ttt.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def family_prompts():
+    """Three prompts of vocabulary 256; the longest with its 8 new tokens
+    crosses tiny-mistral-debug's 32-token window."""
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, 256, (n,)).astype(np.int32) for n in (5, 17, 30)]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_multistep_tokens_equal_jax_engine(name):
+    """``decode_steps=3`` on the paged lane serves the JAX engine's tokens
+    for the Mistral (window crossed), Falcon (one query group, parallel
+    residual), Pythia (partial rotary) and Gemma (scaled embedding)
+    families."""
+    jcfg, tcfg, jp, tp = family_models(name)
+    prompts = family_prompts()
+    jeng = tt.serve(None, jp, jcfg, cache_dtype=jnp.float32, attn="gather", decode_steps=3,
+                    **FAMILY_ENGINE)
+    want = _drive(jeng, prompts, n=8)
+    eng = ttt.serve(None, tp, tcfg, device="cpu", attn="paged", decode_steps=3,
+                    **FAMILY_ENGINE)
+    assert _drive(eng, prompts, n=8) == want
+    assert eng.stats()["attn"]["kinds"]["decode"]["kernel_steps"] > 0

@@ -219,43 +219,64 @@ def test_admission_rejects_requests_that_never_fit(micro):
 
 # decode_steps, fault_plan, retry, watchdog_timeout_s, trace, slo,
 # flight_recorder, goodput and telemetry serve
-# (tests/test_torch_port_multistep.py, _faults.py, _obs.py)
+# (tests/test_torch_port_multistep.py, _faults.py, _obs.py); sessions,
+# priorities, constraints, model_fn and replicas serve too
+# (tests/test_torch_port_stateful.py, _router.py).  Each case: the option,
+# the engine arguments that must raise, the exception and its message.
 DEFERRED = [
-    ("mesh", object()), ("shardings", object()),
-    ("sessions", True), ("priorities", True),
-    ("constraints", True),
-    ("replicas", 2), ("model_fn", lambda *a: None),
+    ("mesh", {"mesh": object()}, NotImplementedError, "mesh"),
+    ("shardings", {"shardings": object()}, NotImplementedError, "shardings"),
+    ("sessions", {"sessions": True, "prefix_sharing": False}, ValueError, "prefix_sharing"),
+    ("priorities", {"priorities": "yes"}, TypeError, "priorities="),
+    ("constraints", {"constraints": True, "speculative": "draft"}, ValueError, "speculative"),
+    ("replicas", {"replicas": 2}, TypeError, "replicas"),
+    ("model_fn", {"model_fn": lambda *a, **k: None, "attn": "paged"}, ValueError,
+     "custom model_fn"),
 ]
 
 
-@pytest.mark.parametrize("name,value", DEFERRED, ids=[d[0] for d in DEFERRED])
-def test_out_of_slice_engine_options_raise(micro, name, value):
+@pytest.mark.parametrize("name,kwargs,exc,match", DEFERRED, ids=[d[0] for d in DEFERRED])
+def test_out_of_slice_engine_options_raise(micro, name, kwargs, exc, match):
+    """The mesh options are a later slice's and raise NotImplementedError
+    naming the option; the options this port serves raise where misused,
+    as the reference's engine does: sessions without prefix sharing, a
+    priorities= spec of the wrong type, constraints beside the speculative
+    lane, replicas= given to the engine (it is serve()'s), a custom model_fn
+    forced onto the paged kernels."""
     tcfg, tp, _, _ = micro
-    with pytest.raises(NotImplementedError, match=name):
-        if name == "model_fn":
-            ttt.serve(value, tp, tcfg, device="cpu", **ENGINE)
-        else:
-            _port(tcfg, tp, **{name: value})
+    kwargs = dict(kwargs)
+    if kwargs.get("speculative") == "draft":
+        kwargs["speculative"] = ttt.SpecConfig(tp, tcfg, K=2)
+    with pytest.raises(exc, match=match):
+        ServingEngine(tp, tcfg, device="cpu", **ENGINE, **kwargs)
 
 
 @pytest.mark.parametrize("name", ["session_id", "priority", "constraint"])
 def test_out_of_slice_submit_options_raise(micro, name):
+    """The stateful submit options need their engine option: on a plain
+    engine each raises naming itself."""
     tcfg, tp, _, _ = micro
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(ValueError, match=name):
         _port(tcfg, tp).submit(_prompts()[0], max_new_tokens=2, **{name: "x"})
 
 
 def test_out_of_slice_configs_raise():
-    # MoE configs serve now (tests/test_torch_port_moe_quant.py holds their
-    # tokens against the JAX engine); learned position embeddings still raise
+    # MoE configs serve (tests/test_torch_port_moe_quant.py holds their
+    # tokens against the JAX engine), and so do learned position embeddings
+    # (tests/test_torch_port_stateful.py), whose bucket sets cap at
+    # cfg.block_size: a pool whose every block bucket passes it raises
     moe = ttt.Config.from_name("tiny-moe-debug")
     eng = ServingEngine(ttt.init_params(moe, device="cpu", dtype=torch.float32), moe,
                         device="cpu", **ENGINE)
     (res,) = eng.run([_prompts()[0]], max_new_tokens=2)
     assert eng.attn == "paged" and len(res.new_tokens) == 2
     gpt = ttt.Config.from_name("nanogpt-debug")
-    with pytest.raises(NotImplementedError, match="learned_pos_embedding"):
-        ServingEngine({"wte": torch.zeros(1)}, gpt, device="cpu")
+    gp = ttt.init_params(gpt, device="cpu", dtype=torch.float32)
+    eng = ServingEngine(gp, gpt, device="cpu", **ENGINE)
+    (res,) = eng.run([_prompts()[0]], max_new_tokens=2)
+    assert eng.attn == "paged" and len(res.new_tokens) == 2 and not eng.prefix_sharing
+    with pytest.raises(ValueError, match="learned position"):
+        ServingEngine(gp, gpt, device="cpu", block_size=16, num_blocks=32, block_buckets=(16,))
 
 
 def test_serve_defaults_to_the_card(micro):

@@ -6,7 +6,11 @@ with chunked prefill (``prefill_chunk=``), speculative serving
 multi-tenant LoRA adapters (``lora=AdapterRegistry(...)``), multi-step
 decode (``decode_steps=N``) and fault recovery (``fault_plan=FaultPlan(...)``,
 ``retry=RetryPolicy(...)``); on the card the bucket steps run as CUDA
-graphs (:mod:`serving.graphs`)."""
+graphs (:mod:`serving.graphs`).  Stateful serving: resident sessions
+(``sessions=``, :mod:`serving.sessions`), priority classes with SLO-gated
+admission and preemption (``priorities=``, :mod:`serving.priority`),
+constrained decoding (``constraints=True``, :mod:`serving.constrain`);
+``replicas=N`` returns the replica router (:mod:`serving.router`)."""
 from thunder_tpu_torch.serving.engine import (
     AdmissionError,
     EngineStalledError,
@@ -16,6 +20,13 @@ from thunder_tpu_torch.serving.engine import (
     ServingEngine,
     serve,
 )
+from thunder_tpu_torch.serving.constrain import (
+    Constraint,
+    ConstraintLookaheadError,
+    DFAConstraint,
+    TokenSetConstraint,
+    sequence_constraint,
+)
 from thunder_tpu_torch.serving.faults import FaultPlan, FaultSpec, RetryPolicy
 from thunder_tpu_torch.serving.kv_pool import PagedKVPool, PoolExhaustedError
 from thunder_tpu_torch.serving.lora import (
@@ -24,24 +35,50 @@ from thunder_tpu_torch.serving.lora import (
     make_lora_factors,
     valid_targets,
 )
+from thunder_tpu_torch.serving.priority import (
+    PRIORITY_HIGH,
+    PRIORITY_LEVELS,
+    PRIORITY_LOW,
+    PRIORITY_NORMAL,
+    PriorityConfig,
+    PriorityGate,
+)
+from thunder_tpu_torch.serving.router import ReplicatedEngine, RoutedHandle
+from thunder_tpu_torch.serving.sessions import SessionConfig, SessionEntry, SessionTable
 from thunder_tpu_torch.serving.speculative import SpecConfig
 
 __all__ = [
     "AdapterRegistry",
     "AdmissionError",
+    "Constraint",
+    "ConstraintLookaheadError",
+    "DFAConstraint",
     "EngineStalledError",
     "FaultPlan",
     "FaultSpec",
+    "PRIORITY_HIGH",
+    "PRIORITY_LEVELS",
+    "PRIORITY_LOW",
+    "PRIORITY_NORMAL",
     "PagedKVPool",
     "PoolExhaustedError",
+    "PriorityConfig",
+    "PriorityGate",
     "RecoveryError",
     "RegistryFullError",
+    "ReplicatedEngine",
     "RequestHandle",
     "RequestResult",
     "RetryPolicy",
+    "RoutedHandle",
     "ServingEngine",
+    "SessionConfig",
+    "SessionEntry",
+    "SessionTable",
     "SpecConfig",
+    "TokenSetConstraint",
     "make_lora_factors",
+    "sequence_constraint",
     "serve",
     "valid_targets",
 ]

@@ -106,8 +106,27 @@ Observability (all off by default): ``trace=`` per-request async spans,
 on any ``step()`` exception, ``goodput=`` the ledger of dispatched slots
 (``goodput_report()``), ``telemetry=`` one JSON line per finished request.
 
+Stateful serving (all off by default, host policy over the same steps):
+``sessions=`` parks a finished turn's block-aligned prefix so the
+session's next turn re-attaches it through the shared-prefix admission
+(:mod:`serving.sessions`); ``priorities=`` orders the queue by class,
+defers classes at admission on SLO burn and preempts a less urgent running
+request for a more urgent head, which resumes later through the chunk
+steps (:mod:`serving.priority`); ``constraints=True`` lets ``submit(...,
+constraint=)`` mask every draw of a request through its host automaton
+(:mod:`serving.constrain`), the mask being one more step input (``cmask``)
+that a graphed step copies into its buffer like ``toks``.  ``model_fn=``
+replaces ``forward_with_cache`` on the gather lanes (the paged kernels
+mirror the in-tree forward, so ``attn="auto"`` resolves gather).
+Learned-position configs (GPT-2) serve with their bucket sets capped at
+``cfg.block_size`` and without prefix sharing or chunked prefill.
+``serve(..., replicas=N)`` returns the replica router
+(:mod:`serving.router`).
+
 Engine options of the JAX package that belong to later slices of the port
-raise ``NotImplementedError`` naming the option.
+(``mesh=``, ``shardings=``, ``replica_id=``; ``key=`` at submit, which the
+port takes as ``generator=``) raise ``NotImplementedError`` naming the
+option.
 """
 from __future__ import annotations
 
@@ -159,6 +178,7 @@ from thunder_tpu_torch.serving.paged_attention import (
     write_fresh_kv_chunk,
     write_fresh_kv_live,
 )
+from thunder_tpu_torch.serving.priority import priority_level, resolve_priorities
 from thunder_tpu_torch.serving.scheduler import (
     FINISH_DEADLINE,
     FINISH_EOS,
@@ -170,6 +190,7 @@ from thunder_tpu_torch.serving.scheduler import (
     Scheduler,
     pick_bucket,
 )
+from thunder_tpu_torch.serving.sessions import resolve_sessions
 
 __all__ = [
     "serve",
@@ -181,13 +202,11 @@ __all__ = [
     "RecoveryError",
 ]
 
-# engine options of the JAX package not ported yet, with their "off" values
-_DEFERRED_ENGINE = {
-    "model_fn": None, "mesh": None, "shardings": None, "replica_id": None,
-    "sessions": None, "priorities": None, "constraints": None,
-    "replicas": 1, "fault_plans": None,
-}
-_DEFERRED_SUBMIT = {"key": None, "session_id": None, "priority": None, "constraint": None}
+# engine options of the JAX package not ported yet, with their "off" values:
+# the mesh engine (ROADMAP.md Queue 1 item 10's mesh bullet); ``key`` the
+# port takes as ``generator=``
+_DEFERRED_ENGINE = {"mesh": None, "shardings": None, "replica_id": None}
+_DEFERRED_SUBMIT = {"key": None}
 
 # step kinds written as ``fn(x, host) -> (out, carry)`` (serving.graphs):
 # captured as CUDA graphs on the card, run eagerly on the CPU
@@ -209,9 +228,14 @@ def _reject_deferred(where: str, given: dict, table: dict) -> None:
 class EngineStalledError(RuntimeError):
     """``drain()``/``result()`` could not make progress: requests remain
     queued/running but ``step()`` did no work.  Carries the flight-recorder
-    state snapshot (scheduler rows, pool counts) as ``.state``."""
+    state snapshot (scheduler rows, pool counts) as ``.state``.  Under the
+    replica router ``replica`` names the stalled lane, whose flight state
+    it carries."""
 
-    def __init__(self, msg: str, state: dict | None = None):
+    def __init__(self, msg: str, state: dict | None = None, *, replica: int | None = None):
+        self.replica = replica
+        if replica is not None:
+            msg = f"replica {replica}: {msg}"
         self.state = state or {}
         sched = self.state.get("scheduler", {})
         pool = self.state.get("pool", {})
@@ -286,13 +310,16 @@ class RequestHandle:
 class ServingEngine:
     """Continuous-batching inference engine over a paged KV pool, on
     ``device`` (default: the card; raises without one unless
-    ``device="cpu"``).  ``params`` must already live there."""
+    ``device="cpu"``).  ``params`` must already live there.  ``model_fn``:
+    the model step of the gather lanes, with ``forward_with_cache``'s
+    signature (None: ``forward_with_cache``)."""
 
     def __init__(
         self,
         params,
         cfg,
         *,
+        model_fn: Callable | None = None,
         block_size: int = 16,
         num_blocks: int = 64,
         max_batch: int = 8,
@@ -321,6 +348,9 @@ class ServingEngine:
         slo=None,
         flight_recorder=None,
         goodput=None,
+        sessions=None,
+        priorities=None,
+        constraints=None,
         device="cuda",
         _graphs: bool = True,
         **deferred,
@@ -334,15 +364,13 @@ class ServingEngine:
                 raise ValueError(f"decode_steps={self.n_decode_steps} with speculative= is "
                                  f"unsupported: {why}")
         _reject_deferred("ServingEngine", deferred, _DEFERRED_ENGINE)
-        if cfg.learned_pos_embedding:
-            raise NotImplementedError(
-                "ServingEngine: learned_pos_embedding configs are not ported yet")
         self.device = resolve_device(device)
         if params["wte"].device.type != self.device.type:
             raise ValueError(f"params live on {params['wte'].device}, "
                              f"the engine on {self.device}")
         self.params = params
         self.cfg = cfg
+        self._forward = model_fn if model_fn is not None else forward_with_cache
         self.quantized = bool(quantized)
         # multi-tenant LoRA: the registry's arenas are step arguments, read
         # anew every step, so register/evict land without touching the steps
@@ -367,7 +395,8 @@ class ServingEngine:
                                 dtype=dtype, kv_dtype=kv_dtype, device=self.device)
         if attn not in ("auto", "paged", "gather"):
             raise ValueError(f"attn= must be 'auto', 'paged', or 'gather', got {attn!r}")
-        ok, why = paged_supported(cfg, block_size=block_size, device=self.device)
+        ok, why = paged_supported(cfg, block_size=block_size, device=self.device,
+                                  custom_forward=model_fn is not None)
         if attn == "paged" and not ok:
             raise ValueError(f"attn='paged' is unsupported here: {why}")
         self._attn_requested = attn
@@ -380,7 +409,8 @@ class ServingEngine:
         self.spec = speculative
         self.draft_pool = None
         if speculative is not None:
-            spec_lane.validate_spec(speculative, cfg, device=self.device)
+            spec_lane.validate_spec(speculative, cfg, device=self.device,
+                                    custom_forward=model_fn is not None)
             # the draft arena may quantize apart from the target's
             # (SpecConfig.draft_kv_dtype; None inherits kv_dtype)
             self.draft_pool = PagedKVPool(
@@ -400,6 +430,10 @@ class ServingEngine:
                                   else self.n_decode_steps - 1),
             decode_horizon=self.n_decode_steps,
         )
+        cfgs = [cfg] + ([speculative.draft_cfg] if speculative is not None else [])
+        learned = [c.block_size for c in cfgs if c.learned_pos_embedding]
+        if learned:
+            self._cap_learned_positions(min(learned))
         self._table_widths = self._table_width_buckets()
         # the chunk kind resolves once, apart from decode: the chunk writer
         # lands whole (L, ng, bs, hs) slabs, so the chunk width and every
@@ -425,6 +459,24 @@ class ServingEngine:
         # per-kind [kernel, fallback] step counts
         self._attn_steps = {"decode": [0, 0], "prefill_chunk": [0, 0]}
         self._prefix_index = PrefixIndex(self.pool.block_size)
+        # stateful serving: the resident-session table (parked prefix
+        # blocks), the priority gate (admission and preemption) and the
+        # constraint knob, which adds one mask input to the sampling steps
+        self._sessions = resolve_sessions(sessions, self.pool, self._prefix_index)
+        if self._sessions is not None and not self.prefix_sharing:
+            raise ValueError("sessions= requires prefix_sharing: session re-attach rides the "
+                             "shared-prefix admission path")
+        self._priorities = resolve_priorities(priorities)
+        self._constraints = bool(constraints)
+        if self._constraints and speculative is not None:
+            raise ValueError("constraints= with speculative= is unsupported: the verify lane has "
+                             "no mask input (use the plain decode lane)")
+        # logit width every constraint mask must match
+        self._vocab = int(cfg.padded_vocab_size)
+        self._mask_ones: dict[tuple, torch.Tensor] = {}
+        self._hit_owner: int | None = None             # owner rid of the last live prefix hit
+        self.preempted = 0
+        self.replica_id: int | None = None             # the router's lane index
         # bucket steps: CUDA graphs on the card (the private _graphs=False
         # runs them eagerly, for comparison), eager on the CPU
         self._graphs = self.device.type == "cuda" and bool(_graphs)
@@ -533,6 +585,7 @@ class ServingEngine:
     def submit(self, prompt, *, max_new_tokens: int, deadline: float | None = None,
                generator: torch.Generator | None = None,
                stream_cb: Callable[[int], Any] | None = None, adapter_id: str | None = None,
+               session_id: str | None = None, priority: str | None = None, constraint=None,
                **deferred) -> RequestHandle:
         """Enqueues one request; returns immediately with a handle.
 
@@ -543,7 +596,15 @@ class ServingEngine:
         routes the request through a LoRA adapter of the engine's ``lora=``
         registry, resolved to its slot here (an unknown id raises
         ``KeyError``).  Raises :class:`AdmissionError` when the wait queue
-        is full or the request can never fit the pool."""
+        is full or the request can never fit the pool.
+
+        ``session_id`` (needs ``sessions=``) parks the finished turn's
+        prefix blocks so the next turn re-attaches them; ``priority``
+        (``"high"``/``"normal"``/``"low"``, needs ``priorities=``) orders
+        the queue, feeds the SLO admission gate and marks preemption
+        victims; ``constraint`` (a :class:`serving.constrain.Constraint`,
+        needs ``constraints=True``) masks every draw of the request through
+        its host automaton."""
         if self._closed:
             raise RuntimeError("engine is shut down")
         _reject_deferred("submit", deferred, _DEFERRED_SUBMIT)
@@ -553,6 +614,23 @@ class ServingEngine:
                 raise ValueError(f"adapter_id={adapter_id!r} requires an engine built with "
                                  f"lora=AdapterRegistry(...)")
             adapter_slot = self._registry.slot(adapter_id)
+        if session_id is not None and self._sessions is None:
+            raise ValueError(f"session_id={session_id!r} requires an engine built with "
+                             f"sessions= (e.g. sessions=True)")
+        if priority is not None and self._priorities is None:
+            raise ValueError(f"priority={priority!r} requires an engine built with "
+                             f"priorities= (e.g. priorities=True)")
+        priority_cls, level = priority_level(priority)
+        if constraint is not None:
+            if not self._constraints:
+                raise ValueError("constraint= requires an engine built with constraints=True")
+            if int(constraint.vocab_size) != self._vocab:
+                raise ValueError(f"constraint.vocab_size={constraint.vocab_size} != model "
+                                 f"logit width {self._vocab}")
+            # multi-step decode needs exact masks N draws ahead: fail here,
+            # not mid-visit (ConstraintLookaheadError propagates)
+            if self.n_decode_steps > 1:
+                constraint.masks(self.n_decode_steps)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         elif generator.device.type != self.device.type:
@@ -561,7 +639,9 @@ class ServingEngine:
         try:
             req = self.scheduler.submit(prompt, max_new_tokens, generator=generator,
                                         deadline_s=deadline, stream_cb=stream_cb,
-                                        adapter_id=adapter_id, adapter_slot=adapter_slot)
+                                        adapter_id=adapter_id, adapter_slot=adapter_slot,
+                                        session_id=session_id, priority=level,
+                                        priority_class=priority_cls, constraint=constraint)
         except AdmissionError:
             reg.counter("serving.requests.rejected").inc()
             raise
@@ -741,6 +821,8 @@ class ServingEngine:
         self._discard_inflight()
         for req in (*self.scheduler.running, *self.scheduler.queue):
             self._finish(req, FINISH_EVICTED)
+        if self._sessions is not None:
+            self._sessions.clear()
         self._closed = True
         if self._owns_telemetry and self.telemetry is not None:
             self.telemetry.close()
@@ -763,6 +845,7 @@ class ServingEngine:
                  + len(sch.prefill_buckets)
                  * (2 if (sch.prefill_chunk is not None or self.chunk_runs > 0) else 1))
         return {
+            **({"replica": self.replica_id} if self.replica_id is not None else {}),
             "device": str(self.device),
             "queue_depth": len(sch.queue),
             "running": len(sch.running),
@@ -819,6 +902,10 @@ class ServingEngine:
             **({"goodput": self._goodput.snapshot()} if self._goodput is not None else {}),
             "pool_occupancy": self.pool.occupancy_snapshot(),
             **({"lora": self._registry.state_snapshot()} if self._registry is not None else {}),
+            **({"sessions": self._sessions.snapshot()} if self._sessions is not None else {}),
+            **({"priority": {**self._priorities.snapshot(), "preempted": self.preempted}}
+               if self._priorities is not None else {}),
+            **({"constrained": True} if self._constraints else {}),
         }
 
     def _graph_stats(self) -> dict:
@@ -899,6 +986,23 @@ class ServingEngine:
     # admission + prefill
     #
 
+    def _cap_learned_positions(self, cap: int) -> None:
+        """A learned-position model (``wpe`` of ``cap`` rows, the target's
+        or a speculative draft's): caps the block and prefill buckets so no
+        step's positions pass the table, and turns off prefix sharing and
+        chunked prefill, whose resumed pieces could reach past it with
+        their bucket padding (reference ``engine.py:443-466``)."""
+        sch = self.scheduler
+        blk = tuple(b for b in sch.block_buckets if self.pool.capacity_tokens(b) <= cap)
+        if not blk:
+            raise ValueError(f"block_size(cfg)={cap} admits no pool bucket at pool "
+                             f"block_size={self.pool.block_size} with learned position "
+                             f"embeddings")
+        sch.block_buckets = blk
+        sch.prefill_buckets = tuple(t for t in sch.prefill_buckets if t <= cap) or (cap,)
+        self.prefix_sharing = False
+        sch.prefill_chunk = None
+
     def _table_width_buckets(self) -> tuple[int, ...]:
         """Every table width a step may use: the block buckets, shifted off
         any width whose dense capacity equals ``sliding_window`` (the ring
@@ -939,22 +1043,90 @@ class ServingEngine:
         sch = self.scheduler
         if not sch.queue:
             return False
-        shared = self._find_shared_prefix(sch.queue[0])
+        head = sch.queue[0]
+        gate = self._priorities
+        if gate is not None and not gate.admit_ok(head.priority_class, self._slo):
+            # SLO burn defers this class; more urgent arrivals are inserted
+            # ahead of it, so holding the head is safe
+            return False
+        # a preempted victim that holds tokens replays from position 0, so
+        # it shares no prefix (leased shared blocks would be written)
+        resume = bool(head.generated)
+        shared = [] if resume else self._find_shared_prefix(head)
         req = sch.next_admittable(shared_blocks=len(shared))
         if req is None:
-            return False
+            return gate is not None and self._maybe_preempt(head)
+        if (shared and self._sessions is not None
+                and self._hit_owner is not None and self._hit_owner < 0):
+            self._sessions.note_reattach(self._hit_owner)
+            entry = self._sessions.owner_entry(self._hit_owner)
+            if entry is not None and entry.full_pos:
+                # the parked turn had written full_pos slots: the prompt
+                # positions below that watermark past the shared blocks are
+                # recomputation of the cut tail
+                req.replay_until = max(req.replay_until, min(entry.full_pos, req.prompt_len))
+                req.replay_cause = "replay_session_tail"
         n_needed = sch.blocks_needed(req)
         table = self.pool.share(shared) + self.pool.alloc(n_needed - len(shared))
         sch.admit(req, table, len(shared))
         if self._registry is not None:
             req.adapter_version = self._registry.version(req.adapter_slot)
+        if gate is not None:
+            registry().counter(f"serving.priority.{req.priority_class}.admitted").inc()
         if self._tracer is not None:
             self._tracer.end(req.rid, "queued", queue_s=req.admit_t - req.submit_t)
         if self._flight is not None:
             self._flight.record("admit", rid=req.rid, blocks=n_needed, shared_blocks=len(shared),
-                                pool_free=self.pool.num_free)
-        self._prefill(req)
+                                pool_free=self.pool.num_free, resume=resume)
+        if resume:
+            self._resume_replay(req)
+        else:
+            self._prefill(req)
         return True
+
+    def _maybe_preempt(self, head: Request) -> bool:
+        """Evict-and-resume: checkpoints the least urgent running request so
+        a strictly more urgent head can be funded (reference
+        ``engine.py:1265``).  The checkpoint is host state: prompt and
+        generated tokens, and the generator state saved at the victim's last
+        harvest, which it gets back here (a step in flight may have drawn
+        for it; the harvest drops that step's record by the victim's
+        preemption epoch).  Re-admission replays through the chunk steps
+        (:meth:`_resume_replay`).  Not beside the speculative lane, whose
+        harvest keeps no epochs."""
+        if self.spec is not None:
+            return False
+        victim = self._priorities.pick_victim(self.scheduler.running, head.priority)
+        if victim is None:
+            return False
+        self._unregister_prefix(victim)
+        self.scheduler.preempt(victim)                 # frees blocks, bumps preemptions
+        saved = self._gen_states.get(victim.rid)
+        if saved is not None:
+            victim.generator.set_state(saved)
+        self._decode_state = None
+        self.preempted += 1
+        registry().counter(f"serving.priority.{victim.priority_class}.preempted").inc()
+        if self._tracer is not None:
+            self._tracer.instant(victim.rid, "preempted", for_rid=head.rid,
+                                 generated=len(victim.generated))
+            self._tracer.begin(victim.rid, "queued", preemptions=victim.preemptions)
+        if self._flight is not None:
+            self._flight.record("preempt", rid=victim.rid, for_rid=head.rid,
+                                generated=len(victim.generated), pool_free=self.pool.num_free)
+        return True
+
+    def _resume_replay(self, req: Request) -> None:
+        """Re-admission of a preempted request that holds tokens: its K/V
+        rebuilt through the chunk-step replay (no draw), then it rejoins the
+        decode lane at the same position and generator state."""
+        tr = self._tracer
+        if tr is not None:
+            tr.begin(req.rid, "resume", lane="prefill", generated=len(req.generated))
+        self._replay_request(req, cause="replay_preemption")
+        self._register_prefix(req, upto=req.pos)
+        if tr is not None:
+            tr.end(req.rid, "resume", pos=req.pos)
 
     def _factor_tag(self, req: Request):
         """What decides a request's K/V besides its tokens: the (slot,
@@ -966,20 +1138,40 @@ class ServingEngine:
 
     def _find_shared_prefix(self, req: Request) -> list[int]:
         """Longest block-aligned prompt prefix already resident in a live
-        request's blocks whose K/V were computed with this request's
-        adapter factors."""
+        request's (or a parked session's) blocks whose K/V were computed
+        with this request's adapter factors."""
         if not self.prefix_sharing:
             return []
+        self._hit_owner = None
         return self._prefix_index.find(req.prompt, self._prefix_alive, tag=self._factor_tag(req))
 
     def _prefix_alive(self, hit: tuple[int, tuple[int, ...]]) -> bool:
         """A registered prefix is shareable only while its owner is running
-        and every snapshot block id is still its live table entry."""
+        and every snapshot block id is still its live table entry.  Negative
+        owner rids are parked sessions, alive while the session table holds
+        those blocks."""
         rid, blocks = hit
-        owner = next((r for r in self.scheduler.running if r.rid == rid), None)
-        if owner is None or len(owner.block_table) < len(blocks):
-            return False
-        return all(t == b != SINK_BLOCK for t, b in zip(owner.block_table, blocks))
+        if rid < 0:
+            ok = self._sessions is not None and self._sessions.alive(rid, blocks)
+        else:
+            owner = next((r for r in self.scheduler.running if r.rid == rid), None)
+            ok = (owner is not None and len(owner.block_table) >= len(blocks)
+                  and all(t == b != SINK_BLOCK for t, b in zip(owner.block_table, blocks)))
+        if ok:
+            self._hit_owner = rid
+        return ok
+
+    def probe_prefix(self, prompt, adapter_id: str | None = None) -> int:
+        """Longest resident shared-prefix length (tokens) of ``prompt`` for
+        a request of ``adapter_id``, without counting a lookup or changing
+        the index: the replica router's affinity probe."""
+        if not self.prefix_sharing:
+            return 0
+        tag = None
+        if self._registry is not None:
+            slot = self._registry.slot(adapter_id) if adapter_id is not None else 0
+            tag = (slot, self._registry.version(slot))
+        return self._prefix_index.probe(prompt, self._prefix_alive, tag=tag)
 
     def _register_prefix(self, req: Request, upto: int | None = None) -> None:
         """Registers ``req``'s written prefixes under its factor tag; not at
@@ -1069,8 +1261,12 @@ class ServingEngine:
                 name = "prefill.compile" if compiled else name
                 tr.begin(req.rid, name, lane="prefill")
             slots = req.adapter_slot if self._registry is not None else None
-            tok, qerr = prog(toks, pos, n_real, table, dest, req.generator, slots)
-            rec = {"kind": "prefill", "req": req, "tok": tok, "qerr": qerr}
+            # the final piece draws token 0: a constrained request's mask
+            # applies to it as to every decode draw
+            cmask = req.constraint.mask()[None] if req.constraint is not None else None
+            tok, qerr = prog(toks, pos, n_real, table, dest, req.generator, slots, cmask)
+            rec = {"kind": "prefill", "req": req, "tok": tok, "qerr": qerr,
+                   "epoch": req.preemptions}
         else:
             if tr is not None:
                 tr.begin(req.rid, name, lane="prefill")
@@ -1130,7 +1326,9 @@ class ServingEngine:
             tr.end(req.rid, rec["span"])
             tr.begin(req.rid, "prefill.host")
         tok0 = int(rec["tok"][0])                          # blocks until the device delivers
-        if req.state != "running":                         # finished while in flight
+        if req.state != "running" or req.preemptions != rec["epoch"]:
+            # finished while in flight, or preempted (a resumed request
+            # draws token 0 again against its rebuilt K/V)
             if tr is not None:
                 tr.end(req.rid, "prefill.host")
                 tr.end(req.rid, "prefill", aborted=True)
@@ -1235,6 +1433,7 @@ class ServingEngine:
                  "slots": self._slots(running, Bb)}
             if N > 1:
                 x.update(stop=stop, live=host_pos <= stop)
+        cmasks = self._decode_masks(running, Bb, N) if self._constraints else None
         if N > 1:
             kind = "decode_multi_paged" if self.attn == "paged" else "decode_multi"
         else:
@@ -1258,11 +1457,14 @@ class ServingEngine:
                          bucket=[Bb, nbb], lane="decode", attn=self.attn,
                          **({"steps": N} if N > 1 else {}))
         rec = {"kind": "decode", "running": running, "pos": host_pos, "bucket": [Bb, nbb],
-               "pkind": kind, "compiled": compiled, "step": self.decode_steps}
+               "pkind": kind, "compiled": compiled, "step": self.decode_steps,
+               "epochs": [r.preemptions for r in running]}
         if N == 1:
             host_fns = None
             if self.temperature != 0.0:
                 host_fns = {"sample": partial(self._draw_rows, running, None, None)}
+            if cmasks is not None:
+                x = {**x, "cmask": cmasks[0]}
             out, x = step(x, host_fns)
             rec["nxt"] = out["nxt"]
             if isinstance(step, StepGraph):
@@ -1279,6 +1481,8 @@ class ServingEngine:
                     active = [host_pos[i] + s <= r.prompt_len + r.max_new_tokens - 2
                               for i, r in enumerate(running)]
                     host_fns = {"sample": partial(self._draw_rows, running, active, states)}
+                if cmasks is not None:
+                    x = {**x, "cmask": cmasks[s]}
                 out, x = step(x, host_fns)
                 ys_tok[s].copy_(out["nxt"])
                 ys_emit[s].copy_(out["emit"])
@@ -1291,6 +1495,29 @@ class ServingEngine:
         self._m_steps_decode.inc()
         self._m_occupancy.observe(len(running))
         return rec
+
+    def _decode_masks(self, running, Bb: int, N: int):
+        """The constraint masks of one decode dispatch, one (Bb, V) bool
+        tensor per iteration: each constrained row's automaton masks,
+        uploaded once; a batch without a constrained row takes the cached
+        all-True mask (no upload)."""
+        if not any(r.constraint is not None for r in running):
+            ones = self._ones_mask((Bb, self._vocab))
+            return [ones] * N
+        m = np.ones((N, Bb, self._vocab), dtype=bool)
+        for i, r in enumerate(running):
+            if r.constraint is not None:
+                m[:, i] = r.constraint.masks(N) if N > 1 else r.constraint.mask()
+        return list(torch.from_numpy(m).to(self.device))
+
+    def _ones_mask(self, shape: tuple) -> torch.Tensor:
+        """The cached all-True constraint mask unconstrained batches ride
+        through a constrained step (``where(True, logits, -inf)`` is the
+        identity, bitwise)."""
+        m = self._mask_ones.get(shape)
+        if m is None:
+            m = self._mask_ones[shape] = torch.ones(shape, dtype=torch.bool, device=self.device)
+        return m
 
     def _draw_rows(self, running, active, states, logits):
         """One temperature draw per running row that is ``active`` (all
@@ -1348,23 +1575,30 @@ class ServingEngine:
         self._check_guard(rec)
         nxt = rec["nxt"].tolist()                          # the host block
         self._note_stall(t0, rec["t_disp"])
+        stale = self._stale_rows(rec)
         gp, gtag = self._goodput, None
         if gp is not None:
             Bb = rec["bucket"][0]
-            n_dead = sum(r.state != "running" for r in running)
+            n_stale = sum(stale)
+            n_dead = sum(r.state != "running" and not st for r, st in zip(running, stale))
             waste = {}
             if Bb > len(running):
                 waste["pad_row"] = Bb - len(running)
+            if n_stale:
+                waste["replay_preemption"] = n_stale
             if n_dead:
                 waste["dead_scan_row"] = n_dead
-            gtag = gp.account(rec["pkind"], Bb, 1, committed=len(running) - n_dead, **waste)
+            gtag = gp.account(rec["pkind"], Bb, 1, committed=len(running) - n_dead - n_stale,
+                              **waste)
             gp.note_device_s(rec["pkind"], time.perf_counter() - rec["t_disp"])
         self._note_decode_visit(rec, gtag)
         emitted = 0
         invalidate = False
         for i, r in enumerate(running):
-            if r.state != "running":
-                invalidate = True                          # finished mid-flight
+            if r.state != "running" or stale[i]:
+                # finished mid-flight (the token was never promised), or
+                # preempted: the resumed request draws this token again
+                invalidate = True
                 continue
             r.pos = int(rec["pos"][i]) + 1
             invalidate |= self._expire_window(r)
@@ -1393,11 +1627,15 @@ class ServingEngine:
         emit = rec["emit"].cpu().numpy()
         self._note_stall(t0, rec["t_disp"])
         harvested = [int(emit[:, i].sum()) for i in range(len(running))]
+        stale = self._stale_rows(rec)
         gp, gtag = self._goodput, None
         if gp is not None:
             Bb = rec["bucket"][0]
-            committed = n_dead = 0
+            committed = n_dead = n_stale = 0
             for i, r in enumerate(running):
+                if stale[i]:
+                    n_stale += N
+                    continue
                 if r.state != "running":
                     n_dead += N
                     continue
@@ -1412,6 +1650,8 @@ class ServingEngine:
             waste = {}
             if Bb > len(running):
                 waste["pad_row"] = (Bb - len(running)) * N
+            if n_stale:
+                waste["replay_preemption"] = n_stale
             if n_dead:
                 waste["dead_scan_row"] = n_dead
             gtag = gp.account(rec["pkind"], Bb, N, committed=committed, **waste)
@@ -1420,8 +1660,8 @@ class ServingEngine:
         emitted = 0
         invalidate = False
         for i, r in enumerate(running):
-            if r.state != "running":
-                invalidate = True                          # finished mid-flight
+            if r.state != "running" or stale[i]:
+                invalidate = True                          # finished or preempted mid-flight
                 continue
             k = harvested[i]
             states = rec["states"][i]
@@ -1443,6 +1683,12 @@ class ServingEngine:
         self._count_visit(emitted)
         if invalidate:
             self._decode_state = None
+
+    @staticmethod
+    def _stale_rows(rec: dict) -> list[bool]:
+        """Per row of a decode record: preempted since its dispatch (the
+        resumed request derives those tokens again)."""
+        return [r.preemptions != e for r, e in zip(rec["running"], rec["epochs"])]
 
     def _note_decode_visit(self, rec: dict, gtag, **fields) -> None:
         """The decode span ends (tokens host-visible) and the flight event
@@ -1495,6 +1741,10 @@ class ServingEngine:
 
     def _emit_token(self, req: Request, tok: int) -> None:
         req.generated.append(tok)
+        if req.constraint is not None:
+            # the automaton advances at harvest, so a replay or a resume
+            # never advances it again
+            req.constraint.advance(tok)
         if req.stream_cb is not None:
             req.stream_cb(tok)
         if self.eos_id is not None and tok == self.eos_id:
@@ -1504,6 +1754,14 @@ class ServingEngine:
 
     def _finish(self, req: Request, reason: str) -> None:
         never_admitted = req.admit_t is None
+        if self._sessions is not None and req.session_id is not None:
+            if reason in (FINISH_LENGTH, FINISH_EOS) and req.state == "running":
+                # park the turn's written prefix before the scheduler frees
+                # the request's references (the table takes its own)
+                self._park_session(req)
+            else:
+                # an abnormal turn breaks the continuation: release it
+                self._sessions.close(req.session_id)
         self._unregister_prefix(req)                       # before blocks free
         self.scheduler.finish(req, reason)
         self._gen_states.pop(req.rid, None)
@@ -1516,6 +1774,10 @@ class ServingEngine:
                 self._tracer.end(req.rid, "queued", finish_reason=reason)
             self._tracer.instant(req.rid, "finish", reason=reason,
                                  new_tokens=len(req.generated),
+                                 **({"session_id": req.session_id} if req.session_id else {}),
+                                 **({"priority": req.priority_class}
+                                    if self._priorities is not None else {}),
+                                 **({"constrained": True} if req.constraint is not None else {}),
                                  **({"error": req.error_cause.get("type")}
                                     if req.error_cause else {}))
         if self._flight is not None:
@@ -1544,10 +1806,50 @@ class ServingEngine:
                 finish_reason=reason, ttft_s=res.ttft_s, tpot_s=res.tpot_s,
                 tokens_per_sec=res.tokens_per_sec, queue_s=res.queue_s, e2e_s=res.e2e_s,
                 prefill_compiled=req.prefill_compiled,
-                shared_prefix_blocks=req.n_shared_blocks, error=req.error_cause,
+                shared_prefix_blocks=req.n_shared_blocks, session_id=req.session_id,
+                priority=req.priority_class if self._priorities is not None else None,
+                constrained=True if req.constraint is not None else None,
+                preemptions=req.preemptions or None, error=req.error_cause,
                 tokens_recomputed=(req.tokens_recomputed or None),
                 recompute_causes=(list(req.recompute_causes) if req.recompute_causes
                                   else None))
+
+    def _park_session(self, req: Request) -> None:
+        """Parks the finished turn's written block-aligned prefix.  The
+        resident K/V covers positions ``[0, req.pos)`` of prompt + generated
+        (the last token's K/V is never written); window expiry may have sunk
+        leading blocks, which cuts the parkable prefix to nothing.  A turn
+        whose adapter slot was written after its admission holds K/V of two
+        sets of factors, and parks nothing."""
+        tag = self._factor_tag(req)
+        if tag is not None and tag[1] != req.adapter_version:
+            self._sessions.close(req.session_id)
+            return
+        full = np.concatenate([np.asarray(req.prompt, dtype=np.int64),
+                               np.asarray(req.generated, dtype=np.int64)])
+        bs = self.pool.block_size
+        nblk = min(req.pos // bs, len(req.block_table))
+        entry = self._sessions.park(req.session_id, full[:nblk * bs], req.block_table[:nblk],
+                                    adapter_slot=req.adapter_slot, full_pos=req.pos, tag=tag)
+        if self._flight is not None:
+            self._flight.record("session_park", rid=req.rid, session_id=req.session_id,
+                                blocks=len(entry.blocks) if entry is not None else 0,
+                                resident_blocks=self._sessions.resident_blocks)
+
+    def close_session(self, session_id: str) -> int:
+        """Releases a session's parked blocks; returns how many were freed
+        (0 for an unknown session: closing twice is a no-op)."""
+        if self._sessions is None:
+            return 0
+        freed = self._sessions.close(session_id)
+        if freed and self._flight is not None:
+            self._flight.record("session_close", session_id=session_id, blocks=freed)
+        return freed
+
+    def session_resident(self, session_id: str) -> bool:
+        """Does this engine's table hold the session's blocks?  (The replica
+        router's session-affinity probe.)"""
+        return self._sessions is not None and self._sessions.resident(session_id)
 
     def _result(self, req: Request) -> RequestResult:
         n = len(req.generated)
@@ -1709,13 +2011,19 @@ class ServingEngine:
         """One recovery attempt: drop in-flight work, zero the arenas in
         place (allocator state — tables, refcounts, prefix sharing — is
         host-side and survives), restore each generator to its last
-        harvest, then replay every running request's known tokens into its
-        own blocks.  Requests still waiting on token 0 restart their
-        prefill from position 0."""
+        harvest, then replay every resident session's parked tokens and
+        every running request's known tokens into their own blocks
+        (sessions first: a running sharer then rewrites a co-owned block
+        with its own replay).  Requests still waiting on token 0 restart
+        their prefill from position 0."""
         self._discard_inflight(cause="replay_recovery")
         self.pool.rebuild_arenas()
         if self.draft_pool is not None:
             self.draft_pool.rebuild_arenas()
+        if self._sessions is not None:
+            for entry in self._sessions.entries():
+                self._replay_seq(entry.tokens, list(entry.blocks), entry.adapter_slot,
+                                 len(entry.tokens), cause="replay_recovery")
         for req in list(self.scheduler.running):
             saved = self._gen_states.get(req.rid)
             if saved is not None:
@@ -1737,31 +2045,45 @@ class ServingEngine:
         piece at a time: afterwards the written K/V cover ``[0, prompt_len
         + n - 1)``, the state an uninterrupted run holds before its next
         decode step."""
-        sch, bs = self.scheduler, self.pool.block_size
         n = len(req.generated)
         seq = np.concatenate([req.prompt, np.asarray(req.generated[:n - 1], dtype=np.int32)])
-        target = req.prompt_len + n - 1
+        self._replay_seq(seq, req.block_table, req.adapter_slot, req.prompt_len + n - 1,
+                         req=req, cause=cause)
+
+    def _replay_seq(self, seq, block_table, adapter_slot: int, target: int, *,
+                    req: Request | None = None, cause: str = "replay_recovery") -> None:
+        """The chunk-step replay under :meth:`_replay_request` and the
+        resident sessions' recovery: writes K/V for ``seq[:target]`` into
+        ``block_table``, one bucket-wide piece at a time (``req``, when
+        given, is billed the recomputation and its ``pos`` advanced)."""
+        sch, bs = self.scheduler, self.pool.block_size
+        seq = np.asarray(seq, dtype=np.int32)
         aligned = [t for t in sch.prefill_buckets if t % bs == 0]
         piece = max(aligned) if aligned else sch.prefill_buckets[-1]
+        if self.cfg.learned_pos_embedding:
+            # no resumed piece for learned positions (its padding could pass
+            # the wpe table); the capped buckets fit the whole sequence
+            piece = max(piece, target)
         kind = "spec_prefill_chunk" if self.spec is not None else self._chunk_kind()
         pos = 0
         while pos < target:
             t_disp = time.perf_counter()
             n_real = min(target - pos, piece)
             Tb = sch.prefill_bucket(n_real)
-            nbb = self._nbb(max(len(req.block_table), -(-(pos + Tb) // bs)))
+            nbb = self._nbb(max(len(block_table), -(-(pos + Tb) // bs)))
             toks = np.zeros(Tb, dtype=np.int32)
             toks[:n_real] = seq[pos:pos + n_real]
-            table, dest = chunk_tables(req.block_table, pos, Tb, nbb, bs)
-            self._chunk_piece(kind, toks, pos, table, dest, req.adapter_slot)
+            table, dest = chunk_tables(block_table, pos, Tb, nbb, bs)
+            self._chunk_piece(kind, toks, pos, table, dest, adapter_slot)
             if self.spec is None:
                 self._note_chunk_attn_step()
-            req.tokens_recomputed += n_real
-            if cause not in req.recompute_causes:
-                req.recompute_causes.append(cause)
+            if req is not None:
+                req.tokens_recomputed += n_real
+                if cause not in req.recompute_causes:
+                    req.recompute_causes.append(cause)
             gp = self._goodput
             if gp is not None:
-                sunk = self._sunk_positions(req.block_table, pos, n_real, bs)
+                sunk = self._sunk_positions(block_table, pos, n_real, bs)
                 waste = {}
                 if Tb > n_real:
                     waste["pad_prefill"] = Tb - n_real
@@ -1772,7 +2094,8 @@ class ServingEngine:
                 gp.account(kind, 1, Tb, committed=0, **waste)
                 gp.note_device_s(kind, time.perf_counter() - t_disp)
             pos += n_real
-            req.pos = pos
+            if req is not None:
+                req.pos = pos
             self.chunk_runs += 1
             registry().counter("serving.steps.prefill_chunk").inc()
 
@@ -1810,9 +2133,11 @@ class ServingEngine:
         """Everything baked into a bucket step besides its bucket
         dimensions (reference ``engine.py:2514``): the config, block size,
         cache and KV dtypes, temperature, ``quantized``, the LoRA registry's
-        geometry, the speculative component and the multi-step horizon (N=1
+        geometry, the speculative component, the multi-step horizon (N=1
         collapses to None, so a ``decode_steps=1`` engine keys as a default
-        one).  :meth:`_program` keys this engine's steps on it."""
+        one) and the constraint knob (None when off: an unconstrained
+        engine's steps are today's).  :meth:`_program` keys this engine's
+        steps on it."""
         return (
             self._cfg_key,
             self.pool.block_size, str(self.pool.dtype), str(self.pool.kv_dtype),
@@ -1821,6 +2146,7 @@ class ServingEngine:
             (self.spec.K, str(self.draft_pool.kv_dtype), self._draft_cfg_key)
             if self.spec is not None else None,
             self.n_decode_steps if self.n_decode_steps > 1 else None,
+            "constrained" if self._constraints else None,
         )
 
     def _program(self, kind: str, a: int, b: int) -> tuple[Callable, bool]:
@@ -1914,26 +2240,34 @@ class ServingEngine:
         LoRA factors."""
         return {"quantized": self.quantized, **self._lora_kwargs(slots)}
 
-    def _pick(self, logits, host) -> torch.Tensor:
-        """A step's tokens from its (Bb, V) logits: the argmax inside the
-        step when greedy, else the per-row draws at the step's ``sample``
-        host point."""
+    def _pick(self, logits, host, cmask=None) -> torch.Tensor:
+        """A step's tokens from its (Bb, V) logits, masked by the
+        constraint mask ``cmask`` (Bb, V) when the engine is constrained:
+        the argmax inside the step when greedy, else the per-row draws at
+        the step's ``sample`` host point (the mask applies inside the
+        graph segment, before it)."""
+        if cmask is not None:
+            logits = torch.where(cmask, logits, float("-inf"))
         if self.temperature == 0.0:
             return sample_token(logits, 0.0)
         return host("sample", logits, like=[((logits.shape[0],), torch.int32)])[0]
 
     def _build_prefill(self, Tb: int, nbb: int) -> Callable:
         """The final prefill piece over the gathered arena: returns token 0
-        and the piece's quantization error."""
+        (drawn under the request's constraint mask ``cmask`` (1, V), when
+        given) and the piece's quantization error."""
         cfg, pool, dev = self.cfg, self.pool, self.device
         cos_all, sin_all = self._rope_cache(nbb)
 
-        def prefill(toks, pos, n_real, table, dest, generator, slots):
+        def prefill(toks, pos, n_real, table, dest, generator, slots, cmask=None):
             t = torch.as_tensor(table, device=dev)[None]
-            logits, cache = forward_with_cache(
+            logits, cache = self._forward(
                 self.params, torch.as_tensor(toks, device=dev)[None], pos,
                 pool.gather(t), cos_all, sin_all, cfg, **self._fwd_kwargs(slots))
-            tok = sample_token(logits[:, n_real - 1], self.temperature, generator)  # (1,)
+            last = logits[:, n_real - 1]
+            if cmask is not None:
+                last = torch.where(torch.as_tensor(cmask, device=dev), last, float("-inf"))
+            tok = sample_token(last, self.temperature, generator)  # (1,)
             return tok, pool.scatter_dense(cache, torch.as_tensor(dest, device=dev))
 
         return prefill
@@ -1947,7 +2281,7 @@ class ServingEngine:
 
         def prefill_chunk(toks, pos, table, dest, slots):
             t = torch.as_tensor(table, device=dev)[None]
-            _, cache = forward_with_cache(
+            _, cache = self._forward(
                 self.params, torch.as_tensor(toks, device=dev)[None], pos,
                 pool.gather(t), cos_all, sin_all, cfg, **self._fwd_kwargs(slots))
             return pool.scatter_dense(cache, torch.as_tensor(dest, device=dev))
@@ -1999,11 +2333,11 @@ class ServingEngine:
             if live is not None:
                 dest_block = torch.where(live, dest_block, SINK_BLOCK)
                 dest_slot = torch.where(live, dest_slot, 0)
-            logits, cache = forward_with_cache(
+            logits, cache = self._forward(
                 self.params, toks[:, None], pos, pool.gather(tables), cos_all, sin_all,
                 cfg, **self._fwd_kwargs(x["slots"]))
             pool.scatter_rows(cache, p, rows, dest_block, dest_slot)
-            return self._advance(x, self._pick(logits[:, 0], host))
+            return self._advance(x, self._pick(logits[:, 0], host, x.get("cmask")))
 
         return decode
 
@@ -2029,7 +2363,7 @@ class ServingEngine:
             else:
                 write_fresh_kv_live(pool.arenas, fresh, tables, pos, live,
                                     block_size=pool.block_size, kv_dtype=pool.quantized_storage)
-            return self._advance(x, self._pick(logits[:, 0], host))
+            return self._advance(x, self._pick(logits[:, 0], host, x.get("cmask")))
 
         return decode_paged
 
@@ -2051,15 +2385,31 @@ class ServingEngine:
                      "pos": torch.where(live, pos + 1, pos), "live": live & ~done}
 
 
-def serve(model_fn, params, cfg, *, device="cuda", **kwargs) -> ServingEngine:
-    """Builds a :class:`ServingEngine` on ``device`` (default: the card;
-    raises without one unless ``device="cpu"``).  ``model_fn`` must be
-    ``None`` (the in-tree model step); replicated and mesh serving belong to
-    later slices of the port and raise ``NotImplementedError``.
+def serve(model_fn, params, cfg, *, device="cuda", **kwargs):
+    """Builds a :class:`ServingEngine` over ``model_fn`` (None: the in-tree
+    ``models.generate.forward_with_cache``) on ``device`` (default: the
+    card; raises without one unless ``device="cpu"``).  Mesh serving belongs
+    to a later slice of the port and raises ``NotImplementedError``.
 
     ``decode_steps=N`` serves up to N decode tokens per host visit;
     ``fault_plan=``/``retry=``/``watchdog_timeout_s=`` arm the recovery
     layer; ``trace=``, ``slo=``, ``flight_recorder=``, ``goodput=`` and
-    ``telemetry=`` the serving observability (see :class:`ServingEngine`)."""
-    _reject_deferred("serve", {"model_fn": model_fn}, _DEFERRED_ENGINE)
-    return ServingEngine(params, cfg, device=device, **kwargs)
+    ``telemetry=`` the serving observability; ``sessions=``,
+    ``priorities=`` and ``constraints=`` the stateful serving (see
+    :class:`ServingEngine`).
+
+    ``replicas=N`` (N > 1) returns a
+    :class:`~thunder_tpu_torch.serving.router.ReplicatedEngine`: N engines
+    on the one device, each with its own arenas and step graphs, behind a
+    prefix-affinity router with this API; ``fault_plans=[...]`` (one entry
+    per replica) takes the place of the solo ``fault_plan=``."""
+    replicas = kwargs.pop("replicas", None)
+    fault_plans = kwargs.pop("fault_plans", None)
+    if replicas is not None and replicas > 1:
+        from thunder_tpu_torch.serving.router import ReplicatedEngine
+
+        return ReplicatedEngine(params, cfg, model_fn=model_fn, replicas=replicas,
+                                fault_plans=fault_plans, device=device, **kwargs)
+    if fault_plans is not None:
+        raise ValueError("fault_plans= is the per-replica form; a solo engine takes fault_plan=")
+    return ServingEngine(params, cfg, model_fn=model_fn, device=device, **kwargs)

@@ -341,8 +341,10 @@ class PrefixIndex:
 
     Liveness is delegated: every query takes an ``alive(hit) -> bool``
     callback (the engine checks that the owner is still running and every
-    snapshot block id is still its live table entry).  :meth:`find` counts
-    lookups/hits and scrubs stale entries.
+    snapshot block id is still its live table entry).  :meth:`find`, the
+    engine's admission lookup, counts lookups/hits and scrubs stale
+    entries; :meth:`probe`, the replica router's affinity query, does
+    neither (a routing decision must not move the engine's hit accounting).
 
     Every entry is keyed by a ``tag`` beside the prompt tokens: what else
     decided the K/V in those blocks.  A LoRA engine tags each prefix with
@@ -379,15 +381,29 @@ class PrefixIndex:
             del self._index[key]                  # stale snapshot: never share it
         return []
 
+    def probe(self, prompt, alive, *, tag=None) -> int:
+        """Longest alive shared-prefix length in tokens registered under
+        ``tag`` (0 on a miss), without counting the lookup or scrubbing."""
+        prompt = np.asarray(prompt).reshape(-1)
+        bs = self.block_size
+        max_share = ((int(prompt.shape[0]) - 1) // bs) * bs
+        for k in range(max_share, 0, -bs):
+            hit = self._index.get((tag, tuple(prompt[:k].tolist())))
+            if hit is not None and alive(hit):
+                return k
+        return 0
+
     def register(self, rid: int, prompt: np.ndarray, block_table, alive, *,
-                 upto: int | None = None, tag=None) -> None:
+                 upto: int | None = None, tag=None, full: bool = False) -> None:
         """Registers every block-aligned prefix of ``prompt`` (owner
         ``rid``) up to ``upto`` written tokens, under ``tag``; live entries
-        are never displaced."""
+        are never displaced.  A running request keeps its last prompt token
+        for its own prefill; ``full=True`` lifts that cap for a parked
+        session's sequence, which is complete and written."""
         bs = self.block_size
         n = int(prompt.shape[0])
         limit = n if upto is None else min(upto, n)
-        hi = min((limit // bs) * bs, ((n - 1) // bs) * bs)
+        hi = (limit // bs) * bs if full else min((limit // bs) * bs, ((n - 1) // bs) * bs)
         toks = prompt.tolist()
         for k in range(bs, hi + 1, bs):
             key = (tag, tuple(toks[:k]))

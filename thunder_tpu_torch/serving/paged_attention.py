@@ -37,6 +37,10 @@ the step passes ``lora_slots``.  ``quantized=True`` runs the weight matmuls
 (projections, MLP or experts, head) through ``quantex.int8_linear``, as the
 reference's ``forward_paged`` does; the MoE router stays float32.
 
+Learned position embeddings (GPT-2's ``wpe``) are added at each row's
+positions by the shared embedding (``models.generate._embed``), as the
+reference adds them (``thunder_tpu/serving/paged_attention.py:186-188``).
+
 Parity contract: the kernels score the arena's committed slots and fold
 the fresh K/V — cast to the cache dtype, exactly what the dense path would
 have just written — as the final online-softmax term, so greedy tokens
@@ -73,12 +77,17 @@ __all__ = ["forward_paged", "write_fresh_kv", "write_fresh_kv_live", "write_fres
            "write_fresh_kv_chunk", "paged_supported"]
 
 
-def paged_supported(cfg, *, block_size: int, device) -> tuple[bool, str]:
+def paged_supported(cfg, *, block_size: int, device,
+                    custom_forward: bool = False) -> tuple[bool, str]:
     """Support check for the paged path of a pool of ``block_size`` on
-    ``device``: ``(ok, why)``.  On a CUDA device, whether the paged
-    attention kernels hold the config's query heads per group, block size
-    and head size (``cudaex.paged_kernels_decline``); the CPU runs the
-    kernels' plain versions, which take any."""
+    ``device``: ``(ok, why)``.  The kernels mirror ``forward_with_cache``'s
+    math, so an engine over a custom ``model_fn`` (``custom_forward``)
+    cannot ride them.  On a CUDA device, whether the paged attention kernels
+    hold the config's query heads per group, block size and head size
+    (``cudaex.paged_kernels_decline``); the CPU runs the kernels' plain
+    versions, which take any."""
+    if custom_forward:
+        return False, "custom model_fn (kernel mirrors forward_with_cache)"
     if torch.device(device).type == "cuda":
         why = paged_kernels_decline(cfg.n_head // cfg.n_query_groups, block_size, cfg.head_size)
         if why:

@@ -2,7 +2,8 @@
 
 Counterpart of ``thunder_tpu/serving/scheduler.py``, whole; the one change
 is that a request carries its own ``torch.Generator`` (``generator``) where
-the JAX package carries a PRNG key.
+the JAX package carries a PRNG key (so :meth:`Scheduler.preempt` relies on
+the engine to restore it).
 
 The scheduler owns the *request-level* state machine — queued → running →
 finished — and every policy decision:
@@ -380,12 +381,15 @@ class Scheduler:
     def preempt(self, req: Request) -> None:
         """Evict-and-resume checkpoint: running → queued, blocks released.
 
-        The checkpoint is purely host-side — prompt, generated tokens and
-        the PRNG key chain are already exact (keys only advance at
-        harvest) — so releasing the blocks loses nothing that the
-        ``prefill_chunk`` replay cannot rebuild bit-identically at
-        re-admission.  The caller (the engine) must scrub its prefix
-        index for this request *before* calling, exactly as for finish.
+        The checkpoint is host-side: prompt and generated tokens are
+        exact, and the engine gives the request's ``torch.Generator`` back
+        the state it saved at the last harvest (a port generator advances
+        when a step draws, at dispatch; the engine drops an in-flight
+        step's record for this request by ``preemptions``, its epoch).  So
+        releasing the blocks loses nothing that the chunk-step replay
+        cannot rebuild at re-admission.  The caller (the engine) must scrub
+        its prefix index for this request *before* calling, exactly as for
+        finish.
         Re-queued at the front of its own class (seniority by submit
         time), behind every strictly more urgent entry."""
         assert req.state == "running", f"cannot preempt {req.state} request"

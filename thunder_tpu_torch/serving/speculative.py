@@ -94,8 +94,11 @@ class SpecConfig:
     draft_kv_dtype: Any = None
 
 
-def validate_spec(spec: SpecConfig, cfg, *, device: torch.device) -> None:
-    """Engine-construction validation, before any allocation."""
+def validate_spec(spec: SpecConfig, cfg, *, device: torch.device,
+                  custom_forward: bool = False) -> None:
+    """Engine-construction validation, before any allocation.  A
+    learned-position draft serves: the engine caps its buckets at the
+    shortest learned position table of target and draft."""
     if not isinstance(spec, SpecConfig):
         raise TypeError(f"speculative= expects SpecConfig, got {type(spec).__name__}")
     if spec.K < 1:
@@ -110,8 +113,11 @@ def validate_spec(spec: SpecConfig, cfg, *, device: torch.device) -> None:
             "speculative serving does not support sliding-window engines: window expiry "
             "would invalidate the K-token draft/verify arena math (solo "
             "speculative_generate has the same restriction)")
-    if dcfg.learned_pos_embedding:
-        raise NotImplementedError("SpecConfig: learned_pos_embedding drafts are not ported yet")
+    if custom_forward:
+        raise ValueError(
+            "speculative serving requires the in-tree forward (model_fn=None): the draft and "
+            "verify steps mirror the solo speculative_generate() draws, which a custom forward "
+            "cannot guarantee")
     if spec.draft_params["wte"].device.type != device.type:
         raise ValueError(f"draft params live on {spec.draft_params['wte'].device}, "
                          f"the engine on {device}")
@@ -166,7 +172,7 @@ def build_spec_prefill(eng, Tb: int, nbb: int):
     written, token 0 drawn from the target's logits."""
     run = _prefill_both(eng, nbb)
 
-    def spec_prefill(toks, pos, n_real, table, dest, generator, slots):
+    def spec_prefill(toks, pos, n_real, table, dest, generator, slots, cmask=None):
         logits, qerr = run(toks, pos, table, dest, slots)
         return sample_token(logits[:, n_real - 1], eng.temperature, generator), qerr  # (1,)
 
