@@ -326,11 +326,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     a constrained batch's unconstrained rows equal an unconstrained
     engine's, routed tokens equal the solo engine's; gpt2-124m float32
     paged equals gather.  The phase prints its seconds;
-18. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+18. the front end (``frontend_phase``, on Llama-3-8B params from seed 0 at
+    full width, B=1, T=2048, after phase 15): (a) ``ttt.jit(LlamaModule)``,
+    a LitGPT-style Llama written with ``nn.Linear``, RMSNorm, RoPE,
+    ``F.scaled_dot_product_attention(..., is_causal=True, enable_gqa=True)``
+    and ``F.cross_entropy``, at 32 layers in bf16: one forward and
+    ``loss.backward()`` launch exactly the flash kernels the forward and
+    backward programs name (``flash_fwd`` per layer and per recompute,
+    ``flash_bwd_dq``/``_dkv`` per layer, one ``flash_ce``), no declines,
+    every parameter gets a ``.grad``; the second call is a cache hit after
+    which ``memory_allocated`` is the pre-call level plus the grads (the
+    residuals released); at 4 layers float32 against the eager module (loss
+    1e-5 relative, each grad 1e-4 of its max), bf16 by the ratio bar against
+    that float32 run, and after an AdamW step a cache hit that sees the new
+    weights; step ms, device ms by kernel group, peak GiB and the regions
+    compiled, printed beside phase 10's step; (b) phase 12's
+    ``jit(gpt_loss)`` with ``profile=True``: the loss bitwise equal, one
+    ``cuda_sdpa`` record per layer, times > 0 within the call's wall, each
+    region's FLOPs the 2·M·N·K of its linears, the top ten printed; (c) with
+    ``detect_anomalies=True``: the clean loss bitwise equal, a NaN planted
+    in a weight row raises ``AnomalyError`` at the first symbol reading it;
+    (d) an HF-layout gpt2-124m state dict from a seed, converted by
+    ``models/hf_weights.py`` bitwise equal to the hand layout, served paged
+    at full width and depth (12 ``paged_attn_decode`` and one write a
+    step), float32 greedy tokens paged equal to gather.  The phase prints
+    its seconds;
+19. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -340,6 +366,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -3230,6 +3257,7 @@ def train_full_width(params, cfg):
     L = cfg.n_layer
     want = step_launches_want(step, TRAIN_STEPS, L, "traced step")
     step_s = float(np.mean(times[1:]))
+    PHASE10_STEP_MS.append(round(1e3 * step_s, 1))
     flops = model_flops(cfg, param_count(params))
     bw_peak = peak_live_bytes(del_last_used(step.bw_trace))
     say(f"train {cfg.name} bf16 through the trace, {L} layers, B={TRAIN_B} T={TRAIN_T}, remat "
@@ -4135,6 +4163,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     graphs_rec, served["graphs phase"] = graphs_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    frontend_rec, frontend_launches = frontend_phase()
+    served.update(frontend_launches)
 
     sources = {"paged_attn_decode": "paged_attention.cu", "paged_token_write": "paged_attention.cu",
                "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",
@@ -4175,6 +4207,7 @@ def main() -> int:
     say("mixtral: " + json.dumps(mix))
     say("graphs phase: " + json.dumps(graphs_rec))
     say("stateful phase: " + json.dumps(stateful_rec))
+    say("frontend phase: " + json.dumps(frontend_rec))
     say("fusion: " + json.dumps({"regions compiled": inductorex.STATS["compiles"],
                                   "compile_s": inductorex.STATS["compile_s"],
                                   "compiled calls": inductorex.STATS["calls"],
@@ -5659,6 +5692,587 @@ def stateful_phase(params, cfg) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     rec.update(card=CARD, seconds=time.perf_counter() - t0)
     say(f"phase 17 (stateful and replicated serving) took {rec['seconds']:.1f} s")
+    return rec, launches
+
+
+#
+# Phase 18: the front end.  jit of a torch.nn.Module (ThunderModule and its
+# autograd bridge), the runtime profiler, the anomaly hooks, and an HF
+# state dict converted and served
+#
+
+
+class RMSNorm(torch.nn.Module):
+    def __init__(self, size: int, eps: float):
+        super().__init__()
+        self.weight = torch.nn.Parameter(torch.ones(size))
+        self.eps = eps
+
+    def forward(self, x):
+        xf = x.float()
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        xf = xf * torch.rsqrt(ms + self.eps)
+        return (xf * self.weight.float()).to(x.dtype)
+
+
+def rope(x, cos, sin):
+    half = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return (x * cos + rotated * sin).to(x.dtype)
+
+
+class Attention(torch.nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        C, hs = cfg.n_embd, cfg.head_size
+        self.nh, self.ng, self.hs = cfg.n_head, cfg.n_query_groups, hs
+        self.wq = torch.nn.Linear(C, self.nh * hs, bias=False)
+        self.wk = torch.nn.Linear(C, self.ng * hs, bias=False)
+        self.wv = torch.nn.Linear(C, self.ng * hs, bias=False)
+        self.wo = torch.nn.Linear(self.nh * hs, C, bias=False)
+
+    def forward(self, x, cos, sin):
+        B, T, _ = x.shape
+        q = self.wq(x).reshape(B, T, self.nh, self.hs).transpose(1, 2)
+        k = self.wk(x).reshape(B, T, self.ng, self.hs).transpose(1, 2)
+        v = self.wv(x).reshape(B, T, self.ng, self.hs).transpose(1, 2)
+        # LitGPT ropes the first rope_n_elem channels (all of them here)
+        q, k = rope(q[..., :self.hs], cos, sin), rope(k[..., :self.hs], cos, sin)
+        y = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        return self.wo(y.transpose(1, 2).reshape(B, T, self.nh * self.hs))
+
+
+class MLP(torch.nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        C, inter = cfg.n_embd, cfg.intermediate_size
+        self.fc_1 = torch.nn.Linear(C, inter, bias=False)
+        self.fc_2 = torch.nn.Linear(C, inter, bias=False)
+        self.proj = torch.nn.Linear(inter, C, bias=False)
+
+    def forward(self, x):
+        return self.proj(F.silu(self.fc_1(x)) * self.fc_2(x))
+
+
+class Block(torch.nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.norm_1 = RMSNorm(cfg.n_embd, cfg.norm_eps)
+        self.attn = Attention(cfg)
+        self.norm_2 = RMSNorm(cfg.n_embd, cfg.norm_eps)
+        self.mlp = MLP(cfg)
+
+    def forward(self, x, cos, sin):
+        x = x + self.attn(self.norm_1(x), cos, sin)
+        return x + self.mlp(self.norm_2(x))
+
+
+class LlamaModule(torch.nn.Module):
+    """A LitGPT-style Llama written with stock ``torch``/``F`` calls: its
+    forward takes token ids and targets and returns the mean next-token
+    cross-entropy.  The rotary tables are non-persistent buffers built for
+    ``seq_len`` tokens."""
+
+    def __init__(self, cfg: Config, seq_len: int):
+        super().__init__()
+        self.wte = torch.nn.Embedding(cfg.padded_vocab_size, cfg.n_embd)
+        self.blocks = torch.nn.ModuleList(Block(cfg) for _ in range(cfg.n_layer))
+        self.ln_f = RMSNorm(cfg.n_embd, cfg.norm_eps)
+        self.lm_head = torch.nn.Linear(cfg.n_embd, cfg.padded_vocab_size, bias=False)
+        cos, sin = build_rope_cache(cfg, seq_len, device=self.wte.weight.device)
+        self.register_buffer("cos", cos, persistent=False)
+        self.register_buffer("sin", sin, persistent=False)
+
+    def forward(self, idx, targets):
+        cos, sin = self.cos, self.sin
+        if idx.shape[1] != cos.shape[0]:
+            cos, sin = cos[:idx.shape[1]], sin[:idx.shape[1]]
+        x = self.wte(idx)
+        for block in self.blocks:
+            x = block(x, cos, sin)
+        logits = self.lm_head(self.ln_f(x))
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(), targets.reshape(-1))
+
+
+# the module's parameter names against the functional params' paths
+MODULE_PARAMS = {"wte.weight": ("wte",), "ln_f.weight": ("ln_f",), "lm_head.weight": ("lm_head",)}
+BLOCK_PARAMS = {"norm_1.weight": ("norm_1",), "norm_2.weight": ("norm_2",),
+                **{f"attn.{n}.weight": ("attn", n) for n in ("wq", "wk", "wv", "wo")},
+                **{f"mlp.{n}.weight": ("mlp", n) for n in ("fc_1", "fc_2", "proj")}}
+
+
+def llama_module(params, cfg: Config, seq_len: int, device=None) -> LlamaModule:
+    """A :class:`LlamaModule` whose parameters are ``params``' tensors (no
+    copies: each ``nn.Parameter`` wraps the functional param itself)."""
+    with torch.device("meta"):
+        module = LlamaModule(dataclasses.replace(cfg, n_layer=len(params["blocks"])), seq_len)
+    device = params["wte"].device if device is None else device
+    cos, sin = build_rope_cache(cfg, seq_len, device=device)
+    module.cos, module.sin = cos, sin
+
+    def put(mod, name, value):
+        owner, _, attr = name.rpartition(".")
+        setattr(mod.get_submodule(owner), attr, torch.nn.Parameter(value))
+
+    for name, path in MODULE_PARAMS.items():
+        put(module, name, functools.reduce(lambda d, k: d[k], path, params))
+    for i, bp in enumerate(params["blocks"]):
+        for name, path in BLOCK_PARAMS.items():
+            put(module.blocks[i], name, functools.reduce(lambda d, k: d[k], path, bp))
+    return module
+
+
+FRONTEND_LAYERS = 32           # (a): the module's depth at full width
+FRONTEND_CHECK_LAYERS = 4      # (a): the float32 and bf16 checks and the AdamW step
+FRONTEND_MEM_SLACK = 64 << 20  # (a): memory_allocated after backward over the pre-call level + grads
+MODULE_LOSS_REL_F32 = 1e-5     # (a): float32 loss against the eager module's, relative
+MODULE_GRAD_REL_F32 = 1e-4     # (a): float32 grads against the eager module's, of each grad's max
+HF_GPT2 = types.SimpleNamespace(model_type="gpt2", n_positions=1024, vocab_size=50257, n_layer=12,
+                                n_head=12, n_embd=768, n_inner=None, layer_norm_epsilon=1e-5,
+                                activation_function="gelu_new")   # (d): gpt2-124m's HF config
+PHASE10_STEP_MS: list = []     # phase 10's traced step times, printed beside (a)'s
+SDPA_SYMBOLS = ("cuda_sdpa", "cuda_sdpa_backward")   # the flash kernels' claimed symbols
+
+
+def _module_run(tm, module, idx, tgt):
+    """One forward and ``loss.backward()``: (loss, {name: grad})."""
+    for p in module.parameters():
+        p.grad = None
+    loss = tm(idx, tgt)
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in module.named_parameters()}
+
+
+def _program_launches(tm, n_layer: int, label: str) -> dict:
+    """The launches one forward and backward of ``tm`` must count, read
+    from its programs: ``flash_fwd`` per ``cuda_sdpa`` of both (each layer
+    once, once more per recompute), ``flash_bwd_dq``/``_dkv`` per
+    ``cuda_sdpa_backward`` and ``flash_ce`` per ``torch_cross_entropy_fwd``;
+    fails on a symbol other than ``cuda_*``, ``torch_*`` and regions, or on a
+    region holding what it may not."""
+    fw, bw = ttt.last_traces(tm)[-1], ttt.last_backward_traces(tm)[-1]
+    count = {tr: [b.sym.name for b in t.bound_symbols] for tr, t in (("fw", fw), ("bw", bw))}
+    stray = [n for t in (fw, bw) for b in t.bound_symbols for n in [b.sym.name]
+             if not n.startswith(("cuda_", "torch_", "python_")) and not b.sym.is_fusion
+             and b.sym.id is not ir_prims.PrimIDs.RETURN and n != "unpack_saved"
+             ] + region_problems([fw, bw])
+    n_fw = count["fw"].count(SDPA_SYMBOLS[0])
+    n_re = count["bw"].count(SDPA_SYMBOLS[0])
+    n_bwd = count["bw"].count(SDPA_SYMBOLS[1])
+    n_ce = count["fw"].count("torch_cross_entropy_fwd")
+    regions = [sum(b.sym.is_fusion for b in t.bound_symbols) for t in (fw, bw)]
+    say(f"{label} programs: {len(fw.bound_symbols)} forward and {len(bw.bound_symbols)} backward "
+        f"bound symbols, fusion regions {regions}; cuda_sdpa {n_fw} forward + {n_re} recomputed, "
+        f"cuda_sdpa_backward {n_bwd}, torch_cross_entropy_fwd {n_ce}; stray {stray}")
+    if stray or n_fw != n_layer or n_bwd != n_layer or n_ce != 1:
+        raise AssertionError(f"{label}: the programs' symbols: {count}, stray {stray}")
+    return no_launches_but(flash_fwd=n_fw + n_re, flash_bwd_dq=n_bwd, flash_bwd_dkv=n_bwd,
+                           flash_ce=n_ce)
+
+
+def _add(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def module_full_width(params, cfg) -> tuple[dict, dict]:
+    """(a) ``jit(LlamaModule)`` of Llama-3-8B at full width and
+    FRONTEND_LAYERS layers, bf16, B=1, T=JIT_T: exact launches from the
+    programs, no declines, every parameter's ``.grad``; the second call a
+    cache hit whose memory after backward is the pre-call level plus the
+    grads (within FRONTEND_MEM_SLACK); step ms, peak GiB, device ms by
+    kernel group, regions compiled against those met before."""
+    n = FRONTEND_LAYERS
+    cfgn = Config.from_name(cfg.name, n_layer=n)
+    module = llama_module({**params, "blocks": params["blocks"][:n]}, cfgn, JIT_T)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    idx, tgt, _, _ = jit_batch(cfgn, JIT_T, gen)
+    for key in ltorch.DECLINES:
+        ltorch.DECLINES[key] = 0
+    total = {}
+    tm = ttt.jit(module)
+    before = dict(inductorex.STATS)
+    cudaex.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = _module_run(tm, module, idx, tgt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = dict(cudaex.LAUNCHES)
+    _add(total, got)
+    compiles = inductorex.STATS["compiles"] - before["compiles"]
+    compile_s = inductorex.STATS["compile_s"] - before["compile_s"]
+    want = _program_launches(tm, n, f"phase 18 (a) jit(LlamaModule) {n} layers")
+    missing = [k for k, g in grads.items() if g is None]
+    fw, bw = ttt.last_traces(tm)[-1], ttt.last_backward_traces(tm)[-1]
+    regions = [b._call_ctx[b.sym.name] for t in (fw, bw) for b in t.bound_symbols
+               if b.sym.is_fusion]
+    structures = len({r.key for r in regions})
+    if got != want or any(ltorch.DECLINES.values()) or missing or not math.isfinite(loss.item()):
+        raise AssertionError(f"phase 18 (a): launches {got} != {want}, declines "
+                             f"{ltorch.DECLINES}, params without grad {missing[:4]}, loss {loss}")
+    # the second call: a cache hit; the residuals die with backward
+    del grads
+    for p in module.parameters():
+        p.grad = None
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cudaex.reset_launches()
+    t0 = time.perf_counter()
+    loss2, grads = _module_run(tm, module, idx, tgt)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    got2 = dict(cudaex.LAUNCHES)
+    _add(total, got2)
+    peak = torch.cuda.max_memory_allocated()
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads.values())
+    del loss2
+    gc.collect()
+    left = torch.cuda.memory_allocated() - mem0 - grad_bytes
+    hits = (ttt.cache_hits(tm), ttt.cache_misses(tm))
+    ok = got2 == want and abs(left) <= FRONTEND_MEM_SLACK and hits == (1, 1)
+    # device time by kernel group over one more call
+    del grads
+    for p in module.parameters():
+        p.grad = None
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        cudaex.reset_launches()
+        _module_run(tm, module, idx, tgt)
+        torch.cuda.synchronize()
+    _add(total, cudaex.LAUNCHES)
+    spans = [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    groups: dict[str, float] = {}
+    for name, dur in spans:
+        groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + dur / 1e3
+    busy = sum(groups.values()) if spans else None
+    rec = dict(layers=n, first_call_s=first_s, step_ms=1e3 * step_s, peak_gib=peak / 2**30,
+               grad_bytes=grad_bytes, left_after_backward_bytes=left, device_busy_ms=busy,
+               device_ms_by_group={k: round(v, 3) for k, v in groups.items()},
+               regions=len(regions), structures=structures, regions_compiled=compiles,
+               compile_s=compile_s, cache=dict(zip(("hits", "misses"), hits)),
+               launches_per_call=want, loss=loss.item())
+    say(f"phase 18 (a) jit(LlamaModule) {cfg.name} {n} layers, bf16, B=1, T={JIT_T} ({CARD}): "
+        f"first call (trace, claim, compile) {first_s:.1f} s with {compiles} of {structures} "
+        f"region structures compiled in {compile_s:.1f} s (the rest met before in this run); "
+        f"step (forward + loss.backward(), a cache hit) {1e3 * step_s:.1f} ms beside phase 10's "
+        f"traced step {PHASE10_STEP_MS or 'not run'} ms (no bar); peak {peak / 2**30:.2f} GiB; "
+        f"device busy {busy} ms by group {rec['device_ms_by_group']}; after backward "
+        f"memory_allocated is the pre-call level + {grad_bytes} B of grads + {left} B (slack "
+        f"{FRONTEND_MEM_SLACK}); launches per call {got2} (expected {want}); cache hits/misses "
+        f"{hits}; loss {loss.item():.6f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 18 (a): second call launches {got2}, {left} B left after "
+                             f"backward beyond the grads, cache {hits}")
+    del tm, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, total
+
+
+def _grad_err(grads, ref) -> float:
+    """‖g − ref‖ / ‖ref‖ over every parameter's grad (float64)."""
+    num = sum(float(((grads[k].double() - ref[k].double()) ** 2).sum()) for k in ref)
+    den = sum(float((ref[k].double() ** 2).sum()) for k in ref)
+    return math.sqrt(num / den)
+
+
+def module_checks(params, cfg) -> tuple[dict, dict]:
+    """(a) at FRONTEND_CHECK_LAYERS layers: float32 jitted against the eager
+    module (loss within MODULE_LOSS_REL_F32, each grad within
+    MODULE_GRAD_REL_F32 of its max); bf16 error against that float32 run at
+    most LOWP_ERR_RATIO times the eager bf16 module's (loss and grads);
+    then an AdamW step, and the next call a cache hit that sees the new
+    weights: bitwise equal to a fresh ``jit`` of the updated module."""
+    n = FRONTEND_CHECK_LAYERS
+    cfgn = Config.from_name(cfg.name, n_layer=n)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 181)
+    idx, tgt, _, _ = jit_batch(cfgn, JIT_T, gen)
+    total = {}
+    p4 = {**params, "blocks": params["blocks"][:n]}
+    m32 = llama_module(_cast(p4, torch.float32), cfgn, JIT_T)
+    cudaex.reset_launches()
+    lj32, gj32 = _module_run(ttt.jit(m32), m32, idx, tgt)
+    _add(total, cudaex.LAUNCHES)
+    gj32 = {k: v.clone() for k, v in gj32.items()}
+    le32, ge32 = _module_run(m32, m32, idx, tgt)
+    rel = abs(lj32.item() - le32.item()) / abs(le32.item())
+    gworst = max(float((gj32[k] - ge32[k]).abs().max() / ge32[k].abs().max()) for k in ge32)
+    ok32 = rel <= MODULE_LOSS_REL_F32 and gworst <= MODULE_GRAD_REL_F32
+    ge32 = {k: v.clone() for k, v in ge32.items()}
+    del m32, gj32
+    gc.collect()
+    torch.cuda.empty_cache()
+    m16 = llama_module(p4, cfgn, JIT_T)
+    tm16 = ttt.jit(m16)
+    cudaex.reset_launches()
+    lj16, gj16 = _module_run(tm16, m16, idx, tgt)
+    _add(total, cudaex.LAUNCHES)
+    gj16 = {k: v.clone() for k, v in gj16.items()}
+    le16, ge16 = _module_run(m16, m16, idx, tgt)
+    loss_err, eager_loss_err = abs(lj16.item() - le32.item()), abs(le16.item() - le32.item())
+    grad_err, eager_grad_err = _grad_err(gj16, ge32), _grad_err(ge16, ge32)
+    ok16 = loss_err <= LOWP_ERR_RATIO * eager_loss_err and grad_err <= LOWP_ERR_RATIO * eager_grad_err
+    del gj16, ge16, ge32
+    # AdamW on the module's parameters, then a cache hit on the new weights
+    _module_run(tm16, m16, idx, tgt)
+    opt = torch.optim.AdamW(m16.parameters(), lr=1e-3, foreach=False)
+    opt.step()
+    hits, misses = ttt.cache_hits(tm16), ttt.cache_misses(tm16)
+    cudaex.reset_launches()
+    after, _ = _module_run(tm16, m16, idx, tgt)
+    _add(total, cudaex.LAUNCHES)
+    fresh, _ = _module_run(ttt.jit(m16), m16, idx, tgt)
+    hit = (ttt.cache_hits(tm16) - hits, ttt.cache_misses(tm16) - misses) == (1, 0)
+    okstep = hit and torch.equal(after, fresh) and after.item() != lj16.item()
+    rec = dict(f32_loss=lj32.item(), f32_eager_loss=le32.item(), f32_rel=rel,
+               f32_worst_grad_rel=gworst, bf16_loss_err=loss_err,
+               eager_bf16_loss_err=eager_loss_err, bf16_grad_err=grad_err,
+               eager_bf16_grad_err=eager_grad_err, loss_after_adamw=after.item(),
+               fresh_jit_loss=fresh.item(), cache_hit=hit)
+    say(f"phase 18 (a) at {n} layers ({CARD}): float32 loss {lj32.item():.8f} against eager "
+        f"{le32.item():.8f} (rel {rel:.2e}, bar {MODULE_LOSS_REL_F32:.0e}), worst grad "
+        f"{gworst:.2e} of its max (bar {MODULE_GRAD_REL_F32:.0e}) {'ok' if ok32 else 'FAIL'}; "
+        f"bf16 against the float32 eager run: loss error {loss_err:.3e} (eager bf16 "
+        f"{eager_loss_err:.3e}), grads ‖Δ‖/‖g‖ {grad_err:.3e} (eager bf16 {eager_grad_err:.3e}; "
+        f"ratio limit {LOWP_ERR_RATIO}) {'ok' if ok16 else 'FAIL'}; after an AdamW step: loss "
+        f"{after.item():.6f} (a cache hit: {hit}) = a fresh jit's {fresh.item():.6f}: "
+        f"{torch.equal(after, fresh)} {'ok' if okstep else 'FAIL'}")
+    if not (ok32 and ok16 and okstep):
+        raise AssertionError(f"phase 18 (a) checks at {n} layers: {rec}")
+    del m16, tm16, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, total
+
+
+def _region_product_flops(bsym) -> float:
+    """2·M·N·K summed over a region's linears and matmuls (the products
+    ``FlopCounterMode`` counts)."""
+    flops = 0.0
+    for c in bsym._call_ctx[bsym.sym.name].trace.bound_symbols:
+        if c.sym.name == "torch_linear":
+            x, w = c.args[0], c.args[1]
+            flops += 2.0 * math.prod(x.shape[:-1]) * x.shape[-1] * w.shape[0]
+        elif c.sym.name == "torch_matmul":
+            a, b = c.args[0], c.args[1]
+            flops += 2.0 * math.prod(a.shape[:-1]) * a.shape[-1] * b.shape[-1]
+    return flops
+
+
+def profile_gpt_loss(params, cfg, batch, want_loss) -> tuple[dict, dict]:
+    """(b) phase 12's ``jit(gpt_loss)`` with ``profile=True`` (barriers on):
+    the loss bitwise equal to the unprofiled call's, one ``cuda_sdpa``
+    record per layer, every record called once a call with time > 0, the
+    second call's summed record time within its wall time, each region's
+    FLOPs the 2·M·N·K of its linears; the top ten records printed."""
+    loss_fn = lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg)     # noqa: E731
+    pj = ttt.jit(loss_fn, profile=True)
+    cudaex.reset_launches()
+    l1 = pj(params, *batch)
+    torch.cuda.synchronize()
+    report = ttt.profile_stats(pj)
+    first = {r.name: r.total_ns for r in report.records}
+    t0 = time.perf_counter_ns()
+    l2 = pj(params, *batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter_ns() - t0
+    total = dict(cudaex.LAUNCHES)
+    second = sum(r.total_ns - first[r.name] for r in report.records)
+    sdpa = [r for r in report.records if r.symbol == SDPA_SYMBOLS[0]]
+    calls = {r.calls for r in report.records}
+    pre = ttt.last_traces(pj)[-2]
+    flop_checks = [(r.name, r.cost()[0], _region_product_flops(pre.bound_symbols[r.index]))
+                   for r in report.records if pre.bound_symbols[r.index].sym.is_fusion]
+    flops_ok = all(got == want for _, got, want in flop_checks) and any(w for *_, w in flop_checks)
+    ok = (torch.equal(l1, want_loss) and torch.equal(l2, want_loss) and len(sdpa) == cfg.n_layer
+          and calls == {2} and all(r.min_ns > 0 for r in report.records) and second <= wall
+          and flops_ok)
+    say(f"phase 18 (b) jit(gpt_loss, profile=True) ({cfg.n_layer} layers; {CARD}): loss bitwise "
+        f"equal to the unprofiled call's {torch.equal(l1, want_loss)}, {torch.equal(l2, want_loss)}; "
+        f"{len(report)} records, {len(sdpa)} cuda_sdpa, calls per record {calls}; the second "
+        f"call's records sum {second / 1e6:.3f} ms within its wall {wall / 1e6:.3f} ms; regions' "
+        f"FLOPs = 2·M·N·K of their linears: {flops_ok} ({len(flop_checks)} regions) "
+        f"{'ok' if ok else 'FAIL'}; top ten:\n" + report.table(limit=10))
+    if not ok:
+        raise AssertionError(f"phase 18 (b): {flop_checks[:4]}")
+    return dict(records=len(report), sdpa_records=len(sdpa), second_call_records_ms=second / 1e6,
+                second_call_wall_ms=wall / 1e6,
+                top=[(r, round(report[r]["total_ns"] / 1e6, 3)) for r in
+                     sorted(report, key=lambda k: -report[k]["total_ns"])[:10]]), total
+
+
+def anomaly_gpt_loss(params, cfg, batch, want_loss) -> tuple[dict, dict]:
+    """(c) phase 12's ``jit(gpt_loss)`` with ``detect_anomalies=True``: the
+    clean call bitwise equal; with a NaN planted in one row of block 0's
+    ``wq``, ``AnomalyError`` at the first executed symbol that reads it (the
+    symbol the reference names, ``tests/test_torch_port_profiler.py``)."""
+    loss_fn = lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg)     # noqa: E731
+    w = params["blocks"][0]["attn"]["wq"]
+    readers = []
+
+    def pre(info, args, kwargs):
+        if not readers and any(isinstance(a, torch.Tensor) and a.data_ptr() == w.data_ptr()
+                               and a.shape == w.shape for a in args):
+            readers.append(info.name)
+
+    dj = ttt.jit(loss_fn, detect_anomalies=True, debug_hooks={"pre": pre})
+    cudaex.reset_launches()
+    clean = dj(params, *batch)
+    torch.cuda.synchronize()
+    total = dict(cudaex.LAUNCHES)
+    row = w[3].clone()
+    w[3] = float("nan")
+    try:
+        dj(params, *batch)
+    except ttt.AnomalyError as e:
+        err = e
+    else:
+        err = None
+    finally:
+        w[3] = row
+    torch.cuda.synchronize()
+    ok = torch.equal(clean, want_loss) and err is not None and readers and err.symbol == readers[0]
+    say(f"phase 18 (c) jit(gpt_loss, detect_anomalies=True) ({CARD}): clean loss bitwise equal "
+        f"{torch.equal(clean, want_loss)}; NaN in wq[3] of block 0: AnomalyError at "
+        f"{getattr(err, 'symbol', None)!r} ({getattr(err, 'nan_count', None)} NaN), the first "
+        f"reader of wq {readers[:1]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 18 (c): {err!r}")
+    return dict(symbol=err.symbol, nan_count=err.nan_count, kind=err.kind), total
+
+
+def _hf_gpt2_state_dict(hf, gen) -> dict:
+    """An HF ``GPT2LMHeadModel`` state dict at ``hf``'s widths, float32 on
+    the card, from ``gen`` (std 0.02, norms around 1)."""
+    C, V, P, L = hf.n_embd, hf.vocab_size, hf.n_positions, hf.n_layer
+
+    def rnd(*shape, mean=0.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * 0.02 + mean
+
+    sd = {"transformer.wte.weight": rnd(V, C), "transformer.wpe.weight": rnd(P, C),
+          "transformer.ln_f.weight": rnd(C, mean=1.0), "transformer.ln_f.bias": rnd(C)}
+    for i in range(L):
+        p = f"transformer.h.{i}."
+        sd.update({p + "ln_1.weight": rnd(C, mean=1.0), p + "ln_1.bias": rnd(C),
+                   p + "attn.c_attn.weight": rnd(C, 3 * C), p + "attn.c_attn.bias": rnd(3 * C),
+                   p + "attn.c_proj.weight": rnd(C, C), p + "attn.c_proj.bias": rnd(C),
+                   p + "ln_2.weight": rnd(C, mean=1.0), p + "ln_2.bias": rnd(C),
+                   p + "mlp.c_fc.weight": rnd(C, 4 * C), p + "mlp.c_fc.bias": rnd(4 * C),
+                   p + "mlp.c_proj.weight": rnd(4 * C, C), p + "mlp.c_proj.bias": rnd(C)})
+    return sd
+
+
+def _gpt2_by_hand(sd, hf, dtype) -> dict:
+    """The same values laid out in the params' layout by hand: Conv1D
+    weights transposed, ``c_attn`` split into q/k/v."""
+    C = hf.n_embd
+
+    def t(name):
+        return sd["transformer." + name].to(dtype)
+
+    blocks = []
+    for i in range(hf.n_layer):
+        p = f"h.{i}."
+        ca, cb = sd[f"transformer.{p}attn.c_attn.weight"].T, t(p + "attn.c_attn.bias")
+        blocks.append({"norm_1": t(p + "ln_1.weight"), "norm_1_b": t(p + "ln_1.bias"),
+                       "attn": {"wq": ca[:C].to(dtype), "wk": ca[C:2 * C].to(dtype),
+                                "wv": ca[2 * C:].to(dtype), "bq": cb[:C], "bk": cb[C:2 * C],
+                                "bv": cb[2 * C:], "wo": t(p + "attn.c_proj.weight").T,
+                                "bo": t(p + "attn.c_proj.bias")},
+                       "norm_2": t(p + "ln_2.weight"), "norm_2_b": t(p + "ln_2.bias"),
+                       "mlp": {"fc": t(p + "mlp.c_fc.weight").T, "fc_b": t(p + "mlp.c_fc.bias"),
+                               "proj": t(p + "mlp.c_proj.weight").T,
+                               "proj_b": t(p + "mlp.c_proj.bias")}})
+    return {"wte": t("wte.weight"), "wpe": t("wpe.weight"), "ln_f": t("ln_f.weight"),
+            "ln_f_b": t("ln_f.bias"), "blocks": blocks}
+
+
+def _tree_bitwise(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.contiguous().view(torch.int16) if x.dtype == torch.bfloat16 else x,
+                        y.contiguous().view(torch.int16) if y.dtype == torch.bfloat16 else y)
+        for x, y in zip(la, lb))
+
+
+def hf_gpt2_serve() -> tuple[dict, dict]:
+    """(d) gpt2-124m's HF-layout state dict from a seed, converted by
+    ``config_from_hf``/``from_gpt2_state_dict``: bitwise equal to the same
+    values laid out by hand (bf16 and float32); served paged at full width
+    and depth in bf16 (graphed, measured pass: 12 ``paged_attn_decode`` and
+    one write a decode step); float32 greedy tokens paged equal to the
+    gather lane's."""
+    from thunder_tpu_torch.models.hf_weights import config_from_hf, from_gpt2_state_dict
+
+    sd = _hf_gpt2_state_dict(HF_GPT2, torch.Generator(DEVICE).manual_seed(SEED + 184))
+    cfg = config_from_hf(HF_GPT2)
+    p16 = from_gpt2_state_dict(sd, cfg, dtype=torch.bfloat16, device=DEVICE)
+    p32 = from_gpt2_state_dict(sd, cfg, dtype=torch.float32, device=DEVICE)
+    same = (_tree_bitwise(p16, _gpt2_by_hand(sd, HF_GPT2, torch.bfloat16))
+            and _tree_bitwise(p32, _gpt2_by_hand(sd, HF_GPT2, torch.float32)))
+    del sd
+    rng = np.random.default_rng(SEED + 184)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(128, 961, 8)]
+    eng = stateful_engine(p16, cfg, num_blocks=512)
+    res, wall, launches, steps = stateful_pass("(18 d) HF gpt2-124m", eng, cfg,
+                                               lambda e, i: e.run(prompts, max_new_tokens=32))
+    check_results(res, 32, cfg.padded_vocab_size)
+    del eng
+    short = [p[:300] for p in prompts[:3]]
+    paged = [r.new_tokens for r in stateful_engine(p32, cfg, num_blocks=256).run(
+        short, max_new_tokens=8)]
+    gather = [r.new_tokens for r in stateful_engine(p32, cfg, num_blocks=256, attn="gather").run(
+        short, max_new_tokens=8)]
+    ok = same and paged == gather
+    rec = dict(params_bitwise=same, float32_paged_equals_gather=paged == gather,
+               decode_iters=steps["iters"], wall_s=wall,
+               **serve_stats("phase 18 (d) HF gpt2-124m bf16", res, wall))
+    say(f"phase 18 (d) HF gpt2-124m ({cfg.n_layer} layers, vocab {cfg.padded_vocab_size}; "
+        f"{CARD}): converted params bitwise equal to the hand layout {same}; served paged: "
+        f"{launches['paged_attn_decode']} paged_attn_decode and {launches['paged_token_write']} "
+        f"paged_token_write for {steps['iters']} decode steps; float32 greedy tokens paged = "
+        f"gather {paged == gather} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 18 (d): {rec}")
+    del p16, p32
+    return rec, launches
+
+
+def frontend_phase() -> tuple[dict, dict]:
+    """Phase 18: (a) ``jit`` of a ``torch.nn.Module`` at full width, (b)
+    ``profile=True``, (c) ``detect_anomalies=True``, (d) an HF state dict
+    converted and served.  Returns the phase's records and its launches by
+    path."""
+    t0 = time.perf_counter()
+    params, cfg = make_params()
+    launches, rec = {}, {}
+    rec["module"], launches["jit(module)"] = compiled_in("phase 18 (a)", module_full_width,
+                                                         params, cfg)
+    rec["module_checks"], launches["jit(module) checks"] = compiled_in(
+        "phase 18 (a) checks", module_checks, params, cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    batch = jit_batch(cfg, JIT_T, gen)
+    cudaex.reset_launches()
+    want = ttt.jit(lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg))(params, *batch)
+    torch.cuda.synchronize()
+    launches["jit gpt_loss (18 b, c)"] = dict(cudaex.LAUNCHES)
+    rec["profile"], got = profile_gpt_loss(params, cfg, batch, want)
+    _add(launches["jit gpt_loss (18 b, c)"], got)
+    rec["anomaly"], got = anomaly_gpt_loss(params, cfg, batch, want)
+    _add(launches["jit gpt_loss (18 b, c)"], got)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["hf_gpt2"], launches["HF gpt2 serve"] = hf_gpt2_serve()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(card=CARD, seconds=time.perf_counter() - t0)
+    say(f"phase 18 (the front end) took {rec['seconds']:.1f} s")
     return rec, launches
 
 

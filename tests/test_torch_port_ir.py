@@ -233,12 +233,16 @@ def test_deferred_seams_raise():
         ptrace_from_fn(functools.partial(unmapped, pclang), pargs, {},
                        language=PLanguages.CLANG)
 
+    # a concrete tensor inside the trace bakes into a constant proxy (its
+    # producer a zero-input TCONST symbol), as the reference's does
     def constant(c, x, y, s):
         return pprims.neg(torch.ones(4))
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ptrace_from_fn(functools.partial(constant, pclang), pargs, {},
-                       language=PLanguages.CLANG)
+    const = ptrace_from_fn(functools.partial(constant, pclang), pargs, {},
+                           language=PLanguages.CLANG).computation_trace
+    names = [b.sym.name for b in const.bound_symbols]
+    assert names[0].startswith("TCONST") and "neg" in names
+    assert not any(isinstance(a, torch.Tensor) for b in const.bound_symbols for a in b.flat_args)
     # the donation pass runs since executors/donation.py was ported: on the
     # fused program of the elementwise case it analyzes every region
     from thunder_tpu_torch.executors.passes import annotate_donations, del_last_used

@@ -46,11 +46,21 @@ from typing import Any, Callable, Sequence
 import torch as _real_torch
 
 from thunder_tpu_torch import clang  # noqa: F401
+from thunder_tpu_torch import numpy  # noqa: F401  (registers the numpy langctx)
 from thunder_tpu_torch import observability
 from thunder_tpu_torch import torch as _torch_language  # noqa: F401  (registers the torch langctx)
+
+# einops interop: registers the TensorProxy backend, gated on the package
+# being present (a broken interop module must raise, not leave proxies
+# unknown to einops)
+import importlib.util as _ilu
+
+if _ilu.find_spec("einops") is not None:
+    from thunder_tpu_torch import einops_support  # noqa: F401
 from thunder_tpu_torch.common import CacheEntry, CompileData, CompileStats
 from thunder_tpu_torch.core import cache_key as _cache_key
 from thunder_tpu_torch.core.autocast import autocast
+from thunder_tpu_torch.core.batching import jvp, vmap
 from thunder_tpu_torch.core.baseutils import check
 from thunder_tpu_torch.core.compile_data import compile_data_and_stats
 from thunder_tpu_torch.core.options import (
@@ -69,6 +79,8 @@ from thunder_tpu_torch.functional import trace_from_fn
 from thunder_tpu_torch.models.generate import generate
 from thunder_tpu_torch.models.llama import Config, gpt_loss, init_params
 from thunder_tpu_torch.models.weights import params_from_numpy
+from thunder_tpu_torch.observability import reset_observability
+from thunder_tpu_torch.observability.debug import AnomalyError
 from thunder_tpu_torch.observability.events import span as _phase_span
 from thunder_tpu_torch.serving.engine import ServingEngine, serve
 from thunder_tpu_torch.serving.lora import (
@@ -81,41 +93,22 @@ from thunder_tpu_torch.serving.speculative import SpecConfig
 from thunder_tpu_torch.train.loop import TrainLoopResult, train_loop
 from thunder_tpu_torch.train.optim import adamw
 
-__all__ = ["AdapterRegistry", "Config", "DonationError", "RegistryFullError", "ServingEngine", "SpecConfig",
+__all__ = ["AdapterRegistry", "AnomalyError", "Config", "DonationError", "RegistryFullError", "ServingEngine", "SpecConfig",
            "TrainLoopResult", "TrainStep", "adamw", "cache_hits", "cache_misses",
            "cache_option", "compile", "compile_data", "compile_stats", "dispatch_stats", "donation_stats",
-           "generate", "gpt_loss", "grad", "init_params", "jit", "last_backward_traces",
+           "generate", "gpt_loss", "grad", "init_params", "jit", "jvp", "last_backward_traces",
            "last_compile_options", "last_prologue_traces", "last_traces", "make_eager_train_step",
            "make_lora_factors", "make_train_step",
-           "metrics_snapshot", "params_from_numpy", "quantex", "serve", "train_loop",
-           "valid_targets", "value_and_grad", "vjp"]
+           "metrics_snapshot", "params_from_numpy", "profile_stats", "quantex",
+           "reset_observability", "serve", "train_loop",
+           "valid_targets", "value_and_grad", "vjp", "vmap"]
 
-# jit options whose machinery is not ported yet: the option, then the item
-# that brings it.  Each raises when given a value other than its "off"
-_DEFERRED_OPTIONS = {
-    "profile": "the runtime profiler (observability/profiler.py), which is not ported yet "
-               "(ROADMAP.md Queue 1 item 10)",
-    "detect_anomalies": "the debug hooks and anomaly scan (observability/debug.py), which are "
-                        "not ported yet (ROADMAP.md Queue 1 item 10)",
-    "debug_hooks": "the debug hooks and anomaly scan (observability/debug.py), which are not "
-                   "ported yet (ROADMAP.md Queue 1 item 10)",
-}
-
-
-def _check_deferred(fn, compile_options: dict) -> None:
-    for option, what in _DEFERRED_OPTIONS.items():
-        value = compile_options.get(option)
-        if value is not None and value is not False:
-            raise NotImplementedError(f"jit(..., {option}=) needs {what}")
+def _check_deferred(compile_options: dict) -> None:
     if compile_options.get("interpretation") == "bytecode":
         raise NotImplementedError(
             "jit(..., interpretation='bytecode') needs the bytecode interpreter "
             "(core/interpreter.py, core/jit_ext.py), which is not ported yet "
             "(ROADMAP.md Queue 1 item 13)")
-    if isinstance(fn, _real_torch.nn.Module):
-        raise NotImplementedError(
-            "jit of a torch.nn.Module needs torch_interop (ThunderModule), which is not ported "
-            "yet (ROADMAP.md Queue 1 item 13); jit a function of the module's parameters instead")
 
 
 def _normalize_donate(donate):
@@ -170,12 +163,30 @@ def jit(
     proves dead right after its region (the caller's donated tensors are
     consumed: passing one again raises :class:`DonationError`); a tuple of
     positional argnums asserts those arguments' tensors must donate."""
-    _check_deferred(fn, compile_options)
+    _check_deferred(compile_options)
     # sugar: jit(fn, autocast="bf16"|"fp16") appends the autocast transform
     # (reference thunder_tpu/__init__.py:152-173)
     ac = compile_options.pop("autocast", None)
     if ac is not None:
         transforms = list(transforms or []) + [autocast(_autocast_dtype(ac))]
+
+    if isinstance(fn, _real_torch.nn.Module):
+        # the module's forward runs as a compiled program bridged into torch
+        # autograd (reference thunder_tpu/__init__.py:177-196)
+        from thunder_tpu_torch.torch_interop import ThunderModule
+
+        check(langctx is None, lambda: (
+            "langctx is not supported for torch.nn.Module inputs: the interop path traces "
+            "through the torch language by construction"))
+        return ThunderModule(
+            fn,
+            executors=executors,
+            cache=cache,
+            sharp_edges=sharp_edges,
+            transforms=transforms,
+            max_cached_specializations=max_cached_specializations,
+            **compile_options,
+        )
 
     # the fusion regions' persistent compile cache (core/compile_cache.py):
     # lazy, so a plain import changes no setting
@@ -447,6 +458,56 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
     if vjp_mode and grad_argnums is None:
         grad_argnums = tuple(range(len(args)))
 
+    # runtime profiling transform (observability/profiler.py): applied last,
+    # over the execution trace(s), and only when requested; otherwise the
+    # generated program is byte-identical to the uninstrumented one
+    profile_opt = get_compile_option(
+        "profile",
+        "Enable the runtime profiling transform: every executed symbol/fusion "
+        "region is wrapped in timing, queryable via thunder_tpu_torch.profile_stats.",
+        default=None,
+    )
+    profile_on = bool(profile_opt) if profile_opt is not None else observability.profiling_env_enabled()
+    profile_report = None
+    profile_barriers = True
+    if profile_on:
+        from thunder_tpu_torch.observability.profiler import ProfileReport
+
+        profile_barriers = bool(get_compile_option(
+            "profile_barriers",
+            "Fence each instrumented symbol whose outputs lie on the card with "
+            "torch.cuda.synchronize for device-accurate per-symbol times (default True).",
+            default=True,
+        ))
+        if cs.profile_report is None:
+            cs.profile_report = ProfileReport()
+        profile_report = cs.profile_report
+
+    # numerics-debugging transform (observability/debug.py): pre/post hooks
+    # on every executed symbol plus the NaN/Inf anomaly scan; like the
+    # profiler, applied last and only when requested
+    detect_opt = get_compile_option(
+        "detect_anomalies",
+        "Scan every instrumented symbol's outputs for NaN/Inf and raise a "
+        "structured AnomalyError naming the symbol and the user source line "
+        "(forward and backward traces).",
+        default=None,
+    )
+    anomaly_on = bool(detect_opt) if detect_opt is not None else observability.anomaly_env_enabled()
+    debug_hooks_opt = get_compile_option(
+        "debug_hooks",
+        "Pre/post callbacks on every executed BoundSymbol/fusion region: "
+        "(pre, post) tuple, {'pre':..., 'post':...} dict, or one callable "
+        "(post).  Each receives a SymbolInfo with name and source provenance.",
+        default=None,
+    )
+    debug_cfg = None
+    if anomaly_on or debug_hooks_opt is not None:
+        from thunder_tpu_torch.observability.debug import resolve_debug_hooks
+
+        dbg_pre, dbg_post = resolve_debug_hooks(debug_hooks_opt)
+        debug_cfg = {"pre": dbg_pre, "post": dbg_post, "detect_anomalies": anomaly_on}
+
     cs.last_trace_tracing_start = time.perf_counter_ns()
     with sharp_edges_guard(cd.sharp_edges):
         trace_results: TraceResults = trace_from_fn(
@@ -563,6 +624,17 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
             bw_extrace, bw_donation_report = annotate_donations(
                 bw_extrace, candidate_names=candidate, which="backward")
             cs.last_backward_traces.append(bw_extrace)
+        if debug_cfg is not None:
+            from thunder_tpu_torch.observability.debug import instrument_for_debugging
+
+            bw_extrace = instrument_for_debugging(bw_extrace, which="backward", **debug_cfg)
+            cs.last_backward_traces.append(bw_extrace)
+        if profile_report is not None:
+            from thunder_tpu_torch.observability.profiler import instrument_for_profiling
+
+            bw_extrace = instrument_for_profiling(
+                bw_extrace, profile_report, which="backward", barriers=profile_barriers)
+            cs.last_backward_traces.append(bw_extrace)
         bw_extrace = take_saved(bw_extrace, n_saved)
         cs.last_backward_traces.append(bw_extrace)
         bw_fn = bw_extrace.python_callable()
@@ -612,6 +684,19 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
             for _, p in region.donated:
                 if p.name in positions:
                     donated_inputs.append((positions[p.name], p.name, region.name, where))
+
+    if debug_cfg is not None:
+        from thunder_tpu_torch.observability.debug import instrument_for_debugging
+
+        with _phase_span("transform:debug_instrumentation"):
+            extrace = instrument_for_debugging(extrace, **debug_cfg)
+        cs.last_traces.append(extrace)
+    if profile_report is not None:
+        from thunder_tpu_torch.observability.profiler import instrument_for_profiling
+
+        with _phase_span("transform:profiling_instrumentation"):
+            extrace = instrument_for_profiling(extrace, profile_report, barriers=profile_barriers)
+        cs.last_traces.append(extrace)
 
     comp_fn = extrace.python_callable()
     pro_fn = prologue_trace.python_callable()
@@ -730,14 +815,27 @@ def vjp(fn: Callable, argnums: Sequence[int] | None = None, **jit_kwargs) -> Cal
 #
 
 
+def _unwrap_cfn(cfn):
+    """A ThunderModule holds its compiled functions inside (the vjp of the
+    functionalized forward, and the forward-only inference path);
+    introspection accepts either, and the most recently invoked one answers
+    (reference ``thunder_tpu/__init__.py:763``)."""
+    if not hasattr(cfn, "_lc_cs"):
+        for attr in ("_last_compiled", "_vjp_fn", "_fwd_fn"):
+            inner = getattr(cfn, attr, None)
+            if inner is not None and hasattr(inner, "_lc_cs"):
+                return inner
+    return cfn
+
+
 def _get_cs(cfn) -> CompileStats:
-    cs = getattr(cfn, "_lc_cs", None)
+    cs = getattr(_unwrap_cfn(cfn), "_lc_cs", None)
     check(cs is not None, lambda: f"{cfn} is not a thunder_tpu_torch-compiled function")
     return cs
 
 
 def compile_data(cfn) -> CompileData:
-    cd = getattr(cfn, "_lc_cd", None)
+    cd = getattr(_unwrap_cfn(cfn), "_lc_cd", None)
     check(cd is not None, lambda: f"{cfn} is not a thunder_tpu_torch-compiled function")
     return cd
 
@@ -790,6 +888,26 @@ def dispatch_stats(cfn) -> dict:
         "last_dispatch_ns": cs.last_dispatch_ns,
         "dispatch_ns": cs.dispatch_ns,
     }
+
+
+def profile_stats(cfn):
+    """Per-symbol runtime profile of a function compiled with
+    ``profile=True`` (or under ``THUNDER_TPU_PROFILE=1``): a mapping
+    ``label -> {calls, total_ns, mean_ns, min_ns, max_ns, flops?, bytes?,
+    live_bytes, peak_bytes}`` covering every instrumented BoundSymbol /
+    fusion region (forward and, when present, backward).  ``print()`` the
+    report for the table sorted by total time.  FLOPs are counted by
+    ``FlopCounterMode`` over meta tensors of the traced shapes, bytes are the
+    symbol's tensor inputs and outputs, both computed on first query
+    (reference ``thunder_tpu.profile_stats``)."""
+    cs = _get_cs(cfn)
+    check(
+        cs.profile_report is not None,
+        lambda: "no profiling data: compile with ttt.jit(fn, profile=True) "
+        "(or set THUNDER_TPU_PROFILE=1 before the first call) and invoke "
+        "the compiled function at least once",
+    )
+    return cs.profile_report
 
 
 def donation_stats(cfn) -> dict:

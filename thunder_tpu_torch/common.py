@@ -8,9 +8,10 @@ cache (``core/compile_cache.py``) and ``donation_reports`` the last
 compilation's donation analysis.  ``CacheEntry`` carries the grad path's
 backward program (``backward_fn``, ``backward_trace``, ``return_spec``,
 ``vjp_mode``, ``ct_positions``) and the program inputs a donated region
-consumes (``donated_inputs``).  The fields of the reference's bytecode
-interpreter and profiler, and ``CompileData``'s module and process-group
-fields, come with their ``ROADMAP.md`` items.
+consumes (``donated_inputs``); ``CompileStats.profile_report`` the runtime
+profiler's report.  The fields of the reference's bytecode interpreter, and
+``CompileData``'s process-group fields, come with their ``ROADMAP.md``
+items.
 """
 from __future__ import annotations
 
@@ -72,6 +73,11 @@ class CompileStats:
         # "backward": summary|None} plain dicts (executors/donation.py
         # donation_summary); None unless compiled with donate=True/argnums
         self.donation_reports = None
+
+        # the runtime profiler's per-symbol report (observability/profiler.py),
+        # shared by every specialization; None unless compiled with profile=True
+        # or THUNDER_TPU_PROFILE=1
+        self.profile_report = None
 
     @property
     def persistent_cache(self) -> dict:

@@ -664,14 +664,21 @@ class TensorProxy(Proxy, TensorProxyInterface):
         # thunder_tpu/core/proxies.py:658-685)
         kwargs = kwargs or {}
         from thunder_tpu_torch.torch import _torch_to_thunder_function_map
+        from thunder_tpu_torch.torch_interop import _bake_torch_constants
 
         mapped = _torch_to_thunder_function_map.get(func)
         if mapped is not None:
+            # real torch.Tensor operands (constants) bake into the trace
+            # before dispatch
+            args, kwargs = _bake_torch_constants(args, kwargs)
             return mapped(*args, **kwargs)
 
-        # a torch.Tensor method the map lacks: resolve it by name on the
-        # receiver through the proxy's method protocol (the language)
+        # a torch.Tensor method the map lacks, or a mixed real-tensor ⊗ proxy
+        # method call (`real[1:3] = proxy` dispatches here with the TensorBase
+        # slot): bake the constants, then resolve it by name on the receiver
+        # through the proxy's method protocol (the language)
         name = getattr(func, "__name__", "")
+        args, kwargs = _bake_torch_constants(args, kwargs)
         if args and isinstance(args[0], TensorProxy) and name:
             recv_method = getattr(args[0], name, None)
             if callable(recv_method):
@@ -682,19 +689,29 @@ class TensorProxy(Proxy, TensorProxyInterface):
             "thunder_tpu_torch; register it in thunder_tpu_torch/torch/__init__.py"
         )
 
-    # numpy interop: the reference diverts np.* calls on proxies into its
-    # numpy language (thunder_tpu/numpy), not ported yet.
+    # numpy interop: real np.* calls on proxies divert into the numpy
+    # language (thunder_tpu_torch/numpy), the numpy analog of
+    # __torch_function__
     def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
-        raise NotImplementedError(
-            f"numpy ufunc {ufunc.__name__} called on a TensorProxy: the numpy language "
-            "is not ported yet (ROADMAP.md Queue 1 item 13)"
-        )
+        if method != "__call__" or kwargs.get("out") is not None:
+            return NotImplemented
+        from thunder_tpu_torch.numpy import _numpy_to_thunder_function_map
+
+        mapped = _numpy_to_thunder_function_map.get(ufunc)
+        if mapped is None:
+            return NotImplemented
+        return mapped(*inputs, **kwargs)
 
     def __array_function__(self, func, types, args, kwargs):
-        raise NotImplementedError(
-            f"numpy function {func.__name__} called on a TensorProxy: the numpy language "
-            "is not ported yet (ROADMAP.md Queue 1 item 13)"
-        )
+        from thunder_tpu_torch.numpy import _numpy_to_thunder_function_map
+
+        mapped = _numpy_to_thunder_function_map.get(func)
+        if mapped is None:
+            raise NotImplementedError(
+                f"numpy function {func.__name__} is not mapped into thunder_tpu_torch; "
+                "register it in thunder_tpu_torch/numpy/__init__.py"
+            )
+        return mapped(*args, **(kwargs or {}))
 
     # Operators
     def _op(self, method_name: str, *args):

@@ -1,9 +1,9 @@
 """Symbols and bound symbols: the instructions of a trace.
 
 Counterpart of ``thunder_tpu/core/symbol.py``, copied; the provenance walk
-skips the port's own frames, and the eager-evaluation and constant-tensor
-paths raise until their modules are ported.  The reference is the analog of the reference's ``thunder/core/symbol.py`` (Symbol :127, BoundSymbol
-:280, BoundSymbolRHS :631).  Calling a Symbol inside a trace runs its meta
+skips the port's own frames.  The reference is the analog of Lightning
+Thunder's ``thunder/core/symbol.py`` (Symbol :127, BoundSymbol :280,
+BoundSymbolRHS :631).  Calling a Symbol inside a trace runs its meta
 function and records a BoundSymbol; non-prim symbols additionally record the
 subsymbols produced while the meta ran, giving every trace a decomposition
 hierarchy that executors can claim at any level.
@@ -212,14 +212,13 @@ class Symbol(SymbolInterface):
                 return self._fn(*args, **kwargs)
             if self.python_impl is not None:
                 return self.python_impl(*args, **kwargs)
-            # The reference evaluates a symbol with a meta in a micro-trace
-            # here (core/eager.py), which the port has not yet.
+            # Generic eager mode: record into a micro-trace and evaluate it
+            # at once with the torch executor's implementations.  Works
+            # inside torch.func transforms too (core/eager.py).
             if self.meta is not None:
-                raise NotImplementedError(
-                    f"Symbol {self.name} called outside a trace: eager evaluation of "
-                    "symbols (core/eager.py) is not ported yet (ROADMAP.md Queue 1 item 13); "
-                    "acquire a trace with thunder_tpu_torch.functional.trace_from_fn"
-                )
+                from thunder_tpu_torch.core.eager import eager_symbol_eval
+
+                return eager_symbol_eval(self, args, kwargs)
             raise RuntimeError(
                 f"Symbol {self.name} called outside of a trace and has no eager implementation"
             )
@@ -245,14 +244,14 @@ class Symbol(SymbolInterface):
 
             flat, spec = _tf((args, kwargs))
             flat = [_fold(x) for x in flat]
-            # The reference bakes real torch.Tensor operands into constant
-            # proxies here (torch_interop._const_tensor_proxy).
+            # real torch.Tensor operands (constants from the tracing mode's
+            # concrete-factory fast path) bake to constant proxies before
+            # binding, so recorded bsym args never carry raw torch tensors
             if any(isinstance(x, torch.Tensor) for x in flat):
-                raise NotImplementedError(
-                    f"Symbol {self.name} got a concrete torch.Tensor operand inside a trace: "
-                    "constant tensors (torch_interop) are not ported yet (ROADMAP.md Queue 1 "
-                    "item 13); pass the tensor as an argument of the traced function"
-                )
+                from thunder_tpu_torch.torch_interop import _const_tensor_proxy
+
+                flat = [_const_tensor_proxy(x) if isinstance(x, torch.Tensor) else x
+                        for x in flat]
             args, kwargs = _tu(flat, spec)
 
         if self.is_prim:

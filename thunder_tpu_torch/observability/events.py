@@ -17,7 +17,8 @@ on compile-time and explicitly-traced serving paths, where one
 ``perf_counter_ns`` + deque append is noise against tracing and XLA
 compilation.
 
-The ring capacity (``THUNDER_TPU_EVENT_BUFFER``) is re-read on every
+The ring capacity (``THUNDER_TPU_EVENT_BUFFER``, read through
+``observability/config.py``) is re-read on every
 append, so changing it after import takes effect on the next recorded
 event (the old import-frozen ``deque(maxlen=...)`` silently ignored late
 changes).
@@ -34,6 +35,8 @@ import time
 from collections import deque
 from contextlib import contextmanager
 
+from thunder_tpu_torch.observability.config import event_buffer_capacity
+
 __all__ = [
     "record_event",
     "span",
@@ -43,15 +46,6 @@ __all__ = [
     "register_process_name",
     "register_thread_name",
 ]
-
-
-def event_buffer_capacity() -> int:
-    """Ring-buffer bound (``THUNDER_TPU_EVENT_BUFFER``, default 4096), read on
-    every append; the reference keeps it in ``observability/config.py``."""
-    try:
-        return max(16, int(os.getenv("THUNDER_TPU_EVENT_BUFFER", "4096")))
-    except ValueError:
-        return 4096
 
 
 _events: deque = deque(maxlen=event_buffer_capacity())

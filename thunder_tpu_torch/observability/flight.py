@@ -1,9 +1,9 @@
 """Serving flight recorder: a bounded ring of engine events + a state
 snapshot, auto-dumped to JSON when ``step()`` raises.
 
-Counterpart of ``thunder_tpu/observability/flight.py``, copied; the
-environment gates of ``observability/config.py`` come along
-(:func:`flight_recorder_env_enabled`, :func:`flight_dump_dir`).
+Counterpart of ``thunder_tpu/observability/flight.py``, copied; its
+environment gates (:func:`flight_recorder_env_enabled`,
+:func:`flight_dump_dir`) are read through ``observability/config.py``.
 
 The aviation black-box model: when a serving engine crashes mid-flight —
 an :class:`AnomalyError` out of the model, a pool invariant violation, a
@@ -44,22 +44,12 @@ import weakref
 from collections import deque
 from typing import Callable
 
+from thunder_tpu_torch.observability.config import flight_dump_dir, flight_recorder_env_enabled
 from thunder_tpu_torch.observability.metrics import registry
 
 __all__ = ["FlightRecorder", "flight_record", "active_recorder",
            "flight_recorder_env_enabled", "flight_dump_dir"]
 
-def flight_recorder_env_enabled() -> bool:
-    """``THUNDER_TPU_FLIGHT_RECORDER=1`` arms the serving flight recorder
-    for every engine that does not pass an explicit ``flight_recorder=``
-    option.  Read at engine construction."""
-    return os.getenv("THUNDER_TPU_FLIGHT_RECORDER", "") in ("1", "y", "Y", "true", "on")
-
-
-def flight_dump_dir() -> str:
-    """Directory crash dumps land in (``THUNDER_TPU_FLIGHT_DIR``, default
-    the current working directory)."""
-    return os.getenv("THUNDER_TPU_FLIGHT_DIR", ".")
 
 
 # the most recently activated recorder, weakly held so a dead engine's

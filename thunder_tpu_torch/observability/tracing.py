@@ -1,8 +1,8 @@
 """Serving-plane request-lifecycle tracing: async Chrome-trace spans.
 
-Counterpart of ``thunder_tpu/observability/tracing.py``, copied; the
-environment gate of ``observability/config.py`` comes along
-(:func:`serving_trace_env_enabled`).
+Counterpart of ``thunder_tpu/observability/tracing.py``, copied; its
+environment gate (:func:`serving_trace_env_enabled`) is read through
+``observability/config.py``.
 
 The compile-pipeline ring (``events.py``) answers "where did *compilation*
 time go"; this module answers the serving question — where did *this
@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import os
 
+from thunder_tpu_torch.observability.config import serving_trace_env_enabled
 from thunder_tpu_torch.observability.events import (
     record_event,
     register_process_name,
@@ -68,13 +69,6 @@ REQUEST_TID_BASE = 1
 # lane tags the async engine stamps on lifecycle spans (span arg "lane")
 LANE_DECODE = "decode"
 LANE_PREFILL = "prefill"
-
-
-def serving_trace_env_enabled() -> bool:
-    """``THUNDER_TPU_TRACE_SERVING=1`` turns on request-lifecycle span
-    tracing for every serving engine that does not pass an explicit
-    ``trace=`` option.  Read at engine construction."""
-    return os.getenv("THUNDER_TPU_TRACE_SERVING", "") in ("1", "y", "Y", "true", "on")
 
 
 def serving_pid() -> int:

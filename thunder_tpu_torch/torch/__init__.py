@@ -831,6 +831,10 @@ def diff(a, n=1, dim=-1, prepend=None, append=None):
 
 @torchsymbol(_tfn("cumsum"), is_method=True)
 def cumsum(a, dim, *, dtype=None):
+    if dtypes.is_boolean_dtype(a.dtype):
+        # a running count: torch sums bools as integers (the reference's
+        # jnp.cumsum gives int32, as x64 is off there)
+        a = clang.maybe_convert_to_dtype(a, dtypes.int32)
     out = clang.cumsum(a, dim)
     if dtype is not None:
         out = clang.maybe_convert_to_dtype(out, _to_thunder_dtype(dtype))
