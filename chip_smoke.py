@@ -5,6 +5,7 @@
     python3 -P chip_smoke.py --paged-times LABEL   # paged attention device ms only
     python3 -P chip_smoke.py --write-times LABEL   # the engine's KV writers' ms only
     python3 chip_smoke.py --moe-depth               # int8 vs bf16 vs f32 MoE forward by depth
+    python3 chip_smoke.py --bytecode                # the build and phase 19 alone
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -351,7 +352,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     at full width and depth (12 ``paged_attn_decode`` and one write a
     step), float32 greedy tokens paged equal to gather.  The phase prints
     its seconds;
-19. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+19. bytecode (after phase 18, on the seed-0 params and phase 12's batch):
+    the bytecode interpreter, ``jit(..., interpretation="bytecode")``, over
+    ``user_loss``, a Llama loss written in this file (so it runs opcode by
+    opcode) with ``gpt_loss``'s op sequence, every weight and both rope
+    tables read from the module-level ``BYTECODE_STATE`` and the config
+    from ``BYTECODE_CFG``: (a) at 32 layers the captured tensors are every
+    leaf plus the two tables, 0 constants are baked, one call launches 32
+    ``flash_fwd`` and one ``flash_ce`` with no decline, the loss is bitwise
+    phase 12's ``jit(gpt_loss)``'s and the second call a cache hit; an
+    in-place edit of one weight row (made, then undone) is seen with no
+    retrace, rebinding ``LOSS_SCALE`` costs one retrace and gives the
+    functional frontend's loss bitwise, a CPU tensor in the dict fails the
+    prologue's device guard (a retrace, no kernel launched) and the card's
+    tensor back is a hit; it prints the first call's seconds (interpretation,
+    trace to program, region compiles), the guards, the interpreter log's
+    length and the cache-hit dispatch ms beside phase 12's; (b)
+    ``value_and_grad(user_loss_p, interpretation="bytecode")`` at 32 layers,
+    the params explicit: loss and every grad bitwise the functional
+    frontend's, the launches its programs name; (c) phase 18's
+    ``LlamaModule`` at 4 layers under ``jit(module,
+    interpretation="bytecode")``: loss and grads bitwise ``jit(module)``'s.
+    The phase prints its seconds (``--bytecode`` runs the build and this
+    phase alone);
+20. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -3949,6 +3973,7 @@ def jit_gpt_loss(cfg):
         f"{eager_ms:.3f} ms (CUDA events); device {dev} ms over {nk} kernels, eager {edev} ms "
         f"over {enk} kernels; CE takes {ce_dtype} logits; loss {loss.item():.6f}, eager "
         f"{e16.item():.6f}, T={JIT_T_SHORT} {sloss.item():.6f}; launches per call {got}")
+    PHASE12.update(loss=loss.item(), dispatch_ms_median=statistics.median(dispatch_ns) / 1e6)
     rec = dict(acquire_ms=host["acquisition"], passes_ms=host["dce_cse"],
                claim_ms=host["claiming"], codegen_ms=host["codegen"], guards=guards,
                dispatch_ms_median=statistics.median(dispatch_ns) / 1e6, ms=ms,
@@ -4167,6 +4192,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     frontend_rec, frontend_launches = frontend_phase()
     served.update(frontend_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bytecode_rec, bytecode_launches = bytecode_phase()
+    served.update(bytecode_launches)
 
     sources = {"paged_attn_decode": "paged_attention.cu", "paged_token_write": "paged_attention.cu",
                "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",
@@ -4208,6 +4237,7 @@ def main() -> int:
     say("graphs phase: " + json.dumps(graphs_rec))
     say("stateful phase: " + json.dumps(stateful_rec))
     say("frontend phase: " + json.dumps(frontend_rec))
+    say("bytecode phase: " + json.dumps(bytecode_rec))
     say("fusion: " + json.dumps({"regions compiled": inductorex.STATS["compiles"],
                                   "compile_s": inductorex.STATS["compile_s"],
                                   "compiled calls": inductorex.STATS["calls"],
@@ -6276,6 +6306,367 @@ def frontend_phase() -> tuple[dict, dict]:
     return rec, launches
 
 
+#
+# phase 19: the bytecode interpreter, Llama-3-8B's weights captured from
+# globals (jit(..., interpretation="bytecode"))
+#
+
+BYTECODE_STATE: dict = {}      # the weights and rope tables user_loss reads
+BYTECODE_CFG = None            # the config the user-code losses read
+LOSS_SCALE = 1.0               # (a): a guarded global scalar, rebound once
+PHASE12: dict = {}             # phase 12's bf16 loss and cache-hit dispatch median
+BYTECODE_MODULE_LAYERS = 4     # (c): phase 18's LlamaModule at this depth
+BYTECODE_EDIT = 0.5            # (a): added to one weight row, then taken back
+
+
+def _user_rms(x, w, eps):
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * w.float()).to(x.dtype)
+
+
+def _user_body(p, idx, targets, cos, sin, cfg):
+    """``models/llama.py gpt_loss`` of a Llama-3 config, written as user code
+    (this module's code runs opcode by opcode under the interpreter): the
+    same op sequence, ``q[..., :n_elem]`` roped as LitGPT does, one Python
+    loop over the layers; scaled by ``LOSS_SCALE`` when it is not 1."""
+    x = F.embedding(idx.long(), p["wte"])
+    for bp in p["blocks"]:
+        n1 = _user_rms(x, bp["norm_1"], cfg.norm_eps)
+        B, T, _ = n1.shape
+        hs, nh, ng, n_elem = cfg.head_size, cfg.n_head, cfg.n_query_groups, cfg.rope_n_elem
+        ap = bp["attn"]
+        q = F.linear(n1, ap["wq"]).reshape(B, T, nh, hs).transpose(1, 2)
+        k = F.linear(n1, ap["wk"]).reshape(B, T, ng, hs).transpose(1, 2)
+        v = F.linear(n1, ap["wv"]).reshape(B, T, ng, hs).transpose(1, 2)
+        q = rope(q[..., :n_elem], cos, sin)
+        k = rope(k[..., :n_elem], cos, sin)
+        y = ltorch.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                sliding_window=cfg.sliding_window)
+        x = x + F.linear(y.transpose(1, 2).reshape(B, T, nh * hs), ap["wo"])
+        mp = bp["mlp"]
+        n2 = _user_rms(x, bp["norm_2"], cfg.norm_eps)
+        x = x + F.linear(F.silu(F.linear(n2, mp["fc_1"])) * F.linear(n2, mp["fc_2"]), mp["proj"])
+    x = _user_rms(x, p["ln_f"], cfg.norm_eps)
+    logits = F.linear(x, p["lm_head"])
+    loss = ltorch.cross_entropy(logits.reshape(-1, logits.shape[-1]).to(torch.float32),
+                                targets.reshape(-1))
+    if LOSS_SCALE != 1.0:
+        loss = loss * LOSS_SCALE
+    return loss
+
+
+def user_loss(idx, targets):
+    """The loss over weights read from ``BYTECODE_STATE``: none is an argument."""
+    s = BYTECODE_STATE
+    return _user_body(s["params"], idx, targets, s["cos"], s["sin"], BYTECODE_CFG)
+
+
+def user_loss_p(params, idx, targets, cos, sin):
+    """The same loss with the parameters and rope tables explicit; the
+    config still read from a global (under the functional frontend a tensor
+    read from a global is a constant of the program, under the bytecode
+    frontend an input, so the two programs are equal only without one)."""
+    return _user_body(params, idx, targets, cos, sin, BYTECODE_CFG)
+
+
+def _nz(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _n_constants(traces) -> int:
+    return sum(b.sym.name.startswith("TCONST") for t in traces for b in t.bound_symbols)
+
+
+def bytecode_weights(params, cfg, batch) -> tuple[dict, dict]:
+    """(a) ``jit(user_loss, interpretation="bytecode")`` at 32 layers: every
+    weight and both rope tables captured (none baked), phase 12's launches
+    and loss bitwise, a cache hit, the provenance guards on the card (an
+    in-place row edit seen with no retrace, a rebound global one retrace,
+    a CPU tensor in the dict a retrace by the device guard)."""
+    global LOSS_SCALE
+    idx, tgt, cos, sin = batch
+    BYTECODE_STATE.update(params=params, cos=cos, sin=sin)
+    for key in ltorch.DECLINES:
+        ltorch.DECLINES[key] = 0
+    total: dict = {}
+    want = no_launches_but(flash_fwd=cfg.n_layer, flash_ce=1)
+    jfn = ttt.jit(user_loss, interpretation="bytecode")
+    clear_events()
+    before = dict(inductorex.STATS)
+    cudaex.reset_launches()
+    t0 = time.perf_counter()
+    loss = jfn(idx, tgt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = dict(cudaex.LAUNCHES)
+    _add(total, got)
+    host = span_ms()
+    interp_s = host["acquisition"] / 1e3
+    program_s = (host["dce_cse"] + host["claiming"] + host["codegen"]) / 1e3
+    compiles = inductorex.STATS["compiles"] - before["compiles"]
+    compile_s = inductorex.STATS["compile_s"] - before["compile_s"]
+    entry = ttt.compile_stats(jfn).interpreter_cache[0]
+    state = entry.key_meta["state"]
+    n_tensors = len(tree_leaves(params)) + 2
+    consts = _n_constants(ttt.last_traces(jfn))
+    check_claims(ttt.last_traces(jfn)[-1], "phase 19 (a) bytecode", {"cuda_sdpa"})
+    prologue = ttt.last_prologue_traces(jfn)[-1].python()
+    checks = prologue.count("prims.check_")
+    log_len = len(ttt.last_interpreter_log(jfn))
+    if PHASE12:
+        ref_loss, ref_from = PHASE12["loss"], "phase 12's jit(gpt_loss)"
+    else:    # run alone: phase 12's program on the same params and batch
+        ref_loss = ttt.jit(lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg))(
+            params, *batch).item()
+        ref_from = "jit(gpt_loss) in this phase"
+    cudaex.reset_launches()
+    loss2 = jfn(idx, tgt)
+    torch.cuda.synchronize()
+    _add(total, cudaex.LAUNCHES)
+    cudaex.reset_launches()
+    hit = (ttt.cache_hits(jfn), ttt.cache_misses(jfn)) == (1, 1) and torch.equal(loss, loss2)
+    ok = (got == want and not any(ltorch.DECLINES.values()) and state is not None
+          and state["n_state_tensors"] == n_tensors and consts == 0
+          and loss.item() == ref_loss and hit)
+    say(f"phase 19 (a) jit(user_loss, interpretation='bytecode') {cfg.name} {cfg.n_layer} layers, "
+        f"bf16, B=1, T={JIT_T}, weights from globals (python {sys.version.split()[0]}; {CARD}): "
+        f"launches {_nz(got)} (expected {_nz(want)}), declines {_nz(ltorch.DECLINES)}; captured "
+        f"tensors "
+        f"{state and state['n_state_tensors']} (expected {n_tensors}: every leaf and the rope "
+        f"tables), value guards {state and state['n_guards']}, prologue checks {checks}, "
+        f"baked constants {consts}; loss {loss.item():.6f} against {ref_from} {ref_loss:.6f}: "
+        f"bitwise {loss.item() == ref_loss}; second call a hit, bitwise: {hit} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 19 (a): launches {got}, state {state}, constants {consts}, "
+                             f"loss {loss.item()} against {ref_loss}, hit {hit}")
+    # the cache hit's dispatch (key, lookup, prologue) and the prologue alone
+    cs = ttt.compile_stats(jfn)
+    dispatch_ns, prologue_ns = [], []
+    for _ in range(JIT_DISPATCH_CALLS):
+        jfn(idx, tgt)
+        dispatch_ns.append(cs.last_dispatch_ns)
+    torch.cuda.synchronize()
+    for _ in range(JIT_DISPATCH_CALLS):
+        t1 = time.perf_counter_ns()
+        entry.prologue_fn(idx, tgt)
+        prologue_ns.append(time.perf_counter_ns() - t1)
+    # an in-place edit of one weight row, then undone: seen, no retrace
+    w = params["blocks"][0]["attn"]["wq"]
+    row = w[0].clone()
+    misses = ttt.cache_misses(jfn)
+    w[0].add_(BYTECODE_EDIT)
+    edited = jfn(idx, tgt)
+    w[0].copy_(row)
+    restored = jfn(idx, tgt)
+    torch.cuda.synchronize()
+    ok_edit = (ttt.cache_misses(jfn) == misses and edited.item() != loss.item()
+               and torch.equal(restored, loss))
+    # a rebound global scalar: one retrace, the functional frontend's value
+    LOSS_SCALE = 2.0
+    scaled = jfn(idx, tgt)
+    torch.cuda.synchronize()
+    _add(total, cudaex.LAUNCHES)
+    retraced = ttt.cache_misses(jfn) - misses
+    fscaled = ttt.jit(user_loss_p)(params, idx, tgt, cos, sin)
+    LOSS_SCALE = 1.0
+    cudaex.reset_launches()
+    back = jfn(idx, tgt)
+    torch.cuda.synchronize()
+    _add(total, cudaex.LAUNCHES)
+    ok_rebind = (retraced == 1 and torch.equal(scaled, fscaled)
+                 and ttt.cache_misses(jfn) == misses + 1
+                 and torch.equal(back, loss))
+    # a CPU tensor in the dict: the prologue's device guard fails, a retrace
+    # (never a kernel on a CPU pointer); the card's tensor back is a hit
+    ap = params["blocks"][0]["attn"]
+    wq = ap["wq"]                          # read before the first attention
+    ap["wq"] = wq.cpu()
+    evictions = cs.guard_evictions
+    cudaex.reset_launches()
+    try:
+        out = jfn(idx, tgt)
+        swapped = f"returned {out.item():.6f} on {out.device}"
+        ok_swap = out.device.type == "cuda" and torch.equal(out, loss)
+    except RuntimeError as e:
+        swapped = f"raised {type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        ok_swap = "device" in str(e).lower() or "cpu" in str(e).lower()
+    torch.cuda.synchronize()
+    swap_launches = {k: v for k, v in cudaex.LAUNCHES.items() if v}
+    ok_swap = (ok_swap and ttt.cache_misses(jfn) == misses + 2 and cs.guard_evictions > evictions
+               and not swap_launches.get("flash_fwd"))
+    ap["wq"] = wq
+    cudaex.reset_launches()
+    again = jfn(idx, tgt)
+    torch.cuda.synchronize()
+    _add(total, cudaex.LAUNCHES)
+    ok_swap = ok_swap and torch.equal(again, loss) and ttt.cache_misses(jfn) == misses + 2
+    med = statistics.median(dispatch_ns) / 1e6
+    rec = dict(first_call_s=first_s, interpret_s=interp_s, trace_to_program_s=program_s,
+               region_compile_s=compile_s, regions_compiled=compiles,
+               captured_tensors=state["n_state_tensors"], value_guards=state["n_guards"],
+               prologue_checks=checks, interpreter_log=log_len, loss=loss.item(),
+               dispatch_ms_median=med, dispatch_ms_min=min(dispatch_ns) / 1e6,
+               prologue_ms_median=statistics.median(prologue_ns) / 1e6,
+               phase12_dispatch_ms_median=PHASE12.get("dispatch_ms_median"),
+               edited_loss=edited.item(), scaled_loss=scaled.item(), swap=swapped,
+               python=sys.version.split()[0], card=CARD)
+    say(f"phase 19 (a) first call {first_s:.2f} s: interpretation {interp_s:.2f} s, "
+        f"trace to program {program_s:.2f} s, {compiles} regions compiled anew in "
+        f"{compile_s:.2f} s (expected 0: phase 12's regions), the rest "
+        f"{first_s - interp_s - program_s - compile_s:.2f} s; "
+        f"{checks} prologue checks, interpreter log {log_len} events; cache-hit dispatch median "
+        f"{med:.3f} ms (min {min(dispatch_ns) / 1e6:.3f}), the prologue alone "
+        f"{rec['prologue_ms_median']:.3f} ms, beside phase 12's "
+        f"{PHASE12.get('dispatch_ms_median', 'not run')} ms (no bar); in-place row edit: loss "
+        f"{edited.item():.6f}, undone {restored.item():.6f}, misses unchanged "
+        f"{'ok' if ok_edit else 'FAIL'}; LOSS_SCALE=2.0: {retraced} retrace, loss "
+        f"{scaled.item():.6f} = the functional frontend's {fscaled.item():.6f}: "
+        f"{torch.equal(scaled, fscaled)} {'ok' if ok_rebind else 'FAIL'}; a CPU wq: "
+        f"{swapped}, misses {misses} -> {ttt.cache_misses(jfn)}, launches {swap_launches}, the "
+        f"card's "
+        f"tensor back a hit {'ok' if ok_swap else 'FAIL'}")
+    if not (ok_edit and ok_rebind and ok_swap):
+        raise AssertionError(f"phase 19 (a) provenance checks: edit {ok_edit}, rebind "
+                             f"{ok_rebind}, device guard {ok_swap}")
+    BYTECODE_STATE.clear()
+    del jfn, entry, cs
+    return rec, total
+
+
+def bytecode_training(params, cfg, batch) -> tuple[dict, dict]:
+    """(b) ``value_and_grad(user_loss_p, interpretation="bytecode")`` at 32
+    layers, the config read from a global: the loss and every grad bitwise
+    the functional frontend's ``value_and_grad`` of the same function; the
+    launches its programs name (per layer ``flash_bwd_dq``/``_dkv`` once,
+    ``flash_fwd`` per forward and recomputed SDPA), one ``flash_ce``, no
+    declines."""
+    for key in ltorch.DECLINES:
+        ltorch.DECLINES[key] = 0
+    before = dict(inductorex.STATS)
+    vg = ttt.value_and_grad(user_loss_p, interpretation="bytecode")
+    cudaex.reset_launches()
+    t0 = time.perf_counter()
+    lb, gb = vg(params, *batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = dict(cudaex.LAUNCHES)
+    fw, bw = ttt.last_traces(vg)[-1], ttt.last_backward_traces(vg)[-2]
+    check_claims(fw, "phase 19 (b) forward", {"cuda_sdpa"})
+    check_claims(bw, "phase 19 (b) backward", {"cuda_sdpa_backward"} | (
+        {"cuda_sdpa"} if _count(bw, "cuda_sdpa") else set()))
+    n_sdpa = _count(fw, "cuda_sdpa") + _count(bw, "cuda_sdpa")
+    n_bwd = _count(bw, "cuda_sdpa_backward")
+    n_ce = _count(fw, "torch_cross_entropy_fwd") + _count(bw, "torch_cross_entropy_fwd")
+    want = no_launches_but(flash_fwd=n_sdpa, flash_bwd_dq=n_bwd, flash_bwd_dkv=n_bwd,
+                           flash_ce=n_ce)
+    state = ttt.compile_stats(vg).interpreter_cache[0].key_meta["state"]
+    consts = _n_constants(ttt.last_traces(vg))
+    fvg = ttt.value_and_grad(user_loss_p)
+    lf, gf = fvg(params, *batch)
+    torch.cuda.synchronize()
+    compiles = inductorex.STATS["compiles"] - before["compiles"]
+    leaves_b, leaves_f = tree_leaves(gb), tree_leaves(gf)
+    same = torch.equal(lb, lf) and len(leaves_b) == len(leaves_f) == len(tree_leaves(params)) \
+        and all(torch.equal(a, b) for a, b in zip(leaves_b, leaves_f))
+    ok = (got == want and n_bwd == cfg.n_layer and n_ce == 1 and same and consts == 0
+          and not any(ltorch.DECLINES.values()) and math.isfinite(lb.item()))
+    rec = dict(layers=cfg.n_layer, first_call_s=first_s, regions_compiled=compiles,
+               launches_per_call=got, loss=lb.item(), bitwise=same,
+               value_guards=state and state["n_guards"])
+    say(f"phase 19 (b) value_and_grad(user_loss_p, interpretation='bytecode') {cfg.name} "
+        f"{cfg.n_layer} layers, bf16, B=1, T={JIT_T} ({CARD}): first call {first_s:.2f} s; "
+        f"SDPA {n_sdpa}, SDPA backward {n_bwd}, CE {n_ce}; launches {_nz(got)} (expected "
+        f"{_nz(want)}), declines {_nz(ltorch.DECLINES)}; value guards {rec['value_guards']} "
+        f"(the config), baked constants {consts}; loss {lb.item():.6f} and {len(leaves_b)} grads "
+        f"bitwise the functional frontend's: {same}; {compiles} regions compiled in the two "
+        f"builds {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 19 (b): launches {got} != {want}, bitwise {same}, "
+                             f"constants {consts}, declines {ltorch.DECLINES}")
+    del vg, fvg, gb, gf, leaves_b, leaves_f
+    return rec, got
+
+
+def bytecode_module(params, cfg, batch) -> tuple[dict, dict]:
+    """(c) phase 18's ``LlamaModule`` at BYTECODE_MODULE_LAYERS layers under
+    ``jit(module, interpretation="bytecode")``: loss and every grad bitwise
+    ``jit(module)``'s; the launches its programs name."""
+    n = BYTECODE_MODULE_LAYERS
+    cfgn = Config.from_name(cfg.name, n_layer=n)
+    module = llama_module({**params, "blocks": params["blocks"][:n]}, cfgn, JIT_T)
+    idx, tgt = batch[0], batch[1]
+    lf, gf = _module_run(ttt.jit(module), module, idx, tgt)
+    gf = {k: v.clone() for k, v in gf.items()}
+    tm = ttt.jit(module, interpretation="bytecode")
+    cudaex.reset_launches()
+    lb, gb = _module_run(tm, module, idx, tgt)
+    torch.cuda.synchronize()
+    got = dict(cudaex.LAUNCHES)
+    want = _program_launches(tm, n, f"phase 19 (c) jit(LlamaModule, bytecode) {n} layers")
+    same = torch.equal(lb, lf) and gf.keys() == gb.keys() and all(
+        torch.equal(gb[k], gf[k]) for k in gf)
+    log_len = len(ttt.last_interpreter_log(tm))
+    ok = got == want and same and log_len > 0
+    say(f"phase 19 (c) jit(LlamaModule, interpretation='bytecode') {n} layers ({CARD}): "
+        f"launches {_nz(got)} (expected {_nz(want)}); loss {lb.item():.6f} and {len(gb)} grads "
+        f"bitwise "
+        f"jit(module)'s: {same}; interpreter log {log_len} events {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"phase 19 (c): launches {got} != {want}, bitwise {same}")
+    del module, tm, gf, gb
+    return dict(layers=n, loss=lb.item(), bitwise=same, interpreter_log=log_len), got
+
+
+def bytecode_phase() -> tuple[dict, dict]:
+    """Phase 19: the bytecode interpreter on the card, (a)-(c) on the seed-0
+    Llama-3-8B params and phase 12's batch.  Returns the phase's records
+    and its launches by path."""
+    global BYTECODE_CFG
+    t0 = time.perf_counter()
+    params, cfg = make_params()
+    BYTECODE_CFG = cfg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    batch = jit_batch(cfg, JIT_T, gen)
+    rec, launches = {}, {}
+    rec["weights"], launches["bytecode jit (19 a)"] = compiled_in(
+        "phase 19 (a)", bytecode_weights, params, cfg, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["training"], launches["bytecode value_and_grad (19 b)"] = compiled_in(
+        "phase 19 (b)", bytecode_training, params, cfg, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["module"], launches["bytecode module (19 c)"] = compiled_in(
+        "phase 19 (c)", bytecode_module, params, cfg, batch)
+    del params, batch
+    BYTECODE_CFG = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(card=CARD, seconds=time.perf_counter() - t0)
+    say(f"phase 19 (the bytecode interpreter) took {rec['seconds']:.1f} s")
+    return rec, launches
+
+
+def bytecode_alone() -> int:
+    """``--bytecode``: the build and phase 19 alone (phase 12's loss computed
+    in the phase), for iterating on the interpreter's path."""
+    global CARD
+    if not torch.cuda.is_available():
+        print("chip_smoke: --bytecode needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    CARD = card_line()
+    print(CARD, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    rec, launches = bytecode_phase()
+    say("bytecode phase: " + json.dumps(rec))
+    say("bytecode launches: " + json.dumps(launches))
+    return 0
+
+
 def moe_depth() -> int:
     """How far int8 weight matmuls move the Mixtral-8x7B-like forward with
     random weights, by depth: a 256-token prefill (``forward_with_cache``,
@@ -6470,4 +6861,6 @@ if __name__ == "__main__":
         sys.exit(write_times(sys.argv[2] if len(sys.argv) > 2 else "tree"))
     if sys.argv[1:2] == ["--moe-depth"]:
         sys.exit(moe_depth())
+    if sys.argv[1:2] == ["--bytecode"]:
+        sys.exit(bytecode_alone())
     sys.exit(main())

@@ -39,6 +39,7 @@ def test_scan_covers_the_port():
                  "thunder_tpu_torch/torch/__init__.py", "thunder_tpu_torch/__init__.py",
                  "thunder_tpu_torch/common.py", "thunder_tpu_torch/core/cache_key.py",
                  "thunder_tpu_torch/core/rng.py", "thunder_tpu_torch/core/sharp_edges.py",
+                 "thunder_tpu_torch/core/interpreter.py", "thunder_tpu_torch/core/jit_ext.py",
                  "chip_smoke.py"):
         assert must in names
 

@@ -208,9 +208,14 @@ def test_prologue_rejects_changed_inputs():
 def test_deferred_seams_raise():
     fn, args = FRONTEND["elementwise"]
     pargs = _to_torch(args)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ptrace_from_fn(functools.partial(fn, pclang), pargs, {}, interpretation="bytecode",
-                       language=PLanguages.CLANG)
+
+    # the bytecode frontend records the functional frontend's program
+    def bound(*a):
+        return fn(pclang, *a)
+
+    byte = ptrace_from_fn(bound, pargs, {}, interpretation="bytecode", language=PLanguages.CLANG)
+    func = ptrace_from_fn(bound, pargs, {}, language=PLanguages.CLANG)
+    assert byte.computation_trace.python() == func.computation_trace.python()
     # the torch language is the default: with no language given the clang
     # function records the same program
     default = ptrace_from_fn(functools.partial(fn, pclang), pargs, {})

@@ -29,7 +29,7 @@ the CPU.
   ``torch.nn.Module`` since the profiler, the debug hooks and the module
   bridge were: ``tests/test_torch_port_profiler.py`` and
   ``tests/test_torch_port_interop.py``; ``interpretation="bytecode"``
-  still waits).
+  since the interpreter was: ``tests/test_torch_port_bytecode.py``).
 """
 from __future__ import annotations
 
@@ -342,8 +342,7 @@ def test_sharp_edges_policy_matches_the_reference(policy):
 @pytest.mark.parametrize("call,item", [
     (lambda: ttt.make_train_step(lambda p, x: (p * x).sum(), ttt.adamw(0.1), donate_batch=True),
      "item 11"),
-    (lambda: ttt.jit(lambda x: x, interpretation="bytecode"), "item 13"),
-], ids=["donate", "bytecode"])
+], ids=["donate"])
 def test_deferred_options_raise_naming_their_item(call, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         call()

@@ -33,10 +33,16 @@ and ``autocast=``), ``compile``, ``grad``, ``value_and_grad``, ``vjp``,
 cuda ≻ inductor ≻ torch: the fusion executor (``executors/inductorex.py``)
 compiles each maximal fusible region with ``torch.compile`` on the card,
 and ``jit`` and ``TrainStep`` enable its persistent cache
-(``core/compile_cache.py``) at construction.  The options that wait for
-later ``ROADMAP.md`` Queue 1 items raise ``NotImplementedError`` naming the
-item: ``profile=``, ``detect_anomalies=`` and ``debug_hooks=`` (item 10),
-and a ``torch.nn.Module`` or ``interpretation="bytecode"`` (item 13).
+(``core/compile_cache.py``) at construction.  ``jit`` of a
+``torch.nn.Module`` returns a ``ThunderModule`` (``torch_interop.py``);
+``profile=``, ``detect_anomalies=`` and ``debug_hooks=`` instrument the
+program (``observability/``).  ``interpretation="bytecode"`` runs the
+function through the bytecode interpreter (``core/interpreter.py``,
+``core/jit_ext.py``): tensors it reads from globals, closures and
+attribute or item chains become extra inputs that the prologue re-fetches,
+and plain values it reads become prologue guards;
+``last_interpreter_log`` and ``print_last_interpreter_log`` show the
+interpreter's run.
 """
 from __future__ import annotations
 
@@ -97,19 +103,13 @@ __all__ = ["AdapterRegistry", "AnomalyError", "Config", "DonationError", "Regist
            "TrainLoopResult", "TrainStep", "adamw", "cache_hits", "cache_misses",
            "cache_option", "compile", "compile_data", "compile_stats", "dispatch_stats", "donation_stats",
            "generate", "gpt_loss", "grad", "init_params", "jit", "jvp", "last_backward_traces",
-           "last_compile_options", "last_prologue_traces", "last_traces", "make_eager_train_step",
+           "last_compile_options", "last_interpreter_log", "last_prologue_traces", "last_traces",
+           "make_eager_train_step",
            "make_lora_factors", "make_train_step",
-           "metrics_snapshot", "params_from_numpy", "profile_stats", "quantex",
+           "metrics_snapshot", "params_from_numpy", "print_last_interpreter_log", "profile_stats",
+           "quantex",
            "reset_observability", "serve", "train_loop",
            "valid_targets", "value_and_grad", "vjp", "vmap"]
-
-def _check_deferred(compile_options: dict) -> None:
-    if compile_options.get("interpretation") == "bytecode":
-        raise NotImplementedError(
-            "jit(..., interpretation='bytecode') needs the bytecode interpreter "
-            "(core/interpreter.py, core/jit_ext.py), which is not ported yet "
-            "(ROADMAP.md Queue 1 item 13)")
-
 
 def _normalize_donate(donate):
     """``donate=`` → a hashable canonical form: ``None`` (off), ``"auto"``
@@ -162,8 +162,11 @@ def jit(
     ``donate=True`` releases every fusion-region input the lowered trace
     proves dead right after its region (the caller's donated tensors are
     consumed: passing one again raises :class:`DonationError`); a tuple of
-    positional argnums asserts those arguments' tensors must donate."""
-    _check_deferred(compile_options)
+    positional argnums asserts those arguments' tensors must donate.
+
+    ``interpretation="bytecode"`` traces ``fn`` through the bytecode
+    interpreter (``core/jit_ext.py``): captured tensors and guards on the
+    plain values it reads outside the arguments enter the prologue."""
     # sugar: jit(fn, autocast="bf16"|"fp16") appends the autocast transform
     # (reference thunder_tpu/__init__.py:152-173)
     ac = compile_options.pop("autocast", None)
@@ -515,6 +518,7 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
             args,
             kwargs,
             grad_argnums=grad_argnums,
+            interpretation=cd.compile_options.get("interpretation"),
             symbolic_numbers=cd.cache_option is CACHE_OPTIONS.SYMBOLIC_VALUES,
             language=cd.compile_options.get("langctx"),
         )
@@ -527,6 +531,7 @@ def _compile(cd: CompileData, cs: CompileStats, args: tuple, kwargs: dict) -> Ca
     cs.last_traces = [computation_trace]
     cs.last_backward_traces = []
     cs.last_prologue_traces = [prologue_trace]
+    cs.last_interpreter_log = getattr(computation_trace, "_interpreter_log", [])
 
     with _phase_span("transform:dce"):
         computation_trace = dce(computation_trace)
@@ -854,6 +859,21 @@ def last_backward_traces(cfn) -> list[TraceCtx]:
 
 def last_prologue_traces(cfn) -> list[TraceCtx]:
     return _get_cs(cfn).last_prologue_traces
+
+
+def last_interpreter_log(cfn) -> list:
+    """The bytecode frontend's per-opcode run log from the last trace
+    (reference ``thunder_tpu.last_interpreter_log``).  Empty unless the
+    function was compiled with ``interpretation="bytecode"``."""
+    return _get_cs(cfn).last_interpreter_log
+
+
+def print_last_interpreter_log(cfn, *, max_lines: int | None = 2000) -> None:
+    """Prints the last bytecode-interpreter run as an indented instruction
+    listing (reference ``thunder_tpu.print_last_interpreter_log``)."""
+    from thunder_tpu_torch.core.interpreter import format_interpreter_log
+
+    print(format_interpreter_log(last_interpreter_log(cfn), max_lines=max_lines))
 
 
 def cache_option(cfn) -> CACHE_OPTIONS:

@@ -9,9 +9,9 @@ compilation's donation analysis.  ``CacheEntry`` carries the grad path's
 backward program (``backward_fn``, ``backward_trace``, ``return_spec``,
 ``vjp_mode``, ``ct_positions``) and the program inputs a donated region
 consumes (``donated_inputs``); ``CompileStats.profile_report`` the runtime
-profiler's report.  The fields of the reference's bytecode interpreter, and
-``CompileData``'s process-group fields, come with their ``ROADMAP.md``
-items.
+profiler's report, and ``last_interpreter_log`` the bytecode interpreter's
+run log.  ``CompileData``'s process-group fields come with their
+``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -58,6 +58,9 @@ class CompileStats:
         self.last_traces: list[TraceCtx] = []
         self.last_backward_traces: list[TraceCtx] = []
         self.last_prologue_traces: list[TraceCtx] = []
+        # the bytecode interpreter's run log of the last trace (empty under
+        # the functional frontend)
+        self.last_interpreter_log: list = []
 
         self.last_compile_reasons: dict[str, str] = {}
         self.used_compile_options: dict[str, Any] = {}

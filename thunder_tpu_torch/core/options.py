@@ -3,8 +3,9 @@
 Counterpart of ``thunder_tpu/core/options.py`` (copied; only the imports change).
 
 Analog of the reference's ``thunder/core/options.py`` (CACHE_OPTIONS,
-SHARP_EDGES_OPTIONS and resolvers). INTERPRETATION options collapse to the
-functional frontend for now (the bytecode interpreter is a later addition).
+SHARP_EDGES_OPTIONS and resolvers). The interpretation option is a plain
+string, ``jit(..., interpretation="bytecode")``, read by
+``functional.trace_from_fn``.
 """
 from __future__ import annotations
 

@@ -25,6 +25,7 @@ from enum import Enum, auto
 from numbers import Number
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 from thunder_tpu_torch.core import dtypes, utils
@@ -1478,8 +1479,22 @@ unpack_flatten = make_prim(
 )
 
 
+def _to_torch_boundary(x):
+    """numpy arrays cross into torch here, sharing memory when they can (the
+    reference's ``_to_jax_boundary``): the prologue checks, and the program
+    computes on, torch tensors.  Anything else passes through."""
+    if isinstance(x, np.ndarray):
+        try:
+            return torch.from_numpy(x if x.flags.writeable else x.copy())
+        except ValueError:  # negative strides
+            return torch.from_numpy(x.copy())
+        except TypeError:  # a dtype torch has not
+            return x
+    return x
+
+
 def _unpack_getitem_impl(coll, key):
-    return coll[key]
+    return _to_torch_boundary(coll[key])
 
 
 unpack_getitem = make_prim(
@@ -1492,7 +1507,7 @@ unpack_getitem = make_prim(
 
 
 def _unpack_attr_impl(obj, name):
-    return getattr(obj, name)
+    return _to_torch_boundary(getattr(obj, name))
 
 
 unpack_attr = make_prim(

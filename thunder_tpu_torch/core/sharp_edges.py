@@ -1,8 +1,9 @@
 """Sharp-edges detection: impure Python during tracing.
 
-Counterpart of ``thunder_tpu/core/sharp_edges.py`` (copied; the reporters
-the bytecode interpreter calls come with it, ``ROADMAP.md`` Queue 1 item 13),
-itself the analog of the reference's sharp-edges policy
+Counterpart of ``thunder_tpu/core/sharp_edges.py`` (copied, with the two
+reporters the bytecode interpreter calls: ``report_unguardable_keys`` and
+``report_external_write``), itself the analog of the reference's sharp-edges
+policy
 (``thunder/core/options.py:146`` + ``jit_ext.py:472`` — ALLOW/WARN/ERROR on
 nondeterministic or impure Python observed while tracing).  The functional
 frontend executes the user's Python once at trace time, so any value produced
@@ -19,7 +20,7 @@ from typing import Any
 
 from thunder_tpu_torch.core.options import SHARP_EDGES_OPTIONS
 
-__all__ = ["sharp_edges_guard", "SharpEdgeError"]
+__all__ = ["sharp_edges_guard", "SharpEdgeError", "report_external_write", "report_unguardable_keys"]
 
 
 class SharpEdgeError(RuntimeError):
@@ -55,6 +56,35 @@ def _report(policy: SHARP_EDGES_OPTIONS, what: str):
         f"calls).  Pass sharp_edges='allow' to silence, or move the call "
         f"outside the jitted function."
     ))
+
+
+def report_unguardable_keys(policy: SHARP_EDGES_OPTIONS, where: str) -> None:
+    """Iterating a tracked dict whose keys are not guardable (non-primitive
+    key objects) unrolls the loop over the OBSERVED keys/values, but the
+    prologue can only re-check the dict's LENGTH — replacing a key at the
+    same length would silently replay the stale program.  Surface that
+    under-guarding per policy instead of staying silent (the caller is
+    ``core/interpreter.py _read_keys``)."""
+    _dispatch(policy, (
+        f"sharp edge: iteration over a tracked dict with unguardable keys "
+        f"({where}) during tracing — the observed keys and values are baked "
+        f"into the compiled program and only the dict's LENGTH is guarded, "
+        f"so replacing a key (at unchanged length) will NOT retrace.  Use "
+        f"primitive (or all-primitive tuple) keys for exact guarding, pass "
+        f"the dict as an argument, or pass sharp_edges='allow' to silence."
+    ), stacklevel=4)
+
+
+def report_external_write(policy: SHARP_EDGES_OPTIONS, where: str) -> None:
+    """Writes into tracked external state execute ONCE, at trace time (like
+    print() under constant-values caching) — warn/error per policy so the
+    user knows the side effect will not re-run per call."""
+    _dispatch(policy, (
+        f"sharp edge: write to external state {where} during tracing — the "
+        f"effect happens once, at trace time, and will NOT re-run on later "
+        f"calls.  Pass the container as an argument (epilogue writes those "
+        f"back per call) or move the write outside the jitted function."
+    ), stacklevel=4)
 
 
 @contextlib.contextmanager

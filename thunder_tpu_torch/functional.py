@@ -4,9 +4,11 @@ Counterpart of ``thunder_tpu/functional.py``: ``trace_from_fn`` (acquisition,
 the prologue of unpack and check prims, mutation detection, and the
 dispatch-cache key emitted next to the prologue) is copied over torch
 tensors and numpy arrays.  The traced function runs in the torch language
-(``thunder_tpu_torch/torch``) unless ``language=`` names another.  The
-bytecode frontend (``interpretation="bytecode"``) waits for its
-``ROADMAP.md`` Queue 1 item (13).
+(``thunder_tpu_torch/torch``) unless ``language=`` names another.  With
+``interpretation="bytecode"`` the function runs through the bytecode
+interpreter (``core/interpreter.py``, ``core/jit_ext.py``): reads of
+globals, closures and the attribute and item chains off them become prologue
+guards, and tensors found there extra computation inputs.
 
 The reference is the analog of ``thunder/functional.py`` (eager-unpacking frontend,
 ``_eager_unpack*``/``_eager_validate*``): inputs are flattened and proxied up
@@ -94,15 +96,11 @@ def trace_from_fn(
     ``grad_argnums`` marks the float tensor leaves of those positional args
     with ``requires_grad=True`` so the fw/bw split differentiates them.
 
-    ``interpretation="bytecode"`` (the reference's bytecode interpreter)
-    raises: the interpreter is not ported yet.  ``language`` defaults to the
-    torch language.
+    ``interpretation="bytecode"`` runs ``fn`` through the bytecode interpreter
+    (the general jit, reference jit_ext.py:1398): globals/closure reads become
+    prologue guards and tensors found there become extra computation inputs.
+    ``language`` defaults to the torch language.
     """
-    if interpretation == "bytecode":
-        raise NotImplementedError(
-            "interpretation='bytecode' needs the bytecode interpreter (core/interpreter.py, "
-            "core/jit_ext.py), which is not ported yet (ROADMAP.md Queue 1 item 13)"
-        )
     from thunder_tpu_torch.core.pytree import tree_map
 
     import inspect as _inspect
@@ -184,13 +182,20 @@ def trace_from_fn(
 
     from thunder_tpu_torch.observability.events import span as _phase_span
 
+    state_cap = None
     with _phase_span(
         "interpret",
         fn=getattr(fn, "__name__", "fn"),
-        frontend="functional",
+        frontend="bytecode" if interpretation == "bytecode" else "functional",
     ), tracectx(computation_trace):
         with langctx(language if language is not None else Languages.TORCH):
-            result = fn(*proxy_args, **proxy_kwargs)
+            if interpretation == "bytecode":
+                from thunder_tpu_torch.core.jit_ext import interpret_with_state
+
+                result, state_cap = interpret_with_state(fn, tuple(proxy_args), dict(proxy_kwargs))
+                computation_trace._interpreter_log = state_cap.interpreter_log
+            else:
+                result = fn(*proxy_args, **proxy_kwargs)
 
         # epilogue: record mutations of the input containers (the reference
         # records setattrs into an epilogue trace, jit_ext.py:1336; here the
@@ -224,12 +229,15 @@ def trace_from_fn(
     computation_trace._mutations = mutations
 
     # computation inputs: tensor proxies (+ symbolic runtime scalars) in
-    # flattening order (+ implicit rng key)
+    # flattening order (+ captured state tensors from the bytecode frontend,
+    # + implicit rng key)
     comp_inputs: list = [
         p for p in proxies
         if isinstance(p, TensorProxy)
         or (isinstance(p, NumberProxy) and p.value is None)
     ]
+    state_tensor_proxies = state_cap.tensor_proxies if state_cap is not None else []
+    comp_inputs = comp_inputs + state_tensor_proxies
     rng_key = getattr(computation_trace, "_rng_key_proxy", None)
     uses_rng = rng_key is not None
     if uses_rng:
@@ -297,13 +305,20 @@ def trace_from_fn(
             else:
                 pro_leaf_proxies.append(None)
 
+        # captured-state unpack chains + guards (bytecode frontend)
+        state_out: list[TensorProxy] = []
+        if state_cap is not None and (state_cap.guards or state_cap.tensors):
+            from thunder_tpu_torch.core.jit_ext import build_state_prologue
+
+            state_out = build_state_prologue(prologue_trace, fn, state_cap, _dtype_str)
+
         # return the tensors (+ symbolic scalars) the computation consumes,
         # in order
         out_tensors = tuple(
             p for p in pro_leaf_proxies
             if isinstance(p, TensorProxy)
             or (isinstance(p, NumberProxy) and p.value is None)
-        )
+        ) + tuple(state_out)
         prims.python_return(out_tensors)
 
     pro_si = SigInfo(name="prologue")
@@ -336,15 +351,17 @@ def trace_from_fn(
     #
     # Key emission (next to the prologue): the structural dispatch key for
     # these inputs plus the key function that recomputes it — tier 1 of the
-    # two-tier cache.  The functional frontend observes no external state,
-    # so ``state`` is None and the prologue's tier-2 run is re-validation.
+    # two-tier cache.  External state observed by the bytecode frontend can
+    # never be keyed (it lives outside the arguments); its summary rides
+    # along so the dispatcher knows tier-2 prologue validation is load-bearing
     #
     from thunder_tpu_torch.core.cache_key import compute_cache_key, make_cache_key_fn
+    from thunder_tpu_torch.core.jit_ext import state_key_meta
 
     cache_key_meta = {
         "cache_key": compute_cache_key(args, kwargs, symbolic=symbolic_numbers),
         "cache_key_fn": make_cache_key_fn(symbolic_numbers),
-        "state": None,
+        "state": state_key_meta(state_cap),
     }
 
     return TraceResults(
