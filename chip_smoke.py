@@ -375,7 +375,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     interpretation="bytecode")``: loss and grads bitwise ``jit(module)``'s.
     The phase prints its seconds (``--bytecode`` runs the build and this
     phase alone);
-20. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+20. data-parallel and sharded training (``dist_phase``, last), on a
+    one-rank NCCL world in this process (the card is one rank: every
+    collective is a copy; the process group's timeout 120 s): (a0) each
+    collective prim through ``jit`` on a bf16 and a float32 card tensor,
+    bitwise its input; (a) a
+    ``ddp(params, mesh)`` step with ``overlap=True`` (25 MiB buckets) and an
+    ``fsdp(params, mesh)`` step with ``zero3=True``, Llama-3-8B at full
+    width and depth, bf16, B=1, T=2048, ``full_block``, three steps each
+    from the seed-0 params on phase 10's batch: losses and a per-tensor
+    digest of the params after the steps bitwise phase 10's traced step's,
+    built anew and run from the same params just before them (phase 10's
+    own first steps, ``PHASE10_REF``, printed beside with no bar), the
+    launches its programs name (2·L ``flash_fwd``, L
+    of each backward kernel, 2 ``flash_ce`` a step), every dispatch of
+    those kernels counted ``sharded``, the collectives per step as the
+    placements and buckets say (all-reduces = ``expected_all_reduces``;
+    at one rank ``fsdp`` replicates every param, as the reference's
+    ``_prune_spec`` drops a size-1 axis, so the gathers and reduce-scatters
+    on the card are (a0)'s);
+    step ms, peak GiB, build and compile seconds printed beside phase 10's;
+    (b) ``train_cli --mode zero3 --devices 1 --telemetry`` on
+    tiny-llama-debug in a subprocess run beside (c): exit 0, finite
+    falling losses, a telemetry record per step; (c) ZeRO-3 at 2 layers,
+    full width: one step, a sharded save, a load into fresh DTensors
+    (bitwise), the resumed step bitwise the continued one, bytes and
+    seconds printed.  The phase prints its seconds (``--dist`` runs the
+    build, phase 10 and this phase alone);
+21. a ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -2130,6 +2157,12 @@ def check_span_counts(prof, delta: dict, label: str) -> dict:
     return got
 
 
+# the host's idle time on each side of a profiled window's counted steps,
+# far above the few ms by which the profiler's clock conversion can put a
+# device record before the window's opening
+PROFILE_EDGE_S = 0.1
+
+
 def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3,
                          count_spans=False) -> dict:
     """Device time of a few steady decode steps of the same batch, by
@@ -2139,7 +2172,12 @@ def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3,
     are prefilled first; a profiled window must hold decode steps alone.
     The profiler traces one decode step first and drops it (its schedule's
     warm-up), and the card is synchronized on both sides of the counted
-    window, so the window opens on a running trace.  A profile that records
+    window, so the window opens on a running trace.  The window keeps a
+    device record only when the record's time, converted to the host's
+    clock, falls inside it, and that conversion can put a kernel a few ms
+    early: the first kernels of a window opened right before them are then
+    dropped (``tools/profile_window_edges.py``).  So the host idles
+    PROFILE_EDGE_S on both sides of the counted steps.  A profile that records
     no CUDA activity is taken again, ``tries`` times, and then fails.
     ``count_spans``: the window's decode kernels, counted by name, must
     equal the launches it counted (:func:`check_span_counts`)."""
@@ -2160,6 +2198,7 @@ def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3,
             eng.step()                                     # traced, dropped
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(PROFILE_EDGE_S)
             before = (eng.decode_steps, eng.chunk_runs, eng.prefill_runs)
             launched = dict(cudaex.LAUNCHES)
             for _ in range(steps):
@@ -2167,6 +2206,7 @@ def profile_decode_steps(eng, prompts, label, ids=None, steps=4, tries=3,
             torch.cuda.synchronize()
             delta = {k: n - launched.get(k, 0) for k, n in cudaex.LAUNCHES.items()}
             after = (eng.decode_steps, eng.chunk_runs, eng.prefill_runs)
+            time.sleep(PROFILE_EDGE_S)
             prof.step()
         if after != (before[0] + steps, *before[1:]):
             raise AssertionError(f"{label}: the profiled window was not {steps} decode steps "
@@ -3242,19 +3282,22 @@ def step_launches_want(step, n_steps: int, L: int, label: str) -> dict:
                            flash_bwd_dkv=n_bwd * n_steps, flash_ce=n_ce * n_steps)
 
 
-def _run_steps(step, params, opt_state, batch, n):
+def _run_steps(step, params, opt_state, batch, n, after=None):
     """``n`` steps: losses, wall times (each waits for its loss), peak
-    memory, launches and declines counted over them."""
+    memory, launches and declines counted over them.  ``after(i, params)``
+    runs after step ``i``, outside its time."""
     torch.cuda.reset_peak_memory_stats()
     cudaex.reset_launches()
     for key in ltorch.DECLINES:
         ltorch.DECLINES[key] = 0
     losses, times = [], []
-    for _ in range(n):
+    for i in range(n):
         t0 = time.perf_counter()
         params, opt_state, loss = step(params, opt_state, *batch)
         losses.append(loss.item())                     # waits for the step
         times.append(time.perf_counter() - t0)
+        if after is not None:
+            after(i, params)
     return (params, opt_state, losses, times, torch.cuda.max_memory_allocated(),
             dict(cudaex.LAUNCHES), dict(ltorch.DECLINES))
 
@@ -3276,12 +3319,21 @@ def train_full_width(params, cfg):
     say(f"AdamW state for {param_count(params) / 1e9:.3f} B params in "
         f"{time.perf_counter() - t0:.1f} s; memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # phase 20's reference: the start's and the DIST_STEPS-th step's digests
+    PHASE10_REF["initial"] = param_digest(params)
+
+    def keep(i, p):
+        if i == DIST_STEPS - 1:
+            PHASE10_REF["digest"] = param_digest(p)
+
     params, opt_state, losses, times, peak, launches, declines = _run_steps(
-        step, params, opt_state, batch, TRAIN_STEPS)
+        step, params, opt_state, batch, TRAIN_STEPS, after=keep)
     L = cfg.n_layer
     want = step_launches_want(step, TRAIN_STEPS, L, "traced step")
     step_s = float(np.mean(times[1:]))
     PHASE10_STEP_MS.append(round(1e3 * step_s, 1))
+    PHASE10_REF.update(losses=losses[:DIST_STEPS], step_ms=1e3 * step_s, peak_gib=peak / 2**30,
+                       build_ms=step.build_ms)
     flops = model_flops(cfg, param_count(params))
     bw_peak = peak_live_bytes(del_last_used(step.bw_trace))
     say(f"train {cfg.name} bf16 through the trace, {L} layers, B={TRAIN_B} T={TRAIN_T}, remat "
@@ -3396,6 +3448,7 @@ def _kernel_group(name: str) -> str:
             else "cuBLAS GEMMs" if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma",
                                                           "nvjet"))
             else "optimizer" if "adam" in low
+            else "collectives" if "nccl" in low
             else "the rest")
 
 
@@ -4196,6 +4249,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     bytecode_rec, bytecode_launches = bytecode_phase()
     served.update(bytecode_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_rec, dist_launches = dist_phase(cfg)
+    served.update(dist_launches)
 
     sources = {"paged_attn_decode": "paged_attention.cu", "paged_token_write": "paged_attention.cu",
                "paged_attn_verify": "paged_verify.cu", "paged_chunk_write": "paged_verify.cu",
@@ -4238,6 +4295,7 @@ def main() -> int:
     say("stateful phase: " + json.dumps(stateful_rec))
     say("frontend phase: " + json.dumps(frontend_rec))
     say("bytecode phase: " + json.dumps(bytecode_rec))
+    say("dist phase: " + json.dumps(dist_rec))
     say("fusion: " + json.dumps({"regions compiled": inductorex.STATS["compiles"],
                                   "compile_s": inductorex.STATS["compile_s"],
                                   "compiled calls": inductorex.STATS["calls"],
@@ -6667,6 +6725,383 @@ def bytecode_alone() -> int:
     return 0
 
 
+#
+# Phase 20: data-parallel and sharded training over torch.distributed
+#
+
+DIST_STEPS = 3              # (a): steps of each sharded step, held against phase 10's first 3
+DIST_BUCKET_MB = 25.0       # (a): the DDP step's gradient buckets (torch DDP's default cap)
+DIST_TIMEOUT_S = 120        # every collective fails after this long
+DIST_CKPT_LAYERS = 2        # (c): the checkpoint's depth, at full width
+DIST_CLI_TIMEOUT_S = 600    # (b): the CLI's subprocess is killed after this long
+PHASE10_REF: dict = {}      # phase 10's first DIST_STEPS losses and digests, for (a)
+
+
+def param_digest(tree) -> list:
+    """Per-tensor digests that see every bit: the int64 sums of each
+    tensor's raw 16- or 32-bit words and of the words times their position
+    (mod 65521, plus 1), in chunks of 2^26 words."""
+    from torch.distributed.tensor import DTensor
+
+    out = []
+    for x in tree_leaves(tree):
+        x = x.to_local() if isinstance(x, DTensor) else x
+        words = x.detach().reshape(-1).view(torch.int16 if x.element_size() == 2 else torch.int32)
+        plain = weighted = 0
+        for off in range(0, words.numel(), 1 << 26):
+            w = words[off:off + (1 << 26)].long()
+            pos = (torch.arange(off, off + w.numel(), device=w.device) % 65521) + 1
+            plain += int(w.sum())
+            weighted += int((w * pos).sum())
+        out.append((plain, weighted))
+    return out
+
+
+def _dist_init():
+    """A one-rank NCCL world on card 0 (every collective a copy), its store
+    under ``build/``; collectives time out after DIST_TIMEOUT_S."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    os.makedirs("build", exist_ok=True)
+    store = os.path.join(tempfile.mkdtemp(prefix="phase20_", dir="build"), "store")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{os.path.abspath(store)}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    return os.path.dirname(store)
+
+
+def _dist_cli(workdir: str):
+    """(b): ``train_cli --mode zero3 --devices 1 --telemetry`` in a
+    subprocess on the card, started after (a) so that its tiny config's
+    region compiles run beside (c)."""
+    import os
+
+    tel = os.path.join(workdir, "cli_steps.jsonl")
+    argv = [sys.executable, "-m", "thunder_tpu_torch.train_cli", "--config", "tiny-llama-debug",
+            "--mode", "zero3", "--devices", "1", "--device", "cuda", "--steps", "3", "--batch",
+            "2", "--seq", "128", "--telemetry", tel, "--telemetry-grad-norm"]
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, tel, argv
+
+
+def _dist_cli_check(proc, tel, argv) -> dict:
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=DIST_CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"phase 20 (b): {' '.join(argv[1:])} outlived "
+                             f"{DIST_CLI_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 20 (b): the CLI exited {proc.returncode}:\n{err[-4000:]}")
+    summary = json.loads(out.strip().splitlines()[-1])
+    with open(tel) as f:
+        recs = [json.loads(line) for line in f]
+    losses = summary["losses"]
+    steps = [r for r in recs if r["event"] == "step"]
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and len(steps) == 3 and all(r["grad_norm"] > 0 for r in steps))
+    say(f"phase 20 (b) {' '.join(argv[2:])} ({CARD}): exit 0, losses {losses}, "
+        f"{summary['ms_per_step']} ms a step, collectives per step {summary['collectives']}, "
+        f"{len(steps)} telemetry step records (grad norms "
+        f"{[round(r['grad_norm'], 4) for r in steps]}); waited {time.perf_counter() - t0:.1f} s "
+        f"for it after (c) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"phase 20 (b): losses {losses} not finite and falling, or the "
+                             f"telemetry {recs} short")
+    return dict(losses=losses, ms_per_step=summary["ms_per_step"],
+                collectives=summary["collectives"])
+
+
+def _dist_prims() -> dict:
+    """(a0): each collective prim through ``jit`` on a card tensor over the
+    one-rank NCCL group (the torch.distributed calls the step issues, by
+    the names this torch has): every result bitwise its input, as one rank's
+    collectives are copies.  The mean reduce-scatter, the tiled gathers on
+    dims 0 and 1 and the asynchronous all-reduce with its wait included; a
+    bf16 (1024, 4096) tensor and a float32 one."""
+    import thunder_tpu_torch as ttt
+    from thunder_tpu_torch import distributed as D
+    from thunder_tpu_torch.distributed import prims as dp
+
+    SUM, MEAN = dp.DistributedReduceOps.SUM, dp.DistributedReduceOps.MEAN
+    cases = {
+        "all_gather": lambda x: dp.all_gather(x, "x", 1, 0, True),
+        "all_gather_dim1": lambda x: dp.all_gather(x, "x", 1, 1, True),
+        "all_gather_untiled": lambda x: dp.all_gather(x, "x", 1, 0, False)[0],
+        "all_reduce_sum": lambda x: dp.all_reduce(x, "x", SUM),
+        "all_reduce_mean": lambda x: dp.all_reduce(x, "x", MEAN),
+        "all_reduce_async": lambda x: dp.wait(dp.all_reduce((x, x), "x", SUM, async_op=True))[1],
+        "reduce_scatter_mean": lambda x: dp.reduce_scatter(x, "x", 1, 0, MEAN),
+        "broadcast": lambda x: dp.broadcast(x, "x", 0),
+        "ppermute": lambda x: dp.ppermute(x, "x", [[0, 0]]),
+        "all_to_all": lambda x: dp.all_to_all(x, "x", 1, 0, 1),
+        "synchronize_sharded": lambda x: dp.synchronize(x, "x", 1, True, 0),
+    }
+    mesh = D.make_mesh({"x": 1})
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    before = dict(dp.COLLECTIVES)
+    bad = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(1024, 4096, generator=gen, device=DEVICE).to(dtype)
+        with cudaex.mesh_context(mesh):
+            for name, fn in cases.items():
+                got = ttt.jit(fn)(x)
+                if not (got.device == x.device and torch.equal(got, x)):
+                    bad.append(f"{name} {dtype}")
+    torch.cuda.synchronize()
+    issued = {k: dp.COLLECTIVES[k] - before[k] for k in dp.COLLECTIVES}
+    say(f"phase 20 (a0) the dist prims through jit over one NCCL rank ({CARD}): "
+        f"{len(cases)} cases x bf16 and float32 (1024, 4096), collectives issued {issued}; "
+        f"results bitwise their inputs: {not bad} {'ok' if not bad else 'FAILED ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"phase 20 (a0): {bad} not bitwise their inputs")
+    return dict(cases=len(cases), collectives=issued)
+
+
+def _dist_reference(cfg) -> dict:
+    """Phase 10's traced step, built anew and run DIST_STEPS steps from the
+    seed-0 params on phase 10's batch just before (a): the sharded steps'
+    bitwise reference (its regions are phase 10's, compiled; it is printed
+    beside phase 10's own first steps)."""
+    params, _ = make_params()
+    step = make_step(cfg)
+    opt_state = step.init_optimizer_state(params)
+    batch = train_batch(cfg, SEED + 10)
+    ref = {"initial": param_digest(params)}
+
+    def keep(i, p):
+        if i == DIST_STEPS - 1:
+            ref["digest"] = param_digest(p)
+
+    params, opt_state, losses, times, peak, launches, _ = _run_steps(
+        step, params, opt_state, batch, DIST_STEPS, after=keep)
+    ref.update(losses=losses, step_ms=1e3 * float(np.mean(times[1:])), peak_gib=peak / 2**30,
+               build_ms=step.build_ms, launches=launches)
+    p10 = PHASE10_REF
+    same = {k: ref[k] == p10.get(k) for k in ("initial", "losses", "digest")}
+    say(f"phase 20 (a) reference: phase 10's traced step anew, {DIST_STEPS} steps from the seed-0 "
+        f"params ({CARD}): losses {losses}; against phase 10's own first {DIST_STEPS} steps "
+        f"{p10.get('losses')}: start, losses and digest equal {same}; step {ref['step_ms']:.1f} "
+        f"ms, max_memory_allocated {ref['peak_gib']:.2f} GiB")
+    ref["phase10_equal"] = same
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _dist_steps(label, cfg, place, axes, ref, **kw) -> dict:
+    """(a): one sharded step of Llama-3-8B at full width and depth over a
+    one-rank ``axes`` mesh, DIST_STEPS steps from the seed-0 params on
+    phase 10's batch, held against ``ref`` (phase 10's traced step, run
+    anew in this phase): losses and the params' digest bitwise, launches
+    read from the programs, dispatches sharded, collectives per step as the
+    placements and buckets say."""
+    from thunder_tpu_torch import distributed as D
+    from thunder_tpu_torch.distributed import prims as dp
+    from thunder_tpu_torch.train.overlap import expected_all_reduces
+
+    full, _ = make_params()
+    mesh = D.make_mesh(axes)
+    params = place(full, mesh)
+    del full
+    initial = param_digest(params)
+    step = make_train_step(lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg), adamw(TRAIN_LR),
+                           mesh, remat="full_block", **kw)
+    opt_state = step.init_optimizer_state(params)
+    batch = train_batch(cfg, SEED + 10)
+    per_step = []
+
+    def keep(i, p):
+        per_step.append(dict(step.collectives))
+
+    before = dict(inductorex.STATS)
+    d0 = dict(cudaex.DISPATCH)
+    params, opt_state, losses, times, peak, launches, declines = _run_steps(
+        step, params, opt_state, batch, DIST_STEPS, after=keep)
+    sharded = cudaex.DISPATCH["sharded"] - d0["sharded"]
+    digest = param_digest(params)
+    L = cfg.n_layer
+    want = step_launches_want(step, DIST_STEPS, L, f"phase 20 (a) {label}")
+    # one more step, profiled by kernel group (after the digest)
+    profile = profile_train_step(step, params, opt_state, batch, f"phase 20 (a) {label}")
+    syms = _symbols(step)
+    per_call = syms.get("cuda_sdpa", 0) + syms.get("cuda_sdpa_backward", 0) + \
+        syms.get("torch_cross_entropy_fwd", 0)
+    leaves = tree_leaves(params)
+    n_sharded = sum(any(not pl.is_replicate() for pl in x.placements) for x in leaves)
+    n_repl = len(leaves) - n_sharded
+    regathers = sum(b.sym.name == "torch_synchronize" for b in step.bw_trace.bound_symbols)
+    if step.overlap_report is not None:
+        buckets = step.overlap_report["n_buckets"]
+        coll_want = dict(all_reduce=expected_all_reduces([None] * buckets), all_gather=0,
+                         reduce_scatter=0)
+    else:
+        coll_want = dict(all_reduce=n_repl + 1, all_gather=n_sharded + regathers,
+                         reduce_scatter=n_sharded)
+    coll_ok = all(all(c[k] == v for k, v in coll_want.items()) for c in per_step)
+    same_start = ref["initial"] == initial
+    bitwise = same_start and losses == ref["losses"] and digest == ref["digest"]
+    step_s = float(np.mean(times[1:]))
+    ok = (launches == want and not any(declines.values()) and coll_ok and bitwise
+          and sharded == per_call * DIST_STEPS)
+    say(f"phase 20 (a) {label} Llama-3-8B bf16 {L} layers, B={TRAIN_B} T={TRAIN_T}, full_block, "
+        f"mesh {axes} over NCCL, one rank ({CARD}): losses {losses} against phase 10's step "
+        f"anew {ref['losses']}; params' digest after {DIST_STEPS} steps equal to its: "
+        f"{digest == ref['digest']} (same start: {same_start}); launches {launches} "
+        f"(expected {want}), declines {declines}; kernel dispatches counted sharded {sharded} "
+        f"(expected {per_call} x {DIST_STEPS}); collectives per step {per_step} (expected "
+        f"{coll_want}: {n_sharded} sharded and {n_repl} replicated params"
+        f"{'' if step.overlap_report is None else ', ' + str(step.overlap_report['n_buckets'])}"
+        f"{' buckets of at most ' + str(DIST_BUCKET_MB) + ' MiB' if step.overlap_report else ''})"
+        f"; step time (steps 2-{DIST_STEPS}) {1e3 * step_s:.1f} ms beside phase 10's "
+        f"{PHASE10_REF.get('step_ms', float('nan')):.1f} ms (anew {ref['step_ms']:.1f}); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB beside "
+        f"{PHASE10_REF.get('peak_gib', float('nan')):.2f} GiB; build {step.build_ms:.0f} ms of "
+        f"host beside {PHASE10_REF.get('build_ms', float('nan')):.0f}; "
+        f"{inductorex.STATS['compiles'] - before['compiles']} regions compiled in "
+        f"{inductorex.STATS['compile_s'] - before['compile_s']:.1f} s (no bars) "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError(f"phase 20 (a) {label}: launches {launches} != {want}, declines "
+                             f"{declines}, collectives {per_step} != {coll_want}, dispatches "
+                             f"{sharded}, or not bitwise phase 10's step anew (same start "
+                             f"{same_start}, losses {losses} vs {ref['losses']})")
+    build_ms = step.build_ms
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, launches=launches, collectives=per_step, step_ms=1e3 * step_s,
+                peak_gib=peak / 2**30, build_ms=build_ms, bitwise=bitwise, profile=profile)
+
+
+def _dist_checkpoint(cfg_full, workdir: str) -> dict:
+    """(c): ZeRO-3 at DIST_CKPT_LAYERS layers, full width: one step, a
+    sharded save, a load into fresh DTensors (bitwise), then the resumed
+    and the continued runs' next step (loss and params bitwise)."""
+    import os
+    import shutil
+
+    from thunder_tpu_torch import distributed as D
+
+    cfg = Config.from_name(cfg_full.name, n_layer=DIST_CKPT_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    full = init_params(cfg, generator=gen, dtype=torch.bfloat16, device=DEVICE)
+    mesh = D.make_mesh({"fsdp": 1})
+    step = make_train_step(lambda p, i, t, c, s: gpt_loss(p, i, t, c, s, cfg), adamw(TRAIN_LR),
+                           mesh, zero3=True)
+    batch = train_batch(cfg, SEED + 10)
+    params = D.fsdp(full, mesh)
+    opt = step.init_optimizer_state(params)
+    params, opt, _ = step(params, opt, *batch)
+    where = os.path.join(workdir, "ckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D.save_checkpoint(where, {"params": params, "opt_state": opt}, step=1)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(where) for f in fs)
+    tmpl_p = D.fsdp(full, mesh)
+    tmpl = {"params": tmpl_p, "opt_state": step.init_optimizer_state(tmpl_p)}
+    t0 = time.perf_counter()
+    got = D.load_checkpoint(where, tmpl, step=1)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    live = {"params": params, "opt_state": opt}
+    loaded_equal = all(torch.equal(a.to_local(), b.to_local())
+                       for a, b in zip(tree_leaves(got), tree_leaves(live)))
+    r_params, _, r_loss = step(got["params"], got["opt_state"], *batch)
+    c_params, _, c_loss = step(params, opt, *batch)
+    resumed_equal = torch.equal(r_loss, c_loss) and all(
+        torch.equal(a.to_local(), b.to_local())
+        for a, b in zip(tree_leaves(r_params), tree_leaves(c_params)))
+    usage = shutil.disk_usage(workdir)
+    ok = loaded_equal and resumed_equal
+    say(f"phase 20 (c) checkpoint of Llama-3-8B at {DIST_CKPT_LAYERS} layers, full width, ZeRO-3 "
+        f"on one rank ({CARD}): {nbytes} bytes saved in {save_s:.2f} s, loaded into fresh "
+        f"DTensors in {load_s:.2f} s (bitwise: {loaded_equal}); the resumed step's loss "
+        f"{float(r_loss):.6f} and params bitwise the continued step's: {resumed_equal}; disk "
+        f"free after the save {usage.free / 2**30:.1f} GiB {'ok' if ok else 'FAILED'}")
+    shutil.rmtree(where, ignore_errors=True)
+    if not ok:
+        raise AssertionError("phase 20 (c): the checkpoint did not round-trip bitwise")
+    return dict(bytes=nbytes, save_s=save_s, load_s=load_s)
+
+
+def dist_phase(cfg) -> tuple[dict, dict]:
+    """Phase 20: data-parallel and sharded training through
+    ``torch.distributed`` on a one-rank NCCL world (one card): (a) a DDP
+    step with bucketed asynchronous all-reduces and a ZeRO-3 FSDP step, each
+    held bitwise against phase 10's traced step; (b) the CLI's ``zero3``
+    mode in a subprocess; (c) a sharded checkpoint's round trip.  Returns
+    the record and the launches of (a)'s main-path runs."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from thunder_tpu_torch import distributed as D
+
+    t0 = time.perf_counter()
+    workdir = _dist_init()
+    cli = None
+    try:
+        rec, launches = {"prims": _dist_prims()}, {}
+        ref = compiled_in("phase 20 (a) reference", _dist_reference, cfg)
+        rec["reference"] = {k: ref[k] for k in ("losses", "step_ms", "peak_gib", "phase10_equal")}
+        for label, place, axes, kw in (
+                ("ddp", D.ddp, {"dp": 1}, dict(overlap=True, overlap_bucket_mb=DIST_BUCKET_MB)),
+                ("fsdp zero3", D.fsdp, {"fsdp": 1}, dict(zero3=True))):
+            r = compiled_in(f"phase 20 (a) {label}", functools.partial(_dist_steps, **kw), label,
+                            cfg, place, axes, ref)
+            launches[f"{label} train step"] = r.pop("launches")
+            rec[label] = r
+        # (b) beside (c): the subprocess's card memory (its context, its
+        # compile workers') must not meet (a)'s 65 GiB peak
+        cli = _dist_cli(workdir)
+        rec["checkpoint"] = _dist_checkpoint(cfg, workdir)
+        rec["cli"] = _dist_cli_check(*cli)
+        cli = None
+    finally:
+        if cli is not None and cli[0].poll() is None:
+            cli[0].kill()
+            cli[0].communicate()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t0
+    say(f"phase 20 (data-parallel and sharded training) took {rec['seconds']:.1f} s")
+    return rec, launches
+
+
+def dist_alone() -> int:
+    """``--dist``: the build, phase 10 (phase 20's reference) and phase 20
+    alone, for iterating on the distributed path."""
+    global CARD
+    if not torch.cuda.is_available():
+        print("chip_smoke: --dist needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    CARD = card_line()
+    print(CARD, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load_library()
+    params, cfg = make_params()
+    compiled_in("phase 10", train_full_width, params, cfg)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec, launches = dist_phase(cfg)
+    say("dist phase: " + json.dumps(rec))
+    say("dist launches: " + json.dumps(launches))
+    return 0
+
+
 def moe_depth() -> int:
     """How far int8 weight matmuls move the Mixtral-8x7B-like forward with
     random weights, by depth: a 256-token prefill (``forward_with_cache``,
@@ -6863,4 +7298,6 @@ if __name__ == "__main__":
         sys.exit(moe_depth())
     if sys.argv[1:2] == ["--bytecode"]:
         sys.exit(bytecode_alone())
+    if sys.argv[1:2] == ["--dist"]:
+        sys.exit(dist_alone())
     sys.exit(main())

@@ -412,9 +412,20 @@ def test_train_step_reports_its_donation():
 
 
 def test_donate_batch_waits_for_training_past_one_device():
-    (_, _, _), port_loss, _ = _train_setup()
-    with pytest.raises(NotImplementedError, match="donate_batch"):
-        ttt.make_train_step(port_loss, ttt.adamw(0.1), donate_batch=True)
+    """``donate_batch=True`` is accepted since the sharded step (the
+    reference's signature): the port's programs never free a tensor the
+    caller holds, so the step's loss is the plain one and the batch is
+    untouched."""
+    (w, x, y), port_loss, _ = _train_setup()
+    losses = []
+    for donate_batch in (True, False):
+        step = ttt.make_train_step(port_loss, ttt.adamw(0.1), donate_batch=donate_batch)
+        params = {"w": torch.as_tensor(w.copy())}
+        xb, yb = torch.as_tensor(x), torch.as_tensor(y)
+        losses.append(step(params, step.init_optimizer_state(params), xb, yb)[2])
+        assert step.donate_batch is donate_batch
+        assert np.array_equal(xb.numpy(), x) and np.array_equal(yb.numpy(), y)
+    assert torch.equal(losses[0], losses[1])
 
 
 def test_donate_false_has_no_report_and_preserves_inputs():

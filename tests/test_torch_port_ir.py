@@ -256,11 +256,13 @@ def test_deferred_seams_raise():
     annotated, report = annotate_donations(fused)
     assert len(report.regions) == sum(b.sym.is_fusion for b in fused.bound_symbols) >= 1
     assert "# donation:" in annotated.python()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        from thunder_tpu_torch.core.proxies import FutureTensorProxy
+    # a future's wait records the dist prims' ``wait`` (ported with them)
+    from thunder_tpu_torch.core.proxies import FutureTensorProxy
 
-        with ptracectx(PTraceCtx()):
-            FutureTensorProxy(shape=(2,), device="cpu", dtype=pdtypes.float32).wait()
+    ptrace = PTraceCtx()
+    with ptracectx(ptrace):
+        got = FutureTensorProxy(shape=(2,), device="cpu", dtype=pdtypes.float32).wait()
+    assert tuple(got.shape) == (2,) and [b.sym.name for b in ptrace.bound_symbols] == ["wait"]
 
 
 def test_mutated_container_writes_back():
@@ -309,6 +311,30 @@ def test_pytree_follows_jax_tree_util():
     assert doubled == [(1, 3), {"k": (2, 4)}]
     paths = [p for p, _ in pytree.tree_flatten_with_path(tree)[0]]
     assert paths[:3] == [(0, "a", "first"), (0, "a", "second", "z"), (0, "b", 0)]
+
+
+def test_tree_walks_hold_no_leaf_after_they_return():
+    """Flattening and rebuilding leave no reference cycle behind: a leaf
+    dies with its last holder, not at the next cyclic collection (a train
+    step's gradients, gigabytes on the card, went through these walks)."""
+    import gc
+    import weakref
+
+    from thunder_tpu_torch._tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        grads = {"w": [torch.ones(3), torch.ones(2)], "b": (torch.zeros(1),)}
+        refs = [weakref.ref(x) for x in tree_leaves(grads)]
+        leaves, spec = tree_flatten(grads)
+        tree_unflatten(spec, leaves)
+        tree_map(torch.neg, grads)
+        del grads, leaves
+        assert [r() for r in refs] == [None] * 3
+    finally:
+        if enabled:
+            gc.enable()
 
 
 #

@@ -344,5 +344,10 @@ def test_sharp_edges_policy_matches_the_reference(policy):
      "item 11"),
 ], ids=["donate"])
 def test_deferred_options_raise_naming_their_item(call, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        call()
+    """Item 11 (training past one device) is done: ``donate_batch=True``
+    builds a step (the reference's signature; the port frees no caller
+    tensor) and ``tp`` > 1, the next slice, names item 12."""
+    assert call().donate_batch is True
+    from thunder_tpu_torch.distributed.api import _NEXT_SLICE
+
+    assert "ROADMAP.md Queue 1 item 12" in _NEXT_SLICE and item == "item 11"

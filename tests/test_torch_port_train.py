@@ -32,7 +32,8 @@ the CPU) and the port:
   and params bitwise equal the undisturbed run's;
 - a torn checkpoint is skipped with a warning; bf16 leaves round-trip
   bitwise;
-- the CLI trains two steps with ``--device cpu``; unported options raise.
+- the CLI trains two steps with ``--device cpu``, and one with each of its
+  ported options; ``--sp-impl`` (a later slice) raises.
 """
 from __future__ import annotations
 
@@ -279,11 +280,29 @@ def test_remat_vocabulary_and_unported_options():
     params = ttt.init_params(cfg, device="cpu", dtype=torch.float32)
     step.grads(params, None, *_port_batch(cfg, *np.zeros((2, B, T), np.int32)))
     assert step.last_remat_policy == "attention"         # no device budget on the CPU
-    for kw in ({"zero3": True}, {"overlap": True}, {"bucketer": len},
-               {"comm_combine_threshold_mb": 4.0}):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            _port_step(cfg, **kw)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # the sharded step's options build on one device too, with the plain
+    # step's grads (the CPU is deterministic: bitwise across remat policies)
+    batch = _port_batch(cfg, *np.random.default_rng(3).integers(0, 256, (2, B, T)))
+    want_loss, want = step.grads(params, None, *batch)
+    for kw in ({"zero3": True}, {"overlap": True}, {"comm_combine_threshold_mb": 4.0}):
+        opt = _port_step(cfg, **kw)
+        got_loss, got = opt.grads(params, None, *batch)
+        assert torch.equal(got_loss, want_loss)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        if "zero3" in kw:
+            assert opt.last_remat_policy == "full_block"
+        if "comm_combine_threshold_mb" in kw:
+            assert opt.compiler_options == {"combine_threshold_bytes": 4 << 20}
+    # bucketer: a (B, 120) batch padded to its (B, 128) bucket, -100 targets
+    # ignored, so the loss is the unpadded one
+    step_b = _port_step(cfg, bucketer=tllama.batch_bucketer(cfg))
+    short = tuple(x[:, :120] for x in batch[:2]) + tllama.build_rope_cache(cfg, 120)
+    got_loss, _ = step_b.grads(params, None, *short)
+    assert [k[0][-4][0] for k in step_b._built] == [(B, 128)]
+    _rel_close(float(got_loss), float(_port_step(cfg).grads(params, None, *short)[0]), 1e-5)
+    # a multi-device mesh needs a process group (the sharded steps run in
+    # tests/test_torch_port_dist_train.py)
+    with pytest.raises(RuntimeError, match="torch.distributed initialized"):
         ttt.make_train_step(len, ttt.adamw(LR), {"dp": 2})
     with pytest.raises(ValueError, match="must divide"):
         split_for_accum((torch.zeros(3, 4, dtype=torch.int32),), 2)
@@ -490,6 +509,39 @@ def test_cli_trains_two_steps_on_the_cpu(tmp_path):
     (["--mode", "fsdp"], "--mode fsdp"), (["--fused-ce"], "--fused-ce"),
     (["--sp-impl", "ring"], "--sp-impl"), (["--devices", "2"], "--devices"),
     (["--overlap"], "--overlap"), (["--telemetry", "t.jsonl"], "--telemetry")])
-def test_cli_refuses_unported_options(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.main([*argv, "--device", "cpu"])
+def test_cli_refuses_unported_options(argv, match, tmp_path, monkeypatch, capsys):
+    """Only ``--sp-impl`` (a later slice) still refuses.  Each other option
+    trains one step of tiny-llama-debug on the CPU: ``--mode fsdp`` as one
+    gloo rank in this process, ``--devices 2`` through a launcher that
+    records the two ranks asked for and runs one (the two-rank world is
+    ``tests/test_torch_port_dist_cli.py``'s)."""
+    if match == "--sp-impl":
+        with pytest.raises(NotImplementedError, match=match):
+            train_cli.main([*argv, "--device", "cpu"])
+        return
+    launch_mod = sys.modules["thunder_tpu_torch.distributed.launch"]
+    asked = []
+    real = launch_mod.launch
+
+    def one_rank(fn, nprocs, **kw):
+        asked.append(nprocs)
+        return real(fn, 1, **kw)
+
+    monkeypatch.setattr(launch_mod, "launch", one_rank)
+    argv = [str(tmp_path / a) if a.endswith(".jsonl") else a for a in argv]
+    extra = ["--mode", "ddp"] if match == "--devices" else []
+    train_cli.main([*argv, *extra, "--device", "cpu", "--steps", "1", "--batch", "2",
+                    "--seq", "16"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(out["final_loss"]) and len(out["losses"]) == 2
+    if match == "--mode fsdp":
+        assert out["mode"] == "fsdp" and out["collectives"]["all_reduce"] >= 1
+    if match == "--devices":
+        assert asked == [2]
+    if match == "--fused-ce":
+        assert out["fused_ce"]
+    if match == "--overlap":
+        assert out["overlap"]
+    if match == "--telemetry":
+        recs = [json.loads(x) for x in (tmp_path / "t.jsonl").read_text().splitlines()]
+        assert [r["event"] for r in recs] == ["run_start", "step"]

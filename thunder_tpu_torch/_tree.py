@@ -60,22 +60,26 @@ def tree_flatten_with_path(tree, is_leaf: Callable[[Any], bool] | None = None
     """``([(path, leaf), ...], spec)``; a path holds the list or tuple
     indices, dict keys and namedtuple field names down to its leaf."""
     out: list = []
-
-    def walk(node, path):
-        if is_leaf is not None and is_leaf(node):
-            out.append((path, node))
-            return _LEAF
-        if node is None:
-            return _NONE
-        split = _children(node)
-        if split is None:
-            out.append((path, node))
-            return _LEAF
-        kind, meta, items = split
-        return PyTreeDef(kind, meta, tuple(walk(c, path + (k,)) for k, c in items))
-
-    spec = walk(tree, ())
+    spec = _walk(tree, (), is_leaf, out)
     return out, spec
+
+
+# The walks are module functions, not closures: a recursive closure is a
+# reference cycle (the function's cell holds the function) that would keep
+# its ``out`` list or leaf iterator, and so every leaf, alive until the
+# cyclic garbage collector runs (a step's gradients, for one).
+def _walk(node, path, is_leaf, out) -> PyTreeDef:
+    if is_leaf is not None and is_leaf(node):
+        out.append((path, node))
+        return _LEAF
+    if node is None:
+        return _NONE
+    split = _children(node)
+    if split is None:
+        out.append((path, node))
+        return _LEAF
+    kind, meta, items = split
+    return PyTreeDef(kind, meta, tuple(_walk(c, path + (k,), is_leaf, out) for k, c in items))
 
 
 def tree_flatten(tree, is_leaf: Callable[[Any], bool] | None = None) -> tuple[list, PyTreeDef]:
@@ -85,27 +89,26 @@ def tree_flatten(tree, is_leaf: Callable[[Any], bool] | None = None) -> tuple[li
 
 
 def tree_unflatten(spec: PyTreeDef, leaves) -> Any:
-    it = iter(leaves)
+    return _build(spec, iter(leaves))
 
-    def build(node: PyTreeDef):
-        kind = node.kind
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        built = [build(c) for c in node.children]
-        if kind == "dict":
-            return dict(zip(node.meta, built))
-        if kind == "odict":
-            return OrderedDict(zip(node.meta, built))
-        if kind == "ddict":
-            factory, keys = node.meta
-            return defaultdict(factory, zip(keys, built))
-        if kind == "namedtuple":
-            return node.meta(*built)
-        return built if kind == "list" else tuple(built)
 
-    return build(spec)
+def _build(node: PyTreeDef, it) -> Any:
+    kind = node.kind
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    built = [_build(c, it) for c in node.children]
+    if kind == "dict":
+        return dict(zip(node.meta, built))
+    if kind == "odict":
+        return OrderedDict(zip(node.meta, built))
+    if kind == "ddict":
+        factory, keys = node.meta
+        return defaultdict(factory, zip(keys, built))
+    if kind == "namedtuple":
+        return node.meta(*built)
+    return built if kind == "list" else tuple(built)
 
 
 def tree_structure(tree, is_leaf: Callable[[Any], bool] | None = None) -> PyTreeDef:

@@ -980,10 +980,9 @@ class FutureTensorProxy(TensorProxy):
         return "fut"
 
     def wait(self) -> TensorProxy:
-        raise NotImplementedError(
-            "FutureTensorProxy.wait needs the distributed prims, which are not ported yet "
-            "(ROADMAP.md Queue 1 item 12)"
-        )
+        from thunder_tpu_torch.distributed import prims as dist_prims
+
+        return dist_prims.wait(self)
 
 
 #

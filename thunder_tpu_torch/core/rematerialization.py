@@ -80,6 +80,36 @@ def _is_anchor(bsym: BoundSymbol) -> bool:
     )
 
 
+def _collective(bsym: BoundSymbol) -> str | None:
+    """The kind (``"ALL_GATHER"``, ``"SYNCHRONIZE"``, ...) of a collective of
+    ``distributed/prims.py``, else None."""
+    sid = bsym.sym.id
+    return sid.name if type(sid).__name__ == "DistPrimIDs" else None
+
+
+def _passes_input(bsym: BoundSymbol) -> bool:
+    """The ``synchronize`` of a replicated param: its output is its input
+    (the forward passes it), so remat treats it as a trace input."""
+    if _collective(bsym) != "SYNCHRONIZE":
+        return False
+    args = dict(zip(("a", "axis_name", "axis_size", "sharded", "dim"), bsym.args))
+    args.update(bsym.kwargs)
+    return not args.get("sharded", False)
+
+
+def _regather(bsym: BoundSymbol) -> bool:
+    """A collective that only gathers (an all_gather, or the synchronize of
+    a sharded param): the one kind ZeRO-3 recomputes in the backward."""
+    kind = _collective(bsym)
+    if kind == "ALL_GATHER":
+        return True
+    if kind == "SYNCHRONIZE":
+        args = dict(zip(("a", "axis_name", "axis_size", "sharded", "dim"), bsym.args))
+        args.update(bsym.kwargs)
+        return bool(args.get("sharded", False))
+    return False
+
+
 def _bytes(p: Proxy) -> int:
     if not isinstance(p, TensorProxy):
         return 0
@@ -113,7 +143,7 @@ def saved_for_backward(fw_trace: TraceCtx) -> tuple:
 
 def rematerialize_forward_and_backward(
     fw_trace: TraceCtx, bw_trace: TraceCtx, *, max_cone: int = 64, aggressive: bool = False,
-    reorder: bool = True,
+    reorder: bool = True, regather: bool = False,
 ) -> tuple[TraceCtx, TraceCtx]:
     """Shrinks saved_for_backward by re-executing cheap producer cones in the
     backward trace.  Returns updated ``(fw_trace, bw_trace)`` honoring the
@@ -129,6 +159,13 @@ def rematerialize_forward_and_backward(
 
     ``reorder`` (the port's step) then places each recomputed bound symbol
     just before its first consumer (:func:`schedule_recompute`).
+
+    Collectives (the port's sharded step writes them into the trace, where
+    the reference's GSPMD inserts them after remat) are never recomputed,
+    except that ``regather`` (ZeRO-3) recomputes the param all-gathers in
+    the backward: their outputs are dropped from the residuals and each
+    gather runs again before its first backward use.  Without it (ZeRO-2)
+    the gathered params stay residuals.
     """
     # locate the fw return bsym: (output, saved)
     ret = None
@@ -148,7 +185,12 @@ def rematerialize_forward_and_backward(
         for o in b.flat_proxy_outs:
             producer_of[o.name] = (idx, b)
 
+    # a replicated param's synchronize passes its input through: saving or
+    # reading its output costs what the input costs (nothing), as on one
+    # device, so the cones and the residuals are the single-device step's
     input_names = {p.name for p in fw_trace.args if isinstance(p, Proxy)}
+    input_names |= {o.name for _, b in producer_of.values() if _passes_input(b)
+                    for o in b.flat_proxy_outs}
     anchor_names = {
         o.name
         for _, b in producer_of.values()
@@ -179,13 +221,18 @@ def rematerialize_forward_and_backward(
             if prod is None:  # constant/number: nothing to recompute
                 continue
             idx, b = prod
+            if _collective(b) is not None and not (regather and _regather(b)):
+                if name == p.name:
+                    return None
+                leaves.add(name)
+                continue
             if not aggressive and name != p.name and name in anchor_names:
                 leaves.add(name)
                 continue
             if aggressive:
                 if OpTags.RANDOM_OP in set(b.sym.tags or ()):
                     return None
-            elif not _is_cheap(b):
+            elif not (_is_cheap(b) or (regather and _regather(b))):
                 return None
             if idx not in bsyms:
                 bsyms[idx] = b

@@ -755,6 +755,113 @@ def _embedding_bw(bsym, g):
 
 
 #
+# Collectives (thunder_tpu_torch/distributed/prims.py).  The rules follow
+# the transposes JAX gives the reference's prims under ``shard_map``:
+# all_gather ↔ reduce_scatter of the sum, all_reduce of a sum ↔ all_reduce
+# of the sum (of the mean ↔ of the mean), ppermute ↔ the inverse
+# permutation, all_to_all ↔ the swapped all_to_all, broadcast ↔ the sum
+# landing on the root.  ``synchronize`` is the step's own: a sharded param
+# is all-gathered forward and its grad reduce-scattered backward, a
+# replicated one passes forward and its grad is all-reduced, both as the
+# mean over the axes (each rank's loss is the mean of its batch slice).
+# prims.py registers them once its symbols exist.
+#
+
+
+def _dist_args(bsym, names: tuple, defaults: dict) -> dict:
+    got = dict(zip(names, bsym.args))
+    got.update(bsym.kwargs)
+    return {n: got.get(n, defaults.get(n)) for n in names}
+
+
+def register_dist_backward_rules(dp) -> None:
+    """Registers the collectives' VJP rules; ``dp`` is the dist prims
+    module."""
+    ids, ops = dp.DistPrimIDs, dp.DistributedReduceOps
+    nondifferentiable_ids.add(ids.AXIS_INDEX)
+
+    def pairs(a, gs):
+        return list(zip(a, gs)) if isinstance(a, (tuple, list)) else [(a, gs[0])]
+
+    def packed(a, gs):
+        return tuple(gs) if isinstance(a, (tuple, list)) else gs[0]
+
+    def scaled(g, n: int, op):
+        if op is ops.MEAN and n != 1:
+            return tuple(clang.mul(x, 1.0 / n) for x in g) if isinstance(g, tuple) \
+                else clang.mul(g, 1.0 / n)
+        return g
+
+    @register_backward_rule(ids.ALL_GATHER)
+    def _all_gather_bw(bsym, *gs):
+        k = _dist_args(bsym, ("a", "axis_name", "axis_size", "dim", "tiled"),
+                       {"dim": 0, "tiled": True})
+        a, n = k["a"], int(k["axis_size"])
+        if k["tiled"]:
+            got = dp.reduce_scatter(packed(a, gs), k["axis_name"], n, k["dim"], ops.SUM)
+            return pairs(a, got if isinstance(got, tuple) else (got,))
+        # untiled: the stacked (n, ...) cotangent, scattered along its new dim
+        flat = [clang.reshape(g, (n * x.shape[0], *x.shape[1:])) if x.ndim else g
+                for g, x in zip(gs, a if isinstance(a, (tuple, list)) else (a,))]
+        out = dp.reduce_scatter(packed(a, flat), k["axis_name"], n, 0, ops.SUM)
+        out = out if isinstance(out, tuple) else (out,)
+        xs = a if isinstance(a, (tuple, list)) else (a,)
+        return [(x, clang.reshape(g, tuple(x.shape))) for x, g in zip(xs, out)]
+
+    @register_backward_rule(ids.REDUCE_SCATTER)
+    def _reduce_scatter_bw(bsym, *gs):
+        k = _dist_args(bsym, ("a", "axis_name", "axis_size", "dim", "op"),
+                       {"dim": 0, "op": ops.SUM})
+        n = int(k["axis_size"])
+        got = dp.all_gather(packed(k["a"], gs), k["axis_name"], n, k["dim"], True)
+        got = scaled(got, n, k["op"])
+        return pairs(k["a"], got if isinstance(got, tuple) else (got,))
+
+    @register_backward_rule(ids.ALL_REDUCE)
+    def _all_reduce_bw(bsym, *gs):
+        k = _dist_args(bsym, ("a", "axis_name", "op", "async_op"), {"op": ops.SUM})
+        check(k["op"] in (ops.SUM, ops.MEAN),
+              lambda: f"all_reduce with {k['op']} has no VJP (the reference's pmax/pmin have none)",
+              NotImplementedError)
+        got = dp.all_reduce(packed(k["a"], gs), k["axis_name"], k["op"])
+        return pairs(k["a"], got if isinstance(got, tuple) else (got,))
+
+    @register_backward_rule(ids.BROADCAST)
+    def _broadcast_bw(bsym, g):
+        k = _dist_args(bsym, ("a", "axis_name", "root"), {"root": 0})
+        total = dp.all_reduce(g, k["axis_name"], ops.SUM)
+        on_root = clang.eq(dp.axis_index(k["axis_name"]), int(k["root"]))
+        return [(k["a"], clang.where(on_root, total, clang.full_like(total, 0.0)))]
+
+    @register_backward_rule(ids.PPERMUTE)
+    def _ppermute_bw(bsym, g):
+        k = _dist_args(bsym, ("a", "axis_name", "perm"), {})
+        inverse = [[int(d), int(s)] for s, d in k["perm"]]
+        return [(k["a"], dp.ppermute(g, k["axis_name"], inverse))]
+
+    @register_backward_rule(ids.ALL_TO_ALL)
+    def _all_to_all_bw(bsym, g):
+        k = _dist_args(bsym, ("a", "axis_name", "axis_size", "split_dim", "concat_dim"), {})
+        return [(k["a"], dp.all_to_all(g, k["axis_name"], k["axis_size"], k["concat_dim"],
+                                       k["split_dim"]))]
+
+    @register_backward_rule(ids.WAIT)
+    def _wait_bw(bsym, *gs):
+        return pairs(bsym.args[0], gs)
+
+    @register_backward_rule(ids.SYNCHRONIZE)
+    def _synchronize_bw(bsym, *gs):
+        k = _dist_args(bsym, ("a", "axis_name", "axis_size", "sharded", "dim"),
+                       {"axis_size": 1, "sharded": False, "dim": 0})
+        n = int(k["axis_size"])
+        if k["sharded"]:
+            got = dp.reduce_scatter(packed(k["a"], gs), k["axis_name"], n, k["dim"], ops.MEAN)
+        else:
+            got = dp.all_reduce(packed(k["a"], gs), k["axis_name"], ops.MEAN)
+        return pairs(k["a"], got if isinstance(got, tuple) else (got,))
+
+
+#
 # Generic fallback: synthesize a VJP from the prim's torch implementation.
 # (analog of reference vjp_utils.make_aug_forward_and_backward)
 #

@@ -76,6 +76,8 @@ kernels.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 
@@ -85,8 +87,10 @@ import torch
 from thunder_tpu_torch.executors import _build
 
 __all__ = [
+    "DISPATCH",
     "LAUNCHES",
     "MASK_VALUE",
+    "active_mesh",
     "causal_keep",
     "ce_supported",
     "chunk_blocks",
@@ -102,6 +106,7 @@ __all__ = [
     "lora_delta_fused",
     "lora_delta_fused_plain",
     "lora_plan",
+    "mesh_context",
     "paged_attn_decode",
     "paged_attn_decode_plain",
     "paged_attn_verify",
@@ -149,6 +154,41 @@ _MAX_SMEM_BYTES = 232448      # shared memory one block may use on Hopper
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# Sharded dispatch (``pallasex.mesh_context``/``_dispatch``, :57-75 and
+# :656-690, and the CE's row sharding, :984-990).  The reference wraps its
+# kernels in ``shard_map`` over the mesh's batch axes, so each chip runs the
+# single-device kernel on its shard.  In the port each rank is a process and
+# the sharded train step hands its programs the rank's local batch, so the
+# kernels already run on the shard; the step publishes its mesh here while
+# its programs run, and ``DISPATCH`` counts the training kernels' calls by
+# path: ``"sharded"`` inside a mesh context (any mesh, one rank included),
+# ``"direct"`` outside, as ``pallasex.stats`` counts them.
+_mesh_var = contextvars.ContextVar("cuda_mesh", default=None)
+
+#: calls of flash_sdpa, flash_sdpa_backward and flash_cross_entropy by path
+DISPATCH = {"direct": 0, "sharded": 0}
+
+
+@contextlib.contextmanager
+def mesh_context(mesh):
+    """Publishes ``mesh`` (a ``DeviceMesh``) while a sharded step's programs
+    run: the dist prims resolve their axis names on it."""
+    tok = _mesh_var.set(mesh)
+    try:
+        yield
+    finally:
+        _mesh_var.reset(tok)
+
+
+def active_mesh():
+    """The mesh of the innermost :func:`mesh_context`, or None."""
+    return _mesh_var.get()
+
+
+def _count_dispatch() -> None:
+    DISPATCH["sharded" if _mesh_var.get() is not None else "direct"] += 1
 
 
 def paged_available() -> bool:
@@ -1717,6 +1757,7 @@ def flash_sdpa(q, k, v, mask=None, *, causal: bool, scale: float, window=None):
     Shapes :func:`flash_supported` declines raise ``ValueError``."""
     name = "flash_sdpa"
     _flash_check(name, dict(q=q, k=k, v=v), mask, causal, window)
+    _count_dispatch()
     if q.device.type == "cpu":
         return flash_sdpa_plain(q, k, v, mask, causal=causal, scale=scale, window=window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -1750,6 +1791,7 @@ def flash_sdpa_backward(g, q, k, v, out, lse, mask=None, *, causal: bool, scale:
              and out.dtype == q.dtype, f"{name}: g and out must match q")
     _require(tuple(lse.shape) == tuple(q.shape[:-1]) and lse.dtype == torch.float32,
              f"{name}: lse must be float32 {tuple(q.shape[:-1])}")
+    _count_dispatch()
     if q.device.type == "cpu":
         return flash_sdpa_backward_plain(g, q, k, v, out, lse, mask, causal=causal, scale=scale,
                                          window=window)
@@ -1850,6 +1892,7 @@ def flash_cross_entropy(logits, target):
     _require(tuple(target.shape) == (N,) and not target.is_floating_point(),
              f"{name}: target must be integer ({N},), got {target.dtype} {tuple(target.shape)}")
     _require(V >= 1, f"{name}: logits have no columns")
+    _count_dispatch()
     if logits.device.type == "cpu":
         return flash_cross_entropy_plain(logits, target)
     if N == 0:                      # an empty grid: nothing to launch

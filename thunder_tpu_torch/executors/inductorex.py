@@ -28,7 +28,9 @@ What fuses (``_is_fusible``, as the reference's, with the port's limits): a
 bound symbol whose prim ``torchex`` implements, or a composite whose
 subsymbols all fuse.  Never fusible: the reference's ``_NONFUSIBLE_IDS``,
 ``UNPACK``/``CHECK`` ops, random prims (a region cannot carry the
-``torch.Generator`` that ``torchex`` seeds from ``(key, offset)``), the prims
+``torch.Generator`` that ``torchex`` seeds from ``(key, offset)``), the
+collectives of ``distributed/prims.py`` (a process group cannot enter a
+compiled program, and every rank issues them in trace order), the prims
 whose ``torchex`` impls launch a hand-written kernel on CUDA tensors (SDPA,
 its backward and the cross-entropy forward reach ``cudaex``'s ``ctypes``
 calls, which dynamo cannot trace), the fused linear cross-entropy and its
@@ -56,7 +58,8 @@ from thunder_tpu_torch.executors.utils import Region
 from thunder_tpu_torch.observability.events import span as _phase_span
 
 __all__ = ["FusionCallable", "FusionError", "InductorFusionExecutor", "STATS", "compile_fusion",
-           "ex", "inductor_ex", "input_views", "region_violations", "region_weight"]
+           "ex", "inductor_ex", "input_views", "never_fuse_collectives", "region_violations",
+           "region_weight"]
 
 _NONFUSIBLE_IDS = {
     PrimIDs.RETURN,
@@ -73,6 +76,15 @@ _KERNEL_IDS = {PrimIDs.SDPA, PrimIDs.SDPA_BACKWARD, PrimIDs.CROSS_ENTROPY_FWD}
 # torchex's impls of these loop over vocabulary chunks to bound their
 # memory; a region would unroll the loop into one graph
 _CHUNKED_IDS = {PrimIDs.FUSED_LINEAR_CE, PrimIDs.FUSED_LINEAR_CE_BACKWARD}
+# collectives (distributed/prims.py registers its DistPrimIDs here): they
+# call torch.distributed on a process group, which a compiled region cannot
+# carry, and every rank must issue them in the trace's order
+_COLLECTIVE_IDS: set = set()
+
+
+def never_fuse_collectives(ids) -> None:
+    """Registers the ids of collective prims, which no region may hold."""
+    _COLLECTIVE_IDS.update(ids)
 
 #: process-wide counters: ``compiles`` (distinct compiled programs),
 #: ``compile_s`` (seconds of their first calls, the compile included),
@@ -105,6 +117,8 @@ def region_violations(trace: TraceCtx) -> list[str]:
             out.append(f"{region}: {sym.name} (random)")
         elif sym.id in _KERNEL_IDS:
             out.append(f"{region}: {sym.name} (a kernel's prim)")
+        elif sym.id in _COLLECTIVE_IDS:
+            out.append(f"{region}: {sym.name} (a collective)")
         for sub in b.subsymbols:
             walk(region, sub)
 
@@ -319,8 +333,14 @@ class FusionCallable:
             with torch.no_grad():
                 return fn(*vals)
         except Exception as e:
+            # an error inside a compiled region can reach us as dynamo's
+            # refusal to trace the traceback walk FX runs to report it: name
+            # the card's out-of-memory count, the usual cause
+            ooms = (torch.cuda.memory_stats().get("num_ooms", 0)
+                    if self._cuda and torch.cuda.is_available() else 0)
+            note = f" (this process ran out of card memory {ooms} times)" if ooms else ""
             raise FusionError(f"fusion region {self.name} ({len(self.bsyms)} ops) failed to "
-                              f"{what}{self.provenance()}: {type(e).__name__}: {e}") from e
+                              f"{what}{self.provenance()}: {type(e).__name__}: {e}{note}") from e
 
     def _run_compiled(self, vals, backend: str):
         STATS["calls"] += 1
@@ -346,7 +366,7 @@ class InductorFusionExecutor(FusionExecutor):
     def _is_fusible(self, bsym: BoundSymbol) -> bool:
         sym = bsym.sym
         if sym.id in _NONFUSIBLE_IDS or sym.id in _KERNEL_IDS or sym.id in _CHUNKED_IDS \
-                or sym.is_fusion:
+                or sym.id in _COLLECTIVE_IDS or sym.is_fusion:
             return False
         if sym.executor is not None or OpTags.RANDOM_OP in sym.tags:
             return False

@@ -66,6 +66,7 @@ __all__ = [
     "gpt_hidden",
     "gpt_forward",
     "gpt_loss",
+    "batch_bucketer",
 ]
 
 
@@ -558,3 +559,40 @@ def gpt_loss(params, idx, targets, cos, sin, config: Config):
     logits = gpt_forward(params, idx, cos, sin, config)
     V = logits.shape[-1]
     return ltorch.cross_entropy(logits.reshape(-1, V).to(torch.float32), targets.reshape(-1))
+
+
+def _bucket_up(n: int, minimum: int) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def batch_bucketer(config: Config, *, min_b: int = 1, min_t: int = 16):
+    """Pads ``(idx, targets, cos, sin)`` batches up to power-of-two (B, T)
+    buckets so one built program serves every shape inside a bucket
+    (reference ``thunder_tpu/models/llama.py:543``): the program count grows
+    with the log of the shape range.
+
+    Exact: padded positions sit at the sequence tail (causal attention —
+    valid tokens never attend them), padded targets are ``-100`` (ignored
+    with exact mean normalization in :func:`gpt_loss`), and the rope caches
+    are rebuilt for the bucketed T.  Pass to ``make_train_step(bucketer=...)``."""
+    rope_cache: dict = {}
+
+    def bucket(batch):
+        idx, targets, cos, sin = batch
+        B, T = idx.shape
+        B2, T2 = _bucket_up(B, min_b), _bucket_up(T, min_t)
+        if (B2, T2) == (B, T):
+            return batch
+        pad = (0, T2 - T, 0, B2 - B)
+        idx2 = torch.nn.functional.pad(idx, pad)
+        tgt2 = torch.nn.functional.pad(targets, pad, value=-100)
+        key = (T2, cos.dtype, cos.device)
+        if key not in rope_cache:
+            rope_cache[key] = build_rope_cache(config, T2, dtype=cos.dtype, device=cos.device)
+        cos2, sin2 = rope_cache[key]
+        return idx2, tgt2, cos2, sin2
+
+    return bucket
